@@ -222,7 +222,6 @@ def main(argv=None) -> int:
     ap.add_argument("--spec-tokens", type=int, default=1, help="tokens per decode launch")
     ap.add_argument("--drafter", choices=DRAFTER_CHOICES, default="ngram")
     ap.add_argument("--dump-tokens", default="", help="write {rid: token stream} JSON here")
-    ap.add_argument("--layers", type=int, default=0, help="cut the config to this many layers (0 = all)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
@@ -230,10 +229,7 @@ def main(argv=None) -> int:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     T = max(args.spec_tokens, 1)
-    cfg = dataclasses.replace(
-        cfg, decode_plane=args.decode_plane or cfg.decode_plane, spec_tokens=T,
-        num_layers=args.layers or cfg.num_layers,
-    )
+    cfg = dataclasses.replace(cfg, decode_plane=args.decode_plane or cfg.decode_plane, spec_tokens=T)
     model = Model(cfg, args.device)
     B, S = args.slots, args.prompt_len
     max_len = S + args.gen + T
