@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes the full-width main
-path gives it (and times both, beside the card's bound and one PyTorch call
-where one computes the same function), serves the f32 smoke twin on the card
-and on the CPU (greedy streams must be identical), then serves
-Qwen3-MoE-235B-A22B at full width, cut to 4 layers, on the Agile decode
-plane (spec 4, ngram drafter) and shows that every kernel ran.  Each phase
+kernel against its plain PyTorch version at the shapes the full-width
+serving paths give it (and times both, beside the card's bound and one
+PyTorch call where one computes the same function), serves the f32 smoke
+twins on the card and on the CPU (greedy streams must be identical: chains,
+a draft tree with the model drafter, and the paged KV plane with trees and
+with a shared prefix), then serves Qwen3-MoE-235B-A22B at full width, cut to
+4 layers, on the Agile decode plane twice: over the contiguous cache (spec
+4, ngram drafter; phase ``full_width``) and over the paged KV plane with a
+``2,1`` draft tree drafted by the target's first layer behind a 64-token
+shared system prompt (phase ``paged_tree``), and shows that each path ran its kernels.  Each phase
 prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -31,6 +35,10 @@ sys.path.insert(0, str(ROOT / "src"))
 ARCH = "qwen3-moe-235b-a22b"
 LAYERS = 4                  # of 94: the full depth does not fit one 80 GB card
 SLOTS, PROMPT, GEN, REQUESTS, SPEC = 4, 128, 32, 8, 4
+# the paged cell: a 64-token shared system prompt before each 64/96/128-token
+# prompt, pages of 16 rows, the 4-node draft tree 2,1
+SHARED, PAGE, TREE = 64, 16, (2, 1)
+PAGED_MAX_LEN = PROMPT + SHARED + GEN + 4   # 228 rows, 15 pages a slot
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 
@@ -252,7 +260,98 @@ def kernel_phase(cfg, dev):
         composite_ms=time_ms(composite_down, iters=5, reps=3), composite_call="torch.bmm + index_add_",
         shapes=shapes, bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
+    del wg, wu, wd, h
+    torch.cuda.empty_cache()
+    rows["flash_decode_paged"] = paged_kernel_rows(cfg, dev, gen, tol)
     return rows
+
+
+def paged_kernel_rows(cfg, dev, gen, tol):
+    """flash_decode_paged at the paged cell's shapes: 4 slots x the 4 nodes
+    of tree 2,1 over a pool of 60 pages x 16 rows, through a fixed scrambled
+    table whose first 4 pages (the shared system prompt) are the same for
+    every slot; then the identity table against the contiguous kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.plans import TreePlan
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf16 = torch.bfloat16
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    tree = TreePlan.from_branching(TREE)
+    B, T, ps = SLOTS, tree.num_nodes, PAGE
+    mp = -(-PAGED_MAX_LEN // ps)
+    n_pages = B * mp
+    # committed lengths 16 tokens into generation of the 128/160/192/128-token prompts
+    base_l = [SHARED + n + 16 for n in (64, 96, 128, 64)]
+    base = torch.tensor(base_l, dtype=torch.int32, device=dev)
+    lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
+    words = torch.tensor(tree.ancestor_words(), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(12)
+    n_shared = SHARED // ps
+    private = rng.permutation(np.arange(n_shared, n_pages))
+    table_np = np.full((B, mp), -1, np.int32)
+    used = 0
+    for b, L in enumerate(base_l):
+        need = -(-(L + T) // ps)
+        table_np[b, :n_shared] = np.arange(n_shared)
+        table_np[b, n_shared:need] = private[used:used + need - n_shared]
+        used += need - n_shared
+    table = torch.from_numpy(table_np).reshape(-1).to(dev)
+    q32 = torch.randn((B, T, nq, hd), generator=gen, device=dev)
+    pk32 = torch.randn((n_pages * ps, nkv, hd), generator=gen, device=dev)
+    pv32 = torch.randn((n_pages * ps, nkv, hd), generator=gen, device=dev)
+
+    def run(q, pk, pv, tbl, w=words, bs=base):
+        return fa_ops.flash_decode_paged_kernel(q, pk, pv, lengths, tbl, w, bs, page_size=ps)
+
+    err32 = check_close("flash_decode_paged f32", run(q32, pk32, pv32, table),
+                        fa_ref.flash_decode_paged(q32, pk32, pv32, lengths, table, words, base, ps), tol["f32"])
+    q, pk, pv = q32.to(bf16), pk32.to(bf16), pv32.to(bf16)
+    err = check_bf16("flash_decode_paged bf16", run(q, pk, pv, table),
+                     fa_ref.flash_decode_paged(q, pk, pv, lengths, table, words, base, ps))
+    # identity table: bitwise the contiguous kernel, tree and chain words, both types
+    ident = torch.arange(n_pages, dtype=torch.int32, device=dev)
+    for qq, kk, vv in ((q32, pk32, pv32), (q, pk, pv)):
+        kc, vc = kk.view(B, mp * ps, nkv, hd), vv.view(B, mp * ps, nkv, hd)
+        for w, bs in ((words, base), (None, None)):
+            if not torch.equal(run(qq, kk, vv, ident, w, bs), fa_ops.flash_decode_kernel(qq, kc, vc, lengths, w, bs)):
+                raise AssertionError(f"flash_decode_paged {qq.dtype}: identity table is not bitwise the "
+                                     f"contiguous kernel (words {'tree' if w is not None else 'chain'})")
+    # the contiguous kernel on the same rows (the pool viewed as 4 stripes):
+    # what the paged row-address policy costs at these shapes
+    kc, vc = pk.view(B, mp * ps, nkv, hd), pv.view(B, mp * ps, nkv, hd)
+    contiguous_ms = time_ms(lambda: fa_ops.flash_decode_kernel(q, kc, vc, lengths, words, base), iters=50)
+    S = mp * ps
+    vis = fa_ref.visible_rows(lengths, words, base, B, T, S)[:, None]  # (B, 1, T, S)
+    qt = q.transpose(1, 2)
+    pages = table.reshape(B, mp).long().clamp(min=0)
+    gather_rows = ((pages * ps)[:, :, None] + torch.arange(ps, device=dev)).reshape(B, S)
+
+    def composite():
+        kt, vt = (c[gather_rows].transpose(1, 2).repeat_interleave(nq // nkv, 1) for c in (pk, pv))
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+
+    # bytes: each distinct K/V row the tokens' prefixes touch (the shared
+    # pages once), q in, out, and the control words
+    Lmax = lengths.reshape(B, T).max(dim=1).values.tolist()
+    rows_touched = {(int(table_np[b, p // ps]), p % ps) for b in range(B) for p in range(Lmax[b])}
+    nbytes = 2 * q.numel() * 2 + len(rows_touched) * nkv * hd * 2 * 2 + (B * T + B * mp + T + B) * 4
+    flops = float(vis.sum()) * nq * hd * 4
+    return dict(
+        max_abs_err=err, max_abs_err_f32=err32, identity_table_bitwise=True,
+        ms=time_ms(lambda: run(q, pk, pv, table), iters=50),
+        plain_ms=time_ms(lambda: fa_ref.flash_decode_paged(q, pk, pv, lengths, table, words, base, ps)),
+        library_ms=None, library_call=None, contiguous_kernel_ms=contiguous_ms,
+        composite_ms=time_ms(composite, iters=50),
+        composite_call="gather through the block table + scaled_dot_product_attention (boolean mask, "
+                       "kv heads expanded)",
+        shapes=f"q {tuple(q.shape)}, pool {tuple(pk.shape)} ({n_pages} pages of {ps}), base {base_l}, "
+               f"tree {TREE}, {len(rows_touched)} distinct rows read",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -260,51 +359,94 @@ def kernel_phase(cfg, dev):
 # ---------------------------------------------------------------------------
 
 
+CONTIGUOUS_KERNELS = ("flash_decode", "decode_moe", "gather_swiglu", "down_combine")
+PAGED_KERNELS = ("flash_decode_paged", "decode_moe", "gather_swiglu", "down_combine")
+
+
 def smoke_twin(dev):
     """The f32 smoke config served on the card (kernels) and on the CPU
     (plain versions) from the same weights: greedy streams identical.  At
     spec 4 some drafts must be accepted, so the plan-row selection by
-    ``prev_accept > 0`` runs on the card."""
+    ``prev_accept > 0`` runs on the card; the same holds for the trees
+    (plan rows selected by parent, the contiguous commit, and on the paged
+    plane the commit maps fused into the next launch)."""
     import torch
 
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core.plans import TreePlan
     from repro_torch.kernels import kernel_wrappers, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
+    # name -> (spec width, drafter, tree branching, page size or 0, shared prefix)
+    runs = {
+        "spec1_ngram": (1, "ngram", None, 0, 0),
+        "spec4_repeat": (4, "repeat", None, 0, 0),
+        "spec4_ngram": (4, "ngram", None, 0, 0),
+        "tree2x2_model": (5, "model", (2, 2), 0, 0),
+        "paged_tree2x1_ps8": (4, "ngram", (2, 1), 8, 0),
+        "paged_spec3_shared16": (3, "ngram", None, 16, 16),
+    }
     out = {}
-    for spec, drafter in ((1, "ngram"), (4, "repeat"), (4, "ngram")):
-        cfg = dataclasses.replace(get_smoke_config(ARCH), decode_plane=True, spec_tokens=spec)
+    for name, (spec, drafter, branching, ps, shared) in runs.items():
+        tree = TreePlan.from_branching(branching) if branching else None
+        cfg = dataclasses.replace(get_smoke_config(ARCH), decode_plane=True, spec_tokens=spec,
+                                  paged=ps > 0, page_size=ps or 16)
         params_cpu = Model(cfg, device="cpu").init(0)
-        params_gpu = _to(params_cpu, dev)
-        reqs = serve.synthetic_requests(cfg.vocab_size, 16, 8, 6)
-        max_len = 16 + 8 + spec
+        # the draft model is the target cut to its first layer (self-drafting):
+        # a drafter with weights of its own never hits on random weights
+        draft_cpu = dict(params_cpu, layers=params_cpu["layers"][:1]) if drafter == "model" else None
+        reqs = serve.synthetic_requests(cfg.vocab_size, 16, 8, 6, shared)
+        max_len = 16 + shared + 8 + spec
+        kw = dict(tree=tree, drafter=drafter)
         reset_launch_counts()
-        rep = serve.ServeReplica(cfg, 3, max_len, params_gpu, drafter=drafter, device=dev)
+        rep = serve.ServeReplica(cfg, 3, max_len, _to(params_cpu, dev), device=dev,
+                                 drafter_params=_to(draft_cpu, dev), **kw)
         gpu = serve.serve_queue(rep, reqs)
         torch.cuda.synchronize()
         counts = {n: w.launches for n, w in kernel_wrappers().items()}
-        cpu = serve.serve_queue(serve.ServeReplica(cfg, 3, max_len, params_cpu, drafter=drafter, device="cpu"), reqs)
+        cpu_rep = serve.ServeReplica(cfg, 3, max_len, params_cpu, device="cpu", drafter_params=draft_cpu, **kw)
+        cpu = serve.serve_queue(cpu_rep, reqs)
         g = {rid: r.tokens for rid, r in gpu.items()}
         c = {rid: r.tokens for rid, r in cpu.items()}
-        tag = f"smoke twin spec {spec} {drafter}"
+        tag = f"smoke twin {name}"
         if g != c:
             raise AssertionError(f"{tag}: card streams {g} != CPU streams {c}")
-        if min(counts.values()) <= 0:
-            raise AssertionError(f"{tag}: a kernel never launched: {counts}")
+        expect = PAGED_KERNELS if ps else CONTIGUOUS_KERNELS
+        if min(counts[n] for n in expect) <= 0:
+            raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
+        if ps and drafter != "model" and counts["flash_decode"]:
+            raise AssertionError(f"{tag}: the contiguous flash_decode ran on the paged plane: {counts}")
         # every active slot keeps its first token each launch; the rest of
         # what it keeps are accepted drafts
         draft_accepts = rep.accepted_total - rep.drafted_total // spec
         if spec > 1 and draft_accepts <= 0:
             raise AssertionError(f"{tag}: no draft token was ever accepted on the card")
-        out[f"spec{spec}_{drafter}"] = dict(
+        row = dict(
             streams_identical=True, requests=len(g), launches=counts, decode_launches=rep.launches,
             accepted_total=rep.accepted_total, drafted_total=rep.drafted_total, draft_accepts=draft_accepts,
+            commits=rep.commits,
         )
+        if ps:
+            st = rep.paged_stats()
+            if shared and st["pages_shared_total"] <= 0:
+                raise AssertionError(f"{tag}: no page was shared across admissions: {st}")
+            if rep.pager.snapshot() != cpu_rep.pager.snapshot():
+                raise AssertionError(f"{tag}: card and CPU block tables differ")
+            row.update(paged=st)
+        out[name] = dict(row, streams=g)
+    # greedy verify: the paged tree serves the same queue as the spec-4
+    # chain, so its streams must be the chain's
+    out["paged_tree_streams_equal_chain"] = out["paged_tree2x1_ps8"]["streams"] == out["spec4_ngram"]["streams"]
+    for row in out.values():
+        if isinstance(row, dict):
+            row.pop("streams")
     return out
 
 
 def _to(tree, dev):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -350,7 +492,7 @@ def full_width(dev):
     for rid, toks in streams.items():
         if len(toks) != GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"full width: request {rid} stream malformed: {toks}")
-    if min(counts.values()) <= 0:
+    if min(counts[n] for n in CONTIGUOUS_KERNELS) <= 0:
         raise AssertionError(f"full width: a kernel never launched on the main path: {counts}")
     one = model.init_cache(1, max_len)
     logits = model.prefill(params, reqs[0].prompt[None], one)
@@ -383,6 +525,108 @@ def full_width(dev):
     return served, rep
 
 
+def paged_tree(dev, params):
+    """The paged cell: full_width's weights served on the paged KV plane
+    (pages of 16 rows, draft tree 2,1: 4 nodes, the spec-4 chain's launch
+    width) behind a 64-token shared system prompt.  Every admission after
+    the first binds the system prompt's 4 pages from the prefix trie; tree
+    commits ride the next launch (no commit of their own).
+
+    The drafter is the target cut to its first layer (self-drafting): the
+    ngram drafter never hits on random weights, and without accepted drafts
+    the commit maps would move no row and the plan rows past 0 would never
+    be read.  The drafter's own width-1 launches run the contiguous
+    flash_decode and decode_moe on its 1-layer cache."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plans import TreePlan
+    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.launch import serve
+
+    tree = TreePlan.from_branching(TREE)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=tree.num_nodes,
+                              paged=True, page_size=PAGE)
+    reqs = serve.synthetic_requests(cfg.vocab_size, PROMPT, GEN, REQUESTS, SHARED)
+
+    draft_params = dict(params, layers=params["layers"][:1])
+
+    def replica():
+        return serve.ServeReplica(cfg, SLOTS, PAGED_MAX_LEN, params, tree=tree, drafter="model",
+                                  drafter_params=draft_params, device=dev)
+
+    # warm-up on a throwaway replica: one request through admission and decode
+    serve.serve_queue(replica(), serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1, SHARED))
+    rep = replica()
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    queue, results, occupancy = list(reqs), {}, []
+    t0 = time.perf_counter()
+    while queue or rep.has_work():
+        while queue and rep.free_slots():
+            rep.admit(queue.pop(0))
+        occupancy.append(rep.pager.occupancy())
+        for res in rep.step():
+            results[res.rid] = res
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in kernel_wrappers().items()}
+    streams = {rid: r.tokens for rid, r in results.items()}
+    if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
+        raise AssertionError(f"paged tree: unanswered or failed requests: {results}")
+    for rid, toks in streams.items():
+        if len(toks) != GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"paged tree: request {rid} stream malformed: {toks}")
+    # the target's launches go through the paged kernel, one per layer; the
+    # contiguous flash_decode runs only in the drafter's 1-layer launches
+    drafts = rep.model_drafter.launches
+    if (min(counts[n] for n in PAGED_KERNELS) <= 0 or counts["flash_decode_paged"] != LAYERS * rep.launches
+            or counts["flash_decode"] != drafts or counts["decode_moe"] != LAYERS * rep.launches + drafts):
+        raise AssertionError(f"paged tree: kernel launches {counts} do not match {rep.launches} target "
+                             f"launches of {LAYERS} layers and {drafts} drafter launches of 1 layer")
+    draft_accepts = rep.accepted_total - rep.drafted_total // tree.num_nodes
+    if draft_accepts <= 0:
+        raise AssertionError("paged tree: no draft token was ever accepted")
+    st = rep.paged_stats()
+    if st["pages_shared_total"] <= 0:
+        raise AssertionError(f"paged tree: no page was shared across admissions: {st}")
+    if rep.commits:
+        raise AssertionError(f"paged tree: {rep.commits} commit passes ran outside the decode launches")
+    served = dict(
+        layers=LAYERS, dtype=cfg.dtype, page_size=PAGE, tree=list(TREE), tree_nodes=tree.num_nodes,
+        slots=SLOTS, shared_prefix=SHARED, prompt_len=PROMPT, gen=GEN, requests=REQUESTS,
+        drafter="model (the target's first layer)", drafter_launches=drafts,
+        max_len=PAGED_MAX_LEN, pool_pages=rep.pager.num_pages,
+        wall_s=wall, generated_tokens=rep.accepted_total, tok_per_s=rep.accepted_total / wall,
+        decode_launches=rep.launches, ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1),
+        prefills=rep.prefills, prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
+        accepts_per_launch=rep.accepted_total / max(rep.launches, 1),
+        accept_rate=rep.accepted_total / max(rep.drafted_total, 1),
+        draft_accepts=draft_accepts, commit_moves=rep.commit_moves,
+        pages_shared_total=st["pages_shared_total"], admit_copy_rows=st["admit_copy_rows"],
+        occupancy_peak=max(occupancy), occupancy_mean=sum(occupancy) / len(occupancy),
+        trie_nodes=st["trie_nodes"], commit_launches=rep.commits,
+        kernel_launches=counts, streams=streams,
+    )
+    # launches of each kernel in one admission and in one decode launch
+    wrappers = kernel_wrappers()
+    reset_launch_counts()
+    rep.admit(reqs[0])
+    per_admission = {n: w.launches for n, w in wrappers.items()}
+    reset_launch_counts()
+    d0 = rep.model_drafter.launches
+    rep.step()
+    per_decode = {n: w.launches for n, w in wrappers.items()}
+    served["drafter_launches_per_step"] = rep.model_drafter.launches - d0
+    while rep.has_work():
+        rep.step()
+    served["launches_per_step"] = {
+        n: dict(per_decode_launch=per_decode[n], per_admission=per_admission[n]) for n in wrappers
+    }
+    return served, rep
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -394,8 +638,10 @@ def _leaves(tree):
         yield tree
 
 
-def profile_decode(rep, vocab):
-    """Device time by kernel over a short steady window of decode launches.
+def profile_decode(rep, vocab, shared=0):
+    """Device time by kernel over a short steady window of decode launches
+    of ``rep`` (the full-width replica, then the paged-tree one, whose
+    queue carries the ``shared``-token system prompt of its cell).
 
     The profiler's own host overhead lengthens the launches it records, so
     the idle share divides the device-busy time per launch by the wall time
@@ -407,7 +653,7 @@ def profile_decode(rep, vocab):
     from repro_torch.launch import serve
 
     n = 3
-    for r in serve.synthetic_requests(vocab, PROMPT, GEN, SLOTS):
+    for r in serve.synthetic_requests(vocab, PROMPT, GEN, SLOTS, shared):
         rep.admit(r)
     rep.step()
     torch.cuda.synchronize()
@@ -456,6 +702,8 @@ KERNELS = {
                       "src/repro/kernels/moe_fused/kernel.py:93"),
     "down_combine": ("src/repro_torch/csrc/moe_fused.cu",
                      "src/repro/kernels/moe_fused/kernel.py:175"),
+    "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
+                           "src/repro/kernels/flash_attention/decode.py:379"),
 }
 
 
@@ -493,13 +741,21 @@ def main() -> int:
     served, rep = full_width(dev)
     emit("full_width", **served)
     emit("profile", **profile_decode(rep, cfg.vocab_size))
+    params = rep.params
+    del rep  # free the contiguous replica's cache; its weights serve the paged cell
+    torch.cuda.empty_cache()
+    paged, rep = paged_tree(dev, params)
+    emit("paged_tree", **paged)
+    emit("profile_paged", **profile_decode(rep, cfg.vocab_size, SHARED))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
+        # each kernel's launches come from the serving path it belongs to
+        path = paged if name == "flash_decode_paged" else served
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=served["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=path["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

@@ -112,9 +112,11 @@ class TreePlan(NamedTuple):
     """Compiled draft-tree topology for one speculative launch.
 
     ``parents[t]`` is node ``t``'s parent (``parents[0] == -1``: the root is
-    the last accepted token); node ids are topologically ordered.  This slice
-    serves chains (``TreePlan.chain(T)``); branchy trees ride the same
-    ancestor words in a later slice.
+    the last accepted token); node ids are topologically ordered, node ``t``
+    occupies cache row ``base + t`` and rotary position ``base + depth(t)``.
+    The chain ``TreePlan.chain(T)`` is the linear draft.  The topology
+    compiles to :meth:`ancestor_words`, the flash-decode kernels' control
+    word.
     """
 
     parents: Tuple[int, ...]
@@ -171,6 +173,14 @@ class TreePlan(NamedTuple):
         for t in range(1, self.num_nodes):
             out[self.parents[t]].append(t)
         return tuple(tuple(c) for c in out)
+
+    def spine(self) -> Tuple[int, ...]:
+        """The first-child chain from the root (the drafter's top-1 path)."""
+        path = [0]
+        kids = self.children()
+        while kids[path[-1]]:
+            path.append(kids[path[-1]][0])
+        return tuple(path)
 
     def ancestor_words(self) -> Tuple[int, ...]:
         """Per-node int32 ancestor bitmask (bit u set iff u is on t's root

@@ -8,6 +8,7 @@ per source, all together.  Nothing is compiled or loaded at import time:
 hosts without ``nvcc`` import these modules and run the plain versions.
 
   flash_attention  vector-steered flash-decode over the contiguous KV cache
+                   and over the paged pool (one source, two instantiations)
   moe_decode       plan-steered expert SwiGLU for tiny T (decode)
   moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + combine
 
@@ -141,13 +142,14 @@ def reset_launch_counts() -> None:
 
 
 def kernel_wrappers() -> dict:
-    """name -> wrapper function for every kernel of the main path."""
-    from repro_torch.kernels.flash_attention.ops import flash_decode_kernel
+    """name -> wrapper function for every kernel of the serving paths."""
+    from repro_torch.kernels.flash_attention.ops import flash_decode_kernel, flash_decode_paged_kernel
     from repro_torch.kernels.moe_decode.ops import decode_moe_kernel
     from repro_torch.kernels.moe_fused.ops import down_combine, gather_swiglu
 
     return {
         "flash_decode": flash_decode_kernel,
+        "flash_decode_paged": flash_decode_paged_kernel,
         "decode_moe": decode_moe_kernel,
         "gather_swiglu": gather_swiglu,
         "down_combine": down_combine,

@@ -1,12 +1,13 @@
 """Flash-decode wrappers (port of ``repro/kernels/flash_attention/decode.py``).
 
-:func:`flash_decode_kernel` is the launch: on CPU tensors it runs the plain
-version (:mod:`.ref`), on ``cuda`` tensors it launches
-``csrc/flash_decode.cu`` or raises.  :func:`flash_decode` is the model-layout
-entry point (the reference's ``flash_decode``): it builds the per-token
-length vector from the cache index.  Unlike the TPU wrapper it neither
-transposes nor pads the cache: the kernel reads the (B, S, nkv, hd) buffer in
-place.
+:func:`flash_decode_kernel` and :func:`flash_decode_paged_kernel` are the
+launches: on CPU tensors they run the plain versions (:mod:`.ref`), on
+``cuda`` tensors they launch ``csrc/flash_decode.cu`` or raise.
+:func:`flash_decode` and :func:`flash_decode_paged` are the model-layout
+entry points (the reference's functions of the same names): they build the
+per-token length vector from the cache index.  Unlike the TPU wrappers they
+neither transpose, pad nor reshape: the kernels read the (B, S, nkv, hd)
+cache and the (R, nkv, hd) page pool in place.
 """
 from __future__ import annotations
 
@@ -34,9 +35,18 @@ def _as_length_vector(cache_index, B: int, T: int, device) -> torch.Tensor:
     return (idx + 1).reshape(B * T).to(torch.int32)
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, what: str = "flash_decode") -> None:
     if not cond:
-        raise ValueError(f"flash_decode: {msg}")
+        raise ValueError(f"{what}: {msg}")
+
+
+def _control_words(B: int, T: int, dev, anc_words, base):
+    """The chain defaults: all-ones words make the ancestor test vacuous."""
+    if anc_words is None:
+        anc_words = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    if base is None:
+        base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    return anc_words, base
 
 
 def flash_decode_kernel(
@@ -58,11 +68,7 @@ def flash_decode_kernel(
     _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads")
     _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
     dev = q.device
-    if anc_words is None:
-        # chain default: all-ones words make the ancestor test vacuous
-        anc_words = torch.full((T,), -1, dtype=torch.int32, device=dev)
-    if base is None:
-        base = torch.zeros((B,), dtype=torch.int32, device=dev)
+    anc_words, base = _control_words(B, T, dev, anc_words, base)
     for name, t, n in (("lengths", lengths, B * T), ("anc_words", anc_words, T), ("base", base, B)):
         _check(t.dtype == torch.int32 and t.numel() == n, f"{name} must be ({n},) int32")
     _check(all(t.device == dev for t in (k, v, lengths, anc_words, base)), "tensors on different devices")
@@ -89,6 +95,62 @@ def flash_decode_kernel(
 flash_decode_kernel.launches = 0
 
 
+def flash_decode_paged_kernel(
+    q: torch.Tensor,        # (B, T, nq, hd)
+    pool_k: torch.Tensor,   # (R, nkv, hd) flat page pool, read in place
+    pool_v: torch.Tensor,
+    lengths: torch.Tensor,  # (B*T,) int32 valid prefix length per token
+    table: torch.Tensor,    # (B*mp,) int32 block tables (-1 = unallocated)
+    anc_words: Optional[torch.Tensor] = None,  # (T,) int32 ancestor bitmasks
+    base: Optional[torch.Tensor] = None,       # (B,) int32 committed-prefix length
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Paged decode attention: :func:`flash_decode_kernel`'s math with
+    logical row ``p`` of sequence ``b`` read from pool row
+    ``max(table[b*mp + p // ps], 0) * ps + p % ps``; (B, T, nq, hd) in q's
+    type.  Table entries must name pages of the pool: they are not checked
+    against it on the card (that would cost a host sync per launch)."""
+    what = "flash_decode_paged"
+    B, T, nq, hd = q.shape
+    _check(pool_k.ndim == 3 and pool_k.shape[2] == hd, f"pool shape {tuple(pool_k.shape)}", what)
+    _check(pool_v.shape == pool_k.shape, f"pool_v shape {tuple(pool_v.shape)} != {tuple(pool_k.shape)}", what)
+    nkv = pool_k.shape[1]
+    _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
+    _check(q.dtype == pool_k.dtype == pool_v.dtype, f"dtypes {q.dtype}, {pool_k.dtype}, {pool_v.dtype} differ", what)
+    _check(page_size > 0 and table.numel() % B == 0 and table.numel() > 0, "table must be (B*max_pages,)", what)
+    mp = table.numel() // B
+    dev = q.device
+    anc_words, base = _control_words(B, T, dev, anc_words, base)
+    for name, t, n in (("lengths", lengths, B * T), ("table", table, B * mp), ("anc_words", anc_words, T),
+                       ("base", base, B)):
+        _check(t.dtype == torch.int32 and t.numel() == n, f"{name} must be ({n},) int32", what)
+    _check(all(t.device == dev for t in (pool_k, pool_v, lengths, table, anc_words, base)),
+           "tensors on different devices", what)
+    if dev.type == "cpu":
+        return ref.flash_decode_paged(q, pool_k, pool_v, lengths, table, anc_words, base, page_size)
+    _check(dev.type == "cuda", f"unsupported device {dev}", what)
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    _check(all(t.is_contiguous() for t in (q, pool_k, pool_v, lengths, table, anc_words, base)),
+           "tensors must be contiguous", what)
+    fn = function(
+        "flash_decode", "repro_flash_decode_paged",
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    out = torch.empty_like(q)
+    rc = fn(
+        dtype_code(q.dtype), ptr(q), ptr(pool_k), ptr(pool_v), ptr(out), ptr(lengths), ptr(table), ptr(anc_words),
+        ptr(base), B, T, mp, page_size, nq, nkv, hd, 1.0 / math.sqrt(hd), stream_of(q),
+    )
+    check_launch(rc, what)
+    flash_decode_paged_kernel.launches += 1
+    return out
+
+
+flash_decode_paged_kernel.launches = 0
+
+
 def flash_decode(
     q: torch.Tensor,   # (B, T, nq, hd) model layout
     k: torch.Tensor,   # (B, S, nkv, hd) cache buffer already holding this launch's K
@@ -105,3 +167,27 @@ def flash_decode(
     B, T = q.shape[:2]
     lengths = _as_length_vector(cache_index, B, T, q.device)
     return flash_decode_kernel(q, k, v, lengths, ancestors, base, scales)
+
+
+def flash_decode_paged(
+    q: torch.Tensor,   # (B, T, nq, hd) model layout
+    k: torch.Tensor,   # (R, nkv, hd) flat page pool already holding this launch's K
+    v: torch.Tensor,
+    cache_index,       # scalar | (B,) | (B, T) token position(s)
+    pages: torch.Tensor,  # (B, max_pages) int32 block tables (-1 = unallocated)
+    *,
+    page_size: int,
+    ancestors: Optional[torch.Tensor] = None,
+    base: Optional[torch.Tensor] = None,
+    scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`flash_decode` against a flat page pool addressed through
+    per-slot block tables: the pool row backing position ``pos`` of slot
+    ``b`` is ``pages[b, pos // page_size] * page_size + pos % page_size``.
+    With the identity table the result is bitwise :func:`flash_decode`'s."""
+    if scales is not None:
+        raise NotImplementedError("int8 KV (per-row scales) is ported in a later slice")
+    B, T = q.shape[:2]
+    lengths = _as_length_vector(cache_index, B, T, q.device)
+    table = pages.reshape(-1).to(device=q.device, dtype=torch.int32)
+    return flash_decode_paged_kernel(q, k, v, lengths, table, ancestors, base, page_size=page_size)

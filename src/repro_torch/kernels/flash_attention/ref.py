@@ -1,9 +1,11 @@
-"""Plain PyTorch version of the flash-decode kernel (``csrc/flash_decode.cu``).
+"""Plain PyTorch versions of the flash-decode kernels (``csrc/flash_decode.cu``).
 
-The same function in tensor ops: token (b, t) attends to cache rows
+The same functions in tensor ops: token (b, t) attends to cache rows
 ``p < lengths[b*T + t]`` that are on its root path (``p < base[b]`` or bit
 ``p - base[b]`` of ``anc[t]`` set), GQA head ``h`` reading KV head
-``h // group``, in f32; the output has q's type.
+``h // group``, in f32; the output has q's type.  The paged version reads
+logical row ``p`` of sequence ``b`` from pool row
+``max(table[b, p // ps], 0) * ps + p % ps``.
 """
 from __future__ import annotations
 
@@ -39,3 +41,24 @@ def flash_decode(
     w = torch.softmax(s, dim=-1).nan_to_num(0.0)  # a token with no visible row reads zeros
     out = torch.einsum("bngts,bsnh->btngh", w, v.to(torch.float32))
     return out.reshape(B, T, nq, hd).to(q.dtype)
+
+
+def flash_decode_paged(
+    q: torch.Tensor,        # (B, T, nq, hd)
+    pool_k: torch.Tensor,   # (R, nkv, hd) flat page pool
+    pool_v: torch.Tensor,
+    lengths: torch.Tensor,  # (B*T,) int32
+    table: torch.Tensor,    # (B*mp,) int32 block tables (-1 = unallocated)
+    anc: torch.Tensor,      # (T,) int32
+    base: torch.Tensor,     # (B,) int32
+    page_size: int,
+) -> torch.Tensor:
+    """Gather each sequence's logical rows through its block table, then the
+    contiguous version.  An unallocated entry reads page 0, as the kernel's
+    clamp does; callers keep such pages past every token's length."""
+    B = q.shape[0]
+    mp = table.numel() // B
+    pages = table.reshape(B, mp).to(torch.int64).clamp(min=0)
+    rows = (pages * page_size)[:, :, None] + torch.arange(page_size, device=q.device)
+    rows = rows.reshape(B, mp * page_size)
+    return flash_decode(q, pool_k[rows], pool_v[rows], lengths, anc, base)

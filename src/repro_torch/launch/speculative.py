@@ -1,14 +1,18 @@
-"""Host-side speculative-decode bookkeeping (copy of the reference's
-``launch/speculative.py`` verify rule and host drafters; numpy only).
+"""Speculative-decode drafters and verify rule (port of the reference's
+``launch/speculative.py`` without request-program guides).
 
 The verify rule is greedy: position 0 of a launch is the model's own next
 token (always accepted); a draft node stays accepted while its token equals
 what the model emitted for its parent.  A chain is the degenerate tree, so
-one walk (:func:`greedy_accept_tree`) serves both.
+one walk (:func:`greedy_accept_tree`) serves both.  The host drafters
+(``repeat``, ``ngram``) are numpy only; :class:`ModelDrafter` drafts with a
+small model through the same decode plane.
 """
 from __future__ import annotations
 
 from typing import List, Sequence
+
+import numpy as np
 
 from repro_torch.core.plans import TreePlan
 
@@ -78,3 +82,83 @@ def draft_tree_ngram(history, last_tok: int, tree: TreePlan) -> List[int]:
 
 
 TREE_DRAFTERS = {"repeat": draft_tree_repeat, "ngram": draft_tree_ngram}
+
+
+class ModelDrafter:
+    """A small draft model proposing top-k branching drafts, batched through
+    the same decode plane the target model serves on.
+
+    The drafter owns a contiguous slot-pool cache (it never shares pages
+    with the target's pool), admits prompts by prefilling into a slot, and
+    keeps itself synchronized with the *accepted* token stream by replaying
+    missed tokens through batched width-1 ``decode_tokens`` launches.
+    :meth:`propose` then runs one batched launch per tree depth: the spine
+    follows the draft model's argmax, siblings take the next-ranked logits.
+    Ranks are taken on the host with numpy, so ties break as in the
+    reference.
+
+    Draft rows written during ``propose`` are scratch: positions at or past
+    a slot's committed length are re-fed (or overwritten) before they are
+    ever attended (the length-clamp contract).
+    """
+
+    def __init__(self, model, params, slots: int, max_len: int):
+        self.model, self.params = model, params
+        self.cache = model.init_cache(slots, max_len)
+        self.fed = np.zeros((slots,), np.int32)  # cache rows holding real tokens
+        self.pending: List[List[int]] = [[] for _ in range(slots)]
+        self.launches = 0  # width-1 decode launches (catch-up and drafting)
+
+    def admit(self, slot: int, prompt) -> None:
+        """Prefill the admitted prompt into the drafter's slot."""
+        self.model.prefill(self.params, np.asarray(prompt)[None], self.cache, slot=slot)
+        self.fed[slot] = len(prompt)
+        self.pending[slot] = []
+
+    def observe(self, slot: int, tokens: Sequence[int]) -> None:
+        """Queue accepted tokens (rows ``fed..`` of the true stream) for
+        replay; called by the serve loop after each verify."""
+        self.pending[slot].extend(int(t) for t in tokens)
+
+    def _advance(self, toks, lens) -> np.ndarray:
+        logits = self.model.decode_tokens(self.params, self.cache, np.asarray(toks)[:, None], lens)
+        self.launches += 1
+        return logits[:, 0].float().cpu().numpy()
+
+    def catch_up(self) -> None:
+        """Replay queued accepted tokens, batched across slots; slots with
+        nothing pending park their step at the scratch row ``fed[b]``."""
+        B = len(self.pending)
+        while any(self.pending):
+            toks = np.zeros((B,), np.int32)
+            lens = self.fed.copy()
+            adv = np.zeros((B,), np.int32)
+            for b in range(B):
+                if self.pending[b]:
+                    toks[b] = self.pending[b].pop(0)
+                    adv[b] = 1
+            self._advance(toks, lens)
+            self.fed = self.fed + adv
+
+    def propose(self, last_tok, lengths, tree: TreePlan) -> np.ndarray:
+        """(B,) last accepted tokens + committed lengths -> (B, T) tree
+        tokens: children of the spine node at depth d get the draft model's
+        top-``len(children)`` tokens, the first child (the spine) continues
+        from the top-1."""
+        B = len(last_tok)
+        kids = tree.children()
+        toks = np.zeros((B, tree.num_nodes), np.int32)
+        toks[:, 0] = last_tok
+        cur = np.asarray(last_tok, np.int32).copy()
+        pos = np.asarray(lengths, np.int32).copy()
+        for node in tree.spine():
+            children = kids[node]
+            if not children:
+                break
+            logits = self._advance(cur, pos)
+            top = np.argsort(-logits, axis=-1)[:, : len(children)]
+            for rank, child in enumerate(children):
+                toks[:, child] = top[:, rank]
+            cur = top[:, 0].astype(np.int32)
+            pos += 1
+        return toks

@@ -6,29 +6,61 @@ CUDA graphs for the decode launch come in a later slice.
 """
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.core.plans import TreePlan
 from repro_torch.models.layers import Params
+from repro_torch.models.model import Model
 
 
 def spec_serve_step(
     model: Model, params: Params, cache: List[Params], tokens: np.ndarray, lengths: np.ndarray,
-    prev_accept: np.ndarray,
-) -> np.ndarray:
-    """One speculative launch: tokens (B, T), lengths (B,), prev_accept (B,)
-    -> the model's greedy token per position (B, T), on the host.  The
-    argmax runs on the device, so only B*T ids cross to the host; the cache
-    is updated in place."""
-    logits = model.decode_tokens(params, cache, tokens, lengths, prev_accept)
-    return torch.argmax(logits, dim=-1).cpu().numpy()
+    prev_accept: np.ndarray, *, tree: Optional[TreePlan] = None, pages: Optional[np.ndarray] = None,
+    commit: Optional[Tuple[np.ndarray, np.ndarray]] = None, telemetry: bool = False,
+) -> Tuple[np.ndarray, Optional[float]]:
+    """One speculative launch: tokens (B, T), lengths (B,), prev_accept (B,),
+    and under the paged plane the block table (B, max_pages) and, for
+    branchy trees, the previous round's commit maps ``(dst, src)`` -> (the
+    model's greedy token per position (B, T) on the host, the plan agreement
+    or None).  The argmax runs on the device, so only B*T ids cross to the
+    host; the cache is updated in place."""
+    out = model.decode_tokens(params, cache, tokens, lengths, prev_accept, telemetry=telemetry, tree=tree,
+                              pages=pages, commit=commit)
+    logits, metrics = out if telemetry else (out, None)
+    y = torch.argmax(logits, dim=-1).cpu().numpy()
+    return y, (metrics["plan_agreement"] if telemetry else None)
 
 
-def admission(model: Model, params: Params, cache: List[Params], prompt: np.ndarray, slot: int) -> torch.Tensor:
-    """B=1 prefill of ``prompt`` written straight into batch row ``slot``
-    (the reference prefills a fresh B=1 cache and copies it in; the slot
-    ends up holding the same rows) -> last-position logits (V,)."""
-    return model.prefill(params, np.asarray(prompt)[None], cache, slot=slot)[0]
+def prefill_model(model: Model) -> Model:
+    """The B=1 admission prefill's model: under ``cfg.paged`` a contiguous
+    twin (prefill writes stripes; the pool is seeded by a row scatter)."""
+    if not model.cfg.paged:
+        return model
+    return Model(dataclasses.replace(model.cfg, paged=False), model.device)
+
+
+def admission(
+    model: Model, params: Params, cache: List[Params], prompt: np.ndarray, slot: int,
+    rows: Optional[np.ndarray] = None, pf_model: Optional[Model] = None,
+) -> torch.Tensor:
+    """B=1 prefill of ``prompt`` into batch row ``slot`` -> last-position
+    logits (V,).
+
+    Contiguous: the prefill writes straight into the slot (the reference
+    prefills a fresh B=1 cache and copies it in; the slot ends up holding
+    the same rows).  Paged (``rows`` given, the (max_len,) physical-row
+    vector of the replica's page binding): a contiguous B=1 prefill into a
+    fresh cache of ``pf_model`` (see :func:`prefill_model`), then only the
+    rows the vector names are written into the pool."""
+    prompt = np.asarray(prompt)[None]
+    if rows is None:
+        return model.prefill(params, prompt, cache, slot=slot)[0]
+    pf_model = pf_model or prefill_model(model)
+    one = pf_model.init_cache(1, len(rows))
+    logits = pf_model.prefill(params, prompt, one)[0]
+    model.write_cache_slot_paged(cache, one, slot, rows)
+    return logits

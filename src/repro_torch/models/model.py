@@ -1,18 +1,21 @@
-"""Model facade (port of ``repro/models/model.py``): init, cache, prefill
-and speculative chain decode for the ``moe``/``attn`` decoder stack.
+"""Model facade (port of ``repro/models/model.py``): init, cache, prefill,
+speculative chain and tree decode, and the cache surgery of continuous
+batching (contiguous and paged) for the ``moe``/``attn`` decoder stack.
 
-The cache is updated in place by :meth:`Model.prefill` and
-:meth:`Model.decode_tokens`; both return only logits.
+The cache is updated in place by :meth:`Model.prefill`,
+:meth:`Model.decode_tokens` and the surgery methods; the first two return
+only logits (and, with telemetry, a metrics dict).
 """
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plans import TreePlan
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Params
@@ -74,19 +77,50 @@ class Model:
         self,
         params: Params,
         cache: List[Params],
-        tokens,                 # (B, T): last accepted token + T-1 chain drafts
+        tokens,                 # (B, T): last accepted token + T-1 drafts (or tree nodes)
         lengths,                # (B,) per-sequence tokens already in the cache
         prev_accept=None,       # (B,) plan-row select
-    ) -> torch.Tensor:
-        """One speculative chain launch over a ragged batch: token (b, t)
-        sits at position ``lengths[b] + t``; returns logits (B, T, V) that
-        score each position's successor.  ``prev_accept`` selects the
-        cached plan row routed from the position the previous launch's
-        verification accepted last (rollback-exact plan carry)."""
+        *,
+        telemetry: bool = False,
+        tree: Optional[TreePlan] = None,
+        pages=None,             # (B, max_pages) int32 block tables (paged caches)
+        commit: Optional[Tuple] = None,  # (dst, src) (B, Tc) logical row moves, -1 = none
+    ):
+        """One speculative launch over a ragged batch: token (b, t) sits at
+        position ``lengths[b] + t``; returns logits (B, T, V) that score each
+        position's successor.  ``prev_accept`` selects the cached plan row
+        routed from the position the previous launch's verification accepted
+        last (rollback-exact plan carry).
+
+        With ``tree`` (``num_nodes == T``) the tokens form a draft tree:
+        node t rides cache row ``lengths[b] + t`` at rotary position
+        ``lengths[b] + depth(t)`` and attends through the tree's ancestor
+        mask; ``prev_accept`` is then the accepted node index.  ``tree=None``
+        is the chain ``TreePlan.chain(T)``, served by the same path.  Paged caches
+        take ``pages``, the block table steering every K/V access, and
+        ``commit``, the previous verify round's accepted-path row moves in
+        logical positions, applied at the top of each layer before its
+        writes (the tree commit fused into the launch).  The block table and
+        the commit maps cross to the device once per launch.
+
+        With ``telemetry`` returns ``(logits, {"plan_agreement": float})``:
+        the mean stale-vs-fresh plan top-k agreement over the MoE layers
+        (one device read per launch)."""
         tokens = self._tokens(tokens)
         B, Tn = tokens.shape
+        tree = TreePlan.chain(Tn) if tree is None else tree
+        if tree.num_nodes != Tn:
+            raise ValueError(f"tree has {tree.num_nodes} nodes but the launch carries {Tn} tokens")
         lengths = np.asarray(lengths, np.int64).reshape(B)
-        max_len = cache[0]["k"].shape[1]
+        paged = "pk" in cache[0]
+        if paged and pages is None:
+            raise ValueError("paged cache without a block table: pass pages=(B, max_pages) int32 "
+                             "(see models.transformer.identity_page_table)")
+        if paged:
+            pages = torch.as_tensor(np.asarray(pages, np.int32), device=self.device)
+            max_len = pages.shape[1] * self.cfg.page_size
+        else:
+            max_len = cache[0]["k"].shape[1]
         if lengths.min() < 0 or lengths.max() + Tn > max_len:
             raise ValueError(f"positions up to {lengths.max() + Tn - 1} fall outside the cache of {max_len} rows")
         lengths_t = torch.as_tensor(lengths, device=self.device)
@@ -94,12 +128,26 @@ class Model:
         if prev.min() < 0 or prev.max() >= max(self.cfg.spec_tokens, 1):
             raise ValueError(f"prev_accept {prev.tolist()} selects no row of a {self.cfg.spec_tokens}-row plan vector")
         prev_t = torch.as_tensor(prev, device=self.device)
+        if commit is not None:
+            commit = tuple(torch.as_tensor(np.asarray(m, np.int64), device=self.device) for m in commit)
         x = self._embed(params, tokens)
         route_src = x
+        agree = []
         for kind, p, c in zip(self.cfg.layer_kinds, params["layers"], cache):
-            x, route_src = T.apply_layer_decode_spec(x, route_src, p, c, kind, self.cfg, lengths_t, prev_t)
-        return self.logits(params, x)
+            x, route_src, a = T.apply_layer_decode_spec(
+                x, route_src, p, c, kind, self.cfg, lengths_t, prev_t,
+                telemetry=telemetry, tree=tree, pages=pages, commit=commit,
+            )
+            if a is not None:
+                agree.append(a)
+        logits = self.logits(params, x)
+        if telemetry:
+            mean = float(torch.stack(agree).sum()) / max(len(agree), 1) if agree else 0.0
+            return logits, {"plan_agreement": mean}
+        return logits
 
+    # ------------------------------------------------------------------
+    # continuous-batching cache surgery (in place)
     # ------------------------------------------------------------------
     @staticmethod
     def write_cache_slot(cache: List[Params], one_cache: List[Params], slot: int) -> None:
@@ -107,3 +155,71 @@ class Model:
         for c, o in zip(cache, one_cache):
             for name, leaf in c.items():
                 leaf[slot].copy_(o[name][0])
+
+    @staticmethod
+    def write_cache_slot_paged(cache: List[Params], one_cache: List[Params], slot: int, rows) -> None:
+        """Paged admission, in place: scatter a CONTIGUOUS B=1 cache's K/V
+        rows into the pool rows that ``rows`` names, never a stripe copy.
+
+        ``rows`` is the (max_len,) vector of physical pool rows backing each
+        logical position; entries at or past the pool size (the
+        admission's sentinel) land in the trash row, which is how
+        trie-shared pages and positions past the prompt skip the copy.
+        Shared pages are never written and the pool is never zeroed.  The
+        DecodePlan leaves are per slot and are written at batch ``slot``.
+        The row vector crosses to the device once for all layers."""
+        R = cache[0]["pk"].shape[0] - 1
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=cache[0]["pk"].device).clamp(max=R)
+        for c, o in zip(cache, one_cache):
+            for name, leaf in c.items():
+                if name in ("pk", "pv"):
+                    src = o[name[1:]][0]
+                    leaf[idx[: src.shape[0]]] = src.to(leaf.dtype)
+                else:
+                    leaf[slot].copy_(o[name][0])
+
+    def paginate_cache(self, cache: List[Params], max_len: int) -> List[Params]:
+        """A NEW paged cache holding ``cache``'s contents in the pool layout:
+        with the identity block table (:func:`transformer.identity_page_table`)
+        slot ``b``'s position ``pos`` lands at pool row
+        ``b * max_pages * page_size + pos``, the flattened contiguous buffer,
+        so the paged chain path is bitwise the contiguous path on it.  Plan
+        leaves are copied unchanged."""
+        ps, mp = self.cfg.page_size, T.max_pages_for(self.cfg, max_len)
+        out = []
+        for c in cache:
+            n = {}
+            for name, leaf in c.items():
+                if name in ("k", "v"):
+                    B, S, nkv, hd = leaf.shape
+                    pool = leaf.new_zeros((B * mp * ps + 1, nkv, hd))
+                    pool[:-1].view(B, mp * ps, nkv, hd)[:, :S] = leaf
+                    n["p" + name] = pool
+                else:
+                    n[name] = leaf.clone()
+            out.append(n)
+        return out
+
+    @staticmethod
+    def commit_tree_path(cache: List[Params], lengths, path) -> None:
+        """Compact an accepted draft-tree root path into contiguous cache
+        rows, in place (contiguous caches; paged ones commit through the
+        fused maps of :func:`repro_torch.core.pages.commit_maps`).
+
+        The accepted nodes ``path[b] = (0, u_1, ..., u_{a-1})`` sit at rows
+        ``lengths[b] + u_i`` and must move to ``lengths[b] + i``; ``path`` is
+        (B, T), padded with the identity so the pad writes copy rows onto
+        themselves.  Only K/V move: plan rows stay node-indexed.  The
+        gather lands in a temporary before the scatter."""
+        k0 = cache[0]["k"]
+        dev = k0.device
+        lengths = torch.as_tensor(np.asarray(lengths, np.int64), device=dev)
+        path = torch.as_tensor(np.asarray(path, np.int64), device=dev)
+        Tn = path.shape[1]
+        dst = lengths[:, None] + torch.arange(Tn, device=dev)[None, :]
+        src = lengths[:, None] + path
+        bidx = torch.arange(k0.shape[0], device=dev)[:, None]
+        for c in cache:
+            for name in ("k", "v"):
+                moved = c[name][bidx, src]
+                c[name][bidx, dst] = moved

@@ -1,5 +1,6 @@
 """Decoder stack for the ``moe`` and ``attn`` layer kinds (port of
-``repro/models/transformer.py``, contiguous KV cache, chain speculation).
+``repro/models/transformer.py``: contiguous and paged KV caches, chain and
+tree speculation).
 
 Layout: params are ``{"embed", "layers": [one dict per layer],
 "final_norm", "unembed"}`` and the decode cache is a list with one dict per
@@ -17,17 +18,25 @@ from the prompt's last control-plane source, and every decode launch routes
 the plan for the next one.  Attention reads only each token's valid cache
 prefix (:mod:`repro_torch.kernels.flash_attention`), the expert FFN runs the
 plan-steered kernel (:mod:`repro_torch.kernels.moe_decode`).
+
+Paged KV plane (``cfg.paged``): the full-attention KV lives in a flat pool
+``pk``/``pv`` of ``num_pages * page_size`` rows with no batch axis, addressed
+through the per-slot block table each launch takes.  The pool carries ONE
+trash row past its last page: writes the reference drops
+(``.at[].set(mode="drop")`` at row ``R``) land there instead, so no host
+sync filters them and no out-of-range index reaches the card.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.control_plane import route_topk_decode
-from repro_torch.core.plans import DecodePlan
-from repro_torch.kernels.flash_attention import flash_decode
+from repro_torch.core.control_plane import route_topk_decode, topk_agreement
+from repro_torch.core.plans import DecodePlan, TreePlan
+from repro_torch.kernels.flash_attention import flash_decode, flash_decode_paged
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models.layers import Params
@@ -38,9 +47,9 @@ _KINDS = ("attn", "moe")
 def _check_kind(kind: str, cfg: ModelConfig) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is ported in a later slice")
-    if cfg.attention_kind != "full" or cfg.paged or cfg.kv_dtype:
+    if cfg.attention_kind != "full" or cfg.kv_dtype:
         raise NotImplementedError(
-            "this slice serves full attention over a contiguous full-precision KV cache"
+            "this slice serves full attention over a full-precision KV cache"
         )
 
 
@@ -75,16 +84,42 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     return params
 
 
+def max_pages_for(cfg: ModelConfig, max_len: int) -> int:
+    """Block-table width: logical pages covering one slot's max_len."""
+    return -(-int(max_len) // int(cfg.page_size))
+
+
+def num_pages(cfg: ModelConfig, batch: int, max_len: int) -> int:
+    """Default physical pool size: the contiguous capacity, in pages."""
+    return batch * max_pages_for(cfg, max_len)
+
+
+def identity_page_table(cfg: ModelConfig, batch: int, max_len: int) -> torch.Tensor:
+    """The (B, max_pages) block table reproducing the contiguous layout:
+    slot b's logical page i is physical page ``b * max_pages + i``.  With it
+    the paged chain path is bitwise the contiguous path."""
+    mp = max_pages_for(cfg, max_len)
+    return torch.arange(batch, dtype=torch.int32)[:, None] * mp + torch.arange(mp, dtype=torch.int32)[None, :]
+
+
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
-    """Contiguous KV stripes (B, max_len, nkv, hd) plus, for MoE layers on
-    the decode plane, the carried DecodePlan: one row per draft position
-    when ``spec_tokens > 1``."""
+    """Contiguous KV stripes (B, max_len, nkv, hd), or under ``cfg.paged``
+    the flat pool (num_pages * page_size + 1 trash row, nkv, hd), plus, for
+    MoE layers on the decode plane, the carried DecodePlan: one row per
+    draft position when ``spec_tokens > 1`` (per slot, paged or not)."""
     _check_kind(kind, cfg)
     hd, dt = cfg.resolved_head_dim, L.act_dtype(cfg)
-    c = {
-        "k": torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
-        "v": torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
-    }
+    if cfg.paged:
+        rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
+        c = {
+            "pk": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
+            "pv": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
+        }
+    else:
+        c = {
+            "k": torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
+            "v": torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
+        }
     if kind == "moe" and cfg.decode_plane:
         Tp = max(int(cfg.spec_tokens), 1)
         shape = (batch, Tp, cfg.top_k) if Tp > 1 else (batch, cfg.top_k)
@@ -125,6 +160,11 @@ def apply_layer_prefill(
     stripe is zeroed first, so the slot holds exactly what a fresh B=1 cache
     written into it would."""
     B, S, _ = x.shape
+    if "pk" in cache:
+        raise ValueError(
+            "prefill writes contiguous stripes; paged caches are seeded through "
+            "admission (a contiguous B=1 prefill, then Model.write_cache_slot_paged)"
+        )
     if S > cache["k"].shape[1]:
         raise ValueError(f"prompt of {S} tokens exceeds the cache length {cache['k'].shape[1]}")
     xn = L.rms_norm(x, p["ln1"])
@@ -152,34 +192,138 @@ def apply_layer_prefill(
     return h + y, route_src
 
 
-def _spec_positions(lengths: torch.Tensor, T: int) -> torch.Tensor:
-    """(B,) per-sequence lengths -> (B, T) absolute position per draft token."""
-    return lengths[:, None].to(torch.int64) + torch.arange(T, dtype=torch.int64, device=lengths.device)[None, :]
-
-
-def _decode_attn_prefix_spec(
-    xn: torch.Tensor,       # (B, T, d)
-    p: Params,
-    cfg: ModelConfig,
-    cache: Params,
-    lengths: torch.Tensor,  # (B,)
-) -> torch.Tensor:
-    """T-token attention over per-token valid prefixes [0, lengths[b] + t].
-
-    The new K/V rows are written into the cache in place first; the
-    per-token clamp then doubles as the intra-draft causal mask."""
-    B, T, _ = xn.shape
-    pos = _spec_positions(lengths, T)
-    q, k, v = L._qkv(xn, p, cfg, pos)
-    bidx = torch.arange(B, device=xn.device)[:, None]
-    cache["k"][bidx, pos] = k.to(cache["k"].dtype)
-    cache["v"][bidx, pos] = v.to(cache["v"].dtype)
-    out = flash_decode(q, cache["k"], cache["v"], pos)  # (B, T, nq, hd)
+def _attn_out(out: torch.Tensor, p: Params) -> torch.Tensor:
     return torch.einsum("btnh,nhd->btd", out, p["wo"])
 
 
+@functools.lru_cache(maxsize=32)
+def _tree_tensors(tree: TreePlan, device: torch.device):
+    """(depths int64, ancestor words int32, parents of nodes 1.. int64) on
+    ``device``, made once per tree: every layer of every launch reads them,
+    and copying a host list to the card per layer would stall the host."""
+    return (torch.tensor(tree.depths(), dtype=torch.int64, device=device),
+            torch.tensor(tree.ancestor_words(), dtype=torch.int32, device=device),
+            torch.tensor(tree.parents[1:], dtype=torch.int64, device=device))
+
+
+def _tree_rows(lengths: torch.Tensor, tree: TreePlan):
+    """(cache rows, rotary positions), both (B, T): node t sits at row
+    ``lengths + t`` (each node needs its own KV row; siblings share a depth)
+    and position ``lengths + depth(t)`` (its sequential position)."""
+    dev = lengths.device
+    depths = _tree_tensors(tree, dev)[0]
+    base = lengths[:, None].to(torch.int64)
+    return base + torch.arange(tree.num_nodes, dtype=torch.int64, device=dev)[None, :], base + depths[None, :]
+
+
+def _decode_attn_prefix_tree(
+    xn: torch.Tensor,       # (B, T, d): T draft-tree nodes per sequence
+    p: Params,
+    cfg: ModelConfig,
+    cache: Params,
+    lengths: torch.Tensor,  # (B,) committed-prefix length per sequence
+    tree: TreePlan,
+) -> torch.Tensor:
+    """Ancestor-masked T-node attention: a row is visible to node t iff it
+    is below the committed prefix or on t's root path, exactly the keys a
+    sequential decode of that path would see.  A chain is
+    ``TreePlan.chain(T)``: its words make node t see rows ``[0, lengths +
+    t]``, the per-token valid prefix of linear speculation.  The new K/V
+    rows are written into the cache in place first."""
+    B = xn.shape[0]
+    rows, pos = _tree_rows(lengths, tree)
+    q, k, v = L._qkv(xn, p, cfg, pos)
+    bidx = torch.arange(B, device=xn.device)[:, None]
+    cache["k"][bidx, rows] = k.to(cache["k"].dtype)
+    cache["v"][bidx, rows] = v.to(cache["v"].dtype)
+    base = lengths.to(torch.int32)
+    out = flash_decode(q, cache["k"], cache["v"], lengths, ancestors=_tree_tensors(tree, xn.device)[1], base=base)
+    return _attn_out(out, p)
+
+
+def _paged_rows(pages: torch.Tensor, pos: torch.Tensor, ps: int, R: int) -> torch.Tensor:
+    """Translate logical positions to physical pool rows via the block table.
+
+    ``pages`` is (B, max_pages) (-1 = unallocated); ``pos`` is (B, T)
+    logical absolute positions.  Unmapped positions resolve to row ``R``,
+    the pool's trash row."""
+    idx = torch.clamp(pos // ps, max=pages.shape[1] - 1)
+    phys = torch.gather(pages, 1, idx).to(torch.int64)
+    return torch.where(phys >= 0, phys * ps + pos % ps, torch.full_like(phys, R))
+
+
+def _pool_size(cache: Params) -> int:
+    """R: the pool's real rows (the last row is the trash row)."""
+    return cache["pk"].shape[0] - 1
+
+
+def _apply_commit(
+    cache: Params,
+    commit: Tuple[torch.Tensor, torch.Tensor],
+    pages: Optional[torch.Tensor],
+    cfg: ModelConfig,
+) -> None:
+    """Fused tree commit, in place: move the accepted path's KV rows, one
+    gather and one scatter, at the top of the decode launch (before any new
+    writes).  ``commit = (dst, src)`` are (B, Tc) LOGICAL positions with -1
+    as the no-op; pool caches translate through the block table.  The
+    gather lands in a temporary before the scatter, so overlapping (dst,
+    src) windows are safe; no-op moves land in the trash row."""
+    if "pk" not in cache:
+        raise NotImplementedError(
+            "fused commit maps apply to paged caches (rolling-window trees come in a later "
+            "slice); contiguous trees commit through Model.commit_tree_path"
+        )
+    dst, src = commit
+    R, ps = _pool_size(cache), cfg.page_size
+    src_rows = torch.clamp(_paged_rows(pages, src.clamp(min=0), ps, R), max=R - 1)
+    dst_rows = torch.where(dst >= 0, _paged_rows(pages, dst.clamp(min=0), ps, R), torch.full_like(dst, R))
+    for name in ("pk", "pv"):
+        moved = cache[name][src_rows]
+        cache[name][dst_rows] = moved
+
+
+def cow_copy_page(cache: List[Params], old_page: int, new_page: int, page_size: int) -> List[Params]:
+    """Copy-on-write page duplication, in place: after
+    :meth:`repro_torch.core.pages.PageTable.ensure_writable` rebinds a shared
+    page, copy the old physical page's rows into the fresh one in every
+    layer's pool.  Returns ``cache``."""
+    o0, n0 = int(old_page) * page_size, int(new_page) * page_size
+    for c in cache:
+        for name in ("pk", "pv"):
+            if name in c:
+                c[name][n0:n0 + page_size] = c[name][o0:o0 + page_size]
+    return cache
+
+
+def _decode_attn_paged_tree(
+    xn: torch.Tensor,       # (B, T, d): T draft-tree nodes per sequence
+    p: Params,
+    cfg: ModelConfig,
+    cache: Params,
+    lengths: torch.Tensor,  # (B,) committed-prefix length per sequence
+    tree: TreePlan,
+    pages: torch.Tensor,    # (B, max_pages) int32 block table
+) -> torch.Tensor:
+    """Paged twin of :func:`_decode_attn_prefix_tree`: node t occupies
+    LOGICAL row ``lengths[b] + t`` (physical row via the block table); the
+    ancestor mask works on logical rows, so the physical layout never leaks
+    into the math."""
+    ps = cfg.page_size
+    lrows, pos = _tree_rows(lengths, tree)
+    q, k, v = L._qkv(xn, p, cfg, pos)
+    rows = _paged_rows(pages, lrows, ps, _pool_size(cache))
+    cache["pk"][rows] = k.to(cache["pk"].dtype)
+    cache["pv"][rows] = v.to(cache["pv"].dtype)
+    out = flash_decode_paged(
+        q, cache["pk"], cache["pv"], lengths, pages, page_size=ps,
+        ancestors=_tree_tensors(tree, xn.device)[1], base=lengths.to(torch.int32),
+    )
+    return _attn_out(out, p)
+
+
 def apply_layer_decode_spec(
-    x: torch.Tensor,             # (B, T, d): T chain tokens per sequence
+    x: torch.Tensor,             # (B, T, d): T chain tokens (or tree nodes) per sequence
     route_src: Optional[torch.Tensor],
     p: Params,
     cache: Params,
@@ -187,17 +331,40 @@ def apply_layer_decode_spec(
     cfg: ModelConfig,
     lengths: torch.Tensor,       # (B,) per-sequence cache length
     prev_accept: torch.Tensor,   # (B,) accepted-row index into the plan vector
+    *,
+    telemetry: bool = False,
+    tree: Optional[TreePlan] = None,
+    pages: Optional[torch.Tensor] = None,   # (B, max_pages) block table
+    commit: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (dst, src) (B, Tc)
 ):
-    """One layer of a speculative chain launch; updates ``cache`` in place.
+    """One layer of a speculative launch; updates ``cache`` in place.
 
     Plan semantics reproduce T sequential single-token steps: token 0
     consumes the cached plan row ``prev_accept`` selects, token t >= 1 the
-    plan routed in this launch from position t-1's route source; all T routed
-    plans are written back as the next launch's plan vector."""
+    plan routed in this launch from its PARENT's route source; all T routed
+    plans are written back as the next launch's plan vector.  ``tree=None``
+    is the chain ``TreePlan.chain(T)`` (the parent of t is t-1): chains and
+    trees run one path.  Paged caches take the block table ``pages`` and
+    the previous verify round's commit maps ``commit``, applied before this
+    launch writes.
+
+    Returns ``(x, route_src, agreement)``: the stale-vs-fresh top-k plan
+    agreement of this layer as a 0-d tensor when ``telemetry`` is set and
+    the layer is a decode-plane MoE layer, else None."""
     B, T, d = x.shape
-    a = _decode_attn_prefix_spec(L.rms_norm(x, p["ln1"]), p["attn"], cfg, cache, lengths)
+    paged = "pk" in cache
+    if commit is not None:
+        _apply_commit(cache, commit, pages, cfg)
+    if tree is None:
+        tree = TreePlan.chain(T)
+    xn = L.rms_norm(x, p["ln1"])
+    if paged:
+        a = _decode_attn_paged_tree(xn, p["attn"], cfg, cache, lengths, tree, pages)
+    else:
+        a = _decode_attn_prefix_tree(xn, p["attn"], cfg, cache, lengths, tree)
     h = x + a
     ffn_in = L.rms_norm(h, p["ln2"])
+    agree = None
     if kind == "moe" and cfg.decode_plane:
         k_ = cfg.top_k
         src_seq = route_src if route_src is not None else h
@@ -213,8 +380,12 @@ def apply_layer_decode_spec(
             first_e, first_w = cached_e[ar, sel], cached_w[ar, sel]
         else:
             first_e, first_w = cached_e.clone(), cached_w.clone()
-        cons_e = torch.cat([first_e[:, None], all_e[:, : T - 1]], dim=1)
-        cons_w = torch.cat([first_w[:, None], all_w[:, : T - 1]], dim=1)
+        # node t consumes the plan routed from its parent's route source
+        # (a chain gathers rows 0..T-2: the linear shift)
+        par = _tree_tensors(tree, x.device)[2]
+        prev_e, prev_w = all_e[:, par], all_w[:, par]
+        cons_e = torch.cat([first_e[:, None], prev_e], dim=1)
+        cons_w = torch.cat([first_w[:, None], prev_w], dim=1)
         y = moe.moe_decode_ffn(ffn_in, DecodePlan(cons_e, cons_w), p["moe"])
         if cached_e.ndim == 3:
             cached_e.copy_(all_e)
@@ -222,7 +393,11 @@ def apply_layer_decode_spec(
         else:
             cached_e.copy_(all_e[:, -1])
             cached_w.copy_(all_w[:, -1])
+        if telemetry:
+            # stale (consumed) vs fresh (same position's source): the
+            # decode plane's lookahead bet
+            agree = topk_agreement(cons_e.reshape(B * T, k_), all_e.reshape(B * T, k_))
         route_src = h
     else:
         y, route_src = _ffn(kind, cfg, p, h, ffn_in, route_src)
-    return h + y, route_src
+    return h + y, route_src, agree

@@ -85,6 +85,34 @@ def test_flash_decode_kernel_matches_plain_on_card(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_flash_decode_paged_kernel_matches_plain_on_card(cuda, dtype, ps):
+    """A scrambled block table with -1 past each sequence's clamp, tree
+    words; then the identity table against the contiguous kernel, bitwise."""
+    tree = TreePlan.from_branching((2, 1))
+    B, T, nq, nkv, hd, mp = 3, tree.num_nodes, 16, 4, 128, 13
+    S = mp * ps
+    q, k, v = (_t(a).to(cuda, dtype) for a in _decode_case(2, B, T, nq, nkv, hd, S))
+    base = torch.tensor([0, 37, S - T], dtype=torch.int32, device=cuda)
+    lengths = (base[:, None] + torch.arange(1, T + 1, device=cuda, dtype=torch.int32)).reshape(-1).contiguous()
+    words = torch.tensor(tree.ancestor_words(), dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(ps)
+    table = rng.permutation(B * mp).reshape(B, mp).astype(np.int32)
+    for b, L in enumerate((base + T).tolist()):
+        table[b, (L - 1) // ps + 1:] = -1
+    table = _t(table).reshape(-1).to(cuda)
+    pk, pv = k.reshape(B * S, nkv, hd), v.reshape(B * S, nkv, hd)
+    got = fa_ops.flash_decode_paged_kernel(q, pk, pv, lengths, table, words, base, page_size=ps)
+    torch.cuda.synchronize()
+    _close(got, fa_ref.flash_decode_paged(q, pk, pv, lengths, table, words, base, ps), dtype)
+    ident = torch.arange(B * mp, dtype=torch.int32, device=cuda)
+    for w, bs in ((words, base), (None, None)):
+        paged = fa_ops.flash_decode_paged_kernel(q, pk, pv, lengths, ident, w, bs, page_size=ps)
+        assert torch.equal(paged, fa_ops.flash_decode_kernel(q, k, v, lengths, w, bs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype):
     T, k, E, d, f = 5, 4, 16, 256, 192
     rng = np.random.default_rng(0)

@@ -33,6 +33,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 print(len(names), "modules")
+print(" ".join(names))
 """
 
 
@@ -42,7 +43,11 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         capture_output=True, text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO / "src")),
     )
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[0]) >= 20
+    count, names = out.stdout.splitlines()[:2]
+    assert int(count.split()[0]) >= 21
+    for mod in ("repro_torch.core.pages", "repro_torch.launch.speculative", "repro_torch.launch.steps",
+                "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops"):
+        assert mod in names.split(), mod
 
 
 def test_entry_points_without_a_card_raise(monkeypatch):
