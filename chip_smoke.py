@@ -8,13 +8,16 @@ kernel against its plain PyTorch version at the shapes the full-width
 serving paths give it (and times both, beside the card's bound and one
 PyTorch call where one computes the same function), serves the f32 smoke
 twins on the card and on the CPU (greedy streams must be identical: chains,
-a draft tree with the model drafter, and the paged KV plane with trees and
-with a shared prefix), then serves Qwen3-MoE-235B-A22B at full width, cut to
-4 layers, on the Agile decode plane twice: over the contiguous cache (spec
-4, ngram drafter; phase ``full_width``) and over the paged KV plane with a
-``2,1`` draft tree drafted by the target's first layer behind a 64-token
-shared system prompt (phase ``paged_tree``), and shows that each path ran its kernels.  Each phase
-prints one JSON line; the full record also goes to
+a draft tree with the model drafter, the paged KV plane with trees and with
+a shared prefix, and the hybrid RecurrentGemma stack over rolling windows),
+then serves Qwen3-MoE-235B-A22B at full width, cut to 4 layers, on the
+Agile decode plane twice: over the contiguous cache (spec 4, ngram drafter;
+phase ``full_width``) and over the paged KV plane with a ``2,1`` draft tree
+drafted by the target's first layer behind a 64-token shared system prompt
+(phase ``paged_tree``); then, with the MoE weights freed, RecurrentGemma-2B
+uncut (26 layers, bf16) over 2,048-slot rolling windows with 2,048- to
+4,096-token prompts (phase ``hybrid_window``), and shows that each path ran
+its kernels.  Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
 Needs one card, no network, and imports no jax.
@@ -39,8 +42,15 @@ SLOTS, PROMPT, GEN, REQUESTS, SPEC = 4, 128, 32, 8, 4
 # prompt, pages of 16 rows, the 4-node draft tree 2,1
 SHARED, PAGE, TREE = 64, 16, (2, 1)
 PAGED_MAX_LEN = PROMPT + SHARED + GEN + 4   # 228 rows, 15 pages a slot
+# the hybrid cell: RecurrentGemma-2B uncut, 4 slots, 8 requests of
+# 2,048/3,072/4,096 tokens (the CLI's buckets for --prompt-len 4096), 64
+# generated tokens each, spec width 1, rolling windows of 2,048 slots
+HYBRID = "recurrentgemma-2b"
+H_SLOTS, H_PROMPT, H_GEN, H_REQUESTS = 4, 4096, 64, 8
+H_MAX_LEN = H_PROMPT + H_GEN + 1            # 4,161 rows of slot budget
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
+F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
 
 RECORD: dict = {}
 
@@ -69,8 +79,8 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -263,6 +273,7 @@ def kernel_phase(cfg, dev):
     del wg, wu, wd, h
     torch.cuda.empty_cache()
     rows["flash_decode_paged"] = paged_kernel_rows(cfg, dev, gen, tol)
+    rows.update(hybrid_kernel_rows(dev, gen, tol))
     return rows
 
 
@@ -354,22 +365,163 @@ def paged_kernel_rows(cfg, dev, gen, tol):
     )
 
 
+def hybrid_kernel_rows(dev, gen, tol):
+    """Kernels 6, 7 and 12 at the hybrid cell's shapes (RecurrentGemma-2B:
+    10 query heads over one KV head, hd 256, window 2,048, lru width 2,560),
+    f32 and bf16, each against its plain version; kernel 6 also as a T = 3
+    chain at a small shape, kernel 7 also at Qwen3-MoE's prefill shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+    hcfg, qcfg = get_config(HYBRID), get_config(ARCH)
+    bf16 = torch.bfloat16
+    nq, nkv, hd, W = hcfg.num_heads, hcfg.num_kv_heads, hcfg.resolved_head_dim, hcfg.local_window
+    G = nq // nkv
+    rows = {}
+
+    # ---- flash_decode_window: 4 slots, one token each, every window wrapped
+    def window_check(B, T, nq_, nkv_, hd_, W_, window, idx, tag):
+        pos = (torch.tensor(idx, dtype=torch.int32)[:, None] + torch.arange(T, dtype=torch.int32)).reshape(-1)
+        pos = pos.to(dev)
+        q32 = torch.randn((B, T, nq_, hd_), generator=gen, device=dev)
+        k32, v32 = (torch.randn((B, W_, nkv_, hd_), generator=gen, device=dev) for _ in range(2))
+        lim = min(window, W_)
+        e32 = check_close(f"flash_decode_window f32 {tag}", fa_ops.flash_decode_window_kernel(
+            q32, k32, v32, pos, window=window), fa_ref.flash_decode_window(q32, k32, v32, pos, lim), tol["f32"])
+        q, kk, vv = q32.to(bf16), k32.to(bf16), v32.to(bf16)
+        e = check_bf16(f"flash_decode_window bf16 {tag}", fa_ops.flash_decode_window_kernel(
+            q, kk, vv, pos, window=window), fa_ref.flash_decode_window(q, kk, vv, pos, lim))
+        return e, e32, (q, kk, vv, pos, lim)
+
+    chain_err, chain_err32, _ = window_check(3, 3, 4, 2, 64, 24, 16, [2, 21, 75], "T=3 chain")
+    idx = [2100, 2900, 3600, 4160]
+    err, err32, (q, kk, vv, pos, lim) = window_check(H_SLOTS, 1, nq, nkv, hd, W, W, idx, "full width")
+    B, T = H_SLOTS, 1
+    # the window gathered into position order is set-up: one call attends over it
+    p_all = pos.long()[:, None] - lim + 1 + torch.arange(lim, device=dev)[None, :]  # (B, lim), T = 1
+    slots = torch.remainder(p_all.clamp(min=0), W)
+    bidx = torch.arange(B, device=dev)[:, None]
+    kt, vt = (c[bidx, slots].transpose(1, 2).repeat_interleave(G, 1) for c in (kk, vv))
+    vis = (p_all >= 0)[:, None, None, :]
+    qt = q.transpose(1, 2)
+
+    def lib_window():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+
+    n_vis = [min(lim, p + 1) for p in idx]
+    nbytes = 2 * q.numel() * 2 + sum(n_vis) * nkv * hd * 2 * 2 + B * T * 4
+    flops = float(sum(n_vis)) * nq * hd * 4
+    rows["flash_decode_window"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, chain_t3_max_abs_err=chain_err, chain_t3_max_abs_err_f32=chain_err32,
+        ms=time_ms(lambda: fa_ops.flash_decode_window_kernel(q, kk, vv, pos, window=W), iters=20),
+        plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, kk, vv, pos, lim), iters=5, reps=3),
+        library_ms=time_ms(lib_window, iters=20),
+        library_call="scaled_dot_product_attention over the window gathered into position order (boolean mask, "
+                     "kv heads expanded beforehand)",
+        shapes=f"q {tuple(q.shape)}, rolling kv {tuple(kk.shape)}, positions {idx}, window {W}; "
+               f"chain: q (3, 3, 4, 64) over (3, 24, 2, 64), window 16, positions from 2/21/75",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del q, kk, vv, kt, vt, qt
+    torch.cuda.empty_cache()
+
+    # ---- flash_attention: one 4,096-token RecurrentGemma prompt, window 2,048
+    def prefill_inputs(S, nq_, nkv_, hd_):
+        q32 = torch.randn((1, S, nq_, hd_), generator=gen, device=dev)
+        return q32, *(torch.randn((1, S, nkv_, hd_), generator=gen, device=dev) for _ in range(2))
+
+    def prefill_check(qkv32, window, tag):
+        q32, k32, v32 = qkv32
+        e32 = check_close(f"flash_attention f32 {tag}",
+                          fa_ops.flash_attention_kernel(q32, k32, v32, causal=True, window=window),
+                          fa_ref.flash_attention(q32, k32, v32, causal=True, window=window), tol["f32"])
+        q, k, v = (t.to(bf16) for t in qkv32)
+        e = check_bf16(f"flash_attention bf16 {tag}", fa_ops.flash_attention_kernel(q, k, v, causal=True,
+                                                                                    window=window),
+                       fa_ref.flash_attention(q, k, v, causal=True, window=window))
+        return e, e32, (q, k, v)
+
+    q_err, q_err32, (q, k, v) = prefill_check(
+        prefill_inputs(128, qcfg.num_heads, qcfg.num_kv_heads, qcfg.resolved_head_dim), 0, "qwen3-moe prompt")
+    qwen_ms = time_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, causal=True), iters=20)
+    S = H_PROMPT
+    err, err32, (q, k, v) = prefill_check(prefill_inputs(S, nq, nkv, hd), W, "recurrentgemma prompt")
+    i = torch.arange(S, device=dev)
+    band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+    kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1) for c in (k, v))
+    qt = q.transpose(1, 2)
+
+    def lib_prefill():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+    pairs = sum(min(t + 1, W) for t in range(S))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    flops = float(pairs) * nq * hd * 4
+    rows["flash_attention"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32,
+        ms=time_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, causal=True, window=W), iters=5, reps=3),
+        plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True, window=W), iters=2, reps=3),
+        library_ms=time_ms(lib_prefill, iters=5, reps=3),
+        library_call="scaled_dot_product_attention with a banded boolean mask (kv heads expanded beforehand)",
+        qwen_prefill_ms=qwen_ms, qwen_max_abs_err=q_err, qwen_max_abs_err_f32=q_err32,
+        shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal, window {W} ({pairs} visible pairs a head); "
+               f"qwen3-moe: q (1, 128, 64, 128), kv (1, 128, 4, 128), causal",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del q, k, v, kt, vt, qt, band
+    torch.cuda.empty_cache()
+
+    # ---- rglru_scan: one 4,096-token prompt over 2,560 channels (f32 on the path)
+    Wl = hcfg.lru_width
+    a32 = torch.rand((1, S, Wl), generator=gen, device=dev) * 0.499 + 0.5
+    b32 = torch.randn((1, S, Wl), generator=gen, device=dev) * 0.1
+    h0 = torch.randn((1, Wl), generator=gen, device=dev)
+    err32 = check_close("rglru_scan f32", rg_ops.rglru_scan(a32, b32, h0), rg_ref.linear_scan(a32, b32, h0), tol["f32"])
+    ab, bb = a32.to(bf16), b32.to(bf16)
+    err = check_close("rglru_scan bf16 inputs", rg_ops.rglru_scan(ab, bb, h0), rg_ref.linear_scan(ab, bb, h0),
+                      tol["f32_out"])
+    nbytes = a32.numel() * 4 * 3 + h0.numel() * 4
+    flops = 2.0 * a32.numel()
+    rows["rglru_scan"] = dict(
+        max_abs_err=err32, max_abs_err_bf16_inputs=err,
+        ms=time_ms(lambda: rg_ops.rglru_scan(a32, b32, h0), iters=20),
+        ms_bf16_inputs=time_ms(lambda: rg_ops.rglru_scan(ab, bb, h0), iters=20),
+        plain_ms=time_ms(lambda: rg_ref.linear_scan(a32, b32, h0), iters=1, reps=3),
+        library_ms=None,
+        library_call="none: no PyTorch call computes a linear recurrence (torch has no associative scan; "
+                     "cumprod/cumsum forms overflow or lose precision over 4,096 steps)",
+        shapes=f"a, b {tuple(a32.shape)} f32 (the model's gates), h0 {tuple(h0.shape)}",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))),
+    )
+    del a32, b32, ab, bb
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
 
 
-CONTIGUOUS_KERNELS = ("flash_decode", "decode_moe", "gather_swiglu", "down_combine")
-PAGED_KERNELS = ("flash_decode_paged", "decode_moe", "gather_swiglu", "down_combine")
+CONTIGUOUS_KERNELS = ("flash_decode", "decode_moe", "gather_swiglu", "down_combine", "flash_attention")
+PAGED_KERNELS = ("flash_decode_paged", "decode_moe", "gather_swiglu", "down_combine", "flash_attention")
+HYBRID_KERNELS = ("flash_decode_window", "flash_attention", "rglru_scan")
 
 
 def smoke_twin(dev):
-    """The f32 smoke config served on the card (kernels) and on the CPU
+    """The f32 smoke configs served on the card (kernels) and on the CPU
     (plain versions) from the same weights: greedy streams identical.  At
     spec 4 some drafts must be accepted, so the plan-row selection by
     ``prev_accept > 0`` runs on the card; the same holds for the trees
     (plan rows selected by parent, the contiguous commit, and on the paged
-    plane the commit maps fused into the next launch)."""
+    plane the commit maps fused into the next launch).  The hybrid run
+    serves RecurrentGemma's smoke stack (rec, rec, attn) with prompts of
+    24/36/48 tokens past its window of 16, so every rolling buffer wraps."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -378,41 +530,48 @@ def smoke_twin(dev):
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
-    # name -> (spec width, drafter, tree branching, page size or 0, shared prefix)
     runs = {
-        "spec1_ngram": (1, "ngram", None, 0, 0),
-        "spec4_repeat": (4, "repeat", None, 0, 0),
-        "spec4_ngram": (4, "ngram", None, 0, 0),
-        "tree2x2_model": (5, "model", (2, 2), 0, 0),
-        "paged_tree2x1_ps8": (4, "ngram", (2, 1), 8, 0),
-        "paged_spec3_shared16": (3, "ngram", None, 16, 16),
+        "spec1_ngram": dict(),
+        "spec4_repeat": dict(spec=4, drafter="repeat"),
+        "spec4_ngram": dict(spec=4),
+        "tree2x2_model": dict(spec=5, drafter="model", tree=(2, 2)),
+        "paged_tree2x1_ps8": dict(spec=4, tree=(2, 1), ps=8),
+        "paged_spec3_shared16": dict(spec=3, ps=16, shared=16),
+        "hybrid_spec1": dict(arch=HYBRID, slots=2, prompt=48, requests=4),
     }
     out = {}
-    for name, (spec, drafter, branching, ps, shared) in runs.items():
-        tree = TreePlan.from_branching(branching) if branching else None
-        cfg = dataclasses.replace(get_smoke_config(ARCH), decode_plane=True, spec_tokens=spec,
+    for name, run in runs.items():
+        r = dict(arch=ARCH, spec=1, drafter="ngram", tree=None, ps=0, shared=0, slots=3, prompt=16, gen=8,
+                 requests=6)
+        r.update(run)
+        spec, drafter, ps, shared = r["spec"], r["drafter"], r["ps"], r["shared"]
+        tree = TreePlan.from_branching(r["tree"]) if r["tree"] else None
+        cfg = dataclasses.replace(get_smoke_config(r["arch"]), decode_plane=True, spec_tokens=spec,
                                   paged=ps > 0, page_size=ps or 16)
         params_cpu = Model(cfg, device="cpu").init(0)
         # the draft model is the target cut to its first layer (self-drafting):
         # a drafter with weights of its own never hits on random weights
         draft_cpu = dict(params_cpu, layers=params_cpu["layers"][:1]) if drafter == "model" else None
-        reqs = serve.synthetic_requests(cfg.vocab_size, 16, 8, 6, shared)
-        max_len = 16 + shared + 8 + spec
+        reqs = serve.synthetic_requests(cfg.vocab_size, r["prompt"], r["gen"], r["requests"], shared)
+        max_len = r["prompt"] + shared + r["gen"] + spec
         kw = dict(tree=tree, drafter=drafter)
         reset_launch_counts()
-        rep = serve.ServeReplica(cfg, 3, max_len, _to(params_cpu, dev), device=dev,
+        rep = serve.ServeReplica(cfg, r["slots"], max_len, _to(params_cpu, dev), device=dev,
                                  drafter_params=_to(draft_cpu, dev), **kw)
         gpu = serve.serve_queue(rep, reqs)
         torch.cuda.synchronize()
         counts = {n: w.launches for n, w in kernel_wrappers().items()}
-        cpu_rep = serve.ServeReplica(cfg, 3, max_len, params_cpu, device="cpu", drafter_params=draft_cpu, **kw)
+        cpu_rep = serve.ServeReplica(cfg, r["slots"], max_len, params_cpu, device="cpu", drafter_params=draft_cpu,
+                                     **kw)
         cpu = serve.serve_queue(cpu_rep, reqs)
-        g = {rid: r.tokens for rid, r in gpu.items()}
-        c = {rid: r.tokens for rid, r in cpu.items()}
+        g = {rid: res.tokens for rid, res in gpu.items()}
+        c = {rid: res.tokens for rid, res in cpu.items()}
         tag = f"smoke twin {name}"
         if g != c:
             raise AssertionError(f"{tag}: card streams {g} != CPU streams {c}")
-        expect = PAGED_KERNELS if ps else CONTIGUOUS_KERNELS
+        if len(g) != r["requests"] or any(len(t) != r["gen"] + 1 for t in g.values()):
+            raise AssertionError(f"{tag}: unanswered or short streams: {g}")
+        expect = HYBRID_KERNELS if r["arch"] == HYBRID else PAGED_KERNELS if ps else CONTIGUOUS_KERNELS
         if min(counts[n] for n in expect) <= 0:
             raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
         if ps and drafter != "model" and counts["flash_decode"]:
@@ -427,6 +586,11 @@ def smoke_twin(dev):
             accepted_total=rep.accepted_total, drafted_total=rep.drafted_total, draft_accepts=draft_accepts,
             commits=rep.commits,
         )
+        if r["arch"] == HYBRID:
+            W = rep.cache[2]["k"].shape[1]
+            if not min(len(q.prompt) for q in reqs) > W == cfg.local_window:
+                raise AssertionError(f"{tag}: prompts do not pass the {W}-slot window")
+            row.update(window_slots=W, prompt_lens=sorted({len(q.prompt) for q in reqs}))
         if ps:
             st = rep.paged_stats()
             if shared and st["pages_shared_total"] <= 0:
@@ -475,8 +639,7 @@ def full_width(dev):
     rep = serve.ServeReplica(cfg, SLOTS, max_len, params, drafter="ngram", device=dev)
     # warm-up outside the measured run: one request through admission and decode
     serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))
-    for name in ("launches", "prefills", "accepted_total", "drafted_total", "prefill_ms", "decode_ms"):
-        setattr(rep, name, type(getattr(rep, name))(0))
+    reset_serving_stats(rep)
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -509,19 +672,9 @@ def full_width(dev):
         accept_rate=rep.accepted_total / max(rep.drafted_total, 1),
         kernel_launches=counts, streams=streams,
     )
-    # launches of each kernel in one admission and in one decode launch
-    wrappers = kernel_wrappers()
-    reset_launch_counts()
-    rep.admit(reqs[0])
-    per_admission = {n: w.launches for n, w in wrappers.items()}
-    reset_launch_counts()
-    rep.step()
-    per_decode = {n: w.launches for n, w in wrappers.items()}
+    served["launches_per_step"] = launches_per_step(rep, reqs[0])
     while rep.has_work():
         rep.step()
-    served["launches_per_step"] = {
-        n: dict(per_decode_launch=per_decode[n], per_admission=per_admission[n]) for n in wrappers
-    }
     return served, rep
 
 
@@ -609,22 +762,145 @@ def paged_tree(dev, params):
         trie_nodes=st["trie_nodes"], commit_launches=rep.commits,
         kernel_launches=counts, streams=streams,
     )
-    # launches of each kernel in one admission and in one decode launch
-    wrappers = kernel_wrappers()
-    reset_launch_counts()
-    rep.admit(reqs[0])
-    per_admission = {n: w.launches for n, w in wrappers.items()}
-    reset_launch_counts()
-    d0 = rep.model_drafter.launches
-    rep.step()
-    per_decode = {n: w.launches for n, w in wrappers.items()}
+    d0 = rep.model_drafter.launches  # admission prefills the drafter but launches none of its decodes
+    served["launches_per_step"] = launches_per_step(rep, reqs[0])
     served["drafter_launches_per_step"] = rep.model_drafter.launches - d0
     while rep.has_work():
         rep.step()
-    served["launches_per_step"] = {
-        n: dict(per_decode_launch=per_decode[n], per_admission=per_admission[n]) for n in wrappers
-    }
     return served, rep
+
+
+def hybrid_window(dev):
+    """The hybrid cell: RecurrentGemma-2B uncut (26 layers: 18 RG-LRU, 8
+    local attention), bf16, random weights from seed 0, spec width 1, on
+    rolling buffers of 2,048 slots.  4 slots serve 8 requests of
+    2,048/3,072/4,096 prompt tokens and 64 generated tokens: every prompt
+    fills its window and every decode write wraps it.  Each admission runs
+    kernel 7 in the 8 attention layers and kernel 12 in the 18 RG-LRU
+    layers; each decode launch runs kernel 6 in the 8 attention layers."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(HYBRID), decode_plane=True, spec_tokens=1)
+    n_attn, n_rec = cfg.layer_kinds.count("attn"), cfg.layer_kinds.count("rec")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    tied_bytes = params["unembed"].numel() * 4
+    reqs = serve.synthetic_requests(cfg.vocab_size, H_PROMPT, H_GEN, H_REQUESTS)
+    rep = serve.ServeReplica(cfg, H_SLOTS, H_MAX_LEN, params, device=dev)
+    W = rep.cache[cfg.layer_kinds.index("attn")]["k"].shape[1]
+    if W != cfg.local_window or min(len(r.prompt) for r in reqs) < W:
+        raise AssertionError(f"hybrid: {W}-slot buffers, prompts {sorted({len(r.prompt) for r in reqs})}")
+    # warm-up outside the measured run: one request through admission and decode
+    serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, H_PROMPT, 4, 1))
+    reset_serving_stats(rep)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve.serve_queue(rep, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()  # the serving peak, before the checks below
+    counts = {n: w.launches for n, w in kernel_wrappers().items()}
+    streams = {rid: r.tokens for rid, r in results.items()}
+    if sorted(streams) != list(range(H_REQUESTS)) or any(r.error for r in results.values()):
+        raise AssertionError(f"hybrid: unanswered or failed requests: {results}")
+    for rid, toks in streams.items():
+        if len(toks) != H_GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"hybrid: request {rid} stream malformed: {toks}")
+    if (counts["flash_decode_window"] != n_attn * rep.launches or counts["flash_attention"] != n_attn * H_REQUESTS
+            or counts["rglru_scan"] != n_rec * H_REQUESTS):
+        raise AssertionError(f"hybrid: kernel launches {counts} do not match {rep.launches} decode launches and "
+                             f"{H_REQUESTS} admissions of {n_attn} attention and {n_rec} RG-LRU layers")
+    one = model.init_cache(1, H_MAX_LEN)
+    logits = model.prefill(params, reqs[2].prompt[None], one)
+    if not (logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())):
+        raise AssertionError("hybrid: prefill logits not finite or of the wrong shape")
+    del one, logits
+    consistency = hybrid_decode_matches_prefill(dev)
+    served = dict(
+        arch=HYBRID, layers=cfg.num_layers, layers_published=get_config(HYBRID).num_layers, dtype=cfg.dtype,
+        attention_layers=n_attn, rglru_layers=n_rec, window=cfg.local_window, window_slots=W,
+        slots=H_SLOTS, prompt_len=H_PROMPT, prompt_lens=sorted({len(r.prompt) for r in reqs}), gen=H_GEN,
+        requests=H_REQUESTS, spec_tokens=1, max_len=H_MAX_LEN,
+        weight_bytes=weight_bytes, tied_unembed_f32_bytes=tied_bytes, init_s=init_s, peak_memory_bytes=peak,
+        wall_s=wall, generated_tokens=rep.accepted_total, tok_per_s=rep.accepted_total / wall,
+        decode_launches=rep.launches, ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1),
+        prefills=rep.prefills, prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
+        kernel_launches=counts, distinct_tokens_per_stream=sorted(len(set(t)) for t in streams.values()),
+        decode_matches_prefill=consistency, streams=streams,
+    )
+    served["launches_per_step"] = launches_per_step(rep, reqs[0])
+    while rep.has_work():
+        rep.step()
+    return served, rep
+
+
+def hybrid_decode_matches_prefill(dev, prompt_len=2100, steps=4):
+    """Decode over the rolling buffer and the RG-LRU state equals prefill of
+    the extended sequence: RecurrentGemma-2B at full width (d 2560, 10 heads
+    over one KV head, hd 256, lru 2560, vocab 256,000) in f32, cut to one
+    super-block (rec, rec, attn), a prompt past the 2,048 window.  Each
+    decode launch's logits (kernel 6, one RG-LRU step) are held against the
+    last-position logits of a prefill of the prompt and the tokens decoded
+    so far (kernels 7 and 12) at 1e-4 of their scale: f32 sums in another
+    order over up to 7,680 terms.  With random weights the echo of the
+    input token dominates the argmax, so the logits are compared, not the
+    tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(HYBRID), num_layers=3, dtype="float32", decode_plane=True)
+    model = Model(cfg, device=dev)
+    params = model.init(1)
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, prompt_len).astype(np.int32)
+    max_len = prompt_len + steps + 1
+    cache = model.init_cache(1, max_len)
+    toks = [int(model.prefill(params, prompt[None], cache)[0].argmax())]
+    errs = []
+    for i in range(steps):
+        got = model.decode_tokens(params, cache, [[toks[-1]]], [prompt_len + i], max_len=max_len)[0, 0]
+        seq = np.concatenate([prompt, np.asarray(toks, np.int32)])
+        want = model.prefill(params, seq[None], model.init_cache(1, max_len))[0]
+        errs.append(check_close(f"hybrid decode step {i} vs prefill of {len(seq)} tokens", got, want, 1e-4))
+        toks.append(int(got.argmax()))
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(layers=3, dtype="float32", prompt_len=prompt_len, steps=steps, max_abs_err=max(errs),
+                tolerance="1e-4 x max(1, max |prefill logit|)")
+
+
+def reset_serving_stats(rep) -> None:
+    """Zero the replica's launch, token and time counters (after a warm-up)."""
+    for name in ("launches", "prefills", "accepted_total", "drafted_total", "prefill_ms", "decode_ms"):
+        setattr(rep, name, type(getattr(rep, name))(0))
+
+
+def launches_per_step(rep, req) -> dict:
+    """Launches of each kernel in one admission of ``req`` and in the decode
+    launch that follows it; the replica keeps its remaining work."""
+    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+
+    wrappers = kernel_wrappers()
+    reset_launch_counts()
+    rep.admit(req)
+    per_admission = {n: w.launches for n, w in wrappers.items()}
+    reset_launch_counts()
+    rep.step()
+    return {n: dict(per_decode_launch=w.launches, per_admission=per_admission[n]) for n, w in wrappers.items()}
 
 
 def _leaves(tree):
@@ -638,10 +914,11 @@ def _leaves(tree):
         yield tree
 
 
-def profile_decode(rep, vocab, shared=0):
-    """Device time by kernel over a short steady window of decode launches
-    of ``rep`` (the full-width replica, then the paged-tree one, whose
-    queue carries the ``shared``-token system prompt of its cell).
+def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
+    """Device time by kernel over a short steady window of ``n`` decode
+    launches of ``rep`` (the full-width replica, then the paged-tree one,
+    whose queue carries the ``shared``-token system prompt of its cell, then
+    the hybrid one with its ``prompt``-token queue).
 
     The profiler's own host overhead lengthens the launches it records, so
     the idle share divides the device-busy time per launch by the wall time
@@ -652,8 +929,7 @@ def profile_decode(rep, vocab, shared=0):
 
     from repro_torch.launch import serve
 
-    n = 3
-    for r in serve.synthetic_requests(vocab, PROMPT, GEN, SLOTS, shared):
+    for r in serve.synthetic_requests(vocab, prompt, gen, rep.B, shared):
         rep.admit(r)
     rep.step()
     torch.cuda.synchronize()
@@ -704,6 +980,11 @@ KERNELS = {
                      "src/repro/kernels/moe_fused/kernel.py:175"),
     "flash_decode_paged": ("src/repro_torch/csrc/flash_decode.cu",
                            "src/repro/kernels/flash_attention/decode.py:379"),
+    "flash_decode_window": ("src/repro_torch/csrc/flash_decode.cu",
+                            "src/repro/kernels/flash_attention/decode.py:294"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:97"),
+    "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:46"),
 }
 
 
@@ -747,12 +1028,18 @@ def main() -> int:
     paged, rep = paged_tree(dev, params)
     emit("paged_tree", **paged)
     emit("profile_paged", **profile_decode(rep, cfg.vocab_size, SHARED))
+    del rep, params  # free the MoE weights before the hybrid cell
+    torch.cuda.empty_cache()
+    hybrid, rep = hybrid_window(dev)
+    emit("hybrid_window", **hybrid)
+    emit("profile_hybrid", **profile_decode(rep, get_config(HYBRID).vocab_size, prompt=H_PROMPT, gen=H_GEN, n=5))
+    del rep
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
         # each kernel's launches come from the serving path it belongs to
-        path = paged if name == "flash_decode_paged" else served
+        path = paged if name == "flash_decode_paged" else hybrid if name in HYBRID_KERNELS else served
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -5,8 +5,13 @@ The reference names each leaf by its "/"-joined tree path
 ``blocks/scan/b{j}/<path>`` stacked on a leading super-block axis, and
 ``blocks/rest/{i}/<path>`` for a pattern-incomplete tail.  The port keeps one
 dict per layer, so the super-block axis is un-stacked here: super-block
-``s``, pattern slot ``j`` is layer ``s * len(pattern) + j``.  Each leaf is
-stored in the type its use computes in (:func:`layers.storage_dtype`).
+``s``, pattern slot ``j`` is layer ``s * len(pattern) + j``, and the
+tail's ``blocks/rest/{i}`` is layer ``n_superblocks * len(pattern) + i``
+(RecurrentGemma-2B: 26 layers over ``rec, rec, attn`` are 8 super-blocks
+and two ``rec`` layers).  Each leaf is stored in the type its use computes
+in (:func:`layers.storage_dtype`).  Tied embeddings have no ``unembed``
+leaf: the f32 table the logits read is made from ``embed`` here
+(:func:`transformer.place_tied_unembed`).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, storage_dtype
+from repro_torch.models.transformer import place_tied_unembed
 
 
 def _put(tree: dict, path, arr: np.ndarray, cfg: ModelConfig, device) -> None:
@@ -50,7 +56,7 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, np.ndarray], device) -
             raise ValueError(f"unknown parameter leaf {name!r}")
     if any(not layer for layer in layers):
         raise ValueError("the leaves do not cover every layer of the config")
-    return params
+    return place_tied_unembed(params, cfg)
 
 
 def load_step_dir(cfg: ModelConfig, step_dir, device) -> Params:

@@ -1,22 +1,35 @@
-// Vector-steered flash-decode over the contiguous KV cache, and its paged
-// twin over a flat page pool addressed through per-slot block tables.
+// Vector-steered flash-decode over the contiguous KV cache, its paged twin
+// over a flat page pool addressed through per-slot block tables, and its
+// window-steered twin over a rolling (modulo-addressed) cache.
 //
 // Replaces: src/repro/kernels/flash_attention/decode.py, flash_decode_pallas
-// (kernel _flash_decode_kernel) and flash_decode_paged_pallas (kernel
-// _flash_decode_paged_kernel); chain and tree words, no int8 scales.
+// (kernel _flash_decode_kernel), flash_decode_paged_pallas (kernel
+// _flash_decode_paged_kernel) and flash_decode_window_pallas (kernel
+// _flash_decode_window_kernel); chain and tree words, no int8 scales.
 //
-// What it computes: token (b, t) with query heads q[b, t, :, :] attends to
-// logical cache rows p < lengths[b*T + t] of KV head h // group, where a row
-// is visible iff p < base[b] or bit (p - base[b]) of anc[t] is set (the chain
-// word -1 keeps every bit: the pure length clamp).  Online softmax in f32;
-// the output has q's type.  The two instantiations differ only in where
-// logical row p of sequence b lives (the row-address policy):
-//   contiguous  (b*S + p) * nkv*hd                  in k/v (B, S, nkv, hd)
-//   paged       (phys*ps + p%ps) * nkv*hd           in the pool (R, nkv, hd),
-//               phys = max(table[b*mp + min(p/ps, (L-1)/ps)], 0)
-// (the length clamp first, then the block-table lookup, as the TPU kernel's
-// index_map does).  Masking, tiles and the order of every sum are shared, so
-// with an identity table the paged kernel is bitwise the contiguous one.
+// What it computes: token (b, t) with query heads q[b, t, :, :] attends to a
+// run of logical cache rows of KV head h // group, with online softmax in
+// f32; the output has q's type.  The three instantiations differ in which
+// logical rows a token sees and where logical row p of sequence b lives (the
+// row-address policy):
+//   contiguous  rows p < lengths[b*T + t], visible iff p < base[b] or bit
+//               (p - base[b]) of anc[t] is set (the chain word -1 keeps every
+//               bit: the pure length clamp); row (b*S + p) in k/v (B, S, nkv, hd)
+//   paged       the same rows and mask; row phys*ps + p%ps in the pool
+//               (R, nkv, hd), phys = max(table[b*mp + min(p/ps, (L-1)/ps)], 0)
+//               (the length clamp first, then the block-table lookup, as the
+//               TPU kernel's index_map does)
+//   window      positions p in [max(0, pos - limit + 1, head - W + 1), pos],
+//               pos = positions[b*T + t], head = positions[b*T + T - 1] (the
+//               last row this launch wrote); row (b*W + p % W) in the rolling
+//               buffer k/v (B, W, nkv, hd).  The lower bound head - W + 1
+//               drops positions whose slot a later draft token of the launch
+//               overwrote, exactly the TPU kernel's reconstruction of each
+//               slot's absolute position from the write head.
+// Contiguous and paged share masking, tiles and the order of every sum, so
+// with an identity table the paged kernel is bitwise the contiguous one.  The
+// window kernel walks positions in order where the TPU kernel walks slots in
+// slot order, so its sums run in another order (equal within rounding).
 //
 // What bounds it on the card: bytes.  At decode every K/V row is used by one
 // token's group of query heads for 2 * group * hd FLOPs per 2 * hd elements,
@@ -27,35 +40,40 @@
 //    strides; the TPU wrapper's transpose per call (and, paged, its reshape
 //    of the pool into pages) is gone.
 //  * One block per (kv head, token, sequence) holds the whole GQA group of
-//    query heads (16 for Qwen3-MoE), so each K/V row is read once per group,
-//    not once per query head.
-//  * The walk stops at the token's own length: no byte past the valid prefix
-//    moves (the length-clamp contract); paged, only the pages backing that
-//    prefix are touched, and the block loads its own block-table row into
-//    shared memory once (the TPU kernel's scalar prefetch).
+//    query heads (16 for Qwen3-MoE, 10 for RecurrentGemma's one KV head), so
+//    each K/V row is read once per group, not once per query head.
+//  * The walk covers only the token's visible run: no byte past the valid
+//    prefix moves (the length-clamp contract), at most min(limit, W) rows of
+//    a rolling buffer move, and paged only the pages backing the prefix are
+//    touched; the block loads its own block-table row into shared memory
+//    once (the TPU kernel's scalar prefetch).
 // Tiles are 32 rows; the K and V tiles share one f32 shared-memory buffer
 // whose rows are padded by one word so the row-parallel dot products do not
-// collide on a bank.
+// collide on a bank.  At hd 256 and a group of 10 the block needs ~55 KB of
+// shared memory, above the 48 KB default: the launch opts in.
+// With one KV head and T = 1 the window launch is only B blocks: it is
+// latency-bound; a split of the window over blocks is a later step.
 #include "common.cuh"
 
 namespace {
 
 constexpr int TILE = 32;
 constexpr int THREADS = 128;
+constexpr int CONTIGUOUS = 0, PAGED = 1, WINDOW = 2;  // row-address policies
 
-// PAGED selects the row-address policy; S is the logical row capacity of a
-// sequence (max_len contiguous, mp * ps paged).
-template <typename T, bool PAGED>
+// POLICY selects the row-address policy; S is the row capacity of a sequence
+// (max_len contiguous, mp * ps paged, the buffer's W slots for a window).
+template <typename T, int POLICY>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const T* __restrict__ q,    // (B, Tn, nq, hd)
     const T* __restrict__ k,    // contiguous (B, S, nkv, hd); paged (R, nkv, hd)
     const T* __restrict__ v,
     T* __restrict__ out,        // (B, Tn, nq, hd)
-    const int* __restrict__ lengths,  // (B*Tn,)
-    const int* __restrict__ anc,      // (Tn,)
-    const int* __restrict__ base,     // (B,)
-    const int* __restrict__ table,    // paged: (B*mp,) block tables; contiguous: unused
-    int Tn, int S, int nq, int nkv, int hd, float scale, int mp, int ps) {
+    const int* __restrict__ lengths,  // (B*Tn,) lengths; window: absolute positions
+    const int* __restrict__ anc,      // (Tn,); window: unused
+    const int* __restrict__ base,     // (B,); window: unused
+    const int* __restrict__ table,    // paged: (B*mp,) block tables; otherwise unused
+    int Tn, int S, int nq, int nkv, int hd, float scale, int mp, int ps, int limit) {
   const int kvh = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
   const int G = nq / nkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -80,27 +98,36 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     ms[g] = REPRO_NEG_INF;
     ls[g] = 0.f;
   }
-  if (PAGED) {
+  if (POLICY == PAGED) {
     for (int i = tid; i < mp; i += THREADS) tbl[i] = table[(long)b * mp + i];
   }
-  int L = lengths[b * Tn + t];
-  L = L < S ? L : S;
-  const int word = anc[t];
-  const int bs = base[b];
+  // the token's visible run of logical rows [first, L)
+  int first = 0, L;
+  if (POLICY == WINDOW) {
+    const int pos = lengths[b * Tn + t], head = lengths[b * Tn + Tn - 1];
+    first = max(max(0, pos - limit + 1), head - S + 1);
+    L = pos + 1;
+  } else {
+    L = lengths[b * Tn + t];
+    L = L < S ? L : S;
+  }
+  const int word = POLICY == WINDOW ? -1 : anc[t];
+  const int bs = POLICY == WINDOW ? 0 : base[b];
   const long row_stride = (long)nkv * hd;
   const long kv_off = (long)kvh * hd;
-  const int last_page = PAGED ? (L - 1) / ps : 0;
+  const int last_page = POLICY == PAGED ? (L - 1) / ps : 0;
   // the row-address policy: logical row p of sequence b -> physical row
   auto row_of = [&](int p) -> long {
-    if (PAGED) {
+    if (POLICY == PAGED) {
       const int idx = min(p / ps, last_page);
       return (long)max(tbl[idx], 0) * ps + p % ps;
     }
+    if (POLICY == WINDOW) return (long)b * S + p % S;
     return (long)b * S + p;
   };
   __syncthreads();
 
-  for (int p0 = 0; p0 < L; p0 += TILE) {
+  for (int p0 = first; p0 < L; p0 += TILE) {
     const int n = min(TILE, L - p0);
     for (int i = tid; i < n * hd; i += THREADS) {
       const int r = i / hd, d = i - r * hd;
@@ -113,7 +140,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
       float s = REPRO_NEG_INF;
       if (r < n) {
         const int u = p0 + r - bs;
-        const bool on_path = (u < 0) || (((word >> (u < 31 ? u : 31)) & 1) != 0);
+        const bool on_path = POLICY == WINDOW || (u < 0) || (((word >> (u < 31 ? u : 31)) & 1) != 0);
         if (on_path) {
           const float* qg = qs + g * hd;
           const float* kr = kv + r * KS;
@@ -161,24 +188,26 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   }
 }
 
-template <bool PAGED>
+template <int POLICY>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out, const void* lengths,
            const void* table, const void* anc, const void* base, int B, int Tn, int S, int nq, int nkv, int hd,
-           float scale, int mp, int ps, void* stream) {
-  if (nkv <= 0 || nq % nkv != 0 || hd <= 0 || (PAGED && (mp <= 0 || ps <= 0))) return (int)cudaErrorInvalidValue;
+           float scale, int mp, int ps, int limit, void* stream) {
+  if (nkv <= 0 || nq % nkv != 0 || hd <= 0 || (POLICY == PAGED && (mp <= 0 || ps <= 0)) ||
+      (POLICY == WINDOW && (limit <= 0 || Tn > S)))
+    return (int)cudaErrorInvalidValue;
   const int G = nq / nkv;
   const size_t smem = sizeof(float) * ((size_t)G * hd * 2 + (size_t)TILE * (hd + 1) + (size_t)G * TILE + 3 * G) +
-                      (PAGED ? sizeof(int) * (size_t)mp : 0);
+                      (POLICY == PAGED ? sizeof(int) * (size_t)mp : 0);
   dim3 grid(nkv, Tn, B);
   REPRO_DISPATCH(dtype, T, {
     if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T, PAGED>,
+      cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T, POLICY>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    flash_decode_kernel<T, PAGED><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+    flash_decode_kernel<T, POLICY><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)out, (const int*)lengths, (const int*)anc, (const int*)base,
-        (const int*)table, Tn, S, nq, nkv, hd, scale, mp, ps);
+        (const int*)table, Tn, S, nq, nkv, hd, scale, mp, ps, limit);
   });
   return (int)cudaGetLastError();
 }
@@ -188,7 +217,8 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out, co
 extern "C" int repro_flash_decode(int dtype, const void* q, const void* k, const void* v, void* out,
                                   const void* lengths, const void* anc, const void* base, int B, int Tn,
                                   int S, int nq, int nkv, int hd, float scale, void* stream) {
-  return launch<false>(dtype, q, k, v, out, lengths, nullptr, anc, base, B, Tn, S, nq, nkv, hd, scale, 0, 1, stream);
+  return launch<CONTIGUOUS>(dtype, q, k, v, out, lengths, nullptr, anc, base, B, Tn, S, nq, nkv, hd, scale, 0, 1, 0,
+                            stream);
 }
 
 // pool_k/pool_v (R, nkv, hd); table (B*mp,) int32 physical page per logical
@@ -197,6 +227,16 @@ extern "C" int repro_flash_decode_paged(int dtype, const void* q, const void* po
                                         const void* lengths, const void* table, const void* anc, const void* base,
                                         int B, int Tn, int mp, int ps, int nq, int nkv, int hd, float scale,
                                         void* stream) {
-  return launch<true>(dtype, q, pool_k, pool_v, out, lengths, table, anc, base, B, Tn, mp * ps, nq, nkv, hd, scale,
-                      mp, ps, stream);
+  return launch<PAGED>(dtype, q, pool_k, pool_v, out, lengths, table, anc, base, B, Tn, mp * ps, nq, nkv, hd, scale,
+                       mp, ps, 0, stream);
+}
+
+// k/v (B, W, nkv, hd) rolling buffers (slot = position % W); positions (B*Tn,)
+// int32 absolute position of each token, nondecreasing in t, with Tn <= W;
+// limit = min(window, W).
+extern "C" int repro_flash_decode_window(int dtype, const void* q, const void* k, const void* v, void* out,
+                                         const void* positions, int B, int Tn, int W, int nq, int nkv, int hd,
+                                         int limit, float scale, void* stream) {
+  return launch<WINDOW>(dtype, q, k, v, out, positions, nullptr, nullptr, nullptr, B, Tn, W, nq, nkv, hd, scale, 0,
+                        1, limit, stream);
 }

@@ -7,10 +7,14 @@ rebuilt) and bound with ``ctypes``.  :func:`build_all` starts one ``nvcc``
 per source, all together.  Nothing is compiled or loaded at import time:
 hosts without ``nvcc`` import these modules and run the plain versions.
 
-  flash_attention  vector-steered flash-decode over the contiguous KV cache
-                   and over the paged pool (one source, two instantiations)
+  flash_decode     flash-decode steered by lengths over the contiguous KV
+                   cache, by block tables over the paged pool, and by
+                   positions over a rolling window buffer (one source,
+                   three instantiations)
+  flash_attention  blocked causal / local-window GQA prefill attention
   moe_decode       plan-steered expert SwiGLU for tiny T (decode)
   moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + combine
+  rglru_scan       the RG-LRU's diagonal linear recurrence (prefill)
 
 Every wrapper in ``kernels/<name>/ops.py`` takes its plain version (the
 sibling ``ref.py``) only for CPU tensors; on ``cuda`` it launches its kernel
@@ -30,7 +34,7 @@ from typing import Dict, List
 REPO = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "repro_torch"
-SOURCES = ("flash_decode", "moe_decode", "moe_fused")
+SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -143,9 +147,15 @@ def reset_launch_counts() -> None:
 
 def kernel_wrappers() -> dict:
     """name -> wrapper function for every kernel of the serving paths."""
-    from repro_torch.kernels.flash_attention.ops import flash_decode_kernel, flash_decode_paged_kernel
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_kernel,
+        flash_decode_kernel,
+        flash_decode_paged_kernel,
+        flash_decode_window_kernel,
+    )
     from repro_torch.kernels.moe_decode.ops import decode_moe_kernel
     from repro_torch.kernels.moe_fused.ops import down_combine, gather_swiglu
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
 
     return {
         "flash_decode": flash_decode_kernel,
@@ -153,4 +163,7 @@ def kernel_wrappers() -> dict:
         "decode_moe": decode_moe_kernel,
         "gather_swiglu": gather_swiglu,
         "down_combine": down_combine,
+        "flash_decode_window": flash_decode_window_kernel,
+        "flash_attention": flash_attention_kernel,
+        "rglru_scan": rglru_scan,
     }

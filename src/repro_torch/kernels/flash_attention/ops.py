@@ -1,13 +1,18 @@
-"""Flash-decode wrappers (port of ``repro/kernels/flash_attention/decode.py``).
+"""Flash-attention wrappers (port of ``repro/kernels/flash_attention``:
+``decode.py``, ``kernel.py`` and ``ops.py``).
 
-:func:`flash_decode_kernel` and :func:`flash_decode_paged_kernel` are the
-launches: on CPU tensors they run the plain versions (:mod:`.ref`), on
-``cuda`` tensors they launch ``csrc/flash_decode.cu`` or raise.
-:func:`flash_decode` and :func:`flash_decode_paged` are the model-layout
-entry points (the reference's functions of the same names): they build the
-per-token length vector from the cache index.  Unlike the TPU wrappers they
-neither transpose, pad nor reshape: the kernels read the (B, S, nkv, hd)
-cache and the (R, nkv, hd) page pool in place.
+:func:`flash_decode_kernel`, :func:`flash_decode_paged_kernel`,
+:func:`flash_decode_window_kernel` and :func:`flash_attention_kernel` are
+the launches: on CPU tensors they run the plain versions (:mod:`.ref`), on
+``cuda`` tensors they launch ``csrc/flash_decode.cu`` (the three decode
+instantiations) or ``csrc/flash_attention.cu`` (prefill), or raise.
+:func:`flash_decode`, :func:`flash_decode_paged`,
+:func:`flash_decode_window` and :func:`flash_attention` are the
+model-layout entry points (the reference's functions of the same names):
+they build the per-token control words from the cache index.  Unlike the
+TPU wrappers they neither transpose, pad nor reshape: the kernels read the
+(B, S, nkv, hd) cache, the rolling (B, W, nkv, hd) buffer and the
+(R, nkv, hd) page pool in place.
 """
 from __future__ import annotations
 
@@ -191,3 +196,136 @@ def flash_decode_paged(
     lengths = _as_length_vector(cache_index, B, T, q.device)
     table = pages.reshape(-1).to(device=q.device, dtype=torch.int32)
     return flash_decode_paged_kernel(q, k, v, lengths, table, ancestors, base, page_size=page_size)
+
+
+def flash_decode_window_kernel(
+    q: torch.Tensor,          # (B, T, nq, hd)
+    k: torch.Tensor,          # (B, W, nkv, hd) rolling buffer, slot = position % W
+    v: torch.Tensor,
+    positions: torch.Tensor,  # (B*T,) int32 absolute position per token
+    *,
+    window: int,
+) -> torch.Tensor:
+    """Window-steered decode attention over a rolling buffer: token (b, t) at
+    ``pos = positions[b*T + t]`` sees positions in ``(pos - min(window, W), pos]``
+    whose slot still holds them after the launch's last write (position
+    ``positions[b*T + T - 1]``); (B, T, nq, hd) in q's type.  Positions must
+    be nonnegative and consecutive in t; they are not checked on the card
+    (that would cost a host sync per launch)."""
+    what = "flash_decode_window"
+    B, T, nq, hd = q.shape
+    _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}", what)
+    _check(v.shape == k.shape, f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
+    W, nkv = k.shape[1], k.shape[2]
+    _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
+    _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
+    _check(T <= W, f"a launch of {T} tokens would overwrite its own slots of a {W}-slot buffer", what)
+    _check(window > 0, f"window must be positive, got {window}", what)
+    _check(positions.dtype == torch.int32 and positions.numel() == B * T, f"positions must be ({B * T},) int32", what)
+    dev = q.device
+    _check(all(t.device == dev for t in (k, v, positions)), "tensors on different devices", what)
+    limit = min(int(window), W)
+    if dev.type == "cpu":
+        return ref.flash_decode_window(q, k, v, positions, limit)
+    _check(dev.type == "cuda", f"unsupported device {dev}", what)
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    _check(all(t.is_contiguous() for t in (q, k, v, positions)), "tensors must be contiguous", what)
+    fn = function(
+        "flash_decode", "repro_flash_decode_window",
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    out = torch.empty_like(q)
+    rc = fn(
+        dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), ptr(positions), B, T, W, nq, nkv, hd, limit,
+        1.0 / math.sqrt(hd), stream_of(q),
+    )
+    check_launch(rc, what)
+    flash_decode_window_kernel.launches += 1
+    return out
+
+
+flash_decode_window_kernel.launches = 0
+
+
+def flash_decode_window(
+    q: torch.Tensor,   # (B, T, nq, hd) model layout
+    k: torch.Tensor,   # (B, W, nkv, hd) rolling buffer already holding this launch's K
+    v: torch.Tensor,
+    cache_index,       # scalar | (B,) position of token (b, 0)
+    *,
+    window: int,
+    scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Window-steered attention over a rolling cache: token (b, t) at
+    absolute position ``index(b) + t`` sees positions in
+    ``(pos - window, pos]`` through the wrap point."""
+    if scales is not None:
+        raise NotImplementedError("int8 KV (per-slot scales) is ported in a later slice")
+    B, T = q.shape[:2]
+    positions = _as_length_vector(cache_index, B, T, q.device) - 1
+    return flash_decode_window_kernel(q, k, v, positions, window=window)
+
+
+_FA_HEAD_DIMS = (16, 32, 64, 128, 256)
+_FA_MAX_GROUP = 64
+
+
+def flash_attention_kernel(
+    q: torch.Tensor,   # (B, Sq, nq, hd)
+    k: torch.Tensor,   # (B, Skv, nkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Blocked causal / local-window GQA attention forward; (B, Sq, nq, hd)
+    in q's type.  Query position i sees key j iff (not causal or j <= i) and
+    (not window or i - j < window)."""
+    what = "flash_attention"
+    B, Sq, nq, hd = q.shape
+    _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}", what)
+    _check(v.shape == k.shape, f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
+    Skv, nkv = k.shape[1], k.shape[2]
+    _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
+    _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
+    _check(window >= 0, f"window must be >= 0, got {window}", what)
+    dev = q.device
+    _check(k.device == dev and v.device == dev, "tensors on different devices", what)
+    if dev.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    _check(dev.type == "cuda", f"unsupported device {dev}", what)
+    _check(hd in _FA_HEAD_DIMS, f"head_dim {hd} not in {_FA_HEAD_DIMS}", what)
+    _check(nq // nkv <= _FA_MAX_GROUP, f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    _check(all(t.is_contiguous() for t in (q, k, v)), "tensors must be contiguous", what)
+    fn = function(
+        "flash_attention", "repro_flash_attention",
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    out = torch.empty_like(q)
+    rc = fn(
+        dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, nq, nkv, hd, int(causal), int(window),
+        1.0 / math.sqrt(hd), stream_of(q),
+    )
+    check_launch(rc, what)
+    flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0
+
+
+def flash_attention(
+    q: torch.Tensor,   # (B, Sq, nq, hd) model layout
+    k: torch.Tensor,   # (B, Skv, nkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Prefill attention in the model's layout (the reference's
+    ``flash_attention/ops.flash_attention``): q, k, v are made contiguous
+    (a no-op for the model's projections) and handed to the kernel."""
+    return flash_attention_kernel(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal, window=window)

@@ -1,17 +1,24 @@
-"""Plain PyTorch versions of the flash-decode kernels (``csrc/flash_decode.cu``).
+"""Plain PyTorch versions of the flash-attention kernels
+(``csrc/flash_decode.cu``, ``csrc/flash_attention.cu``).
 
 The same functions in tensor ops: token (b, t) attends to cache rows
 ``p < lengths[b*T + t]`` that are on its root path (``p < base[b]`` or bit
 ``p - base[b]`` of ``anc[t]`` set), GQA head ``h`` reading KV head
 ``h // group``, in f32; the output has q's type.  The paged version reads
 logical row ``p`` of sequence ``b`` from pool row
-``max(table[b, p // ps], 0) * ps + p % ps``.
+``max(table[b, p // ps], 0) * ps + p % ps``.  The window version masks a
+rolling buffer's slots by the absolute position each holds, reconstructed
+from the launch's last write (the reference's jnp path); the prefill
+version is the model's blockwise attention (``layers.blockwise_attention``),
+as the reference's ``flash_attention/ref.py`` is.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.models.layers import blockwise_attention
 
 
 def visible_rows(lengths: torch.Tensor, anc: torch.Tensor, base: torch.Tensor, B: int, T: int, S: int) -> torch.Tensor:
@@ -62,3 +69,41 @@ def flash_decode_paged(
     rows = (pages * page_size)[:, :, None] + torch.arange(page_size, device=q.device)
     rows = rows.reshape(B, mp * page_size)
     return flash_decode(q, pool_k[rows], pool_v[rows], lengths, anc, base)
+
+
+def flash_decode_window(
+    q: torch.Tensor,          # (B, T, nq, hd)
+    k: torch.Tensor,          # (B, W, nkv, hd) rolling buffer, slot = position % W
+    v: torch.Tensor,
+    positions: torch.Tensor,  # (B*T,) int32 absolute position per token
+    limit: int,               # min(window, W)
+) -> torch.Tensor:
+    """Slot s holds the largest position <= head with p % W == s (head = the
+    launch's last position); token (b, t) sees the slots whose position p
+    has ``0 <= p <= pos`` and ``p > pos - limit``."""
+    B, T, nq, hd = q.shape
+    W, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    pos = positions.reshape(B, T).to(torch.int64)
+    head = pos[:, -1]
+    slot = torch.arange(W, device=q.device)
+    abs_pos = head[:, None] - torch.remainder(torch.remainder(head, W)[:, None] - slot[None, :], W)  # (B, W)
+    ap = abs_pos[:, None, :]
+    vis = (ap >= 0) & (ap <= pos[:, :, None]) & (ap > pos[:, :, None] - limit)  # (B, T, W)
+    qg = q.reshape(B, T, nkv, g, hd).to(torch.float32)
+    s = torch.einsum("btngh,bsnh->bngts", qg, k.to(torch.float32)) * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(~vis[:, None, None], float("-inf"))
+    w = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    out = torch.einsum("bngts,bsnh->btngh", w, v.to(torch.float32))
+    return out.reshape(B, T, nq, hd).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,   # (B, Sq, nq, hd)
+    k: torch.Tensor,   # (B, Skv, nkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    return blockwise_attention(q, k, v, causal=causal, local_window=window)

@@ -1,7 +1,8 @@
 """Serving driver of the port: one continuous-batching replica with chain
 or tree speculation on the Agile decode plane, over a contiguous or a paged
-KV cache (port of ``repro/launch/serve.py``'s ``ServeReplica`` without
-programs, forks, fault hooks or the fabric).
+KV cache, or over rolling-window caches and RG-LRU state for the hybrid
+RecurrentGemma family at spec width 1 (port of ``repro/launch/serve.py``'s
+``ServeReplica`` without programs, forks, fault hooks or the fabric).
 
 Each :meth:`ServeReplica.step` runs ``spec_tokens`` tokens (or tree nodes)
 for every slot in ONE model call; between launches the host verifies each
@@ -20,6 +21,8 @@ admissions; admission binds pages and writes only the rows it owns.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
         --smoke --decode-plane --paged --page-size 8 --draft-tree 2,1 --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+        --smoke --decode-plane --prompt-len 48 --device cpu
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ from repro_torch.core.plans import TreePlan
 from repro_torch.launch.speculative import TREE_DRAFTERS, ModelDrafter, greedy_accept_tree
 from repro_torch.launch.steps import admission, prefill_model, spec_serve_step
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import max_pages_for, num_pages
+from repro_torch.models.transformer import check_spec_width, max_pages_for, num_pages
 
 DRAFTER_CHOICES = ("model", "ngram", "repeat")
 
@@ -82,6 +85,7 @@ class ServeReplica:
         self.params = params
         self.B, self.max_len = slots, max_len
         self.T = max(cfg.spec_tokens, 1)
+        check_spec_width(cfg, self.T)
         if tree is not None and tree.num_nodes != self.T:
             raise ValueError(f"tree has {tree.num_nodes} nodes but cfg.spec_tokens is {self.T}")
         self.tree = tree
@@ -244,7 +248,8 @@ class ServeReplica:
                 commit = self._pending_commit if self._pending_commit is not None else (none, none)
         t0 = time.perf_counter()
         y, agree = spec_serve_step(self.model, self.params, self.cache, toks, self.lengths, self.prev_accept,
-                                   tree=self.tree, pages=pages, commit=commit, telemetry=self.telemetry)
+                                   tree=self.tree, pages=pages, commit=commit, telemetry=self.telemetry,
+                                   max_len=self.max_len)
         self.decode_ms += (time.perf_counter() - t0) * 1e3
         self.launches += 1
         if self.telemetry:
@@ -400,6 +405,10 @@ def main(argv=None) -> int:
         cfg, decode_plane=args.decode_plane or cfg.decode_plane, spec_tokens=T,
         paged=args.paged or cfg.paged, page_size=args.page_size or cfg.page_size,
     )
+    try:
+        check_spec_width(cfg, T)
+    except NotImplementedError as err:
+        ap.error(str(err))
     telemetry = args.telemetry and cfg.decode_plane and cfg.is_moe
     model = Model(cfg, args.device)
     B, S = args.slots, args.prompt_len

@@ -21,15 +21,18 @@ def spec_serve_step(
     model: Model, params: Params, cache: List[Params], tokens: np.ndarray, lengths: np.ndarray,
     prev_accept: np.ndarray, *, tree: Optional[TreePlan] = None, pages: Optional[np.ndarray] = None,
     commit: Optional[Tuple[np.ndarray, np.ndarray]] = None, telemetry: bool = False,
+    max_len: Optional[int] = None,
 ) -> Tuple[np.ndarray, Optional[float]]:
     """One speculative launch: tokens (B, T), lengths (B,), prev_accept (B,),
     and under the paged plane the block table (B, max_pages) and, for
     branchy trees, the previous round's commit maps ``(dst, src)`` -> (the
     model's greedy token per position (B, T) on the host, the plan agreement
-    or None).  The argmax runs on the device, so only B*T ids cross to the
+    or None).  ``max_len`` is the slot budget positions are checked against
+    when no layer holds a full-length cache (rolling windows, ``rec``
+    state).  The argmax runs on the device, so only B*T ids cross to the
     host; the cache is updated in place."""
     out = model.decode_tokens(params, cache, tokens, lengths, prev_accept, telemetry=telemetry, tree=tree,
-                              pages=pages, commit=commit)
+                              pages=pages, commit=commit, max_len=max_len)
     logits, metrics = out if telemetry else (out, None)
     y = torch.argmax(logits, dim=-1).cpu().numpy()
     return y, (metrics["plan_agreement"] if telemetry else None)

@@ -20,9 +20,11 @@ Params = Dict[str, object]
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # leaves the reference reads in f32 whatever the activation type: norm scales
-# (cast to f32 inside rms_norm), the router (f32 control plane) and unembed
-# (logits are taken in f32)
-_F32_LEAVES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "router", "unembed")
+# (cast to f32 inside rms_norm), the router (f32 control plane), unembed
+# (logits are taken in f32) and the RG-LRU's diagonal gates, which it keeps
+# in f32 whatever the model's type (rglru.init_rec_block)
+_F32_LEAVES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "router", "unembed",
+               "alpha_r", "b_r", "alpha_i", "b_i", "lam")
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -140,14 +142,18 @@ def blockwise_attention(
     *,
     causal: bool = True,
     q_offset: int = 0,
+    local_window: int = 0,
     block_kv: int = 1024,
 ) -> torch.Tensor:
-    """Flash-style online-softmax attention over KV blocks, in f32.
+    """Flash-style online-softmax attention over KV blocks, in f32; with
+    ``local_window`` query i sees only keys j with ``i - j < local_window``.
 
-    The reference computes this in jnp (no Pallas kernel), so it stays plain
-    PyTorch here too: matmuls and an explicit online softmax over blocks.
-    GQA heads are expanded by repetition (the reference's one-hot einsum
-    multiplies by exactly 1, so the two agree bit for bit).
+    The reference computes this in jnp, and it is the oracle of its Pallas
+    flash-attention kernel; here it is the plain version of the prefill
+    kernel (``kernels/flash_attention``), which the model calls: matmuls and
+    an explicit online softmax over blocks.  GQA heads are expanded by
+    repetition (the reference's one-hot einsum multiplies by exactly 1, so
+    the two agree bit for bit).
     """
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
@@ -165,9 +171,11 @@ def blockwise_attention(
     for start in range(0, Skv, block_kv):
         kb, vb = kf[:, :, start:start + block_kv], vf[:, :, start:start + block_kv]
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
+        kv_pos = start + torch.arange(kb.shape[2], device=q.device)
         if causal:
-            kv_pos = start + torch.arange(kb.shape[2], device=q.device)
             s = s.masked_fill(~(q_pos[:, None] >= kv_pos[None, :]), NEG_INF)
+        if local_window:
+            s = s.masked_fill(~(q_pos[:, None] - kv_pos[None, :] < local_window), NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -195,5 +203,6 @@ def embed(tokens: torch.Tensor, table: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits in f32."""
+    """Logits in f32.  ``table`` is stored in f32 (the untied table, or the
+    tied embedding's f32 copy), so its cast is a no-op."""
     return torch.einsum("bsd,vd->bsv", x.to(torch.float32), table.to(torch.float32))

@@ -1,6 +1,7 @@
 """Model facade (port of ``repro/models/model.py``): init, cache, prefill,
 speculative chain and tree decode, and the cache surgery of continuous
-batching (contiguous and paged) for the ``moe``/``attn`` decoder stack.
+batching (contiguous, paged and rolling) for the ``moe``/``attn``/``rec``
+decoder stack.
 
 The cache is updated in place by :meth:`Model.prefill`,
 :meth:`Model.decode_tokens` and the surgery methods; the first two return
@@ -48,9 +49,10 @@ class Model:
         return x * torch.sqrt(torch.tensor(float(self.cfg.d_model), dtype=torch.float32)).to(dtype)
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """f32 logits against ``params["unembed"]``: the untied table, or the
+        f32 copy of the tied embedding (:func:`transformer.place_tied_unembed`)."""
         x = L.rms_norm(x, params["final_norm"])
-        table = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
-        return L.unembed(x, table)
+        return L.unembed(x, params["unembed"])
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)
@@ -85,6 +87,7 @@ class Model:
         tree: Optional[TreePlan] = None,
         pages=None,             # (B, max_pages) int32 block tables (paged caches)
         commit: Optional[Tuple] = None,  # (dst, src) (B, Tc) logical row moves, -1 = none
+        max_len: Optional[int] = None,   # row capacity when no layer holds a full-length cache
     ):
         """One speculative launch over a ragged batch: token (b, t) sits at
         position ``lengths[b] + t``; returns logits (B, T, V) that score each
@@ -103,6 +106,11 @@ class Model:
         writes (the tree commit fused into the launch).  The block table and
         the commit maps cross to the device once per launch.
 
+        Positions are checked against the row capacity of the first
+        full-attention layer (its stripe, or its block table); rolling
+        buffers and ``rec`` state bound no position, so a stack without a
+        full-attention layer is checked against ``max_len`` when given.
+
         With ``telemetry`` returns ``(logits, {"plan_agreement": float})``:
         the mean stale-vs-fresh plan top-k agreement over the MoE layers
         (one device read per launch)."""
@@ -112,16 +120,17 @@ class Model:
         if tree.num_nodes != Tn:
             raise ValueError(f"tree has {tree.num_nodes} nodes but the launch carries {Tn} tokens")
         lengths = np.asarray(lengths, np.int64).reshape(B)
-        paged = "pk" in cache[0]
+        attn = [c for kind, c in zip(self.cfg.layer_kinds, cache) if kind != "rec"]
+        paged = bool(attn) and "pk" in attn[0]
         if paged and pages is None:
             raise ValueError("paged cache without a block table: pass pages=(B, max_pages) int32 "
                              "(see models.transformer.identity_page_table)")
         if paged:
             pages = torch.as_tensor(np.asarray(pages, np.int32), device=self.device)
             max_len = pages.shape[1] * self.cfg.page_size
-        else:
-            max_len = cache[0]["k"].shape[1]
-        if lengths.min() < 0 or lengths.max() + Tn > max_len:
+        elif attn and not T.window_of(self.cfg):
+            max_len = attn[0]["k"].shape[1]
+        if lengths.min() < 0 or (max_len is not None and lengths.max() + Tn > max_len):
             raise ValueError(f"positions up to {lengths.max() + Tn - 1} fall outside the cache of {max_len} rows")
         lengths_t = torch.as_tensor(lengths, device=self.device)
         prev = np.zeros((B,), np.int64) if prev_accept is None else np.asarray(prev_accept, np.int64).reshape(B)
@@ -151,7 +160,8 @@ class Model:
     # ------------------------------------------------------------------
     @staticmethod
     def write_cache_slot(cache: List[Params], one_cache: List[Params], slot: int) -> None:
-        """Copy a B=1 cache (every leaf) into batch row ``slot``, in place."""
+        """Copy a B=1 cache (every leaf: K/V, plan rows, ``rec`` state) into
+        batch row ``slot``, in place."""
         for c, o in zip(cache, one_cache):
             for name, leaf in c.items():
                 leaf[slot].copy_(o[name][0])

@@ -1,6 +1,6 @@
-"""Decoder stack for the ``moe`` and ``attn`` layer kinds (port of
-``repro/models/transformer.py``: contiguous and paged KV caches, chain and
-tree speculation).
+"""Decoder stack for the ``moe``, ``attn`` and ``rec`` layer kinds (port of
+``repro/models/transformer.py``: contiguous, paged and rolling-window KV
+caches, RG-LRU state, chain and tree speculation).
 
 Layout: params are ``{"embed", "layers": [one dict per layer],
 "final_norm", "unembed"}`` and the decode cache is a list with one dict per
@@ -19,6 +19,15 @@ the plan for the next one.  Attention reads only each token's valid cache
 prefix (:mod:`repro_torch.kernels.flash_attention`), the expert FFN runs the
 plan-steered kernel (:mod:`repro_torch.kernels.moe_decode`).
 
+Local attention (``cfg.attention_kind == "local"``): every attention layer
+keeps a rolling buffer of ``min(max_len, window + spec slack)`` rows, the
+token at position ``pos`` in slot ``pos % W`` (:func:`rolling_rows`);
+prefill attends through the window mask and decode through the
+window-steered flash-decode kernel, so KV memory is bounded by the window
+whatever the prompt's length.  ``rec`` layers (RG-LRU,
+:mod:`repro_torch.models.rglru`) carry ``h``/``conv`` state instead of K/V
+and decode one token per launch.
+
 Paged KV plane (``cfg.paged``): the full-attention KV lives in a flat pool
 ``pk``/``pv`` of ``num_pages * page_size`` rows with no batch axis, addressed
 through the per-slot block table each launch takes.  The pool carries ONE
@@ -36,20 +45,41 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control_plane import route_topk_decode, topk_agreement
 from repro_torch.core.plans import DecodePlan, TreePlan
-from repro_torch.kernels.flash_attention import flash_decode, flash_decode_paged
+from repro_torch.kernels.flash_attention import flash_attention, flash_decode, flash_decode_paged, flash_decode_window
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import moe, rglru
 from repro_torch.models.layers import Params
 
-_KINDS = ("attn", "moe")
+_KINDS = ("attn", "moe", "rec")
+
+
+def window_of(cfg: ModelConfig) -> int:
+    """The attention layers' local window (0 = full attention)."""
+    return cfg.local_window if cfg.attention_kind == "local" else 0
 
 
 def _check_kind(kind: str, cfg: ModelConfig) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is ported in a later slice")
-    if cfg.attention_kind != "full" or cfg.kv_dtype:
+    if cfg.attention_kind not in ("full", "local") or cfg.kv_dtype:
         raise NotImplementedError(
-            "this slice serves full attention over a full-precision KV cache"
+            "this slice serves full and local attention over a full-precision KV cache"
+        )
+    if cfg.attention_kind == "local" and cfg.local_window <= 0:
+        raise ValueError("local attention needs local_window > 0")
+    if window_of(cfg) and cfg.paged:
+        raise NotImplementedError(
+            "rolling-window layers on the paged KV plane come with rolling-window trees in a later slice"
+        )
+
+
+def check_spec_width(cfg: ModelConfig, T: int) -> None:
+    """Stateful recurrences advance one token per launch: ``rec`` layers
+    serve spec width 1 only (the reference's refusal, word for word)."""
+    if T != 1 and "rec" in cfg.layer_kinds:
+        raise NotImplementedError(
+            "multi-token decode for 'rec' layers needs a T-step state "
+            "recurrence; serve rec/ssm archs with spec_tokens=1"
         )
 
 
@@ -62,7 +92,10 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device) -> Par
     _check_kind(kind, cfg)
     d = cfg.d_model
     p: Params = {"ln1": L.init_rms_norm(d, device), "ln2": L.init_rms_norm(d, device)}
-    p["attn"] = L.init_attention(gen, cfg, device)
+    if kind == "rec":
+        p["rec"] = rglru.init_rec_block(gen, cfg, device)
+    else:
+        p["attn"] = L.init_attention(gen, cfg, device)
     if kind == "moe":
         p["moe"] = moe.init_moe(gen, cfg, device)
     else:
@@ -81,6 +114,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(generator, cfg.vocab_size, cfg.d_model, torch.float32, device)
+    return place_tied_unembed(params, cfg)
+
+
+def place_tied_unembed(params: Params, cfg: ModelConfig) -> Params:
+    """With tied embeddings the logits read the embedding table in f32: keep
+    one f32 copy of it as ``params["unembed"]``, made once when the weights
+    are placed (an f32 table is shared, not copied), instead of casting the
+    whole table at every launch.  Returns ``params``."""
+    if cfg.tie_embeddings:
+        params["unembed"] = params["embed"].to(torch.float32)
     return params
 
 
@@ -102,12 +145,30 @@ def identity_page_table(cfg: ModelConfig, batch: int, max_len: int) -> torch.Ten
     return torch.arange(batch, dtype=torch.int32)[:, None] * mp + torch.arange(mp, dtype=torch.int32)[None, :]
 
 
+def rolling_rows(cfg: ModelConfig, max_len: int) -> int:
+    """Rows of an attention layer's contiguous cache: ``max_len``, or for
+    local attention ``min(max_len, window + slack)``.  The slack is
+    ``spec_tokens - 1`` rounded up to 8: a launch writes all T tokens before
+    attending, and with exactly ``window`` slots the later tokens would
+    evict positions still inside the earlier tokens' windows."""
+    window = window_of(cfg)
+    if not window:
+        return max_len
+    slack = -(-(max(int(cfg.spec_tokens), 1) - 1) // 8) * 8
+    return min(max_len, window + slack)
+
+
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
-    """Contiguous KV stripes (B, max_len, nkv, hd), or under ``cfg.paged``
-    the flat pool (num_pages * page_size + 1 trash row, nkv, hd), plus, for
-    MoE layers on the decode plane, the carried DecodePlan: one row per
-    draft position when ``spec_tokens > 1`` (per slot, paged or not)."""
+    """``rec`` layers: the RG-LRU state (``h`` (B, W) f32, ``conv``).
+    Attention layers: contiguous KV stripes (B, S, nkv, hd) with
+    ``S = rolling_rows(cfg, max_len)`` (a rolling buffer under local
+    attention), or under ``cfg.paged`` the flat pool (num_pages * page_size
+    + 1 trash row, nkv, hd), plus, for MoE layers on the decode plane, the
+    carried DecodePlan: one row per draft position when ``spec_tokens > 1``
+    (per slot, paged or not)."""
     _check_kind(kind, cfg)
+    if kind == "rec":
+        return rglru.init_rec_state(batch, cfg, device)
     hd, dt = cfg.resolved_head_dim, L.act_dtype(cfg)
     if cfg.paged:
         rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
@@ -116,9 +177,10 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
             "pv": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
         }
     else:
+        S = rolling_rows(cfg, max_len)
         c = {
-            "k": torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
-            "v": torch.zeros((batch, max_len, cfg.num_kv_heads, hd), dtype=dt, device=device),
+            "k": torch.zeros((batch, S, cfg.num_kv_heads, hd), dtype=dt, device=device),
+            "v": torch.zeros((batch, S, cfg.num_kv_heads, hd), dtype=dt, device=device),
         }
     if kind == "moe" and cfg.decode_plane:
         Tp = max(int(cfg.spec_tokens), 1)
@@ -156,24 +218,36 @@ def apply_layer_prefill(
     rows: slice,
 ):
     """Full-sequence pass that writes the prompt's K/V (and the seeded
-    DecodePlan) into batch rows ``rows`` of ``cache``, in place.  The whole
-    stripe is zeroed first, so the slot holds exactly what a fresh B=1 cache
-    written into it would."""
+    DecodePlan), or a ``rec`` layer's final state, into batch rows ``rows``
+    of ``cache``, in place.  The whole stripe is zeroed first, so the slot
+    holds exactly what a fresh B=1 cache written into it would.  A rolling
+    buffer of W rows takes the prompt's last ``min(W, S)`` positions at
+    slots ``pos % W``, where decode's modulo addressing continues."""
     B, S, _ = x.shape
+    if kind == "rec":
+        r, state = rglru.rec_block_prefill(L.rms_norm(x, p["ln1"]), p["rec"], cfg)
+        for name, val in state.items():
+            cache[name][rows] = val.to(cache[name].dtype)
+        h = x + r
+        return h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"]), route_src
     if "pk" in cache:
         raise ValueError(
             "prefill writes contiguous stripes; paged caches are seeded through "
             "admission (a contiguous B=1 prefill, then Model.write_cache_slot_paged)"
         )
-    if S > cache["k"].shape[1]:
-        raise ValueError(f"prompt of {S} tokens exceeds the cache length {cache['k'].shape[1]}")
+    window = window_of(cfg)
+    W = cache["k"].shape[1]
+    if S > W and not window:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache length {W}")
     xn = L.rms_norm(x, p["ln1"])
     q, k, v = L._qkv(xn, p["attn"], cfg, positions)
+    take = min(W, S)
+    slots = torch.arange(S - take, S, device=x.device) % W
     for name, val in (("k", k), ("v", v)):
         stripe = cache[name][rows]
         stripe.zero_()
-        stripe[:, :S] = val.to(stripe.dtype)
-    out = L.blockwise_attention(q, k, v, causal=True)
+        stripe[:, slots] = val[:, S - take:].to(stripe.dtype)
+    out = flash_attention(q, k, v, causal=True, window=window)
     h = x + torch.einsum("bsnh,nhd->bsd", out, p["attn"]["wo"])
     ffn_in = L.rms_norm(h, p["ln2"])
     if kind == "moe" and cfg.decode_plane:
@@ -238,6 +312,34 @@ def _decode_attn_prefix_tree(
     cache["v"][bidx, rows] = v.to(cache["v"].dtype)
     base = lengths.to(torch.int32)
     out = flash_decode(q, cache["k"], cache["v"], lengths, ancestors=_tree_tensors(tree, xn.device)[1], base=base)
+    return _attn_out(out, p)
+
+
+def _decode_attn_rolling(
+    xn: torch.Tensor,       # (B, T, d): T chain tokens per sequence
+    p: Params,
+    cfg: ModelConfig,
+    cache: Params,
+    lengths: torch.Tensor,  # (B,) tokens already in each sequence
+    window: int,
+) -> torch.Tensor:
+    """T-token attention against a rolling (modulo-addressed) buffer of W
+    slots: the T new K/V rows land at slots ``pos % W`` first, then token t
+    at position ``pos = lengths + t`` attends to positions
+    ``(pos - min(window, W), pos]`` that still hold their slot after this
+    launch's writes, so a draft token never sees a later one (the window
+    kernel, :func:`repro_torch.kernels.flash_attention.flash_decode_window`)."""
+    B, T, _ = xn.shape
+    W = cache["k"].shape[1]
+    if T > W:
+        raise ValueError(f"a launch of {T} tokens exceeds the rolling buffer of {W} slots")
+    pos = lengths[:, None].to(torch.int64) + torch.arange(T, dtype=torch.int64, device=xn.device)[None, :]
+    q, k, v = L._qkv(xn, p, cfg, pos)
+    bidx = torch.arange(B, device=xn.device)[:, None]
+    slots = torch.remainder(pos, W)
+    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+    out = flash_decode_window(q, cache["k"], cache["v"], lengths, window=window)
     return _attn_out(out, p)
 
 
@@ -348,17 +450,35 @@ def apply_layer_decode_spec(
     the previous verify round's commit maps ``commit``, applied before this
     launch writes.
 
+    Local-attention layers serve chains through the rolling buffer
+    (:func:`_decode_attn_rolling`); branchy trees on them need the paged
+    plane's commit maps and come in a later slice.  ``rec`` layers run one
+    RG-LRU step at T = 1 and refuse T > 1 (:func:`check_spec_width`).
+
     Returns ``(x, route_src, agreement)``: the stale-vs-fresh top-k plan
     agreement of this layer as a 0-d tensor when ``telemetry`` is set and
     the layer is a decode-plane MoE layer, else None."""
     B, T, d = x.shape
+    if kind == "rec":
+        check_spec_width(cfg, T)
+        r = rglru.rec_block_decode(L.rms_norm(x, p["ln1"]), p["rec"], cfg, cache)
+        h = x + r
+        return h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"]), route_src, None
     paged = "pk" in cache
     if commit is not None:
         _apply_commit(cache, commit, pages, cfg)
     if tree is None:
         tree = TreePlan.chain(T)
+    window = window_of(cfg)
+    if window and not tree.is_chain():
+        raise NotImplementedError(
+            "branchy draft trees on rolling-window layers need the paged plane's fused commit "
+            "maps (rolling-window trees come in a later slice); serve local-attention archs with chains"
+        )
     xn = L.rms_norm(x, p["ln1"])
-    if paged:
+    if window:
+        a = _decode_attn_rolling(xn, p["attn"], cfg, cache, lengths, window)
+    elif paged:
         a = _decode_attn_paged_tree(xn, p["attn"], cfg, cache, lengths, tree, pages)
     else:
         a = _decode_attn_prefix_tree(xn, p["attn"], cfg, cache, lengths, tree)

@@ -141,3 +141,67 @@ def test_fused_moe_kernels_match_plain_on_card(cuda, dtype):
     y = mf_ops.down_combine(h, wd, idx, sw, T)
     torch.cuda.synchronize()
     _close(y, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["small", "full"])
+def test_flash_decode_window_kernel_matches_plain_on_card(cuda, dtype, shape):
+    """Rolling buffers across the wrap point: small (T = 3 chains, a buffer
+    with and without slack) and RecurrentGemma-2B's decode (10 heads over
+    one KV head, hd 256, 2,048 slots, positions past several wraps)."""
+    from repro_torch.kernels.flash_attention import ops as ops_
+
+    if shape == "small":
+        cases = [(3, 4, 2, 64, 24, 16, [2, 21, 75]), (3, 4, 1, 64, 16, 16, [30, 8, 15])]
+    else:
+        cases = [(1, 10, 1, 256, 2048, 2048, [0, 2047, 2100, 4160])]
+    for T, nq, nkv, hd, W, window, idx in cases:
+        B = len(idx)
+        q, k, v = (_t(a).to(cuda, dtype) for a in _decode_case(W + T, B, T, nq, nkv, hd, W))
+        pos = (torch.tensor(idx, dtype=torch.int32)[:, None] + torch.arange(T, dtype=torch.int32)).reshape(-1)
+        pos = pos.to(cuda)
+        got = ops_.flash_decode_window_kernel(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        _close(got, fa_ref.flash_decode_window(q, k, v, pos, min(window, W)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ["small", "full"])
+def test_flash_attention_kernel_matches_plain_on_card(cuda, dtype, shape):
+    """Causal and windowed, MQA and GQA, ragged last tiles; full width:
+    RecurrentGemma-2B's prefill (q (1, 1200, 10, 256), window 512 standing
+    in for 2,048 to keep the plain version quick) and Qwen3-MoE's (q (1, 128,
+    64, 128) over 4 KV heads)."""
+    from repro_torch.kernels.flash_attention import ops as ops_
+
+    if shape == "small":
+        cases = [(2, 37, 4, 1, 16, True, 8), (1, 45, 6, 3, 32, True, 0), (1, 70, 8, 2, 64, False, 0),
+                 (2, 33, 16, 1, 128, True, 5)]
+    else:
+        cases = [(1, 1200, 10, 1, 256, True, 512), (1, 128, 64, 4, 128, True, 0)]
+    for B, S, nq, nkv, hd, causal, window in cases:
+        rng = np.random.default_rng(S)
+        q = _t(rng.standard_normal((B, S, nq, hd)).astype(np.float32)).to(cuda, dtype)
+        k, v = (_t(rng.standard_normal((B, S, nkv, hd)).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+        got = ops_.flash_attention_kernel(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        _close(got, fa_ref.flash_attention(q, k, v, causal=causal, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,W", [(2, 37, 100), (1, 4096, 2560)])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, W):
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+    rng = np.random.default_rng(T)
+    a = _t(rng.uniform(0.5, 0.999, (B, T, W)).astype(np.float32)).to(cuda, dtype)
+    b = _t((0.1 * rng.standard_normal((B, T, W))).astype(np.float32)).to(cuda, dtype)
+    h0 = _t(rng.standard_normal((B, W)).astype(np.float32)).to(cuda)
+    got = rg_ops.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _close(got, rg_ref.linear_scan(a, b, h0), torch.float32)
