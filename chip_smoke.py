@@ -16,8 +16,9 @@ phase ``full_width``) and over the paged KV plane with a ``2,1`` draft tree
 drafted by the target's first layer behind a 64-token shared system prompt
 (phase ``paged_tree``); then, with the MoE weights freed, RecurrentGemma-2B
 uncut (26 layers, bf16) over 2,048-slot rolling windows with 2,048- to
-4,096-token prompts (phase ``hybrid_window``), and shows that each path ran
-its kernels.  Each phase prints one JSON line; the full record also goes to
+4,096-token prompts (phase ``hybrid_window``); then, with those weights
+freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
+(phase ``ssm_serve``), and shows that each path ran its kernels.  Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
 Needs one card, no network, and imports no jax.
@@ -48,6 +49,9 @@ PAGED_MAX_LEN = PROMPT + SHARED + GEN + 4   # 228 rows, 15 pages a slot
 HYBRID = "recurrentgemma-2b"
 H_SLOTS, H_PROMPT, H_GEN, H_REQUESTS = 4, 4096, 64, 8
 H_MAX_LEN = H_PROMPT + H_GEN + 1            # 4,161 rows of slot budget
+# the SSM cell: Mamba-2-2.7B uncut on the hybrid cell's traffic (the same
+# slots, requests, prompt buckets, generated tokens and slot budget)
+SSM = "mamba2-2.7b"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
@@ -274,6 +278,7 @@ def kernel_phase(cfg, dev):
     torch.cuda.empty_cache()
     rows["flash_decode_paged"] = paged_kernel_rows(cfg, dev, gen, tol)
     rows.update(hybrid_kernel_rows(dev, gen, tol))
+    rows["ssd_scan"] = ssd_kernel_row(dev, gen, tol)
     return rows
 
 
@@ -503,6 +508,81 @@ def hybrid_kernel_rows(dev, gen, tol):
     return rows
 
 
+def ssd_work(T, H, P, N, q, in_bytes, with_h0=False):
+    """(bytes, flops) one scan needs at batch 1 over chunks of ``q`` steps:
+    each input read once (x, B, C in ``in_bytes`` each, dt and the wrapper's
+    cum in f32, h0), y and the final state written once in f32; per chunk of
+    n rows, C B^T over its n (n + 1) / 2 causal pairs ONCE (it does not
+    depend on the head), and per head S @ x over the same pairs plus the
+    two N x P products (carried-in state and state update)."""
+    flops = 0.0
+    for t0 in range(0, T, q):
+        n = min(q, T - t0)
+        pairs = n * (n + 1) / 2
+        flops += 2 * pairs * N + H * (2 * pairs * P + 4 * n * N * P)
+    nbytes = (T * H * P + 2 * T * N) * in_bytes + 2 * T * H * 4 + T * H * P * 4 + H * N * P * 4 * (2 if with_h0 else 1)
+    return nbytes, flops
+
+
+def ssd_kernel_row(dev, gen, tol):
+    """Kernel 11 at the SSM cell's admission shape (Mamba-2-2.7B: 80 heads of
+    64, state 128): a 4,096-token prompt from a zero state and a ragged
+    2,100-token one from a random ``h0``, f32 and with bf16 x, B and C (the
+    bf16 model's layout), against its plain version at the model's chunk of
+    256 (the kernel walks chunks of 64: the same function summed in another
+    order, held at the f32 bound on y and on the final state)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    cfg = get_config(SSM)
+    P, N, Q = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    H = cfg.ssm_expand * cfg.d_model // P
+    a = -torch.linspace(1.0, 16.0, H, device=dev)  # the model's init decays, -exp(A_log)
+
+    def inputs(T):
+        x = torch.randn((1, T, H, P), generator=gen, device=dev) * 0.5
+        dt = torch.nn.functional.softplus(torch.randn((1, T, H), generator=gen, device=dev) - 1.0)
+        bm, cm = (torch.randn((1, T, N), generator=gen, device=dev) * 0.3 for _ in range(2))
+        return x, dt, a, bm, cm
+
+    def check(tag, args, h0=None):
+        y, h = ssd_ops.ssd_scan(*args, Q, h0=h0)
+        yr, hr = ssd_ref.ssd_chunked(*args, Q, h0)
+        return max(check_close(f"ssd_scan y {tag}", y, yr, tol["f32"]),
+                   check_close(f"ssd_scan state {tag}", h, hr, tol["f32"]))
+
+    ragged = inputs(2100)
+    err_ragged = check("T=2100 from h0", ragged, torch.randn((1, H, N, P), generator=gen, device=dev))
+    del ragged
+    args = inputs(H_PROMPT)
+    err = check(f"T={H_PROMPT}", args)
+    x, dt, _, bm, cm = args
+    args16 = (x.to(torch.bfloat16), dt, a, bm.to(torch.bfloat16), cm.to(torch.bfloat16))
+    err_bf16 = check(f"T={H_PROMPT} bf16 inputs", args16)
+    q = min(Q, H_PROMPT, ssd_ops.QMAX)
+    nbytes, flops = ssd_work(H_PROMPT, H, P, N, q, 4)
+    row = dict(
+        max_abs_err=err, max_abs_err_ragged_h0=err_ragged, max_abs_err_bf16_inputs=err_bf16,
+        ms=time_ms(lambda: ssd_ops.ssd_scan(*args, Q), iters=10),
+        ms_bf16_inputs=time_ms(lambda: ssd_ops.ssd_scan(*args16, Q), iters=10),
+        plain_ms=time_ms(lambda: ssd_ref.ssd_chunked(*args, Q), iters=2, reps=3),
+        library_ms=None,
+        library_call="none: no PyTorch call computes a selective (input-dependent decay) state-space scan",
+        kernel_chunk=q, model_chunk=Q,
+        shapes=f"x {tuple(x.shape)} f32, dt (1, {H_PROMPT}, {H}), B and C (1, {H_PROMPT}, {N}), zero state; "
+               f"also T = 2100 from a random h0, and bf16 x, B, C; ms includes the wrapper's chunk cumsum",
+        bytes=nbytes, flops=flops, flops_count="C B^T once per chunk, causal pairs only, kernel chunk",
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))),
+    )
+    row["flops_model_chunk_full_square"] = H_PROMPT // Q * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * N * P))
+    del args, args16, x, dt, bm, cm
+    torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving
 # ---------------------------------------------------------------------------
@@ -511,6 +591,7 @@ def hybrid_kernel_rows(dev, gen, tol):
 CONTIGUOUS_KERNELS = ("flash_decode", "decode_moe", "gather_swiglu", "down_combine", "flash_attention")
 PAGED_KERNELS = ("flash_decode_paged", "decode_moe", "gather_swiglu", "down_combine", "flash_attention")
 HYBRID_KERNELS = ("flash_decode_window", "flash_attention", "rglru_scan")
+SSM_KERNELS = ("ssd_scan",)
 
 
 def smoke_twin(dev):
@@ -521,7 +602,10 @@ def smoke_twin(dev):
     (plan rows selected by parent, the contiguous commit, and on the paged
     plane the commit maps fused into the next launch).  The hybrid run
     serves RecurrentGemma's smoke stack (rec, rec, attn) with prompts of
-    24/36/48 tokens past its window of 16, so every rolling buffer wraps."""
+    24/36/48 tokens past its window of 16, so every rolling buffer wraps;
+    the SSM run serves Mamba-2's smoke stack with prompts of 260/390/520
+    tokens, past the full model's chunk of 256 and each with a ragged tail
+    (the smoke chunk is 16)."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -538,6 +622,7 @@ def smoke_twin(dev):
         "paged_tree2x1_ps8": dict(spec=4, tree=(2, 1), ps=8),
         "paged_spec3_shared16": dict(spec=3, ps=16, shared=16),
         "hybrid_spec1": dict(arch=HYBRID, slots=2, prompt=48, requests=4),
+        "ssm_spec1": dict(arch=SSM, slots=2, prompt=520, requests=4),
     }
     out = {}
     for name, run in runs.items():
@@ -571,7 +656,8 @@ def smoke_twin(dev):
             raise AssertionError(f"{tag}: card streams {g} != CPU streams {c}")
         if len(g) != r["requests"] or any(len(t) != r["gen"] + 1 for t in g.values()):
             raise AssertionError(f"{tag}: unanswered or short streams: {g}")
-        expect = HYBRID_KERNELS if r["arch"] == HYBRID else PAGED_KERNELS if ps else CONTIGUOUS_KERNELS
+        expect = {HYBRID: HYBRID_KERNELS, SSM: SSM_KERNELS}.get(
+            r["arch"], PAGED_KERNELS if ps else CONTIGUOUS_KERNELS)
         if min(counts[n] for n in expect) <= 0:
             raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
         if ps and drafter != "model" and counts["flash_decode"]:
@@ -591,6 +677,11 @@ def smoke_twin(dev):
             if not min(len(q.prompt) for q in reqs) > W == cfg.local_window:
                 raise AssertionError(f"{tag}: prompts do not pass the {W}-slot window")
             row.update(window_slots=W, prompt_lens=sorted({len(q.prompt) for q in reqs}))
+        if r["arch"] == SSM:
+            lens = sorted({len(q.prompt) for q in reqs})
+            if not (min(lens) > 256 and all(n % cfg.ssm_chunk for n in lens)):
+                raise AssertionError(f"{tag}: prompts {lens} do not cross 256 tokens with ragged tails")
+            row.update(prompt_lens=lens, ssm_chunk=cfg.ssm_chunk)
         if ps:
             st = rep.paged_stats()
             if shared and st["pages_shared_total"] <= 0:
@@ -770,14 +861,13 @@ def paged_tree(dev, params):
     return served, rep
 
 
-def hybrid_window(dev):
-    """The hybrid cell: RecurrentGemma-2B uncut (26 layers: 18 RG-LRU, 8
-    local attention), bf16, random weights from seed 0, spec width 1, on
-    rolling buffers of 2,048 slots.  4 slots serve 8 requests of
-    2,048/3,072/4,096 prompt tokens and 64 generated tokens: every prompt
-    fills its window and every decode write wraps it.  Each admission runs
-    kernel 7 in the 8 attention layers and kernel 12 in the 18 RG-LRU
-    layers; each decode launch runs kernel 6 in the 8 attention layers."""
+def serve_uncut(dev, arch):
+    """Serve ``arch`` uncut, bf16, random weights from seed 0, spec width 1
+    on the contiguous decode plane: 4 slots serve 8 requests of
+    2,048/3,072/4,096 prompt tokens (the CLI's buckets for ``--prompt-len
+    4096``) and 64 generated tokens, after a one-request warm-up.  Checks
+    the streams and a prefill's logits; returns (the served record with the
+    measured run's kernel launches, the replica, its requests)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -785,8 +875,7 @@ def hybrid_window(dev):
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config(HYBRID), decode_plane=True, spec_tokens=1)
-    n_attn, n_rec = cfg.layer_kinds.count("attn"), cfg.layer_kinds.count("rec")
+    cfg = dataclasses.replace(get_config(arch), decode_plane=True, spec_tokens=1)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)
@@ -797,9 +886,6 @@ def hybrid_window(dev):
     tied_bytes = params["unembed"].numel() * 4
     reqs = serve.synthetic_requests(cfg.vocab_size, H_PROMPT, H_GEN, H_REQUESTS)
     rep = serve.ServeReplica(cfg, H_SLOTS, H_MAX_LEN, params, device=dev)
-    W = rep.cache[cfg.layer_kinds.index("attn")]["k"].shape[1]
-    if W != cfg.local_window or min(len(r.prompt) for r in reqs) < W:
-        raise AssertionError(f"hybrid: {W}-slot buffers, prompts {sorted({len(r.prompt) for r in reqs})}")
     # warm-up outside the measured run: one request through admission and decode
     serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, H_PROMPT, 4, 1))
     reset_serving_stats(rep)
@@ -814,23 +900,17 @@ def hybrid_window(dev):
     counts = {n: w.launches for n, w in kernel_wrappers().items()}
     streams = {rid: r.tokens for rid, r in results.items()}
     if sorted(streams) != list(range(H_REQUESTS)) or any(r.error for r in results.values()):
-        raise AssertionError(f"hybrid: unanswered or failed requests: {results}")
+        raise AssertionError(f"{arch}: unanswered or failed requests: {results}")
     for rid, toks in streams.items():
         if len(toks) != H_GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"hybrid: request {rid} stream malformed: {toks}")
-    if (counts["flash_decode_window"] != n_attn * rep.launches or counts["flash_attention"] != n_attn * H_REQUESTS
-            or counts["rglru_scan"] != n_rec * H_REQUESTS):
-        raise AssertionError(f"hybrid: kernel launches {counts} do not match {rep.launches} decode launches and "
-                             f"{H_REQUESTS} admissions of {n_attn} attention and {n_rec} RG-LRU layers")
+            raise AssertionError(f"{arch}: request {rid} stream malformed: {toks}")
     one = model.init_cache(1, H_MAX_LEN)
     logits = model.prefill(params, reqs[2].prompt[None], one)
     if not (logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())):
-        raise AssertionError("hybrid: prefill logits not finite or of the wrong shape")
+        raise AssertionError(f"{arch}: prefill logits not finite or of the wrong shape")
     del one, logits
-    consistency = hybrid_decode_matches_prefill(dev)
     served = dict(
-        arch=HYBRID, layers=cfg.num_layers, layers_published=get_config(HYBRID).num_layers, dtype=cfg.dtype,
-        attention_layers=n_attn, rglru_layers=n_rec, window=cfg.local_window, window_slots=W,
+        arch=arch, layers=cfg.num_layers, layers_published=get_config(arch).num_layers, dtype=cfg.dtype,
         slots=H_SLOTS, prompt_len=H_PROMPT, prompt_lens=sorted({len(r.prompt) for r in reqs}), gen=H_GEN,
         requests=H_REQUESTS, spec_tokens=1, max_len=H_MAX_LEN,
         weight_bytes=weight_bytes, tied_unembed_f32_bytes=tied_bytes, init_s=init_s, peak_memory_bytes=peak,
@@ -838,49 +918,109 @@ def hybrid_window(dev):
         decode_launches=rep.launches, ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1),
         prefills=rep.prefills, prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
         kernel_launches=counts, distinct_tokens_per_stream=sorted(len(set(t)) for t in streams.values()),
-        decode_matches_prefill=consistency, streams=streams,
+        streams=streams,
     )
+    return served, rep, reqs
+
+
+def hybrid_window(dev):
+    """The hybrid cell: RecurrentGemma-2B uncut (26 layers: 18 RG-LRU, 8
+    local attention) on rolling buffers of 2,048 slots (:func:`serve_uncut`):
+    every prompt fills its window and every decode write wraps it.  Each
+    admission runs kernel 7 in the 8 attention layers and kernel 12 in the
+    18 RG-LRU layers; each decode launch runs kernel 6 in the 8 attention
+    layers."""
+    served, rep, reqs = serve_uncut(dev, HYBRID)
+    cfg = rep.cfg
+    n_attn, n_rec = cfg.layer_kinds.count("attn"), cfg.layer_kinds.count("rec")
+    W = rep.cache[cfg.layer_kinds.index("attn")]["k"].shape[1]
+    if W != cfg.local_window or min(len(r.prompt) for r in reqs) < W:
+        raise AssertionError(f"hybrid: {W}-slot buffers, prompts {served['prompt_lens']}")
+    counts = served["kernel_launches"]
+    if (counts["flash_decode_window"] != n_attn * served["decode_launches"]
+            or counts["flash_attention"] != n_attn * H_REQUESTS or counts["rglru_scan"] != n_rec * H_REQUESTS):
+        raise AssertionError(f"hybrid: kernel launches {counts} do not match {served['decode_launches']} decode "
+                             f"launches and {H_REQUESTS} admissions of {n_attn} attention and {n_rec} RG-LRU layers")
+    served.update(attention_layers=n_attn, rglru_layers=n_rec, window=cfg.local_window, window_slots=W,
+                  decode_matches_prefill=decode_matches_prefill(
+                      dev, HYBRID, 3, {"flash_decode_window": 1 * 4, "flash_attention": 1 * 5, "rglru_scan": 2 * 5}))
     served["launches_per_step"] = launches_per_step(rep, reqs[0])
     while rep.has_work():
         rep.step()
     return served, rep
 
 
-def hybrid_decode_matches_prefill(dev, prompt_len=2100, steps=4):
-    """Decode over the rolling buffer and the RG-LRU state equals prefill of
-    the extended sequence: RecurrentGemma-2B at full width (d 2560, 10 heads
-    over one KV head, hd 256, lru 2560, vocab 256,000) in f32, cut to one
-    super-block (rec, rec, attn), a prompt past the 2,048 window.  Each
-    decode launch's logits (kernel 6, one RG-LRU step) are held against the
+def ssm_serve(dev):
+    """The SSM cell: Mamba-2-2.7B uncut (64 SSD layers) on the hybrid cell's
+    traffic (:func:`serve_uncut`).  Each admission runs kernel 11 once a
+    layer; a decode launch runs no kernel: one recurrent step in plain
+    tensor ops, as the reference has no decode kernel."""
+    served, rep, reqs = serve_uncut(dev, SSM)
+    cfg = rep.cfg
+    n_ssm = cfg.layer_kinds.count("ssm")
+    counts = served["kernel_launches"]
+    if counts["ssd_scan"] != n_ssm * H_REQUESTS or sum(counts.values()) != counts["ssd_scan"]:
+        raise AssertionError(f"ssm: kernel launches {counts} are not {n_ssm} ssd_scan launches for each of "
+                             f"{H_REQUESTS} admissions and none else")
+    step = launches_per_step(rep, reqs[0])
+    if step["ssd_scan"] != dict(per_decode_launch=0, per_admission=n_ssm):
+        raise AssertionError(f"ssm: launches per step {step['ssd_scan']}, not {n_ssm} per admission and 0 "
+                             f"per decode launch")
+    served.update(
+        ssm_heads=cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim, ssm_head_dim=cfg.ssm_head_dim,
+        ssm_state=cfg.ssm_state, ssm_chunk=cfg.ssm_chunk,
+        params=sum(t.numel() for t in _leaves(rep.params)) - rep.params["unembed"].numel(),
+        decode_state_bytes=sum(t.numel() * t.element_size() for t in _leaves(rep.cache)),
+        launches_per_step=step,
+    )
+    while rep.has_work():
+        rep.step()
+    return served, rep
+
+
+def decode_matches_prefill(dev, arch, layers, expect, prompt_len=2100, steps=4):
+    """Decode equals prefill of the extended sequence, at full width in f32
+    cut to ``layers`` layers: one ``prompt_len``-token prompt, then
+    ``steps`` T = 1 decode launches, each launch's logits held against the
     last-position logits of a prefill of the prompt and the tokens decoded
-    so far (kernels 7 and 12) at 1e-4 of their scale: f32 sums in another
-    order over up to 7,680 terms.  With random weights the echo of the
-    input token dominates the argmax, so the logits are compared, not the
+    so far at 1e-4 of their scale (f32 sums in another order over up to
+    7,680 terms).  RecurrentGemma-2B (one super-block, rec rec attn): a
+    prompt past the 2,048 window, decode through kernel 6 and one RG-LRU
+    step against prefill through kernels 7 and 12.  Mamba-2-2.7B (4
+    layers): 8 chunks of 256 and a ragged 52, one SSD step against prefill
+    through kernel 11 (chunks of 64).  ``expect`` gives each kernel's
+    launches in the run.  With random tied embeddings the echo of the input
+    token dominates the argmax, so the logits are compared, not the
     tokens."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config(HYBRID), num_layers=3, dtype="float32", decode_plane=True)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32", decode_plane=True)
     model = Model(cfg, device=dev)
     params = model.init(1)
     prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, prompt_len).astype(np.int32)
     max_len = prompt_len + steps + 1
     cache = model.init_cache(1, max_len)
+    reset_launch_counts()
     toks = [int(model.prefill(params, prompt[None], cache)[0].argmax())]
     errs = []
     for i in range(steps):
         got = model.decode_tokens(params, cache, [[toks[-1]]], [prompt_len + i], max_len=max_len)[0, 0]
         seq = np.concatenate([prompt, np.asarray(toks, np.int32)])
         want = model.prefill(params, seq[None], model.init_cache(1, max_len))[0]
-        errs.append(check_close(f"hybrid decode step {i} vs prefill of {len(seq)} tokens", got, want, 1e-4))
+        errs.append(check_close(f"{arch} decode step {i} vs prefill of {len(seq)} tokens", got, want, 1e-4))
         toks.append(int(got.argmax()))
+    counts = {n: w.launches for n, w in kernel_wrappers().items() if w.launches}
+    if counts != expect:
+        raise AssertionError(f"{arch} decode vs prefill: kernel launches {counts}, expected {expect}")
     del params, cache
     torch.cuda.empty_cache()
-    return dict(layers=3, dtype="float32", prompt_len=prompt_len, steps=steps, max_abs_err=max(errs),
-                tolerance="1e-4 x max(1, max |prefill logit|)")
+    return dict(layers=layers, dtype="float32", prompt_len=prompt_len, steps=steps, max_abs_err=max(errs),
+                kernel_launches=counts, tolerance="1e-4 x max(1, max |prefill logit|)")
 
 
 def reset_serving_stats(rep) -> None:
@@ -918,7 +1058,7 @@ def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
     """Device time by kernel over a short steady window of ``n`` decode
     launches of ``rep`` (the full-width replica, then the paged-tree one,
     whose queue carries the ``shared``-token system prompt of its cell, then
-    the hybrid one with its ``prompt``-token queue).
+    the hybrid and the SSM ones with their ``prompt``-token queue).
 
     The profiler's own host overhead lengthens the launches it records, so
     the idle share divides the device-busy time per launch by the wall time
@@ -985,6 +1125,7 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:97"),
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:46"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:65"),
 }
 
 
@@ -1033,13 +1174,20 @@ def main() -> int:
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)
     emit("profile_hybrid", **profile_decode(rep, get_config(HYBRID).vocab_size, prompt=H_PROMPT, gen=H_GEN, n=5))
+    del rep  # free the hybrid weights before the SSM cell
+    torch.cuda.empty_cache()
+    ssm, rep = ssm_serve(dev)
+    emit("ssm_serve", **ssm)
+    emit("ssm_decode_matches_prefill", **decode_matches_prefill(dev, SSM, 4, {"ssd_scan": 4 * 5}))
+    emit("profile_ssm", **profile_decode(rep, get_config(SSM).vocab_size, prompt=H_PROMPT, gen=H_GEN))
     del rep
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
         # each kernel's launches come from the serving path it belongs to
-        path = paged if name == "flash_decode_paged" else hybrid if name in HYBRID_KERNELS else served
+        path = (paged if name == "flash_decode_paged" else hybrid if name in HYBRID_KERNELS
+                else ssm if name in SSM_KERNELS else served)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -8,8 +8,10 @@ dict per layer, so the super-block axis is un-stacked here: super-block
 ``s``, pattern slot ``j`` is layer ``s * len(pattern) + j``, and the
 tail's ``blocks/rest/{i}`` is layer ``n_superblocks * len(pattern) + i``
 (RecurrentGemma-2B: 26 layers over ``rec, rec, attn`` are 8 super-blocks
-and two ``rec`` layers).  Each leaf is stored in the type its use computes
-in (:func:`layers.storage_dtype`).  Tied embeddings have no ``unembed``
+and two ``rec`` layers; Mamba-2-2.7B: 64 super-blocks of the pattern
+``ssm``, each leaf ``blocks/scan/b0/ssm/<name>`` or ``blocks/scan/b0/ln1``:
+an ``ssm`` layer has one pre-norm and no ``ln2``).  Each leaf is stored in
+the type its use computes in (:func:`layers.storage_dtype`).  Tied embeddings have no ``unembed``
 leaf: the f32 table the logits read is made from ``embed`` here
 (:func:`transformer.place_tied_unembed`).
 """

@@ -7,4 +7,4 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
     shrink,
 )
-from repro_torch.configs import qwen3_moe_235b_a22b, recurrentgemma_2b  # noqa: F401
+from repro_torch.configs import mamba2_2_7b, qwen3_moe_235b_a22b, recurrentgemma_2b  # noqa: F401

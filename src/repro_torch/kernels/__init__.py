@@ -15,6 +15,7 @@ hosts without ``nvcc`` import these modules and run the plain versions.
   moe_decode       plan-steered expert SwiGLU for tiny T (decode)
   moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + combine
   rglru_scan       the RG-LRU's diagonal linear recurrence (prefill)
+  ssd_scan         Mamba-2's chunked state-space-dual scan (prefill)
 
 Every wrapper in ``kernels/<name>/ops.py`` takes its plain version (the
 sibling ``ref.py``) only for CPU tensors; on ``cuda`` it launches its kernel
@@ -34,7 +35,7 @@ from typing import Dict, List
 REPO = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "repro_torch"
-SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan")
+SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan", "ssd_scan")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -156,6 +157,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.moe_decode.ops import decode_moe_kernel
     from repro_torch.kernels.moe_fused.ops import down_combine, gather_swiglu
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     return {
         "flash_decode": flash_decode_kernel,
@@ -166,4 +168,5 @@ def kernel_wrappers() -> dict:
         "flash_decode_window": flash_decode_window_kernel,
         "flash_attention": flash_attention_kernel,
         "rglru_scan": rglru_scan,
+        "ssd_scan": ssd_scan,
     }

@@ -1,7 +1,8 @@
 """Serving driver of the port: one continuous-batching replica with chain
 or tree speculation on the Agile decode plane, over a contiguous or a paged
-KV cache, or over rolling-window caches and RG-LRU state for the hybrid
-RecurrentGemma family at spec width 1 (port of ``repro/launch/serve.py``'s
+KV cache, over rolling-window caches and RG-LRU state for the hybrid
+RecurrentGemma family, or over SSD state for the Mamba-2 family, both at
+spec width 1 on the contiguous plane (port of ``repro/launch/serve.py``'s
 ``ServeReplica`` without programs, forks, fault hooks or the fabric).
 
 Each :meth:`ServeReplica.step` runs ``spec_tokens`` tokens (or tree nodes)
@@ -23,6 +24,8 @@ admissions; admission binds pages and writes only the rows it owns.
         --smoke --decode-plane --paged --page-size 8 --draft-tree 2,1 --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --smoke --decode-plane --prompt-len 48 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+        --smoke --decode-plane --prompt-len 40 --device cpu
 """
 from __future__ import annotations
 
@@ -405,6 +408,9 @@ def main(argv=None) -> int:
         cfg, decode_plane=args.decode_plane or cfg.decode_plane, spec_tokens=T,
         paged=args.paged or cfg.paged, page_size=args.page_size or cfg.page_size,
     )
+    if "ssm" in cfg.layer_kinds and (args.paged or args.draft_tree):
+        ap.error("Mamba-2 (ssm) archs serve on the contiguous decode plane at spec width 1; "
+                 "--paged and --draft-tree for them come in a later slice")
     try:
         check_spec_width(cfg, T)
     except NotImplementedError as err:

@@ -21,10 +21,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 # leaves the reference reads in f32 whatever the activation type: norm scales
 # (cast to f32 inside rms_norm), the router (f32 control plane), unembed
-# (logits are taken in f32) and the RG-LRU's diagonal gates, which it keeps
-# in f32 whatever the model's type (rglru.init_rec_block)
+# (logits are taken in f32), the RG-LRU's diagonal gates and the SSD block's
+# decay, skip, step bias and gated-norm scale, which it keeps in f32 whatever
+# the model's type (rglru.init_rec_block, mamba2.init_ssm_block)
 _F32_LEAVES = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "router", "unembed",
-               "alpha_r", "b_r", "alpha_i", "b_i", "lam")
+               "alpha_r", "b_r", "alpha_i", "b_i", "lam", "A_log", "D", "dt_bias", "norm_scale")
 
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -1,6 +1,6 @@
 """Model facade (port of ``repro/models/model.py``): init, cache, prefill,
 speculative chain and tree decode, and the cache surgery of continuous
-batching (contiguous, paged and rolling) for the ``moe``/``attn``/``rec``
+batching (contiguous, paged and rolling) for the ``moe``/``attn``/``rec``/``ssm``
 decoder stack.
 
 The cache is updated in place by :meth:`Model.prefill`,
@@ -108,8 +108,9 @@ class Model:
 
         Positions are checked against the row capacity of the first
         full-attention layer (its stripe, or its block table); rolling
-        buffers and ``rec`` state bound no position, so a stack without a
-        full-attention layer is checked against ``max_len`` when given.
+        buffers and ``rec``/``ssm`` state bound no position, so a stack
+        without a full-attention layer (RecurrentGemma, a pure-SSM Mamba-2)
+        is checked against ``max_len`` when given.
 
         With ``telemetry`` returns ``(logits, {"plan_agreement": float})``:
         the mean stale-vs-fresh plan top-k agreement over the MoE layers
@@ -120,7 +121,7 @@ class Model:
         if tree.num_nodes != Tn:
             raise ValueError(f"tree has {tree.num_nodes} nodes but the launch carries {Tn} tokens")
         lengths = np.asarray(lengths, np.int64).reshape(B)
-        attn = [c for kind, c in zip(self.cfg.layer_kinds, cache) if kind != "rec"]
+        attn = [c for kind, c in zip(self.cfg.layer_kinds, cache) if kind not in T.STATE_KINDS]
         paged = bool(attn) and "pk" in attn[0]
         if paged and pages is None:
             raise ValueError("paged cache without a block table: pass pages=(B, max_pages) int32 "
@@ -160,8 +161,8 @@ class Model:
     # ------------------------------------------------------------------
     @staticmethod
     def write_cache_slot(cache: List[Params], one_cache: List[Params], slot: int) -> None:
-        """Copy a B=1 cache (every leaf: K/V, plan rows, ``rec`` state) into
-        batch row ``slot``, in place."""
+        """Copy a B=1 cache (every leaf: K/V, plan rows, ``rec``/``ssm`` state)
+        into batch row ``slot``, in place."""
         for c, o in zip(cache, one_cache):
             for name, leaf in c.items():
                 leaf[slot].copy_(o[name][0])

@@ -1,6 +1,7 @@
-"""Decoder stack for the ``moe``, ``attn`` and ``rec`` layer kinds (port of
-``repro/models/transformer.py``: contiguous, paged and rolling-window KV
-caches, RG-LRU state, chain and tree speculation).
+"""Decoder stack for the ``moe``, ``attn``, ``rec`` and ``ssm`` layer kinds
+(port of ``repro/models/transformer.py``: contiguous, paged and
+rolling-window KV caches, RG-LRU and SSD state, chain and tree
+speculation).
 
 Layout: params are ``{"embed", "layers": [one dict per layer],
 "final_norm", "unembed"}`` and the decode cache is a list with one dict per
@@ -25,8 +26,9 @@ token at position ``pos`` in slot ``pos % W`` (:func:`rolling_rows`);
 prefill attends through the window mask and decode through the
 window-steered flash-decode kernel, so KV memory is bounded by the window
 whatever the prompt's length.  ``rec`` layers (RG-LRU,
-:mod:`repro_torch.models.rglru`) carry ``h``/``conv`` state instead of K/V
-and decode one token per launch.
+:mod:`repro_torch.models.rglru`) and ``ssm`` layers (Mamba-2 SSD,
+:mod:`repro_torch.models.mamba2`; a single pre-norm and no FFN) carry
+``h``/``conv`` state instead of K/V and decode one token per launch.
 
 Paged KV plane (``cfg.paged``): the full-attention KV lives in a flat pool
 ``pk``/``pv`` of ``num_pages * page_size`` rows with no batch axis, addressed
@@ -47,10 +49,13 @@ from repro_torch.core.control_plane import route_topk_decode, topk_agreement
 from repro_torch.core.plans import DecodePlan, TreePlan
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode, flash_decode_paged, flash_decode_window
 from repro_torch.models import layers as L
-from repro_torch.models import moe, rglru
+from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import Params
 
-_KINDS = ("attn", "moe", "rec")
+_KINDS = ("attn", "moe", "rec", "ssm")
+# layers whose decode state is a recurrence, not KV rows: they bound no
+# position and advance one token per launch
+STATE_KINDS = ("rec", "ssm")
 
 
 def window_of(cfg: ModelConfig) -> int:
@@ -71,14 +76,21 @@ def _check_kind(kind: str, cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "rolling-window layers on the paged KV plane come with rolling-window trees in a later slice"
         )
+    if kind == "ssm" and cfg.paged:
+        raise NotImplementedError(
+            "Mamba-2 (ssm) stacks serve on the contiguous decode plane; the paged plane for them "
+            "comes in a later slice"
+        )
 
 
 def check_spec_width(cfg: ModelConfig, T: int) -> None:
-    """Stateful recurrences advance one token per launch: ``rec`` layers
-    serve spec width 1 only (the reference's refusal, word for word)."""
-    if T != 1 and "rec" in cfg.layer_kinds:
+    """Stateful recurrences advance one token per launch: ``rec`` and
+    ``ssm`` layers serve spec width 1 only (the reference's refusal, word
+    for word, naming the first such layer's kind)."""
+    kinds = [k for k in cfg.layer_kinds if k in STATE_KINDS]
+    if T != 1 and kinds:
         raise NotImplementedError(
-            "multi-token decode for 'rec' layers needs a T-step state "
+            f"multi-token decode for {kinds[0]!r} layers needs a T-step state "
             "recurrence; serve rec/ssm archs with spec_tokens=1"
         )
 
@@ -91,7 +103,11 @@ def check_spec_width(cfg: ModelConfig, T: int) -> None:
 def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device) -> Params:
     _check_kind(kind, cfg)
     d = cfg.d_model
-    p: Params = {"ln1": L.init_rms_norm(d, device), "ln2": L.init_rms_norm(d, device)}
+    p: Params = {"ln1": L.init_rms_norm(d, device)}
+    if kind == "ssm":  # a single pre-norm, no FFN
+        p["ssm"] = mamba2.init_ssm_block(gen, cfg, device)
+        return p
+    p["ln2"] = L.init_rms_norm(d, device)
     if kind == "rec":
         p["rec"] = rglru.init_rec_block(gen, cfg, device)
     else:
@@ -159,7 +175,8 @@ def rolling_rows(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
-    """``rec`` layers: the RG-LRU state (``h`` (B, W) f32, ``conv``).
+    """``rec`` layers: the RG-LRU state (``h`` (B, W) f32, ``conv``);
+    ``ssm`` layers: the SSD state (``h`` (B, H, N, P) f32, ``conv``).
     Attention layers: contiguous KV stripes (B, S, nkv, hd) with
     ``S = rolling_rows(cfg, max_len)`` (a rolling buffer under local
     attention), or under ``cfg.paged`` the flat pool (num_pages * page_size
@@ -169,6 +186,8 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     _check_kind(kind, cfg)
     if kind == "rec":
         return rglru.init_rec_state(batch, cfg, device)
+    if kind == "ssm":
+        return mamba2.init_ssm_state(batch, cfg, device)
     hd, dt = cfg.resolved_head_dim, L.act_dtype(cfg)
     if cfg.paged:
         rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
@@ -218,7 +237,7 @@ def apply_layer_prefill(
     rows: slice,
 ):
     """Full-sequence pass that writes the prompt's K/V (and the seeded
-    DecodePlan), or a ``rec`` layer's final state, into batch rows ``rows``
+    DecodePlan), or a ``rec``/``ssm`` layer's final state, into batch rows ``rows``
     of ``cache``, in place.  The whole stripe is zeroed first, so the slot
     holds exactly what a fresh B=1 cache written into it would.  A rolling
     buffer of W rows takes the prompt's last ``min(W, S)`` positions at
@@ -230,6 +249,11 @@ def apply_layer_prefill(
             cache[name][rows] = val.to(cache[name].dtype)
         h = x + r
         return h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"]), route_src
+    if kind == "ssm":
+        s, state = mamba2.ssm_block(L.rms_norm(x, p["ln1"]), p["ssm"], cfg, return_state=True)
+        for name, val in state.items():
+            cache[name][rows] = val.to(cache[name].dtype)
+        return x + s, route_src
     if "pk" in cache:
         raise ValueError(
             "prefill writes contiguous stripes; paged caches are seeded through "
@@ -452,8 +476,9 @@ def apply_layer_decode_spec(
 
     Local-attention layers serve chains through the rolling buffer
     (:func:`_decode_attn_rolling`); branchy trees on them need the paged
-    plane's commit maps and come in a later slice.  ``rec`` layers run one
-    RG-LRU step at T = 1 and refuse T > 1 (:func:`check_spec_width`).
+    plane's commit maps and come in a later slice.  ``rec`` and ``ssm``
+    layers run one RG-LRU or SSD step at T = 1 and refuse T > 1
+    (:func:`check_spec_width`).
 
     Returns ``(x, route_src, agreement)``: the stale-vs-fresh top-k plan
     agreement of this layer as a 0-d tensor when ``telemetry`` is set and
@@ -464,6 +489,9 @@ def apply_layer_decode_spec(
         r = rglru.rec_block_decode(L.rms_norm(x, p["ln1"]), p["rec"], cfg, cache)
         h = x + r
         return h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"]), route_src, None
+    if kind == "ssm":
+        check_spec_width(cfg, T)
+        return x + mamba2.ssm_block_decode(L.rms_norm(x, p["ln1"]), p["ssm"], cfg, cache), route_src, None
     paged = "pk" in cache
     if commit is not None:
         _apply_commit(cache, commit, pages, cfg)

@@ -205,3 +205,30 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, W):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32
     _close(got, rg_ref.linear_scan(a, b, h0), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,P,N,chunk,with_h0", [(2, 37, 3, 16, 16, 16, True), (1, 100, 4, 64, 128, 256, False),
+                                                      (2, 300, 2, 32, 64, 48, True)])
+def test_ssd_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, H, P, N, chunk, with_h0):
+    """y and the final state, ragged tails, with and without h0; the kernel
+    walks chunks of at most 64 steps whatever ``chunk`` is, the same
+    function summed in another order.  x, B and C are read as views of one
+    projection (the model's layout), through their strides."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    rng = np.random.default_rng(T)
+    proj = _t((0.5 * rng.standard_normal((B, T, H * P + 2 * N))).astype(np.float32)).to(cuda, dtype)
+    x = proj[..., :H * P].reshape(B, T, H, P)
+    bm, cm = proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    dt = _t(np.log1p(np.exp(rng.standard_normal((B, T, H)))).astype(np.float32)).to(cuda)
+    a = -_t(np.linspace(1.0, 16.0, H).astype(np.float32)).to(cuda)
+    h0 = _t(rng.standard_normal((B, H, N, P)).astype(np.float32)).to(cuda) if with_h0 else None
+    y, h = ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk, h0=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == h.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    want_y, want_h = ssd_ref.ssd_chunked(x, dt, a, bm, cm, chunk, h0)
+    _close(y, want_y, torch.float32)
+    _close(h, want_h, torch.float32)
