@@ -14,7 +14,11 @@ then serves Qwen3-MoE-235B-A22B at full width, cut to 4 layers, on the
 Agile decode plane twice: over the contiguous cache (spec 4, ngram drafter;
 phase ``full_width``) and over the paged KV plane with a ``2,1`` draft tree
 drafted by the target's first layer behind a 64-token shared system prompt
-(phase ``paged_tree``); then, with the MoE weights freed, RecurrentGemma-2B
+(phase ``paged_tree``); then through the expert-parallel MoE plane on a
+one-rank (data 1, model 1) mesh over NCCL (phase ``expert_parallel``: the
+a2a body with kernels 8-10 at admission, the shard-sliced decode plane,
+logits held against the single-host model, the twin ``ep_spec4`` and a
+profile); then, with the MoE weights freed, RecurrentGemma-2B
 uncut (26 layers, bf16) over 2,048-slot rolling windows with 2,048- to
 4,096-token prompts (phase ``hybrid_window``); then, with those weights
 freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
@@ -83,6 +87,26 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
     return statistics.median(out)
 
 
+def device_ms(fn, match: str, n: int = 20):
+    """Mean device time per call of the kernels whose names contain
+    ``match`` over ``n`` calls of ``fn``, from ``torch.profiler`` (None when
+    it shows no device time): the kernel alone, where ``time_ms`` of a
+    microsecond kernel measures how fast the host issues its wrapper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and match in ev.key)
+    return us / 1e3 / n if us else None
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -109,6 +133,26 @@ def check_bf16(name, got, want):
     if bad:
         raise AssertionError(f"{name}: {bad} of {err.numel()} elements differ by more than "
                              f"2^-7 |plain| + 1e-3 rms (max |kernel - plain| {float(err.max()):.3e})")
+    return float(err.max())
+
+
+def check_composed(name, got, want, h_kernel, h_plain, w):
+    """Hold for ``h' @ w`` against ``h @ w`` where h' and h are a kernel's
+    and its plain version's bf16 intermediates (already held to one ulp of
+    each other): an element of the product may differ by what the
+    intermediates' difference carries through, ``|h' - h| @ |w|``, plus one
+    ulp (2^-7 of its value) from the last rounding, plus the 1e-3 x rms
+    floor of :func:`check_bf16`."""
+    import torch
+
+    g, wt = got.float(), want.float()
+    err = (g - wt).abs()
+    carried = torch.bmm((h_kernel.float() - h_plain.float()).abs(), w.float().abs())
+    lim = 2.0 ** -7 * wt.abs() + carried + 1e-3 * float(wt.pow(2).mean().sqrt())
+    bad = int((err > lim).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {err.numel()} elements differ by more than 2^-7 |plain| + "
+                             f"|h' - h| @ |w| + 1e-3 rms (max |kernel - plain| {float(err.max()):.3e})")
     return float(err.max())
 
 
@@ -274,11 +318,166 @@ def kernel_phase(cfg, dev):
         composite_ms=time_ms(composite_down, iters=5, reps=3), composite_call="torch.bmm + index_add_",
         shapes=shapes, bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
+    rows.update(ep_kernel_rows(dev, gen, tol, xp, pplan, h, wg, wu, wd))
     del wg, wu, wd, h
     torch.cuda.empty_cache()
     rows["flash_decode_paged"] = paged_kernel_rows(cfg, dev, gen, tol)
     rows.update(hybrid_kernel_rows(dev, gen, tol))
     rows["ssd_scan"] = ssd_kernel_row(dev, gen, tol)
+    return rows
+
+
+def ep_kernel_rows(dev, gen, tol, xp, plan, h, wg, wu, wd):
+    """Kernels 8-10 at the a2a body's shapes for one 128-token admission
+    prompt (E 128, top-8, C 16, d 4096, f 1536, bf16): dispatch of the
+    prompt into the plan's slots (held exactly), the combine of (E, C, d)
+    expert outputs (one bf16 ulp; f32 at 1e-4), the grouped down projection
+    of h (E, C, f) through w_down (one bf16 ulp; f32 at 1e-4); and each at a
+    ragged shape: T 37, d 100 (not a whole number of 16-byte vectors), C 5
+    (dropped assignments and empty slots), and the GEMM at E 3, M 37, K 100,
+    N 130.  Then the a2a body's expert step as it runs there: kernel 3 over
+    the 2,048 dispatched slot rows with the identity index (one bf16 ulp),
+    and the whole ``fused_experts_fn`` (kernel 3, then kernel 8): one bf16
+    ulp against the plain GEMM on kernel 3's output, and against the plain
+    composition within :func:`check_composed`."""
+    import torch
+
+    from repro_torch.core.control_plane import route_topk
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.kernels.grouped_gemm import ref as gg_ref
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_dispatch import ref as md_ref
+
+    bf16 = torch.bfloat16
+    E, C = plan.num_experts, plan.capacity
+    T, k = plan.combine_idx.shape
+    d = xp.shape[1]
+    rows = {}
+
+    def exact(name, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"(max |diff| {float((got.float() - want.float()).abs().max()):.3e})")
+        return 0.0
+
+    # ---- ragged cases: drops, empty slots, scalar rows, ragged GEMM tiles
+    xr = torch.randn((37, 100), generator=gen, device=dev)
+    wr = torch.randn((100, 8), generator=gen, device=dev) * 0.3
+    xr[:, 0], wr[0, :2] = 4.0, 2.0  # experts 0 and 1 win: they overflow, the rest stay short
+    rplan, _ = route_topk(xr, wr, 2, 5)
+    drops, empty = int((rplan.combine_idx < 0).sum()), int((~rplan.dispatch_valid).sum())
+    if not (drops and empty):
+        raise AssertionError(f"ragged dispatch case: {drops} dropped assignments, {empty} empty slots")
+    yr = torch.randn((8, 5, 100), generator=gen, device=dev)
+    ga, gb = (torch.randn(s, generator=gen, device=dev) for s in ((3, 37, 100), (3, 100, 130)))
+    for dt in (torch.float32, bf16):
+        exact(f"moe_dispatch ragged {dt}", md_ops.dispatch(xr.to(dt), rplan), md_ref.dispatch(xr.to(dt), rplan))
+        got, want = md_ops.combine(yr.to(dt), rplan), md_ref.combine(yr.to(dt), rplan)
+        check_close(f"moe_combine ragged {dt}", got, want, tol["f32"]) if dt == torch.float32 else \
+            check_bf16("moe_combine ragged bf16", got, want)
+        got, want = gg_ops.grouped_gemm(ga.to(dt), gb.to(dt)), gg_ref.grouped_gemm(ga.to(dt), gb.to(dt))
+        check_close(f"grouped_gemm ragged {dt}", got, want, tol["f32"]) if dt == torch.float32 else \
+            check_bf16("grouped_gemm ragged bf16", got, want)
+    ragged = (f"ragged: x (37, 100), E 8, top-2, C 5 ({drops} dropped assignments, {empty} empty slots); "
+              f"GEMM (3, 37, 100) @ (3, 100, 130)")
+
+    # ---- moe_dispatch: the 128-token prompt into (128, 16, 4096) slots
+    err32 = exact("moe_dispatch f32", md_ops.dispatch(xp.float(), plan), md_ref.dispatch(xp.float(), plan))
+    err = exact("moe_dispatch bf16", md_ops.dispatch(xp, plan), md_ref.dispatch(xp, plan))
+    x_pad = torch.cat([xp, xp.new_zeros((1, d))])  # set-up: the library call needs the zero row
+    idx = plan.flat_dispatch_idx().long()
+    occupied = int((idx < T).sum())
+    nbytes = E * C * d * 2 + len(set(idx[idx < T].tolist())) * d * 2 + E * C * 4
+    rows["moe_dispatch"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, exact=True,
+        ms=time_ms(lambda: md_ops.dispatch(xp, plan), iters=50),
+        device_ms=device_ms(lambda: md_ops.dispatch(xp, plan), "dispatch_kernel"),
+        plain_ms=time_ms(lambda: md_ref.dispatch(xp, plan), iters=20),
+        library_ms=time_ms(lambda: torch.index_select(x_pad, 0, idx), iters=50),
+        library_call="torch.index_select(x_pad, 0, idx) (the zero row appended beforehand)",
+        shapes=f"x {tuple(xp.shape)} -> slots ({E}, {C}, {d}), {occupied} slots occupied; {ragged}",
+        bytes=nbytes, flops=0.0, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0.0))),
+    )
+
+    # ---- moe_combine: (128, 16, 4096) expert outputs back into 128 tokens
+    y_slots = torch.randn((E, C, d), generator=gen, device=dev)
+    err32 = check_close("moe_combine f32", md_ops.combine(y_slots, plan), md_ref.combine(y_slots, plan), tol["f32"])
+    y_slots = y_slots.to(bf16)
+    err = check_bf16("moe_combine bf16", md_ops.combine(y_slots, plan), md_ref.combine(y_slots, plan))
+    cidx, cw = plan.flat_combine_words()
+    y_pad = torch.cat([y_slots.reshape(E * C, d), y_slots.new_zeros((1, d))])  # set-up
+    cl, wk = cidx.long(), cw.reshape(T, k, 1)
+
+    def composite():
+        return (torch.index_select(y_pad, 0, cl).reshape(T, k, d).float() * wk).sum(1).to(bf16)
+
+    kept = int((cidx < E * C).sum())
+    nbytes = kept * d * 2 + T * d * 2 + T * k * 8
+    flops = 2.0 * kept * d
+    rows["moe_combine"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32,
+        ms=time_ms(lambda: md_ops.combine(y_slots, plan), iters=50),
+        device_ms=device_ms(lambda: md_ops.combine(y_slots, plan), "combine_kernel"),
+        plain_ms=time_ms(lambda: md_ref.combine(y_slots, plan), iters=20),
+        library_ms=None, library_call=None,
+        composite_ms=time_ms(composite, iters=20),
+        composite_call="index_select of the assignments' slot rows + f32 weighted sum over top-k",
+        shapes=f"slots ({E}, {C}, {d}) -> ({T}, {d}), top-{k}, {T * k - kept} dropped assignments; {ragged}",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del y_slots, y_pad, x_pad
+
+    # ---- grouped_gemm: the a2a down projection h (128, 16, 1536) @ w_down
+    err = check_bf16("grouped_gemm bf16", gg_ops.grouped_gemm(h, wd), gg_ref.grouped_gemm(h, wd))
+    h32, wd32 = h.float(), wd.float()
+    err32 = check_close("grouped_gemm f32", gg_ops.grouped_gemm(h32, wd32), gg_ref.grouped_gemm(h32, wd32),
+                        tol["f32"])
+    del h32, wd32
+    torch.cuda.empty_cache()
+    Eh, M, K = h.shape
+    N = wd.shape[2]
+    nbytes = (h.numel() + wd.numel() + Eh * M * N) * 2
+    flops = 2.0 * Eh * M * K * N
+    rows["grouped_gemm"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32,
+        ms=time_ms(lambda: gg_ops.grouped_gemm(h, wd), iters=10),
+        device_ms=device_ms(lambda: gg_ops.grouped_gemm(h, wd), "grouped_gemm_kernel", n=10),
+        plain_ms=time_ms(lambda: gg_ref.grouped_gemm(h, wd), iters=3, reps=3),
+        library_ms=time_ms(lambda: torch.bmm(h, wd), iters=10), library_call="torch.bmm (bf16)",
+        shapes=f"h {tuple(h.shape)} @ w_down {tuple(wd.shape)}; {ragged}",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+
+    # ---- the a2a body's expert step: kernel 3 over the dispatched slots
+    # (identity index, every slot a row of its own), then kernel 8
+    from repro_torch.kernels.moe_fused import ops as mf_ops
+    from repro_torch.kernels.moe_fused import ref as mf_ref
+
+    slots = md_ops.dispatch(xp, plan)
+    flat = slots.reshape(E * C, d)
+    ident = torch.arange(E * C, dtype=torch.int32, device=dev)
+    h_a2a = mf_ops.gather_swiglu(flat, ident, wg, wu)
+    h_plain = mf_ref.gather_swiglu(flat, ident, wg, wu)
+    err_g = check_bf16("gather_swiglu a2a bf16", h_a2a, h_plain)
+    p = {"w_gate": wg, "w_up": wu, "w_down": wd}
+    got = mf_ops.fused_experts_fn(slots, p)
+    # kernel 8 on kernel 3's own output: one ulp; against the plain
+    # composition end to end: what kernel 3's ulps carry, plus one ulp
+    err_f = check_bf16("fused_experts_fn bf16", got, gg_ref.grouped_gemm(h_a2a, wd))
+    err_c = check_composed("fused_experts_fn vs plain composition", got, gg_ref.grouped_gemm(h_plain, wd),
+                           h_a2a, h_plain, wd)
+    rows["fused_experts_fn"] = dict(
+        gather_swiglu_max_abs_err=err_g, max_abs_err=err_f, max_abs_err_vs_plain_composition=err_c,
+        tolerance="kernel 3 and kernel 8 on kernel 3's output: one bf16 ulp (check_bf16); "
+                  "end to end: check_composed",
+        ms=time_ms(lambda: mf_ops.fused_experts_fn(slots, p), iters=5),
+        plain_ms=time_ms(lambda: gg_ref.grouped_gemm(mf_ref.gather_swiglu(flat, ident, wg, wu), wd),
+                         iters=2, reps=3),
+        shapes=f"slots ({E}, {C}, {d}) from the prompt's dispatch, identity index over {E * C} rows, "
+               f"w_gate/w_up ({E}, {d}, {wg.shape[2]}), w_down {tuple(wd.shape)}",
+    )
+    del slots, flat, h_a2a, h_plain, got
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -592,9 +791,12 @@ CONTIGUOUS_KERNELS = ("flash_decode", "decode_moe", "gather_swiglu", "down_combi
 PAGED_KERNELS = ("flash_decode_paged", "decode_moe", "gather_swiglu", "down_combine", "flash_attention")
 HYBRID_KERNELS = ("flash_decode_window", "flash_attention", "rglru_scan")
 SSM_KERNELS = ("ssd_scan",)
+# the expert-parallel plane: the a2a body at admission, kernel 2 on the shard
+EP_KERNELS = ("flash_decode", "decode_moe", "gather_swiglu", "grouped_gemm", "moe_dispatch", "moe_combine",
+              "flash_attention")
 
 
-def smoke_twin(dev):
+def smoke_twin(dev, names=None, meshes=(None, None)):
     """The f32 smoke configs served on the card (kernels) and on the CPU
     (plain versions) from the same weights: greedy streams identical.  At
     spec 4 some drafts must be accepted, so the plan-row selection by
@@ -605,7 +807,10 @@ def smoke_twin(dev):
     24/36/48 tokens past its window of 16, so every rolling buffer wraps;
     the SSM run serves Mamba-2's smoke stack with prompts of 260/390/520
     tokens, past the full model's chunk of 256 and each with a ragged tail
-    (the smoke chunk is 16)."""
+    (the smoke chunk is 16).  ``ep_spec4`` serves the spec-4 chain through
+    the expert-parallel plane: ``meshes`` are a one-rank (1, 1) mesh on the
+    card and one on the CPU over the same process group; it runs only when
+    ``names`` asks for it (by default every other run does)."""
     import torch
 
     from repro_torch.configs import get_smoke_config
@@ -623,11 +828,14 @@ def smoke_twin(dev):
         "paged_spec3_shared16": dict(spec=3, ps=16, shared=16),
         "hybrid_spec1": dict(arch=HYBRID, slots=2, prompt=48, requests=4),
         "ssm_spec1": dict(arch=SSM, slots=2, prompt=520, requests=4),
+        "ep_spec4": dict(spec=4, mesh=True),
     }
+    names = names or [n for n, r in runs.items() if not r.get("mesh")]
     out = {}
-    for name, run in runs.items():
+    for name in names:
+        run = runs[name]
         r = dict(arch=ARCH, spec=1, drafter="ngram", tree=None, ps=0, shared=0, slots=3, prompt=16, gen=8,
-                 requests=6)
+                 requests=6, mesh=False)
         r.update(run)
         spec, drafter, ps, shared = r["spec"], r["drafter"], r["ps"], r["shared"]
         tree = TreePlan.from_branching(r["tree"]) if r["tree"] else None
@@ -640,14 +848,15 @@ def smoke_twin(dev):
         reqs = serve.synthetic_requests(cfg.vocab_size, r["prompt"], r["gen"], r["requests"], shared)
         max_len = r["prompt"] + shared + r["gen"] + spec
         kw = dict(tree=tree, drafter=drafter)
+        card_mesh, cpu_mesh = meshes if r["mesh"] else (None, None)
         reset_launch_counts()
         rep = serve.ServeReplica(cfg, r["slots"], max_len, _to(params_cpu, dev), device=dev,
-                                 drafter_params=_to(draft_cpu, dev), **kw)
+                                 drafter_params=_to(draft_cpu, dev), mesh=card_mesh, **kw)
         gpu = serve.serve_queue(rep, reqs)
         torch.cuda.synchronize()
         counts = {n: w.launches for n, w in kernel_wrappers().items()}
         cpu_rep = serve.ServeReplica(cfg, r["slots"], max_len, params_cpu, device="cpu", drafter_params=draft_cpu,
-                                     **kw)
+                                     mesh=cpu_mesh, **kw)
         cpu = serve.serve_queue(cpu_rep, reqs)
         g = {rid: res.tokens for rid, res in gpu.items()}
         c = {rid: res.tokens for rid, res in cpu.items()}
@@ -657,9 +866,11 @@ def smoke_twin(dev):
         if len(g) != r["requests"] or any(len(t) != r["gen"] + 1 for t in g.values()):
             raise AssertionError(f"{tag}: unanswered or short streams: {g}")
         expect = {HYBRID: HYBRID_KERNELS, SSM: SSM_KERNELS}.get(
-            r["arch"], PAGED_KERNELS if ps else CONTIGUOUS_KERNELS)
+            r["arch"], EP_KERNELS if r["mesh"] else PAGED_KERNELS if ps else CONTIGUOUS_KERNELS)
         if min(counts[n] for n in expect) <= 0:
             raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
+        if r["mesh"] and counts["down_combine"]:
+            raise AssertionError(f"{tag}: the single-host fused pair ran on the a2a path: {counts}")
         if ps and drafter != "model" and counts["flash_decode"]:
             raise AssertionError(f"{tag}: the contiguous flash_decode ran on the paged plane: {counts}")
         # every active slot keeps its first token each launch; the rest of
@@ -692,7 +903,9 @@ def smoke_twin(dev):
         out[name] = dict(row, streams=g)
     # greedy verify: the paged tree serves the same queue as the spec-4
     # chain, so its streams must be the chain's
-    out["paged_tree_streams_equal_chain"] = out["paged_tree2x1_ps8"]["streams"] == out["spec4_ngram"]["streams"]
+    if "paged_tree2x1_ps8" in out:
+        out["paged_tree_streams_equal_chain"] = (out["paged_tree2x1_ps8"]["streams"]
+                                                 == out["spec4_ngram"]["streams"])
     for row in out.values():
         if isinstance(row, dict):
             row.pop("streams")
@@ -859,6 +1072,131 @@ def paged_tree(dev, params):
     while rep.has_work():
         rep.step()
     return served, rep
+
+
+def expert_parallel(dev, params, served):
+    """The expert-parallel cell: ``full_width``'s weights and traffic served
+    through the mesh-bound replica on a one-rank (data 1, model 1) mesh over
+    NCCL (a process group made in-process, destroyed at the end).  Each
+    admission runs the a2a body (kernels 9, 3 over the identity index, 8,
+    10) once a layer and never the single-host fused pair; each decode launch
+    runs kernel 2 on the shard-sliced plan and kernel 1, once a layer.  The
+    first request's last-position prefill logits are held against the
+    single-host model's at 2e-2 of the logit scale (bf16: the a2a path
+    rounds each expert output to bf16 before the combine, the fused pair
+    adds in f32 with atomics).  Then the twin ``ep_spec4`` (card vs CPU,
+    the same group) and the profile of three decode launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_single_rank, make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import shard_params
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=SPEC)
+    max_len = PROMPT + GEN + SPEC
+    reqs = serve.synthetic_requests(cfg.vocab_size, PROMPT, GEN, REQUESTS)
+    init_single_rank(dev)
+    try:
+        mesh = make_host_mesh(1, 1, dev)
+        cpu_mesh = make_host_mesh(1, 1, "cpu")
+        ep_params = shard_params(params, cfg, mesh)  # one rank: the same tensors
+        torch.cuda.reset_peak_memory_stats()
+        rep = serve.ServeReplica(cfg, SLOTS, max_len, ep_params, drafter="ngram", mesh=mesh)
+        serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))  # warm-up
+        reset_serving_stats(rep)
+        torch.cuda.synchronize()
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        results = serve.serve_queue(rep, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = {n: w.launches for n, w in kernel_wrappers().items()}
+        streams = {rid: r.tokens for rid, r in results.items()}
+        if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
+            raise AssertionError(f"expert parallel: unanswered or failed requests: {results}")
+        for rid, toks in streams.items():
+            if len(toks) != GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
+                raise AssertionError(f"expert parallel: request {rid} stream malformed: {toks}")
+        ep = dict(
+            mesh=mesh.shape, backend="cpu:gloo,cuda:nccl", layers=LAYERS, dtype=cfg.dtype, slots=SLOTS,
+            prompt_len=PROMPT, gen=GEN, requests=REQUESTS, spec_tokens=SPEC, drafter="ngram",
+            peak_memory_bytes=peak, wall_s=wall, generated_tokens=rep.accepted_total,
+            tok_per_s=rep.accepted_total / wall, decode_launches=rep.launches,
+            ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1), prefills=rep.prefills,
+            prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
+            accepts_per_launch=rep.accepted_total / max(rep.launches, 1),
+        )
+        if counts["down_combine"] or min(counts[n] for n in EP_KERNELS) <= 0:
+            raise AssertionError(f"expert parallel: kernel launches {counts}")
+        step = launches_per_step(rep, reqs[0])
+        want = {n: LAYERS for n in ("moe_dispatch", "gather_swiglu", "grouped_gemm", "moe_combine")}
+        want["down_combine"] = 0
+        got = {n: step[n]["per_admission"] for n in want}
+        got_dec = {n: step[n]["per_decode_launch"] for n in ("decode_moe", "flash_decode")}
+        if got != want or got_dec != {"decode_moe": LAYERS, "flash_decode": LAYERS}:
+            raise AssertionError(f"expert parallel: launches per admission {got} (want {want}), per decode "
+                                 f"launch {got_dec} (want {LAYERS} each)")
+        while rep.has_work():
+            rep.step()
+        ep["decode_ms_alternating"] = alternate_decode(dev, cfg, params, rep, reqs, max_len)
+
+        # the first request's admission logits against the single-host model's
+        prompt = reqs[0].prompt[None]
+        single = Model(cfg, device=dev)
+        want_l = single.prefill(params, prompt, single.init_cache(1, max_len))
+        got_l = rep.model.prefill(ep_params, prompt, rep.model.init_cache(1, max_len))
+        scale = float(want_l.abs().max())
+        err = float((got_l - want_l).abs().max())
+        if not (bool(torch.isfinite(got_l).all()) and err <= 2e-2 * scale):
+            raise AssertionError(f"expert parallel: admission logits differ from single-host by {err:.3e} "
+                                 f"(scale {scale:.3g}, bound 2e-2 of it)")
+        pairs = [(a, b) for rid, toks in streams.items() for a, b in zip(toks, served["streams"][rid])]
+        ep.update(
+            logits_max_abs_diff_vs_single_host=err, logits_scale=scale,
+            logits_tolerance="2e-2 x max |single-host logit|",
+            first_token_equal=int(got_l.argmax()) == int(want_l.argmax()),
+            stream_tokens_identical_share=sum(a == b for a, b in pairs) / max(len(pairs), 1),
+            kernel_launches=counts, launches_per_step=step, streams=streams,
+        )
+        del want_l, got_l
+        twin = smoke_twin(dev, names=["ep_spec4"], meshes=(mesh, cpu_mesh))
+        prof = profile_decode(rep, cfg.vocab_size)
+        del rep
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return ep, twin, prof
+
+
+def alternate_decode(dev, cfg, params, rep, reqs, max_len, rounds=5):
+    """ms per decode launch of the single-host replica and the mesh replica
+    ``rep`` on the same weights and traffic, served in turn ``rounds``
+    times each, the first of each round alternating: the two phases run
+    minutes apart and a launch is mostly host time, so only runs that
+    interleave compare them."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    single = serve.ServeReplica(cfg, SLOTS, max_len, params, drafter="ngram", device=dev)
+    serve.serve_queue(single, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))  # warm-up
+    out = {"single_host": [], "mesh": []}
+    for i in range(rounds):
+        pair = [("single_host", single), ("mesh", rep)]
+        for name, r in pair if i % 2 == 0 else pair[::-1]:
+            reset_serving_stats(r)
+            serve.serve_queue(r, reqs)
+            torch.cuda.synchronize()
+            out[name].append(r.decode_ms / max(r.launches, 1))
+    del single
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_uncut(dev, arch):
@@ -1126,7 +1464,11 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:97"),
     "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu", "src/repro/kernels/rglru_scan/kernel.py:46"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan/kernel.py:65"),
+    "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu", "src/repro/kernels/grouped_gemm/kernel.py:40"),
+    "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch/kernel.py:36"),
+    "moe_combine": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch/kernel.py:80"),
 }
+EP_ONLY = ("grouped_gemm", "moe_dispatch", "moe_combine")
 
 
 def main() -> int:
@@ -1169,7 +1511,13 @@ def main() -> int:
     paged, rep = paged_tree(dev, params)
     emit("paged_tree", **paged)
     emit("profile_paged", **profile_decode(rep, cfg.vocab_size, SHARED))
-    del rep, params  # free the MoE weights before the hybrid cell
+    del rep
+    torch.cuda.empty_cache()
+    ep, ep_twin, ep_prof = expert_parallel(dev, params, served)
+    emit("expert_parallel", **ep)
+    emit("smoke_twin_ep", **ep_twin)
+    emit("profile_ep", **ep_prof)
+    del params  # free the MoE weights before the hybrid cell
     torch.cuda.empty_cache()
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)
@@ -1187,7 +1535,7 @@ def main() -> int:
         r = rows[name]
         # each kernel's launches come from the serving path it belongs to
         path = (paged if name == "flash_decode_paged" else hybrid if name in HYBRID_KERNELS
-                else ssm if name in SSM_KERNELS else served)
+                else ssm if name in SSM_KERNELS else ep if name in EP_ONLY else served)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=path["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],

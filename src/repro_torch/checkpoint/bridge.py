@@ -13,7 +13,10 @@ and two ``rec`` layers; Mamba-2-2.7B: 64 super-blocks of the pattern
 an ``ssm`` layer has one pre-norm and no ``ln2``).  Each leaf is stored in
 the type its use computes in (:func:`layers.storage_dtype`).  Tied embeddings have no ``unembed``
 leaf: the f32 table the logits read is made from ``embed`` here
-(:func:`transformer.place_tied_unembed`).
+(:func:`transformer.place_tied_unembed`).  Given a mesh, each rank places
+only its slice of the expert stacks (the layout of
+:func:`repro_torch.parallel.sharding.shard_params`), cut from the arrays
+before they are copied.
 """
 from __future__ import annotations
 
@@ -27,17 +30,23 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, storage_dtype
 from repro_torch.models.transformer import place_tied_unembed
+from repro_torch.parallel.sharding import expert_slice, is_expert_stack
 
 
-def _put(tree: dict, path, arr: np.ndarray, cfg: ModelConfig, device) -> None:
+def _put(tree: dict, path, arr: np.ndarray, cfg: ModelConfig, device, mesh) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     dt = storage_dtype(cfg, path[-1])
+    sl = expert_slice(cfg, mesh)
+    if sl is not None and is_expert_stack(path, arr.shape):
+        arr = arr[sl]  # the rank's expert slice, cut before the copy
     tree[path[-1]] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dt)
 
 
-def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, np.ndarray], device) -> Params:
-    """{leaf name: array} as the reference writes them -> port params."""
+def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, np.ndarray], device, mesh=None) -> Params:
+    """{leaf name: array} as the reference writes them -> port params (this
+    rank's expert slice when ``mesh`` has a ``model`` axis of more than one
+    rank)."""
     pat = cfg.block_pattern
     n_sb = cfg.num_layers // len(pat)
     layers = [dict() for _ in range(cfg.num_layers)]
@@ -45,15 +54,15 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, np.ndarray], device) -
     for name, arr in arrays.items():
         parts = name.split("/")
         if parts[0] != "blocks":
-            _put(params, parts, arr, cfg, device)
+            _put(params, parts, arr, cfg, device, mesh)
         elif parts[1] == "scan":
             j = int(parts[2][1:])
             if arr.shape[0] != n_sb:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n_sb} super-blocks")
             for s in range(n_sb):
-                _put(layers[s * len(pat) + j], parts[3:], arr[s], cfg, device)
+                _put(layers[s * len(pat) + j], parts[3:], arr[s], cfg, device, mesh)
         elif parts[1] == "rest":
-            _put(layers[n_sb * len(pat) + int(parts[2])], parts[3:], arr, cfg, device)
+            _put(layers[n_sb * len(pat) + int(parts[2])], parts[3:], arr, cfg, device, mesh)
         else:
             raise ValueError(f"unknown parameter leaf {name!r}")
     if any(not layer for layer in layers):

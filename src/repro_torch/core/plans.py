@@ -87,6 +87,12 @@ class DispatchPlan(NamedTuple):
         out[cidx.long()] = cw
         return out[:-1]
 
+    def replace_combine(self, combine_idx: torch.Tensor, combine_w: torch.Tensor) -> "DispatchPlan":
+        """``_replace`` for the combine words that also drops the cached flat
+        views (they would otherwise go stale and be silently preferred)."""
+        return self._replace(combine_idx=combine_idx, combine_w=combine_w, slot_w=None, flat_cidx=None,
+                             flat_cw=None)
+
 
 class DecodePlan(NamedTuple):
     """Capacity-free MoE configuration for T decode tokens.
@@ -106,6 +112,18 @@ class DecodePlan(NamedTuple):
         """Merge leading axes to the kernel's (T_total, k) control layout."""
         k = self.expert_ids.shape[-1]
         return DecodePlan(self.expert_ids.reshape(-1, k), self.weights.reshape(-1, k))
+
+    def shard_slice(self, first_expert: int, num_local: int) -> "DecodePlan":
+        """The plan as one expert shard sees it: assignments to experts
+        ``[first_expert, first_expert + num_local)`` keep their weight with
+        the id rebased to the local stack; the others get local id 0 and
+        weight 0, so the capacity-free data plane stays in bounds and adds
+        exactly zero for them.  Summing every shard's execution of its slice
+        gives the full combine."""
+        local = (self.expert_ids >= first_expert) & (self.expert_ids < first_expert + num_local)
+        ids = torch.where(local, self.expert_ids - first_expert, torch.zeros_like(self.expert_ids))
+        w = torch.where(local, self.weights, torch.zeros_like(self.weights))
+        return DecodePlan(ids.to(torch.int32), w.to(torch.float32))
 
 
 class TreePlan(NamedTuple):

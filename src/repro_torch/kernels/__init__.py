@@ -14,6 +14,8 @@ hosts without ``nvcc`` import these modules and run the plain versions.
   flash_attention  blocked causal / local-window GQA prefill attention
   moe_decode       plan-steered expert SwiGLU for tiny T (decode)
   moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + combine
+  grouped_gemm     y[e] = x[e] @ w[e] over expert slots (the a2a down projection)
+  moe_dispatch     plan-steered dispatch into expert slots and weighted combine
   rglru_scan       the RG-LRU's diagonal linear recurrence (prefill)
   ssd_scan         Mamba-2's chunked state-space-dual scan (prefill)
 
@@ -35,7 +37,8 @@ from typing import Dict, List
 REPO = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "repro_torch"
-SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan", "ssd_scan")
+SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan", "ssd_scan",
+           "grouped_gemm", "moe_dispatch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -154,7 +157,9 @@ def kernel_wrappers() -> dict:
         flash_decode_paged_kernel,
         flash_decode_window_kernel,
     )
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
     from repro_torch.kernels.moe_decode.ops import decode_moe_kernel
+    from repro_torch.kernels.moe_dispatch.ops import combine, dispatch
     from repro_torch.kernels.moe_fused.ops import down_combine, gather_swiglu
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -169,4 +174,7 @@ def kernel_wrappers() -> dict:
         "flash_attention": flash_attention_kernel,
         "rglru_scan": rglru_scan,
         "ssd_scan": ssd_scan,
+        "grouped_gemm": grouped_gemm,
+        "moe_dispatch": dispatch,
+        "moe_combine": combine,
     }

@@ -1,0 +1,70 @@
+"""Grouped GEMM wrappers (port of ``repro/kernels/grouped_gemm/ops.py``).
+
+:func:`grouped_gemm` is the launch: its plain version (``ref.py``) on CPU
+tensors, ``csrc/grouped_gemm.cu`` on ``cuda`` tensors (counted in
+``launches``), or an error.  Ragged M, K and N are masked inside the kernel,
+so the wrapper makes no padded copies.  :func:`grouped_swiglu` and
+:func:`experts_fn` (the reference's ``pallas_experts_fn``) build the
+per-expert SwiGLU on it.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.grouped_gemm import ref
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"grouped_gemm: {msg}")
+
+
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ w[e]: (E, M, K) @ (E, K, N) -> (E, M, N), accumulated
+    in f32, in x's type."""
+    _check(x.ndim == 3 and w.ndim == 3 and x.shape[0] == w.shape[0] and x.shape[2] == w.shape[1],
+           f"shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    _check(x.dtype == w.dtype, f"x is {x.dtype} but w is {w.dtype}")
+    if x.device.type == "cpu":
+        _check(w.device.type == "cpu", "tensors on different devices")
+        return ref.grouped_gemm(x, w)
+    _check(x.device == w.device, "tensors on different devices")
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    x, w = x.contiguous(), w.contiguous()
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    E, M, K = x.shape
+    N = w.shape[2]
+    y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    vec = int((N * w.element_size()) % 16 == 0 and w.data_ptr() % 16 == 0)
+    rc = function("grouped_gemm", "repro_grouped_gemm", [ctypes.c_int] + [ctypes.c_void_p] * 3
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])(
+        dtype_code(x.dtype), ptr(x), ptr(w), ptr(y), E, M, K, N, vec, stream_of(x),
+    )
+    check_launch(rc, "grouped_gemm")
+    grouped_gemm.launches += 1
+    return y
+
+
+grouped_gemm.launches = 0
+
+
+def grouped_swiglu(
+    x_slots: torch.Tensor,  # (E, C, d)
+    w_gate: torch.Tensor,   # (E, d, f)
+    w_up: torch.Tensor,
+    w_down: torch.Tensor,   # (E, f, d)
+) -> torch.Tensor:
+    """Per-expert SwiGLU of the slots, three grouped GEMMs, in x's type."""
+    dt = x_slots.dtype
+    g = grouped_gemm(x_slots, w_gate.to(dt))
+    u = grouped_gemm(x_slots, w_up.to(dt))
+    return grouped_gemm(torch.nn.functional.silu(g) * u, w_down.to(dt))
+
+
+def experts_fn(x_slots: torch.Tensor, p) -> torch.Tensor:
+    """The ``experts_fn`` signature of the MoE data plane: (E, C, d) slots
+    through the layer's expert stacks ``p``."""
+    return grouped_swiglu(x_slots, p["w_gate"], p["w_up"], p["w_down"])

@@ -4,7 +4,10 @@
 on CPU tensors, ``csrc/moe_fused.cu`` on ``cuda`` tensors, or an error.
 :func:`fused_moe_fn` runs a :class:`~repro_torch.core.plans.DispatchPlan`
 through both.  The kernel reads x (T, d) and treats index T as a zero row,
-so the wrapper builds no padded copy of x.
+so the wrapper builds no padded copy of x.  :func:`fused_experts_fn` runs
+slots that are already expert-major (the expert-parallel a2a body's
+post-all_to_all tensor) through ``gather_swiglu`` over the identity index
+and the grouped GEMM (:mod:`repro_torch.kernels.grouped_gemm`).
 """
 from __future__ import annotations
 
@@ -108,3 +111,17 @@ def fused_moe_fn(x: torch.Tensor, plan: DispatchPlan, p) -> torch.Tensor:
         x.contiguous(), plan.flat_dispatch_idx().contiguous(), plan.flat_slot_w().contiguous(),
         p["w_gate"], p["w_up"], p["w_down"],
     )
+
+
+def fused_experts_fn(x_slots: torch.Tensor, p) -> torch.Tensor:
+    """``experts_fn`` over expert-major slots (E, C, d) -> (E, C, d): one
+    ``gather_swiglu`` launch over the identity index (every slot occupied, so
+    every expert's gate/up weights are read) and one grouped down projection;
+    the output stays slot-major, no scatter (reference
+    ``moe_fused/ops.fused_experts_fn``)."""
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
+
+    E, C, d = x_slots.shape
+    flat_idx = torch.arange(E * C, dtype=torch.int32, device=x_slots.device)
+    h = gather_swiglu(x_slots.reshape(E * C, d).contiguous(), flat_idx, p["w_gate"], p["w_up"])
+    return grouped_gemm(h, p["w_down"].to(h.dtype)).to(x_slots.dtype)

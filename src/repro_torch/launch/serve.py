@@ -26,12 +26,25 @@ admissions; admission binds pages and writes only the rows it owns.
         --smoke --decode-plane --prompt-len 48 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --decode-plane --prompt-len 40 --device cpu
+
+Expert parallelism (``--model N``): the replica's MoE layers run on a
+``(data, model)`` mesh (:mod:`repro_torch.launch.mesh`), the experts split
+over the ``model`` axis: the a2a body at prefill, the shard-sliced plan and
+one all-reduce a layer at decode (both skipped at one rank)
+(:mod:`repro_torch.parallel.moe_parallel`).  ``--model 1`` (the default)
+makes a one-rank group in-process; ``--model N > 1`` runs under ``torchrun
+--nproc-per-node N``, every rank serving the same queue and rank 0 printing
+and dumping:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
+        --smoke --decode-plane --model 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import time
 from collections import deque
@@ -39,12 +52,13 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.pages import PageTable, PrefixTrie, commit_maps
 from repro_torch.core.plans import TreePlan
+from repro_torch.launch.mesh import backend_for, init_single_rank, make_host_mesh, rank_device
 from repro_torch.launch.speculative import TREE_DRAFTERS, ModelDrafter, greedy_accept_tree
-from repro_torch.launch.steps import admission, prefill_model, spec_serve_step
-from repro_torch.models.model import Model
+from repro_torch.launch.steps import admission, build_model, prefill_model, spec_serve_step
 from repro_torch.models.transformer import check_spec_width, max_pages_for, num_pages
 
 DRAFTER_CHOICES = ("model", "ngram", "repeat")
@@ -73,17 +87,26 @@ class ServeReplica:
     """The continuous-batching speculative decode loop over a slot pool.
 
     ``params`` must live on the replica's device; ``device=None`` means the
-    card (see :func:`repro_torch.resolve_device`).  ``drafter="model"``
-    drafts with a 1-layer model of the same family (``model_drafter``, its
-    weights ``drafter_params``, or drawn from seed 7); ``telemetry`` records the
+    card (see :func:`repro_torch.resolve_device`).  With ``mesh`` (a
+    :class:`repro_torch.launch.mesh.Mesh`) the model, the admission model
+    (:func:`launch.steps.prefill_model`, with the model's MoE applies) and
+    the drafter model are bound to it (:func:`launch.steps.build_model`), they
+    live on the mesh's device, and ``params`` (and ``drafter_params``) hold
+    this rank's expert slice (:func:`parallel.sharding.shard_params`, or the
+    bound model's ``init``); every
+    rank of the mesh serves the same queue.  ``drafter="model"`` drafts with
+    a 1-layer model of the same family (``model_drafter``, its weights
+    ``drafter_params``, or drawn from seed 7); ``telemetry`` records the
     plan agreement of every launch in ``agreements``."""
 
     def __init__(self, cfg, slots: int, max_len: int, params, *, tree: Optional[TreePlan] = None,
-                 drafter: str = "ngram", telemetry: bool = False, drafter_params=None, device=None):
+                 drafter: str = "ngram", telemetry: bool = False, drafter_params=None, device=None,
+                 mesh=None):
         if drafter not in DRAFTER_CHOICES:
             raise ValueError(f"drafter must be one of {sorted(DRAFTER_CHOICES)}, got {drafter!r}")
         self.cfg = cfg
-        self.model = Model(cfg, device)
+        self.mesh = mesh
+        self.model = build_model(cfg, mesh, slots, device)
         self._pf_model = prefill_model(self.model)
         self.params = params
         self.B, self.max_len = slots, max_len
@@ -101,7 +124,7 @@ class ServeReplica:
         if drafter == "model" and self.T > 1:
             # same family, one layer, width-1 launches, its own contiguous cache
             draft_cfg = dataclasses.replace(cfg, num_layers=1, spec_tokens=1, paged=False)
-            draft_model = Model(draft_cfg, self.model.device)
+            draft_model = build_model(draft_cfg, mesh, slots, self.model.device)
             dp = drafter_params if drafter_params is not None else draft_model.init(7)
             self.model_drafter = ModelDrafter(draft_model, dp, slots, max_len)
 
@@ -393,7 +416,11 @@ def main(argv=None) -> int:
                     help="draft policy: host heuristics (ngram, repeat) or a 1-layer draft model")
     ap.add_argument("--telemetry", action="store_true", help="report stale-vs-fresh plan top-k agreement")
     ap.add_argument("--dump-tokens", default="", help="write {rid: token stream} JSON here")
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--device", default=None, help="cuda (default: cuda:LOCAL_RANK) or cpu")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel mesh axis (1 in this slice: batch sharding comes later)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="expert-parallel mesh axis: ranks the experts split over (N > 1 under torchrun)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -416,46 +443,75 @@ def main(argv=None) -> int:
     except NotImplementedError as err:
         ap.error(str(err))
     telemetry = args.telemetry and cfg.decode_plane and cfg.is_moe
-    model = Model(cfg, args.device)
+    if args.data != 1:
+        ap.error("--data > 1 (batch sharding over the data axis) comes in a later slice; serve with --data 1")
+    if args.model < 1:
+        ap.error(f"--model must be >= 1, got {args.model}")
+    world = int(os.environ.get("WORLD_SIZE", "0") or 0)
+    if (world or 1) != args.data * args.model:
+        ap.error(f"a ({args.data}, {args.model}) mesh runs one rank per process: launch it with "
+                 f"torchrun --nproc-per-node {args.data * args.model} (WORLD_SIZE is {world or 'unset'})")
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    own_group = not dist.is_initialized()
+    if own_group:
+        if world:
+            dist.init_process_group(backend_for(device), init_method="env://")
+        else:
+            init_single_rank(device)
+    try:
+        return _serve_cli(args, cfg, tree, T, telemetry, make_host_mesh(args.data, args.model, device))
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _serve_cli(args, cfg, tree: Optional[TreePlan], T: int, telemetry: bool, mesh) -> int:
+    """The CLI's serving run on this rank of ``mesh``; rank 0 prints and dumps."""
+    lead = dist.get_rank() == 0
+    model = build_model(cfg, mesh, args.slots)
     B, S = args.slots, args.prompt_len
     max_len = S + args.shared_prefix + args.gen + T
     requests = synthetic_requests(cfg.vocab_size, S, args.gen, args.requests or 2 * B, args.shared_prefix)
-    params = model.init(0)
-    rep = ServeReplica(cfg, B, max_len, params, tree=tree, drafter=args.drafter, telemetry=telemetry,
-                       device=model.device)
+    params = model.init(0)  # this rank's expert slice, cut layer by layer
+    rep = ServeReplica(cfg, B, max_len, params, tree=tree, drafter=args.drafter, telemetry=telemetry, mesh=mesh)
     t0 = time.perf_counter()
     results = serve_queue(rep, requests)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    _dump_tokens(args.dump_tokens, results)
+    say = print if lead else (lambda *a, **k: None)
+    if lead:
+        _dump_tokens(args.dump_tokens, results)
 
     gen = rep.accepted_total
     finished = sum(1 for r in results.values() if r.error is None)
-    print(f"served {finished} requests on {B} slots ({model.device}): {gen} tokens in {wall * 1e3:.1f} ms "
-          f"({gen / max(wall, 1e-9):.0f} tok/s, {rep.launches} launches, prefill {rep.prefill_ms:.1f} ms total)")
+    say(f"served {finished} requests on {B} slots ({model.device}, mesh {mesh.shape}): {gen} tokens in "
+        f"{wall * 1e3:.1f} ms ({gen / max(wall, 1e-9):.0f} tok/s, {rep.launches} launches, prefill "
+        f"{rep.prefill_ms:.1f} ms total)")
     if T > 1:
         shape = f"tree {args.draft_tree}" if tree is not None else f"width {T}"
-        print(f"speculative: {shape} ({T} nodes), drafter {args.drafter}, accept rate "
-              f"{rep.accepted_total / max(rep.drafted_total, 1):.2f} "
-              f"({rep.accepted_total / max(rep.launches, 1):.2f} tokens/launch)")
+        say(f"speculative: {shape} ({T} nodes), drafter {args.drafter}, accept rate "
+            f"{rep.accepted_total / max(rep.drafted_total, 1):.2f} "
+            f"({rep.accepted_total / max(rep.launches, 1):.2f} tokens/launch)")
     shared = 0
     if cfg.paged:
         st = rep.paged_stats()
         shared = st["pages_shared_total"]
-        print(f"paged: {st['admissions']} admissions, {shared} pages bound via prefix trie "
-              f"({st['pages_shared_per_admission']:.2f}/admission), {st['admit_copy_rows']} KV rows "
-              f"copied at admission")
+        say(f"paged: {st['admissions']} admissions, {shared} pages bound via prefix trie "
+            f"({st['pages_shared_per_admission']:.2f}/admission), {st['admit_copy_rows']} KV rows "
+            f"copied at admission")
     if telemetry and rep.agreements:
-        print(f"plan telemetry: stale-vs-fresh top-k agreement mean {np.mean(rep.agreements):.3f} "
-              f"min {np.min(rep.agreements):.3f} over {len(rep.agreements)} launches")
+        say(f"plan telemetry: stale-vs-fresh top-k agreement mean {np.mean(rep.agreements):.3f} "
+            f"min {np.min(rep.agreements):.3f} over {len(rep.agreements)} launches")
     unanswered = [r.rid for r in requests if r.rid not in results]
     errors = [r for r in results.values() if r.error is not None]
     if unanswered or errors:
-        print(f"SERVE ERROR: unanswered {unanswered}, errors {[(r.rid, r.error) for r in errors]}")
+        say(f"SERVE ERROR: unanswered {unanswered}, errors {[(r.rid, r.error) for r in errors]}")
         return 1
     if args.expect_shared_pages and shared == 0:
-        print("SERVE ERROR: --expect-shared-pages set but no page was shared across admissions")
+        say("SERVE ERROR: --expect-shared-pages set but no page was shared across admissions")
         return 1
     return 0
 

@@ -1,6 +1,7 @@
 """The serve launches as plain eager functions (the port's counterpart of
 ``repro/launch/steps.py``'s ``build_spec_serve_step`` and
-``build_admission``, which build jitted, sharded bundles).
+``build_admission``, which build jitted, sharded bundles), and
+:func:`build_model`, which binds a model to a mesh.
 
 CUDA graphs for the decode launch come in a later slice.
 """
@@ -12,9 +13,36 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plans import TreePlan
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
+from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
+from repro_torch.parallel.sharding import batch_spec, expert_slice
+
+
+def build_model(cfg: ModelConfig, mesh, batch: int, device=None) -> Model:
+    """A model whose MoE layers run on ``mesh``: the expert-parallel prefill
+    apply, and on the decode plane the shard-sliced decode apply (which
+    raises, not falls back, when the experts do not divide the ``model``
+    axis), as the reference's ``build_model`` binds them.  The batch axes
+    are the data axes that divide ``batch``.  No dense layer is sharded, so
+    the reference's residual constraint is the identity here.  ``mesh=None``
+    is the single-host model on ``device``; with a mesh the model lives on
+    the mesh's device and its ``init`` draws this rank's expert slice."""
+    if mesh is None:
+        return Model(cfg, device)
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    baxes = batch_spec(batch, mesh)[0] or ()
+    baxes = (baxes,) if isinstance(baxes, str) else tuple(baxes)
+    moe_apply = decode_apply = None
+    if cfg.is_moe:
+        moe_apply = make_sharded_moe_apply(cfg, mesh, baxes)
+        if cfg.decode_plane:
+            decode_apply = make_sharded_decode_apply(cfg, mesh, baxes)
+    return Model(cfg, mesh.device, moe_apply=moe_apply, decode_moe_apply=decode_apply,
+                 experts=expert_slice(cfg, mesh) if cfg.is_moe else None)
 
 
 def spec_serve_step(
@@ -40,10 +68,12 @@ def spec_serve_step(
 
 def prefill_model(model: Model) -> Model:
     """The B=1 admission prefill's model: under ``cfg.paged`` a contiguous
-    twin (prefill writes stripes; the pool is seeded by a row scatter)."""
+    twin with the same MoE applies (prefill writes stripes; the pool is
+    seeded by a row scatter)."""
     if not model.cfg.paged:
         return model
-    return Model(dataclasses.replace(model.cfg, paged=False), model.device)
+    return Model(dataclasses.replace(model.cfg, paged=False), model.device, moe_apply=model.moe_apply,
+                 decode_moe_apply=model.decode_moe_apply, experts=model.experts)
 
 
 def admission(

@@ -18,26 +18,39 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plans import TreePlan
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import Params
 
 
 class Model:
     """``device=None`` means the card; pass ``device="cpu"`` for the plain
-    PyTorch path (every kernel wrapper then runs its plain version)."""
+    PyTorch path (every kernel wrapper then runs its plain version).
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    ``moe_apply`` and ``decode_moe_apply`` replace the MoE layers' prefill
+    data plane and decode-plane plan executor (the distributed runtime binds
+    the expert-parallel ones, :func:`repro_torch.launch.steps.build_model`);
+    the defaults are the single-host :func:`transformer.default_moe_apply`
+    and :func:`repro_torch.models.moe.moe_decode_ffn`.  ``experts`` is the
+    slice of every expert stack that :meth:`init` keeps (a rank's share)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, moe_apply: Optional[T.MoeApply] = None,
+                 decode_moe_apply: Optional[T.DecodeApply] = None, experts: Optional[slice] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.moe_apply = moe_apply or T.default_moe_apply(cfg)
+        self.decode_moe_apply = decode_moe_apply or moe.moe_decode_ffn
+        self.experts = experts
 
     # ------------------------------------------------------------------
     def init(self, seed: Union[int, torch.Generator] = 0) -> Params:
-        """Random weights drawn on the model's device from a seeded generator."""
+        """Random weights drawn on the model's device from a seeded generator
+        (of the expert stacks, the model's ``experts`` slice)."""
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        return T.init_params(self.cfg, gen, self.device)
+        return T.init_params(self.cfg, gen, self.device, self.experts)
 
     def init_cache(self, batch: int, max_len: int) -> List[Params]:
         return T.init_cache(self.cfg, batch, max_len, self.device)
@@ -71,7 +84,8 @@ class Model:
         route_src = x  # layer-0 control-plane source = embeddings
         rows = slice(slot, slot + B)
         for kind, p, c in zip(self.cfg.layer_kinds, params["layers"], cache):
-            x, route_src = T.apply_layer_prefill(x, route_src, p, c, kind, self.cfg, positions, rows)
+            x, route_src = T.apply_layer_prefill(x, route_src, p, c, kind, self.cfg, positions, rows,
+                                                 self.moe_apply)
         return self.logits(params, x[:, -1:, :])[:, 0]
 
     @torch.no_grad()
@@ -147,6 +161,7 @@ class Model:
             x, route_src, a = T.apply_layer_decode_spec(
                 x, route_src, p, c, kind, self.cfg, lengths_t, prev_t,
                 telemetry=telemetry, tree=tree, pages=pages, commit=commit,
+                moe_apply=self.moe_apply, decode_apply=self.decode_moe_apply,
             )
             if a is not None:
                 agree.append(a)

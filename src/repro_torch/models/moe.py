@@ -32,16 +32,23 @@ from repro_torch.models.layers import Params, act_dtype, normal, swiglu
 # bounds T here and the fused pair is the prefill data plane for every T.
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def init_moe(gen: torch.Generator, cfg: ModelConfig, device, experts: Optional[slice] = None) -> Params:
+    """``experts``: keep only that slice of each expert stack, cut as soon
+    as the stack is drawn (the weights are those of the whole draw)."""
     d, E = cfg.d_model, cfg.num_experts
     f = cfg.d_ff_expert or cfg.d_ff
     dt = act_dtype(cfg)
     down_std = 1.0 / math.sqrt(f * 2 * cfg.num_layers)
+
+    def stack(shape, std):
+        w = normal(gen, shape, std, dt, device)
+        return w if experts is None else w[experts].clone()
+
     p: Params = {
         "router": normal(gen, (d, E), 0.02, torch.float32, device),  # control plane: f32
-        "w_gate": normal(gen, (E, d, f), 1.0 / math.sqrt(d), dt, device),
-        "w_up": normal(gen, (E, d, f), 1.0 / math.sqrt(d), dt, device),
-        "w_down": normal(gen, (E, f, d), down_std, dt, device),
+        "w_gate": stack((E, d, f), 1.0 / math.sqrt(d)),
+        "w_up": stack((E, d, f), 1.0 / math.sqrt(d)),
+        "w_down": stack((E, f, d), down_std),
     }
     if cfg.num_shared_experts:
         sh = cfg.num_shared_experts * f

@@ -40,7 +40,7 @@ sync filters them and no out-of-range index reaches the card.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +51,15 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_decode, f
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import Params
+
+# moe_apply(x_ffn (B, S, d), route_src, p) -> (y (B, S, d), aux): the
+# prefill data plane of an MoE layer; decode_apply(x_ffn, plan, p) -> y
+# executes a cache-carried DecodePlan.  Injectable so the distributed
+# runtime can bind the expert-parallel applies
+# (repro_torch.parallel.moe_parallel); the single-host defaults are
+# moe.moe_layer and moe.moe_decode_ffn.
+MoeApply = Callable[[torch.Tensor, Optional[torch.Tensor], Params], Tuple[torch.Tensor, Any]]
+DecodeApply = Callable[[torch.Tensor, DecodePlan, Params], torch.Tensor]
 
 _KINDS = ("attn", "moe", "rec", "ssm")
 # layers whose decode state is a recurrence, not KV rows: they bound no
@@ -100,7 +109,8 @@ def check_spec_width(cfg: ModelConfig, T: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device) -> Params:
+def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device,
+               experts: Optional[slice] = None) -> Params:
     _check_kind(kind, cfg)
     d = cfg.d_model
     p: Params = {"ln1": L.init_rms_norm(d, device)}
@@ -113,19 +123,20 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device) -> Par
     else:
         p["attn"] = L.init_attention(gen, cfg, device)
     if kind == "moe":
-        p["moe"] = moe.init_moe(gen, cfg, device)
+        p["moe"] = moe.init_moe(gen, cfg, device, experts)
     else:
         p["ffn"] = L.init_swiglu(gen, cfg, device)
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, experts: Optional[slice] = None) -> Params:
     """Random weights with the reference's shapes and scales, drawn on
     ``device`` from ``generator`` (the numbers are not the reference's: the
-    two frameworks' generators differ)."""
+    two frameworks' generators differ).  ``experts`` keeps that slice of
+    every expert stack, cut layer by layer as it is drawn."""
     params: Params = {
         "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model, L.act_dtype(cfg), device),
-        "layers": [init_layer(generator, kind, cfg, device) for kind in cfg.layer_kinds],
+        "layers": [init_layer(generator, kind, cfg, device, experts) for kind in cfg.layer_kinds],
         "final_norm": L.init_rms_norm(cfg.d_model, device),
     }
     if not cfg.tie_embeddings:
@@ -218,10 +229,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> List[Param
 # ---------------------------------------------------------------------------
 
 
-def _ffn(kind, cfg, p, h, ffn_in, route_src):
+def default_moe_apply(cfg: ModelConfig) -> MoeApply:
+    """The single-host MoE apply: :func:`moe.moe_layer` bound to ``cfg``."""
+
+    def apply(x_ffn, route_src, p):
+        return moe.moe_layer(x_ffn, route_src, p, cfg)
+
+    return apply
+
+
+def _ffn(kind, cfg, p, h, ffn_in, route_src, moe_apply: Optional[MoeApply] = None):
     """The layer's FFN on the prefill data plane; returns (y, next route_src)."""
     if kind == "moe":
-        y, _ = moe.moe_layer(ffn_in, route_src, p["moe"], cfg)
+        y, _ = (moe_apply or default_moe_apply(cfg))(ffn_in, route_src, p["moe"])
         return y, h
     return L.swiglu(ffn_in, p["ffn"]), route_src
 
@@ -235,10 +255,12 @@ def apply_layer_prefill(
     cfg: ModelConfig,
     positions: torch.Tensor,            # (B, S)
     rows: slice,
+    moe_apply: Optional[MoeApply] = None,
 ):
     """Full-sequence pass that writes the prompt's K/V (and the seeded
     DecodePlan), or a ``rec``/``ssm`` layer's final state, into batch rows ``rows``
-    of ``cache``, in place.  The whole stripe is zeroed first, so the slot
+    of ``cache``, in place.  ``moe_apply`` runs an MoE layer's FFN
+    (default :func:`default_moe_apply`).  The whole stripe is zeroed first, so the slot
     holds exactly what a fresh B=1 cache written into it would.  A rolling
     buffer of W rows takes the prompt's last ``min(W, S)`` positions at
     slots ``pos % W``, where decode's modulo addressing continues."""
@@ -286,7 +308,7 @@ def apply_layer_prefill(
         else:
             pe.copy_(seed.expert_ids)
             pw.copy_(seed.weights)
-    y, route_src = _ffn(kind, cfg, p, h, ffn_in, route_src)
+    y, route_src = _ffn(kind, cfg, p, h, ffn_in, route_src, moe_apply)
     return h + y, route_src
 
 
@@ -462,8 +484,12 @@ def apply_layer_decode_spec(
     tree: Optional[TreePlan] = None,
     pages: Optional[torch.Tensor] = None,   # (B, max_pages) block table
     commit: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (dst, src) (B, Tc)
+    moe_apply: Optional[MoeApply] = None,
+    decode_apply: Optional[DecodeApply] = None,
 ):
     """One layer of a speculative launch; updates ``cache`` in place.
+    ``decode_apply`` executes a decode-plane MoE layer's plan (default
+    :func:`moe.moe_decode_ffn`), ``moe_apply`` any other MoE layer's FFN.
 
     Plan semantics reproduce T sequential single-token steps: token 0
     consumes the cached plan row ``prev_accept`` selects, token t >= 1 the
@@ -534,7 +560,7 @@ def apply_layer_decode_spec(
         prev_e, prev_w = all_e[:, par], all_w[:, par]
         cons_e = torch.cat([first_e[:, None], prev_e], dim=1)
         cons_w = torch.cat([first_w[:, None], prev_w], dim=1)
-        y = moe.moe_decode_ffn(ffn_in, DecodePlan(cons_e, cons_w), p["moe"])
+        y = (decode_apply or moe.moe_decode_ffn)(ffn_in, DecodePlan(cons_e, cons_w), p["moe"])
         if cached_e.ndim == 3:
             cached_e.copy_(all_e)
             cached_w.copy_(all_w)
@@ -547,5 +573,5 @@ def apply_layer_decode_spec(
             agree = topk_agreement(cons_e.reshape(B * T, k_), all_e.reshape(B * T, k_))
         route_src = h
     else:
-        y, route_src = _ffn(kind, cfg, p, h, ffn_in, route_src)
+        y, route_src = _ffn(kind, cfg, p, h, ffn_in, route_src, moe_apply)
     return h + y, route_src, agree

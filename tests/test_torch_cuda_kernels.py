@@ -232,3 +232,47 @@ def test_ssd_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, H, P, N, chunk
     want_y, want_h = ssd_ref.ssd_chunked(x, dt, a, bm, cm, chunk, h0)
     _close(y, want_y, torch.float32)
     _close(h, want_h, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,k,C,d", [(37, 8, 2, 5, 100), (40, 8, 2, 16, 96), (128, 128, 8, 16, 4096)])
+def test_moe_dispatch_kernels_match_plain_on_card(cuda, dtype, T, E, k, C, d):
+    """Dispatch exactly; combine within one bf16 ulp (f32: 1e-4), with empty
+    slots and, at C = 5, dropped assignments; d = 100 in bf16 is not a whole
+    number of 16-byte vectors (the scalar path); the last case is the a2a
+    body's admission shape."""
+    from repro_torch.kernels.moe_dispatch import ops as md_
+    from repro_torch.kernels.moe_dispatch import ref as mdr
+
+    rng = np.random.default_rng(T + C)
+    x = _t(rng.standard_normal((T, d)).astype(np.float32))
+    plan, _ = route_topk(x, _t(rng.standard_normal((d, E)).astype(np.float32)), k, C)
+    plan = type(plan)(*(f.to(cuda) for f in plan))
+    xt = x.to(cuda, dtype)
+    slots = md_.dispatch(xt, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, mdr.dispatch(xt, plan))
+    y_slots = _t(rng.standard_normal((E, C, d)).astype(np.float32)).to(cuda, dtype)
+    got = md_.combine(y_slots, plan)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    _close(got, mdr.combine(y_slots, plan), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N", [(3, 37, 100, 130), (2, 16, 64, 256), (4, 20, 1536, 4096)])
+def test_grouped_gemm_kernel_matches_plain_on_card(cuda, dtype, E, M, K, N):
+    """Ragged M, K and N (N = 130: not a whole number of vectors in bf16),
+    and the a2a down projection's K and N."""
+    from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.kernels.grouped_gemm import ref as ggr
+
+    rng = np.random.default_rng(M + N)
+    x = _t(rng.standard_normal((E, M, K)).astype(np.float32)).to(cuda, dtype)
+    w = _t((rng.standard_normal((E, K, N)) / np.sqrt(K)).astype(np.float32)).to(cuda, dtype)
+    got = gg.grouped_gemm(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == (E, M, N) and got.dtype == dtype
+    _close(got, ggr.grouped_gemm(x, w), dtype)

@@ -44,13 +44,16 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     )
     assert out.returncode == 0, out.stderr[-3000:]
     count, names = out.stdout.splitlines()[:2]
-    assert int(count.split()[0]) >= 30
+    assert int(count.split()[0]) >= 40
     for mod in ("repro_torch.core.pages", "repro_torch.launch.speculative", "repro_torch.launch.steps",
                 "repro_torch.launch.serve", "repro_torch.kernels.flash_attention.ops",
                 "repro_torch.configs.recurrentgemma_2b", "repro_torch.models.rglru",
                 "repro_torch.kernels.rglru_scan.ops", "repro_torch.kernels.rglru_scan.ref",
                 "repro_torch.kernels.flash_attention.ref", "repro_torch.configs.mamba2_2_7b",
-                "repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref"):
+                "repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
+                "repro_torch.launch.mesh", "repro_torch.parallel.sharding", "repro_torch.parallel.moe_parallel",
+                "repro_torch.kernels.grouped_gemm.ops", "repro_torch.kernels.grouped_gemm.ref",
+                "repro_torch.kernels.moe_dispatch.ops", "repro_torch.kernels.moe_dispatch.ref"):
         assert mod in names.split(), mod
 
 
