@@ -18,11 +18,19 @@ drafted by the target's first layer behind a 64-token shared system prompt
 one-rank (data 1, model 1) mesh over NCCL (phase ``expert_parallel``: the
 a2a body with kernels 8-10 at admission, the shard-sliced decode plane,
 logits held against the single-host model, the twin ``ep_spec4`` and a
-profile); then, with the MoE weights freed, RecurrentGemma-2B
+profile); then on the quantized bandwidth plane, the same weights plus
+their int8 expert twins over an int8 KV cache (phase ``int8_full_width``,
+the int8 branches of kernels 1 and 2, and ``profile_int8``), and the same
+prompt admitted twice through the bf16 and the int8 replica, bitwise
+(``admit_twice``); then, with the MoE weights freed, RecurrentGemma-2B
 uncut (26 layers, bf16) over 2,048-slot rolling windows with 2,048- to
-4,096-token prompts (phase ``hybrid_window``); then, with those weights
-freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
-(phase ``ssm_serve``), and shows that each path ran its kernels.  Each phase prints one JSON line; the full record also goes to
+4,096-token prompts (phase ``hybrid_window``), and again over int8 rolling
+buffers (``int8_hybrid_window``, kernel 6's int8 branch); then, with those
+weights freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
+(phase ``ssm_serve``), and shows that each path ran its kernels.  The int8
+branches are also held bitwise against their kernels on the dequantized
+buffers (``kernels_vs_plain`` rows ``*_int8``), and the f32 smoke twins
+serve int8 KV and experts too (``smoke_twin_int8``).  Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
 Needs one card, no network, and imports no jax.
@@ -324,6 +332,7 @@ def kernel_phase(cfg, dev):
     rows["flash_decode_paged"] = paged_kernel_rows(cfg, dev, gen, tol)
     rows.update(hybrid_kernel_rows(dev, gen, tol))
     rows["ssd_scan"] = ssd_kernel_row(dev, gen, tol)
+    rows.update(int8_kernel_rows(cfg, dev, gen, tol))
     return rows
 
 
@@ -481,25 +490,22 @@ def ep_kernel_rows(dev, gen, tol, xp, plan, h, wg, wu, wd):
     return rows
 
 
-def paged_kernel_rows(cfg, dev, gen, tol):
-    """flash_decode_paged at the paged cell's shapes: 4 slots x the 4 nodes
-    of tree 2,1 over a pool of 60 pages x 16 rows, through a fixed scrambled
-    table whose first 4 pages (the shared system prompt) are the same for
-    every slot; then the identity table against the contiguous kernel."""
+def _paged_case(dev):
+    """The paged cell's kernel-5 case: 4 slots x the 4 nodes of tree 2,1
+    over a pool of 60 pages x 16 rows, committed lengths 16 tokens into
+    generation of the 128/160/192/128-token prompts, and a fixed scrambled
+    table whose first 4 pages (the shared system prompt) are every slot's:
+    (B, T, ps, mp, n_pages, base list, base, lengths, words, table (numpy),
+    table (flat, on ``dev``))."""
     import numpy as np
     import torch
 
     from repro_torch.core.plans import TreePlan
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
 
-    bf16 = torch.bfloat16
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     tree = TreePlan.from_branching(TREE)
     B, T, ps = SLOTS, tree.num_nodes, PAGE
     mp = -(-PAGED_MAX_LEN // ps)
     n_pages = B * mp
-    # committed lengths 16 tokens into generation of the 128/160/192/128-token prompts
     base_l = [SHARED + n + 16 for n in (64, 96, 128, 64)]
     base = torch.tensor(base_l, dtype=torch.int32, device=dev)
     lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
@@ -515,6 +521,22 @@ def paged_kernel_rows(cfg, dev, gen, tol):
         table_np[b, n_shared:need] = private[used:used + need - n_shared]
         used += need - n_shared
     table = torch.from_numpy(table_np).reshape(-1).to(dev)
+    return B, T, ps, mp, n_pages, base_l, base, lengths, words, table_np, table
+
+
+def paged_kernel_rows(cfg, dev, gen, tol):
+    """flash_decode_paged at the paged cell's shapes: 4 slots x the 4 nodes
+    of tree 2,1 over a pool of 60 pages x 16 rows, through a fixed scrambled
+    table whose first 4 pages (the shared system prompt) are the same for
+    every slot; then the identity table against the contiguous kernel."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf16 = torch.bfloat16
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, T, ps, mp, n_pages, base_l, base, lengths, words, table_np, table = _paged_case(dev)
     q32 = torch.randn((B, T, nq, hd), generator=gen, device=dev)
     pk32 = torch.randn((n_pages * ps, nkv, hd), generator=gen, device=dev)
     pv32 = torch.randn((n_pages * ps, nkv, hd), generator=gen, device=dev)
@@ -707,6 +729,238 @@ def hybrid_kernel_rows(dev, gen, tol):
     return rows
 
 
+def int8_kernel_rows(cfg, dev, gen, tol):
+    """The int8 branches 1q, 2q, 5q and 6q at the shapes of rows 1, 2, 5
+    and 6: int8 K/V with per-row f32 scales, or int8 expert stacks with
+    (3, E) f32 scales, quantized from random f32 data.  Each launch is held
+    BITWISE against the same kernel on the dequantized f32 buffer (f32 q or
+    x; with a bf16 q, that launch's output rounded once to bf16), and
+    against its plain version at its row's tolerance.  Bounds count the
+    int8 payload at 1 byte and each scale at 4.  No one PyTorch call reads
+    int8 K/V or int8 experts, so ``library_ms`` is null; the composite
+    "dequantize + SDPA" (or "dequantize + gather + bmm x3") is timed
+    beside it."""
+    import torch
+
+    from repro_torch.core.control_plane import route_topk_decode
+    from repro_torch.core.quant import quantize_int8
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_decode import ops as md_ops
+    from repro_torch.kernels.moe_decode import ref as md_ref
+
+    bf16 = torch.bfloat16
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    E, k, d, f = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.d_ff_expert
+    no_library = "none: no PyTorch call reads int8 K/V or int8 expert stacks with per-row or per-expert scales"
+    rows = {}
+
+    def int8_rows(shape):
+        c, s = quantize_int8(torch.randn(shape, generator=gen, device=dev), axis=(-2, -1))
+        return c, s[..., 0, 0].contiguous()
+
+    def deq(c, s):
+        return c.float() * s[..., None, None]
+
+    def exact(name, run, q32, q16, c8, scales, cd):
+        """The int8 launch (f32 and bf16 q) against the f32 launch on the
+        dequantized buffers ``cd``; returns the bf16-q int8 output."""
+        if not torch.equal(run(q32, *c8, scales), run(q32, *cd, None)):
+            raise AssertionError(f"{name}: the int8 launch (f32 q) is not bitwise the dequantized launch")
+        got = run(q16, *c8, scales)
+        if not torch.equal(got, run(q16.float(), *cd, None).to(bf16)):
+            raise AssertionError(f"{name}: the int8 launch (bf16 q) is not bitwise the dequantized launch")
+        return got
+
+    # ---- 1q: row 1's chain, 4 slots x spec 4 over a 164-row int8 cache
+    B, T = SLOTS, SPEC
+    max_len = PROMPT + GEN + SPEC
+    base = torch.tensor([70, 100, 130, max_len - SPEC], dtype=torch.int32, device=dev)
+    lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
+    chain = torch.full((T,), -1, dtype=torch.int32, device=dev)
+    words = torch.tensor([1, 3, 5, 11], dtype=torch.int32, device=dev)
+    q32 = torch.randn((B, T, nq, hd), generator=gen, device=dev)
+    q = q32.to(bf16)
+    (k8, ks), (v8, vs) = int8_rows((B, max_len, nkv, hd)), int8_rows((B, max_len, nkv, hd))
+    scales = torch.stack([ks, vs]).reshape(2, -1).contiguous()
+    kd, vd = deq(k8, ks), deq(v8, vs)
+    for w in (chain, words):
+        got = exact("flash_decode int8", lambda qq, kk, vv, sc: fa_ops.flash_decode_kernel(
+            qq, kk, vv, lengths, w, base, sc), q32, q, (k8, v8), scales, (kd, vd))
+    err32 = check_close("flash_decode int8 f32 q vs plain", fa_ops.flash_decode_kernel(
+        q32, k8, v8, lengths, chain, base, scales), fa_ref.flash_decode(q32, k8, v8, lengths, chain, base, scales),
+        tol["f32"])
+    got = fa_ops.flash_decode_kernel(q, k8, v8, lengths, chain, base, scales)
+    err = check_bf16("flash_decode int8 vs plain", got, fa_ref.flash_decode(q, k8, v8, lengths, chain, base, scales))
+    mask = (torch.arange(max_len, device=dev)[None, None, :] < lengths.reshape(B, T)[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+
+    def composite_decode():
+        kt, vt = (deq(c, s).to(bf16).transpose(1, 2).repeat_interleave(nq // nkv, 1) for c, s in ((k8, ks), (v8, vs)))
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    L = lengths.reshape(B, T).long()
+    kv_rows = int(L.max(dim=1).values.sum())
+    nbytes = 2 * q.numel() * 2 + kv_rows * (nkv * hd + 4) * 2 + (B * T + T + B) * 4
+    flops = float(L.sum()) * nq * hd * 4 + kv_rows * nkv * hd * 2.0
+    rows["flash_decode_int8"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
+        ms=time_ms(lambda: fa_ops.flash_decode_kernel(q, k8, v8, lengths, chain, base, scales), iters=50),
+        plain_ms=time_ms(lambda: fa_ref.flash_decode(q, k8, v8, lengths, chain, base, scales)),
+        library_ms=None, library_call=no_library,
+        composite_ms=time_ms(composite_decode, iters=50),
+        composite_call="dequantize K/V to bf16 + scaled_dot_product_attention (boolean mask, kv heads expanded)",
+        shapes=f"q {tuple(q.shape)} bf16 (and f32), int8 kv {tuple(k8.shape)} + scales {tuple(scales.shape)}, "
+               f"lengths {lengths.tolist()}; chain and tree words",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del k8, v8, kd, vd, q, q32, qt
+
+    # ---- 2q: row 2's 16 decode tokens, top-8 of 128 int8 experts
+    Tt = B * T
+    x32 = torch.randn((Tt, d), generator=gen, device=dev)
+    router = torch.randn((d, E), generator=gen, device=dev) * 0.02
+    plan = route_topk_decode(x32, router, k)
+    ids, w = plan.expert_ids.contiguous(), plan.weights.contiguous()
+    x = x32.to(bf16)
+    stacks, scl = [], []
+    for shape, a in (((E, d, f), d ** -0.5), ((E, d, f), d ** -0.5), ((E, f, d), f ** -0.5)):
+        w8, s = quantize_int8(torch.randn(shape, generator=gen, device=dev) * a, axis=(1, 2))
+        stacks.append(w8)
+        scl.append(s[:, 0, 0])
+        torch.cuda.empty_cache()
+    mscales = torch.stack(scl).contiguous()
+    got = md_ops.decode_moe_kernel(x, ids, w, *stacks, mscales)
+    got32 = md_ops.decode_moe_kernel(x32, ids, w, *stacks, mscales)
+    deq_stacks = [c.float() * s[:, None, None] for c, s in zip(stacks, mscales)]
+    for name, g, xx in (("bf16 x", got, x.float()), ("f32 x", got32, x32)):
+        if not torch.equal(g, md_ops.decode_moe_kernel(xx, ids, w, *deq_stacks)):
+            raise AssertionError(f"decode_moe int8 ({name}): not bitwise the dequantized launch")
+    del deq_stacks
+    torch.cuda.empty_cache()
+    err = check_close("decode_moe int8 vs plain", got, md_ref.decode_moe(x, ids, w, *stacks, mscales), tol["f32_out"])
+    err32 = check_close("decode_moe int8 f32 x vs plain", got32, md_ref.decode_moe(x32, ids, w, *stacks, mscales),
+                        tol["f32"])
+    distinct = int(torch.unique(ids).numel())
+    e_flat = ids.reshape(-1).long()
+
+    def composite_moe():
+        xs = x.repeat_interleave(k, 0)[:, None]
+        wg, wu, wd = ((c[e_flat].float() * s[e_flat][:, None, None]).to(bf16) for c, s in zip(stacks, mscales))
+        h = torch.nn.functional.silu(torch.bmm(xs, wg)) * torch.bmm(xs, wu)
+        return (torch.bmm(h, wd)[:, 0].float() * w.reshape(-1, 1)).reshape(Tt, k, d).sum(1)
+
+    nbytes = distinct * (3 * d * f + 3 * 4) + Tt * d * 2 + Tt * k * 8 + Tt * d * 4
+    flops = Tt * k * 6.0 * d * f
+    rows["decode_moe_int8"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
+        ms=time_ms(lambda: md_ops.decode_moe_kernel(x, ids, w, *stacks, mscales), iters=20),
+        plain_ms=time_ms(lambda: md_ref.decode_moe(x, ids, w, *stacks, mscales), iters=3, reps=3),
+        library_ms=None, library_call=no_library,
+        composite_ms=time_ms(composite_moe, iters=3, reps=3),
+        composite_call="gather of the named experts' int8 stacks + dequantize to bf16 + torch.bmm x3",
+        shapes=f"x {tuple(x.shape)} bf16 (and f32), top-{k} of {E} int8 experts ({distinct} distinct), d {d}, f {f}",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del stacks, x, x32
+    torch.cuda.empty_cache()
+
+    # ---- 5q: row 5's paged tree 2,1 over 60 int8 pages x 16 rows
+    B, T, ps, mp, n_pages, base_l, base, lengths, words, table_np, table = _paged_case(dev)
+    q32 = torch.randn((B, T, nq, hd), generator=gen, device=dev)
+    q = q32.to(bf16)
+    (pk8, pks), (pv8, pvs) = int8_rows((n_pages * ps, nkv, hd)), int8_rows((n_pages * ps, nkv, hd))
+    pscales = torch.stack([pks, pvs]).contiguous()
+    pkd, pvd = deq(pk8, pks), deq(pv8, pvs)
+
+    def run_paged(qq, kk, vv, sc):
+        return fa_ops.flash_decode_paged_kernel(qq, kk, vv, lengths, table, words, base, sc, page_size=ps)
+
+    got = exact("flash_decode_paged int8", run_paged, q32, q, (pk8, pv8), pscales, (pkd, pvd))
+    err = check_bf16("flash_decode_paged int8 vs plain", got, fa_ref.flash_decode_paged(
+        q, pk8, pv8, lengths, table, words, base, ps, pscales))
+    err32 = check_close("flash_decode_paged int8 f32 q vs plain", run_paged(q32, pk8, pv8, pscales),
+                        fa_ref.flash_decode_paged(q32, pk8, pv8, lengths, table, words, base, ps, pscales), tol["f32"])
+    S = mp * ps
+    vis = fa_ref.visible_rows(lengths, words, base, B, T, S)[:, None]
+    qt = q.transpose(1, 2)
+    gather_rows = ((table.reshape(B, mp).long().clamp(min=0) * ps)[:, :, None]
+                   + torch.arange(ps, device=dev)).reshape(B, S)
+
+    def composite_paged():
+        kt, vt = (deq(c[gather_rows], s[gather_rows]).to(bf16).transpose(1, 2).repeat_interleave(nq // nkv, 1)
+                  for c, s in ((pk8, pks), (pv8, pvs)))
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+
+    Lmax = lengths.reshape(B, T).max(dim=1).values.tolist()
+    rows_touched = {(int(table_np[b, p // ps]), p % ps) for b in range(B) for p in range(Lmax[b])}
+    nbytes = 2 * q.numel() * 2 + len(rows_touched) * (nkv * hd + 4) * 2 + (B * T + B * mp + T + B) * 4
+    flops = float(vis.sum()) * nq * hd * 4 + len(rows_touched) * nkv * hd * 2.0
+    rows["flash_decode_paged_int8"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
+        ms=time_ms(lambda: run_paged(q, pk8, pv8, pscales), iters=50),
+        plain_ms=time_ms(lambda: fa_ref.flash_decode_paged(q, pk8, pv8, lengths, table, words, base, ps, pscales)),
+        library_ms=None, library_call=no_library,
+        composite_ms=time_ms(composite_paged, iters=50),
+        composite_call="gather through the block table + dequantize to bf16 + scaled_dot_product_attention",
+        shapes=f"q {tuple(q.shape)}, int8 pool {tuple(pk8.shape)} + scales {tuple(pscales.shape)}, base {base_l}, "
+               f"tree {TREE}, {len(rows_touched)} distinct rows read",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del pk8, pv8, pkd, pvd, q, q32, qt
+
+    # ---- 6q: row 6's window decode, RecurrentGemma-2B heads over int8 rolling buffers
+    from repro_torch.configs import get_config
+
+    hcfg = get_config(HYBRID)
+    hq, hkv, hhd, W = hcfg.num_heads, hcfg.num_kv_heads, hcfg.resolved_head_dim, hcfg.local_window
+    B = H_SLOTS
+    idx = [2100, 2900, 3600, 4160]
+    pos = torch.tensor(idx, dtype=torch.int32, device=dev)
+    q32 = torch.randn((B, 1, hq, hhd), generator=gen, device=dev)
+    q = q32.to(bf16)
+    (wk8, wks), (wv8, wvs) = int8_rows((B, W, hkv, hhd)), int8_rows((B, W, hkv, hhd))
+    wscales = torch.stack([wks, wvs]).reshape(2, -1).contiguous()
+    wkd, wvd = deq(wk8, wks), deq(wv8, wvs)
+
+    def run_window(qq, kk, vv, sc):
+        return fa_ops.flash_decode_window_kernel(qq, kk, vv, pos, sc, window=W)
+
+    got = exact("flash_decode_window int8", run_window, q32, q, (wk8, wv8), wscales, (wkd, wvd))
+    err = check_bf16("flash_decode_window int8 vs plain", got,
+                     fa_ref.flash_decode_window(q, wk8, wv8, pos, W, wscales))
+    err32 = check_close("flash_decode_window int8 f32 q vs plain", run_window(q32, wk8, wv8, wscales),
+                        fa_ref.flash_decode_window(q32, wk8, wv8, pos, W, wscales), tol["f32"])
+    p_all = pos.long()[:, None] - W + 1 + torch.arange(W, device=dev)[None, :]
+    slots = torch.remainder(p_all.clamp(min=0), W)
+    bidx = torch.arange(B, device=dev)[:, None]
+    vis = (p_all >= 0)[:, None, None, :]
+    qt = q.transpose(1, 2)
+
+    def composite_window():
+        kt, vt = (deq(c[bidx, slots], s[bidx, slots]).to(bf16).transpose(1, 2).repeat_interleave(hq // hkv, 1)
+                  for c, s in ((wk8, wks), (wv8, wvs)))
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+
+    n_vis = [min(W, p + 1) for p in idx]
+    nbytes = 2 * q.numel() * 2 + sum(n_vis) * (hkv * hhd + 4) * 2 + B * 4
+    flops = float(sum(n_vis)) * hq * hhd * 4 + sum(n_vis) * hkv * hhd * 2.0
+    rows["flash_decode_window_int8"] = dict(
+        max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
+        ms=time_ms(lambda: run_window(q, wk8, wv8, wscales), iters=20),
+        plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, wk8, wv8, pos, W, wscales), iters=5, reps=3),
+        library_ms=None, library_call=no_library,
+        composite_ms=time_ms(composite_window, iters=20),
+        composite_call="gather the window into position order + dequantize to bf16 + scaled_dot_product_attention",
+        shapes=f"q {tuple(q.shape)}, int8 rolling kv {tuple(wk8.shape)} + scales {tuple(wscales.shape)}, "
+               f"positions {idx}, window {W}",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del wk8, wv8, wkd, wvd, q, q32, qt
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_work(T, H, P, N, q, in_bytes, with_h0=False):
     """(bytes, flops) one scan needs at batch 1 over chunks of ``q`` steps:
     each input read once (x, B, C in ``in_bytes`` each, dt and the wrapper's
@@ -810,12 +1064,19 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
     (the smoke chunk is 16).  ``ep_spec4`` serves the spec-4 chain through
     the expert-parallel plane: ``meshes`` are a one-rank (1, 1) mesh on the
     card and one on the CPU over the same process group; it runs only when
-    ``names`` asks for it (by default every other run does)."""
+    ``names`` asks for it.  The ``int8_*`` runs (phase ``smoke_twin_int8``,
+    also only when asked for) serve int8 KV rows and int8 expert twins: the
+    spec-4 chain, the paged plane with tree 2,1, the model drafter and a
+    16-token shared prefix (kernel 5's int8 branch, trie adoption of int8
+    pages with their scales, then a CoW page copy on the card), and the
+    hybrid over rolling windows.  On a stream mismatch an int8 run names
+    the first differing request and the first cache row whose int8 codes
+    differ between card and CPU, with both sides' codes and scales."""
     import torch
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.plans import TreePlan
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
@@ -829,18 +1090,22 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
         "hybrid_spec1": dict(arch=HYBRID, slots=2, prompt=48, requests=4),
         "ssm_spec1": dict(arch=SSM, slots=2, prompt=520, requests=4),
         "ep_spec4": dict(spec=4, mesh=True),
+        "int8_spec4_ngram": dict(spec=4, int8=True),
+        "int8_paged_tree2x1_model_shared16": dict(spec=4, tree=(2, 1), drafter="model", ps=8, shared=16, int8=True),
+        "int8_hybrid_spec1": dict(arch=HYBRID, slots=2, prompt=48, requests=4, int8=True),
     }
-    names = names or [n for n, r in runs.items() if not r.get("mesh")]
+    names = names or [n for n, r in runs.items() if not (r.get("mesh") or r.get("int8"))]
     out = {}
     for name in names:
         run = runs[name]
         r = dict(arch=ARCH, spec=1, drafter="ngram", tree=None, ps=0, shared=0, slots=3, prompt=16, gen=8,
-                 requests=6, mesh=False)
+                 requests=6, mesh=False, int8=False)
         r.update(run)
         spec, drafter, ps, shared = r["spec"], r["drafter"], r["ps"], r["shared"]
         tree = TreePlan.from_branching(r["tree"]) if r["tree"] else None
+        quant = dict(kv_dtype="int8", expert_dtype="int8" if r["arch"] == ARCH else "") if r["int8"] else {}
         cfg = dataclasses.replace(get_smoke_config(r["arch"]), decode_plane=True, spec_tokens=spec,
-                                  paged=ps > 0, page_size=ps or 16)
+                                  paged=ps > 0, page_size=ps or 16, **quant)
         params_cpu = Model(cfg, device="cpu").init(0)
         # the draft model is the target cut to its first layer (self-drafting):
         # a drafter with weights of its own never hits on random weights
@@ -854,7 +1119,7 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
                                  drafter_params=_to(draft_cpu, dev), mesh=card_mesh, **kw)
         gpu = serve.serve_queue(rep, reqs)
         torch.cuda.synchronize()
-        counts = {n: w.launches for n, w in kernel_wrappers().items()}
+        counts = launch_counts()
         cpu_rep = serve.ServeReplica(cfg, r["slots"], max_len, params_cpu, device="cpu", drafter_params=draft_cpu,
                                      mesh=cpu_mesh, **kw)
         cpu = serve.serve_queue(cpu_rep, reqs)
@@ -862,11 +1127,18 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
         c = {rid: res.tokens for rid, res in cpu.items()}
         tag = f"smoke twin {name}"
         if g != c:
-            raise AssertionError(f"{tag}: card streams {g} != CPU streams {c}")
+            rid = min(i for i in g if g[i] != c.get(i))
+            flip = first_code_flip(rep.cache, cpu_rep.cache) if r["int8"] else None
+            raise AssertionError(f"{tag}: request {rid}: card stream {g[rid]} != CPU stream {c.get(rid)}; "
+                                 f"first int8 row differing between card and CPU caches: {flip}")
         if len(g) != r["requests"] or any(len(t) != r["gen"] + 1 for t in g.values()):
             raise AssertionError(f"{tag}: unanswered or short streams: {g}")
         expect = {HYBRID: HYBRID_KERNELS, SSM: SSM_KERNELS}.get(
             r["arch"], EP_KERNELS if r["mesh"] else PAGED_KERNELS if ps else CONTIGUOUS_KERNELS)
+        if r["int8"]:
+            expect = int8_path(expect)
+            if any(counts[n[:-len("_int8")]] for n in expect if n.endswith("_int8")):
+                raise AssertionError(f"{tag}: a full-precision branch ran on the int8 plane: {counts}")
         if min(counts[n] for n in expect) <= 0:
             raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
         if r["mesh"] and counts["down_combine"]:
@@ -900,6 +1172,8 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
             if rep.pager.snapshot() != cpu_rep.pager.snapshot():
                 raise AssertionError(f"{tag}: card and CPU block tables differ")
             row.update(paged=st)
+            if r["int8"]:
+                row.update(cow_copies_scale_rows=cow_check(rep.cache, ps))
         out[name] = dict(row, streams=g)
     # greedy verify: the paged tree serves the same queue as the spec-4
     # chain, so its streams must be the chain's
@@ -910,6 +1184,53 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
         if isinstance(row, dict):
             row.pop("streams")
     return out
+
+
+def int8_path(kernels):
+    """A path's kernels on the int8 plane: each kernel with an int8 branch
+    runs that branch."""
+    return tuple(n + "_int8" if n + "_int8" in KERNELS else n for n in kernels)
+
+
+def first_code_flip(card_cache, cpu_cache):
+    """The first cache row whose int8 codes differ between the card's cache
+    and the CPU's (layer, leaf, row index, both sides' codes where they
+    differ and the row's scales), or None."""
+    import torch
+
+    for i, (a, b) in enumerate(zip(card_cache, cpu_cache)):
+        for name in ("k", "v", "pk", "pv"):
+            if name not in a or a[name].dtype != torch.int8:
+                continue
+            x, y = a[name].cpu(), b[name]
+            rows = (x != y).flatten(-2).any(-1).nonzero()
+            if len(rows):
+                at = tuple(int(v) for v in rows[0])
+                diff = (x[at] != y[at]).nonzero().tolist()
+                scale = {"k": "ks", "v": "vs", "pk": "pks", "pv": "pvs"}[name]
+                return dict(layer=i, leaf=name, row=at, positions=diff[:8],
+                            card_codes=[int(x[at][tuple(p)]) for p in diff[:8]],
+                            cpu_codes=[int(y[at][tuple(p)]) for p in diff[:8]],
+                            card_scale=float(a[scale].cpu()[at]), cpu_scale=float(b[scale][at]))
+    return None
+
+
+def cow_check(cache, ps):
+    """A copy-on-write page copy on the card, page 0 into the pool's last
+    page: the int8 payload and the scale rows arrive bitwise, in every
+    layer's pool."""
+    import torch
+
+    from repro_torch.models.transformer import cow_copy_page
+
+    R = cache[0]["pk"].shape[0] - 1
+    new = R // ps - 1
+    cow_copy_page(cache, 0, new, ps)
+    for c in cache:
+        for name in ("pk", "pv", "pks", "pvs"):
+            if not torch.equal(c[name][new * ps:(new + 1) * ps], c[name][:ps]):
+                raise AssertionError(f"CoW on the card: {name} rows of the copied page differ")
+    return True
 
 
 def _to(tree, dev):
@@ -926,7 +1247,7 @@ def full_width(dev):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
@@ -951,7 +1272,7 @@ def full_width(dev):
     results = serve.serve_queue(rep, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: w.launches for n, w in kernel_wrappers().items()}
+    counts = launch_counts()
 
     streams = {rid: r.tokens for rid, r in results.items()}
     if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
@@ -982,7 +1303,7 @@ def full_width(dev):
     return served, rep
 
 
-def paged_tree(dev, params):
+def paged_tree(dev, params, int8=False):
     """The paged cell: full_width's weights served on the paged KV plane
     (pages of 16 rows, draft tree 2,1: 4 nodes, the spec-4 chain's launch
     width) behind a 64-token shared system prompt.  Every admission after
@@ -993,17 +1314,25 @@ def paged_tree(dev, params):
     ngram drafter never hits on random weights, and without accepted drafts
     the commit maps would move no row and the plan rows past 0 would never
     be read.  The drafter's own width-1 launches run the contiguous
-    flash_decode and decode_moe on its 1-layer cache."""
+    flash_decode and decode_moe on its 1-layer cache.
+
+    With ``int8`` the cell runs on the quantized plane: ``params`` carry the
+    int8 expert twins (:func:`with_int8_twins`), the pool holds int8 rows
+    with a scale per row, so trie adoption and the commit maps move int8
+    rows with their scales, and every launch, the drafter's too, runs int8
+    branches only; a CoW page copy on the card ends the run."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.plans import TreePlan
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
 
     tree = TreePlan.from_branching(TREE)
+    quant = dict(kv_dtype="int8", expert_dtype="int8") if int8 else {}
     cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=tree.num_nodes,
-                              paged=True, page_size=PAGE)
+                              paged=True, page_size=PAGE, **quant)
+    tag = "int8 paged tree" if int8 else "paged tree"
     reqs = serve.synthetic_requests(cfg.vocab_size, PROMPT, GEN, REQUESTS, SHARED)
 
     draft_params = dict(params, layers=params["layers"][:1])
@@ -1028,30 +1357,36 @@ def paged_tree(dev, params):
             results[res.rid] = res
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: w.launches for n, w in kernel_wrappers().items()}
+    counts = launch_counts()
     streams = {rid: r.tokens for rid, r in results.items()}
     if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
-        raise AssertionError(f"paged tree: unanswered or failed requests: {results}")
+        raise AssertionError(f"{tag}: unanswered or failed requests: {results}")
     for rid, toks in streams.items():
         if len(toks) != GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"paged tree: request {rid} stream malformed: {toks}")
+            raise AssertionError(f"{tag}: request {rid} stream malformed: {toks}")
     # the target's launches go through the paged kernel, one per layer; the
     # contiguous flash_decode runs only in the drafter's 1-layer launches
     drafts = rep.model_drafter.launches
-    if (min(counts[n] for n in PAGED_KERNELS) <= 0 or counts["flash_decode_paged"] != LAYERS * rep.launches
-            or counts["flash_decode"] != drafts or counts["decode_moe"] != LAYERS * rep.launches + drafts):
-        raise AssertionError(f"paged tree: kernel launches {counts} do not match {rep.launches} target "
+    path = int8_path(PAGED_KERNELS) if int8 else PAGED_KERNELS
+    fd, fdp, dm = int8_path(("flash_decode", "flash_decode_paged", "decode_moe")) if int8 else (
+        "flash_decode", "flash_decode_paged", "decode_moe")
+    if (min(counts[n] for n in path) <= 0 or counts[fdp] != LAYERS * rep.launches
+            or counts[fd] != drafts or counts[dm] != LAYERS * rep.launches + drafts):
+        raise AssertionError(f"{tag}: kernel launches {counts} do not match {rep.launches} target "
                              f"launches of {LAYERS} layers and {drafts} drafter launches of 1 layer")
+    if int8 and (counts["flash_decode_paged"] or counts["flash_decode"] or counts["decode_moe"]):
+        raise AssertionError(f"{tag}: a full-precision branch ran on the int8 plane: {counts}")
     draft_accepts = rep.accepted_total - rep.drafted_total // tree.num_nodes
     if draft_accepts <= 0:
-        raise AssertionError("paged tree: no draft token was ever accepted")
+        raise AssertionError(f"{tag}: no draft token was ever accepted")
     st = rep.paged_stats()
     if st["pages_shared_total"] <= 0:
-        raise AssertionError(f"paged tree: no page was shared across admissions: {st}")
+        raise AssertionError(f"{tag}: no page was shared across admissions: {st}")
     if rep.commits:
-        raise AssertionError(f"paged tree: {rep.commits} commit passes ran outside the decode launches")
+        raise AssertionError(f"{tag}: {rep.commits} commit passes ran outside the decode launches")
     served = dict(
-        layers=LAYERS, dtype=cfg.dtype, page_size=PAGE, tree=list(TREE), tree_nodes=tree.num_nodes,
+        layers=LAYERS, dtype=cfg.dtype, kv_dtype=cfg.kv_dtype or cfg.dtype,
+        expert_dtype=cfg.expert_dtype or cfg.dtype, page_size=PAGE, tree=list(TREE), tree_nodes=tree.num_nodes,
         slots=SLOTS, shared_prefix=SHARED, prompt_len=PROMPT, gen=GEN, requests=REQUESTS,
         drafter="model (the target's first layer)", drafter_launches=drafts,
         max_len=PAGED_MAX_LEN, pool_pages=rep.pager.num_pages,
@@ -1071,6 +1406,8 @@ def paged_tree(dev, params):
     served["drafter_launches_per_step"] = rep.model_drafter.launches - d0
     while rep.has_work():
         rep.step()
+    if int8:
+        served.update(kv_bytes=kv_bytes(rep.cache), cow_copies_scale_rows=cow_check(rep.cache, PAGE))
     return served, rep
 
 
@@ -1090,7 +1427,7 @@ def expert_parallel(dev, params, served):
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import init_single_rank, make_host_mesh
     from repro_torch.models.model import Model
@@ -1116,7 +1453,7 @@ def expert_parallel(dev, params, served):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        counts = {n: w.launches for n, w in kernel_wrappers().items()}
+        counts = launch_counts()
         streams = {rid: r.tokens for rid, r in results.items()}
         if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
             raise AssertionError(f"expert parallel: unanswered or failed requests: {results}")
@@ -1199,21 +1536,22 @@ def alternate_decode(dev, cfg, params, rep, reqs, max_len, rounds=5):
     return out
 
 
-def serve_uncut(dev, arch):
+def serve_uncut(dev, arch, kv_dtype=""):
     """Serve ``arch`` uncut, bf16, random weights from seed 0, spec width 1
     on the contiguous decode plane: 4 slots serve 8 requests of
     2,048/3,072/4,096 prompt tokens (the CLI's buckets for ``--prompt-len
-    4096``) and 64 generated tokens, after a one-request warm-up.  Checks
-    the streams and a prefill's logits; returns (the served record with the
-    measured run's kernel launches, the replica, its requests)."""
+    4096``) and 64 generated tokens, after a one-request warm-up, over a KV
+    cache of ``kv_dtype``.  Checks the streams and a prefill's logits;
+    returns (the served record with the measured run's kernel launches, the
+    replica, its requests)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config(arch), decode_plane=True, spec_tokens=1)
+    cfg = dataclasses.replace(get_config(arch), decode_plane=True, spec_tokens=1, kv_dtype=kv_dtype)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)
@@ -1228,14 +1566,25 @@ def serve_uncut(dev, arch):
     serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, H_PROMPT, 4, 1))
     reset_serving_stats(rep)
     torch.cuda.synchronize()
+    admission_ms = []  # each admission's time, in the order the queue admits them
+    admit = rep.admit
+
+    def timed_admit(req):
+        before = rep.prefill_ms
+        slot = admit(req)
+        admission_ms.append(rep.prefill_ms - before)
+        return slot
+
+    rep.admit = timed_admit
 
     reset_launch_counts()
     t0 = time.perf_counter()
     results = serve.serve_queue(rep, reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del rep.admit  # the class's own admit again
     peak = torch.cuda.max_memory_allocated()  # the serving peak, before the checks below
-    counts = {n: w.launches for n, w in kernel_wrappers().items()}
+    counts = launch_counts()
     streams = {rid: r.tokens for rid, r in results.items()}
     if sorted(streams) != list(range(H_REQUESTS)) or any(r.error for r in results.values()):
         raise AssertionError(f"{arch}: unanswered or failed requests: {results}")
@@ -1250,15 +1599,177 @@ def serve_uncut(dev, arch):
     served = dict(
         arch=arch, layers=cfg.num_layers, layers_published=get_config(arch).num_layers, dtype=cfg.dtype,
         slots=H_SLOTS, prompt_len=H_PROMPT, prompt_lens=sorted({len(r.prompt) for r in reqs}), gen=H_GEN,
-        requests=H_REQUESTS, spec_tokens=1, max_len=H_MAX_LEN,
+        requests=H_REQUESTS, spec_tokens=1, max_len=H_MAX_LEN, kv_dtype=kv_dtype or cfg.dtype,
+        kv_bytes=kv_bytes(rep.cache),
         weight_bytes=weight_bytes, tied_unembed_f32_bytes=tied_bytes, init_s=init_s, peak_memory_bytes=peak,
         wall_s=wall, generated_tokens=rep.accepted_total, tok_per_s=rep.accepted_total / wall,
         decode_launches=rep.launches, ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1),
         prefills=rep.prefills, prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
+        admission_ms_each=admission_ms, prompt_len_each=[len(r.prompt) for r in reqs],
         kernel_launches=counts, distinct_tokens_per_stream=sorted(len(set(t)) for t in streams.values()),
         streams=streams,
     )
     return served, rep, reqs
+
+
+def kv_bytes(cache) -> dict:
+    """Bytes of the attention layers' K/V payload and of their scale rows."""
+    payload = sum(c[n].numel() * c[n].element_size() for c in cache for n in ("k", "v", "pk", "pv") if n in c)
+    scales = sum(c[n].numel() * c[n].element_size() for c in cache for n in ("ks", "vs", "pks", "pvs") if n in c)
+    return dict(payload=payload, scales=scales)
+
+
+def with_int8_twins(params):
+    """``params`` with each MoE layer's int8 expert twins and scales added
+    (``quantize_expert_stacks`` on the card); every other tensor shared."""
+    from repro_torch.models.moe import quantize_expert_stacks
+
+    layers = []
+    for p in params["layers"]:
+        if "moe" in p:
+            p = dict(p, moe=dict(p["moe"], **quantize_expert_stacks(p["moe"])))
+        layers.append(p)
+    return dict(params, layers=layers)
+
+
+def int8_full_width(dev, params, served):
+    """The quantized bandwidth plane at full width: ``full_width``'s weights
+    plus their int8 expert twins, an int8 KV cache, and ``full_width``'s
+    traffic (4 slots, prompts of 64/96/128 tokens, 32 generated, 8 requests,
+    spec 4, ngram).  Each decode launch runs the int8 branches of kernels 1
+    and 2 once a layer and neither full-precision branch; admission runs the
+    full-precision prefill (kernels 7, 3, 4) and writes quantized rows.
+    Weight bytes split into full-precision and int8 (twins and scales)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=SPEC,
+                              kv_dtype="int8", expert_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params8 = with_int8_twins(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    int8_bytes = sum(t.numel() * t.element_size() for p in params8["layers"] for n, t in p.get("moe", {}).items()
+                     if n.endswith(("_q", "_s")))
+    max_len = PROMPT + GEN + SPEC
+    reqs = serve.synthetic_requests(cfg.vocab_size, PROMPT, GEN, REQUESTS)
+    rep = serve.ServeReplica(cfg, SLOTS, max_len, params8, drafter="ngram", device=dev)
+    serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))  # warm-up
+    reset_serving_stats(rep)
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve.serve_queue(rep, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = launch_counts()
+    streams = {rid: r.tokens for rid, r in results.items()}
+    if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
+        raise AssertionError(f"int8 full width: unanswered or failed requests: {results}")
+    for rid, toks in streams.items():
+        if len(toks) != GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"int8 full width: request {rid} stream malformed: {toks}")
+    path = int8_path(CONTIGUOUS_KERNELS)
+    if min(counts[n] for n in path) <= 0 or counts["flash_decode"] or counts["decode_moe"]:
+        raise AssertionError(f"int8 full width: kernel launches {counts}")
+    step = launches_per_step(rep, reqs[0])
+    per_launch = {n: step[n]["per_decode_launch"] for n in ("flash_decode_int8", "decode_moe_int8",
+                                                            "flash_decode", "decode_moe")}
+    if per_launch != {"flash_decode_int8": LAYERS, "decode_moe_int8": LAYERS, "flash_decode": 0, "decode_moe": 0}:
+        raise AssertionError(f"int8 full width: launches per decode launch {per_launch}")
+    one = rep.model.init_cache(1, max_len)
+    logits = rep.model.prefill(params8, reqs[0].prompt[None], one)
+    if not (logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())):
+        raise AssertionError("int8 full width: prefill logits not finite or of the wrong shape")
+    pairs = [(a, b) for rid, toks in streams.items() for a, b in zip(toks, served["streams"][rid])]
+    out = dict(
+        layers=LAYERS, dtype=cfg.dtype, kv_dtype="int8", expert_dtype="int8", slots=SLOTS, prompt_len=PROMPT,
+        gen=GEN, requests=REQUESTS, spec_tokens=SPEC, drafter="ngram",
+        weight_bytes=dict(full_precision=sum(t.numel() * t.element_size() for t in _leaves(params)),
+                          int8_twins_and_scales=int8_bytes),
+        kv_bytes=kv_bytes(rep.cache), twins_quantize_s=quantize_s, peak_memory_bytes=peak,
+        wall_s=wall, generated_tokens=rep.accepted_total, tok_per_s=rep.accepted_total / wall,
+        decode_launches=rep.launches, ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1),
+        prefills=rep.prefills, prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
+        accepts_per_launch=rep.accepted_total / max(rep.launches, 1),
+        accept_rate=rep.accepted_total / max(rep.drafted_total, 1),
+        int8_launches_per_decode_launch=per_launch,
+        stream_tokens_identical_to_full_width_share=sum(a == b for a, b in pairs) / max(len(pairs), 1),
+        kernel_launches=counts, launches_per_step=step,
+    )
+    while rep.has_work():
+        rep.step()
+    return out, rep
+
+
+def admit_twice(dev, params, params8):
+    """Admission is bitwise repeatable (kernel 4's fixed-order combine):
+    the same 128-token prompt admitted twice into slot 0 of the bf16
+    ``full_width`` replica gives bitwise-equal first-token logits and cache
+    leaves (k/v, plan_e/plan_w), and again through the int8 replica
+    (k/v int8, ks/vs, plans)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import admission
+
+    out = {}
+    prompt = serve.synthetic_requests(get_config(ARCH).vocab_size, PROMPT, GEN, 3)[2].prompt
+    for tag, quant, p in (("bf16", {}, params), ("int8", dict(kv_dtype="int8", expert_dtype="int8"), params8)):
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=SPEC, **quant)
+        rep = serve.ServeReplica(cfg, SLOTS, PROMPT + GEN + SPEC, p, drafter="ngram", device=dev)
+        reset_launch_counts()
+        runs = []
+        for _ in range(2):
+            logits = admission(rep.model, p, rep.cache, prompt, 0)
+            torch.cuda.synchronize()
+            runs.append((logits.clone(), [{n: t[0].clone() for n, t in c.items()} for c in rep.cache]))
+        counts = launch_counts()
+        if counts["down_combine"] != 2 * LAYERS:
+            raise AssertionError(f"admit twice {tag}: kernel 4 launches {counts['down_combine']}, not {2 * LAYERS}")
+        (l1, c1), (l2, c2) = runs
+        if not torch.equal(l1, l2):
+            raise AssertionError(f"admit twice {tag}: first-token logits differ "
+                                 f"(max |diff| {float((l1 - l2).abs().max()):.3e})")
+        for i, (a, b) in enumerate(zip(c1, c2)):
+            for n in a:
+                if not torch.equal(a[n], b[n]):
+                    raise AssertionError(f"admit twice {tag}: layer {i} leaf {n} differs")
+        out[tag] = dict(prompt_len=len(prompt), logits_bitwise_equal=True, cache_leaves_bitwise_equal=True,
+                        leaves=sorted(c1[0]), down_combine_launches=counts["down_combine"])
+        del rep, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def int8_hybrid_window(dev):
+    """The hybrid cell over an int8 KV cache: RecurrentGemma-2B uncut on
+    ``hybrid_window``'s traffic (:func:`serve_uncut`) with int8 rolling
+    buffers and per-slot scales; each decode launch runs kernel 6's int8
+    branch in the 8 attention layers and never its full-precision one."""
+    served, rep, reqs = serve_uncut(dev, HYBRID, kv_dtype="int8")
+    cfg = rep.cfg
+    n_attn = cfg.layer_kinds.count("attn")
+    counts = served["kernel_launches"]
+    if counts["flash_decode_window_int8"] != n_attn * served["decode_launches"] or counts["flash_decode_window"]:
+        raise AssertionError(f"int8 hybrid: kernel launches {counts} do not match {served['decode_launches']} "
+                             f"decode launches of {n_attn} attention layers")
+    step = launches_per_step(rep, reqs[0])
+    served.update(attention_layers=n_attn, window_slots=rep.cache[cfg.layer_kinds.index("attn")]["k"].shape[1],
+                  int8_launches_per_decode_launch=step["flash_decode_window_int8"]["per_decode_launch"],
+                  launches_per_step=step)
+    while rep.has_work():
+        rep.step()
+    del served["streams"]
+    return served, rep
 
 
 def hybrid_window(dev):
@@ -1334,7 +1845,7 @@ def decode_matches_prefill(dev, arch, layers, expect, prompt_len=2100, steps=4):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models.model import Model
 
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32", decode_plane=True)
@@ -1352,7 +1863,7 @@ def decode_matches_prefill(dev, arch, layers, expect, prompt_len=2100, steps=4):
         want = model.prefill(params, seq[None], model.init_cache(1, max_len))[0]
         errs.append(check_close(f"{arch} decode step {i} vs prefill of {len(seq)} tokens", got, want, 1e-4))
         toks.append(int(got.argmax()))
-    counts = {n: w.launches for n, w in kernel_wrappers().items() if w.launches}
+    counts = {n: c for n, c in launch_counts().items() if c}
     if counts != expect:
         raise AssertionError(f"{arch} decode vs prefill: kernel launches {counts}, expected {expect}")
     del params, cache
@@ -1370,15 +1881,14 @@ def reset_serving_stats(rep) -> None:
 def launches_per_step(rep, req) -> dict:
     """Launches of each kernel in one admission of ``req`` and in the decode
     launch that follows it; the replica keeps its remaining work."""
-    from repro_torch.kernels import kernel_wrappers, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
-    wrappers = kernel_wrappers()
     reset_launch_counts()
     rep.admit(req)
-    per_admission = {n: w.launches for n, w in wrappers.items()}
+    per_admission = launch_counts()
     reset_launch_counts()
     rep.step()
-    return {n: dict(per_decode_launch=w.launches, per_admission=per_admission[n]) for n, w in wrappers.items()}
+    return {n: dict(per_decode_launch=c, per_admission=per_admission[n]) for n, c in launch_counts().items()}
 
 
 def _leaves(tree):
@@ -1467,6 +1977,13 @@ KERNELS = {
     "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu", "src/repro/kernels/grouped_gemm/kernel.py:40"),
     "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch/kernel.py:36"),
     "moe_combine": ("src/repro_torch/csrc/moe_dispatch.cu", "src/repro/kernels/moe_dispatch/kernel.py:80"),
+    "flash_decode_int8": ("src/repro_torch/csrc/flash_decode.cu",
+                          "src/repro/kernels/flash_attention/decode.py:162"),
+    "decode_moe_int8": ("src/repro_torch/csrc/moe_decode.cu", "src/repro/kernels/moe_decode/kernel.py:86"),
+    "flash_decode_paged_int8": ("src/repro_torch/csrc/flash_decode.cu",
+                                "src/repro/kernels/flash_attention/decode.py:379"),
+    "flash_decode_window_int8": ("src/repro_torch/csrc/flash_decode.cu",
+                                 "src/repro/kernels/flash_attention/decode.py:294"),
 }
 EP_ONLY = ("grouped_gemm", "moe_dispatch", "moe_combine")
 
@@ -1501,6 +2018,9 @@ def main() -> int:
 
     emit("smoke_twin", **smoke_twin(dev))
     torch.cuda.empty_cache()
+    twin8 = smoke_twin(dev, names=["int8_spec4_ngram", "int8_paged_tree2x1_model_shared16", "int8_hybrid_spec1"])
+    emit("smoke_twin_int8", **twin8)
+    torch.cuda.empty_cache()
 
     served, rep = full_width(dev)
     emit("full_width", **served)
@@ -1517,11 +2037,26 @@ def main() -> int:
     emit("expert_parallel", **ep)
     emit("smoke_twin_ep", **ep_twin)
     emit("profile_ep", **ep_prof)
-    del params  # free the MoE weights before the hybrid cell
+    int8, rep = int8_full_width(dev, params, served)
+    emit("int8_full_width", **int8)
+    emit("profile_int8", **profile_decode(rep, cfg.vocab_size))
+    params8 = rep.params
+    del rep
+    torch.cuda.empty_cache()
+    paged8, rep = paged_tree(dev, params8, int8=True)
+    emit("int8_paged_tree", **paged8)
+    del rep
+    torch.cuda.empty_cache()
+    emit("admit_twice", **admit_twice(dev, params, params8))
+    del params, params8  # free the MoE weights before the hybrid cell
     torch.cuda.empty_cache()
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)
     emit("profile_hybrid", **profile_decode(rep, get_config(HYBRID).vocab_size, prompt=H_PROMPT, gen=H_GEN, n=5))
+    del rep
+    torch.cuda.empty_cache()
+    hybrid8, rep = int8_hybrid_window(dev)
+    emit("int8_hybrid_window", **hybrid8)
     del rep  # free the hybrid weights before the SSM cell
     torch.cuda.empty_cache()
     ssm, rep = ssm_serve(dev)
@@ -1535,10 +2070,14 @@ def main() -> int:
         r = rows[name]
         # each kernel's launches come from the serving path it belongs to
         path = (paged if name == "flash_decode_paged" else hybrid if name in HYBRID_KERNELS
-                else ssm if name in SSM_KERNELS else ep if name in EP_ONLY else served)
+                else ssm if name in SSM_KERNELS else ep if name in EP_ONLY
+                else int8 if name in ("flash_decode_int8", "decode_moe_int8")
+                else paged8 if name == "flash_decode_paged_int8"
+                else hybrid8 if name == "flash_decode_window_int8" else served)
+        counts = path.get("kernel_launches", path)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=path["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

@@ -11,10 +11,12 @@ tail's ``blocks/rest/{i}`` is layer ``n_superblocks * len(pattern) + i``
 and two ``rec`` layers; Mamba-2-2.7B: 64 super-blocks of the pattern
 ``ssm``, each leaf ``blocks/scan/b0/ssm/<name>`` or ``blocks/scan/b0/ln1``:
 an ``ssm`` layer has one pre-norm and no ``ln2``).  Each leaf is stored in
-the type its use computes in (:func:`layers.storage_dtype`).  Tied embeddings have no ``unembed``
-leaf: the f32 table the logits read is made from ``embed`` here
-(:func:`transformer.place_tied_unembed`).  Given a mesh, each rank places
-only its slice of the expert stacks (the layout of
+the type its use computes in (:func:`layers.storage_dtype`); the int8 expert
+twins ``*_q`` stay int8 and their scales ``*_s`` f32, bit for bit.  Tied
+embeddings have no ``unembed`` leaf: the f32 table the logits read is made
+from ``embed`` here (:func:`transformer.place_tied_unembed`).  Given a
+mesh, each rank places only its slice of the expert stacks, their int8
+twins and scales (the layout of
 :func:`repro_torch.parallel.sharding.shard_params`), cut from the arrays
 before they are copied.
 """
@@ -40,7 +42,10 @@ def _put(tree: dict, path, arr: np.ndarray, cfg: ModelConfig, device, mesh) -> N
     sl = expert_slice(cfg, mesh)
     if sl is not None and is_expert_stack(path, arr.shape):
         arr = arr[sl]  # the rank's expert slice, cut before the copy
-    tree[path[-1]] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dt)
+    if dt == torch.int8:  # the reference's int8 twins, bit for bit (never re-quantized)
+        tree[path[-1]] = torch.from_numpy(np.array(arr, dtype=np.int8)).to(device)
+    else:
+        tree[path[-1]] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dt)
 
 
 def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, np.ndarray], device, mesh=None) -> Params:

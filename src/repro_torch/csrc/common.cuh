@@ -12,6 +12,18 @@
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+// A stored element in f32 as the int8 branches read it: an int8 code is
+// multiplied by its scale control word at once, with __fmul_rn so the product
+// is rounded on its own and never fused into a later FMA.  The numbers a
+// kernel then computes with are those of the f32 buffer dequantized by
+// q.float() * s, so an int8 launch is bitwise the f32 launch on that buffer.
+// Other types ignore the scale.
+template <typename T>
+__device__ __forceinline__ float load_scaled(T x, float) { return to_f32(x); }
+template <>
+__device__ __forceinline__ float load_scaled<int8_t>(int8_t x, float s) { return __fmul_rn((float)x, s); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -32,7 +44,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Dispatch on the dtype code the Python wrappers pass: 0 = f32, 1 = bf16.
+// Dispatch on the dtype code the Python wrappers pass: 0 = f32, 1 = bf16
+// (2 = int8 is a code only for the int8 branches' stored operands).
 #define REPRO_DISPATCH(code, T, ...)      \
   do {                                    \
     if ((code) == 0) {                    \
@@ -44,4 +57,29 @@ __device__ __forceinline__ float warp_sum(float v) {
     } else {                              \
       return (int)cudaErrorInvalidValue;  \
     }                                     \
+  } while (0)
+
+// Dispatch on a (compute operand, stored operand) pair of codes: the same
+// type (f32 or bf16), or an int8 stored operand with f32 or bf16 beside it.
+#define REPRO_DISPATCH_PAIR(code_a, code_b, TA, TB, ...)     \
+  do {                                                       \
+    if ((code_a) == 0 && (code_b) == 0) {                    \
+      using TA = float;                                      \
+      using TB = float;                                      \
+      __VA_ARGS__;                                           \
+    } else if ((code_a) == 1 && (code_b) == 1) {             \
+      using TA = __nv_bfloat16;                              \
+      using TB = __nv_bfloat16;                              \
+      __VA_ARGS__;                                           \
+    } else if ((code_a) == 0 && (code_b) == 2) {             \
+      using TA = float;                                      \
+      using TB = int8_t;                                     \
+      __VA_ARGS__;                                           \
+    } else if ((code_a) == 1 && (code_b) == 2) {             \
+      using TA = __nv_bfloat16;                              \
+      using TB = int8_t;                                     \
+      __VA_ARGS__;                                           \
+    } else {                                                 \
+      return (int)cudaErrorInvalidValue;                     \
+    }                                                        \
   } while (0)

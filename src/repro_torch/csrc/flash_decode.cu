@@ -5,7 +5,8 @@
 // Replaces: src/repro/kernels/flash_attention/decode.py, flash_decode_pallas
 // (kernel _flash_decode_kernel), flash_decode_paged_pallas (kernel
 // _flash_decode_paged_kernel) and flash_decode_window_pallas (kernel
-// _flash_decode_window_kernel); chain and tree words, no int8 scales.
+// _flash_decode_window_kernel); chain and tree words, full-precision and
+// int8 caches.
 //
 // What it computes: token (b, t) with query heads q[b, t, :, :] attends to a
 // run of logical cache rows of KV head h // group, with online softmax in
@@ -53,6 +54,21 @@
 // shared memory, above the 48 KB default: the launch opts in.
 // With one KV head and T = 1 the window launch is only B blocks: it is
 // latency-bound; a split of the window over blocks is a later step.
+//
+// The int8 branch (the TPU kernels' _load_kv_tile with quantized=True): K/V
+// are int8 with one f32 scale per cache row, ks/vs, and the K/V element type
+// is a template parameter apart from q's, so one template covers (q bf16, KV
+// bf16), (q f32, KV f32), (q bf16, KV int8) and (q f32, KV int8).  The port
+// reads K/V in row layout, so a row's scale sits at the index of its K/V
+// row under each policy: b*S + p contiguous, phys*ps + p%ps paged (after the
+// same length clamp and table lookup), b*W + p%W window.  Each element is
+// multiplied by its row's scale with __fmul_rn as the tile lands in f32
+// shared memory, before any dot, so an int8 launch is bitwise the f32
+// launch on the dequantized cache (f32 q; a bf16 q reads the same f32
+// values, and its output is that launch's rounded once to bf16).  The
+// scales are read through L1 beside the tile; no shared memory is added.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -63,17 +79,20 @@ constexpr int CONTIGUOUS = 0, PAGED = 1, WINDOW = 2;  // row-address policies
 
 // POLICY selects the row-address policy; S is the row capacity of a sequence
 // (max_len contiguous, mp * ps paged, the buffer's W slots for a window).
-template <typename T, int POLICY>
+template <typename T, typename TKV, int POLICY>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
-    const T* __restrict__ q,    // (B, Tn, nq, hd)
-    const T* __restrict__ k,    // contiguous (B, S, nkv, hd); paged (R, nkv, hd)
-    const T* __restrict__ v,
-    T* __restrict__ out,        // (B, Tn, nq, hd)
+    const T* __restrict__ q,      // (B, Tn, nq, hd)
+    const TKV* __restrict__ k,    // contiguous (B, S, nkv, hd); paged (R, nkv, hd)
+    const TKV* __restrict__ v,
+    const float* __restrict__ ks, // int8: one scale per K row (B*S; paged R); otherwise unused
+    const float* __restrict__ vs,
+    T* __restrict__ out,          // (B, Tn, nq, hd)
     const int* __restrict__ lengths,  // (B*Tn,) lengths; window: absolute positions
     const int* __restrict__ anc,      // (Tn,); window: unused
     const int* __restrict__ base,     // (B,); window: unused
     const int* __restrict__ table,    // paged: (B*mp,) block tables; otherwise unused
     int Tn, int S, int nq, int nkv, int hd, float scale, int mp, int ps, int limit) {
+  constexpr bool Q8 = std::is_same<TKV, int8_t>::value;
   const int kvh = blockIdx.x, t = blockIdx.y, b = blockIdx.z;
   const int G = nq / nkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -131,7 +150,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const int n = min(TILE, L - p0);
     for (int i = tid; i < n * hd; i += THREADS) {
       const int r = i / hd, d = i - r * hd;
-      kv[r * KS + d] = to_f32(k[kv_off + row_of(p0 + r) * row_stride + d]);
+      const long row = row_of(p0 + r);
+      kv[r * KS + d] = load_scaled(k[kv_off + row * row_stride + d], Q8 ? ks[row] : 1.f);
     }
     __syncthreads();
     // scores: one (head, row) pair per thread step; masked rows are NEG_INF
@@ -170,7 +190,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     }
     for (int i = tid; i < n * hd; i += THREADS) {
       const int r = i / hd, d = i - r * hd;
-      kv[r * KS + d] = to_f32(v[kv_off + row_of(p0 + r) * row_stride + d]);
+      const long row = row_of(p0 + r);
+      kv[r * KS + d] = load_scaled(v[kv_off + row * row_stride + d], Q8 ? vs[row] : 1.f);
     }
     __syncthreads();
     for (int i = tid; i < G * hd; i += THREADS) {
@@ -189,54 +210,62 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 }
 
 template <int POLICY>
-int launch(int dtype, const void* q, const void* k, const void* v, void* out, const void* lengths,
-           const void* table, const void* anc, const void* base, int B, int Tn, int S, int nq, int nkv, int hd,
-           float scale, int mp, int ps, int limit, void* stream) {
+int launch(int dtype, int kv_dtype, const void* q, const void* k, const void* v, const void* ks, const void* vs,
+           void* out, const void* lengths, const void* table, const void* anc, const void* base, int B, int Tn,
+           int S, int nq, int nkv, int hd, float scale, int mp, int ps, int limit, void* stream) {
   if (nkv <= 0 || nq % nkv != 0 || hd <= 0 || (POLICY == PAGED && (mp <= 0 || ps <= 0)) ||
-      (POLICY == WINDOW && (limit <= 0 || Tn > S)))
+      (POLICY == WINDOW && (limit <= 0 || Tn > S)) || (kv_dtype == 2 && (ks == nullptr || vs == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int G = nq / nkv;
   const size_t smem = sizeof(float) * ((size_t)G * hd * 2 + (size_t)TILE * (hd + 1) + (size_t)G * TILE + 3 * G) +
                       (POLICY == PAGED ? sizeof(int) * (size_t)mp : 0);
   dim3 grid(nkv, Tn, B);
-  REPRO_DISPATCH(dtype, T, {
+  REPRO_DISPATCH_PAIR(dtype, kv_dtype, T, TKV, {
     if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T, POLICY>,
+      cudaError_t e = cudaFuncSetAttribute(flash_decode_kernel<T, TKV, POLICY>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
     }
-    flash_decode_kernel<T, POLICY><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, (const int*)lengths, (const int*)anc, (const int*)base,
-        (const int*)table, Tn, S, nq, nkv, hd, scale, mp, ps, limit);
+    flash_decode_kernel<T, TKV, POLICY><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        (const T*)q, (const TKV*)k, (const TKV*)v, (const float*)ks, (const float*)vs, (T*)out,
+        (const int*)lengths, (const int*)anc, (const int*)base, (const int*)table, Tn, S, nq, nkv, hd, scale, mp,
+        ps, limit);
   });
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int repro_flash_decode(int dtype, const void* q, const void* k, const void* v, void* out,
-                                  const void* lengths, const void* anc, const void* base, int B, int Tn,
-                                  int S, int nq, int nkv, int hd, float scale, void* stream) {
-  return launch<CONTIGUOUS>(dtype, q, k, v, out, lengths, nullptr, anc, base, B, Tn, S, nq, nkv, hd, scale, 0, 1, 0,
-                            stream);
+// dtype: q's (and out's) type code, 0 f32 or 1 bf16; kv_dtype: K/V's, the
+// same as q's, or 2 (int8: ks/vs are the per-row f32 scales, indexed like the
+// K/V rows; otherwise they may be null).
+extern "C" int repro_flash_decode(int dtype, int kv_dtype, const void* q, const void* k, const void* v,
+                                  const void* ks, const void* vs, void* out, const void* lengths, const void* anc,
+                                  const void* base, int B, int Tn, int S, int nq, int nkv, int hd, float scale,
+                                  void* stream) {
+  return launch<CONTIGUOUS>(dtype, kv_dtype, q, k, v, ks, vs, out, lengths, nullptr, anc, base, B, Tn, S, nq, nkv,
+                            hd, scale, 0, 1, 0, stream);
 }
 
 // pool_k/pool_v (R, nkv, hd); table (B*mp,) int32 physical page per logical
-// page (-1 = unallocated, reached only past a token's length clamp).
-extern "C" int repro_flash_decode_paged(int dtype, const void* q, const void* pool_k, const void* pool_v, void* out,
+// page (-1 = unallocated, reached only past a token's length clamp); int8:
+// pool_ks/pool_vs (R,), one scale per pool row.
+extern "C" int repro_flash_decode_paged(int dtype, int kv_dtype, const void* q, const void* pool_k,
+                                        const void* pool_v, const void* pool_ks, const void* pool_vs, void* out,
                                         const void* lengths, const void* table, const void* anc, const void* base,
                                         int B, int Tn, int mp, int ps, int nq, int nkv, int hd, float scale,
                                         void* stream) {
-  return launch<PAGED>(dtype, q, pool_k, pool_v, out, lengths, table, anc, base, B, Tn, mp * ps, nq, nkv, hd, scale,
-                       mp, ps, 0, stream);
+  return launch<PAGED>(dtype, kv_dtype, q, pool_k, pool_v, pool_ks, pool_vs, out, lengths, table, anc, base, B, Tn,
+                       mp * ps, nq, nkv, hd, scale, mp, ps, 0, stream);
 }
 
 // k/v (B, W, nkv, hd) rolling buffers (slot = position % W); positions (B*Tn,)
 // int32 absolute position of each token, nondecreasing in t, with Tn <= W;
-// limit = min(window, W).
-extern "C" int repro_flash_decode_window(int dtype, const void* q, const void* k, const void* v, void* out,
-                                         const void* positions, int B, int Tn, int W, int nq, int nkv, int hd,
-                                         int limit, float scale, void* stream) {
-  return launch<WINDOW>(dtype, q, k, v, out, positions, nullptr, nullptr, nullptr, B, Tn, W, nq, nkv, hd, scale, 0,
-                        1, limit, stream);
+// limit = min(window, W); int8: ks/vs (B*W,), one scale per slot.
+extern "C" int repro_flash_decode_window(int dtype, int kv_dtype, const void* q, const void* k, const void* v,
+                                         const void* ks, const void* vs, void* out, const void* positions, int B,
+                                         int Tn, int W, int nq, int nkv, int hd, int limit, float scale,
+                                         void* stream) {
+  return launch<WINDOW>(dtype, kv_dtype, q, k, v, ks, vs, out, positions, nullptr, nullptr, nullptr, B, Tn, W, nq,
+                        nkv, hd, scale, 0, 1, limit, stream);
 }

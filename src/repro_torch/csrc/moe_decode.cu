@@ -1,7 +1,7 @@
 // Plan-steered expert SwiGLU for tiny T (the Agile decode plane).
 //
 // Replaces: src/repro/kernels/moe_decode/kernel.py, decode_moe_pallas
-// (kernel _decode_moe_kernel; the int8 branch waits for a later slice).
+// (kernel _decode_moe_kernel), its full-precision and int8 branches.
 //
 // What it computes: for each assignment (t, j), expert e = ids[t*k + j]
 // selects w_gate[e], w_up[e] (d, f) and w_down[e] (f, d);
@@ -24,6 +24,17 @@
 // Both launches read weight rows coalesced (neighbouring threads take
 // neighbouring output columns) and split the contraction over four thread
 // slices reduced through shared memory.
+//
+// The int8 branch (stacks int8, per-expert (E,) f32 scales sg, su, sd for
+// gate, up and down; x f32 or bf16) is the same template with the weight
+// type apart from x's: each weight element becomes __fmul_rn(float(w),
+// s[e]) as it is loaded, before it meets x (the TPU kernel's
+// dequantize-before-dot), so the launch is bitwise the f32 launch on the
+// dequantized stacks and f32 x.  The plan's experts move 1 byte a weight
+// instead of 2: at 83 distinct experts of d 4096, f 1536 that is ~1.57 GB
+// against ~3.13 GB.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -32,13 +43,15 @@ constexpr int COLS = 64;    // output columns per block
 constexpr int SLICES = 4;   // contraction slices per block
 constexpr int THREADS = COLS * SLICES;
 
-template <typename T>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(THREADS) gate_up_kernel(
-    const T* __restrict__ x,      // (T, d)
-    const int* __restrict__ ids,  // (T*k,)
-    const T* __restrict__ wg,     // (E, d, f)
-    const T* __restrict__ wu,     // (E, d, f)
-    float* __restrict__ h,        // (T*k, f)
+    const TX* __restrict__ x,         // (T, d)
+    const int* __restrict__ ids,      // (T*k,)
+    const TW* __restrict__ wg,        // (E, d, f)
+    const TW* __restrict__ wu,        // (E, d, f)
+    const float* __restrict__ sg,     // int8: (E,) gate scales; otherwise unused
+    const float* __restrict__ su,     // int8: (E,) up scales; otherwise unused
+    float* __restrict__ h,            // (T*k, f)
     int k, int d, int f) {
   extern __shared__ float smem[];
   float* xs = smem;                       // d
@@ -48,18 +61,20 @@ __global__ void __launch_bounds__(THREADS) gate_up_kernel(
   const int tid = threadIdx.x, cx = tid % COLS, sl = tid / COLS;
   const int t = a / k;
   const long e = ids[a];
+  const bool q8 = std::is_same<TW, int8_t>::value;
+  const float sge = q8 ? sg[e] : 1.f, sue = q8 ? su[e] : 1.f;
   for (int i = tid; i < d; i += THREADS) xs[i] = to_f32(x[(long)t * d + i]);
   __syncthreads();
   const int c = c0 + cx;
   float g = 0.f, u = 0.f;
   if (c < f) {
-    const T* pg = wg + e * d * f + c;
-    const T* pu = wu + e * d * f + c;
+    const TW* pg = wg + e * d * f + c;
+    const TW* pu = wu + e * d * f + c;
 #pragma unroll 4
     for (int dd = sl; dd < d; dd += SLICES) {
       const float xv = xs[dd];
-      g += xv * to_f32(pg[(long)dd * f]);
-      u += xv * to_f32(pu[(long)dd * f]);
+      g += xv * load_scaled(pg[(long)dd * f], sge);
+      u += xv * load_scaled(pu[(long)dd * f], sue);
     }
   }
   red[sl * COLS + cx] = g;
@@ -75,13 +90,14 @@ __global__ void __launch_bounds__(THREADS) gate_up_kernel(
   }
 }
 
-template <typename T>
+template <typename TW>
 __global__ void __launch_bounds__(THREADS) down_kernel(
-    const float* __restrict__ h,    // (T*k, f)
-    const int* __restrict__ ids,    // (T*k,)
-    const float* __restrict__ w,    // (T*k,)
-    const T* __restrict__ wd,       // (E, f, d)
-    float* __restrict__ out,        // (T, d)
+    const float* __restrict__ h,      // (T*k, f)
+    const int* __restrict__ ids,      // (T*k,)
+    const float* __restrict__ w,      // (T*k,)
+    const TW* __restrict__ wd,        // (E, f, d)
+    const float* __restrict__ sd,     // int8: (E,) down scales; otherwise unused
+    float* __restrict__ out,          // (T, d)
     int k, int d, int f) {
   extern __shared__ float smem[];
   float* hs = smem;                 // f
@@ -97,10 +113,12 @@ __global__ void __launch_bounds__(THREADS) down_kernel(
     for (int i = tid; i < f; i += THREADS) hs[i] = h[(long)a * f + i];
     __syncthreads();
     if (c < d) {
-      const T* pd = wd + (long)ids[a] * f * d + c;
+      const long e = ids[a];
+      const TW* pd = wd + e * f * d + c;
+      const float sde = std::is_same<TW, int8_t>::value ? sd[e] : 1.f;
       float y = 0.f;
 #pragma unroll 4
-      for (int ff = sl; ff < f; ff += SLICES) y += hs[ff] * to_f32(pd[(long)ff * d]);
+      for (int ff = sl; ff < f; ff += SLICES) y += hs[ff] * load_scaled(pd[(long)ff * d], sde);
       acc += w[a] * y;
     }
   }
@@ -121,24 +139,30 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 }  // namespace
 
-extern "C" int repro_decode_moe(int dtype, const void* x, const void* ids, const void* w, const void* wg,
-                                const void* wu, const void* wd, void* h_scratch, void* out, int T, int k, int d,
-                                int f, void* stream) {
+// x_dtype / w_dtype: 0 f32, 1 bf16 (the same for both), or w_dtype 2 (int8
+// stacks, then sg, su, sd (E,) f32 each; otherwise they may be null).
+extern "C" int repro_decode_moe(int x_dtype, int w_dtype, const void* x, const void* ids, const void* w,
+                                const void* wg, const void* wu, const void* wd, const void* sg, const void* su,
+                                const void* sd, void* h_scratch, void* out, int T, int k, int d, int f,
+                                void* stream) {
+  if (w_dtype == 2 && (sg == nullptr || su == nullptr || sd == nullptr)) return (int)cudaErrorInvalidValue;
   const size_t smem1 = sizeof(float) * ((size_t)d + 2 * SLICES * COLS);
   const size_t smem2 = sizeof(float) * ((size_t)f + SLICES * COLS);
   dim3 grid1(T * k, (f + COLS - 1) / COLS);
   dim3 grid2(T, (d + COLS - 1) / COLS);
-  REPRO_DISPATCH(dtype, Tp, {
-    cudaError_t e = allow_smem(gate_up_kernel<Tp>, smem1);
+  REPRO_DISPATCH_PAIR(x_dtype, w_dtype, TX, TW, {
+    cudaError_t e = allow_smem(gate_up_kernel<TX, TW>, smem1);
     if (e != cudaSuccess) return (int)e;
-    e = allow_smem(down_kernel<Tp>, smem2);
+    e = allow_smem(down_kernel<TW>, smem2);
     if (e != cudaSuccess) return (int)e;
-    gate_up_kernel<Tp><<<grid1, THREADS, smem1, (cudaStream_t)stream>>>(
-        (const Tp*)x, (const int*)ids, (const Tp*)wg, (const Tp*)wu, (float*)h_scratch, k, d, f);
+    gate_up_kernel<TX, TW><<<grid1, THREADS, smem1, (cudaStream_t)stream>>>(
+        (const TX*)x, (const int*)ids, (const TW*)wg, (const TW*)wu, (const float*)sg, (const float*)su,
+        (float*)h_scratch, k, d, f);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    down_kernel<Tp><<<grid2, THREADS, smem2, (cudaStream_t)stream>>>(
-        (const float*)h_scratch, (const int*)ids, (const float*)w, (const Tp*)wd, (float*)out, k, d, f);
+    down_kernel<TW><<<grid2, THREADS, smem2, (cudaStream_t)stream>>>(
+        (const float*)h_scratch, (const int*)ids, (const float*)w, (const TW*)wd, (const float*)sd,
+        (float*)out, k, d, f);
   });
   return (int)cudaGetLastError();
 }

@@ -10,10 +10,13 @@ hosts without ``nvcc`` import these modules and run the plain versions.
   flash_decode     flash-decode steered by lengths over the contiguous KV
                    cache, by block tables over the paged pool, and by
                    positions over a rolling window buffer (one source,
-                   three instantiations)
+                   three row-address policies, each over a full-precision
+                   or an int8 cache with per-row scales)
   flash_attention  blocked causal / local-window GQA prefill attention
-  moe_decode       plan-steered expert SwiGLU for tiny T (decode)
-  moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + combine
+  moe_decode       plan-steered expert SwiGLU for tiny T (decode), over
+                   full-precision or int8 expert stacks
+  moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + a
+                   fixed-order combine
   grouped_gemm     y[e] = x[e] @ w[e] over expert slots (the a2a down projection)
   moe_dispatch     plan-steered dispatch into expert slots and weighted combine
   rglru_scan       the RG-LRU's diagonal linear recurrence (prefill)
@@ -21,7 +24,9 @@ hosts without ``nvcc`` import these modules and run the plain versions.
 
 Every wrapper in ``kernels/<name>/ops.py`` takes its plain version (the
 sibling ``ref.py``) only for CPU tensors; on ``cuda`` it launches its kernel
-or raises, and adds one to its ``launches`` counter per launch.
+or raises, and adds one to its ``launches`` counter per launch; a wrapper
+with an int8 branch also has an ``int8_launches`` counter, for that
+branch's launches (:func:`count_launch`).
 """
 from __future__ import annotations
 
@@ -133,20 +138,45 @@ def stream_of(t) -> ctypes.c_void_p:
 
 
 def dtype_code(dtype) -> int:
-    """0 = float32, 1 = bfloat16: the two types every kernel is built for."""
+    """0 = float32, 1 = bfloat16: the two types every kernel is built for;
+    2 = int8, the stored operand (K/V, expert stacks) of the int8 branches."""
     import torch
 
     if dtype == torch.float32:
         return 0
     if dtype == torch.bfloat16:
         return 1
-    raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+    if dtype == torch.int8:
+        return 2
+    raise TypeError(f"kernels take float32, bfloat16 or (stored operands) int8, got {dtype}")
+
+
+def count_launch(wrapper, int8: bool = False) -> None:
+    """Add one to ``wrapper``'s launch counter, or with ``int8`` to its
+    int8 branch's."""
+    if int8:
+        wrapper.int8_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def reset_launch_counts() -> None:
-    """Set every wrapper's launch counter to 0."""
+    """Set every wrapper's launch counters to 0."""
     for w in kernel_wrappers().values():
         w.launches = 0
+        if hasattr(w, "int8_launches"):
+            w.int8_launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """name -> launches since the last reset, for every kernel of the
+    serving paths and, as ``<name>_int8``, every int8 branch."""
+    counts = {}
+    for name, w in kernel_wrappers().items():
+        counts[name] = w.launches
+        if hasattr(w, "int8_launches"):
+            counts[name + "_int8"] = w.int8_launches
+    return counts
 
 
 def kernel_wrappers() -> dict:

@@ -13,6 +13,16 @@ they build the per-token control words from the cache index.  Unlike the
 TPU wrappers they neither transpose, pad nor reshape: the kernels read the
 (B, S, nkv, hd) cache, the rolling (B, W, nkv, hd) buffer and the
 (R, nkv, hd) page pool in place.
+
+int8 caches: the three decode entry points take ``scales`` in the
+reference's layouts, (2, B, S) contiguous, (2, R) paged (one per pool row,
+the trash row included) and (2, B, W) rolling, row 0 K's and row 1 V's, or
+as the pair (K's, V's) of those shapes that the cache holds (the model
+passes its ``ks``/``vs`` leaves so, without stacking them); the launches
+then read int8 K/V and multiply each row by its scale before any dot (the
+int8 branch, counted in ``int8_launches``).  On a ``cuda`` tensor
+the int8 branch launches or raises: it never dequantizes and calls the
+full-precision kernel, and never drops to the plain version.
 """
 from __future__ import annotations
 
@@ -45,6 +55,30 @@ def _check(cond: bool, msg: str, what: str = "flash_decode") -> None:
         raise ValueError(f"{what}: {msg}")
 
 
+def _check_types(q, k, v, scales, rows: int, what: str) -> tuple:
+    """The K/V type contract: without ``scales`` q, k and v share f32 or
+    bf16; with them k and v are int8, q f32 or bf16, and ``scales`` is the
+    pair (ks, vs) of f32 tensors of ``rows`` elements each (one K and one V
+    scale per cache row; a (2, rows) tensor is such a pair).  Returns
+    (ks, vs), or () without scales."""
+    if scales is None:
+        _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
+        return ()
+    _check(k.dtype == v.dtype == torch.int8, f"scales come with an int8 cache, got {k.dtype}, {v.dtype}", what)
+    _check(q.dtype in (torch.float32, torch.bfloat16), f"q must be f32 or bf16, got {q.dtype}", what)
+    _check(len(scales) == 2 and all(s.dtype == torch.float32 and s.numel() == rows for s in scales),
+           f"scales must be two f32 tensors of {rows} rows, got {[(tuple(s.shape), s.dtype) for s in scales]}", what)
+    return tuple(scales)
+
+
+def _scale_ptrs(kvs) -> tuple:
+    if not kvs:
+        return ctypes.c_void_p(None), ctypes.c_void_p(None)
+    from repro_torch.kernels import ptr
+
+    return ptr(kvs[0]), ptr(kvs[1])
+
+
 def _control_words(B: int, T: int, dev, anc_words, base):
     """The chain defaults: all-ones words make the ancestor test vacuous."""
     if anc_words is None:
@@ -61,43 +95,42 @@ def flash_decode_kernel(
     lengths: torch.Tensor,  # (B*T,) int32 valid prefix length per token
     anc_words: Optional[torch.Tensor] = None,  # (T,) int32 ancestor bitmasks
     base: Optional[torch.Tensor] = None,       # (B,) int32 committed-prefix length
-    scales: Optional[torch.Tensor] = None,
+    scales=None,  # (ks, vs), B*S f32 each: per-row K/V scales of an int8 cache
 ) -> torch.Tensor:
     """Vector-steered decode attention; (B, T, nq, hd) in q's type."""
-    if scales is not None:
-        raise NotImplementedError("int8 KV (per-row scales) is ported in a later slice")
     B, T, nq, hd = q.shape
     _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}")
     _check(v.shape == k.shape, f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}")
     S, nkv = k.shape[1], k.shape[2]
     _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads")
-    _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ")
+    kvs = _check_types(q, k, v, scales, B * S, "flash_decode")
     dev = q.device
     anc_words, base = _control_words(B, T, dev, anc_words, base)
     for name, t, n in (("lengths", lengths, B * T), ("anc_words", anc_words, T), ("base", base, B)):
         _check(t.dtype == torch.int32 and t.numel() == n, f"{name} must be ({n},) int32")
-    _check(all(t.device == dev for t in (k, v, lengths, anc_words, base)), "tensors on different devices")
+    _check(all(t.device == dev for t in (k, v, lengths, anc_words, base, *kvs)), "tensors on different devices")
     if dev.type == "cpu":
-        return ref.flash_decode(q, k, v, lengths, anc_words, base)
+        return ref.flash_decode(q, k, v, lengths, anc_words, base, scales)
     _check(dev.type == "cuda", f"unsupported device {dev}")
-    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
 
-    _check(all(t.is_contiguous() for t in (q, k, v, lengths, anc_words, base)), "tensors must be contiguous")
+    _check(all(t.is_contiguous() for t in (q, k, v, lengths, anc_words, base, *kvs)), "tensors must be contiguous")
     fn = function(
         "flash_decode", "repro_flash_decode",
-        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
     )
     out = torch.empty_like(q)
     rc = fn(
-        dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), ptr(lengths), ptr(anc_words), ptr(base),
-        B, T, S, nq, nkv, hd, 1.0 / math.sqrt(hd), stream_of(q),
+        dtype_code(q.dtype), dtype_code(k.dtype), ptr(q), ptr(k), ptr(v), *_scale_ptrs(kvs), ptr(out), ptr(lengths),
+        ptr(anc_words), ptr(base), B, T, S, nq, nkv, hd, 1.0 / math.sqrt(hd), stream_of(q),
     )
     check_launch(rc, "flash_decode")
-    flash_decode_kernel.launches += 1
+    count_launch(flash_decode_kernel, int8=scales is not None)
     return out
 
 
 flash_decode_kernel.launches = 0
+flash_decode_kernel.int8_launches = 0
 
 
 def flash_decode_paged_kernel(
@@ -108,6 +141,7 @@ def flash_decode_paged_kernel(
     table: torch.Tensor,    # (B*mp,) int32 block tables (-1 = unallocated)
     anc_words: Optional[torch.Tensor] = None,  # (T,) int32 ancestor bitmasks
     base: Optional[torch.Tensor] = None,       # (B,) int32 committed-prefix length
+    scales=None,  # (ks, vs), R f32 each: per-pool-row K/V scales of an int8 pool
     *,
     page_size: int,
 ) -> torch.Tensor:
@@ -122,7 +156,7 @@ def flash_decode_paged_kernel(
     _check(pool_v.shape == pool_k.shape, f"pool_v shape {tuple(pool_v.shape)} != {tuple(pool_k.shape)}", what)
     nkv = pool_k.shape[1]
     _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
-    _check(q.dtype == pool_k.dtype == pool_v.dtype, f"dtypes {q.dtype}, {pool_k.dtype}, {pool_v.dtype} differ", what)
+    kvs = _check_types(q, pool_k, pool_v, scales, pool_k.shape[0], what)
     _check(page_size > 0 and table.numel() % B == 0 and table.numel() > 0, "table must be (B*max_pages,)", what)
     mp = table.numel() // B
     dev = q.device
@@ -130,30 +164,32 @@ def flash_decode_paged_kernel(
     for name, t, n in (("lengths", lengths, B * T), ("table", table, B * mp), ("anc_words", anc_words, T),
                        ("base", base, B)):
         _check(t.dtype == torch.int32 and t.numel() == n, f"{name} must be ({n},) int32", what)
-    _check(all(t.device == dev for t in (pool_k, pool_v, lengths, table, anc_words, base)),
+    _check(all(t.device == dev for t in (pool_k, pool_v, lengths, table, anc_words, base, *kvs)),
            "tensors on different devices", what)
     if dev.type == "cpu":
-        return ref.flash_decode_paged(q, pool_k, pool_v, lengths, table, anc_words, base, page_size)
+        return ref.flash_decode_paged(q, pool_k, pool_v, lengths, table, anc_words, base, page_size, scales)
     _check(dev.type == "cuda", f"unsupported device {dev}", what)
-    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
 
-    _check(all(t.is_contiguous() for t in (q, pool_k, pool_v, lengths, table, anc_words, base)),
+    _check(all(t.is_contiguous() for t in (q, pool_k, pool_v, lengths, table, anc_words, base, *kvs)),
            "tensors must be contiguous", what)
     fn = function(
         "flash_decode", "repro_flash_decode_paged",
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
     )
     out = torch.empty_like(q)
     rc = fn(
-        dtype_code(q.dtype), ptr(q), ptr(pool_k), ptr(pool_v), ptr(out), ptr(lengths), ptr(table), ptr(anc_words),
-        ptr(base), B, T, mp, page_size, nq, nkv, hd, 1.0 / math.sqrt(hd), stream_of(q),
+        dtype_code(q.dtype), dtype_code(pool_k.dtype), ptr(q), ptr(pool_k), ptr(pool_v), *_scale_ptrs(kvs), ptr(out),
+        ptr(lengths), ptr(table), ptr(anc_words), ptr(base), B, T, mp, page_size, nq, nkv, hd, 1.0 / math.sqrt(hd),
+        stream_of(q),
     )
     check_launch(rc, what)
-    flash_decode_paged_kernel.launches += 1
+    count_launch(flash_decode_paged_kernel, int8=scales is not None)
     return out
 
 
 flash_decode_paged_kernel.launches = 0
+flash_decode_paged_kernel.int8_launches = 0
 
 
 def flash_decode(
@@ -164,7 +200,7 @@ def flash_decode(
     *,
     ancestors: Optional[torch.Tensor] = None,
     base: Optional[torch.Tensor] = None,
-    scales: Optional[torch.Tensor] = None,
+    scales=None,  # (2, B, S) f32 per-row K/V scales, or their (ks, vs) pair (int8 cache)
 ) -> torch.Tensor:
     """Multi-token attention over each token's valid cache prefix: token
     (b, t) attends to positions [0, index(b, t)]; with ``ancestors``/``base``
@@ -184,18 +220,16 @@ def flash_decode_paged(
     page_size: int,
     ancestors: Optional[torch.Tensor] = None,
     base: Optional[torch.Tensor] = None,
-    scales: Optional[torch.Tensor] = None,
+    scales=None,  # (2, R) f32 per-pool-row K/V scales, or their (ks, vs) pair (int8 pool)
 ) -> torch.Tensor:
     """:func:`flash_decode` against a flat page pool addressed through
     per-slot block tables: the pool row backing position ``pos`` of slot
     ``b`` is ``pages[b, pos // page_size] * page_size + pos % page_size``.
     With the identity table the result is bitwise :func:`flash_decode`'s."""
-    if scales is not None:
-        raise NotImplementedError("int8 KV (per-row scales) is ported in a later slice")
     B, T = q.shape[:2]
     lengths = _as_length_vector(cache_index, B, T, q.device)
     table = pages.reshape(-1).to(device=q.device, dtype=torch.int32)
-    return flash_decode_paged_kernel(q, k, v, lengths, table, ancestors, base, page_size=page_size)
+    return flash_decode_paged_kernel(q, k, v, lengths, table, ancestors, base, scales, page_size=page_size)
 
 
 def flash_decode_window_kernel(
@@ -203,6 +237,7 @@ def flash_decode_window_kernel(
     k: torch.Tensor,          # (B, W, nkv, hd) rolling buffer, slot = position % W
     v: torch.Tensor,
     positions: torch.Tensor,  # (B*T,) int32 absolute position per token
+    scales=None,  # (ks, vs), B*W f32 each: per-slot K/V scales of an int8 buffer
     *,
     window: int,
 ) -> torch.Tensor:
@@ -218,34 +253,35 @@ def flash_decode_window_kernel(
     _check(v.shape == k.shape, f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
     W, nkv = k.shape[1], k.shape[2]
     _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
-    _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
+    kvs = _check_types(q, k, v, scales, B * W, what)
     _check(T <= W, f"a launch of {T} tokens would overwrite its own slots of a {W}-slot buffer", what)
     _check(window > 0, f"window must be positive, got {window}", what)
     _check(positions.dtype == torch.int32 and positions.numel() == B * T, f"positions must be ({B * T},) int32", what)
     dev = q.device
-    _check(all(t.device == dev for t in (k, v, positions)), "tensors on different devices", what)
+    _check(all(t.device == dev for t in (k, v, positions, *kvs)), "tensors on different devices", what)
     limit = min(int(window), W)
     if dev.type == "cpu":
-        return ref.flash_decode_window(q, k, v, positions, limit)
+        return ref.flash_decode_window(q, k, v, positions, limit, scales)
     _check(dev.type == "cuda", f"unsupported device {dev}", what)
-    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
 
-    _check(all(t.is_contiguous() for t in (q, k, v, positions)), "tensors must be contiguous", what)
+    _check(all(t.is_contiguous() for t in (q, k, v, positions, *kvs)), "tensors must be contiguous", what)
     fn = function(
         "flash_decode", "repro_flash_decode_window",
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
     )
     out = torch.empty_like(q)
     rc = fn(
-        dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), ptr(positions), B, T, W, nq, nkv, hd, limit,
-        1.0 / math.sqrt(hd), stream_of(q),
+        dtype_code(q.dtype), dtype_code(k.dtype), ptr(q), ptr(k), ptr(v), *_scale_ptrs(kvs), ptr(out), ptr(positions),
+        B, T, W, nq, nkv, hd, limit, 1.0 / math.sqrt(hd), stream_of(q),
     )
     check_launch(rc, what)
-    flash_decode_window_kernel.launches += 1
+    count_launch(flash_decode_window_kernel, int8=scales is not None)
     return out
 
 
 flash_decode_window_kernel.launches = 0
+flash_decode_window_kernel.int8_launches = 0
 
 
 def flash_decode_window(
@@ -255,16 +291,14 @@ def flash_decode_window(
     cache_index,       # scalar | (B,) position of token (b, 0)
     *,
     window: int,
-    scales: Optional[torch.Tensor] = None,
+    scales=None,  # (2, B, W) f32 per-slot K/V scales, or their (ks, vs) pair (int8 buffer)
 ) -> torch.Tensor:
     """Window-steered attention over a rolling cache: token (b, t) at
     absolute position ``index(b) + t`` sees positions in
     ``(pos - window, pos]`` through the wrap point."""
-    if scales is not None:
-        raise NotImplementedError("int8 KV (per-slot scales) is ported in a later slice")
     B, T = q.shape[:2]
     positions = _as_length_vector(cache_index, B, T, q.device) - 1
-    return flash_decode_window_kernel(q, k, v, positions, window=window)
+    return flash_decode_window_kernel(q, k, v, positions, scales, window=window)
 
 
 _FA_HEAD_DIMS = (16, 32, 64, 128, 256)

@@ -11,13 +11,20 @@ rolling buffer's slots by the absolute position each holds, reconstructed
 from the launch's last write (the reference's jnp path); the prefill
 version is the model's blockwise attention (``layers.blockwise_attention``),
 as the reference's ``flash_attention/ref.py`` is.
+
+With ``scales`` the cache is int8 and is dequantized elementwise (one f32
+scale per cache row, ``scales[0]`` K's and ``scales[1]`` V's) before any
+contraction, as the kernels' int8 branch does, so each version with
+``scales`` is bitwise itself on the dequantized f32 cache.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
+from repro_torch.core.quant import dequantize_int8
 from repro_torch.models.layers import blockwise_attention
 
 
@@ -30,15 +37,24 @@ def visible_rows(lengths: torch.Tensor, anc: torch.Tensor, base: torch.Tensor, B
     return in_len & ((u < 0) | (bit > 0))
 
 
+def dequantize_rows(c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The f32 view of an int8 cache buffer (..., nkv, hd) with one f32
+    scale per row (the leading shape, flattened or not)."""
+    return dequantize_int8(c, s.reshape(c.shape[:-2])[..., None, None])
+
+
 def flash_decode(
     q: torch.Tensor,        # (B, T, nq, hd)
-    k: torch.Tensor,        # (B, S, nkv, hd)
+    k: torch.Tensor,        # (B, S, nkv, hd); int8 with scales
     v: torch.Tensor,
     lengths: torch.Tensor,  # (B*T,) int32
     anc: torch.Tensor,      # (T,) int32
     base: torch.Tensor,     # (B,) int32
+    scales=None,  # (ks, vs) or (2, ...): B*S f32 per-row K/V scales each
 ) -> torch.Tensor:
     B, T, nq, hd = q.shape
+    if scales is not None:
+        k, v = dequantize_rows(k, scales[0]), dequantize_rows(v, scales[1])
     S, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
     qg = q.reshape(B, T, nkv, g, hd).to(torch.float32)
@@ -59,11 +75,15 @@ def flash_decode_paged(
     anc: torch.Tensor,      # (T,) int32
     base: torch.Tensor,     # (B,) int32
     page_size: int,
+    scales=None,  # (ks, vs) or (2, ...): R f32 per-pool-row K/V scales each
 ) -> torch.Tensor:
     """Gather each sequence's logical rows through its block table, then the
     contiguous version.  An unallocated entry reads page 0, as the kernel's
-    clamp does; callers keep such pages past every token's length."""
+    clamp does; callers keep such pages past every token's length.  An
+    int8 pool is dequantized (each row by its pool row's scale) first."""
     B = q.shape[0]
+    if scales is not None:
+        pool_k, pool_v = dequantize_rows(pool_k, scales[0]), dequantize_rows(pool_v, scales[1])
     mp = table.numel() // B
     pages = table.reshape(B, mp).to(torch.int64).clamp(min=0)
     rows = (pages * page_size)[:, :, None] + torch.arange(page_size, device=q.device)
@@ -77,11 +97,14 @@ def flash_decode_window(
     v: torch.Tensor,
     positions: torch.Tensor,  # (B*T,) int32 absolute position per token
     limit: int,               # min(window, W)
+    scales=None,  # (ks, vs) or (2, ...): B*W f32 per-slot K/V scales each
 ) -> torch.Tensor:
     """Slot s holds the largest position <= head with p % W == s (head = the
     launch's last position); token (b, t) sees the slots whose position p
     has ``0 <= p <= pos`` and ``p > pos - limit``."""
     B, T, nq, hd = q.shape
+    if scales is not None:
+        k, v = dequantize_rows(k, scales[0]), dequantize_rows(v, scales[1])
     W, nkv = k.shape[1], k.shape[2]
     g = nq // nkv
     pos = positions.reshape(B, T).to(torch.int64)

@@ -2,13 +2,15 @@
 
 :func:`decode_moe_kernel` is the launch: plain version on CPU tensors,
 ``csrc/moe_decode.cu`` (two CUDA launches per call, counted as one) on
-``cuda`` tensors, or an error.  :func:`decode_moe` executes a
-:class:`~repro_torch.core.plans.DecodePlan` over a layer's expert stacks.
+``cuda`` tensors, or an error.  Its int8 branch (int8 stacks with per-expert
+scales) counts its launches apart, in ``int8_launches``; on a ``cuda``
+tensor it launches the int8 kernel or raises, never dequantizing first.
+:func:`decode_moe` executes a :class:`~repro_torch.core.plans.DecodePlan`
+over a layer's expert stacks.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
@@ -25,14 +27,15 @@ def decode_moe_kernel(
     x: torch.Tensor,           # (T, d)
     expert_ids: torch.Tensor,  # (T, k) int32
     weights: torch.Tensor,     # (T, k) f32
-    w_gate: torch.Tensor,      # (E, d, f)
+    w_gate: torch.Tensor,      # (E, d, f); int8 with scales
     w_up: torch.Tensor,
     w_down: torch.Tensor,      # (E, f, d)
-    scales: Optional[torch.Tensor] = None,
+    scales=None,  # (gate, up, down) per-expert (E,) f32 scales of int8 stacks, or (3, E)
 ) -> torch.Tensor:
-    """Plan-steered decode MoE, (T, d) -> (T, d) f32."""
-    if scales is not None:
-        raise NotImplementedError("int8 expert stacks (per-expert scales) are ported in a later slice")
+    """Plan-steered decode MoE, (T, d) -> (T, d) f32.  With ``scales`` the
+    stacks are int8 (the int8 branch: each weight element is multiplied by
+    its expert's scale before it meets x) and x is f32 or bf16; without,
+    x and the stacks share f32 or bf16."""
     T, d = x.shape
     _check(expert_ids.ndim == 2 and expert_ids.shape[0] == T, f"expert_ids shape {tuple(expert_ids.shape)}")
     k = expert_ids.shape[1]
@@ -41,38 +44,53 @@ def decode_moe_kernel(
     _check(w_down.shape == (E, f, d), f"w_down shape {tuple(w_down.shape)}")
     _check(weights.shape == expert_ids.shape, "weights and expert_ids shapes differ")
     _check(expert_ids.dtype == torch.int32 and weights.dtype == torch.float32, "plan must be int32 ids, f32 weights")
-    _check(x.dtype == w_gate.dtype == w_up.dtype == w_down.dtype, "x and the expert stacks must share a dtype")
+    stacks = (w_gate, w_up, w_down)
+    if scales is None:
+        _check(all(w.dtype == x.dtype for w in stacks), "x and the expert stacks must share a dtype")
+    else:
+        _check(all(w.dtype == torch.int8 for w in stacks), "scales come with int8 expert stacks")
+        _check(x.dtype in (torch.float32, torch.bfloat16), f"x must be f32 or bf16, got {x.dtype}")
+        _check(len(scales) == 3 and all(s.dtype == torch.float32 and s.shape == (E,) for s in scales),
+               f"scales must be three ({E},) f32 tensors")
     dev = x.device
-    _check(all(t.device == dev for t in (expert_ids, weights, w_gate, w_up, w_down)), "tensors on different devices")
+    extra = () if scales is None else tuple(scales)
+    _check(all(t.device == dev for t in (expert_ids, weights, *stacks, *extra)), "tensors on different devices")
     if dev.type == "cpu":
-        return ref.decode_moe(x, expert_ids, weights, w_gate, w_up, w_down)
+        return ref.decode_moe(x, expert_ids, weights, w_gate, w_up, w_down, scales)
     _check(dev.type == "cuda", f"unsupported device {dev}")
-    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
 
-    _check(all(t.is_contiguous() for t in (x, expert_ids, weights, w_gate, w_up, w_down)), "tensors must be contiguous")
+    _check(all(t.is_contiguous() for t in (x, expert_ids, weights, *stacks, *extra)), "tensors must be contiguous")
     fn = function(
         "moe_decode", "repro_decode_moe",
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     h = torch.empty((T * k, f), dtype=torch.float32, device=dev)
     out = torch.empty((T, d), dtype=torch.float32, device=dev)
+    scale_ptrs = [ptr(s) for s in extra] or [ctypes.c_void_p(None)] * 3
     rc = fn(
-        dtype_code(x.dtype), ptr(x), ptr(expert_ids), ptr(weights), ptr(w_gate), ptr(w_up), ptr(w_down),
-        ptr(h), ptr(out), T, k, d, f, stream_of(x),
+        dtype_code(x.dtype), dtype_code(w_gate.dtype), ptr(x), ptr(expert_ids), ptr(weights), ptr(w_gate),
+        ptr(w_up), ptr(w_down), *scale_ptrs, ptr(h), ptr(out), T, k, d, f, stream_of(x),
     )
     check_launch(rc, "decode_moe")
-    decode_moe_kernel.launches += 1
+    count_launch(decode_moe_kernel, int8=scales is not None)
     return out
 
 
 decode_moe_kernel.launches = 0
+decode_moe_kernel.int8_launches = 0
 
 
 def decode_moe(x: torch.Tensor, plan: DecodePlan, p) -> torch.Tensor:
-    """Execute a (T_total, k) DecodePlan on layer params ``p`` (``w_gate``,
-    ``w_up``, ``w_down``); (T, d) -> (T, d) in x's type."""
-    y = decode_moe_kernel(
-        x.contiguous(), plan.expert_ids.contiguous(), plan.weights.contiguous(),
-        p["w_gate"], p["w_up"], p["w_down"],
-    )
+    """Execute a (T_total, k) DecodePlan on layer params ``p``; (T, d) ->
+    (T, d) in x's type.  When ``p`` carries the int8 twins (``w_gate_q``
+    et al., :func:`repro_torch.models.moe.quantize_expert_stacks`) the
+    launch reads them and their per-expert scale words; the full-precision
+    stacks are left to prefill."""
+    ids, w = plan.expert_ids.contiguous(), plan.weights.contiguous()
+    if "w_gate_q" in p:
+        scales = (p["w_gate_s"], p["w_up_s"], p["w_down_s"])
+        y = decode_moe_kernel(x.contiguous(), ids, w, p["w_gate_q"], p["w_up_q"], p["w_down_q"], scales)
+    else:
+        y = decode_moe_kernel(x.contiguous(), ids, w, p["w_gate"], p["w_up"], p["w_down"])
     return y.to(x.dtype)

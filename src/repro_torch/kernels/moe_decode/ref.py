@@ -3,7 +3,11 @@
 For each expert the plan names, the assignments that picked it run one
 SwiGLU in f32 and add ``w * y`` into the (T, d) f32 output.  Looping over
 the distinct experts (not over all E, not gathering a (T, k, d, f) copy of
-the weights) keeps this plain version within memory at full width.
+the weights) keeps this plain version within memory at full width.  With
+``scales`` (gate's, up's, down's (E,) f32 scales, or a (3, E) tensor) the
+stacks are int8 and each expert's tiles are dequantized elementwise
+(``w * s[e]`` in f32) before any contraction, the order the kernel uses,
+so the result is bitwise this function's on the dequantized stacks.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ def decode_moe(
     w_gate: torch.Tensor,      # (E, d, f)
     w_up: torch.Tensor,
     w_down: torch.Tensor,      # (E, f, d)
+    scales=None,  # (gate, up, down) (E,) f32 scales of int8 stacks, or (3, E)
 ) -> torch.Tensor:
     T, k = expert_ids.shape
     xf = x.to(torch.float32)
@@ -27,8 +32,12 @@ def decode_moe(
     for e in torch.unique(flat_e).tolist():
         sel = (flat_e == e).nonzero().squeeze(1)
         rows = xf[tok[sel]]
-        g = rows @ w_gate[e].to(torch.float32)
-        u = rows @ w_up[e].to(torch.float32)
-        y = (torch.nn.functional.silu(g) * u) @ w_down[e].to(torch.float32)
+        wg, wu, wd = (w[e].to(torch.float32) for w in (w_gate, w_up, w_down))
+        if scales is not None:
+            sg, su, sd = (s[e] for s in scales)
+            wg, wu, wd = wg * sg, wu * su, wd * sd
+        g = rows @ wg
+        u = rows @ wu
+        y = (torch.nn.functional.silu(g) * u) @ wd
         out.index_put_((tok[sel],), flat_w[sel, None] * y, accumulate=True)
     return out

@@ -19,6 +19,7 @@ from repro_torch.core.plans import DispatchPlan
 from repro_torch.kernels.moe_fused import ref
 
 _SIG = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIG_DOWN = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -73,7 +74,11 @@ def down_combine(
     slot_w: torch.Tensor,    # (E*C,) f32 combine weight per slot
     num_tokens: int,
 ) -> torch.Tensor:
-    """y (T, d) f32 = sum over slots of slot_w * (h @ Wd), scattered by token."""
+    """y (T, d) f32 = sum over slots of slot_w * (h @ Wd), scattered by
+    token.  On the card each token's slots are summed in a fixed order
+    (ascending slot), so the result is bitwise repeatable: one launch
+    writes the weighted slot rows to an (E*C, d) f32 scratch, a second sums
+    them per token (two CUDA launches, counted as one)."""
     E, C, f = h.shape
     d = w_down.shape[-1]
     _check(w_down.shape == (E, f, d), f"w_down shape {tuple(w_down.shape)}")
@@ -86,9 +91,10 @@ def down_combine(
     _cuda_ready((h, w_down, flat_idx, slot_w))
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
-    out = torch.zeros((num_tokens, d), dtype=torch.float32, device=h.device)
-    rc = function("moe_fused", "repro_down_combine", _SIG)(
-        dtype_code(h.dtype), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(out),
+    rows = torch.empty((E * C, d), dtype=torch.float32, device=h.device)
+    out = torch.empty((num_tokens, d), dtype=torch.float32, device=h.device)
+    rc = function("moe_fused", "repro_down_combine", _SIG_DOWN)(
+        dtype_code(h.dtype), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(rows), ptr(out),
         num_tokens, E, C, d, f, stream_of(h),
     )
     check_launch(rc, "down_combine")

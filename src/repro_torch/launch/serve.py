@@ -27,6 +27,13 @@ admissions; admission binds pages and writes only the rows it owns.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
         --smoke --decode-plane --prompt-len 40 --device cpu
 
+The quantized bandwidth plane (``--kv-dtype int8``: int8 KV rows with
+per-token scales; ``--expert-dtype int8``: decode reads int8 twins of the
+expert stacks with per-expert scales) serves every one of these planes:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
+        --smoke --decode-plane --spec-tokens 4 --kv-dtype int8 --expert-dtype int8 --device cpu
+
 Expert parallelism (``--model N``): the replica's MoE layers run on a
 ``(data, model)`` mesh (:mod:`repro_torch.launch.mesh`), the experts split
 over the ``model`` axis: the a2a body at prefill, the shard-sliced plan and
@@ -395,7 +402,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--slots", type=int, default=4, help="decode slot pool size")
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4, help="decode slot pool size")
     ap.add_argument("--prompt-len", type=int, default=64, help="max synthetic prompt length")
     ap.add_argument("--gen", type=int, default=16, help="tokens to generate per request")
     ap.add_argument("--requests", type=int, default=0, help="queued requests (default 2x slots)")
@@ -408,6 +415,12 @@ def main(argv=None) -> int:
                     help="serve KV through the paged plane: a page pool, per-slot block tables, "
                          "prefix sharing across admissions")
     ap.add_argument("--page-size", type=int, default=0, help="KV rows per page (0 = config default)")
+    ap.add_argument("--kv-dtype", choices=("", "int8"), default="",
+                    help="store the KV cache in int8 with one f32 scale per token row (the decode kernels "
+                         "dequantize each row as it loads)")
+    ap.add_argument("--expert-dtype", choices=("", "int8"), default="",
+                    help="serve decode through int8 twins of the expert stacks with per-expert f32 scales "
+                         "(prefill keeps the full-precision stacks)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend a shared synthetic system prompt of this many tokens to every request")
     ap.add_argument("--expect-shared-pages", action="store_true",
@@ -434,6 +447,7 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(
         cfg, decode_plane=args.decode_plane or cfg.decode_plane, spec_tokens=T,
         paged=args.paged or cfg.paged, page_size=args.page_size or cfg.page_size,
+        kv_dtype=args.kv_dtype or cfg.kv_dtype, expert_dtype=args.expert_dtype or cfg.expert_dtype,
     )
     if "ssm" in cfg.layer_kinds and (args.paged or args.draft_tree):
         ap.error("Mamba-2 (ssm) archs serve on the contiguous decode plane at spec width 1; "

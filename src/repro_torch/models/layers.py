@@ -32,9 +32,18 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# the int8 twins of the routed expert stacks and their per-expert f32 scale
+# words (moe.quantize_expert_stacks), stored as the reference makes them
+_EXPERT_STACKS = ("w_gate", "w_up", "w_down")
+_INT8_LEAVES = tuple(n + "_q" for n in _EXPERT_STACKS)
+_SCALE_LEAVES = tuple(n + "_s" for n in _EXPERT_STACKS)
+
+
 def storage_dtype(cfg: ModelConfig, leaf: str) -> torch.dtype:
     """The type a parameter leaf is stored in (its last path component)."""
-    return torch.float32 if leaf in _F32_LEAVES else act_dtype(cfg)
+    if leaf in _INT8_LEAVES:
+        return torch.int8
+    return torch.float32 if leaf in _F32_LEAVES or leaf in _SCALE_LEAVES else act_dtype(cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -191,14 +191,17 @@ class Model:
         logical position; entries at or past the pool size (the
         admission's sentinel) land in the trash row, which is how
         trie-shared pages and positions past the prompt skip the copy.
-        Shared pages are never written and the pool is never zeroed.  The
-        DecodePlan leaves are per slot and are written at batch ``slot``.
-        The row vector crosses to the device once for all layers."""
+        Shared pages are never written and the pool is never zeroed.  An
+        int8 pool's scale rows (``pks``/``pvs``, from the prefill's
+        ``ks``/``vs``) go through the same row scatter, trash row included.
+        The DecodePlan leaves are per slot and are written at batch
+        ``slot``.  The row vector crosses to the device once for all
+        layers."""
         R = cache[0]["pk"].shape[0] - 1
         idx = torch.as_tensor(np.asarray(rows, np.int64), device=cache[0]["pk"].device).clamp(max=R)
         for c, o in zip(cache, one_cache):
             for name, leaf in c.items():
-                if name in ("pk", "pv"):
+                if name in T.POOL_LEAVES:
                     src = o[name[1:]][0]
                     leaf[idx[: src.shape[0]]] = src.to(leaf.dtype)
                 else:
@@ -209,8 +212,10 @@ class Model:
         with the identity block table (:func:`transformer.identity_page_table`)
         slot ``b``'s position ``pos`` lands at pool row
         ``b * max_pages * page_size + pos``, the flattened contiguous buffer,
-        so the paged chain path is bitwise the contiguous path on it.  Plan
-        leaves are copied unchanged."""
+        so the paged chain path is bitwise the contiguous path on it.  An
+        int8 cache's scale rows flatten the same way into ``pks``/``pvs``,
+        padded with ONES (their initial value) where the payload is padded
+        with zeros.  Plan leaves are copied unchanged."""
         ps, mp = self.cfg.page_size, T.max_pages_for(self.cfg, max_len)
         out = []
         for c in cache:
@@ -220,6 +225,11 @@ class Model:
                     B, S, nkv, hd = leaf.shape
                     pool = leaf.new_zeros((B * mp * ps + 1, nkv, hd))
                     pool[:-1].view(B, mp * ps, nkv, hd)[:, :S] = leaf
+                    n["p" + name] = pool
+                elif name in ("ks", "vs"):
+                    B, S = leaf.shape
+                    pool = leaf.new_ones((B * mp * ps + 1,))
+                    pool[:-1].view(B, mp * ps)[:, :S] = leaf
                     n["p" + name] = pool
                 else:
                     n[name] = leaf.clone()
@@ -235,8 +245,9 @@ class Model:
         The accepted nodes ``path[b] = (0, u_1, ..., u_{a-1})`` sit at rows
         ``lengths[b] + u_i`` and must move to ``lengths[b] + i``; ``path`` is
         (B, T), padded with the identity so the pad writes copy rows onto
-        themselves.  Only K/V move: plan rows stay node-indexed.  The
-        gather lands in a temporary before the scatter."""
+        themselves.  Only K/V (with an int8 cache's scale rows) move: plan
+        rows stay node-indexed.  The gather lands in a temporary before the
+        scatter."""
         k0 = cache[0]["k"]
         dev = k0.device
         lengths = torch.as_tensor(np.asarray(lengths, np.int64), device=dev)
@@ -246,6 +257,7 @@ class Model:
         src = lengths[:, None] + path
         bidx = torch.arange(k0.shape[0], device=dev)[:, None]
         for c in cache:
-            for name in ("k", "v"):
-                moved = c[name][bidx, src]
-                c[name][bidx, dst] = moved
+            for name in T.KV_LEAVES:
+                if name in c:
+                    moved = c[name][bidx, src]
+                    c[name][bidx, dst] = moved

@@ -9,7 +9,8 @@
 The prefill data plane is the fused pair of kernels
 (:mod:`repro_torch.kernels.moe_fused`) for every token count; the decode data
 plane executes the cache-carried DecodePlan
-(:mod:`repro_torch.kernels.moe_decode`).
+(:mod:`repro_torch.kernels.moe_decode`), over the int8 twins of the stacks
+under ``cfg.expert_dtype == "int8"`` (:func:`quantize_expert_stacks`).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control_plane import RouterAux, _top_k, capacity_for, route_topk
 from repro_torch.core.plans import DecodePlan, DispatchPlan
+from repro_torch.core.quant import quantize_int8
 from repro_torch.kernels.moe_decode import decode_moe
 from repro_torch.kernels.moe_fused import fused_moe_fn
 from repro_torch.models.layers import Params, act_dtype, normal, swiglu
@@ -57,9 +59,28 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device, experts: Optional[s
             "w_up": normal(gen, (d, sh), 1.0 / math.sqrt(d), dt, device),
             "w_down": normal(gen, (sh, d), down_std, dt, device),
         }
-    if cfg.expert_dtype:
-        raise NotImplementedError("int8 expert stacks are ported in a later slice")
+    if cfg.expert_dtype not in ("", "int8"):
+        raise ValueError(f"expert_dtype must be '' or 'int8', got {cfg.expert_dtype!r}")
+    if cfg.expert_dtype == "int8":
+        p.update(quantize_expert_stacks(p))
     return p
+
+
+def quantize_expert_stacks(p: Params) -> Params:
+    """int8 twins of the routed expert stacks for the decode data plane:
+    ``w_gate_q`` et al. with per-expert f32 scale words ``w_gate_s`` (E,),
+    which kernel 2 reads next to the plan's expert ids.  Each stack is
+    quantized over axes (1, 2) from its f32 cast.  The full-precision stacks
+    stay: prefill never reads int8; the plan-steered decode launches (and so
+    speculative verify) do (:func:`repro_torch.kernels.moe_decode.decode_moe`).
+    Cut to a rank's expert slice, the twins are the slice of the whole
+    stack's (the scales are per expert)."""
+    out: Params = {}
+    for name in ("w_gate", "w_up", "w_down"):
+        q, s = quantize_int8(p[name].to(torch.float32), axis=(1, 2))
+        out[name + "_q"] = q
+        out[name + "_s"] = s[:, 0, 0].to(torch.float32)
+    return out
 
 
 def _shared_experts(xf: torch.Tensor, p: Params) -> torch.Tensor:

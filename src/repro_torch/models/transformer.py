@@ -36,6 +36,14 @@ through the per-slot block table each launch takes.  The pool carries ONE
 trash row past its last page: writes the reference drops
 (``.at[].set(mode="drop")`` at row ``R``) land there instead, so no host
 sync filters them and no out-of-range index reaches the card.
+
+Quantized bandwidth plane (``cfg.kv_dtype == "int8"``): K/V rows are stored
+int8 with one f32 scale per token row (``ks``/``vs`` (B, S), paged
+``pks``/``pvs`` (R + 1,), initialized to ones), quantized over (nkv, hd)
+as each row is written, at admission and at every decode write.  Prefill
+attention runs on the full-precision rows; decode attention reads the int8
+rows and their scales (the kernels' int8 branch).  Every cache mutation
+(commit, CoW, paged admission) moves an (int8 row, scale) pair together.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control_plane import route_topk_decode, topk_agreement
 from repro_torch.core.plans import DecodePlan, TreePlan
+from repro_torch.core.quant import quantize_int8
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode, flash_decode_paged, flash_decode_window
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rglru
@@ -62,6 +71,10 @@ MoeApply = Callable[[torch.Tensor, Optional[torch.Tensor], Params], Tuple[torch.
 DecodeApply = Callable[[torch.Tensor, DecodePlan, Params], torch.Tensor]
 
 _KINDS = ("attn", "moe", "rec", "ssm")
+# the paged pool's leaves: int8-or-not payload rows, then (int8) their scales
+POOL_LEAVES = ("pk", "pv", "pks", "pvs")
+# the contiguous (or rolling) cache's leaves, in the same order
+KV_LEAVES = ("k", "v", "ks", "vs")
 # layers whose decode state is a recurrence, not KV rows: they bound no
 # position and advance one token per launch
 STATE_KINDS = ("rec", "ssm")
@@ -75,10 +88,10 @@ def window_of(cfg: ModelConfig) -> int:
 def _check_kind(kind: str, cfg: ModelConfig) -> None:
     if kind not in _KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is ported in a later slice")
-    if cfg.attention_kind not in ("full", "local") or cfg.kv_dtype:
-        raise NotImplementedError(
-            "this slice serves full and local attention over a full-precision KV cache"
-        )
+    if cfg.attention_kind not in ("full", "local"):
+        raise NotImplementedError("this slice serves full and local attention")
+    if cfg.kv_dtype not in ("", "int8"):
+        raise ValueError(f"kv_dtype must be '' or 'int8', got {cfg.kv_dtype!r}")
     if cfg.attention_kind == "local" and cfg.local_window <= 0:
         raise ValueError("local attention needs local_window > 0")
     if window_of(cfg) and cfg.paged:
@@ -193,25 +206,35 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     attention), or under ``cfg.paged`` the flat pool (num_pages * page_size
     + 1 trash row, nkv, hd), plus, for MoE layers on the decode plane, the
     carried DecodePlan: one row per draft position when ``spec_tokens > 1``
-    (per slot, paged or not)."""
+    (per slot, paged or not).  Under ``cfg.kv_dtype == "int8"`` the K/V
+    rows are int8 and each row has an f32 scale, ``ks``/``vs`` (B, S) or
+    ``pks``/``pvs`` (rows,), all ones at first."""
     _check_kind(kind, cfg)
     if kind == "rec":
         return rglru.init_rec_state(batch, cfg, device)
     if kind == "ssm":
         return mamba2.init_ssm_state(batch, cfg, device)
-    hd, dt = cfg.resolved_head_dim, L.act_dtype(cfg)
+    hd = cfg.resolved_head_dim
+    quant = cfg.kv_dtype == "int8"
+    dt = torch.int8 if quant else L.act_dtype(cfg)
     if cfg.paged:
         rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
         c = {
             "pk": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
             "pv": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
         }
+        if quant:
+            c["pks"] = torch.ones((rows,), dtype=torch.float32, device=device)
+            c["pvs"] = torch.ones((rows,), dtype=torch.float32, device=device)
     else:
         S = rolling_rows(cfg, max_len)
         c = {
             "k": torch.zeros((batch, S, cfg.num_kv_heads, hd), dtype=dt, device=device),
             "v": torch.zeros((batch, S, cfg.num_kv_heads, hd), dtype=dt, device=device),
         }
+        if quant:
+            c["ks"] = torch.ones((batch, S), dtype=torch.float32, device=device)
+            c["vs"] = torch.ones((batch, S), dtype=torch.float32, device=device)
     if kind == "moe" and cfg.decode_plane:
         Tp = max(int(cfg.spec_tokens), 1)
         shape = (batch, Tp, cfg.top_k) if Tp > 1 else (batch, cfg.top_k)
@@ -260,10 +283,13 @@ def apply_layer_prefill(
     """Full-sequence pass that writes the prompt's K/V (and the seeded
     DecodePlan), or a ``rec``/``ssm`` layer's final state, into batch rows ``rows``
     of ``cache``, in place.  ``moe_apply`` runs an MoE layer's FFN
-    (default :func:`default_moe_apply`).  The whole stripe is zeroed first, so the slot
-    holds exactly what a fresh B=1 cache written into it would.  A rolling
-    buffer of W rows takes the prompt's last ``min(W, S)`` positions at
-    slots ``pos % W``, where decode's modulo addressing continues."""
+    (default :func:`default_moe_apply`).  The whole stripe is zeroed first
+    (its scales set to ones), so the slot holds exactly what a fresh B=1
+    cache written into it would.  A rolling buffer of W rows takes the
+    prompt's last ``min(W, S)`` positions at slots ``pos % W``, where
+    decode's modulo addressing continues.  An int8 cache takes the rows
+    quantized (:func:`_quant_kv_rows`); attention here reads them in full
+    precision."""
     B, S, _ = x.shape
     if kind == "rec":
         r, state = rglru.rec_block_prefill(L.rms_norm(x, p["ln1"]), p["rec"], cfg)
@@ -289,10 +315,17 @@ def apply_layer_prefill(
     q, k, v = L._qkv(xn, p["attn"], cfg, positions)
     take = min(W, S)
     slots = torch.arange(S - take, S, device=x.device) % W
-    for name, val in (("k", k), ("v", v)):
+    kw, vw = k[:, S - take:], v[:, S - take:]
+    if "ks" in cache:
+        kw, vw, ksr, vsr = _quant_kv_rows(kw, vw)
+        for name, val in (("ks", ksr), ("vs", vsr)):
+            stripe = cache[name][rows]
+            stripe.fill_(1.0)
+            stripe[:, slots] = val
+    for name, val in (("k", kw), ("v", vw)):
         stripe = cache[name][rows]
         stripe.zero_()
-        stripe[:, slots] = val[:, S - take:].to(stripe.dtype)
+        stripe[:, slots] = val.to(stripe.dtype)
     out = flash_attention(q, k, v, causal=True, window=window)
     h = x + torch.einsum("bsnh,nhd->bsd", out, p["attn"]["wo"])
     ffn_in = L.rms_norm(h, p["ln2"])
@@ -314,6 +347,33 @@ def apply_layer_prefill(
 
 def _attn_out(out: torch.Tensor, p: Params) -> torch.Tensor:
     return torch.einsum("btnh,nhd->btd", out, p["wo"])
+
+
+def _quant_kv_rows(k: torch.Tensor, v: torch.Tensor):
+    """Quantize new K/V rows per TOKEN: (..., nkv, hd) -> int8 rows and one
+    f32 scale per row (..., ).  The row is the unit speculative rollback,
+    tree commit and paged CoW move, so every cache mutation stays an
+    (int8 row, scale) pair move.  (The reference's ``_deq``, the f32 view
+    its masked-jnp paths read, is the plain versions'
+    :func:`repro_torch.kernels.flash_attention.ref.dequantize_rows`.)"""
+    kq, ks = quantize_int8(k.to(torch.float32), axis=(-2, -1))
+    vq, vs = quantize_int8(v.to(torch.float32), axis=(-2, -1))
+    return kq, vq, ks[..., 0, 0].to(torch.float32), vs[..., 0, 0].to(torch.float32)
+
+
+def _write_rows(cache: Params, names, idx, k: torch.Tensor, v: torch.Tensor):
+    """Write this launch's K/V rows at ``idx`` (an index tuple) into the
+    leaves ``names`` (payload K, payload V, scale K, scale V), quantized
+    when the cache holds scales; returns the (K, V) scale leaves the decode
+    kernel takes, or None."""
+    nk, nv, nks, nvs = names
+    if nks in cache:
+        k, v, ksr, vsr = _quant_kv_rows(k, v)
+        cache[nks][idx] = ksr
+        cache[nvs][idx] = vsr
+    cache[nk][idx] = k.to(cache[nk].dtype)
+    cache[nv][idx] = v.to(cache[nv].dtype)
+    return (cache[nks], cache[nvs]) if nks in cache else None
 
 
 @functools.lru_cache(maxsize=32)
@@ -354,10 +414,10 @@ def _decode_attn_prefix_tree(
     rows, pos = _tree_rows(lengths, tree)
     q, k, v = L._qkv(xn, p, cfg, pos)
     bidx = torch.arange(B, device=xn.device)[:, None]
-    cache["k"][bidx, rows] = k.to(cache["k"].dtype)
-    cache["v"][bidx, rows] = v.to(cache["v"].dtype)
+    scales = _write_rows(cache, KV_LEAVES, (bidx, rows), k, v)
     base = lengths.to(torch.int32)
-    out = flash_decode(q, cache["k"], cache["v"], lengths, ancestors=_tree_tensors(tree, xn.device)[1], base=base)
+    out = flash_decode(q, cache["k"], cache["v"], lengths, ancestors=_tree_tensors(tree, xn.device)[1], base=base,
+                       scales=scales)
     return _attn_out(out, p)
 
 
@@ -383,9 +443,8 @@ def _decode_attn_rolling(
     q, k, v = L._qkv(xn, p, cfg, pos)
     bidx = torch.arange(B, device=xn.device)[:, None]
     slots = torch.remainder(pos, W)
-    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
-    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
-    out = flash_decode_window(q, cache["k"], cache["v"], lengths, window=window)
+    scales = _write_rows(cache, KV_LEAVES, (bidx, slots), k, v)
+    out = flash_decode_window(q, cache["k"], cache["v"], lengths, window=window, scales=scales)
     return _attn_out(out, p)
 
 
@@ -416,7 +475,8 @@ def _apply_commit(
     writes).  ``commit = (dst, src)`` are (B, Tc) LOGICAL positions with -1
     as the no-op; pool caches translate through the block table.  The
     gather lands in a temporary before the scatter, so overlapping (dst,
-    src) windows are safe; no-op moves land in the trash row."""
+    src) windows are safe; no-op moves land in the trash row.  An int8
+    pool's scale rows move with their payload, through the same maps."""
     if "pk" not in cache:
         raise NotImplementedError(
             "fused commit maps apply to paged caches (rolling-window trees come in a later "
@@ -426,19 +486,23 @@ def _apply_commit(
     R, ps = _pool_size(cache), cfg.page_size
     src_rows = torch.clamp(_paged_rows(pages, src.clamp(min=0), ps, R), max=R - 1)
     dst_rows = torch.where(dst >= 0, _paged_rows(pages, dst.clamp(min=0), ps, R), torch.full_like(dst, R))
-    for name in ("pk", "pv"):
-        moved = cache[name][src_rows]
-        cache[name][dst_rows] = moved
+    for name in POOL_LEAVES:
+        if name in cache:
+            moved = cache[name][src_rows]
+            cache[name][dst_rows] = moved
 
 
 def cow_copy_page(cache: List[Params], old_page: int, new_page: int, page_size: int) -> List[Params]:
     """Copy-on-write page duplication, in place: after
     :meth:`repro_torch.core.pages.PageTable.ensure_writable` rebinds a shared
     page, copy the old physical page's rows into the fresh one in every
-    layer's pool.  Returns ``cache``."""
+    layer's pool: the payload AND, for an int8 pool, the scale rows (a page
+    is the (int8 rows, scale rows) pair; aliasing the scales would let the
+    writer's next row corrupt the sibling still reading the shared page).
+    Returns ``cache``."""
     o0, n0 = int(old_page) * page_size, int(new_page) * page_size
     for c in cache:
-        for name in ("pk", "pv"):
+        for name in POOL_LEAVES:
             if name in c:
                 c[name][n0:n0 + page_size] = c[name][o0:o0 + page_size]
     return cache
@@ -461,11 +525,10 @@ def _decode_attn_paged_tree(
     lrows, pos = _tree_rows(lengths, tree)
     q, k, v = L._qkv(xn, p, cfg, pos)
     rows = _paged_rows(pages, lrows, ps, _pool_size(cache))
-    cache["pk"][rows] = k.to(cache["pk"].dtype)
-    cache["pv"][rows] = v.to(cache["pv"].dtype)
+    scales = _write_rows(cache, POOL_LEAVES, (rows,), k, v)
     out = flash_decode_paged(
         q, cache["pk"], cache["pv"], lengths, pages, page_size=ps,
-        ancestors=_tree_tensors(tree, xn.device)[1], base=lengths.to(torch.int32),
+        ancestors=_tree_tensors(tree, xn.device)[1], base=lengths.to(torch.int32), scales=scales,
     )
     return _attn_out(out, p)
 

@@ -72,8 +72,9 @@ _MODEL_AXIS_PREFS: Dict[str, Tuple[int, ...]] = {
 }
 
 # Expert-stacked params (leading E axis): experts shard over "model"; the
-# int8 twins ("_q") shard identically.
+# int8 twins ("_q") shard identically, and so do their (E,) scale words.
 _EXPERT_PARAMS = {"w_gate", "w_up", "w_down", "w_gate_q", "w_up_q", "w_down_q"}
+_EXPERT_SCALES = {"w_gate_s", "w_up_s", "w_down_s"}
 
 # Always-replicated small params.
 _REPLICATED = {"ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm_scale", "router"}
@@ -106,9 +107,12 @@ def is_expert_stack(path: Sequence, shape: Tuple[int, ...]) -> bool:
     """The one rule for which leaves split over experts, read by
     :func:`spec_for_param` and :func:`shard_params`: an expert-named leaf
     outside ``shared`` with a leading E axis (after a scan-stack axis, where
-    the path passes through ``scan``)."""
+    the path passes through ``scan``): the (E, ., .) stacks, their int8
+    twins and the twins' (E,) scale words."""
     stack = 1 if _path_has(path, "scan") else 0
-    return _leaf_name(path) in _EXPERT_PARAMS and len(shape) - stack == 3 and not _path_has(path, "shared")
+    name, rank = _leaf_name(path), len(shape) - stack
+    return ((name in _EXPERT_PARAMS and rank == 3) or (name in _EXPERT_SCALES and rank == 1)) \
+        and not _path_has(path, "shared")
 
 
 def spec_for_param(path: Sequence, shape: Tuple[int, ...], mesh) -> Spec:

@@ -276,3 +276,102 @@ def test_grouped_gemm_kernel_matches_plain_on_card(cuda, dtype, E, M, K, N):
     torch.cuda.synchronize()
     assert got.shape == (E, M, N) and got.dtype == dtype
     _close(got, ggr.grouped_gemm(x, w), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the int8 branches: bitwise the full-precision launch on the dequantized
+# buffer (scales multiplied in before any dot), and close to the plain
+# version as the f32 rows are
+# ---------------------------------------------------------------------------
+
+
+def _int8(a, axis):
+    from repro_torch.core.quant import quantize_int8
+
+    return quantize_int8(_t(a), axis=axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy", ["contiguous", "paged", "window"])
+def test_flash_decode_int8_branch_is_the_dequantized_launch_on_card(cuda, qdtype, policy):
+    tree = TreePlan.from_branching((2, 1))
+    B, nq, nkv, hd, S, ps = 3, 16, 4, 128, 208, 16
+    T = 1 if policy == "window" else tree.num_nodes
+    q, k, v = _decode_case(7, B, T, nq, nkv, hd, S)
+    (k8, ks), (v8, vs) = _int8(k, (-2, -1)), _int8(v, (-2, -1))
+    ks, vs = ks[..., 0, 0], vs[..., 0, 0]
+    kd, vd = (c.float() * s[..., None, None] for c, s in ((k8, ks), (v8, vs)))
+    q32 = _t(q).to(cuda)
+    k8, v8, kd, vd = (t.to(cuda) for t in (k8, v8, kd, vd))
+    scales = torch.stack([ks, vs]).reshape(2, -1).contiguous().to(cuda)
+    base = torch.tensor([0, 77, S - T - 3], dtype=torch.int32, device=cuda)
+    lengths = (base[:, None] + torch.arange(1, T + 1, device=cuda, dtype=torch.int32)).reshape(-1).contiguous()
+    words = torch.tensor(tree.ancestor_words(), dtype=torch.int32, device=cuda)
+    if policy == "contiguous":
+        def run(qq, kk, vv, sc):
+            return fa_ops.flash_decode_kernel(qq, kk, vv, lengths, words, base, sc)
+    elif policy == "paged":
+        rng = np.random.default_rng(3)
+        table = _t(rng.permutation(B * (S // ps)).astype(np.int32)).to(cuda)
+
+        def run(qq, kk, vv, sc):
+            return fa_ops.flash_decode_paged_kernel(qq, kk.reshape(B * S, nkv, hd), vv.reshape(B * S, nkv, hd),
+                                                    lengths, table, words, base, sc, page_size=ps)
+    else:
+        pos = torch.tensor([5, 300, 1000], dtype=torch.int32, device=cuda)  # two of three wrapped
+
+        def run(qq, kk, vv, sc):
+            return fa_ops.flash_decode_window_kernel(qq, kk, vv, pos, sc, window=160)
+    qq = q32.to(qdtype)
+    got = run(qq, k8, v8, scales)
+    want = run(qq.float(), kd, vd, None).to(qdtype)  # a bf16 q reads the same f32 values; one rounding at the end
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = {"contiguous": lambda: fa_ref.flash_decode(qq, k8, v8, lengths, words, base, scales),
+             "paged": lambda: fa_ref.flash_decode_paged(qq, k8.reshape(B * S, nkv, hd), v8.reshape(B * S, nkv, hd),
+                                                        lengths, table, words, base, ps, scales),
+             "window": lambda: fa_ref.flash_decode_window(qq, k8, v8, pos, 160, scales)}[policy]()
+    _close(got, plain, qdtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_decode_moe_int8_branch_is_the_dequantized_launch_on_card(cuda, xdtype):
+    T, k, E, d, f = 5, 4, 16, 256, 192
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((T, d)).astype(np.float32)).to(cuda, xdtype)
+    ids = _t(np.stack([rng.permutation(E)[:k] for _ in range(T)]).astype(np.int32)).to(cuda)
+    w = _t(rng.random((T, k)).astype(np.float32)).to(cuda)
+    twins = [_int8(a, (1, 2)) for a in _moe_stacks(5, E, d, f)]
+    stacks = [q.to(cuda) for q, _ in twins]
+    scales = torch.stack([s[:, 0, 0] for _, s in twins]).to(cuda)
+    deq = [q.float() * s[:, None, None] for q, s in zip(stacks, scales)]
+    got = md_ops.decode_moe_kernel(x, ids, w, *stacks, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, md_ops.decode_moe_kernel(x.float(), ids, w, *deq))
+    _close(got, md_ref.decode_moe(x, ids, w, *stacks, scales), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_down_combine_is_fixed_order_on_card(cuda, dtype):
+    """Repeated launches are bitwise equal, including a token named by more
+    slots than one pass of the combine lists (80 > 64) and tokens no slot
+    names (zeros)."""
+    E, C, f, d, T = 80, 3, 64, 96, 6
+    rng = np.random.default_rng(9)
+    idx = np.full((E, C), T, np.int32)
+    idx[:, 0] = 0                      # token 0: one slot of every expert
+    idx[: E // 2, 1] = 2               # token 2: 40 slots
+    idx[5, 2], idx[70, 2] = 4, 4       # token 4: two slots; tokens 1, 3, 5: none
+    idx = _t(idx.reshape(-1)).to(cuda)
+    sw = _t(rng.random(E * C).astype(np.float32)).to(cuda)
+    h = _t(rng.standard_normal((E, C, f)).astype(np.float32)).to(cuda, dtype)
+    wd = _t(rng.standard_normal((E, f, d)).astype(np.float32) / 8).to(cuda, dtype)
+    first = mf_ops.down_combine(h, wd, idx, sw, T)
+    for _ in range(3):
+        assert torch.equal(mf_ops.down_combine(h, wd, idx, sw, T), first)
+    torch.cuda.synchronize()
+    assert bool((first[[1, 3, 5]] == 0).all())
+    _close(first, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)

@@ -179,13 +179,22 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
 
 
 def test_int8_branches_wait_for_a_later_slice():
+    """The int8 branches are ported (tests/test_torch_quant.py holds them
+    against the dequantized buffers): scales now demand an int8 cache or
+    int8 stacks, and a full-precision operand with scales is refused, never
+    read as if it were int8."""
     q, k, v = _decode_case(0, 1, 1, 4, 2, 8, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8"):
         fa_ops.flash_decode(_t(q), _t(k), _t(v), 3, scales=torch.ones((2, 1, 16)))
     wg, wu, wd = _moe_stacks(0, 4, 8, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8"):
         md_ops.decode_moe_kernel(torch.zeros((1, 8)), torch.zeros((1, 2), dtype=torch.int32), torch.ones((1, 2)),
                                  _t(wg), _t(wu), _t(wd), scales=torch.ones((3, 4)))
+    k8, v8 = (torch.from_numpy(np.clip(np.round(a * 40), -127, 127).astype(np.int8)) for a in (k, v))
+    with pytest.raises(ValueError, match="scales must be"):
+        fa_ops.flash_decode(_t(q), k8, v8, 3, scales=torch.ones((2, 1, 15)))
+    out = fa_ops.flash_decode(_t(q), k8, v8, 3, scales=torch.full((2, 1, 16), 0.025))
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
 
 
 def test_wrappers_reject_bad_operands():

@@ -91,5 +91,5 @@ def test_paged_wrapper_rejects_bad_operands():
         fa_ops.flash_decode_paged_kernel(q, pool, pool, lengths, table[:7], page_size=8)
     with pytest.raises(ValueError, match="lengths"):
         fa_ops.flash_decode_paged_kernel(q, pool, pool, lengths.long(), table, page_size=8)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):  # scales with a full-precision pool
         fa_ops.flash_decode_paged(q, pool, pool, 0, table.reshape(2, 4), page_size=8, scales=torch.ones(2, 32))

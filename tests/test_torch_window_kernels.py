@@ -69,7 +69,7 @@ def test_window_decode_scalar_index_and_checks():
     q9, k9, v9 = _decode_case(0, 1, 9, 4, 1, 16, 8)
     with pytest.raises(ValueError, match="overwrite its own slots"):
         flash_decode_window(_t(q9), _t(k9), _t(v9), 0, window=8)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(ValueError, match="int8"):  # scales with a full-precision buffer
         flash_decode_window(_t(q), _t(k), _t(v), 3, window=8, scales=torch.ones(2, 2, 8))
     pos = torch.tensor([3, 4], dtype=torch.int64)
     with pytest.raises(ValueError, match="int32"):
