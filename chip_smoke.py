@@ -30,7 +30,12 @@ weights freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
 (phase ``ssm_serve``), and shows that each path ran its kernels.  The int8
 branches are also held bitwise against their kernels on the dequantized
 buffers (``kernels_vs_plain`` rows ``*_int8``), and the f32 smoke twins
-serve int8 KV and experts too (``smoke_twin_int8``).  Each phase prints one JSON line; the full record also goes to
+serve int8 KV and experts too (``smoke_twin_int8``).  Rows 6, 6q and 7
+(the window decode split over blocks, its int8 branch, the tensor-core
+prefill) also time their yardstick in turns with the kernel, launch twice
+for a bitwise repeat, record registers and shared memory, and (7) count
+``HGMMA`` in the built library's SASS.
+Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
 Needs one card, no network, and imports no jax.
@@ -67,6 +72,10 @@ SSM = "mamba2-2.7b"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
+# the times of the designs kernels 6, 6q and 7 replaced (one block per token
+# walking its whole window; f32 products on CUDA cores), at the same shapes on
+# an H100 80GB HBM3 at 700 W (PERF.md, section 6)
+PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515}
 
 RECORD: dict = {}
 
@@ -162,6 +171,57 @@ def check_composed(name, got, want, h_kernel, h_plain, w):
         raise AssertionError(f"{name}: {bad} of {err.numel()} elements differ by more than 2^-7 |plain| + "
                              f"|h' - h| @ |w| + 1e-3 rms (max |kernel - plain| {float(err.max()):.3e})")
     return float(err.max())
+
+
+def in_turns(kernel, yardstick, iters: int, reps: int = 5):
+    """Kernel and yardstick timed in turns (yardstick, kernel, kernel,
+    yardstick; :func:`time_ms` each): (kernel ms, yardstick ms, the four
+    times in that order), each ms the mean of its pair."""
+    y1 = time_ms(yardstick, iters, reps)
+    k1, k2 = time_ms(kernel, iters, reps), time_ms(kernel, iters, reps)
+    y2 = time_ms(yardstick, iters, reps)
+    return (k1 + k2) / 2, (y1 + y2) / 2, [y1, k1, k2, y2]
+
+
+def ptxas(source: str, *names: str) -> dict:
+    """Registers and spill bytes of each kernel of ``csrc/<source>.cu``
+    whose mangled name holds one of ``names``, from the build's
+    ``-Xptxas -v`` log (which shows no dynamic shared memory: a launch's
+    request is reported beside it)."""
+    from repro_torch.kernels import _lib_path
+
+    found, name = {}, None
+    for line in _lib_path(source).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and any(n in name for n in names):
+            if "Used" in line and "registers" in line:
+                found.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+            elif "spill stores" in line:
+                found.setdefault(name, {})["spill_store_bytes"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+    return found
+
+
+def sass_wgmma(source: str) -> dict:
+    """The warpgroup MMA (SASS ``HGMMA``) instructions in the built library
+    of ``csrc/<source>.cu``, by ``cuobjdump -sass``: their count and the
+    first of them."""
+    from repro_torch.kernels import _lib_path, _nvcc
+
+    run = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(_lib_path(source))],
+                         capture_output=True, text=True, timeout=300)
+    found = [ln.strip() for ln in run.stdout.splitlines() if "HGMMA" in ln]
+    return dict(hgmma_instructions=len(found), first=found[0] if found else None, cuobjdump_rc=run.returncode)
+
+
+def bitwise_repeat(name, fn):
+    """Launch ``fn`` twice on the same inputs; raise unless bitwise equal."""
+    import torch
+
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: a repeated launch is not bitwise equal")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -608,6 +668,7 @@ def hybrid_kernel_rows(dev, gen, tol):
     bf16 = torch.bfloat16
     nq, nkv, hd, W = hcfg.num_heads, hcfg.num_kv_heads, hcfg.resolved_head_dim, hcfg.local_window
     G = nq // nkv
+    chunk = fa_ops.WINDOW_CHUNK
     rows = {}
 
     # ---- flash_decode_window: 4 slots, one token each, every window wrapped
@@ -642,13 +703,28 @@ def hybrid_kernel_rows(dev, gen, tol):
     n_vis = [min(lim, p + 1) for p in idx]
     nbytes = 2 * q.numel() * 2 + sum(n_vis) * nkv * hd * 2 * 2 + B * T * 4
     flops = float(sum(n_vis)) * nq * hd * 4
+
+    def kernel_window():
+        return fa_ops.flash_decode_window_kernel(q, kk, vv, pos, window=W)
+
+    ms, lib_ms, turns = in_turns(kernel_window, lib_window, iters=20)
     rows["flash_decode_window"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, chain_t3_max_abs_err=chain_err, chain_t3_max_abs_err_f32=chain_err32,
-        ms=time_ms(lambda: fa_ops.flash_decode_window_kernel(q, kk, vv, pos, window=W), iters=20),
-        plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, kk, vv, pos, lim), iters=5, reps=3),
-        library_ms=time_ms(lib_window, iters=20),
+        ms=ms, plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, kk, vv, pos, lim), iters=5, reps=3),
+        library_ms=lib_ms, ms_in_turns=turns, device_ms=device_ms(kernel_window, "window_"),
         library_call="scaled_dot_product_attention over the window gathered into position order (boolean mask, "
                      "kv heads expanded beforehand)",
+        previous_ms=PREVIOUS_MS["flash_decode_window"], bitwise_repeat=bitwise_repeat("flash_decode_window",
+                                                                                      kernel_window),
+        design=f"split over chunks of {chunk} rows ({fa_ops.window_splits(lim)} splits x {B} slots = "
+               f"{fa_ops.window_splits(lim) * B} blocks), cp.async 16-byte row copies, warp-per-row scores with "
+               f"one 16-head reduce-scatter; fixed-order merge launch",
+        chunk=chunk,
+        ptxas=ptxas("flash_decode", "window_split_kernelI13__nv_bfloat16S1_Li256EE",
+                    "window_merge_kernelI13__nv_bfloat16Li256E"),
+        # the split launch's request, computed here from split_smem's layout
+        # (K, V tiles; probability rows of 20; two scale columns), not read from the build
+        dynamic_smem_bytes_computed=2 * chunk * hd * 2 + 4 * (chunk * 20 + 2 * chunk),
         shapes=f"q {tuple(q.shape)}, rolling kv {tuple(kk.shape)}, positions {idx}, window {W}; "
                f"chain: q (3, 3, 4, 64) over (3, 24, 2, 64), window 16, positions from 2/21/75",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
@@ -675,6 +751,8 @@ def hybrid_kernel_rows(dev, gen, tol):
     q_err, q_err32, (q, k, v) = prefill_check(
         prefill_inputs(128, qcfg.num_heads, qcfg.num_kv_heads, qcfg.resolved_head_dim), 0, "qwen3-moe prompt")
     qwen_ms = time_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, causal=True), iters=20)
+    qwen_device_ms = device_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, causal=True), "flash_attention_tc")
+    q_repeat = bitwise_repeat("flash_attention qwen3-moe", lambda: fa_ops.flash_attention_kernel(q, k, v, causal=True))
     S = H_PROMPT
     err, err32, (q, k, v) = prefill_check(prefill_inputs(S, nq, nkv, hd), W, "recurrentgemma prompt")
     i = torch.arange(S, device=dev)
@@ -688,13 +766,28 @@ def hybrid_kernel_rows(dev, gen, tol):
     pairs = sum(min(t + 1, W) for t in range(S))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     flops = float(pairs) * nq * hd * 4
+
+    def kernel_prefill():
+        return fa_ops.flash_attention_kernel(q, k, v, causal=True, window=W)
+
+    ms, lib_ms, turns = in_turns(kernel_prefill, lib_prefill, iters=5, reps=3)
     rows["flash_attention"] = dict(
         max_abs_err=err, max_abs_err_f32=err32,
-        ms=time_ms(lambda: fa_ops.flash_attention_kernel(q, k, v, causal=True, window=W), iters=5, reps=3),
-        plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True, window=W), iters=2, reps=3),
-        library_ms=time_ms(lib_prefill, iters=5, reps=3),
+        ms=ms, plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True, window=W), iters=2, reps=3),
+        library_ms=lib_ms, ms_in_turns=turns,
         library_call="scaled_dot_product_attention with a banded boolean mask (kv heads expanded beforehand)",
-        qwen_prefill_ms=qwen_ms, qwen_max_abs_err=q_err, qwen_max_abs_err_f32=q_err32,
+        qwen_prefill_ms=qwen_ms, qwen_prefill_device_ms=qwen_device_ms, qwen_max_abs_err=q_err,
+        qwen_max_abs_err_f32=q_err32, device_ms=device_ms(kernel_prefill, "flash_attention_tc", n=5),
+        path=fa_ops.flash_attention_path(q.dtype, hd), previous_ms=PREVIOUS_MS["flash_attention"],
+        bitwise_repeat=bitwise_repeat("flash_attention", kernel_prefill) and q_repeat,
+        design="one warpgroup per 64 (position, head) rows; TMA K/V tiles of 64 keys in a 2-stage mbarrier "
+               "ring, 128-byte swizzle; S by wgmma m64n64k16 from shared memory; online softmax in "
+               "registers; O += P V by wgmma m64n256k16 with P as hi + lo bf16 register operands",
+        ptxas=ptxas("flash_attention", "flash_attention_tc_kernel"),
+        # the launch's request, computed here from Layout<HD>::BYTES (Q, two K/V
+        # stages, three mbarriers, 1 KB of swizzle alignment), not read from the build
+        dynamic_smem_bytes_computed=5 * (hd // 64) * 64 * 128 + 3 * 8 + 1024,
+        sass=sass_wgmma("flash_attention"),
         shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal, window {W} ({pairs} visible pairs a head); "
                f"qwen3-moe: q (1, 128, 64, 128), kv (1, 128, 4, 128), causal",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
@@ -945,13 +1038,22 @@ def int8_kernel_rows(cfg, dev, gen, tol):
     n_vis = [min(W, p + 1) for p in idx]
     nbytes = 2 * q.numel() * 2 + sum(n_vis) * (hkv * hhd + 4) * 2 + B * 4
     flops = float(sum(n_vis)) * hq * hhd * 4 + sum(n_vis) * hkv * hhd * 2.0
+    ms, comp_ms, turns = in_turns(lambda: run_window(q, wk8, wv8, wscales), composite_window, iters=20)
+    chunk = fa_ops.WINDOW_CHUNK
     rows["flash_decode_window_int8"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
-        ms=time_ms(lambda: run_window(q, wk8, wv8, wscales), iters=20),
-        plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, wk8, wv8, pos, W, wscales), iters=5, reps=3),
+        ms=ms, plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, wk8, wv8, pos, W, wscales), iters=5, reps=3),
         library_ms=None, library_call=no_library,
-        composite_ms=time_ms(composite_window, iters=20),
+        composite_ms=comp_ms, ms_in_turns=turns,
+        device_ms=device_ms(lambda: run_window(q, wk8, wv8, wscales), "window_"),
         composite_call="gather the window into position order + dequantize to bf16 + scaled_dot_product_attention",
+        previous_ms=PREVIOUS_MS["flash_decode_window_int8"],
+        bitwise_repeat=bitwise_repeat("flash_decode_window int8", lambda: run_window(q, wk8, wv8, wscales)),
+        design=f"kernel 6's split over chunks of {chunk} rows with int8 rows copied as stored, each element "
+               f"multiplied by its row's scale (__fmul_rn) before any dot",
+        ptxas=ptxas("flash_decode", "window_split_kernelI13__nv_bfloat16aLi256EE",
+                    "window_merge_kernelI13__nv_bfloat16Li256E"),
+        dynamic_smem_bytes_computed=2 * chunk * hhd + 4 * (chunk * 20 + 2 * chunk),  # as split_smem lays it out
         shapes=f"q {tuple(q.shape)}, int8 rolling kv {tuple(wk8.shape)} + scales {tuple(wscales.shape)}, "
                f"positions {idx}, window {W}",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
@@ -1950,9 +2052,14 @@ def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
         return dict(measured=False, note="the profiler showed no device time")
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # where the host's time goes: operators by their own host time (the
+    # profiler's overhead included), with their call counts
+    host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU and ev.self_cpu_time_total > 0), key=lambda h: -h[1])[:12]
     return dict(measured=True, launches=n, wall_ms_unprofiled=plain_wall_ms, wall_ms_profiled=wall_ms,
                 device_busy_ms=busy, device_idle_share=max(0.0, 1 - busy / plain_wall_ms),
-                device_idle_share_profiled=max(0.0, 1 - busy / wall_ms), top_kernels_ms=dict(top))
+                device_idle_share_profiled=max(0.0, 1 - busy / wall_ms), top_kernels_ms=dict(top),
+                top_host_ops_ms={name: dict(ms=ms, calls=calls) for name, ms, calls in host})
 
 
 # ---------------------------------------------------------------------------

@@ -11,13 +11,43 @@
 //
 // What bounds it on the card: operations.  A 4,096-token RecurrentGemma
 // prompt under a 2,048 window makes 6.29 M visible (query, key) pairs per
-// head, 4 * hd FLOPs each: ~6.4e10 FLOPs against ~63 MB of q, k, v and out.
+// head, 4 * hd FLOPs each: ~6.4e10 FLOPs against ~63 MB of q, k, v and out,
+// ~1,000 FLOP a byte, above the card's ~295.  On CUDA cores in f32 that is
+// ~1 ms at best (67 TFLOP/s); the bf16 tensor cores offer 989.
 //
-// What the design does about it:
+// Two paths, chosen by the wrapper from dtype and hd alone:
+//
+// Tensor cores (bf16, hd 128 and 256; the serving paths' prefill).  One
+// warpgroup (128 threads) per (tile of query positions, kv head, sequence):
+//  * Rows are (query position, head) pairs of one KV head's group, 64 a
+//    block: 6 positions x 10 heads + 4 dead rows for RecurrentGemma, 4 x 16
+//    for Qwen3-MoE.  Each K/V tile then feeds the whole group.  Dead rows
+//    and the ragged last tile's rows are computed and never stored.
+//  * TMA brings Q once and K/V tiles of 64 keys into a two-stage ring,
+//    completing on mbarriers: tile i + 1 loads while tile i computes.  Each
+//    tile is hd / 64 boxes of 64 rows x 128 bytes, 128-byte swizzled (Q 32
+//    KB, K and V 32 KB each per stage at hd 256: ~160 KB, one block an SM;
+//    80 KB at hd 128).  Keys past Skv arrive as zeros and are masked.
+//  * S = Q K^T by wgmma m64n64k16 (bf16 in, f32 out) from shared memory;
+//    the causal / window mask and the online softmax (exp2, f32) run on the
+//    accumulator registers, each thread holding two rows.  Key tiles wholly
+//    outside the band are never visited.
+//  * O += P V by wgmma m64n{hd}k16 with P as the register A operand (the
+//    accumulator layout of S is the A layout) and V read MN-major (V's rows
+//    are keys, hd contiguous).  bf16 P alone would carry a 2^-9 relative
+//    error into every output (above the bf16 gate's 1e-3 x rms floor where
+//    outputs cancel; tests/test_torch_cuda_builds.py builds this file with
+//    the lo half zeroed and counts the misses), so P is split into
+//    hi = bf16(P) and lo = bf16(P - hi) and both products go into the same
+//    f32 accumulator: P is carried to ~2^-17, for twice the P.V work.
+//    O (64 x hd f32) stays in registers.
+//  * No atomics and a fixed key order: a repeated launch is bitwise equal.
+//
+// CUDA cores (f32 at every hd, bf16 at hd 16, 32, 64):
 //  * One block per (tile of query positions, kv head, sequence) takes the
 //    whole query group of that KV head: BQ positions x group heads = up to
 //    64 (query, head) rows, so each K/V tile is read from memory once per
-//    group (10 heads here), not once per query head as the TPU grid does.
+//    group, not once per query head as the TPU grid does.
 //  * Key tiles that lie wholly outside the causal band or the window are
 //    never visited: the walk runs from max(0, q0 - window + 1) to the tile's
 //    last query position.  The ragged last query tile and the ragged last
@@ -30,9 +60,10 @@
 //    lane) lives in registers.
 //  * Q, K and V tiles are kept in f32 in shared memory: at hd 256 that is
 //    ~130 KB, above the 48 KB default, so the launch opts in.
-// The products run on CUDA cores in f32; wgmma on bf16 tiles fed by TMA is a
-// later step.
+#include <type_traits>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -182,24 +213,267 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core path
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int THREADS = 128;       // one warpgroup
+constexpr int ROWS = 64;           // (query position, head) rows a block
+constexpr int BN = 64;             // keys a tile
+constexpr int BOX = 64 * 128;      // bytes of one box: 64 rows x 64 bf16
+
+// shared memory: Q (hd / 64 boxes), then two stages of K and V, then three
+// mbarriers (Q, stage 0, stage 1); the base is aligned to 1,024 bytes (the
+// 128-byte swizzle's period) by hand
+template <int HD>
+struct Layout {
+  static constexpr int KB = HD / 64;
+  static constexpr int KV = KB * BOX;
+  static constexpr int STAGE = 2 * KB * BOX;
+  static constexpr int BAR = KV + 2 * STAGE;
+  static constexpr int BYTES = BAR + 3 * 8 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq, int Skv, int nq, int nkv,
+    int BQ, int causal, int window, float scale_log2) {
+  using L = Layout<HD>;
+  constexpr int NO = HD / 2;  // O accumulator registers a thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::BAR;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = nq / nkv;
+  const int q0 = blockIdx.x * BQ;
+  const int nqpos = min(BQ, Sq - q0);
+  const int nrows = nqpos * G;
+  const int q_last = q0 + nqpos - 1;
+  const int k_end = causal ? min(Skv, q_last + 1) : Skv;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
+
+  // thread 0 fills stage it & 1 with key tile it
+  auto load_kv = [&](int it) {
+    const int st = it & 1, k0 = k_begin + it * BN;
+    const uint32_t bar = bars + 8 * (1 + st);
+    const uint32_t sk = base + L::KV + st * L::STAGE, sv = sk + L::KB * BOX;
+    sm90::mbar_expect_tx(bar, 2 * L::KB * BOX);
+    for (int kb = 0; kb < L::KB; ++kb) {
+      sm90::tma_load_4d(sk + kb * BOX, &tk, bar, kb * 64, kvh, k0, b);
+      sm90::tma_load_4d(sv + kb * BOX, &tv, bar, kb * 64, kvh, k0, b);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) sm90::mbar_init(bars + 8 * i, 1);
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // a Q box is G x BQ rows of 128 bytes: rows (position, head) in order
+    sm90::mbar_expect_tx(bars, L::KB * 128 * G * BQ);
+    for (int kb = 0; kb < L::KB; ++kb) sm90::tma_load_5d(base + kb * BOX, &tq, bars, kb * 64, 0, kvh, q0, b);
+    if (ntiles > 0) load_kv(0);
+  }
+  __syncwarp();
+
+  // this thread's rows of the accumulators: r0 and r0 + 8
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);  // its first column in each group of 8
+  bool live[2];
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    live[i] = r < nrows;
+    qpos[i] = q0 + (live[i] ? r / G : 0);
+  }
+  float o[NO];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) o[j] = 0.f;
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
+  sm90::mbar_wait(bars, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it & 1, k0 = k_begin + it * BN;
+    if (tid == 0 && it + 1 < ntiles) load_kv(it + 1);  // its stage was released at the end of it - 1
+    __syncwarp();
+    sm90::mbar_wait(bars + 8 * (1 + st), (it >> 1) & 1);
+    const uint32_t sk = base + L::KV + st * L::STAGE, sv = sk + L::KB * BOX;
+
+    // S = Q K^T: hd / 16 steps of k16; step kk is box kk / 4, bytes 32 (kk % 4)
+    float s[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    sm90::fence_operands(s);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+      sm90::wgmma_ss_m64n64k16(s, sm90::desc_kmajor(base + off), sm90::desc_kmajor(sk + off), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(s);
+
+    // mask and online softmax; s[e] is row r0 + 8 ((e >> 1) & 1), key
+    // k0 + 8 (e >> 2) + cq + (e & 1)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const int kpos = k0 + 8 * (e >> 2) + cq + (e & 1);
+      bool ok = live[i] && kpos < Skv;
+      if (causal) ok = ok && kpos <= qpos[i];
+      if (window > 0) ok = ok && qpos[i] - kpos < window;
+      s[e] = ok ? s[e] * scale_log2 : REPRO_NEG_INF;
+      mx[i] = fmaxf(mx[i], s[e]);
+    }
+    float corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const float p = s[e] == REPRO_NEG_INF ? 0.f : exp2f(s[e] - mx[i]);
+      s[e] = p;
+      rsum[i] += p;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+      l[i] = l[i] * corr[i] + rsum[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j) o[j] *= corr[(j >> 1) & 1];
+
+    // P as the A operand, hi and lo bf16 halves: register x packs s[2x],
+    // s[2x + 1]; step ks takes registers 4 ks .. 4 ks + 3
+    uint32_t ph[16], pl[16];
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * x], s[2 * x + 1]);
+      const __nv_bfloat162 lo =
+          __floats2bfloat162_rn(s[2 * x] - __low2float(hi), s[2 * x + 1] - __high2float(hi));
+      ph[x] = *reinterpret_cast<const uint32_t*>(&hi);
+      pl[x] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+    sm90::fence_operands(o);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BN / 16; ++ks) {
+      const uint64_t dv = sm90::desc_mnmajor(sv + ks * 16 * 128, BOX);
+      const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
+      const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
+      if constexpr (HD == 256) {
+        sm90::wgmma_rs_m64n256k16(o, ah, dv);
+        sm90::wgmma_rs_m64n256k16(o, al, dv);
+      } else {
+        sm90::wgmma_rs_m64n128k16(o, ah, dv);
+        sm90::wgmma_rs_m64n128k16(o, al, dv);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(o);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // o[4 j + 2 i + c] is row r0 + 8 i, column 8 j + cq + c
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!live[i]) continue;
+    const int g = (r0 + 8 * i) % G;
+    __nv_bfloat16* orow = out + (((long)b * Sq + qpos[i]) * nq + (long)kvh * G + g) * HD;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
+          __floats2bfloat162_rn(o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int nq, int nkv,
+           int causal, int window, float scale, void* stream) {
+  const int G = nq / nkv, BQ = ROWS / G;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  // Q as (hd, G, nkv, Sq, B): a box of (64, G, 1, BQ, 1) is one block's rows
+  const cuuint64_t qdims[5] = {(cuuint64_t)HD, (cuuint64_t)G, (cuuint64_t)nkv, (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t qstr[4] = {HD * e, (cuuint64_t)G * HD * e, (cuuint64_t)nq * HD * e,
+                              (cuuint64_t)Sq * nq * HD * e};
+  const cuuint32_t qbox[5] = {64, (cuuint32_t)G, 1, (cuuint32_t)BQ, 1};
+  // K, V as (hd, nkv, Skv, B): a box of (64, 1, BN, 1) is one key tile's 64 columns
+  const cuuint64_t kdims[4] = {(cuuint64_t)HD, (cuuint64_t)nkv, (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t kstr[3] = {HD * e, (cuuint64_t)nkv * HD * e, (cuuint64_t)Skv * nkv * HD * e};
+  const cuuint32_t kbox[4] = {64, 1, BN, 1};
+  CUtensorMap tq, tk, tv;
+  if (!sm90::bf16_tensor_map(&tq, q, 5, qdims, qstr, qbox) || !sm90::bf16_tensor_map(&tk, k, 4, kdims, kstr, kbox) ||
+      !sm90::bf16_tensor_map(&tv, v, 4, kdims, kstr, kbox))
+    return (int)cudaErrorInvalidValue;
+  const int smem = Layout<HD>::BYTES;
+  // the opt-in above 48 KB, once a process (the port drives one card a process)
+  static const cudaError_t opted = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
+                                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opted != cudaSuccess) return (int)opted;
+  dim3 grid((Sq + BQ - 1) / BQ, nkv, B);
+  flash_attention_tc_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, Sq, Skv, nq, nkv, BQ, causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out (B, Sq, nq, hd), all
-// contiguous; hd in {16, 32, 64, 128, 256}; nq / nkv <= 64.
+// contiguous; nq / nkv <= 64; f32 at hd in {16, 32, 64, 128, 256}, bf16 at
+// hd in {16, 32, 64} (bf16 at 128 and 256 is repro_flash_attention_tc's).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
                                      int Sq, int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
                                      void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > MAX_ROWS || window < 0)
     return (int)cudaErrorInvalidValue;
   REPRO_DISPATCH(dtype, T, {
+    constexpr bool F32 = std::is_same<T, float>::value;
     switch (hd) {
       case 16: return launch_hd<T, 16>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 32: return launch_hd<T, 32>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 64: return launch_hd<T, 64>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 128: return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 256: return launch_hd<T, 256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 128:
+        if constexpr (F32) return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
+      case 256:
+        if constexpr (F32) return launch_hd<T, 256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
       default: return (int)cudaErrorInvalidValue;
     }
   });
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core path: bf16 q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out
+// (B, Sq, nq, hd), all contiguous and 16-byte aligned; hd in {128, 256};
+// nq / nkv <= 64.
+extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                                        int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
+                                        void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > tc::ROWS || window < 0)
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 128: return tc::launch<128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    case 256: return tc::launch<256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -232,6 +232,21 @@ def flash_decode_paged(
     return flash_decode_paged_kernel(q, k, v, lengths, table, ancestors, base, scales, page_size=page_size)
 
 
+# kernel 6 splits each token's visible run into chunks of this many rows,
+# one block each, and merges the chunks' partial softmaxes in a second launch
+# (flash_decode.cu's CHUNK: the C entry refuses a split count made from another)
+WINDOW_CHUNK = 64
+_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims kernels 6 and 7 are built for
+
+
+def window_splits(limit: int) -> int:
+    """Splits per token of the window launch: ``ceil(limit / WINDOW_CHUNK)``.
+    A token's visible run is at most ``limit`` rows, so this many chunks
+    cover it; the count depends on shapes alone, never on the positions
+    (which stay on the device)."""
+    return -(-int(limit) // WINDOW_CHUNK)
+
+
 def flash_decode_window_kernel(
     q: torch.Tensor,          # (B, T, nq, hd)
     k: torch.Tensor,          # (B, W, nkv, hd) rolling buffer, slot = position % W
@@ -246,7 +261,9 @@ def flash_decode_window_kernel(
     whose slot still holds them after the launch's last write (position
     ``positions[b*T + T - 1]``); (B, T, nq, hd) in q's type.  Positions must
     be nonnegative and consecutive in t; they are not checked on the card
-    (that would cost a host sync per launch)."""
+    (that would cost a host sync per launch).  On the card one call is two
+    launches (the :data:`WINDOW_CHUNK`-row splits, then their merge into an
+    f32 scratch allocated here), counted once."""
     what = "flash_decode_window"
     B, T, nq, hd = q.shape
     _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}", what)
@@ -263,17 +280,22 @@ def flash_decode_window_kernel(
     if dev.type == "cpu":
         return ref.flash_decode_window(q, k, v, positions, limit, scales)
     _check(dev.type == "cuda", f"unsupported device {dev}", what)
+    _check(hd in _HEAD_DIMS, f"head_dim {hd} not in {_HEAD_DIMS}", what)
     from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
 
     _check(all(t.is_contiguous() for t in (q, k, v, positions, *kvs)), "tensors must be contiguous", what)
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), "q, k and v must be 16-byte aligned", what)
     fn = function(
         "flash_decode", "repro_flash_decode_window",
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        + [ctypes.c_int, ctypes.c_void_p],
     )
+    nsplit = window_splits(limit)
     out = torch.empty_like(q)
+    part = torch.empty((B * T * nq * nsplit * (hd + 2),), dtype=torch.float32, device=dev)
     rc = fn(
-        dtype_code(q.dtype), dtype_code(k.dtype), ptr(q), ptr(k), ptr(v), *_scale_ptrs(kvs), ptr(out), ptr(positions),
-        B, T, W, nq, nkv, hd, limit, 1.0 / math.sqrt(hd), stream_of(q),
+        dtype_code(q.dtype), dtype_code(k.dtype), ptr(q), ptr(k), ptr(v), *_scale_ptrs(kvs), ptr(out), ptr(part),
+        ptr(positions), B, T, W, nq, nkv, hd, limit, 1.0 / math.sqrt(hd), nsplit, stream_of(q),
     )
     check_launch(rc, what)
     count_launch(flash_decode_window_kernel, int8=scales is not None)
@@ -301,8 +323,16 @@ def flash_decode_window(
     return flash_decode_window_kernel(q, k, v, positions, scales, window=window)
 
 
-_FA_HEAD_DIMS = (16, 32, 64, 128, 256)
+_FA_TC_HEAD_DIMS = (128, 256)
 _FA_MAX_GROUP = 64
+
+
+def flash_attention_path(dtype: torch.dtype, hd: int) -> str:
+    """Which build of kernel 7 a launch takes, from its dtype and head dim
+    alone: ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA) for bf16 at head
+    dims 128 and 256, the serving paths' prefill; ``"cuda_cores"`` (f32
+    products) for f32 and for bf16 at the small head dims."""
+    return "tensor_cores" if dtype == torch.bfloat16 and hd in _FA_TC_HEAD_DIMS else "cuda_cores"
 
 
 def flash_attention_kernel(
@@ -315,7 +345,8 @@ def flash_attention_kernel(
 ) -> torch.Tensor:
     """Blocked causal / local-window GQA attention forward; (B, Sq, nq, hd)
     in q's type.  Query position i sees key j iff (not causal or j <= i) and
-    (not window or i - j < window)."""
+    (not window or i - j < window).  On the card the launch takes the path
+    :func:`flash_attention_path` names."""
     what = "flash_attention"
     B, Sq, nq, hd = q.shape
     _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}", what)
@@ -329,20 +360,22 @@ def flash_attention_kernel(
     if dev.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
     _check(dev.type == "cuda", f"unsupported device {dev}", what)
-    _check(hd in _FA_HEAD_DIMS, f"head_dim {hd} not in {_FA_HEAD_DIMS}", what)
+    _check(hd in _HEAD_DIMS, f"head_dim {hd} not in {_HEAD_DIMS}", what)
     _check(nq // nkv <= _FA_MAX_GROUP, f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
     _check(all(t.is_contiguous() for t in (q, k, v)), "tensors must be contiguous", what)
-    fn = function(
-        "flash_attention", "repro_flash_attention",
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p],
-    )
     out = torch.empty_like(q)
-    rc = fn(
-        dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), B, Sq, Skv, nq, nkv, hd, int(causal), int(window),
-        1.0 / math.sqrt(hd), stream_of(q),
-    )
+    shape = (B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))
+    if flash_attention_path(q.dtype, hd) == "tensor_cores":
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), "q, k and v must be 16-byte aligned", what)
+        fn = function("flash_attention", "repro_flash_attention_tc",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        rc = fn(ptr(q), ptr(k), ptr(v), ptr(out), *shape)
+    else:
+        fn = function("flash_attention", "repro_flash_attention",
+                      [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+        rc = fn(dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), *shape)
     check_launch(rc, what)
     flash_attention_kernel.launches += 1
     return out

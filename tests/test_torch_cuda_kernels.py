@@ -192,6 +192,56 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda, dtype, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["short_mid_exact", "window_below_W", "chain_across_wrap"])
+def test_flash_decode_window_split_edges_on_card(cuda, dtype, case):
+    """The split over chunks of ``WINDOW_CHUNK`` rows: visible runs shorter
+    than one chunk, ending mid-chunk and exactly a multiple of it (one run
+    wrapped); a window below the buffer's W; T = 3 chains whose launch
+    crosses the wrap point (every split clipped by ``head - W + 1``).  Each
+    held against the plain version, and a repeated launch bitwise equal."""
+    from repro_torch.kernels.flash_attention import ops as ops_
+
+    C = ops_.WINDOW_CHUNK
+    if case == "short_mid_exact":  # runs of 11, C + 37, 2C and (wrapped) 4C rows
+        T, nq, nkv, hd, W, window, idx = 1, 10, 1, 256, 4 * C, 4 * C, [10, C + 36, 2 * C - 1, 9 * C + 5]
+    elif case == "window_below_W":
+        T, nq, nkv, hd, W, window, idx = 1, 8, 2, 128, 4 * C, C + 29, [3, C + 28, 3 * C + 1, 11 * C + 7]
+    else:
+        T, nq, nkv, hd, W, window, idx = 3, 10, 1, 256, 2 * C + 3, 2 * C + 3, [2 * C + 1, 2 * C + 2, 5 * C, 1]
+    B = len(idx)
+    q, k, v = (_t(a).to(cuda, dtype) for a in _decode_case(W + T, B, T, nq, nkv, hd, W))
+    pos = (torch.tensor(idx, dtype=torch.int32)[:, None] + torch.arange(T, dtype=torch.int32)).reshape(-1).to(cuda)
+    got = ops_.flash_decode_window_kernel(q, k, v, pos, window=window)
+    again = ops_.flash_decode_window_kernel(q, k, v, pos, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, fa_ref.flash_decode_window(q, k, v, pos, min(window, W)), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,nq,nkv", [(256, 10, 1), (128, 16, 2), (256, 16, 1), (128, 10, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 45), (False, 0)])
+def test_flash_attention_tensor_core_path_on_card(cuda, hd, nq, nkv, causal, window):
+    """bf16 at hd 128 and 256 takes the wgmma path: groups of 10 (4 dead rows
+    a 64-row tile) and 16, B = 2, S = 197 (a ragged last query tile and a
+    ragged last key tile), window edges inside a 64-key tile; held by the
+    bf16 gate and bitwise equal on a repeated launch."""
+    from repro_torch.kernels.flash_attention import ops as ops_
+
+    assert ops_.flash_attention_path(torch.bfloat16, hd) == "tensor_cores"
+    B, S = 2, 197
+    rng = np.random.default_rng(hd + nq)
+    q = _t(rng.standard_normal((B, S, nq, hd)).astype(np.float32)).to(cuda, torch.bfloat16)
+    k, v = (_t(rng.standard_normal((B, S, nkv, hd)).astype(np.float32)).to(cuda, torch.bfloat16) for _ in range(2))
+    got = ops_.flash_attention_kernel(q, k, v, causal=causal, window=window)
+    again = ops_.flash_attention_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, fa_ref.flash_attention(q, k, v, causal=causal, window=window), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,W", [(2, 37, 100), (1, 4096, 2560)])
 def test_rglru_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, W):
     from repro_torch.kernels.rglru_scan import ops as rg_ops
