@@ -30,11 +30,13 @@ weights freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
 (phase ``ssm_serve``), and shows that each path ran its kernels.  The int8
 branches are also held bitwise against their kernels on the dequantized
 buffers (``kernels_vs_plain`` rows ``*_int8``), and the f32 smoke twins
-serve int8 KV and experts too (``smoke_twin_int8``).  Rows 6, 6q and 7
-(the window decode split over blocks, its int8 branch, the tensor-core
-prefill) also time their yardstick in turns with the kernel, launch twice
-for a bitwise repeat, record registers and shared memory, and (7) count
-``HGMMA`` in the built library's SASS.
+serve int8 KV and experts too (``smoke_twin_int8``).  The redesigned rows
+1, 5, 6, 6q, 7 and 8 (the contiguous and paged decode split over chunks,
+the window decode and its int8 branch, the tensor-core prefill and
+grouped GEMM) launch twice for a bitwise repeat and record registers and
+spills; 1, 6, 6q, 7 and 8 time their yardstick in turns with the kernel;
+1 also times the wrapper's host time and its parts and the T = 1 launch; 7 and 8 count ``HGMMA`` in the built library's SASS, and 8
+records which build each case takes.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -72,10 +74,16 @@ SSM = "mamba2-2.7b"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
-# the times of the designs kernels 6, 6q and 7 replaced (one block per token
-# walking its whole window; f32 products on CUDA cores), at the same shapes on
-# an H100 80GB HBM3 at 700 W (PERF.md, section 6)
-PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515}
+# the times of the designs the redesigned kernels 1, 1q, 5, 5q, 6, 6q, 7 and
+# 8 replaced (one block per token walking its whole run; f32 products on
+# CUDA cores), at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md,
+# section 6)
+PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515,
+               "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
+               "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188}
+# and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8)
+PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
+                      "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074}
 
 RECORD: dict = {}
 
@@ -214,6 +222,29 @@ def sass_wgmma(source: str) -> dict:
     return dict(hgmma_instructions=len(found), first=found[0] if found else None, cuobjdump_rc=run.returncode)
 
 
+def host_ms(fn, n: int = 200) -> float:
+    """Host time per call of ``fn``: the wall time of ``n`` calls issued back
+    to back without synchronising, over ``n``.  Where a call's device work
+    is shorter than its issue the card waits on the host, and this is what
+    ``time_ms`` of back-to-back calls measures."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e3
+
+
+# the bf16 instantiations of kernels 1 and 5 at hd 128 (contiguous Li0,
+# paged Li1) in the build log
+DECODE_PTXAS = "decode_split_kernelI13__nv_bfloat16S1_Li128ELi0EE"
+PAGED_PTXAS = "decode_split_kernelI13__nv_bfloat16S1_Li128ELi1EE"
+
+
 def bitwise_repeat(name, fn):
     """Launch ``fn`` twice on the same inputs; raise unless bitwise equal."""
     import torch
@@ -227,6 +258,81 @@ def bitwise_repeat(name, fn):
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version at full-width shapes
 # ---------------------------------------------------------------------------
+
+
+def _sdpa_decode(q, k, v, mask):
+    """SDPA over the cache with kv heads expanded beforehand (set-up): the
+    one PyTorch call that computes kernel 1's function."""
+    import torch
+
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1) for c in (k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+
+def _last_token(q, lengths):
+    """(q, lengths, chain word) of each slot's last token alone (T = 1)."""
+    import torch
+
+    B, T = q.shape[:2]
+    return (q[:, -1:].contiguous(), lengths.reshape(B, T)[:, -1].contiguous(),
+            torch.full((1,), -1, dtype=torch.int32, device=q.device))
+
+
+def decode_t1(q, k, v, lengths, base, mask):
+    """Row 1 at T = 1: each slot's last chain token alone, 16 (kv head,
+    slot) pairs, each split over the capacity's chunks.  Held
+    against the plain version; the kernel and SDPA timed in turns, and
+    both device times."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, T = q.shape[:2]
+    q1, l1, chain1 = _last_token(q, lengths)
+
+    def kernel():
+        return fa_ops.flash_decode_kernel(q1, k, v, l1, chain1, base)
+
+    err = check_bf16("flash_decode bf16 T=1", kernel(), fa_ref.flash_decode(q1, k, v, l1, chain1, base))
+    lib = _sdpa_decode(q1, k, v, mask[:, :, -1:])
+    ms, lib_ms, turns = in_turns(kernel, lib, iters=50)
+    return dict(max_abs_err=err, ms=ms, library_ms=lib_ms, ms_in_turns=turns, device_ms=device_ms(kernel, ""),
+                library_device_ms=device_ms(lib, ""), host_ms=host_ms(kernel), lengths=l1.tolist())
+
+
+def decode_host_parts(q, k, v, lengths, chain, base):
+    """The pieces of the flash-decode wrapper's host time at row 1's shape
+    (``host_ms`` each): the C entry alone, called through the wrapper's own
+    ``function`` with its arguments built beforehand (the split launch and
+    the merge launch), the two allocations a call makes, and the stream
+    handle the wrapper reads against the ``torch.cuda.Stream`` it replaced."""
+    import math
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, T, nq, hd = q.shape
+    S, nkv = k.shape[1], k.shape[2]
+    nsplit = fa_ops.decode_splits(S)
+    out = torch.empty_like(q)
+    part = torch.empty((B * T * nq * nsplit * (hd + 2),), dtype=torch.float32, device=q.device)
+    fn = kernels.function("flash_decode", "repro_flash_decode", fa_ops._DECODE_ARGTYPES[0])
+    argv = (kernels.dtype_code(q.dtype), kernels.dtype_code(k.dtype), *(t.data_ptr() for t in (q, k, v)), None, None,
+            *(t.data_ptr() for t in (out, part, lengths, chain, base)), B, T, S, nq, nkv, hd, 1.0 / math.sqrt(hd),
+            nsplit, kernels.stream_of(q))
+
+    def launch():
+        if fn(*argv) != 0:
+            raise RuntimeError("repro_flash_decode refused row 1's launch")
+
+    return {"c_entry_alone": host_ms(launch),
+            "empty_like_q_and_part": host_ms(lambda: (torch.empty_like(q), torch.empty(part.shape, dtype=part.dtype,
+                                                                                      device=part.device))),
+            "raw_stream_handle": host_ms(lambda: kernels.stream_of(q)),
+            "torch_cuda_current_stream": host_ms(lambda: torch.cuda.current_stream(q.device).cuda_stream)}
 
 
 def kernel_phase(cfg, dev):
@@ -268,26 +374,36 @@ def kernel_phase(cfg, dev):
     err = check_bf16("flash_decode bf16", fa_ops.flash_decode_kernel(q, kk, vv, lengths, chain, base),
                      fa_ref.flash_decode(q, kk, vv, lengths, chain, base))
     mask = (torch.arange(max_len, device=dev)[None, None, :] < lengths.reshape(B, T)[:, :, None])[:, None]
-    # the GQA expansion is set-up: one call computes attention on its result
-    qt = q.transpose(1, 2)
-    kt, vt = (c.transpose(1, 2).repeat_interleave(nq // nkv, 1) for c in (kk, vv))
-
-    def lib():
-        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    lib = _sdpa_decode(q, kk, vv, mask)
 
     L = lengths.reshape(B, T).long()
     kv_rows = int(L.max(dim=1).values.sum())
     nbytes = 2 * q.numel() * 2 + kv_rows * nkv * hd * 2 * 2 + (B * T + T + B) * 4
     flops = float(L.sum()) * nq * hd * 4
+
+    def kernel_decode():
+        return fa_ops.flash_decode_kernel(q, kk, vv, lengths, chain, base)
+
+    ms, lib_ms, turns = in_turns(kernel_decode, lib, iters=50)
     rows["flash_decode"] = dict(
         max_abs_err=err, max_abs_err_f32=err32,
-        ms=time_ms(lambda: fa_ops.flash_decode_kernel(q, kk, vv, lengths, chain, base), iters=50),
-        plain_ms=time_ms(lambda: fa_ref.flash_decode(q, kk, vv, lengths, chain, base)),
-        library_ms=time_ms(lib, iters=50), library_call="scaled_dot_product_attention (boolean mask, kv heads expanded beforehand)",
+        ms=ms, plain_ms=time_ms(lambda: fa_ref.flash_decode(q, kk, vv, lengths, chain, base)),
+        library_ms=lib_ms, ms_in_turns=turns,
+        library_call="scaled_dot_product_attention (boolean mask, kv heads expanded beforehand)",
+        # device times: every kernel one call launches, from the profiler
+        device_ms=device_ms(kernel_decode, ""), library_device_ms=device_ms(lib, ""),
+        host_ms=host_ms(kernel_decode), library_host_ms=host_ms(lib),
+        bitwise_repeat=bitwise_repeat("flash_decode", kernel_decode), previous_ms=PREVIOUS_MS["flash_decode"],
+        previous_device_ms=PREVIOUS_DEVICE_MS["flash_decode"],
+        design=f"{fa_ops.decode_splits(max_len)} splits of {fa_ops.DECODE_CHUNK} rows x {nkv * T * B} (kv head, "
+               f"token, slot) = {fa_ops.decode_splits(max_len) * nkv * T * B} blocks, then a merge launch of "
+               f"{nq * T * B} blocks",
+        ptxas=ptxas("flash_decode", DECODE_PTXAS, "window_merge_kernelI13__nv_bfloat16Li128E"),
+        t1=decode_t1(q, kk, vv, lengths, base, mask), host_parts_ms=decode_host_parts(q, kk, vv, lengths, chain, base),
         shapes=f"q {tuple(q.shape)}, kv {tuple(kk.shape)}, lengths {lengths.tolist()}",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
-    del q32, k32, v32, q, kk, vv, qt, kt, vt
+    del q32, k32, v32, q, kk, vv, lib
 
     # ---- decode_moe: 16 decode tokens (4 slots x spec 4), top-8 of 128 experts
     Tt = B * T
@@ -449,6 +565,10 @@ def ep_kernel_rows(dev, gen, tol, xp, plan, h, wg, wu, wd):
             check_bf16("grouped_gemm ragged bf16", got, want)
     ragged = (f"ragged: x (37, 100), E 8, top-2, C 5 ({drops} dropped assignments, {empty} empty slots); "
               f"GEMM (3, 37, 100) @ (3, 100, 130)")
+    # which build of kernel 8 each case takes
+    gemm_paths = {f"{tag} {dt}": gg_ops.grouped_gemm_path(dt, K_, N_, True) for tag, K_, N_ in
+                  (("ragged (3, 37, 100) @ (3, 100, 130)", 100, 130), ("row 8", h.shape[2], wd.shape[2]))
+                  for dt in (torch.float32, bf16)}
 
     # ---- moe_dispatch: the 128-token prompt into (128, 16, 4096) slots
     err32 = exact("moe_dispatch f32", md_ops.dispatch(xp.float(), plan), md_ref.dispatch(xp.float(), plan))
@@ -507,12 +627,20 @@ def ep_kernel_rows(dev, gen, tol, xp, plan, h, wg, wu, wd):
     N = wd.shape[2]
     nbytes = (h.numel() + wd.numel() + Eh * M * N) * 2
     flops = 2.0 * Eh * M * K * N
+
+    def kernel_gemm():
+        return gg_ops.grouped_gemm(h, wd)
+
+    ms, lib_ms, turns = in_turns(kernel_gemm, lambda: torch.bmm(h, wd), iters=10)
     rows["grouped_gemm"] = dict(
         max_abs_err=err, max_abs_err_f32=err32,
-        ms=time_ms(lambda: gg_ops.grouped_gemm(h, wd), iters=10),
-        device_ms=device_ms(lambda: gg_ops.grouped_gemm(h, wd), "grouped_gemm_kernel", n=10),
+        ms=ms, library_ms=lib_ms, ms_in_turns=turns, library_call="torch.bmm (bf16)",
+        device_ms=device_ms(kernel_gemm, "grouped_gemm", n=10),
+        library_device_ms=device_ms(lambda: torch.bmm(h, wd), "", n=10),
         plain_ms=time_ms(lambda: gg_ref.grouped_gemm(h, wd), iters=3, reps=3),
-        library_ms=time_ms(lambda: torch.bmm(h, wd), iters=10), library_call="torch.bmm (bf16)",
+        bitwise_repeat=bitwise_repeat("grouped_gemm", kernel_gemm), previous_ms=PREVIOUS_MS["grouped_gemm"],
+        previous_device_ms=PREVIOUS_DEVICE_MS["grouped_gemm"],
+        paths=gemm_paths, ptxas=ptxas("grouped_gemm", "grouped_gemm"), sass=sass_wgmma("grouped_gemm"),
         shapes=f"h {tuple(h.shape)} @ w_down {tuple(wd.shape)}; {ragged}",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
@@ -640,6 +768,10 @@ def paged_kernel_rows(cfg, dev, gen, tol):
     return dict(
         max_abs_err=err, max_abs_err_f32=err32, identity_table_bitwise=True,
         ms=time_ms(lambda: run(q, pk, pv, table), iters=50),
+        device_ms=device_ms(lambda: run(q, pk, pv, table), ""), host_ms=host_ms(lambda: run(q, pk, pv, table)),
+        bitwise_repeat=bitwise_repeat("flash_decode_paged", lambda: run(q, pk, pv, table)),
+        previous_ms=PREVIOUS_MS["flash_decode_paged"], previous_device_ms=PREVIOUS_DEVICE_MS["flash_decode_paged"],
+        ptxas=ptxas("flash_decode", PAGED_PTXAS),
         plain_ms=time_ms(lambda: fa_ref.flash_decode_paged(q, pk, pv, lengths, table, words, base, ps)),
         library_ms=None, library_call=None, contiguous_kernel_ms=contiguous_ms,
         composite_ms=time_ms(composite, iters=50),
@@ -899,6 +1031,8 @@ def int8_kernel_rows(cfg, dev, gen, tol):
     rows["flash_decode_int8"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
         ms=time_ms(lambda: fa_ops.flash_decode_kernel(q, k8, v8, lengths, chain, base, scales), iters=50),
+        device_ms=device_ms(lambda: fa_ops.flash_decode_kernel(q, k8, v8, lengths, chain, base, scales), ""),
+        previous_ms=PREVIOUS_MS["flash_decode_int8"], previous_device_ms=PREVIOUS_DEVICE_MS["flash_decode_int8"],
         plain_ms=time_ms(lambda: fa_ref.flash_decode(q, k8, v8, lengths, chain, base, scales)),
         library_ms=None, library_call=no_library,
         composite_ms=time_ms(composite_decode, iters=50),
@@ -992,6 +1126,9 @@ def int8_kernel_rows(cfg, dev, gen, tol):
     rows["flash_decode_paged_int8"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
         ms=time_ms(lambda: run_paged(q, pk8, pv8, pscales), iters=50),
+        device_ms=device_ms(lambda: run_paged(q, pk8, pv8, pscales), ""),
+        previous_ms=PREVIOUS_MS["flash_decode_paged_int8"],
+        previous_device_ms=PREVIOUS_DEVICE_MS["flash_decode_paged_int8"],
         plain_ms=time_ms(lambda: fa_ref.flash_decode_paged(q, pk8, pv8, lengths, table, words, base, ps, pscales)),
         library_ms=None, library_call=no_library,
         composite_ms=time_ms(composite_paged, iters=50),

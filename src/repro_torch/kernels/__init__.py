@@ -131,10 +131,15 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The raw handle of the current stream on ``t``'s card, for a
+    ``c_void_p`` argument.  ``torch.cuda.current_stream()`` builds a Stream
+    object on every call, several microseconds of host time a launch
+    (``chip_smoke.py``, row ``flash_decode``'s ``host_parts_ms``); the raw
+    handle costs none of that."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def dtype_code(dtype) -> int:

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
 from repro_torch.kernels.flash_attention import ref
 
 
@@ -50,9 +51,12 @@ def _as_length_vector(cache_index, B: int, T: int, device) -> torch.Tensor:
     return (idx + 1).reshape(B * T).to(torch.int32)
 
 
-def _check(cond: bool, msg: str, what: str = "flash_decode") -> None:
+def _check(cond: bool, msg, what: str = "flash_decode") -> None:
+    """Raise ``ValueError`` unless ``cond``.  ``msg`` is a string or, where
+    building it costs host time on every launch, a function that builds it
+    (called only on failure)."""
     if not cond:
-        raise ValueError(f"{what}: {msg}")
+        raise ValueError(f"{what}: {msg() if callable(msg) else msg}")
 
 
 def _check_types(q, k, v, scales, rows: int, what: str) -> tuple:
@@ -62,30 +66,85 @@ def _check_types(q, k, v, scales, rows: int, what: str) -> tuple:
     scale per cache row; a (2, rows) tensor is such a pair).  Returns
     (ks, vs), or () without scales."""
     if scales is None:
-        _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
+        _check(q.dtype == k.dtype == v.dtype, lambda: f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
         return ()
-    _check(k.dtype == v.dtype == torch.int8, f"scales come with an int8 cache, got {k.dtype}, {v.dtype}", what)
-    _check(q.dtype in (torch.float32, torch.bfloat16), f"q must be f32 or bf16, got {q.dtype}", what)
+    _check(k.dtype == v.dtype == torch.int8, lambda: f"scales come with an int8 cache, got {k.dtype}, {v.dtype}",
+           what)
+    _check(q.dtype in (torch.float32, torch.bfloat16), lambda: f"q must be f32 or bf16, got {q.dtype}", what)
     _check(len(scales) == 2 and all(s.dtype == torch.float32 and s.numel() == rows for s in scales),
-           f"scales must be two f32 tensors of {rows} rows, got {[(tuple(s.shape), s.dtype) for s in scales]}", what)
+           lambda: f"scales must be two f32 tensors of {rows} rows, got {[(tuple(s.shape), s.dtype) for s in scales]}",
+           what)
     return tuple(scales)
 
 
 def _scale_ptrs(kvs) -> tuple:
     if not kvs:
         return ctypes.c_void_p(None), ctypes.c_void_p(None)
-    from repro_torch.kernels import ptr
-
     return ptr(kvs[0]), ptr(kvs[1])
 
 
 def _control_words(B: int, T: int, dev, anc_words, base):
-    """The chain defaults: all-ones words make the ancestor test vacuous."""
+    """The chain defaults: all-ones words make the ancestor test vacuous.
+    Only the plain versions need them as tensors: the kernels read a null
+    pointer as these defaults, so a launch allocates nothing for them."""
     if anc_words is None:
         anc_words = torch.full((T,), -1, dtype=torch.int32, device=dev)
     if base is None:
         base = torch.zeros((B,), dtype=torch.int32, device=dev)
     return anc_words, base
+
+
+# kernels 1 and 5 cut the row capacity S into chunks of this many rows and
+# give each (kv head, token, sequence) up to DECODE_MAX_SPLITS blocks of them
+# (flash_decode.cu's CHUNK and MAX_SPLITS: the C entries refuse a split count
+# made from others)
+DECODE_CHUNK = 64
+DECODE_MAX_SPLITS = 32
+_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims kernels 1, 5, 6 and 7 are built for
+# the C signatures of repro_flash_decode and (one more pointer, the table,
+# and one more int) repro_flash_decode_paged
+_DECODE_ARGTYPES = [[ctypes.c_int] * 2 + [ctypes.c_void_p] * (10 + paged) + [ctypes.c_int] * (6 + paged)
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p] for paged in (0, 1)]
+
+
+def decode_splits(S: int) -> int:
+    """Splits per (kv head, token, sequence) of the contiguous and paged
+    launches over a row capacity of ``S``: one per :data:`DECODE_CHUNK` rows,
+    at most :data:`DECODE_MAX_SPLITS` (past that a split walks several
+    chunks).  The count depends on shapes alone, never on the lengths (which
+    stay on the device)."""
+    return min(-(-int(S) // DECODE_CHUNK), DECODE_MAX_SPLITS)
+
+
+def _check_words(words, dev, what: str) -> None:
+    """Each (name, tensor or None, count) a ``(count,)`` int32 tensor on ``dev``."""
+    for name, t, n in words:
+        if t is not None:
+            _check(t.dtype == torch.int32 and t.numel() == n and t.device == dev,
+                   lambda: f"{name} must be ({n},) int32 on {dev}", what)
+
+
+def _launch_decode(symbol: str, q, k, v, kvs, lengths, table, anc_words, base, dims: tuple, S: int, nkv: int,
+                   what: str) -> torch.Tensor:
+    """One launch of kernel 1 (``repro_flash_decode``, ``table`` None,
+    ``dims`` (S,)) or 5 (``repro_flash_decode_paged``, ``dims`` (mp, ps))."""
+    B, T, nq, hd = q.shape
+    _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", what)
+    _check(all(t is None or t.is_contiguous() for t in (q, k, v, *kvs, lengths, table, anc_words, base)),
+           "tensors must be contiguous", what)
+    _check(q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+           "q, k and v must be 16-byte aligned", what)
+    nsplit = decode_splits(S)
+    out = torch.empty_like(q)
+    part = torch.empty((B * T * nq * nsplit * (hd + 2),), dtype=torch.float32, device=q.device) if nsplit > 1 else None
+    head = () if table is None else (table.data_ptr(),)
+    fn = function("flash_decode", symbol, _DECODE_ARGTYPES[len(head)])
+    ptrs = [None if t is None else t.data_ptr() for t in (*(kvs or (None, None)), out, part, lengths)]
+    rc = fn(dtype_code(q.dtype), dtype_code(k.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, *head,
+            None if anc_words is None else anc_words.data_ptr(), None if base is None else base.data_ptr(),
+            B, T, *dims, nq, nkv, hd, 1.0 / math.sqrt(hd), nsplit, stream_of(q))
+    check_launch(rc, what)
+    return out
 
 
 def flash_decode_kernel(
@@ -97,34 +156,25 @@ def flash_decode_kernel(
     base: Optional[torch.Tensor] = None,       # (B,) int32 committed-prefix length
     scales=None,  # (ks, vs), B*S f32 each: per-row K/V scales of an int8 cache
 ) -> torch.Tensor:
-    """Vector-steered decode attention; (B, T, nq, hd) in q's type."""
+    """Vector-steered decode attention; (B, T, nq, hd) in q's type.  On the
+    card one call is the :func:`decode_splits` launch and, with more than
+    one split, their merge into an f32 scratch allocated here, counted
+    once."""
+    what = "flash_decode"
     B, T, nq, hd = q.shape
-    _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}")
-    _check(v.shape == k.shape, f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}")
+    _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, lambda: f"k shape {tuple(k.shape)}", what)
+    _check(v.shape == k.shape, lambda: f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
     S, nkv = k.shape[1], k.shape[2]
-    _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads")
-    kvs = _check_types(q, k, v, scales, B * S, "flash_decode")
+    _check(nq % nkv == 0, lambda: f"{nq} query heads not a multiple of {nkv} kv heads", what)
+    kvs = _check_types(q, k, v, scales, B * S, what)
     dev = q.device
-    anc_words, base = _control_words(B, T, dev, anc_words, base)
-    for name, t, n in (("lengths", lengths, B * T), ("anc_words", anc_words, T), ("base", base, B)):
-        _check(t.dtype == torch.int32 and t.numel() == n, f"{name} must be ({n},) int32")
-    _check(all(t.device == dev for t in (k, v, lengths, anc_words, base, *kvs)), "tensors on different devices")
+    _check(k.device == dev and v.device == dev and all(t.device == dev for t in kvs), "tensors on different devices",
+           what)
+    _check_words((("lengths", lengths, B * T), ("anc_words", anc_words, T), ("base", base, B)), dev, what)
     if dev.type == "cpu":
-        return ref.flash_decode(q, k, v, lengths, anc_words, base, scales)
-    _check(dev.type == "cuda", f"unsupported device {dev}")
-    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
-
-    _check(all(t.is_contiguous() for t in (q, k, v, lengths, anc_words, base, *kvs)), "tensors must be contiguous")
-    fn = function(
-        "flash_decode", "repro_flash_decode",
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
-    )
-    out = torch.empty_like(q)
-    rc = fn(
-        dtype_code(q.dtype), dtype_code(k.dtype), ptr(q), ptr(k), ptr(v), *_scale_ptrs(kvs), ptr(out), ptr(lengths),
-        ptr(anc_words), ptr(base), B, T, S, nq, nkv, hd, 1.0 / math.sqrt(hd), stream_of(q),
-    )
-    check_launch(rc, "flash_decode")
+        return ref.flash_decode(q, k, v, lengths, *_control_words(B, T, dev, anc_words, base), scales)
+    _check(dev.type == "cuda", lambda: f"unsupported device {dev}", what)
+    out = _launch_decode("repro_flash_decode", q, k, v, kvs, lengths, None, anc_words, base, (S,), S, nkv, what)
     count_launch(flash_decode_kernel, int8=scales is not None)
     return out
 
@@ -148,42 +198,29 @@ def flash_decode_paged_kernel(
     """Paged decode attention: :func:`flash_decode_kernel`'s math with
     logical row ``p`` of sequence ``b`` read from pool row
     ``max(table[b*mp + p // ps], 0) * ps + p % ps``; (B, T, nq, hd) in q's
-    type.  Table entries must name pages of the pool: they are not checked
-    against it on the card (that would cost a host sync per launch)."""
+    type.  The row capacity is ``mp * page_size``, which sets the split.
+    Table entries must name pages of the pool: they are not checked against
+    it on the card (that would cost a host sync per launch)."""
     what = "flash_decode_paged"
     B, T, nq, hd = q.shape
-    _check(pool_k.ndim == 3 and pool_k.shape[2] == hd, f"pool shape {tuple(pool_k.shape)}", what)
-    _check(pool_v.shape == pool_k.shape, f"pool_v shape {tuple(pool_v.shape)} != {tuple(pool_k.shape)}", what)
+    _check(pool_k.ndim == 3 and pool_k.shape[2] == hd, lambda: f"pool shape {tuple(pool_k.shape)}", what)
+    _check(pool_v.shape == pool_k.shape, lambda: f"pool_v shape {tuple(pool_v.shape)} != {tuple(pool_k.shape)}", what)
     nkv = pool_k.shape[1]
-    _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
+    _check(nq % nkv == 0, lambda: f"{nq} query heads not a multiple of {nkv} kv heads", what)
     kvs = _check_types(q, pool_k, pool_v, scales, pool_k.shape[0], what)
     _check(page_size > 0 and table.numel() % B == 0 and table.numel() > 0, "table must be (B*max_pages,)", what)
     mp = table.numel() // B
     dev = q.device
-    anc_words, base = _control_words(B, T, dev, anc_words, base)
-    for name, t, n in (("lengths", lengths, B * T), ("table", table, B * mp), ("anc_words", anc_words, T),
-                       ("base", base, B)):
-        _check(t.dtype == torch.int32 and t.numel() == n, f"{name} must be ({n},) int32", what)
-    _check(all(t.device == dev for t in (pool_k, pool_v, lengths, table, anc_words, base, *kvs)),
+    _check(pool_k.device == dev and pool_v.device == dev and all(t.device == dev for t in kvs),
            "tensors on different devices", what)
+    _check_words((("lengths", lengths, B * T), ("table", table, B * mp), ("anc_words", anc_words, T),
+                  ("base", base, B)), dev, what)
     if dev.type == "cpu":
-        return ref.flash_decode_paged(q, pool_k, pool_v, lengths, table, anc_words, base, page_size, scales)
-    _check(dev.type == "cuda", f"unsupported device {dev}", what)
-    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
-
-    _check(all(t.is_contiguous() for t in (q, pool_k, pool_v, lengths, table, anc_words, base, *kvs)),
-           "tensors must be contiguous", what)
-    fn = function(
-        "flash_decode", "repro_flash_decode_paged",
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p],
-    )
-    out = torch.empty_like(q)
-    rc = fn(
-        dtype_code(q.dtype), dtype_code(pool_k.dtype), ptr(q), ptr(pool_k), ptr(pool_v), *_scale_ptrs(kvs), ptr(out),
-        ptr(lengths), ptr(table), ptr(anc_words), ptr(base), B, T, mp, page_size, nq, nkv, hd, 1.0 / math.sqrt(hd),
-        stream_of(q),
-    )
-    check_launch(rc, what)
+        return ref.flash_decode_paged(q, pool_k, pool_v, lengths, table, *_control_words(B, T, dev, anc_words, base),
+                                      page_size, scales)
+    _check(dev.type == "cuda", lambda: f"unsupported device {dev}", what)
+    out = _launch_decode("repro_flash_decode_paged", q, pool_k, pool_v, kvs, lengths, table, anc_words, base,
+                         (mp, page_size), mp * page_size, nkv, what)
     count_launch(flash_decode_paged_kernel, int8=scales is not None)
     return out
 
@@ -236,7 +273,6 @@ def flash_decode_paged(
 # one block each, and merges the chunks' partial softmaxes in a second launch
 # (flash_decode.cu's CHUNK: the C entry refuses a split count made from another)
 WINDOW_CHUNK = 64
-_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims kernels 6 and 7 are built for
 
 
 def window_splits(limit: int) -> int:
@@ -281,8 +317,6 @@ def flash_decode_window_kernel(
         return ref.flash_decode_window(q, k, v, positions, limit, scales)
     _check(dev.type == "cuda", f"unsupported device {dev}", what)
     _check(hd in _HEAD_DIMS, f"head_dim {hd} not in {_HEAD_DIMS}", what)
-    from repro_torch.kernels import check_launch, count_launch, dtype_code, function, ptr, stream_of
-
     _check(all(t.is_contiguous() for t in (q, k, v, positions, *kvs)), "tensors must be contiguous", what)
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), "q, k and v must be 16-byte aligned", what)
     fn = function(
@@ -362,8 +396,6 @@ def flash_attention_kernel(
     _check(dev.type == "cuda", f"unsupported device {dev}", what)
     _check(hd in _HEAD_DIMS, f"head_dim {hd} not in {_HEAD_DIMS}", what)
     _check(nq // nkv <= _FA_MAX_GROUP, f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
-    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
-
     _check(all(t.is_contiguous() for t in (q, k, v)), "tensors must be contiguous", what)
     out = torch.empty_like(q)
     shape = (B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))

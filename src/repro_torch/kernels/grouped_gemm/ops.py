@@ -2,10 +2,12 @@
 
 :func:`grouped_gemm` is the launch: its plain version (``ref.py``) on CPU
 tensors, ``csrc/grouped_gemm.cu`` on ``cuda`` tensors (counted in
-``launches``), or an error.  Ragged M, K and N are masked inside the kernel,
-so the wrapper makes no padded copies.  :func:`grouped_swiglu` and
-:func:`experts_fn` (the reference's ``pallas_experts_fn``) build the
-per-expert SwiGLU on it.
+``launches``), or an error.  On the card it takes one of two builds, named
+by :func:`grouped_gemm_path`: bf16 with 16-byte strides and bases on tensor
+cores (wgmma fed by TMA, which zero-fills the ragged edges), everything
+else on CUDA cores (ragged M, K and N masked inside the kernel); neither
+makes padded copies.  :func:`grouped_swiglu` and :func:`experts_fn` (the
+reference's ``pallas_experts_fn``) build the per-expert SwiGLU on it.
 """
 from __future__ import annotations
 
@@ -21,9 +23,20 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"grouped_gemm: {msg}")
 
 
+def grouped_gemm_path(dtype: torch.dtype, K: int, N: int, aligned: bool) -> str:
+    """Which build of kernel 8 a launch takes, from its dtype, K, N and
+    whether x, w and y start on 16-byte boundaries: ``"tensor_cores"``
+    (bf16 wgmma tiles fed by TMA, which needs every global stride and base
+    a multiple of 16 bytes: K and N multiples of 8) or ``"cuda_cores"``
+    (f32 products; f32, and bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and K > 0 and K % 8 == 0 and N % 8 == 0 and aligned
+    return "tensor_cores" if ok else "cuda_cores"
+
+
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y[e] = x[e] @ w[e]: (E, M, K) @ (E, K, N) -> (E, M, N), accumulated
-    in f32, in x's type."""
+    in f32, in x's type.  On the card the launch takes the build
+    :func:`grouped_gemm_path` names."""
     _check(x.ndim == 3 and w.ndim == 3 and x.shape[0] == w.shape[0] and x.shape[2] == w.shape[1],
            f"shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     _check(x.dtype == w.dtype, f"x is {x.dtype} but w is {w.dtype}")
@@ -33,16 +46,21 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x.device == w.device, "tensors on different devices")
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
     x, w = x.contiguous(), w.contiguous()
-    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+    from repro_torch.kernels import check_launch, dtype_code, function, stream_of
 
     E, M, K = x.shape
     N = w.shape[2]
     y = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
-    vec = int((N * w.element_size()) % 16 == 0 and w.data_ptr() % 16 == 0)
-    rc = function("grouped_gemm", "repro_grouped_gemm", [ctypes.c_int] + [ctypes.c_void_p] * 3
-                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])(
-        dtype_code(x.dtype), ptr(x), ptr(w), ptr(y), E, M, K, N, vec, stream_of(x),
-    )
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    if grouped_gemm_path(x.dtype, K, N, aligned) == "tensor_cores":
+        fn = function("grouped_gemm", "repro_grouped_gemm_tc", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
+        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), E, M, K, N, stream_of(x))
+    else:
+        vec = int((N * w.element_size()) % 16 == 0 and w.data_ptr() % 16 == 0)
+        fn = function("grouped_gemm", "repro_grouped_gemm", [ctypes.c_int] + [ctypes.c_void_p] * 3
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        rc = fn(dtype_code(x.dtype), x.data_ptr(), w.data_ptr(), y.data_ptr(), E, M, K, N, vec, stream_of(x))
     check_launch(rc, "grouped_gemm")
     grouped_gemm.launches += 1
     return y

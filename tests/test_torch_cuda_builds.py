@@ -2,11 +2,13 @@
 sources, its library swapped in under the same wrappers.
 
 * Parity with another checkout: the kernels a change leaves alone give
-  bitwise what that checkout's build gives on the same inputs: the
-  contiguous and paged flash-decode (f32, bf16, int8 K/V) and kernel 7's
-  CUDA-core path (f32 at every head dim, bf16 at 16, 32 and 64).  The C
-  entry points ``repro_flash_decode``, ``repro_flash_decode_paged`` and
-  ``repro_flash_attention`` must keep their signatures in both trees.
+  bitwise what that checkout's build gives on the same inputs: the window
+  flash-decode (kernel 6; f32, bf16, int8 K/V), both builds of kernel 7
+  (CUDA cores: f32 at every head dim, bf16 at 16, 32 and 64; tensor cores:
+  bf16 at 128 and 256) and kernel 8's CUDA-core build (f32, and bf16 at a
+  ragged shape).  The C entry points ``repro_flash_decode_window``,
+  ``repro_flash_attention``, ``repro_flash_attention_tc`` and
+  ``repro_grouped_gemm`` must keep their signatures in both trees.
   Skips unless ``REPRO_OTHER_CHECKOUT`` names the other checkout's root:
 
       REPRO_OTHER_CHECKOUT=/path/to/other PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_builds.py
@@ -68,16 +70,19 @@ def _swapped(name: str, lib: ctypes.CDLL):
 # parity with another checkout
 # ---------------------------------------------------------------------------
 
-DECODE_CASES = [f"{kind} {tag}" for tag in ("float32", "bfloat16")
-                for kind in ("flash_decode", "flash_decode int8", "flash_decode_paged", "flash_decode_paged int8")]
+WINDOW_CASES = [f"flash_decode_window {kind}{tag}" for tag in ("float32", "bfloat16") for kind in ("", "int8 ")]
 PREFILL_CASES = [f"flash_attention {tag} hd {hd} window {w}"
-                 for tag, hds in (("float32", (16, 32, 64, 128, 256)), ("bfloat16", (16, 32, 64)))
+                 for tag, hds in (("float32", (16, 32, 64, 128, 256)), ("bfloat16", (16, 32, 64, 128, 256)))
                  for hd in hds for w in (0, 45)]
+GEMM_CASES = [f"grouped_gemm {tag} {shape}" for tag, shape in
+              (("float32", "3,37,100,130"), ("float32", "4,20,1536,4096"), ("bfloat16", "3,37,100,130"))]
+SOURCE = {"flash_decode_window": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm"}
 
 
 def _run(case: str, dev) -> torch.Tensor:
     """One wrapper launch of ``case`` on inputs made from a seed."""
     from repro_torch.core.quant import quantize_int8
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
 
     g = torch.Generator(device=dev).manual_seed(len(case))
     words = case.split()
@@ -88,23 +93,25 @@ def _run(case: str, dev) -> torch.Tensor:
         q = torch.randn((1, Sq, nq, hd), generator=g, device=dev).to(dt)
         k, v = (torch.randn((1, Sq, nkv, hd), generator=g, device=dev).to(dt) for _ in range(2))
         return fa_ops.flash_attention_kernel(q, k, v, causal=True, window=window)
-    B, T, nq, nkv, hd, S, ps = 3, 4, 16, 4, 128, 208, 16
-    base = torch.tensor([0, 77, S - T - 3], dtype=torch.int32, device=dev)
-    lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
-    anc = torch.tensor([1, 3, 5, 11], dtype=torch.int32, device=dev)
-    q = torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
-    k, v = (torch.randn((B, S, nkv, hd), generator=g, device=dev) for _ in range(2))
+    if words[0] == "grouped_gemm":
+        E, M, K, N = (int(n) for n in words[2].split(","))
+        x = torch.randn((E, M, K), generator=g, device=dev).to(dt)
+        w = (torch.randn((E, K, N), generator=g, device=dev) / K ** 0.5).to(dt)
+        assert gg_ops.grouped_gemm_path(dt, K, N, True) == "cuda_cores"
+        return gg_ops.grouped_gemm(x, w)
+    # the window decode: 4 slots of 10 heads over one KV head, hd 256, a
+    # 300-slot rolling buffer, window 160, positions before and past the wrap
+    B, nq, nkv, hd, W = 4, 10, 1, 256, 300
+    pos = torch.tensor([5, 299, 1000, 1711], dtype=torch.int32, device=dev)
+    q = torch.randn((B, 1, nq, hd), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((B, W, nkv, hd), generator=g, device=dev) for _ in range(2))
     scales = None
     if "int8" in words:
         (k, ks), (v, vs) = (quantize_int8(c, axis=(-2, -1)) for c in (k, v))
         scales = torch.stack([ks[..., 0, 0], vs[..., 0, 0]]).reshape(2, -1).contiguous()
     else:
         k, v = k.to(dt), v.to(dt)
-    if words[0] == "flash_decode":
-        return fa_ops.flash_decode_kernel(q, k, v, lengths, anc, base, scales)
-    table = torch.randperm(B * S // ps, generator=g, device=dev).to(torch.int32)
-    return fa_ops.flash_decode_paged_kernel(q, k.reshape(B * S, nkv, hd), v.reshape(B * S, nkv, hd), lengths, table,
-                                            anc, base, scales, page_size=ps)
+    return fa_ops.flash_decode_window_kernel(q, k, v, pos, scales, window=160)
 
 
 @pytest.fixture(scope="module")
@@ -113,13 +120,13 @@ def other_libs(cuda):
         pytest.skip("set REPRO_OTHER_CHECKOUT to another checkout's root to compare its builds")
     csrc = Path(OTHER) / "src" / "repro_torch" / "csrc"
     out_dir = kernels.BUILD_DIR / "other"
-    return {name: _build(csrc, name, out_dir) for name in ("flash_decode", "flash_attention")}
+    return {name: _build(csrc, name, out_dir) for name in set(SOURCE.values())}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", DECODE_CASES + PREFILL_CASES)
+@pytest.mark.parametrize("case", WINDOW_CASES + PREFILL_CASES + GEMM_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
-    name = "flash_attention" if case.startswith("flash_attention") else "flash_decode"
+    name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)
     with _swapped(name, other_libs[name]):
         theirs = _run(case, cuda)

@@ -111,6 +111,110 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(cuda, dtype, ps):
         assert torch.equal(paged, fa_ops.flash_decode_kernel(q, k, v, lengths, w, bs))
 
 
+def _decode_inputs(cuda, policy, kv, T, S, nq=16, nkv=4, hd=128, B=2, ps=16, seed=0):
+    """q and the K/V of a kernel-1 (contiguous) or kernel-5 (paged, through
+    a scrambled block table) launch, in ``kv``'s type (int8 with scales
+    beside a bf16 q), and a runner ``run(lengths, words, base)``
+    with its plain version ``plain(lengths, words, base)``."""
+    from repro_torch.core.quant import quantize_int8
+
+    q, k, v = _decode_case(seed, B, T, nq, nkv, hd, S)
+    q = _t(q).to(cuda, torch.bfloat16 if kv == "int8" else kv)
+    k, v = _t(k).to(cuda), _t(v).to(cuda)
+    scales = None
+    if kv == "int8":
+        (k, ks), (v, vs) = (quantize_int8(c, axis=(-2, -1)) for c in (k, v))
+        scales = torch.stack([ks[..., 0, 0], vs[..., 0, 0]]).reshape(2, -1).contiguous()
+    else:
+        k, v = k.to(kv), v.to(kv)
+    if policy == "contiguous":
+        def run(lengths, words, base, qq=q):
+            return fa_ops.flash_decode_kernel(qq, k, v, lengths, words, base, scales)
+
+        def plain(lengths, words, base, qq=q):
+            return fa_ref.flash_decode(qq, k, v, lengths, words, base, scales)
+        return q, run, plain
+    table = _t(np.random.default_rng(seed).permutation(B * S // ps).astype(np.int32)).to(cuda)
+    pk, pv = k.reshape(B * S, nkv, hd), v.reshape(B * S, nkv, hd)
+
+    def run(lengths, words, base, qq=q):
+        return fa_ops.flash_decode_paged_kernel(qq, pk, pv, lengths, table, words, base, scales, page_size=ps)
+
+    def plain(lengths, words, base, qq=q):
+        return fa_ref.flash_decode_paged(qq, pk, pv, lengths, table, words, base, ps, scales)
+    return q, run, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("policy", ["contiguous", "paged"])
+@pytest.mark.parametrize("words", ["chain", "tree"])
+@pytest.mark.parametrize("S", [240, 2240])
+def test_flash_decode_split_edges_on_card(cuda, kv, policy, words, S):
+    """Kernels 1 and 5 split each token's run over chunks of
+    ``DECODE_CHUNK`` rows of the row capacity S (240: 4 chunks, a split
+    each; 2,240: 35 chunks over the 32 splits of the cap, two a split):
+    runs of 1, 63, 64, 65, 128, 212 and S rows (the last token's) and
+    S + 1 minus those, chain words or tree 2,1's, against the plain version
+    and bitwise on a repeated launch."""
+    T = 4
+    q, run, plain = _decode_inputs(cuda, policy, kv, T, S)
+    anc = None if words == "chain" else torch.tensor(TreePlan.from_branching((2, 1)).ancestor_words(),
+                                                     dtype=torch.int32, device=cuda)
+    full = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+    for L in (1, 63, 64, 65, 128, 212, S):
+        # slot 0's last token sees L rows, slot 1's S + 1 - L; base just below
+        lengths = torch.tensor([[max(1, n - T + 1 + t) for t in range(T)] for n in (L, S + 1 - L)],
+                               dtype=torch.int32, device=cuda).reshape(-1)
+        base = (lengths.reshape(2, T)[:, 0] - 1).contiguous()
+        got = run(lengths, anc, base)
+        assert torch.equal(got, run(lengths, anc, base)), L
+        torch.cuda.synchronize()
+        _close(got, plain(lengths, full if anc is None else anc, base), q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("policy", ["contiguous", "paged"])
+def test_flash_decode_tokens_launched_alone_are_bitwise_on_card(cuda, kv, policy):
+    """A T-token launch (tree 2,1) is bitwise the same T tokens launched one
+    at a time: a token's sums depend on its own run and S alone."""
+    tree = TreePlan.from_branching((2, 1))
+    T, S = tree.num_nodes, 240
+    q, run, _ = _decode_inputs(cuda, policy, kv, T, S, seed=5)
+    base = torch.tensor([61, 190], dtype=torch.int32, device=cuda)
+    lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=cuda)).reshape(-1).contiguous()
+    words = torch.tensor(tree.ancestor_words(), dtype=torch.int32, device=cuda)
+    together = run(lengths, words, base)
+    for t in range(T):
+        alone = run(lengths.reshape(2, T)[:, t].contiguous(), words[t:t + 1].contiguous(), base,
+                    qq=q[:, t:t + 1].contiguous())
+        assert torch.equal(alone[:, 0], together[:, t]), t
+
+
+@pytest.mark.cuda
+def test_flash_decode_many_slots_above_the_split_cap_on_card(cuda):
+    """2,100 slots over a 2,112-row capacity: 32 splits a slot, 67,200
+    (slot, split) blocks along the grid's x.  Each slot's output is bitwise
+    the same slot launched with three others, and the first four match the
+    plain version."""
+    B, T, nq, nkv, hd, S = 2100, 1, 16, 1, 128, 2112
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((B, T, nq, hd), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, nkv, hd), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    lengths = torch.randint(1, S + 1, (B * T,), generator=g, device=cuda, dtype=torch.int32)
+    got = fa_ops.flash_decode_kernel(q, k, v, lengths)
+    for lo in (0, 1000, B - 4):
+        sl = slice(lo, lo + 4)
+        few = fa_ops.flash_decode_kernel(q[sl].contiguous(), k[sl].contiguous(), v[sl].contiguous(),
+                                         lengths[sl].contiguous())
+        assert torch.equal(few, got[sl]), lo
+    chain = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    _close(got[:4], fa_ref.flash_decode(q[:4], k[:4], v[:4], lengths[:4], chain,
+                                        torch.zeros((4,), dtype=torch.int32, device=cuda)), torch.bfloat16)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype):
@@ -315,10 +419,14 @@ def test_moe_dispatch_kernels_match_plain_on_card(cuda, dtype, T, E, k, C, d):
 @pytest.mark.parametrize("E,M,K,N", [(3, 37, 100, 130), (2, 16, 64, 256), (4, 20, 1536, 4096)])
 def test_grouped_gemm_kernel_matches_plain_on_card(cuda, dtype, E, M, K, N):
     """Ragged M, K and N (N = 130: not a whole number of vectors in bf16),
-    and the a2a down projection's K and N."""
+    and the a2a down projection's K and N.  f32 and the ragged case take the
+    CUDA-core build, the rest the tensor-core one."""
     from repro_torch.kernels.grouped_gemm import ops as gg
     from repro_torch.kernels.grouped_gemm import ref as ggr
 
+    ragged = (K, N) == (100, 130)
+    assert gg.grouped_gemm_path(dtype, K, N, True) == (
+        "cuda_cores" if dtype == torch.float32 or ragged else "tensor_cores")
     rng = np.random.default_rng(M + N)
     x = _t(rng.standard_normal((E, M, K)).astype(np.float32)).to(cuda, dtype)
     w = _t((rng.standard_normal((E, K, N)) / np.sqrt(K)).astype(np.float32)).to(cuda, dtype)
@@ -326,6 +434,27 @@ def test_grouped_gemm_kernel_matches_plain_on_card(cuda, dtype, E, M, K, N):
     torch.cuda.synchronize()
     assert got.shape == (E, M, N) and got.dtype == dtype
     _close(got, ggr.grouped_gemm(x, w), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,K,N", [(128, 16, 1536, 4096), (4, 8, 200, 328), (3, 37, 200, 328), (2, 300, 200, 328)])
+def test_grouped_gemm_tensor_core_build_on_card(cuda, E, M, K, N):
+    """The wgmma build at the a2a down projection's shape and at M 8, 37
+    and 300 (M tiles of 16, 64 and 256 rows, the last two over the grid)
+    with K and N multiples of 8 but not of 64, so TMA zero-fills the ragged
+    edges: the bf16 gate against the plain version, and a repeated launch
+    bitwise equal."""
+    from repro_torch.kernels.grouped_gemm import ops as gg
+    from repro_torch.kernels.grouped_gemm import ref as ggr
+
+    assert gg.grouped_gemm_path(torch.bfloat16, K, N, True) == "tensor_cores"
+    g = torch.Generator(device=cuda).manual_seed(M)
+    x = torch.randn((E, M, K), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=g, device=cuda) / K ** 0.5).to(torch.bfloat16)
+    got = gg.grouped_gemm(x, w)
+    assert torch.equal(got, gg.grouped_gemm(x, w))
+    torch.cuda.synchronize()
+    _close(got, ggr.grouped_gemm(x, w), torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
