@@ -31,12 +31,14 @@ weights freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
 branches are also held bitwise against their kernels on the dequantized
 buffers (``kernels_vs_plain`` rows ``*_int8``), and the f32 smoke twins
 serve int8 KV and experts too (``smoke_twin_int8``).  The redesigned rows
-1, 5, 6, 6q, 7 and 8 (the contiguous and paged decode split over chunks,
-the window decode and its int8 branch, the tensor-core prefill and
-grouped GEMM) launch twice for a bitwise repeat and record registers and
-spills; 1, 6, 6q, 7 and 8 time their yardstick in turns with the kernel;
-1 also times the wrapper's host time and its parts and the T = 1 launch; 7 and 8 count ``HGMMA`` in the built library's SASS, and 8
-records which build each case takes.
+1, 3, 5, 6, 6q, 7, 8 and 11 (the contiguous and paged decode split over
+chunks, the window decode and its int8 branch, and the tensor-core builds
+of the gather + SwiGLU, the prefill, the grouped GEMM and the SSD scan)
+launch twice for a bitwise repeat and record registers and spills; 1, 3,
+6, 6q, 7 and 8 time their yardstick in turns with the kernel; 1 also
+times the wrapper's host time and its parts and the T = 1 launch; 3, 7, 8
+and 11 count ``HGMMA`` in the built library's SASS, 8 and 11 record which
+build each case takes, and 11 its device time by phase.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -74,13 +76,14 @@ SSM = "mamba2-2.7b"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
-# the times of the designs the redesigned kernels 1, 1q, 5, 5q, 6, 6q, 7 and
-# 8 replaced (one block per token walking its whole run; f32 products on
-# CUDA cores), at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md,
-# section 6)
+# the times of the designs the redesigned kernels 1, 1q, 5, 5q, 6, 6q, 7, 8,
+# 3 and 11 replaced (one block per token, or per (batch, head), walking its
+# whole run; f32 products on CUDA cores), at the same shapes on an H100
+# 80GB HBM3 at 700 W (PERF.md, section 6; kernel 11's with bf16 x, B, C)
 PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515,
                "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
-               "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188}
+               "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
+               "ssd_scan": 1.9367}
 # and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
                       "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074}
@@ -484,12 +487,20 @@ def kernel_phase(cfg, dev):
     shapes = f"x {tuple(xp.shape)}, E {E}, C {C} ({n_occ} slots occupied, {used} experts used), d {d}, f {f}"
     nbytes = used * 2 * d * f * 2 + Tp * d * 2 + E * C * 4 + E * C * f * 2
     flops = n_occ * 4.0 * d * f
+
+    def kernel_gather():
+        return mf_ops.gather_swiglu(xp, idx, wg, wu)
+
+    ms, comp_ms, turns = in_turns(kernel_gather, composite_gather, iters=10)
     rows["gather_swiglu"] = dict(
         max_abs_err=err_g, max_abs_err_f32=err_g32,
-        ms=time_ms(lambda: mf_ops.gather_swiglu(xp, idx, wg, wu), iters=10),
+        ms=ms, composite_ms=comp_ms, ms_in_turns=turns, composite_call="index gather + torch.bmm x2 (in turns)",
+        device_ms=device_ms(kernel_gather, "gather_swiglu", n=10),
         plain_ms=time_ms(lambda: mf_ref.gather_swiglu(xp, idx, wg, wu), iters=3, reps=3),
         library_ms=None, library_call=None,
-        composite_ms=time_ms(composite_gather, iters=5, reps=3), composite_call="index gather + torch.bmm x2",
+        bitwise_repeat=bitwise_repeat("gather_swiglu", kernel_gather), previous_ms=PREVIOUS_MS["gather_swiglu"],
+        path=mf_ops.gather_swiglu_path(xp.dtype, d, f, True),
+        ptxas=ptxas("moe_fused", "gather_swiglu_tc"), sass=sass_wgmma("moe_fused"),
         shapes=shapes, bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
     nbytes = used * f * d * 2 + n_occ * f * 2 + E * C * 8 + Tp * d * 4
@@ -1200,29 +1211,36 @@ def int8_kernel_rows(cfg, dev, gen, tol):
     return rows
 
 
-def ssd_work(T, H, P, N, q, in_bytes, with_h0=False):
+def ssd_work(T, H, P, N, q, in_bytes, with_h0=False, with_cum=True):
     """(bytes, flops) one scan needs at batch 1 over chunks of ``q`` steps:
-    each input read once (x, B, C in ``in_bytes`` each, dt and the wrapper's
-    cum in f32, h0), y and the final state written once in f32; per chunk of
-    n rows, C B^T over its n (n + 1) / 2 causal pairs ONCE (it does not
-    depend on the head), and per head S @ x over the same pairs plus the
-    two N x P products (carried-in state and state update)."""
+    each input read once (x, B, C in ``in_bytes`` each, dt in f32, and with
+    ``with_cum`` the CUDA-core wrapper's cum in f32, h0), y and the final
+    state written once in f32; per chunk of n rows, C B^T over its n (n +
+    1) / 2 causal pairs ONCE (it does not depend on the head), and per head
+    S @ x over the same pairs plus the two N x P products (carried-in state
+    and state update)."""
     flops = 0.0
     for t0 in range(0, T, q):
         n = min(q, T - t0)
         pairs = n * (n + 1) / 2
         flops += 2 * pairs * N + H * (2 * pairs * P + 4 * n * N * P)
-    nbytes = (T * H * P + 2 * T * N) * in_bytes + 2 * T * H * 4 + T * H * P * 4 + H * N * P * 4 * (2 if with_h0 else 1)
+    nbytes = ((T * H * P + 2 * T * N) * in_bytes + (2 if with_cum else 1) * T * H * 4 + T * H * P * 4
+              + H * N * P * 4 * (2 if with_h0 else 1))
     return nbytes, flops
 
 
 def ssd_kernel_row(dev, gen, tol):
     """Kernel 11 at the SSM cell's admission shape (Mamba-2-2.7B: 80 heads of
     64, state 128): a 4,096-token prompt from a zero state and a ragged
-    2,100-token one from a random ``h0``, f32 and with bf16 x, B and C (the
-    bf16 model's layout), against its plain version at the model's chunk of
-    256 (the kernel walks chunks of 64: the same function summed in another
-    order, held at the f32 bound on y and on the final state)."""
+    2,100-token one from a random ``h0``, with bf16 x, B and C as views of
+    one projection (the bf16 model's layout; the tensor-core build, chunks
+    of 256) and in f32 (the CUDA-core build, chunks of 64), each against
+    its plain version at the model's chunk of 256, held at the f32 bound on
+    y and on the final state.  The row's headline is the serving path's
+    bf16 call: its time beside the replaced design's (``previous_ms``), its
+    device time by launch, its bound at the bf16 tensor rate beside the
+    chunk-state scratch, registers, spills, ``HGMMA`` count and a bitwise
+    repeat; the f32 call keeps its CUDA-core bound."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1234,11 +1252,12 @@ def ssd_kernel_row(dev, gen, tol):
     H = cfg.ssm_expand * cfg.d_model // P
     a = -torch.linspace(1.0, 16.0, H, device=dev)  # the model's init decays, -exp(A_log)
 
-    def inputs(T):
-        x = torch.randn((1, T, H, P), generator=gen, device=dev) * 0.5
+    def inputs(T, dtype):
+        """x, B and C as views of one (1, T, H P + 2 N) projection, as the
+        model passes them."""
+        proj = (torch.randn((1, T, H * P + 2 * N), generator=gen, device=dev) * 0.5).to(dtype)
         dt = torch.nn.functional.softplus(torch.randn((1, T, H), generator=gen, device=dev) - 1.0)
-        bm, cm = (torch.randn((1, T, N), generator=gen, device=dev) * 0.3 for _ in range(2))
-        return x, dt, a, bm, cm
+        return proj[..., :H * P].reshape(1, T, H, P), dt, a, proj[..., H * P:H * P + N], proj[..., H * P + N:]
 
     def check(tag, args, h0=None):
         y, h = ssd_ops.ssd_scan(*args, Q, h0=h0)
@@ -1246,31 +1265,59 @@ def ssd_kernel_row(dev, gen, tol):
         return max(check_close(f"ssd_scan y {tag}", y, yr, tol["f32"]),
                    check_close(f"ssd_scan state {tag}", h, hr, tol["f32"]))
 
-    ragged = inputs(2100)
-    err_ragged = check("T=2100 from h0", ragged, torch.randn((1, H, N, P), generator=gen, device=dev))
-    del ragged
-    args = inputs(H_PROMPT)
-    err = check(f"T={H_PROMPT}", args)
-    x, dt, _, bm, cm = args
-    args16 = (x.to(torch.bfloat16), dt, a, bm.to(torch.bfloat16), cm.to(torch.bfloat16))
-    err_bf16 = check(f"T={H_PROMPT} bf16 inputs", args16)
-    q = min(Q, H_PROMPT, ssd_ops.QMAX)
-    nbytes, flops = ssd_work(H_PROMPT, H, P, N, q, 4)
+    def path(args):
+        x, _, _, bm, cm = args
+        return ssd_ops.ssd_scan_path(x.dtype, N, P, ssd_ops.tma_ready(x, bm, cm))
+
+    errs, paths = {}, {}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ragged = inputs(2100, dtype)
+        paths[f"T=2100 {tag}"] = path(ragged)
+        errs[f"T=2100 from h0 {tag}"] = check(f"T=2100 from h0 {tag}", ragged,
+                                              torch.randn((1, H, N, P), generator=gen, device=dev))
+        del ragged
+    args16 = inputs(H_PROMPT, torch.bfloat16)
+    args = (args16[0].float(), args16[1], a, args16[3].float(), args16[4].float())
+    paths[f"T={H_PROMPT} bf16"], paths[f"T={H_PROMPT} f32"] = path(args16), path(args)
+    if paths[f"T={H_PROMPT} bf16"] != "tensor_cores" or paths[f"T={H_PROMPT} f32"] != "cuda_cores":
+        raise AssertionError(f"ssd_scan: builds taken {paths}")
+    err32 = check(f"T={H_PROMPT} f32", args)
+    err = check(f"T={H_PROMPT} bf16 inputs", args16)
+
+    def kernel():
+        return ssd_ops.ssd_scan(*args16, Q)
+
+    nbytes, flops = ssd_work(H_PROMPT, H, P, N, Q, 2, with_cum=False)
+    q32 = min(Q, H_PROMPT, ssd_ops.QMAX)
+    nbytes32, flops32 = ssd_work(H_PROMPT, H, P, N, q32, 4)
+    nc = -(-H_PROMPT // ssd_ops.TC_CHUNK)
+    scratch = dict(chunk_states_f32=nc * H * N * P * 4, entering_states_bf16_hi_lo=nc * H * N * P * 4,
+                   cum_dt_decay_f32=nc * H * (2 * ssd_ops.TC_CHUNK + 1) * 4)
     row = dict(
-        max_abs_err=err, max_abs_err_ragged_h0=err_ragged, max_abs_err_bf16_inputs=err_bf16,
-        ms=time_ms(lambda: ssd_ops.ssd_scan(*args, Q), iters=10),
-        ms_bf16_inputs=time_ms(lambda: ssd_ops.ssd_scan(*args16, Q), iters=10),
-        plain_ms=time_ms(lambda: ssd_ref.ssd_chunked(*args, Q), iters=2, reps=3),
+        max_abs_err=err, max_abs_err_f32=err32, max_abs_err_ragged_h0=errs,
+        ms=time_ms(kernel, iters=10), previous_ms=PREVIOUS_MS["ssd_scan"],
+        device_ms=device_ms(kernel, "", n=10),
+        device_ms_by_phase={ph: device_ms(kernel, ph, n=10) for ph in ("chunk_state", "state_pass", "chunk_scan")},
+        ms_f32=time_ms(lambda: ssd_ops.ssd_scan(*args, Q), iters=10),
+        plain_ms=time_ms(lambda: ssd_ref.ssd_chunked(*args16, Q), iters=2, reps=3),
         library_ms=None,
         library_call="none: no PyTorch call computes a selective (input-dependent decay) state-space scan",
-        kernel_chunk=q, model_chunk=Q,
-        shapes=f"x {tuple(x.shape)} f32, dt (1, {H_PROMPT}, {H}), B and C (1, {H_PROMPT}, {N}), zero state; "
-               f"also T = 2100 from a random h0, and bf16 x, B, C; ms includes the wrapper's chunk cumsum",
-        bytes=nbytes, flops=flops, flops_count="C B^T once per chunk, causal pairs only, kernel chunk",
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))),
+        bitwise_repeat=bitwise_repeat("ssd_scan", lambda: torch.cat([t.reshape(-1) for t in kernel()])),
+        paths=paths, kernel_chunk=ssd_ops.TC_CHUNK, kernel_chunk_f32=q32, model_chunk=Q,
+        ptxas=ptxas("ssd_scan", "chunk_state", "state_pass", "chunk_scan"), sass=sass_wgmma("ssd_scan"),
+        scratch_bytes=scratch,
+        scratch_traffic_bytes=4 * nc * H * N * P * 4,
+        scratch_traffic="chunk states written by (i) and read by (ii), entering states written by (ii) and read "
+                        "by (iii), each once (the reads of (iii)'s four row tiles beyond the first counted as L2 hits)",
+        shapes=f"x {tuple(args16[0].shape)} bf16 (a view of the (1, {H_PROMPT}, {H * P + 2 * N}) projection), dt "
+               f"(1, {H_PROMPT}, {H}) f32, B and C (1, {H_PROMPT}, {N}) views, zero state; also T = 2100 from a "
+               f"random h0, and f32 x, B, C (ms_f32)",
+        bytes=nbytes, flops=flops, flops_count="C B^T once per chunk, causal pairs only, chunk 256",
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        bytes_f32=nbytes32, flops_f32=flops32, flops_f32_count="the CUDA-core build's chunk of 64, f32 CUDA cores",
+        **dict(zip(("bound_ms_f32", "bound_by_f32"), bound(nbytes32, flops32, F32_FLOPS))),
     )
-    row["flops_model_chunk_full_square"] = H_PROMPT // Q * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * N * P))
-    del args, args16, x, dt, bm, cm
+    del args, args16
     torch.cuda.empty_cache()
     return row
 

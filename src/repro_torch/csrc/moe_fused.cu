@@ -17,10 +17,41 @@
 // What bounds them on the card: at an admission prefill (128 tokens, 128
 // experts, top-8: C = 16 slots per expert) each expert's weights are used by
 // at most C rows, ~16 FLOPs per weight byte, so the weight bytes of the
-// experts the plan occupies bound both launches; FLOPs would bound only at
-// C in the hundreds.
+// experts the plan occupies bound both launches (gather_swiglu: 128 x 2 x
+// 4096 x 1536 bf16 = 3.22 GB, 0.96 ms at 3.35 TB/s); FLOPs would bound only
+// at C in the hundreds.
 //
-// What the design does about it:
+// gather_swiglu has two builds, chosen by the wrapper from dtype, d, f and
+// alignment alone (ops.gather_swiglu_path):
+//
+// Tensor cores (bf16, d and f multiples of 8, 16-byte-aligned bases).  The
+// CUDA-core build below reaches 24 % of the byte bound: f32 FMAs, weights
+// as scalar 2-byte loads widened into f32 tiles, two __syncthreads a
+// 32-deep K step with no load in flight during the FMAs.  This build is
+// grouped_gemm.cu's tensor-core build with the gather as its prologue and
+// two products:
+//  * gate^T = Wg[e]^T . x[idx]^T and up^T = Wu[e]^T . x[idx]^T: the weight
+//    tile is wgmma's A, 64 output columns read MN-major from shared memory
+//    (W is (d, f) row-major), and the block's gathered slots are the N
+//    operand, K-major: 16 wide (m64n16k16) at C <= 16, the 128-token
+//    admission, and 64 (m64n64k16) above it, tiled over the grid.  No
+//    tensor-core work is padded to 64 slots.
+//  * One producer warp keeps a ring of 4 stages full: lane 0 brings 64 K
+//    rows of the block's 128 columns of both Wg and Wu by TMA (32 KB), and
+//    the warp gathers the slots' 64-element x row pieces with 16-byte
+//    cp.async copies straight to the 128-byte-swizzled addresses the B
+//    descriptor reads (an empty slot, index T, and K past d copy zeros).
+//    A stage is complete when its TMA bytes have landed and every lane has
+//    arrived after its copies of that stage are done (cp.async.wait_group,
+//    two stages behind, then a proxy fence).  128 columns a block: 92.5 %
+//    of the byte bound on the card, against 88.5 % at 64 (PERF.md, §6).
+//  * Two f32 accumulator sets, gate and up; SwiGLU in f32, and h written
+//    once in bf16 through shared memory, 16-byte row pieces.
+//  * A block whose slots are all empty writes zeros and reads no weights.
+//  * Fixed-order sums, no atomics: a repeated launch is bitwise equal.
+//
+// CUDA cores (f32, and bf16 at any other shape; down_combine always; the
+// first versions, kept as they were):
 //  * One block per (expert, 16-slot block, 64-column tile).  The block loads
 //    its slots' token indices itself and gathers those x rows tile by tile
 //    straight into shared memory (the gather is the GEMM prologue).
@@ -40,9 +71,8 @@
 //    (E, C, d) tensor the TPU kernel kept out of HBM: at a 128-token
 //    admission (E 128, C 16, d 4096) ~34 MB written and read once more,
 //    ~20 us at the card's rate, against the ~3 ms the down GEMM takes here.
-// The tile products run on CUDA cores in f32 (simple and right first;
-// wgmma/TMA come in a later PR).
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -219,6 +249,206 @@ __global__ void __launch_bounds__(CB_THREADS) combine_rows_kernel(
   if (col < d) out[(long)t * d + col] = acc;
 }
 
+
+// ---------------------------------------------------------------------------
+// gather_swiglu on tensor cores: wgmma on bf16 tiles, weights by TMA, the
+// slots' x rows by cp.async
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int BK = 64;                   // K rows a stage: one 128-byte row piece of x
+constexpr int STAGES = 4;
+constexpr int LAG = 2;                   // stages by which the gather's publication trails its copies
+constexpr int CONSUMERS = 128;           // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int BOX = BK * 128;            // bytes of a (64 K rows x 64 columns) box of Wg or Wu
+constexpr int NT = 2;                    // 64-column boxes of each of Wg and Wu a block
+constexpr int BN = 64 * NT;              // output columns a block
+
+// shared memory: STAGES x (NT boxes of Wg, NT of Wu, the BM x 64 x tile),
+// then the full and empty mbarriers of each stage; the base is aligned to
+// 1,024 bytes (the 128-byte swizzle's period) by hand
+template <int BM>
+struct Tile {
+  static constexpr int STAGE = 2 * NT * BOX + BM * 128;
+  static constexpr int BAR = STAGES * STAGE;
+  static constexpr int BYTES = BAR + 2 * STAGES * 8 + 1024;
+  static constexpr int YS = BN + 8;  // row stride of the output tile (bf16), 16-byte rows
+  static_assert(BM * YS * 2 <= STAGE, "the output tile reuses stage 0");
+};
+
+template <int BM>
+__device__ __forceinline__ void wgmma_tn(float (&d)[BM / 2], uint64_t da, uint64_t db) {
+  if constexpr (BM == 16) sm90::wgmma_tn_m64n16k16(d, da, db);
+  else sm90::wgmma_tn_m64n64k16(d, da, db);
+}
+
+// One block per (BN-column tile, BM-slot tile, expert).
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1) gather_swiglu_tc_kernel(
+    const __grid_constant__ CUtensorMap tg,  // Wg as (f, d, E): boxes of (64, BK, 1)
+    const __grid_constant__ CUtensorMap tu,  // Wu the same
+    const __nv_bfloat16* __restrict__ x,     // (T, d)
+    const int* __restrict__ flat_idx,        // (E*C,)
+    __nv_bfloat16* __restrict__ h,           // (E, C, f)
+    int Tn, int C, int d, int f) {
+  using L = Tile<BM>;
+  constexpr int NA = BM / 2;  // accumulator registers a thread, each of gate and up
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int tok_s[BM];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN, c0 = blockIdx.y * BM, e = blockIdx.z;
+  const int nk = (d + BK - 1) / BK;
+  // the block's slots: a token row, or Tn for an empty slot and past C
+  bool occupied = false;
+  if (tid < BM) {
+    const int c = c0 + tid;
+    const int tok = c < C ? flat_idx[(long)e * C + c] : Tn;
+    tok_s[tid] = tok;
+    occupied = tok < Tn;
+  }
+  if (!__syncthreads_or(occupied)) {  // every slot empty: zeros, and no weight is read
+    for (int i = tid; i < BM * (BN / 8); i += THREADS) {
+      const int r = i / (BN / 8), c = c0 + r, n = n0 + (i % (BN / 8)) * 8;
+      if (c < C && n < f) *reinterpret_cast<uint4*>(h + ((long)e * C + c) * f + n) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full + 8 * s, 1 + 32);           // lane 0's expect_tx, then every producer lane
+      sm90::mbar_init(empty + 8 * s, CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp
+    const int lane = tid - CONSUMERS;
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % STAGES;
+      if (it >= STAGES) sm90::mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
+      const uint32_t st = base + s * L::STAGE;
+      if (lane == 0) {
+        sm90::mbar_expect_tx(full + 8 * s, 2 * NT * BOX);
+        for (int j = 0; j < NT; ++j) {
+          sm90::tma_load_3d(st + j * BOX, &tg, full + 8 * s, n0 + 64 * j, it * BK, e);
+          sm90::tma_load_3d(st + (NT + j) * BOX, &tu, full + 8 * s, n0 + 64 * j, it * BK, e);
+        }
+      }
+      // the gather: 16-byte piece j of slot r's row lands at chunk j ^ (r % 8)
+      for (int i = lane; i < BM * 8; i += 32) {
+        const int r = i >> 3, j = i & 7;
+        const int tok = tok_s[r], k = it * BK + 8 * j;
+        const bool in = tok < Tn && k < d;  // d is a multiple of 8: a piece is all in or all out
+        sm90::cp_async16(st + 2 * NT * BOX + r * 128 + ((j ^ (r & 7)) << 4), in ? x + (long)tok * d + k : x,
+                         in ? 16 : 0);
+      }
+      sm90::cp_async_commit();
+      if (it >= LAG) {  // stage it - LAG's copies have landed: publish them to the consumers
+        sm90::cp_async_wait<LAG>();
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(full + 8 * ((it - LAG) % STAGES));
+      }
+    }
+    sm90::cp_async_wait<0>();
+    sm90::fence_proxy_async();
+    for (int it = max(nk - LAG, 0); it < nk; ++it) sm90::mbar_arrive(full + 8 * (it % STAGES));
+    return;
+  }
+
+  // the consumer warpgroup: g[j] / u[j] hold gate^T / up^T: output columns
+  // n0 + 64 j .. + 63 by BM slots
+  const int warp = tid >> 5, lane = tid & 31;
+  float g[NT][NA], u[NT][NA];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) g[j][i] = u[j][i] = 0.f;
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % STAGES;
+    sm90::mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    const uint32_t st = base + s * L::STAGE, sx = st + 2 * NT * BOX;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      sm90::fence_operands(g[j]);
+      sm90::fence_operands(u[j]);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // step kk: K rows 16 kk .. 16 kk + 15 of the boxes (2,048 bytes on), bytes 32 kk of x's rows
+      const uint64_t dx = sm90::desc_kmajor(sx + kk * 32);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        wgmma_tn<BM>(g[j], sm90::desc_mnmajor(st + j * BOX + kk * 16 * 128, BOX), dx);
+        wgmma_tn<BM>(u[j], sm90::desc_mnmajor(st + (NT + j) * BOX + kk * 16 * 128, BOX), dx);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      sm90::fence_operands(g[j]);
+      sm90::fence_operands(u[j]);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + 8 * s);
+  }
+
+  // epilogue: g[j][4 c + 2 i + hh] is output column n0 + 64 j + 16 warp +
+  // lane / 4 + 8 i, slot c0 + 8 c + 2 (lane % 4) + hh; silu(g) u staged as
+  // (BM, BN) bf16 in stage 0 (every load has landed and every wgmma is done once all
+  // four warps pass the barrier), then stored a 16-byte row piece a thread
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem_raw + (base - sm90::smem_u32(smem_raw)));
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < BM / 8; ++c)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int col = 64 * j + 16 * warp + (lane >> 2) + 8 * i, row = 8 * c + 2 * (lane & 3) + hh;
+          const int a = 4 * c + 2 * i + hh;
+          ys[row * L::YS + col] = __float2bfloat16(silu_f32(g[j][a]) * u[j][a]);
+        }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  for (int i = tid; i < BM * (BN / 8); i += CONSUMERS) {
+    const int r = i / (BN / 8), c8 = (i - r * (BN / 8)) * 8;
+    const int c = c0 + r, n = n0 + c8;
+    if (c < C && n < f)  // f is a multiple of 8: a piece is all in or all out
+      *reinterpret_cast<uint4*>(h + ((long)e * C + c) * f + n) = *reinterpret_cast<const uint4*>(ys + r * L::YS + c8);
+  }
+}
+
+template <int BM>
+int launch(const void* x, const void* flat_idx, const void* wg, const void* wu, void* h, int Tn, int E, int C,
+           int d, int f, cudaStream_t stream) {
+  using L = Tile<BM>;
+  const cuuint64_t b = sizeof(__nv_bfloat16);
+  const cuuint64_t wdims[3] = {(cuuint64_t)f, (cuuint64_t)d, (cuuint64_t)E};
+  const cuuint64_t wstr[2] = {f * b, (cuuint64_t)d * f * b};
+  const cuuint32_t wbox[3] = {64, BK, 1};
+  CUtensorMap tg, tu;
+  if (!sm90::bf16_tensor_map(&tg, wg, 3, wdims, wstr, wbox) || !sm90::bf16_tensor_map(&tu, wu, 3, wdims, wstr, wbox))
+    return (int)cudaErrorInvalidValue;
+  // the opt-in above 48 KB, once a process (the port drives one card a process)
+  static const cudaError_t opted =
+      cudaFuncSetAttribute(gather_swiglu_tc_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (opted != cudaSuccess) return (int)opted;
+  const dim3 grid((f + BN - 1) / BN, (C + BM - 1) / BM, E);
+  gather_swiglu_tc_kernel<BM><<<grid, THREADS, L::BYTES, stream>>>(
+      tg, tu, (const __nv_bfloat16*)x, (const int*)flat_idx, (__nv_bfloat16*)h, Tn, C, d, f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" int repro_gather_swiglu(int dtype, const void* x, const void* flat_idx, const void* wg, const void* wu,
@@ -229,6 +459,17 @@ extern "C" int repro_gather_swiglu(int dtype, const void* x, const void* flat_id
         (const Tp*)x, (const int*)flat_idx, (const Tp*)wg, (const Tp*)wu, (Tp*)h, Tn, C, d, f);
   });
   return (int)cudaGetLastError();
+}
+
+// The tensor-core build: bf16 x (T, d), Wg and Wu (E, d, f), h (E, C, f),
+// all contiguous with 16-byte-aligned bases, d and f multiples of 8.
+extern "C" int repro_gather_swiglu_tc(const void* x, const void* flat_idx, const void* wg, const void* wu, void* h,
+                                      int Tn, int E, int C, int d, int f, void* stream) {
+  if (E <= 0 || C <= 0 || f <= 0) return 0;
+  if (d <= 0 || d % 8 != 0 || f % 8 != 0 || E > 65535) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C <= 16) return tc::launch<16>(x, flat_idx, wg, wu, h, Tn, E, C, d, f, s);
+  return tc::launch<64>(x, flat_idx, wg, wu, h, Tn, E, C, d, f, s);
 }
 
 // rows_scratch: (E*C, d) f32, its contents on entry unused; out (T, d) f32,

@@ -2,22 +2,81 @@
 //
 // Replaces: src/repro/kernels/ssd_scan/kernel.py, ssd_scan_pallas (kernel
 // _ssd_kernel).  Per head h with an (N, P) f32 state, over chunks of q steps
-// whose inclusive cumsum of dt * a is `cum` (computed by the wrapper):
+// whose inclusive cumsum of dt * a is `cum`:
 //
 //   S = (C B^T) o causal(exp(cum_i - cum_j)) o dt_j            (q x q)
 //   y = S @ x + (C o exp(cum)) @ h                              (q x P)
 //   h = exp(cum_last) h + (B o exp(cum_last - cum) dt)^T @ x    (N x P)
 //
 // Inputs: x (B, T, H, P) read through its batch and time strides (head
-// stride P, unit inner stride), dt and cum (B, T, H) f32, B and C (B, T, N)
-// through their strides, h0 (B, H, N, P) f32 or null.  x, B and C are f32 or
-// bf16 and are widened to f32 as they are staged.  Outputs: y (B, T, H, P)
-// f32 and the final state (B, H, N, P) f32, as the TPU kernel returns them.
+// stride P, unit inner stride), dt (B, T, H) f32, B and C (B, T, N) through
+// their strides, h0 (B, H, N, P) f32 or null.  Outputs: y (B, T, H, P) f32
+// and the final state (B, H, N, P) f32, as the TPU kernel returns them.
 //
-// What bounds it on the card: operations.  Per chunk and head the three
-// products cost 2 q^2 P (causal half of it needed) + 4 q N P flops against
-// q (P + 2 N) input values, hundreds of flops per byte, in f32 on the CUDA
-// cores (67 TFLOP/s).
+// Two builds, chosen by the wrapper from dtype, shape and alignment alone
+// (ops.ssd_scan_path):
+//
+// Tensor cores (bf16 x, B and C; P 64, N 128; 16-byte-aligned bases and
+// strides, what TMA needs: the serving path, where x, B and C are views of
+// the conv output).  What bounds it: bytes.  At Mamba-2-2.7B's 4,096-token
+// admission the inputs and outputs are 133 MB (0.040 ms at 3.35 TB/s) and
+// the products 16 GFLOP at chunk 256 (0.016 ms at the bf16 tensor rate).
+// The CUDA-core build below reaches neither: 80 blocks for 132 SMs, f32
+// products paced by shared-memory reads, chunks of 64, no load in flight
+// during the products, and C B^T recomputed for each of the 80 heads.
+// This build splits the scan over chunks of Q = 256 (the model's own
+// chunk, so the chunking is the plain version's at the model's chunk) in
+// three launches, as Mamba-2's own GPU kernels do:
+//  (i)   chunk states, one block per (chunk, 10 heads): the chunk's cumsum
+//        of dt * a (a fixed-order scan in the block, in f64: |cum| reaches
+//        thousands over 256 steps, where an f32 parallel scan's rounding
+//        reaches the 1e-4 gate on the state; the wrapper launches nothing
+//        else), and s_c^T = (w o x)^T B with w = exp(cum_last - cum) dt,
+//        for each head, into an f32 scratch (B, nc, H, N, P).
+//  (ii)  state passing, one thread per 4 state elements of a (batch, head):
+//        h_c = exp(cum_last,c) h_{c-1} + s_c in chunk order from h0; the
+//        state entering each chunk is stored for (iii), the last is the
+//        final state.
+//  (iii) chunk outputs, one block per (64-row tile i, chunk, 8 heads):
+//        y_i = exp(cum_i) (C_i h_{c-1}) + sum over j <= i of
+//        (C_i B_j^T o exp(cum_i - cum_j) dt_j) x_j.  C_i B_j^T does not
+//        depend on the head: the block computes it once, keeps it in f32
+//        in shared memory over B_j's tile, and runs its heads over it.
+//        Off the diagonal tile the decay is a factor per row times one per
+//        column, exp(cum_i - cum_r) exp(cum_r - cum_j) at the tile's first
+//        row r (both exponents <= 0); on it the exponential is whole.
+// At T 4,096 that is 128, 640 and 640 blocks where the CUDA-core build has
+// 80.  The chunk-state scratch is nc H N P f32 (42 MB at T 4,096), written
+// by (i), read by (ii), which writes the entering states (42 MB) that
+// (iii) reads: ~0.17 GB of traffic, the price of the parallel split; at
+// chunk 64 it would be four times that.
+//  * Products on wgmma (bf16 in, f32 accumulators).  C B^T has bf16
+//    operands: exact products.  The other three multiply a bf16 input by an
+//    f32 value (S, the state h, w o x); each f32 operand is carried as hi =
+//    bf16(v) and lo = bf16(v - hi), both products into the same
+//    accumulator: v to ~2^-17 of itself, for twice the tensor work.  bf16
+//    operands alone would carry a 2^-9 relative error into y, above the
+//    1e-4 gate (tests/test_torch_cuda_builds.py builds this file with the
+//    lo halves zeroed and counts the misses).  S and w o x enter as the
+//    register A operand; h is stored by (ii) as hi and lo bf16 planes that
+//    TMA brings to (iii) as the MN-major B operand; the row scale
+//    exp(cum_i) is applied to C h afterwards, in f32.
+//  * Loads by TMA from one producer warp: x, B and C through their strides
+//    as 64 x 64 boxes, 128-byte swizzled, rows past T as zeros.  (i) and
+//    (iii) run two consumer warpgroups on alternate heads, each with its
+//    own stage of a two-stage ring, so one head's tiles load while the
+//    other warpgroup computes.
+//  * Above the diagonal the exponent is clamped to <= 0 and the product
+//    dropped, by a select (no branch, no inf); rows past T have dt = 0 and
+//    repeat the last cum, so they add nothing and every other exponent
+//    stays <= 0.  Every sum runs in a fixed order, without atomics: a
+//    repeated launch is bitwise equal.
+//
+// CUDA cores (f32 x, B and C, and bf16 at any other shape; the first
+// version, kept as it was; the wrapper computes `cum`).  What bounds it:
+// operations.  Per chunk and head the three products cost 2 q^2 P (causal
+// half of it needed) + 4 q N P flops against q (P + 2 N) input values,
+// hundreds of flops per byte, in f32 on the CUDA cores (67 TFLOP/s).
 //
 // What the design does about it:
 //  * One block per (b, h) walks the chunks in order and keeps the state in
@@ -41,10 +100,9 @@
 //    dt = 0, so they add nothing to the state, and their y is not written.
 //  * C B^T does not depend on the head (one B/C group); each block computes
 //    it again, as the TPU kernel does.
-// At B = 1 Mamba-2-2.7B gives 80 blocks for 132 SMs; splitting the chunks
-// over blocks (chunk states in parallel, then a short pass over them) and
-// tensor-core products are later steps.
+// At B = 1 Mamba-2-2.7B gives 80 blocks for 132 SMs.
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -267,6 +325,498 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// tensor cores: chunk states, state passing, chunk outputs; wgmma fed by TMA
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int Q = 256;                   // rows of a chunk
+constexpr int NS = 128;                  // state size N
+constexpr int PD = 64;                   // head dim P
+constexpr int NP = NS * PD;              // elements of a state
+constexpr int RB = 64;                   // rows of a row tile (one wgmma M tile)
+constexpr int NRB = Q / RB;              // row tiles a chunk
+constexpr int BOX = RB * 128;            // a box of 64 rows x 64 bf16: 8 KB
+constexpr int RBLK = 2 * BOX;            // a row tile of B or C (N 128: two boxes side by side)
+constexpr int HALF = NS * 128;           // one bf16 plane of a state: N rows of 64 bf16
+constexpr int WG = 128;                  // threads of a warpgroup
+constexpr int CONSUMERS = 2 * WG;        // two consumer warpgroups, alternate heads
+constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
+constexpr int HG1 = 10;                  // heads a chunk-state block
+constexpr int HG3 = 8;                   // heads a chunk-output block
+
+// (v0, v1) as hi = bf16(v) and lo = bf16(v - hi), each pair packed as a
+// wgmma A register (or a 4-byte store): v is carried to ~2^-17 of itself
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// byte offset of bf16 element (row, col < 64) in a tile of 128-byte rows that
+// TMA wrote with the 128-byte swizzle from a 1,024-byte-aligned base
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + ((col & 7) << 1);
+}
+
+__device__ __forceinline__ float bf16_at(const unsigned char* p) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory"); }
+// the 128 threads of consumer warpgroup w alone
+__device__ __forceinline__ void wg_sync(int w) { asm volatile("bar.sync %0, %1;\n" ::"r"(2 + w), "n"(WG) : "memory"); }
+
+// (i) shared memory: B's rows of the chunk (4 row tiles), two x stages (a
+// head's 4 boxes; warpgroup w takes stage w), w of each head, the warps'
+// scan totals and the heads' last cums, and the barriers (B, full[2],
+// empty[2]); every TMA region 1,024-aligned
+struct StateSmem {
+  static constexpr int B_OFF = 0;
+  static constexpr int X_OFF = NRB * RBLK;
+  static constexpr int X_STAGE = NRB * BOX;
+  static constexpr int W_OFF = X_OFF + 2 * X_STAGE;
+  static constexpr int TOT_OFF = W_OFF + HG1 * Q * 4;
+  static constexpr int BAR_OFF = (TOT_OFF + (CONSUMERS / 32 + 1) * HG1 * 8 + 15) / 16 * 16;
+  static constexpr int BYTES = BAR_OFF + 5 * 8 + 1024;
+};
+
+// (i) chunk states: one block per (chunk, HG1 heads, batch)
+__global__ void __launch_bounds__(THREADS, 1) chunk_state_kernel(
+    const __grid_constant__ CUtensorMap tx,  // x as (P, H, T, B): boxes of (64, 1, 64, 1)
+    const __grid_constant__ CUtensorMap tb,  // B as (N, T, B): boxes of (64, 64, 1)
+    const float* __restrict__ dt,            // (B, T, H)
+    const float* __restrict__ a,             // (H,)
+    float* __restrict__ s_out,               // (B, nc, H, N, P): each chunk's own state
+    float* __restrict__ cd,                  // (B, nc, H, 2, Q): cum, then dt (0 past T)
+    float* __restrict__ decay,               // (B, nc, H): exp(cum_last)
+    int Tn, int H, int nc) {
+  using L = StateSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gb = smem_raw + (base - sm90::smem_u32(smem_raw));
+  const uint32_t bar_b = base + L::BAR_OFF, full = bar_b + 8, empty = full + 16;
+  const int c = blockIdx.x, h_first = blockIdx.y * HG1, b = blockIdx.z;
+  const int nh = min(HG1, H - h_first);
+  const int t0 = c * Q, nv = min(Q, Tn - t0);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(bar_b, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, WG / 32);  // one arrival per warp of the stage's warpgroup
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane starts every load
+    if (tid == CONSUMERS) {
+      sm90::mbar_expect_tx(bar_b, NRB * RBLK);
+      for (int r = 0; r < NRB; ++r)
+        for (int cb = 0; cb < 2; ++cb)
+          sm90::tma_load_3d(base + L::B_OFF + r * RBLK + cb * BOX, &tb, bar_b, 64 * cb, t0 + RB * r, b);
+      for (int k = 0; k < nh; ++k) {
+        const int s = k & 1;
+        if (k >= 2) sm90::mbar_wait(empty + 8 * s, ((k >> 1) - 1) & 1);
+        const uint32_t st = base + L::X_OFF + s * L::X_STAGE;
+        sm90::mbar_expect_tx(full + 8 * s, L::X_STAGE);
+        for (int r = 0; r < NRB; ++r)
+          sm90::tma_load_4d(st + r * BOX, &tx, full + 8 * s, 0, h_first + k, t0 + RB * r, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  float* sw = reinterpret_cast<float*>(gb + L::W_OFF);      // [HG1][Q]: w of each head
+  double* tot = reinterpret_cast<double*>(gb + L::TOT_OFF);  // [8][HG1] warp totals, then [HG1] last cums
+  // every head's inclusive cumsum of dt * a over the chunk, row tid here,
+  // in f64: a warp scan, then the earlier warps' totals in order (the
+  // heads' scans are independent chains).  |cum| reaches thousands over 256
+  // steps; an f32 parallel scan's rounding there carries ~2e-4 of the scale
+  // into the state through w and the decays.  The exponents last - cum are
+  // taken before rounding to f32.
+  constexpr int NW = CONSUMERS / 32;
+  float dv[HG1];
+  double cum[HG1];
+#pragma unroll
+  for (int k = 0; k < HG1; ++k) {
+    const int hh = min(h_first + k, H - 1);
+    dv[k] = tid < nv ? dt[((long)b * Tn + t0 + tid) * H + hh] : 0.f;
+    double inc = (double)dv[k] * (double)a[hh];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double n = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += n;
+    }
+    if (lane == 31) tot[warp * HG1 + k] = inc;
+    cum[k] = inc;  // the warp's part; the earlier warps' totals follow
+  }
+  consumers_sync();
+#pragma unroll
+  for (int k = 0; k < HG1; ++k) {
+    double pre = 0.0;
+    for (int w = 0; w < warp; ++w) pre += tot[w * HG1 + k];
+    cum[k] = pre + cum[k];
+    if (tid == nv - 1) tot[NW * HG1 + k] = cum[k];
+  }
+  consumers_sync();
+#pragma unroll
+  for (int k = 0; k < HG1; ++k) {
+    if (k >= nh) break;
+    const long u = ((long)b * nc + c) * H + h_first + k;
+    const double last = tot[NW * HG1 + k];
+    if (tid >= nv) cum[k] = last;  // rows past T repeat the last cum
+    sw[k * Q + tid] = expf((float)(last - cum[k])) * dv[k];
+    float* cdu = cd + u * 2 * Q;
+    cdu[tid] = (float)cum[k];
+    cdu[Q + tid] = dv[k];
+    if (tid == 0) decay[u] = expf((float)last);
+  }
+  consumers_sync();  // every head's w is written
+  sm90::mbar_wait(bar_b, 0);
+
+  // warpgroup w takes heads w, w + 2, ... from stage w
+  const int w = tid / WG, wt = tid % WG;
+  const int prow = 16 * (wt >> 5) + (lane >> 2), jq = 2 * (lane & 3);
+  for (int k = w; k < nh; k += 2) {
+    const long u = ((long)b * nc + c) * H + h_first + k;
+    const float* wk = sw + k * Q;
+    // s_c^T (P x N) = (w o x)^T (P x Q) . B (Q x N): A from registers, hi and
+    // lo halves; A's element (p, j) of k-step kq is register 4 kq + q, p =
+    // prow + 8 (q & 1), j = 16 kq + 8 (q >> 1) + jq (+1 in the high half)
+    sm90::mbar_wait(full + 8 * w, (k >> 1) & 1);
+    const unsigned char* xs = gb + L::X_OFF + w * L::X_STAGE;
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < NRB; ++r) {  // 64 rows of the chunk (one x box) a round: 4 k-steps
+      uint32_t ah4[16], al4[16];
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int p = prow + 8 * (q & 1), jl = 16 * kq + 8 * (q >> 1) + jq;
+          const float x0 = bf16_at(xs + r * BOX + swz(jl, p)), x1 = bf16_at(xs + r * BOX + swz(jl + 1, p));
+          split2(wk[RB * r + jl] * x0, wk[RB * r + jl + 1] * x1, ah4[4 * kq + q], al4[4 * kq + q]);
+        }
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        // B's rows 64 r + 16 kq .. + 15, MN-major: its two 64-column boxes BOX apart
+        const uint64_t db = sm90::desc_mnmajor(base + L::B_OFF + r * RBLK + kq * 16 * 128, BOX);
+        const uint32_t hi[4] = {ah4[4 * kq], ah4[4 * kq + 1], ah4[4 * kq + 2], ah4[4 * kq + 3]};
+        const uint32_t lo[4] = {al4[4 * kq], al4[4 * kq + 1], al4[4 * kq + 2], al4[4 * kq + 3]};
+        sm90::wgmma_rs_m64n128k16(acc, hi, db);
+        sm90::wgmma_rs_m64n128k16(acc, lo, db);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + 8 * w);
+    // acc[4 jj + 2 i + e] is row p = prow + 8 i, column n = 8 jj + jq + e of s_c^T
+    float* so = s_out + u * NP;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) so[(8 * jj + jq + e) * PD + prow + 8 * i] = acc[4 * jj + 2 * i + e];
+  }
+}
+
+// (ii) state passing: a thread owns 4 elements of one (batch, head)'s state
+// and walks the chunks in order
+__global__ void __launch_bounds__(256) state_pass_kernel(
+    const float* __restrict__ s_in,      // (B, nc, H, N, P)
+    const float* __restrict__ decay,     // (B, nc, H)
+    const float* __restrict__ h0,        // (B, H, N, P) or null
+    __nv_bfloat16* __restrict__ states,  // (B, nc, H, 2, N, P): the entering state's hi and lo planes
+    float* __restrict__ h_out,           // (B, H, N, P)
+    int H, int nc) {
+  const int e4 = blockIdx.x * 256 + threadIdx.x;
+  const int hh = blockIdx.y, b = blockIdx.z;
+  const long bh = (long)b * H + hh;
+  float4 h = h0 ? reinterpret_cast<const float4*>(h0 + bh * NP)[e4] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int c = 0; c < nc; ++c) {
+    const long u = ((long)b * nc + c) * H + hh;
+    uint2 hi, lo;
+    split2(h.x, h.y, hi.x, lo.x);
+    split2(h.z, h.w, hi.y, lo.y);
+    reinterpret_cast<uint2*>(states + u * 2 * NP)[e4] = hi;
+    reinterpret_cast<uint2*>(states + u * 2 * NP + NP)[e4] = lo;
+    const float4 sv = reinterpret_cast<const float4*>(s_in + u * NP)[e4];
+    const float g = decay[u];
+    h = make_float4(g * h.x + sv.x, g * h.y + sv.y, g * h.z + sv.z, g * h.w + sv.w);
+  }
+  reinterpret_cast<float4*>(h_out + bh * NP)[e4] = h;
+}
+
+// (iii) tile j of S_i. as the register A operand, scaled and split into hi
+// and lo halves (register x packs elements 2x and 2x + 1; element e is row
+// r0 + 8 ((e >> 1) & 1), column 8 (e >> 2) + q2 + (e & 1)); cum, dtv and
+// colf start at the tile's first column.  Off the diagonal the factors are
+// the row's and the column's; on it the exponential is taken whole, its
+// exponent clamped to <= 0 and the product dropped above the diagonal (no
+// branch, and never an inf).
+template <bool DIAG>
+__device__ __forceinline__ void scaled_tile(const float4* sj, int wt, const float* colf, const float* cum,
+                                            const float* dtv, const float (&ri)[2], const float (&ci)[2], int r0,
+                                            int q2, uint32_t (&ph)[16], uint32_t (&pl)[16]) {
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const float4 sv = sj[v * WG + wt];
+    const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
+    float pv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = 4 * v + q, ii = (e >> 1) & 1, jl = 8 * (e >> 2) + q2 + (e & 1);
+      if constexpr (DIAG) {
+        const float dec = __expf(fminf(ci[ii] - cum[jl], 0.f)) * dtv[jl];
+        pv[q] = jl <= r0 + 8 * ii ? sa[q] * dec : 0.f;
+      } else {
+        pv[q] = sa[q] * ri[ii] * colf[jl];
+      }
+    }
+    split2(pv[0], pv[1], ph[2 * v], pl[2 * v]);
+    split2(pv[2], pv[3], ph[2 * v + 1], pl[2 * v + 1]);
+  }
+}
+
+// (iii) shared memory: C's row tile i, B's row tiles 0..i (then S_ij in
+// f32 over them), two head stages (x tiles 0..i, the entering state's hi
+// and lo planes; warpgroup w takes stage w), each stage's cum and dt rows,
+// two column-factor buffers a warpgroup, the barriers (C and B, full[2],
+// empty[2])
+struct ScanSmem {
+  static constexpr int C_OFF = 0;
+  static constexpr int BS_OFF = RBLK;
+  static constexpr int ST_OFF = BS_OFF + NRB * RBLK;
+  static constexpr int X_BYTES = NRB * BOX;
+  static constexpr int STAGE = X_BYTES + 2 * HALF;
+  static constexpr int CD_OFF = ST_OFF + 2 * STAGE;
+  static constexpr int CD_STAGE = 2 * Q * 4;
+  static constexpr int COLF_OFF = CD_OFF + 2 * CD_STAGE;
+  static constexpr int BAR_OFF = COLF_OFF + 4 * Q * 4;
+  static constexpr int BYTES = BAR_OFF + 5 * 8 + 1024;
+};
+
+// (iii) chunk outputs: one block per (row tile i, chunk, HG3 heads x batch)
+__global__ void __launch_bounds__(THREADS, 1) chunk_scan_kernel(
+    const __grid_constant__ CUtensorMap tx,   // x as (P, H, T, B): boxes of (64, 1, 64, 1)
+    const __grid_constant__ CUtensorMap tb,   // B as (N, T, B): boxes of (64, 64, 1)
+    const __grid_constant__ CUtensorMap tcm,  // C as (N, T, B): boxes of (64, 64, 1)
+    const __grid_constant__ CUtensorMap ts,   // states as (P, N, 2 B nc H): boxes of (64, 128, 1)
+    const float* __restrict__ cd,             // (B, nc, H, 2, Q)
+    float* __restrict__ y,                    // (B, T, H, P)
+    int Tn, int H, int nc) {
+  using L = ScanSmem;
+  const int I = NRB - 1 - (int)blockIdx.x;  // the longest row tiles first
+  const int c = blockIdx.y;
+  const int ng = (H + HG3 - 1) / HG3;
+  const int g = blockIdx.z % ng, b = blockIdx.z / ng;
+  const int t0 = c * Q, row0 = t0 + RB * I;
+  if (row0 >= Tn) return;  // a row tile past the ragged end
+  const int h_first = g * HG3, nh = min(HG3, H - h_first), nI = I + 1;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gb = smem_raw + (base - sm90::smem_u32(smem_raw));
+  const uint32_t bar_cb = base + L::BAR_OFF, full = bar_cb + 8, empty = full + 16;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(bar_cb, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, WG / 32);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      sm90::mbar_expect_tx(bar_cb, (1 + nI) * RBLK);
+      for (int cb = 0; cb < 2; ++cb) sm90::tma_load_3d(base + L::C_OFF + cb * BOX, &tcm, bar_cb, 64 * cb, row0, b);
+      for (int j = 0; j < nI; ++j)
+        for (int cb = 0; cb < 2; ++cb)
+          sm90::tma_load_3d(base + L::BS_OFF + j * RBLK + cb * BOX, &tb, bar_cb, 64 * cb, t0 + RB * j, b);
+      for (int k = 0; k < nh; ++k) {
+        const int s = k & 1, hh = h_first + k;
+        if (k >= 2) sm90::mbar_wait(empty + 8 * s, ((k >> 1) - 1) & 1);
+        const long u = ((long)b * nc + c) * H + hh;
+        const uint32_t st = base + L::ST_OFF + s * L::STAGE, cds = base + L::CD_OFF + s * L::CD_STAGE;
+        sm90::mbar_expect_tx(full + 8 * s, nI * BOX + 2 * HALF + 2 * nI * RB * 4);
+        for (int j = 0; j < nI; ++j) sm90::tma_load_4d(st + j * BOX, &tx, full + 8 * s, 0, hh, t0 + RB * j, b);
+        sm90::tma_load_3d(st + L::X_BYTES, &ts, full + 8 * s, 0, 0, (int)(2 * u));
+        sm90::tma_load_3d(st + L::X_BYTES + HALF, &ts, full + 8 * s, 0, 0, (int)(2 * u + 1));
+        sm90::bulk_load(cds, cd + u * 2 * Q, nI * RB * 4, full + 8 * s);
+        sm90::bulk_load(cds + Q * 4, cd + u * 2 * Q + Q, nI * RB * 4, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // warpgroup w; accumulator element e of a 64 x 64 tile: row r0 + 8 ((e
+  // >> 1) & 1), column 8 (e >> 2) + q2 + (e & 1)
+  const int w = tid / WG, wt = tid % WG, lane = tid & 31;
+  const int r0 = 16 * (wt >> 5) + (lane >> 2), q2 = 2 * (lane & 3);
+  sm90::mbar_wait(bar_cb, 0);
+  // S_ij = C_i B_j^T, once for all heads (warpgroup w takes j = w, w + 2,
+  // ...): f32 over B_j, in the register order of a warpgroup's thread (a
+  // thread of either warpgroup reads back the elements its own index holds)
+  for (int j = w; j < nI; j += 2) {
+    float sacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
+    sm90::fence_operands(sacc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+      sm90::wgmma_ss_m64n64k16(sacc, sm90::desc_kmajor(base + L::C_OFF + off),
+                               sm90::desc_kmajor(base + L::BS_OFF + j * RBLK + off), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sacc);
+    wg_sync(w);  // every warp of this warpgroup is done reading B_j
+    float4* sj = reinterpret_cast<float4*>(gb + L::BS_OFF + j * RBLK);
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      sj[v * WG + wt] = make_float4(sacc[4 * v], sacc[4 * v + 1], sacc[4 * v + 2], sacc[4 * v + 3]);
+  }
+  consumers_sync();  // every S_ij is written
+
+  // warpgroup w takes heads w, w + 2, ... from stage w
+  for (int k = w; k < nh; k += 2) {
+    const int hh = h_first + k;
+    sm90::mbar_wait(full + 8 * w, (k >> 1) & 1);
+    const uint32_t st = base + L::ST_OFF + w * L::STAGE;
+    const float* cum = reinterpret_cast<const float*>(gb + L::CD_OFF + w * L::CD_STAGE);
+    const float* dtv = cum + Q;
+    // the carried-in state: C_i (h_hi + h_lo), then the rows' exp(cum_i)
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    sm90::fence_operands(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk) {
+      const uint64_t da = sm90::desc_kmajor(base + L::C_OFF + (kk >> 2) * BOX + (kk & 3) * 32);
+      sm90::wgmma_ss_m64n64k16_bmn(acc, da, sm90::desc_mnmajor(st + L::X_BYTES + kk * 16 * 128, BOX));
+      sm90::wgmma_ss_m64n64k16_bmn(acc, da, sm90::desc_mnmajor(st + L::X_BYTES + HALF + kk * 16 * 128, BOX));
+    }
+    sm90::wgmma_commit();
+
+    // while it runs: the factors of (S_ij o exp(cum_i - cum_j) dt_j) x_j,
+    // j <= i.  Off the diagonal exp(cum_i - cum_j) = exp(cum_i - cum_r)
+    // exp(cum_r - cum_j) at the tile's first row r, both exponents <= 0: a
+    // factor per row and one per column (with dt_j, computed once a head in
+    // shared memory, in one of the warpgroup's two buffers by turns).
+    const float ci[2] = {cum[RB * I + r0], cum[RB * I + r0 + 8]};
+    const float cr = cum[RB * I];
+    float* colf = reinterpret_cast<float*>(gb + L::COLF_OFF) + (2 * w + ((k >> 1) & 1)) * Q;
+    for (int jc = wt; jc < RB * I; jc += WG) colf[jc] = __expf(cr - cum[jc]) * dtv[jc];
+    wg_sync(w);  // colf is written; the other buffer's readers are a head behind
+    const float ri[2] = {__expf(ci[0] - cr), __expf(ci[1] - cr)};
+    const float ei[2] = {expf(ci[0]), expf(ci[1])};
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] *= ei[(e >> 1) & 1];
+
+    // the scaled tiles as the register A operand, x_j MN-major
+    for (int j = 0; j < nI; ++j) {
+      const float4* sj = reinterpret_cast<const float4*>(gb + L::BS_OFF + j * RBLK);
+      uint32_t ph[16], pl[16];
+      if (j < I)
+        scaled_tile<false>(sj, wt, colf + RB * j, cum + RB * j, dtv + RB * j, ri, ci, r0, q2, ph, pl);
+      else
+        scaled_tile<true>(sj, wt, colf + RB * j, cum + RB * j, dtv + RB * j, ri, ci, r0, q2, ph, pl);
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < RB / 16; ++ks) {
+        const uint64_t db = sm90::desc_mnmajor(st + j * BOX + ks * 16 * 128, BOX);
+        const uint32_t hi[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
+        const uint32_t lo[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
+        sm90::wgmma_rs_m64n64k16(acc, hi, db);
+        sm90::wgmma_rs_m64n64k16(acc, lo, db);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + 8 * w);
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int t = row0 + r0 + 8 * ii;
+      if (t >= Tn) continue;
+      float* yr = y + (((long)b * Tn + t) * H + hh) * PD;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<float2*>(yr + 8 * jj + q2) = make_float2(acc[4 * jj + 2 * ii], acc[4 * jj + 2 * ii + 1]);
+    }
+  }
+}
+
+int launch(const void* x, long long x_sb, long long x_st, const void* dt, const void* a, const void* bm,
+           long long b_sb, long long b_st, const void* cm, long long c_sb, long long c_st, const void* h0, void* y,
+           void* h_out, void* scratch, int B, int Tn, int H, cudaStream_t stream) {
+  const int nc = (Tn + Q - 1) / Q;
+  const long long u = (long long)B * nc * H;
+  float* s_buf = reinterpret_cast<float*>(scratch);                             // u NP f32
+  __nv_bfloat16* states = reinterpret_cast<__nv_bfloat16*>(s_buf + u * NP);  // u 2 NP bf16
+  float* cd = s_buf + 2 * u * NP;                                              // u 2 Q f32
+  float* dec = cd + u * 2 * Q;                                                 // u f32
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t xdims[4] = {(cuuint64_t)PD, (cuuint64_t)H, (cuuint64_t)Tn, (cuuint64_t)B};
+  const cuuint64_t xstr[3] = {PD * e, (cuuint64_t)x_st * e, (cuuint64_t)x_sb * e};
+  const cuuint32_t xbox[4] = {64, 1, RB, 1};
+  const cuuint64_t ndims[3] = {(cuuint64_t)NS, (cuuint64_t)Tn, (cuuint64_t)B};
+  const cuuint64_t bstr[2] = {(cuuint64_t)b_st * e, (cuuint64_t)b_sb * e};
+  const cuuint64_t cstr[2] = {(cuuint64_t)c_st * e, (cuuint64_t)c_sb * e};
+  const cuuint32_t nbox[3] = {64, RB, 1};
+  const cuuint64_t sdims[3] = {(cuuint64_t)PD, (cuuint64_t)NS, (cuuint64_t)(2 * u)};
+  const cuuint64_t sstr[2] = {PD * e, (cuuint64_t)NP * e};
+  const cuuint32_t sbox[3] = {64, NS, 1};
+  CUtensorMap tx, tb, tcm, ts;
+  if (!sm90::bf16_tensor_map(&tx, x, 4, xdims, xstr, xbox) || !sm90::bf16_tensor_map(&tb, bm, 3, ndims, bstr, nbox) ||
+      !sm90::bf16_tensor_map(&tcm, cm, 3, ndims, cstr, nbox) ||
+      !sm90::bf16_tensor_map(&ts, states, 3, sdims, sstr, sbox))
+    return (int)cudaErrorInvalidValue;
+  // the opt-ins above 48 KB, once a process (the port drives one card a process)
+  static const cudaError_t opted1 = cudaFuncSetAttribute(chunk_state_kernel,
+                                                         cudaFuncAttributeMaxDynamicSharedMemorySize, StateSmem::BYTES);
+  static const cudaError_t opted3 = cudaFuncSetAttribute(chunk_scan_kernel,
+                                                         cudaFuncAttributeMaxDynamicSharedMemorySize, ScanSmem::BYTES);
+  if (opted1 != cudaSuccess) return (int)opted1;
+  if (opted3 != cudaSuccess) return (int)opted3;
+  chunk_state_kernel<<<dim3(nc, (H + HG1 - 1) / HG1, B), THREADS, StateSmem::BYTES, stream>>>(
+      tx, tb, (const float*)dt, (const float*)a, s_buf, cd, dec, Tn, H, nc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  state_pass_kernel<<<dim3(NP / 4 / 256, H, B), 256, 0, stream>>>(s_buf, dec, (const float*)h0, states,
+                                                                   (float*)h_out, H, nc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  chunk_scan_kernel<<<dim3(NRB, nc, ((H + HG3 - 1) / HG3) * B), THREADS, ScanSmem::BYTES, stream>>>(
+      tx, tb, tcm, ts, cd, (float*)y, Tn, H, nc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" int repro_ssd_scan(int dtype, const void* x, long long x_sb, long long x_st, const void* dt,
@@ -281,4 +831,25 @@ extern "C" int repro_ssd_scan(int dtype, const void* x, long long x_sb, long lon
                      stream);
   });
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core build: bf16 x (B, T, H, 64) with head stride 64, B and C
+// (B, T, 128), all with unit inner strides, batch and time strides that are
+// multiples of 8 elements and 16-byte-aligned bases; dt (B, T, H) and a (H,)
+// f32 contiguous; h0 (B, H, 128, 64) f32 or null.  scratch: f32, B nc H
+// (2 N P + 2 Q + 1) elements at nc = ceil(T / 256), its contents on entry
+// unused.  Three launches.
+extern "C" int repro_ssd_scan_tc(const void* x, long long x_sb, long long x_st, const void* dt, const void* a,
+                                 const void* bm, long long b_sb, long long b_st, const void* cm, long long c_sb,
+                                 long long c_st, const void* h0, void* y, void* h_out, void* scratch, int B, int Tn,
+                                 int H, int N, int P, void* stream) {
+  const long long strides[6] = {x_sb, x_st, b_sb, b_st, c_sb, c_st};
+  const void* bases[4] = {x, bm, cm, scratch};
+  if (B <= 0 || Tn <= 0 || H <= 0 || N != tc::NS || P != tc::PD || B > 65535) return (int)cudaErrorInvalidValue;
+  for (long long st : strides)
+    if (st <= 0 || st % 8 != 0) return (int)cudaErrorInvalidValue;
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+  return tc::launch(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, h0, y, h_out, scratch, B, Tn, H,
+                    (cudaStream_t)stream);
 }

@@ -1,7 +1,11 @@
 """Fused prefill MoE wrappers (port of ``repro/kernels/moe_fused/ops.py``).
 
 ``gather_swiglu`` and ``down_combine`` are the two launches: plain versions
-on CPU tensors, ``csrc/moe_fused.cu`` on ``cuda`` tensors, or an error.
+on CPU tensors, ``csrc/moe_fused.cu`` on ``cuda`` tensors, or an error.  On
+the card ``gather_swiglu`` takes one of two builds, named by
+:func:`gather_swiglu_path`: bf16 with d and f multiples of 8 on tensor cores
+(wgmma; weights by TMA, the slots' rows gathered by cp.async), everything
+else on CUDA cores.
 :func:`fused_moe_fn` runs a :class:`~repro_torch.core.plans.DispatchPlan`
 through both.  The kernel reads x (T, d) and treats index T as a zero row,
 so the wrapper builds no padded copy of x.  :func:`fused_experts_fn` runs
@@ -19,6 +23,7 @@ from repro_torch.core.plans import DispatchPlan
 from repro_torch.kernels.moe_fused import ref
 
 _SIG = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIG_TC = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_DOWN = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -34,13 +39,24 @@ def _cuda_ready(tensors) -> None:
     _check(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
 
 
+def gather_swiglu_path(dtype: torch.dtype, d: int, f: int, aligned: bool) -> str:
+    """Which build of kernel 3 a launch takes, from its dtype, d, f and
+    whether x, the stacks and h start on 16-byte boundaries:
+    ``"tensor_cores"`` (bf16 wgmma tiles; TMA and the 16-byte gather need
+    d and f multiples of 8) or ``"cuda_cores"`` (f32 products; f32, and
+    bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f % 8 == 0 and aligned
+    return "tensor_cores" if ok else "cuda_cores"
+
+
 def gather_swiglu(
     x: torch.Tensor,         # (T, d)
     flat_idx: torch.Tensor,  # (E*C,) int32 token per slot, T = empty
     w_gate: torch.Tensor,    # (E, d, f)
     w_up: torch.Tensor,
 ) -> torch.Tensor:
-    """h (E, C, f) = silu(x[idx] @ Wg) * (x[idx] @ Wu), in x's type."""
+    """h (E, C, f) = silu(x[idx] @ Wg) * (x[idx] @ Wu), in x's type.  On
+    the card the launch takes the build :func:`gather_swiglu_path` names."""
     T, d = x.shape
     E, d_, f = w_gate.shape
     _check(d_ == d and w_up.shape == w_gate.shape, f"w_gate/w_up shapes {tuple(w_gate.shape)}, {tuple(w_up.shape)}")
@@ -55,10 +71,15 @@ def gather_swiglu(
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
     h = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-    rc = function("moe_fused", "repro_gather_swiglu", _SIG)(
-        dtype_code(x.dtype), ptr(x), ptr(flat_idx), ptr(w_gate), ptr(w_up), ptr(h),
-        T, E, C, d, f, stream_of(x),
-    )
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w_gate, w_up, h))
+    if gather_swiglu_path(x.dtype, d, f, aligned) == "tensor_cores":
+        rc = function("moe_fused", "repro_gather_swiglu_tc", _SIG_TC)(
+            ptr(x), ptr(flat_idx), ptr(w_gate), ptr(w_up), ptr(h), T, E, C, d, f, stream_of(x))
+    else:
+        rc = function("moe_fused", "repro_gather_swiglu", _SIG)(
+            dtype_code(x.dtype), ptr(x), ptr(flat_idx), ptr(w_gate), ptr(w_up), ptr(h),
+            T, E, C, d, f, stream_of(x),
+        )
     check_launch(rc, "gather_swiglu")
     gather_swiglu.launches += 1
     return h

@@ -5,17 +5,24 @@ sources, its library swapped in under the same wrappers.
   bitwise what that checkout's build gives on the same inputs: the window
   flash-decode (kernel 6; f32, bf16, int8 K/V), both builds of kernel 7
   (CUDA cores: f32 at every head dim, bf16 at 16, 32 and 64; tensor cores:
-  bf16 at 128 and 256) and kernel 8's CUDA-core build (f32, and bf16 at a
-  ragged shape).  The C entry points ``repro_flash_decode_window``,
-  ``repro_flash_attention``, ``repro_flash_attention_tc`` and
-  ``repro_grouped_gemm`` must keep their signatures in both trees.
+  bf16 at 128 and 256), kernel 8's CUDA-core build (f32, and bf16 at a
+  ragged shape), kernel 11's CUDA-core build (f32, also at Mamba-2-2.7B's
+  widths, and bf16 at a shape the tensor cores do not take), kernel 3's
+  CUDA-core build (f32, and bf16 at f 84) and kernel 4 (f32 and bf16).
+  The C entry points ``repro_flash_decode_window``,
+  ``repro_flash_attention``, ``repro_flash_attention_tc``,
+  ``repro_grouped_gemm``, ``repro_ssd_scan``, ``repro_gather_swiglu`` and
+  ``repro_down_combine`` must keep their signatures in both trees.
   Skips unless ``REPRO_OTHER_CHECKOUT`` names the other checkout's root:
 
       REPRO_OTHER_CHECKOUT=/path/to/other PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_builds.py
 
 * Kernel 7's tensor-core path carries P into P.V as hi + lo bf16 halves.
   Built with the lo half zeroed (bf16 P alone), it misses the bf16 gate at
-  RecurrentGemma's prefill shape, which the shipped build holds.
+  RecurrentGemma's prefill shape, which the shipped build holds.  Kernel
+  11's tensor-core build carries S, the state and w o x the same way;
+  built with its lo halves zeroed it misses the 1e-4 gate at Mamba-2-2.7B's
+  admission shape.
 
 Imports no jax.
 """
@@ -34,6 +41,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 OTHER = os.environ.get("REPRO_OTHER_CHECKOUT")
 
@@ -76,13 +85,24 @@ PREFILL_CASES = [f"flash_attention {tag} hd {hd} window {w}"
                  for hd in hds for w in (0, 45)]
 GEMM_CASES = [f"grouped_gemm {tag} {shape}" for tag, shape in
               (("float32", "3,37,100,130"), ("float32", "4,20,1536,4096"), ("bfloat16", "3,37,100,130"))]
-SOURCE = {"flash_decode_window": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm"}
+# B,T,H,P,N and whether from a random h0
+SSD_CASES = [f"ssd_scan {tag} {shape}" for tag, shape in
+             (("float32", "2,37,3,16,16,1"), ("float32", "1,2100,80,64,128,1"), ("float32", "1,4096,80,64,128,0"),
+              ("bfloat16", "2,300,2,32,64,1"))]
+# T,E,C,d,f
+MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine") for tag, shape in
+             (("float32", "40,8,7,96,80"), ("float32", "128,128,16,4096,1536"), ("bfloat16", "40,8,16,96,84"))] + \
+            ["down_combine bfloat16 128,128,16,4096,1536"]
+SOURCE = {"flash_decode_window": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
+          "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused"}
 
 
 def _run(case: str, dev) -> torch.Tensor:
     """One wrapper launch of ``case`` on inputs made from a seed."""
+    from repro_torch.core.control_plane import route_topk
     from repro_torch.core.quant import quantize_int8
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.kernels.moe_fused import ops as mf_ops
 
     g = torch.Generator(device=dev).manual_seed(len(case))
     words = case.split()
@@ -99,6 +119,25 @@ def _run(case: str, dev) -> torch.Tensor:
         w = (torch.randn((E, K, N), generator=g, device=dev) / K ** 0.5).to(dt)
         assert gg_ops.grouped_gemm_path(dt, K, N, True) == "cuda_cores"
         return gg_ops.grouped_gemm(x, w)
+    if words[0] == "ssd_scan":
+        B, T, H, P, N, with_h0 = (int(n) for n in words[2].split(","))
+        proj = (torch.randn((B, T, H * P + 2 * N), generator=g, device=dev) * 0.5).to(dt)
+        x, bm, cm = proj[..., :H * P].reshape(B, T, H, P), proj[..., H * P:H * P + N], proj[..., H * P + N:]
+        dts = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g, device=dev) - 1.0)
+        a = -torch.linspace(1.0, 16.0, H, device=dev)
+        h0 = torch.randn((B, H, N, P), generator=g, device=dev) if with_h0 else None
+        assert ssd_ops.ssd_scan_path(dt, N, P, ssd_ops.tma_ready(x, bm, cm)) == "cuda_cores"
+        return torch.cat([t.reshape(-1) for t in ssd_ops.ssd_scan(x, dts, a, bm, cm, 256, h0=h0)])
+    if words[0] in ("gather_swiglu", "down_combine"):
+        T, E, C, d, f = (int(n) for n in words[2].split(","))
+        x = torch.randn((T, d), generator=g, device=dev)
+        plan, _ = route_topk(x, torch.randn((d, E), generator=g, device=dev), 8 if E > 8 else 2, C)
+        w1, w2 = ((torch.randn((E, d, f), generator=g, device=dev) * d ** -0.5).to(dt) for _ in range(2))
+        if words[0] == "gather_swiglu":
+            assert mf_ops.gather_swiglu_path(dt, d, f, True) == "cuda_cores"
+            return mf_ops.gather_swiglu(x.to(dt), plan.flat_idx, w1, w2)
+        h = torch.randn((E, C, f), generator=g, device=dev).to(dt)
+        return mf_ops.down_combine(h, w1.transpose(1, 2).contiguous(), plan.flat_idx, plan.slot_w, T)
     # the window decode: 4 slots of 10 heads over one KV head, hd 256, a
     # 300-slot rolling buffer, window 160, positions before and past the wrap
     B, nq, nkv, hd, W = 4, 10, 1, 256, 300
@@ -124,7 +163,7 @@ def other_libs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WINDOW_CASES + PREFILL_CASES + GEMM_CASES)
+@pytest.mark.parametrize("case", WINDOW_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)
@@ -171,3 +210,44 @@ def test_flash_attention_p_needs_its_lo_half_on_card(cuda, tmp_path):
     print(f"elements outside the bf16 gate of {want.numel()}: hi + lo {shipped}, hi only {dropped}")
     assert shipped == 0
     assert dropped > 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 11: the lo halves of S, the state and w o x are needed
+# ---------------------------------------------------------------------------
+
+SSD_LO_LINE = "lo = *reinterpret_cast<const uint32_t*>(&l);"
+
+
+@pytest.mark.cuda
+def test_ssd_scan_needs_its_lo_halves_on_card(cuda, tmp_path):
+    """Mamba-2-2.7B's admission shape, bf16 x, B and C as views of one
+    projection (80 heads of 64, N 128, 4,096 steps) from a zero state: the
+    shipped tensor-core build holds the 1e-4 gate on y and on the final
+    state; the same source with every lo half zeroed misses it on y."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    src = (csrc / "ssd_scan.cu").read_text()
+    assert src.count(SSD_LO_LINE) == 1, "the lo halves' line moved: update SSD_LO_LINE"
+    (csrc / "ssd_scan.cu").write_text(src.replace(SSD_LO_LINE, "lo = 0u;"))
+    hi_only = _build(csrc, "ssd_scan", tmp_path / "build")
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    T, H, P, N = 4096, 80, 64, 128
+    proj = (torch.randn((1, T, H * P + 2 * N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    x, bm, cm = proj[..., :H * P].reshape(1, T, H, P), proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((1, T, H), generator=g, device=cuda) - 1.0)
+    a = -torch.linspace(1.0, 16.0, H, device=cuda)
+    assert ssd_ops.ssd_scan_path(x.dtype, N, P, ssd_ops.tma_ready(x, bm, cm)) == "tensor_cores"
+    want_y, want_h = ssd_ref.ssd_chunked(x, dt, a, bm, cm, 256)
+
+    def miss(got, want):  # max |got - want| over the gate's allowance
+        return float((got - want).abs().max()) / (1e-4 * max(1.0, float(want.abs().max())))
+
+    y, h = ssd_ops.ssd_scan(x, dt, a, bm, cm, 256)
+    with _swapped("ssd_scan", hi_only):
+        y_hi, h_hi = ssd_ops.ssd_scan(x, dt, a, bm, cm, 256)
+    print(f"y / state over the 1e-4 gate: hi + lo {miss(y, want_y):.3f} / {miss(h, want_h):.3f}, "
+          f"hi only {miss(y_hi, want_y):.3f} / {miss(h_hi, want_h):.3f}")
+    assert miss(y, want_y) <= 1.0 and miss(h, want_h) <= 1.0
+    assert miss(y_hi, want_y) > 1.0

@@ -231,20 +231,51 @@ def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_moe_kernels_match_plain_on_card(cuda, dtype):
-    T, E, k, C, d, f = 40, 8, 2, 7, 96, 80
+@pytest.mark.parametrize("C,f", [(7, 80), (8, 80), (12, 80), (16, 80), (40, 80), (100, 80), (16, 84)])
+def test_fused_moe_kernels_match_plain_on_card(cuda, dtype, C, f):
+    """Kernel 3 within one bf16 ulp (f32: 1e-4), bitwise on a repeated
+    launch, then kernel 4 on its output.  bf16 takes the tensor-core build
+    at f 80 (a ragged 128-column tile) with slot tiles of 16 (C <= 16) and
+    64 (C 40; C 100 over two tiles), and the CUDA-core build at f 84 (not
+    a whole number of 16-byte pieces); expert 0 is never routed to, so all
+    its slots are empty (index T), and C 7 drops assignments."""
+    T, E, k, d = 40, 8, 2, 96
     rng = np.random.default_rng(1)
-    x = _t(rng.standard_normal((T, d)).astype(np.float32))
-    plan, _ = route_topk(x, _t(rng.standard_normal((d, E)).astype(np.float32)), k, C)
+    xn = rng.standard_normal((T, d)).astype(np.float32)
+    router = rng.standard_normal((d, E)).astype(np.float32)
+    xn[:, 0], router[0] = 10.0, 0.0
+    router[0, 0] = -100.0  # every token's logit for expert 0 is ~-1,000: no token picks it
+    x = _t(xn)
+    plan, _ = route_topk(x, _t(router), k, C)
+    assert bool((plan.flat_idx.reshape(E, C)[0] == T).all())
     idx, sw = plan.flat_idx.to(cuda), plan.slot_w.to(cuda)
     xt = x.to(cuda, dtype)
     wg, wu, wd = (_t(a).to(cuda, dtype) for a in _moe_stacks(4, E, d, f))
+    want_path = "tensor_cores" if dtype == torch.bfloat16 and f % 8 == 0 else "cuda_cores"
+    assert mf_ops.gather_swiglu_path(dtype, d, f, True) == want_path
     h = mf_ops.gather_swiglu(xt, idx, wg, wu)
     torch.cuda.synchronize()
     _close(h, mf_ref.gather_swiglu(xt, idx, wg, wu), dtype)
+    assert torch.equal(h, mf_ops.gather_swiglu(xt, idx, wg, wu))
     y = mf_ops.down_combine(h, wd, idx, sw, T)
     torch.cuda.synchronize()
     _close(y, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)
+
+
+@pytest.mark.cuda
+def test_gather_swiglu_identity_index_matches_plain_on_card(cuda):
+    """The a2a body's expert step at Qwen3-MoE's widths: kernel 3 over the
+    2,048 dispatched slot rows (E 128, C 16) with the identity index, bf16,
+    on the tensor cores: one bf16 ulp, bitwise on a repeated launch."""
+    E, C, d, f = 128, 16, 4096, 1536
+    g = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randn((E * C, d), generator=g, device=cuda).to(torch.bfloat16)
+    wg, wu = ((torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).to(torch.bfloat16) for _ in range(2))
+    ident = torch.arange(E * C, dtype=torch.int32, device=cuda)
+    h = mf_ops.gather_swiglu(flat, ident, wg, wu)
+    torch.cuda.synchronize()
+    _close(h, mf_ref.gather_swiglu(flat, ident, wg, wu), torch.bfloat16)
+    assert torch.equal(h, mf_ops.gather_swiglu(flat, ident, wg, wu))
 
 
 @pytest.mark.cuda
@@ -363,13 +394,19 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, W):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H,P,N,chunk,with_h0", [(2, 37, 3, 16, 16, 16, True), (1, 100, 4, 64, 128, 256, False),
-                                                      (2, 300, 2, 32, 64, 48, True)])
+@pytest.mark.parametrize("B,T,H,P,N,chunk,with_h0", [
+    (2, 37, 3, 16, 16, 16, True), (1, 100, 4, 64, 128, 256, False), (2, 300, 2, 32, 64, 48, True),
+    (1, 4096, 80, 64, 128, 256, False), (1, 4096, 80, 64, 128, 256, True),
+    (1, 1, 4, 64, 128, 256, False), (1, 255, 4, 64, 128, 256, True), (2, 256, 4, 64, 128, 256, False),
+    (1, 257, 4, 64, 128, 256, True), (1, 2100, 80, 64, 128, 256, True)])
 def test_ssd_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, H, P, N, chunk, with_h0):
-    """y and the final state, ragged tails, with and without h0; the kernel
-    walks chunks of at most 64 steps whatever ``chunk`` is, the same
-    function summed in another order.  x, B and C are read as views of one
-    projection (the model's layout), through their strides."""
+    """y and the final state at 1e-4 of the scale, with and without h0,
+    bitwise on a repeated launch.  bf16 at N 128, P 64 takes the
+    tensor-core build (chunks of 256: T on and around the chunk edges, and
+    Mamba-2-2.7B's admission, 80 heads of 64 over 4,096 steps); f32 and the
+    other shapes the CUDA-core build (chunks of at most 64: the same
+    function summed in another order).  x, B and C are read as views of
+    one projection (the model's layout), through their strides."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -380,12 +417,16 @@ def test_ssd_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, H, P, N, chunk
     dt = _t(np.log1p(np.exp(rng.standard_normal((B, T, H)))).astype(np.float32)).to(cuda)
     a = -_t(np.linspace(1.0, 16.0, H).astype(np.float32)).to(cuda)
     h0 = _t(rng.standard_normal((B, H, N, P)).astype(np.float32)).to(cuda) if with_h0 else None
+    want_path = "tensor_cores" if dtype == torch.bfloat16 and (N, P) == (128, 64) else "cuda_cores"
+    assert ssd_ops.ssd_scan_path(dtype, N, P, ssd_ops.tma_ready(x, bm, cm)) == want_path
     y, h = ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk, h0=h0)
     torch.cuda.synchronize()
     assert y.dtype == h.dtype == torch.float32 and bool(torch.isfinite(y).all())
     want_y, want_h = ssd_ref.ssd_chunked(x, dt, a, bm, cm, chunk, h0)
     _close(y, want_y, torch.float32)
     _close(h, want_h, torch.float32)
+    y2, h2 = ssd_ops.ssd_scan(x, dt, a, bm, cm, chunk, h0=h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.cuda
