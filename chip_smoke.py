@@ -31,14 +31,17 @@ weights freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
 branches are also held bitwise against their kernels on the dequantized
 buffers (``kernels_vs_plain`` rows ``*_int8``), and the f32 smoke twins
 serve int8 KV and experts too (``smoke_twin_int8``).  The redesigned rows
-1, 3, 5, 6, 6q, 7, 8 and 11 (the contiguous and paged decode split over
-chunks, the window decode and its int8 branch, and the tensor-core builds
-of the gather + SwiGLU, the prefill, the grouped GEMM and the SSD scan)
-launch twice for a bitwise repeat and record registers and spills; 1, 3,
-6, 6q, 7 and 8 time their yardstick in turns with the kernel; 1 also
-times the wrapper's host time and its parts and the T = 1 launch; 3, 7, 8
-and 11 count ``HGMMA`` in the built library's SASS, 8 and 11 record which
-build each case takes, and 11 its device time by phase.
+1, 2, 2q, 3, 4, 5, 6, 6q, 7, 8 and 11 (the contiguous and paged decode
+split over chunks, the decode MoE grouped by expert on the card and its
+int8 branch, the window decode and its int8 branch, and the tensor-core
+builds of the gather + SwiGLU, the down projection + combine, the prefill,
+the grouped GEMM and the SSD scan) launch twice for a bitwise repeat and
+record registers and spills; 1, 2, 2q, 3, 4, 6, 6q, 7 and 8 time their
+yardstick in turns with the kernel; 1 also times the wrapper's host time
+and its parts and the T = 1 launch; 2, 2q, 3, 4, 7, 8 and 11 record a SASS
+instruction census of their builds (``HGMMA``, the int8 branch's
+conversions), 4, 8 and 11 which build each case takes, and 2, 2q and 11
+their device time by launch.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -77,13 +80,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
 # the times of the designs the redesigned kernels 1, 1q, 5, 5q, 6, 6q, 7, 8,
-# 3 and 11 replaced (one block per token, or per (batch, head), walking its
+# 3, 11, 2, 2q and 4 replaced (one block per token, or per (batch, head), walking its
 # whole run; f32 products on CUDA cores), at the same shapes on an H100
 # 80GB HBM3 at 700 W (PERF.md, section 6; kernel 11's with bf16 x, B, C)
 PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515,
                "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
                "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
-               "ssd_scan": 1.9367}
+               "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389}
 # and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
                       "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074}
@@ -133,6 +136,13 @@ def device_ms(fn, match: str, n: int = 20):
     us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
              if ev.device_type == DeviceType.CUDA and match in ev.key)
     return us / 1e3 / n if us else None
+
+
+def moe_decode_launches(fn) -> dict:
+    """Device ms per call of kernel 2's three launches (the profiler's
+    demangled names: gate/up's instantiations take 2 matrices, down's 1)."""
+    return {"gate_up": device_ms(fn, ", 2, ", n=10), "down": device_ms(fn, ", 1, ", n=10),
+            "combine": device_ms(fn, "combine_kernel", n=10)}
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS):
@@ -213,16 +223,47 @@ def ptxas(source: str, *names: str) -> dict:
     return found
 
 
-def sass_wgmma(source: str) -> dict:
-    """The warpgroup MMA (SASS ``HGMMA``) instructions in the built library
-    of ``csrc/<source>.cu``, by ``cuobjdump -sass``: their count and the
-    first of them."""
-    from repro_torch.kernels import _lib_path, _nvcc
+CENSUS_OPS = ("HGMMA", "FFMA", "FMUL", "FADD", "I2F", "PRMT", "LDS", "LDG", "LDGSTS", "STG", "BAR")
 
-    run = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(_lib_path(source))],
+
+def census_of(lib: Path, *names: str) -> dict:
+    """Static SASS instruction counts (``cuobjdump -sass``) of each kernel of
+    the built library ``lib`` whose mangled name holds one of ``names``:
+    every instruction, and those of ``CENSUS_OPS`` by opcode (suffixes
+    dropped)."""
+    from repro_torch.kernels import _nvcc
+
+    run = subprocess.run([str(Path(_nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
                          capture_output=True, text=True, timeout=300)
-    found = [ln.strip() for ln in run.stdout.splitlines() if "HGMMA" in ln]
-    return dict(hgmma_instructions=len(found), first=found[0] if found else None, cuobjdump_rc=run.returncode)
+    found, name = {}, None
+    for ln in run.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            name = name if any(n in name for n in names) else None
+            continue
+        parts = ln.split("*/", 1)
+        if name is None or not parts[0].strip().startswith("/*") or len(parts) < 2 or not parts[1].strip():
+            continue
+        words = parts[1].split()
+        op = (words[1] if words[0].startswith("@") else words[0]).split(".")[0].rstrip(";")
+        counts = found.setdefault(name, {"all": 0})
+        counts["all"] += 1
+        if op in CENSUS_OPS:
+            counts[op] = counts.get(op, 0) + 1
+    return found
+
+
+def sass_census(source: str, *names: str) -> dict:
+    """:func:`census_of` the built library of ``csrc/<source>.cu``."""
+    from repro_torch.kernels import _lib_path
+
+    return census_of(_lib_path(source), *names)
+
+
+# kernel 2's builds at the serving shape (16-byte copies): gate/up (2
+# matrices) with bf16 x over bf16 or int8 stacks, and down (1 matrix, f32 h)
+MOE_DECODE_BF16 = ("expert_kernelI13__nv_bfloat16S1_Li2ELb1E", "expert_kernelIf13__nv_bfloat16Li1ELb1E")
+MOE_DECODE_INT8 = ("expert_kernelI13__nv_bfloat16aLi2ELb1E", "expert_kernelIfaLi1ELb1E")
 
 
 def host_ms(fn, n: int = 200) -> float:
@@ -435,13 +476,20 @@ def kernel_phase(cfg, dev):
 
     nbytes = distinct * 3 * d * f * 2 + Tt * d * 2 + Tt * k * 8 + Tt * d * 4
     flops = Tt * k * 6.0 * d * f
+
+    def kernel_moe():
+        return md_ops.decode_moe_kernel(x, ids, w, wg, wu, wd)
+
+    ms, comp_ms, turns = in_turns(kernel_moe, composite_decode, iters=10)
     rows["decode_moe"] = dict(
         max_abs_err=err, max_abs_err_f32=err32,
-        ms=time_ms(lambda: md_ops.decode_moe_kernel(x, ids, w, wg, wu, wd), iters=20),
+        ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+        composite_call="gather of the named experts' stacks + torch.bmm x3 (in turns)",
+        device_ms=device_ms(kernel_moe, "", n=10), device_ms_by_launch=moe_decode_launches(kernel_moe),
         plain_ms=time_ms(lambda: md_ref.decode_moe(x, ids, w, wg, wu, wd), iters=3, reps=3),
         library_ms=None, library_call=None,
-        composite_ms=time_ms(composite_decode, iters=3, reps=3),
-        composite_call="gather of the named experts' stacks + torch.bmm x3",
+        bitwise_repeat=bitwise_repeat("decode_moe", kernel_moe), previous_ms=PREVIOUS_MS["decode_moe"],
+        ptxas=ptxas("moe_decode", *MOE_DECODE_BF16), sass=sass_census("moe_decode", *MOE_DECODE_BF16),
         shapes=f"x {tuple(x.shape)}, top-{k} of {E} experts ({distinct} distinct), d {d}, f {f}",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
@@ -500,17 +548,25 @@ def kernel_phase(cfg, dev):
         library_ms=None, library_call=None,
         bitwise_repeat=bitwise_repeat("gather_swiglu", kernel_gather), previous_ms=PREVIOUS_MS["gather_swiglu"],
         path=mf_ops.gather_swiglu_path(xp.dtype, d, f, True),
-        ptxas=ptxas("moe_fused", "gather_swiglu_tc"), sass=sass_wgmma("moe_fused"),
+        ptxas=ptxas("moe_fused", "gather_swiglu_tc"), sass=sass_census("moe_fused", "gather_swiglu_tc"),
         shapes=shapes, bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
     nbytes = used * f * d * 2 + n_occ * f * 2 + E * C * 8 + Tp * d * 4
     flops = n_occ * 2.0 * f * d
+
+    def kernel_down():
+        return mf_ops.down_combine(h, wd, idx, sw, Tp)
+
+    ms, comp_ms, turns = in_turns(kernel_down, composite_down, iters=10)
     rows["down_combine"] = dict(
         max_abs_err=err_d, max_abs_err_f32=err_d32,
-        ms=time_ms(lambda: mf_ops.down_combine(h, wd, idx, sw, Tp), iters=10),
+        ms=ms, composite_ms=comp_ms, ms_in_turns=turns, composite_call="torch.bmm + index_add_ (in turns)",
+        device_ms=device_ms(kernel_down, "", n=10),
         plain_ms=time_ms(lambda: mf_ref.down_combine(h, wd, idx, sw, Tp), iters=3, reps=3),
         library_ms=None, library_call=None,
-        composite_ms=time_ms(composite_down, iters=5, reps=3), composite_call="torch.bmm + index_add_",
+        bitwise_repeat=bitwise_repeat("down_combine", kernel_down), previous_ms=PREVIOUS_MS["down_combine"],
+        path=mf_ops.down_combine_path(h.dtype, f, d, True),
+        ptxas=ptxas("moe_fused", "down_rows_tc"), sass=sass_census("moe_fused", "down_rows_tc"),
         shapes=shapes, bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
     rows.update(ep_kernel_rows(dev, gen, tol, xp, pplan, h, wg, wu, wd))
@@ -651,7 +707,7 @@ def ep_kernel_rows(dev, gen, tol, xp, plan, h, wg, wu, wd):
         plain_ms=time_ms(lambda: gg_ref.grouped_gemm(h, wd), iters=3, reps=3),
         bitwise_repeat=bitwise_repeat("grouped_gemm", kernel_gemm), previous_ms=PREVIOUS_MS["grouped_gemm"],
         previous_device_ms=PREVIOUS_DEVICE_MS["grouped_gemm"],
-        paths=gemm_paths, ptxas=ptxas("grouped_gemm", "grouped_gemm"), sass=sass_wgmma("grouped_gemm"),
+        paths=gemm_paths, ptxas=ptxas("grouped_gemm", "grouped_gemm"), sass=sass_census("grouped_gemm", "grouped_gemm"),
         shapes=f"h {tuple(h.shape)} @ w_down {tuple(wd.shape)}; {ragged}",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
@@ -930,7 +986,7 @@ def hybrid_kernel_rows(dev, gen, tol):
         # the launch's request, computed here from Layout<HD>::BYTES (Q, two K/V
         # stages, three mbarriers, 1 KB of swizzle alignment), not read from the build
         dynamic_smem_bytes_computed=5 * (hd // 64) * 64 * 128 + 3 * 8 + 1024,
-        sass=sass_wgmma("flash_attention"),
+        sass=sass_census("flash_attention", "flash_attention_tc_kernel"),
         shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal, window {W} ({pairs} visible pairs a head); "
                f"qwen3-moe: q (1, 128, 64, 128), kv (1, 128, 4, 128), causal",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
@@ -1090,13 +1146,19 @@ def int8_kernel_rows(cfg, dev, gen, tol):
 
     nbytes = distinct * (3 * d * f + 3 * 4) + Tt * d * 2 + Tt * k * 8 + Tt * d * 4
     flops = Tt * k * 6.0 * d * f
+    def kernel_moe():
+        return md_ops.decode_moe_kernel(x, ids, w, *stacks, mscales)
+
+    ms, comp_ms, turns = in_turns(kernel_moe, composite_moe, iters=10)
     rows["decode_moe_int8"] = dict(
         max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True,
-        ms=time_ms(lambda: md_ops.decode_moe_kernel(x, ids, w, *stacks, mscales), iters=20),
+        ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+        composite_call="gather of the named experts' int8 stacks + dequantize to bf16 + torch.bmm x3 (in turns)",
+        device_ms=device_ms(kernel_moe, "", n=10), device_ms_by_launch=moe_decode_launches(kernel_moe),
         plain_ms=time_ms(lambda: md_ref.decode_moe(x, ids, w, *stacks, mscales), iters=3, reps=3),
         library_ms=None, library_call=no_library,
-        composite_ms=time_ms(composite_moe, iters=3, reps=3),
-        composite_call="gather of the named experts' int8 stacks + dequantize to bf16 + torch.bmm x3",
+        bitwise_repeat=bitwise_repeat("decode_moe int8", kernel_moe), previous_ms=PREVIOUS_MS["decode_moe_int8"],
+        ptxas=ptxas("moe_decode", *MOE_DECODE_INT8), sass=sass_census("moe_decode", *MOE_DECODE_INT8),
         shapes=f"x {tuple(x.shape)} bf16 (and f32), top-{k} of {E} int8 experts ({distinct} distinct), d {d}, f {f}",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
     )
@@ -1239,7 +1301,7 @@ def ssd_kernel_row(dev, gen, tol):
     y and on the final state.  The row's headline is the serving path's
     bf16 call: its time beside the replaced design's (``previous_ms``), its
     device time by launch, its bound at the bf16 tensor rate beside the
-    chunk-state scratch, registers, spills, ``HGMMA`` count and a bitwise
+    chunk-state scratch, registers, spills, SASS census and a bitwise
     repeat; the f32 call keeps its CUDA-core bound."""
     import torch
 
@@ -1304,7 +1366,8 @@ def ssd_kernel_row(dev, gen, tol):
         library_call="none: no PyTorch call computes a selective (input-dependent decay) state-space scan",
         bitwise_repeat=bitwise_repeat("ssd_scan", lambda: torch.cat([t.reshape(-1) for t in kernel()])),
         paths=paths, kernel_chunk=ssd_ops.TC_CHUNK, kernel_chunk_f32=q32, model_chunk=Q,
-        ptxas=ptxas("ssd_scan", "chunk_state", "state_pass", "chunk_scan"), sass=sass_wgmma("ssd_scan"),
+        ptxas=ptxas("ssd_scan", "chunk_state", "state_pass", "chunk_scan"),
+        sass=sass_census("ssd_scan", "chunk_state", "state_pass", "chunk_scan"),
         scratch_bytes=scratch,
         scratch_traffic_bytes=4 * nc * H * N * P * 4,
         scratch_traffic="chunk states written by (i) and read by (ii), entering states written by (ii) and read "

@@ -16,24 +16,17 @@
 // (ops.grouped_gemm_path):
 //
 // Tensor cores (bf16, K and N multiples of 8, 16-byte-aligned bases: what
-// TMA needs of global strides and addresses).  Shaped for the decode-sized
-// product it serves, 16 rows an expert:
-//  * A and B swapped: y[e]^T = w[e]^T . x[e]^T.  The weight tile is wgmma's
-//    A operand, 64 output columns a warpgroup instruction, read MN-major
-//    from shared memory (w is (K, N) row-major; imm-trans-a), and the rows
-//    of x are the N operand, K-major as stored.  No tensor-core work is
-//    padded from 16 rows to 64; the M tile of a block is 16, 64 or 256
-//    rows (wgmma m64n16k16, m64n64k16, m64n256k16), the smallest that holds
-//    M, and M beyond 256 is tiled over the grid.
-//  * One producer warp keeps a ring of 4 stages full by TMA (64 K rows of
-//    w, 128 columns at M <= 64, and x's 64-column slice of the M tile: 18
-//    KB a stage at M 16), each completing on its mbarrier; one consumer
-//    warpgroup runs the wgmmas of a stage, waits for them, and releases the
-//    stage to the producer through a second mbarrier.  At 73 KB a block
-//    three blocks share an SM: ~190 KB of weights in flight per SM, far
-//    above the ~25 KB that covers HBM latency at 3.35 TB/s.  TMA
-//    zero-fills rows and columns past M, K and N.  f32 accumulators in
-//    registers.
+// TMA needs of global strides and addresses): the main loop of
+// grouped_tc.cuh (shared with kernel 4's tensor-core build in moe_fused.cu),
+// shaped for the decode-sized product it serves, 16 rows an expert:
+//  * A and B swapped, y[e]^T = w[e]^T . x[e]^T: no tensor-core work is
+//    padded from 16 rows to 64; the M tile of a block is 16, 64 or 256 rows,
+//    the smallest that holds M, and M beyond 256 is tiled over the grid.
+//  * A 4-stage TMA ring (64 K rows of w, 128 columns at M <= 64, and x's
+//    64-column slice of the M tile: 18 KB a stage at M 16) with one
+//    producer warp and one consumer warpgroup.  At 73 KB a block three
+//    blocks share an SM: ~190 KB of weights in flight per SM, far above the
+//    ~25 KB that covers HBM latency at 3.35 TB/s.
 //  * y is written in bf16 through shared memory, transposed back to
 //    (E, M, N) so each row's stores are 16-byte vectors on neighbouring
 //    addresses.  Every output element is written once, with its sums in a
@@ -56,7 +49,7 @@
 //    same sums in the same order on every run.  The TPU kernel's sequential
 //    K grid axis with its VMEM accumulator becomes the loop inside the block.
 #include "common.cuh"
-#include "sm90.cuh"
+#include "grouped_tc.cuh"
 
 namespace {
 
@@ -151,120 +144,37 @@ __global__ void __launch_bounds__(THREADS) grouped_gemm_kernel(
 
 namespace tc {
 
-constexpr int BK = 64;                    // K rows a stage: one 128-byte box row of x
-constexpr int STAGES = 4;
-constexpr int CONSUMERS = 128;            // one warpgroup
-constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
-constexpr int BOX = BK * 128;             // bytes of a (64 K rows x 64 columns) box of w
+using gtc::CONSUMERS;
 
-// shared memory: STAGES x (NT boxes of w, then x's BM x 64 tile), then the
-// full and empty mbarriers of each stage; the base is aligned to 1,024
-// bytes (the 128-byte swizzle's period) by hand.  Every region is a
-// multiple of 1,024 bytes.
+// One block per (BN-column tile, BM-row tile, expert): grouped_tc.cuh's
+// main loop, then y written in bf16 through shared memory.
 template <int BM>
-struct Tile {
-  static constexpr int NT = BM <= 64 ? 2 : 1;  // m64 tiles of w's columns a block
-  static constexpr int BN = 64 * NT;           // output columns a block
-  static constexpr int W_BYTES = NT * BOX;
-  static constexpr int STAGE = W_BYTES + BM * 128;
-  static constexpr int BAR = STAGES * STAGE;
-  static constexpr int BYTES = BAR + 2 * STAGES * 8 + 1024;
-  static constexpr int YS = BN + 8;            // row stride of the output tile (bf16), 16-byte rows
-  static_assert(BM * YS * 2 <= STAGE, "the output tile reuses stage 0");
-};
-
-template <int BM>
-__device__ __forceinline__ void wgmma_tn(float (&d)[BM / 2], uint64_t da, uint64_t db) {
-  if constexpr (BM == 16) sm90::wgmma_tn_m64n16k16(d, da, db);
-  else if constexpr (BM == 64) sm90::wgmma_tn_m64n64k16(d, da, db);
-  else sm90::wgmma_tn_m64n256k16(d, da, db);
-}
-
-// One block per (BN-column tile, BM-row tile, expert).
-template <int BM>
-__global__ void __launch_bounds__(THREADS, 1) grouped_gemm_tc_kernel(
+__global__ void __launch_bounds__(gtc::THREADS, 1) grouped_gemm_tc_kernel(
     const __grid_constant__ CUtensorMap tw,  // w as (N, K, E): boxes of (64, BK, 1)
     const __grid_constant__ CUtensorMap tx,  // x as (K, M, E): boxes of (64, BM, 1)
     __nv_bfloat16* __restrict__ y,           // (E, M, N)
     int M, int K, int N) {
-  using L = Tile<BM>;
-  constexpr int NA = BM / 2;  // accumulator registers a thread, per m64 tile
+  using L = gtc::Tile<BM>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t full = base + L::BAR, empty = full + 8 * STAGES;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * L::BN, m0 = blockIdx.y * BM, e = blockIdx.z;
-  const int nk = (K + BK - 1) / BK;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      sm90::mbar_init(full + 8 * s, 1);
-      sm90::mbar_init(empty + 8 * s, CONSUMERS / 32);  // one arrival per consumer warp
-    }
-    sm90::mbar_init_fence();
-  }
+  const int nk = (K + gtc::BK - 1) / gtc::BK;
+  gtc::init_ring<BM>(base);
   __syncthreads();
-
   if (tid >= CONSUMERS) {  // the producer warp: one lane issues every load
-    if (tid == CONSUMERS) {
-      for (int it = 0; it < nk; ++it) {
-        const int s = it % STAGES;
-        if (it >= STAGES) sm90::mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
-        const uint32_t st = base + s * L::STAGE;
-        sm90::mbar_expect_tx(full + 8 * s, L::STAGE);
-        for (int j = 0; j < L::NT; ++j) sm90::tma_load_3d(st + j * BOX, &tw, full + 8 * s, n0 + 64 * j, it * BK, e);
-        sm90::tma_load_3d(st + L::W_BYTES, &tx, full + 8 * s, it * BK, m0, e);
-      }
-    }
+    if (tid == CONSUMERS) gtc::produce<BM>(&tw, &tx, base, n0, m0, e, nk);
     return;
   }
+  float acc[L::NT][L::NA];
+  gtc::consume<BM>(acc, base, nk);
 
-  // the consumer warpgroup: acc[j] is y^T's rows n0 + 64 j .. + 63 (output
-  // columns) by the BM rows of x
-  const int warp = tid >> 5, lane = tid & 31;
-  float acc[L::NT][NA];
-#pragma unroll
-  for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-    for (int i = 0; i < NA; ++i) acc[j][i] = 0.f;
-  for (int it = 0; it < nk; ++it) {
-    const int s = it % STAGES;
-    sm90::mbar_wait(full + 8 * s, (it / STAGES) & 1);
-    const uint32_t st = base + s * L::STAGE, sx = st + L::W_BYTES;
-#pragma unroll
-    for (int j = 0; j < L::NT; ++j) sm90::fence_operands(acc[j]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      // step kk: K rows 16 kk .. 16 kk + 15 of w (2,048 bytes on), bytes 32 kk of x's rows
-      const uint64_t dx = sm90::desc_kmajor(sx + kk * 32);
-#pragma unroll
-      for (int j = 0; j < L::NT; ++j) wgmma_tn<BM>(acc[j], sm90::desc_mnmajor(st + j * BOX + kk * 16 * 128, BOX), dx);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int j = 0; j < L::NT; ++j) sm90::fence_operands(acc[j]);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(empty + 8 * s);
-  }
-
-  // epilogue: acc[j][4 c + 2 i + h] is output column n0 + 64 j + 16 warp +
-  // lane / 4 + 8 i, row m0 + 8 c + 2 (lane % 4) + h; staged as (BM, BN) bf16
-  // in stage 0 (every load has landed and every wgmma is done once all four
-  // warps pass the barrier), then stored a 16-byte row piece a thread
+  // epilogue: the tile staged as (BM, BN) bf16 in stage 0 (every load has
+  // landed and every wgmma is done once all four warps pass the barrier),
+  // then stored a 16-byte row piece a thread
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem_raw + (base - sm90::smem_u32(smem_raw)));
-#pragma unroll
-  for (int j = 0; j < L::NT; ++j)
-#pragma unroll
-    for (int c = 0; c < BM / 8; ++c)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int col = 64 * j + 16 * warp + (lane >> 2) + 8 * i, row = 8 * c + 2 * (lane & 3) + h;
-          ys[row * L::YS + col] = __float2bfloat16(acc[j][4 * c + 2 * i + h]);
-        }
+  gtc::for_each_acc<BM>(acc, [&](int row, int col, float v) { ys[row * L::YS + col] = __float2bfloat16(v); });
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
   constexpr int PIECES = L::BN / 8;  // 16-byte pieces of a row
   for (int i = tid; i < BM * PIECES; i += CONSUMERS) {
@@ -277,23 +187,15 @@ __global__ void __launch_bounds__(THREADS, 1) grouped_gemm_tc_kernel(
 
 template <int BM>
 int launch(const void* x, const void* w, void* y, int E, int M, int K, int N, cudaStream_t stream) {
-  using L = Tile<BM>;
-  const cuuint64_t b = sizeof(__nv_bfloat16);
-  const cuuint64_t wdims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)E};
-  const cuuint64_t wstr[2] = {N * b, (cuuint64_t)K * N * b};
-  const cuuint32_t wbox[3] = {64, BK, 1};
-  const cuuint64_t xdims[3] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)E};
-  const cuuint64_t xstr[2] = {K * b, (cuuint64_t)M * K * b};
-  const cuuint32_t xbox[3] = {64, BM, 1};
+  using L = gtc::Tile<BM>;
   CUtensorMap tw, tx;
-  if (!sm90::bf16_tensor_map(&tw, w, 3, wdims, wstr, wbox) || !sm90::bf16_tensor_map(&tx, x, 3, xdims, xstr, xbox))
-    return (int)cudaErrorInvalidValue;
+  if (!gtc::make_maps<BM>(&tw, &tx, w, x, E, M, K, N)) return (int)cudaErrorInvalidValue;
   // the opt-in above 48 KB, once a process (the port drives one card a process)
   static const cudaError_t opted =
       cudaFuncSetAttribute(grouped_gemm_tc_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (opted != cudaSuccess) return (int)opted;
   const dim3 grid((N + L::BN - 1) / L::BN, (M + BM - 1) / BM, E);
-  grouped_gemm_tc_kernel<BM><<<grid, THREADS, L::BYTES, stream>>>(tw, tx, (__nv_bfloat16*)y, M, K, N);
+  grouped_gemm_tc_kernel<BM><<<grid, gtc::THREADS, L::BYTES, stream>>>(tw, tx, (__nv_bfloat16*)y, M, K, N);
   return (int)cudaGetLastError();
 }
 

@@ -18,24 +18,25 @@
 // experts, top-8: C = 16 slots per expert) each expert's weights are used by
 // at most C rows, ~16 FLOPs per weight byte, so the weight bytes of the
 // experts the plan occupies bound both launches (gather_swiglu: 128 x 2 x
-// 4096 x 1536 bf16 = 3.22 GB, 0.96 ms at 3.35 TB/s); FLOPs would bound only
-// at C in the hundreds.
+// 4096 x 1536 bf16 = 3.22 GB, 0.96 ms at 3.35 TB/s; down_combine: 1.61 GB,
+// 0.48 ms); FLOPs would bound only at C in the hundreds.
 //
-// gather_swiglu has two builds, chosen by the wrapper from dtype, d, f and
-// alignment alone (ops.gather_swiglu_path):
+// Each has two builds, chosen by the wrapper from dtype, d, f and alignment
+// alone (ops.gather_swiglu_path, ops.down_combine_path): tensor cores for
+// bf16 with d and f multiples of 8 and 16-byte-aligned bases, CUDA cores
+// (the first versions, kept as they were) for f32 and every other shape.
+// The CUDA-core builds reached 24 % (gather_swiglu) and 16 % (down_combine)
+// of their byte bounds: f32 FMAs, weights as scalar 2-byte loads widened
+// into f32 tiles, two __syncthreads a 32-deep K step with no load in flight
+// during the FMAs.
 //
-// Tensor cores (bf16, d and f multiples of 8, 16-byte-aligned bases).  The
-// CUDA-core build below reaches 24 % of the byte bound: f32 FMAs, weights
-// as scalar 2-byte loads widened into f32 tiles, two __syncthreads a
-// 32-deep K step with no load in flight during the FMAs.  This build is
-// grouped_gemm.cu's tensor-core build with the gather as its prologue and
-// two products:
+// gather_swiglu on tensor cores: grouped_gemm.cu's design (A and B
+// swapped) with the gather as its prologue and two products:
 //  * gate^T = Wg[e]^T . x[idx]^T and up^T = Wu[e]^T . x[idx]^T: the weight
 //    tile is wgmma's A, 64 output columns read MN-major from shared memory
 //    (W is (d, f) row-major), and the block's gathered slots are the N
 //    operand, K-major: 16 wide (m64n16k16) at C <= 16, the 128-token
-//    admission, and 64 (m64n64k16) above it, tiled over the grid.  No
-//    tensor-core work is padded to 64 slots.
+//    admission, and 64 (m64n64k16) above it, tiled over the grid.
 //  * One producer warp keeps a ring of 4 stages full: lane 0 brings 64 K
 //    rows of the block's 128 columns of both Wg and Wu by TMA (32 KB), and
 //    the warp gathers the slots' 64-element x row pieces with 16-byte
@@ -48,10 +49,20 @@
 //  * Two f32 accumulator sets, gate and up; SwiGLU in f32, and h written
 //    once in bf16 through shared memory, 16-byte row pieces.
 //  * A block whose slots are all empty writes zeros and reads no weights.
-//  * Fixed-order sums, no atomics: a repeated launch is bitwise equal.
 //
-// CUDA cores (f32, and bf16 at any other shape; down_combine always; the
-// first versions, kept as they were):
+// down_combine on tensor cores: grouped_tc.cuh's main loop, the one kernel
+// 8 runs, over h[e] (the x operand, its 16- or 64-slot tile by TMA) and
+// Wd[e] (the weight tile): y[e]^T = Wd[e]^T . h[e]^T with f32 accumulators,
+// h and Wd both bf16, so every product is exact and no hi + lo split is
+// needed.  Its epilogue writes slot_w * y in f32 straight from the
+// accumulators into the rows scratch below, only for occupied slots (8
+// neighbouring columns of 4 slots a warp store: whole 32-byte sectors); a
+// slot tile whose slots are all empty reads no weights and writes nothing.
+// 0.570 ms (device 0.552, 87 % of the byte bound) at the admission shape
+// against bmm + index_add_'s 0.666 in turns and the CUDA-core build's
+// 3.070 in the same call (H100 80GB HBM3, 700 W; PERF.md, section 6).
+//
+// CUDA cores:
 //  * One block per (expert, 16-slot block, 64-column tile).  The block loads
 //    its slots' token indices itself and gathers those x rows tile by tile
 //    straight into shared memory (the gather is the GEMM prologue).
@@ -59,20 +70,22 @@
 //    slots are all empty writes zeros (gather_swiglu) or nothing
 //    (down_combine) and reads no weights, so an expert the plan leaves idle
 //    costs no bytes.
-//  * down_combine's epilogue is fixed-order, so an admission is bitwise
-//    repeatable (the serve fabric's byte-identical re-run rests on it).  The
-//    TPU kernel's serial scatter has no parallel counterpart; atomics would
-//    add a token's top_k rows in whatever order the blocks finish.  So the
-//    down launch writes each occupied slot's weighted row w * y into an
-//    (E*C, d) f32 scratch (empty slots, idx == T, write nothing), and a
-//    second launch sums each token's slots in one thread per column, in
-//    ascending slot order: one block per (token, 256 columns) finds its
-//    token's slots with warp ballots over flat_idx.  The scratch is the
-//    (E, C, d) tensor the TPU kernel kept out of HBM: at a 128-token
-//    admission (E 128, C 16, d 4096) ~34 MB written and read once more,
-//    ~20 us at the card's rate, against the ~3 ms the down GEMM takes here.
+//
+// down_combine's combine is fixed-order in both builds, so an admission is
+// bitwise repeatable (the serve fabric's byte-identical re-run rests on
+// it).  The TPU kernel's serial scatter has no parallel counterpart; atomics
+// would add a token's top_k rows in whatever order the blocks finish.  So
+// the down launch writes each occupied slot's weighted row w * y into an
+// (E*C, d) f32 scratch (empty slots, idx == T, write nothing), and a second
+// launch sums each token's slots in one thread per column, in ascending
+// slot order: one block per (token, 256 columns) finds its token's slots
+// with warp ballots over flat_idx.  The scratch is the (E, C, d) tensor the
+// TPU kernel kept out of HBM: at a 128-token admission (E 128, C 16, d
+// 4096) ~34 MB written and read once more, ~20 us at the card's rate.
+// gather_swiglu's sums are fixed-order too: every repeated launch is
+// bitwise equal.
 #include "common.cuh"
-#include "sm90.cuh"
+#include "grouped_tc.cuh"
 
 namespace {
 
@@ -249,6 +262,15 @@ __global__ void __launch_bounds__(CB_THREADS) combine_rows_kernel(
   if (col < d) out[(long)t * d + col] = acc;
 }
 
+// the combine launch both builds of down_combine end with
+int combine_rows(const void* rows, const void* flat_idx, void* out, int Tn, int EC, int d, cudaStream_t stream) {
+  if (Tn > 0) {
+    dim3 grid(Tn, (d + CB_THREADS - 1) / CB_THREADS);
+    combine_rows_kernel<<<grid, CB_THREADS, 0, stream>>>((const float*)rows, (const int*)flat_idx, (float*)out, EC, d);
+  }
+  return (int)cudaGetLastError();
+}
+
 
 // ---------------------------------------------------------------------------
 // gather_swiglu on tensor cores: wgmma on bf16 tiles, weights by TMA, the
@@ -277,12 +299,6 @@ struct Tile {
   static constexpr int YS = BN + 8;  // row stride of the output tile (bf16), 16-byte rows
   static_assert(BM * YS * 2 <= STAGE, "the output tile reuses stage 0");
 };
-
-template <int BM>
-__device__ __forceinline__ void wgmma_tn(float (&d)[BM / 2], uint64_t da, uint64_t db) {
-  if constexpr (BM == 16) sm90::wgmma_tn_m64n16k16(d, da, db);
-  else sm90::wgmma_tn_m64n64k16(d, da, db);
-}
 
 // One block per (BN-column tile, BM-slot tile, expert).
 template <int BM>
@@ -384,8 +400,8 @@ __global__ void __launch_bounds__(THREADS, 1) gather_swiglu_tc_kernel(
       const uint64_t dx = sm90::desc_kmajor(sx + kk * 32);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        wgmma_tn<BM>(g[j], sm90::desc_mnmajor(st + j * BOX + kk * 16 * 128, BOX), dx);
-        wgmma_tn<BM>(u[j], sm90::desc_mnmajor(st + (NT + j) * BOX + kk * 16 * 128, BOX), dx);
+        gtc::wgmma_tn<BM>(g[j], sm90::desc_mnmajor(st + j * BOX + kk * 16 * 128, BOX), dx);
+        gtc::wgmma_tn<BM>(u[j], sm90::desc_mnmajor(st + (NT + j) * BOX + kk * 16 * 128, BOX), dx);
       }
     }
     sm90::wgmma_commit();
@@ -449,6 +465,75 @@ int launch(const void* x, const void* flat_idx, const void* wg, const void* wu, 
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// down_combine on tensor cores: grouped_tc.cuh's main loop over h[e] and
+// Wd[e], the weighted rows of the occupied slots as its epilogue
+// ---------------------------------------------------------------------------
+
+namespace down_tc {
+
+using gtc::CONSUMERS;
+
+// One block per (BN-column tile of d, BM-slot tile, expert).
+template <int BM>
+__global__ void __launch_bounds__(gtc::THREADS, 1) down_rows_tc_kernel(
+    const __grid_constant__ CUtensorMap tw,  // Wd as (d, f, E): boxes of (64, BK, 1)
+    const __grid_constant__ CUtensorMap th,  // h as (f, C, E): boxes of (64, BM, 1)
+    const int* __restrict__ flat_idx,        // (E*C,)
+    const float* __restrict__ slot_w,        // (E*C,)
+    float* __restrict__ rows,                // (E*C, d): occupied slots' weighted rows
+    int Tn, int C, int d, int f) {
+  using L = gtc::Tile<BM>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int tok_s[BM];
+  __shared__ float w_s[BM];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * L::BN, c0 = blockIdx.y * BM, e = blockIdx.z;
+  bool occupied = false;
+  if (tid < BM) {
+    const int c = c0 + tid;
+    const int tok = c < C ? flat_idx[(long)e * C + c] : Tn;
+    tok_s[tid] = tok;
+    w_s[tid] = tok < Tn ? slot_w[(long)e * C + c] : 0.f;
+    occupied = tok < Tn;
+  }
+  if (!__syncthreads_or(occupied)) return;  // no occupied slot: no row any token reads, no weight read
+  gtc::init_ring<BM>(base);
+  __syncthreads();
+  const int nk = (f + gtc::BK - 1) / gtc::BK;
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) gtc::produce<BM>(&tw, &th, base, n0, c0, e, nk);
+    return;
+  }
+  float acc[L::NT][L::NA];
+  gtc::consume<BM>(acc, base, nk);
+  // slot_w * y in f32 for the occupied slots; a warp's stores are 8
+  // neighbouring columns of 4 slot rows: 32-byte pieces
+  gtc::for_each_acc<BM>(acc, [&](int row, int col, float v) {
+    const int n = n0 + col;
+    if (tok_s[row] < Tn && n < d) rows[((long)e * C + c0 + row) * d + n] = w_s[row] * v;
+  });
+}
+
+template <int BM>
+int launch(const void* h, const void* wd, const void* flat_idx, const void* slot_w, void* rows, int Tn, int E, int C,
+           int d, int f, cudaStream_t stream) {
+  using L = gtc::Tile<BM>;
+  CUtensorMap tw, th;  // h (E, C, f) is grouped_tc's x (E, M, K); Wd (E, f, d) its w (E, K, N)
+  if (!gtc::make_maps<BM>(&tw, &th, wd, h, E, C, f, d)) return (int)cudaErrorInvalidValue;
+  // the opt-in above 48 KB, once a process (the port drives one card a process)
+  static const cudaError_t opted =
+      cudaFuncSetAttribute(down_rows_tc_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (opted != cudaSuccess) return (int)opted;
+  const dim3 grid((d + L::BN - 1) / L::BN, (C + BM - 1) / BM, E);
+  down_rows_tc_kernel<BM><<<grid, gtc::THREADS, L::BYTES, stream>>>(
+      tw, th, (const int*)flat_idx, (const float*)slot_w, (float*)rows, Tn, C, d, f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace down_tc
+
 }  // namespace
 
 extern "C" int repro_gather_swiglu(int dtype, const void* x, const void* flat_idx, const void* wg, const void* wu,
@@ -485,10 +570,20 @@ extern "C" int repro_down_combine(int dtype, const void* h, const void* wd, cons
   });
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (Tn > 0) {
-    dim3 grid2(Tn, (d + CB_THREADS - 1) / CB_THREADS);
-    combine_rows_kernel<<<grid2, CB_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)rows_scratch, (const int*)flat_idx, (float*)out, E * C, d);
-  }
-  return (int)cudaGetLastError();
+  return combine_rows(rows_scratch, flat_idx, out, Tn, E * C, d, (cudaStream_t)stream);
+}
+
+// The tensor-core build: bf16 h (E, C, f) and Wd (E, f, d), contiguous with
+// 16-byte-aligned bases, d and f multiples of 8; rows_scratch and out as
+// repro_down_combine's.
+extern "C" int repro_down_combine_tc(const void* h, const void* wd, const void* flat_idx, const void* slot_w,
+                                     void* rows_scratch, void* out, int Tn, int E, int C, int d, int f,
+                                     void* stream) {
+  if (Tn <= 0 || d <= 0) return 0;
+  if (f <= 0 || f % 8 != 0 || d % 8 != 0 || E <= 0 || E > 65535 || C <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = C <= 16 ? down_tc::launch<16>(h, wd, flat_idx, slot_w, rows_scratch, Tn, E, C, d, f, s)
+                         : down_tc::launch<64>(h, wd, flat_idx, slot_w, rows_scratch, Tn, E, C, d, f, s);
+  if (rc != 0) return rc;
+  return combine_rows(rows_scratch, flat_idx, out, Tn, E * C, d, s);
 }

@@ -1,8 +1,10 @@
 """Decode MoE wrappers (port of ``repro/kernels/moe_decode/ops.py``).
 
 :func:`decode_moe_kernel` is the launch: plain version on CPU tensors,
-``csrc/moe_decode.cu`` (two CUDA launches per call, counted as one) on
-``cuda`` tensors, or an error.  Its int8 branch (int8 stacks with per-expert
+``csrc/moe_decode.cu`` (three CUDA launches per call, counted as one: gate/up
+and down over the plan's experts, grouped on the card, then each token's k
+rows summed in order) on ``cuda`` tensors, or an error.  It reads nothing
+back to the host.  Its int8 branch (int8 stacks with per-expert
 scales) counts its launches apart, in ``int8_launches``; on a ``cuda``
 tensor it launches the int8 kernel or raises, never dequantizing first.
 :func:`decode_moe` executes a :class:`~repro_torch.core.plans.DecodePlan`
@@ -63,14 +65,16 @@ def decode_moe_kernel(
     _check(all(t.is_contiguous() for t in (x, expert_ids, weights, *stacks, *extra)), "tensors must be contiguous")
     fn = function(
         "moe_decode", "repro_decode_moe",
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     )
-    h = torch.empty((T * k, f), dtype=torch.float32, device=dev)
+    # one f32 scratch: the (T*k, f) h rows, then from the next 16-byte
+    # boundary the (T*k, d) weighted down rows
+    scratch = torch.empty(((T * k * f + 3) // 4 * 4 + T * k * d,), dtype=torch.float32, device=dev)
     out = torch.empty((T, d), dtype=torch.float32, device=dev)
     scale_ptrs = [ptr(s) for s in extra] or [ctypes.c_void_p(None)] * 3
     rc = fn(
         dtype_code(x.dtype), dtype_code(w_gate.dtype), ptr(x), ptr(expert_ids), ptr(weights), ptr(w_gate),
-        ptr(w_up), ptr(w_down), *scale_ptrs, ptr(h), ptr(out), T, k, d, f, stream_of(x),
+        ptr(w_up), ptr(w_down), *scale_ptrs, ptr(scratch), ptr(out), E, T, k, d, f, stream_of(x),
     )
     check_launch(rc, "decode_moe")
     count_launch(decode_moe_kernel, int8=scales is not None)

@@ -2,10 +2,11 @@
 
 ``gather_swiglu`` and ``down_combine`` are the two launches: plain versions
 on CPU tensors, ``csrc/moe_fused.cu`` on ``cuda`` tensors, or an error.  On
-the card ``gather_swiglu`` takes one of two builds, named by
-:func:`gather_swiglu_path`: bf16 with d and f multiples of 8 on tensor cores
-(wgmma; weights by TMA, the slots' rows gathered by cp.async), everything
-else on CUDA cores.
+the card each takes one of two builds, named by :func:`gather_swiglu_path`
+and :func:`down_combine_path`: bf16 with d and f multiples of 8 on tensor
+cores (wgmma; weights by TMA, and for ``gather_swiglu`` the slots' rows
+gathered by cp.async, for ``down_combine`` h's slot tiles by TMA),
+everything else on CUDA cores.
 :func:`fused_moe_fn` runs a :class:`~repro_torch.core.plans.DispatchPlan`
 through both.  The kernel reads x (T, d) and treats index T as a zero row,
 so the wrapper builds no padded copy of x.  :func:`fused_experts_fn` runs
@@ -25,6 +26,7 @@ from repro_torch.kernels.moe_fused import ref
 _SIG = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_TC = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_DOWN = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIG_DOWN_TC = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -46,6 +48,16 @@ def gather_swiglu_path(dtype: torch.dtype, d: int, f: int, aligned: bool) -> str
     d and f multiples of 8) or ``"cuda_cores"`` (f32 products; f32, and
     bf16 at any other shape)."""
     ok = dtype == torch.bfloat16 and d > 0 and d % 8 == 0 and f % 8 == 0 and aligned
+    return "tensor_cores" if ok else "cuda_cores"
+
+
+def down_combine_path(dtype: torch.dtype, f: int, d: int, aligned: bool) -> str:
+    """Which build of kernel 4 a launch takes, from its dtype, f, d and
+    whether h and the stack start on 16-byte boundaries: ``"tensor_cores"``
+    (bf16 wgmma tiles fed by TMA, which needs h's and Wd's row strides
+    multiples of 16 bytes: f and d multiples of 8) or ``"cuda_cores"`` (f32
+    products; f32, and bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and f > 0 and f % 8 == 0 and d % 8 == 0 and aligned
     return "tensor_cores" if ok else "cuda_cores"
 
 
@@ -96,10 +108,11 @@ def down_combine(
     num_tokens: int,
 ) -> torch.Tensor:
     """y (T, d) f32 = sum over slots of slot_w * (h @ Wd), scattered by
-    token.  On the card each token's slots are summed in a fixed order
-    (ascending slot), so the result is bitwise repeatable: one launch
-    writes the weighted slot rows to an (E*C, d) f32 scratch, a second sums
-    them per token (two CUDA launches, counted as one)."""
+    token.  On the card the down product takes the build
+    :func:`down_combine_path` names and writes the occupied slots' weighted
+    rows to an (E*C, d) f32 scratch; a second launch sums each token's rows
+    in a fixed order (ascending slot), so the result is bitwise repeatable
+    (two CUDA launches, counted as one)."""
     E, C, f = h.shape
     d = w_down.shape[-1]
     _check(w_down.shape == (E, f, d), f"w_down shape {tuple(w_down.shape)}")
@@ -114,10 +127,12 @@ def down_combine(
 
     rows = torch.empty((E * C, d), dtype=torch.float32, device=h.device)
     out = torch.empty((num_tokens, d), dtype=torch.float32, device=h.device)
-    rc = function("moe_fused", "repro_down_combine", _SIG_DOWN)(
-        dtype_code(h.dtype), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(rows), ptr(out),
-        num_tokens, E, C, d, f, stream_of(h),
-    )
+    args = (ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(rows), ptr(out), num_tokens, E, C, d, f,
+            stream_of(h))
+    if down_combine_path(h.dtype, f, d, h.data_ptr() % 16 == 0 and w_down.data_ptr() % 16 == 0) == "tensor_cores":
+        rc = function("moe_fused", "repro_down_combine_tc", _SIG_DOWN_TC)(*args)
+    else:
+        rc = function("moe_fused", "repro_down_combine", _SIG_DOWN)(dtype_code(h.dtype), *args)
     check_launch(rc, "down_combine")
     down_combine.launches += 1
     return out

@@ -5,14 +5,19 @@ sources, its library swapped in under the same wrappers.
   bitwise what that checkout's build gives on the same inputs: the window
   flash-decode (kernel 6; f32, bf16, int8 K/V), both builds of kernel 7
   (CUDA cores: f32 at every head dim, bf16 at 16, 32 and 64; tensor cores:
-  bf16 at 128 and 256), kernel 8's CUDA-core build (f32, and bf16 at a
-  ragged shape), kernel 11's CUDA-core build (f32, also at Mamba-2-2.7B's
-  widths, and bf16 at a shape the tensor cores do not take), kernel 3's
-  CUDA-core build (f32, and bf16 at f 84) and kernel 4 (f32 and bf16).
-  The C entry points ``repro_flash_decode_window``,
-  ``repro_flash_attention``, ``repro_flash_attention_tc``,
-  ``repro_grouped_gemm``, ``repro_ssd_scan``, ``repro_gather_swiglu`` and
-  ``repro_down_combine`` must keep their signatures in both trees.
+  bf16 at 128 and 256), both builds of kernel 8 (CUDA cores: f32, and bf16
+  at a ragged shape; tensor cores: bf16 at M tiles of 16, 64 and 256, its
+  main loop now shared with kernel 4 through ``csrc/grouped_tc.cuh``),
+  kernel 11's CUDA-core build (f32, also at Mamba-2-2.7B's widths, and bf16
+  at a shape the tensor cores do not take), both builds of kernel 3 (CUDA
+  cores: f32, and bf16 at f 84; tensor cores: bf16 at slot tiles of 16 and
+  64) and kernel 4's CUDA-core build (f32, and bf16 at f 84; its bf16
+  tensor-core build is new).  The C entry points
+  ``repro_flash_decode_window``, ``repro_flash_attention``,
+  ``repro_flash_attention_tc``, ``repro_grouped_gemm``,
+  ``repro_grouped_gemm_tc``, ``repro_ssd_scan``, ``repro_gather_swiglu``,
+  ``repro_gather_swiglu_tc`` and ``repro_down_combine`` must keep their
+  signatures in both trees.
   Skips unless ``REPRO_OTHER_CHECKOUT`` names the other checkout's root:
 
       REPRO_OTHER_CHECKOUT=/path/to/other PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_builds.py
@@ -83,8 +88,11 @@ WINDOW_CASES = [f"flash_decode_window {kind}{tag}" for tag in ("float32", "bfloa
 PREFILL_CASES = [f"flash_attention {tag} hd {hd} window {w}"
                  for tag, hds in (("float32", (16, 32, 64, 128, 256)), ("bfloat16", (16, 32, 64, 128, 256)))
                  for hd in hds for w in (0, 45)]
+# E,M,K,N; "tc" names a case of the tensor-core build
 GEMM_CASES = [f"grouped_gemm {tag} {shape}" for tag, shape in
-              (("float32", "3,37,100,130"), ("float32", "4,20,1536,4096"), ("bfloat16", "3,37,100,130"))]
+              (("float32", "3,37,100,130"), ("float32", "4,20,1536,4096"), ("bfloat16", "3,37,100,130"),
+               ("bfloat16", "128,16,1536,4096 tc"), ("bfloat16", "4,8,200,328 tc"), ("bfloat16", "3,37,200,328 tc"),
+               ("bfloat16", "2,300,200,328 tc"))]
 # B,T,H,P,N and whether from a random h0
 SSD_CASES = [f"ssd_scan {tag} {shape}" for tag, shape in
              (("float32", "2,37,3,16,16,1"), ("float32", "1,2100,80,64,128,1"), ("float32", "1,4096,80,64,128,0"),
@@ -92,7 +100,7 @@ SSD_CASES = [f"ssd_scan {tag} {shape}" for tag, shape in
 # T,E,C,d,f
 MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine") for tag, shape in
              (("float32", "40,8,7,96,80"), ("float32", "128,128,16,4096,1536"), ("bfloat16", "40,8,16,96,84"))] + \
-            ["down_combine bfloat16 128,128,16,4096,1536"]
+            [f"gather_swiglu bfloat16 {shape} tc" for shape in ("128,128,16,4096,1536", "40,8,40,96,80")]
 SOURCE = {"flash_decode_window": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
           "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused"}
 
@@ -117,7 +125,7 @@ def _run(case: str, dev) -> torch.Tensor:
         E, M, K, N = (int(n) for n in words[2].split(","))
         x = torch.randn((E, M, K), generator=g, device=dev).to(dt)
         w = (torch.randn((E, K, N), generator=g, device=dev) / K ** 0.5).to(dt)
-        assert gg_ops.grouped_gemm_path(dt, K, N, True) == "cuda_cores"
+        assert gg_ops.grouped_gemm_path(dt, K, N, True) == ("tensor_cores" if "tc" in words else "cuda_cores")
         return gg_ops.grouped_gemm(x, w)
     if words[0] == "ssd_scan":
         B, T, H, P, N, with_h0 = (int(n) for n in words[2].split(","))
@@ -134,8 +142,9 @@ def _run(case: str, dev) -> torch.Tensor:
         plan, _ = route_topk(x, torch.randn((d, E), generator=g, device=dev), 8 if E > 8 else 2, C)
         w1, w2 = ((torch.randn((E, d, f), generator=g, device=dev) * d ** -0.5).to(dt) for _ in range(2))
         if words[0] == "gather_swiglu":
-            assert mf_ops.gather_swiglu_path(dt, d, f, True) == "cuda_cores"
+            assert mf_ops.gather_swiglu_path(dt, d, f, True) == ("tensor_cores" if "tc" in words else "cuda_cores")
             return mf_ops.gather_swiglu(x.to(dt), plan.flat_idx, w1, w2)
+        assert mf_ops.down_combine_path(dt, f, d, True) == "cuda_cores"
         h = torch.randn((E, C, f), generator=g, device=dev).to(dt)
         return mf_ops.down_combine(h, w1.transpose(1, 2).contiguous(), plan.flat_idx, plan.slot_w, T)
     # the window decode: 4 slots of 10 heads over one KV head, hd 256, a

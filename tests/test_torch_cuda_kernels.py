@@ -215,18 +215,56 @@ def test_flash_decode_many_slots_above_the_split_cap_on_card(cuda):
                                         torch.zeros((4,), dtype=torch.int32, device=cuda)), torch.bfloat16)
 
 
+# kernel 2's plans: (T, k, E, d, f, ids or None for a random top-k plan).
+# "shard slice": a top-8 plan over 32 experts as shard 1 of 2 sees it, local
+# expert 0 named by every foreign assignment (more than 16, at weight 0);
+# "all ids equal": one expert named 24 times (three groups of 8)
+def _decode_moe_plan(case, rng):
+    T, k, E, d, f = {"small": (5, 4, 16, 256, 192), "serving": (16, 8, 128, 4096, 1536),
+                     "ragged": (5, 4, 16, 100, 84), "T=1": (1, 8, 128, 4096, 1536),
+                     "all ids equal": (6, 4, 16, 256, 192), "shard slice": (16, 8, 16, 512, 256)}[case]
+    if case == "all ids equal":
+        ids = np.zeros((T, k), np.int32)
+    elif case == "shard slice":
+        full = np.stack([rng.permutation(2 * E)[:k] for _ in range(T)]).astype(np.int32)
+        ids = np.where(full >= E, full - E, 0).astype(np.int32)
+    else:
+        ids = np.stack([rng.permutation(E)[:k] for _ in range(T)]).astype(np.int32)
+    w = rng.random((T, k)).astype(np.float32)
+    if case == "shard slice":
+        w = np.where(full >= E, w, 0).astype(np.float32)
+        assert int((ids == 0).sum()) > 16 and float(w[(ids == 0) & (full < E)].max()) == 0.0
+    return T, k, E, d, f, ids, w
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype):
-    T, k, E, d, f = 5, 4, 16, 256, 192
-    rng = np.random.default_rng(0)
-    x = _t(rng.standard_normal((T, d)).astype(np.float32)).to(cuda, dtype)
-    ids = _t(np.stack([rng.permutation(E)[:k] for _ in range(T)]).astype(np.int32)).to(cuda)
-    w = _t(rng.random((T, k)).astype(np.float32)).to(cuda)
-    wg, wu, wd = (_t(a).to(cuda, dtype) for a in _moe_stacks(2, E, d, f))
-    got = md_ops.decode_moe_kernel(x, ids, w, wg, wu, wd)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("case", ["small", "serving", "ragged", "T=1", "all ids equal", "shard slice"])
+def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype, case):
+    """Kernel 2 (int8: the int8 branch with bf16 x) against its plain
+    version within 1e-4 of the output scale, and bitwise on a repeated
+    launch: at the serving shape (16 tokens, top-8 of 128, d 4096, f 1536),
+    at d 100 and f 84 (rows not whole 16-byte pieces: element copies), at
+    T = 1, with every id equal, and on a shard-sliced plan."""
+    rng = np.random.default_rng(len(case))
+    T, k, E, d, f, ids, w = _decode_moe_plan(case, rng)
+    x = _t(rng.standard_normal((T, d)).astype(np.float32)).to(cuda, torch.float32 if dtype == torch.float32
+                                                              else torch.bfloat16)
+    ids, w = _t(ids).to(cuda), _t(w).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    stacks = [torch.randn(s, generator=g, device=cuda) * a for s, a in
+              (((E, d, f), d ** -0.5), ((E, d, f), d ** -0.5), ((E, f, d), f ** -0.5))]
+    if dtype == torch.int8:
+        from repro_torch.core.quant import quantize_int8
+
+        twins = [quantize_int8(s, axis=(1, 2)) for s in stacks]
+        stacks, scales = [q for q, _ in twins], torch.stack([s[:, 0, 0] for _, s in twins]).contiguous()
+    else:
+        stacks, scales = [s.to(dtype) for s in stacks], None
+    got = md_ops.decode_moe_kernel(x, ids, w, *stacks, scales)
+    assert torch.equal(got, md_ops.decode_moe_kernel(x, ids, w, *stacks, scales))
     torch.cuda.synchronize()
-    _close(got, md_ref.decode_moe(x, ids, w, wg, wu, wd), torch.float32)
+    _close(got, md_ref.decode_moe(x, ids, w, *stacks, scales), torch.float32)
 
 
 @pytest.mark.cuda
@@ -234,11 +272,12 @@ def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype):
 @pytest.mark.parametrize("C,f", [(7, 80), (8, 80), (12, 80), (16, 80), (40, 80), (100, 80), (16, 84)])
 def test_fused_moe_kernels_match_plain_on_card(cuda, dtype, C, f):
     """Kernel 3 within one bf16 ulp (f32: 1e-4), bitwise on a repeated
-    launch, then kernel 4 on its output.  bf16 takes the tensor-core build
-    at f 80 (a ragged 128-column tile) with slot tiles of 16 (C <= 16) and
-    64 (C 40; C 100 over two tiles), and the CUDA-core build at f 84 (not
-    a whole number of 16-byte pieces); expert 0 is never routed to, so all
-    its slots are empty (index T), and C 7 drops assignments."""
+    launch, then kernel 4 on its output.  bf16 takes both kernels'
+    tensor-core builds at f 80 (a ragged 128-column tile) with slot tiles of
+    16 (C <= 16) and 64 (C 40; C 100 over two tiles), and the CUDA-core
+    builds at f 84 (not a whole number of 16-byte pieces); expert 0 is never
+    routed to, so all its slots are empty (index T), and C 7 drops
+    assignments."""
     T, E, k, d = 40, 8, 2, 96
     rng = np.random.default_rng(1)
     xn = rng.standard_normal((T, d)).astype(np.float32)
@@ -257,7 +296,35 @@ def test_fused_moe_kernels_match_plain_on_card(cuda, dtype, C, f):
     torch.cuda.synchronize()
     _close(h, mf_ref.gather_swiglu(xt, idx, wg, wu), dtype)
     assert torch.equal(h, mf_ops.gather_swiglu(xt, idx, wg, wu))
+    assert mf_ops.down_combine_path(dtype, f, d, True) == want_path
     y = mf_ops.down_combine(h, wd, idx, sw, T)
+    torch.cuda.synchronize()
+    _close(y, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 16, 17, 64])
+def test_down_combine_tensor_core_build_on_card(cuda, C):
+    """Kernel 4's tensor-core build (bf16, f 80 and d 104: multiples of 8,
+    not of 64 or 128, so TMA zero-fills the ragged K and N edges) at slot
+    tiles of 16 (C 1, 16) and 64 (C 17, 64), expert 0 never routed to (an
+    all-empty expert), empty slots past each expert's load (C 64) and
+    dropped assignments (C 1): within 1e-4 of the plain version's output
+    scale, bitwise on a repeated launch."""
+    T, E, k, d, f = 40, 8, 2, 104, 80
+    rng = np.random.default_rng(C)
+    xn = rng.standard_normal((T, d)).astype(np.float32)
+    router = rng.standard_normal((d, E)).astype(np.float32)
+    xn[:, 0], router[0] = 10.0, 0.0
+    router[0, 0] = -100.0  # no token picks expert 0
+    plan, _ = route_topk(_t(xn), _t(router), k, C)
+    assert bool((plan.flat_idx.reshape(E, C)[0] == T).all())
+    idx, sw = plan.flat_idx.to(cuda), plan.slot_w.to(cuda)
+    h = _t(rng.standard_normal((E, C, f)).astype(np.float32)).to(cuda, torch.bfloat16)
+    wd = _t((rng.standard_normal((E, f, d)) / np.sqrt(f)).astype(np.float32)).to(cuda, torch.bfloat16)
+    assert mf_ops.down_combine_path(torch.bfloat16, f, d, True) == "tensor_cores"
+    y = mf_ops.down_combine(h, wd, idx, sw, T)
+    assert torch.equal(y, mf_ops.down_combine(h, wd, idx, sw, T))
     torch.cuda.synchronize()
     _close(y, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)
 
