@@ -31,17 +31,18 @@ weights freed, Mamba-2-2.7B uncut (64 SSD layers, bf16) on the same traffic
 branches are also held bitwise against their kernels on the dequantized
 buffers (``kernels_vs_plain`` rows ``*_int8``), and the f32 smoke twins
 serve int8 KV and experts too (``smoke_twin_int8``).  The redesigned rows
-1, 2, 2q, 3, 4, 5, 6, 6q, 7, 8 and 11 (the contiguous and paged decode
+1, 2, 2q, 3, 4, 5, 6, 6q, 7, 8, 11 and 12 (the contiguous and paged decode
 split over chunks, the decode MoE grouped by expert on the card and its
-int8 branch, the window decode and its int8 branch, and the tensor-core
+int8 branch, the window decode and its int8 branch, the tensor-core
 builds of the gather + SwiGLU, the down projection + combine, the prefill,
-the grouped GEMM and the SSD scan) launch twice for a bitwise repeat and
-record registers and spills; 1, 2, 2q, 3, 4, 6, 6q, 7 and 8 time their
+the grouped GEMM and the SSD scan, and the RG-LRU scan chunked over T)
+launch twice for a bitwise repeat and record registers and spills; 1, 2, 2q, 3, 4, 6, 6q, 7 and 8 time their
 yardstick in turns with the kernel; 1 also times the wrapper's host time
-and its parts and the T = 1 launch; 2, 2q, 3, 4, 7, 8 and 11 record a SASS
-instruction census of their builds (``HGMMA``, the int8 branch's
-conversions), 4, 8 and 11 which build each case takes, and 2, 2q and 11
-their device time by launch.
+and its parts and the T = 1 launch; 2, 2q, 3, 4, 7, 8, 11 and 12 record a
+SASS instruction census of their builds (``HGMMA``, the int8 branch's
+conversions), 4, 8, 11 and 12 which build each case takes, 2, 2q
+and 11 their device time by launch, and 12 its device time at each of the
+hybrid cell's prompt lengths with f32 and bf16 inputs.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -80,13 +81,16 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
 # the times of the designs the redesigned kernels 1, 1q, 5, 5q, 6, 6q, 7, 8,
-# 3, 11, 2, 2q and 4 replaced (one block per token, or per (batch, head), walking its
-# whole run; f32 products on CUDA cores), at the same shapes on an H100
-# 80GB HBM3 at 700 W (PERF.md, section 6; kernel 11's with bf16 x, B, C)
+# 3, 11, 2, 2q, 4 and 12 replaced (one block per token, or per (batch, head),
+# or one thread per channel, walking its whole run; f32 products on CUDA
+# cores), at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md, section
+# 6; kernel 11's with bf16 x, B, C; kernel 12's with f32 gates and, as
+# rglru_scan_bf16, bf16 ones)
 PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515,
                "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
                "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
-               "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389}
+               "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389,
+               "rglru_scan": 0.2003, "rglru_scan_bf16": 1.393}
 # and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
                       "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074}
@@ -860,8 +864,6 @@ def hybrid_kernel_rows(dev, gen, tol):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.rglru_scan import ops as rg_ops
-    from repro_torch.kernels.rglru_scan import ref as rg_ref
 
     hcfg, qcfg = get_config(HYBRID), get_config(ARCH)
     bf16 = torch.bfloat16
@@ -994,31 +996,94 @@ def hybrid_kernel_rows(dev, gen, tol):
     del q, k, v, kt, vt, qt, band
     torch.cuda.empty_cache()
 
-    # ---- rglru_scan: one 4,096-token prompt over 2,560 channels (f32 on the path)
-    Wl = hcfg.lru_width
-    a32 = torch.rand((1, S, Wl), generator=gen, device=dev) * 0.499 + 0.5
-    b32 = torch.randn((1, S, Wl), generator=gen, device=dev) * 0.1
+    rows["rglru_scan"] = rglru_kernel_row(dev, gen, tol, hcfg.lru_width)
+    return rows
+
+
+def rglru_kernel_row(dev, gen, tol, Wl):
+    """Kernel 12 at the hybrid cell's admission shapes (RecurrentGemma-2B's
+    2,560 channels, one prompt of 2,048, 3,072 or 4,096 tokens), f32 gates
+    (the model's) and bf16 ones, each against its plain version at the f32
+    bound, with a random h0.  The headline is the 4,096-token f32 call: its
+    time beside the replaced design's (``previous_ms``), its device time
+    (the kernel and the flags' memset) at each prompt length for both input
+    types, the bf16 build's own bound, registers, spills, SASS census, the
+    build taken and a bitwise repeat of each."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+    bf16 = torch.bfloat16
+    a32 = torch.rand((1, H_PROMPT, Wl), generator=gen, device=dev) * 0.499 + 0.5
+    b32 = torch.randn((1, H_PROMPT, Wl), generator=gen, device=dev) * 0.1
     h0 = torch.randn((1, Wl), generator=gen, device=dev)
-    err32 = check_close("rglru_scan f32", rg_ops.rglru_scan(a32, b32, h0), rg_ref.linear_scan(a32, b32, h0), tol["f32"])
-    ab, bb = a32.to(bf16), b32.to(bf16)
-    err = check_close("rglru_scan bf16 inputs", rg_ops.rglru_scan(ab, bb, h0), rg_ref.linear_scan(ab, bb, h0),
-                      tol["f32_out"])
-    nbytes = a32.numel() * 4 * 3 + h0.numel() * 4
-    flops = 2.0 * a32.numel()
-    rows["rglru_scan"] = dict(
-        max_abs_err=err32, max_abs_err_bf16_inputs=err,
-        ms=time_ms(lambda: rg_ops.rglru_scan(a32, b32, h0), iters=20),
-        ms_bf16_inputs=time_ms(lambda: rg_ops.rglru_scan(ab, bb, h0), iters=20),
+    a16, b16 = a32.to(bf16), b32.to(bf16)
+
+    def work(T, in_bytes):
+        nbytes = T * Wl * (2 * in_bytes + 4) + Wl * 4
+        return nbytes, 2.0 * T * Wl
+
+    errs, by_prompt = {}, {}
+    for T in (2048, 3072, H_PROMPT):  # the hybrid cell's prompt buckets; a prefix of one batch row is contiguous
+        entry = {}
+        for tag, (a, b) in (("f32", (a32, b32)), ("bf16", (a16, b16))):
+            a, b = a[:, :T], b[:, :T]
+            errs[f"T={T} {tag}"] = check_close(f"rglru_scan T={T} {tag}", rg_ops.rglru_scan(a, b, h0),
+                                               rg_ref.linear_scan(a, b, h0), tol["f32" if tag == "f32" else "f32_out"])
+
+            def kernel(a=a, b=b):
+                return rg_ops.rglru_scan(a, b, h0)
+
+            nbytes, flops = work(T, a.element_size())
+            entry[tag] = dict(device_ms=device_ms(kernel, "", n=20),
+                              kernel_device_ms=device_ms(kernel, "rglru_chunk_kernel", n=20),
+                              **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))))
+        by_prompt[f"T={T}"] = entry
+
+    def kernel32():
+        return rg_ops.rglru_scan(a32, b32, h0)
+
+    def kernel16():
+        return rg_ops.rglru_scan(a16, b16, h0)
+
+    nbytes, flops = work(H_PROMPT, 4)
+    nbytes16, flops16 = work(H_PROMPT, 2)
+    paths = {tag: rg_ops.rglru_scan_path(Wl, all(t.data_ptr() % (rg_ops.LANE_CHANNELS * t.element_size()) == 0
+                                                 for t in (a, b)))
+             for tag, (a, b) in (("f32", (a32, b32)), ("bf16", (a16, b16)))}
+    if set(paths.values()) != {"vector"}:
+        raise AssertionError(f"rglru_scan: builds taken {paths}")
+    row = dict(
+        max_abs_err=errs[f"T={H_PROMPT} f32"], max_abs_err_bf16_inputs=errs[f"T={H_PROMPT} bf16"],
+        max_abs_err_by_prompt=errs,
+        ms=time_ms(kernel32, iters=20), ms_bf16_inputs=time_ms(kernel16, iters=20),
+        previous_ms=PREVIOUS_MS["rglru_scan"], previous_ms_bf16_inputs=PREVIOUS_MS["rglru_scan_bf16"],
+        device_ms=by_prompt[f"T={H_PROMPT}"]["f32"]["device_ms"],
+        device_ms_bf16_inputs=by_prompt[f"T={H_PROMPT}"]["bf16"]["device_ms"],
+        by_prompt=by_prompt,
         plain_ms=time_ms(lambda: rg_ref.linear_scan(a32, b32, h0), iters=1, reps=3),
         library_ms=None,
         library_call="none: no PyTorch call computes a linear recurrence (torch has no associative scan; "
                      "cumprod/cumsum forms overflow or lose precision over 4,096 steps)",
-        shapes=f"a, b {tuple(a32.shape)} f32 (the model's gates), h0 {tuple(h0.shape)}",
+        bitwise_repeat=bitwise_repeat("rglru_scan f32", kernel32) and bitwise_repeat("rglru_scan bf16", kernel16),
+        paths=paths, chunk=rg_ops.CHUNK, segment=rg_ops.SEGMENT,
+        design=f"chunks of {rg_ops.CHUNK} steps x tiles of 32 lanes ({rg_ops.LANE_CHANNELS} channels of a and b a "
+               f"lane a step), "
+               f"{rg_ops.CHUNK // rg_ops.SEGMENT} segments of {rg_ops.SEGMENT} steps a chunk in registers; "
+               f"aggregates published under flags, the carry folded from h0 over every earlier chunk in "
+               f"ascending order; one launch after a memset of the flags",
+        ptxas=ptxas("rglru_scan", "rglru_chunk_kernel"),
+        sass=sass_census("rglru_scan", "rglru_chunk_kernel"),
+        shapes=f"a, b {tuple(a32.shape)} f32 (the model's gates) and bf16, h0 {tuple(h0.shape)}; also the "
+               f"first 2,048 and 3,072 steps",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))),
+        bytes_bf16_inputs=nbytes16,
+        **dict(zip(("bound_ms_bf16_inputs", "bound_by_bf16_inputs"), bound(nbytes16, flops16, F32_FLOPS))),
     )
-    del a32, b32, ab, bb
+    del a32, b32, a16, b16
     torch.cuda.empty_cache()
-    return rows
+    return row
 
 
 def int8_kernel_rows(cfg, dev, gen, tol):

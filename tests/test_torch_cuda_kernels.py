@@ -442,21 +442,61 @@ def test_flash_attention_tensor_core_path_on_card(cuda, hd, nq, nkv, causal, win
     _close(got, fa_ref.flash_attention(q, k, v, causal=causal, window=window), torch.bfloat16)
 
 
+def _rglru_gates(seed, B, T, W, gates):
+    """a in [0.5, 0.999) and b ~ 0.1 N(0, 1); with ``gates="edges"`` the
+    first 8 channels take a = 0.05 (a chunk's product underflows to 0) and
+    the next 8 a = 1 exactly."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, (B, T, W)).astype(np.float32)
+    if gates == "edges":
+        a[:, :, :8] = 0.05
+        a[:, :, 8:16] = 1.0
+    b = (0.1 * rng.standard_normal((B, T, W))).astype(np.float32)
+    return a, b, rng.standard_normal((B, W)).astype(np.float32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,W", [(2, 37, 100), (1, 4096, 2560)])
-def test_rglru_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, W):
+@pytest.mark.parametrize("B,T,W,with_h0,gates", [
+    (2, 37, 100, True, "random"), (1, 4096, 2560, True, "random"), (2, 129, 102, True, "random"),
+    (2, 1, 100, True, "random"), (2, 127, 100, False, "random"), (2, 129, 2560, True, "random"),
+    (1, 2048, 2560, False, "random"), (1, 3072, 2560, True, "random"), (1, 4096, 2560, False, "random"),
+    (2, 261, 100, True, "edges"), (1, 4096, 2560, False, "edges")])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, dtype, B, T, W, with_h0, gates):
+    """At 1e-4 of the scale, and bitwise equal on a repeated launch: T
+    around the chunk (1, CHUNK - 1, CHUNK + 1) and the hybrid cell's
+    prompts, W = 100 (a ragged tile), 102 (one channel a lane) and 2,560."""
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan import ref as rg_ref
 
-    rng = np.random.default_rng(T)
-    a = _t(rng.uniform(0.5, 0.999, (B, T, W)).astype(np.float32)).to(cuda, dtype)
-    b = _t((0.1 * rng.standard_normal((B, T, W))).astype(np.float32)).to(cuda, dtype)
-    h0 = _t(rng.standard_normal((B, W)).astype(np.float32)).to(cuda)
+    assert rg_ops.CHUNK == 128  # the T cases above sit around it
+    a, b, h0 = (_t(x) for x in _rglru_gates(T + W, B, T, W, gates))
+    a, b = a.to(cuda, dtype), b.to(cuda, dtype)
+    h0 = h0.to(cuda) if with_h0 else None
     got = rg_ops.rglru_scan(a, b, h0)
+    again = rg_ops.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.float32 and got.shape == (B, T, W)
+    assert torch.equal(got, again)
     _close(got, rg_ref.linear_scan(a, b, h0), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_builds_agree_bitwise_on_card(cuda, dtype):
+    """The one-channel lanes (a and b one element past an aligned base) and
+    the four-channel lanes compute the same operations in the same order."""
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+
+    B, T, W = 2, 300, 256
+    a, b, h0 = (_t(x).to(cuda) for x in _rglru_gates(5, B, T, W, "random"))
+    buf = torch.empty((2, B * T * W + 1), dtype=dtype, device=cuda)
+    buf[0, 1:], buf[1, 1:] = a.reshape(-1), b.reshape(-1)
+    a_off, b_off = (buf[i, 1:].view(B, T, W) for i in range(2))
+    a, b = a.to(dtype), b.to(dtype)
+    assert rg_ops.rglru_scan_path(W, True) == "vector"
+    assert a_off.data_ptr() % (4 * a_off.element_size()) != 0
+    assert torch.equal(rg_ops.rglru_scan(a, b, h0), rg_ops.rglru_scan(a_off, b_off, h0))
 
 
 @pytest.mark.cuda
