@@ -43,6 +43,13 @@ SASS instruction census of their builds (``HGMMA``, the int8 branch's
 conversions), 4, 8, 11 and 12 which build each case takes, 2, 2q
 and 11 their device time by launch, and 12 its device time at each of the
 hybrid cell's prompt lengths with f32 and bf16 inputs.
+Every replica serves its decode launches through the compiled launch (one
+CUDA graph per shape, replayed; ``repro_torch/launch/steps.py``), so the
+cells and the ``profile*`` phases time replayed graphs; phase
+``compiled_launch`` holds, in each of the eight cells, the same launches
+run eagerly and replayed from the same admitted state: bitwise-equal
+logits and cache leaves, with both sides' ms per decode launch and idle
+share, the capture seconds and the graph pool's bytes.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -1678,7 +1685,7 @@ def full_width(dev):
     rep = serve.ServeReplica(cfg, SLOTS, max_len, params, drafter="ngram", device=dev)
     # warm-up outside the measured run: one request through admission and decode
     serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))
-    reset_serving_stats(rep)
+    rep.reset()
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -1755,9 +1762,12 @@ def paged_tree(dev, params, int8=False):
         return serve.ServeReplica(cfg, SLOTS, PAGED_MAX_LEN, params, tree=tree, drafter="model",
                                   drafter_params=draft_params, device=dev)
 
-    # warm-up on a throwaway replica: one request through admission and decode
-    serve.serve_queue(replica(), serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1, SHARED))
+    # warm-up: one request through admission and decode (building the
+    # kernels and capturing the replica's graphs), then the pool and trie
+    # emptied again
     rep = replica()
+    serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1, SHARED))
+    rep.reset()
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -1858,7 +1868,7 @@ def expert_parallel(dev, params, served):
         torch.cuda.reset_peak_memory_stats()
         rep = serve.ServeReplica(cfg, SLOTS, max_len, ep_params, drafter="ngram", mesh=mesh)
         serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))  # warm-up
-        reset_serving_stats(rep)
+        rep.reset()
         torch.cuda.synchronize()
 
         reset_launch_counts()
@@ -1917,12 +1927,13 @@ def expert_parallel(dev, params, served):
         )
         del want_l, got_l
         twin = smoke_twin(dev, names=["ep_spec4"], meshes=(mesh, cpu_mesh))
+        gate = compiled_launch(rep, cfg.vocab_size)
         prof = profile_decode(rep, cfg.vocab_size)
         del rep
         torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    return ep, twin, prof
+    return ep, twin, prof, gate
 
 
 def alternate_decode(dev, cfg, params, rep, reqs, max_len, rounds=5):
@@ -1941,7 +1952,7 @@ def alternate_decode(dev, cfg, params, rep, reqs, max_len, rounds=5):
     for i in range(rounds):
         pair = [("single_host", single), ("mesh", rep)]
         for name, r in pair if i % 2 == 0 else pair[::-1]:
-            reset_serving_stats(r)
+            r.reset()
             serve.serve_queue(r, reqs)
             torch.cuda.synchronize()
             out[name].append(r.decode_ms / max(r.launches, 1))
@@ -1978,7 +1989,7 @@ def serve_uncut(dev, arch, kv_dtype=""):
     rep = serve.ServeReplica(cfg, H_SLOTS, H_MAX_LEN, params, device=dev)
     # warm-up outside the measured run: one request through admission and decode
     serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, H_PROMPT, 4, 1))
-    reset_serving_stats(rep)
+    rep.reset()
     torch.cuda.synchronize()
     admission_ms = []  # each admission's time, in the order the queue admits them
     admit = rep.admit
@@ -2073,7 +2084,7 @@ def int8_full_width(dev, params, served):
     reqs = serve.synthetic_requests(cfg.vocab_size, PROMPT, GEN, REQUESTS)
     rep = serve.ServeReplica(cfg, SLOTS, max_len, params8, drafter="ngram", device=dev)
     serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1))  # warm-up
-    reset_serving_stats(rep)
+    rep.reset()
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -2286,10 +2297,110 @@ def decode_matches_prefill(dev, arch, layers, expect, prompt_len=2100, steps=4):
                 kernel_launches=counts, tolerance="1e-4 x max(1, max |prefill logit|)")
 
 
-def reset_serving_stats(rep) -> None:
-    """Zero the replica's launch, token and time counters (after a warm-up)."""
-    for name in ("launches", "prefills", "accepted_total", "drafted_total", "prefill_ms", "decode_ms"):
-        setattr(rep, name, type(getattr(rep, name))(0))
+def compiled_launch(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=4):
+    """The compiled decode launch against the eager one on a cell's replica
+    ``rep`` (compiled): ``rep.B`` fresh requests of the cell's traffic
+    admitted (eagerly, as always) and one launch, then ``n`` launches
+    through the replica with each launch's inputs recorded (the step's
+    ``recorder``).  From a copy of the cache taken before those ``n``, the
+    same launches run eagerly (``Model.decode_tokens`` and the argmax read
+    back) and replayed (the replica's step): each launch's logits and,
+    after the last, every cache leaf must be bitwise equal, and the
+    replayed cache bitwise the served one, else this raises.  ms per decode
+    launch of each (host clock; each call ends in its read back), its
+    device-busy ms a launch from the same launches run again under
+    ``torch.profiler`` and the idle share that leaves, the replica's
+    capture seconds, its graph pool's bytes, and the host ms of the binding
+    check every call of a compiled launch makes (decode step and drafter
+    step, with their bound leaves)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    step = rep._decode
+    for r in serve.synthetic_requests(vocab, prompt, gen, rep.B, shared):
+        rep.admit(r)
+    rep.step()
+    torch.cuda.synchronize()
+
+    def snapshot():
+        return [{k: t.clone() for k, t in c.items()} for c in rep.cache]
+
+    def restore(saved):
+        for c, s in zip(rep.cache, saved):
+            for k, t in c.items():
+                t.copy_(s[k])
+        torch.cuda.synchronize()
+
+    before = snapshot()
+    inputs = step.recorder = []
+    try:
+        for _ in range(n):
+            rep.step()
+    finally:
+        step.recorder = None
+    torch.cuda.synchronize()
+    served = snapshot()
+
+    def launch(mode, tokens, lengths, prev, kw):
+        if mode == "eager":
+            out = rep.model.decode_tokens(rep.params, rep.cache, tokens, lengths, prev, tree=rep.tree,
+                                          max_len=rep.max_len, **kw)
+            torch.argmax(out, dim=-1).cpu()
+            return out
+        step(tokens, lengths, prev, **kw)
+        return step.logits
+
+    runs, busy = {}, {}
+    for mode in ("eager", "replayed"):
+        restore(before)
+        ms, logits = [], []
+        for args in inputs:
+            t0 = time.perf_counter()
+            out = launch(mode, *args)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(out.clone())
+        torch.cuda.synchronize()
+        runs[mode] = (ms, logits, snapshot())
+        # the same launches again under the profiler: device-busy ms a launch
+        restore(before)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for args in inputs:
+                launch(mode, *args)
+            torch.cuda.synchronize()
+        busy[mode] = sum(device_time_by_name(prof).values()) / n
+    (e_ms, e_logits, e_cache), (r_ms, r_logits, r_cache) = runs["eager"], runs["replayed"]
+    for i, (a, b) in enumerate(zip(e_logits, r_logits)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"compiled launch: launch {i} logits differ eager vs replayed "
+                                 f"(max |diff| {float((a - b).abs().max()):.3e})")
+    for i, (a, b, c) in enumerate(zip(e_cache, r_cache, served)):
+        for k in a:
+            if not (torch.equal(a[k], b[k]) and torch.equal(b[k], c[k])):
+                raise AssertionError(f"compiled launch: layer {i} leaf {k} differs (eager vs replayed vs served)")
+    while rep.has_work():
+        rep.step()
+    launchers = {"decode": step.launcher}
+    if rep.model_drafter is not None:
+        launchers["drafter"] = rep.model_drafter._step.launcher
+    capture_s = {name: lc.capture_s for name, lc in launchers.items()}
+    binding = {}
+    for name, lc in launchers.items():
+        t0 = time.perf_counter()
+        for _ in range(100):
+            lc.check_binding()
+        binding[name] = dict(ms=(time.perf_counter() - t0) * 10, bound_leaves=len(lc._bound))
+    return dict(
+        launches=n, key=[str(v) for v in step.key], logits_bitwise_equal=True, cache_leaves_bitwise_equal=True,
+        cache_leaves=sum(len(c) for c in rep.cache), eager_ms_each=e_ms, replayed_ms_each=r_ms,
+        eager_ms_per_decode_launch=statistics.mean(e_ms), replayed_ms_per_decode_launch=statistics.mean(r_ms),
+        eager_device_busy_ms=busy["eager"], replayed_device_busy_ms=busy["replayed"],
+        eager_idle_share=max(0.0, 1 - busy["eager"] / statistics.mean(e_ms)),
+        replayed_idle_share=max(0.0, 1 - busy["replayed"] / statistics.mean(r_ms)),
+        capture_s=capture_s, graph_pool_bytes=rep.graphs.reserved_bytes() if rep.graphs else None,
+        kernel_launches_per_replay=step.launcher.replay_launches, binding_check=binding,
+    )
 
 
 def launches_per_step(rep, req) -> dict:
@@ -2316,11 +2427,38 @@ def _leaves(tree):
         yield tree
 
 
+def device_time_by_name(prof) -> dict:
+    """Device ms by kernel (or copy) name from a ``torch.profiler`` run,
+    counting device-side events only: CPU ops also report the device time
+    of the kernels they launched, which would count those kernels twice."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us:
+            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:90]
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    return by_name
+
+
+# the symbols of the port's decode kernels (kernels 1, 5 and 6: the split and
+# merge launches; kernel 2: its gate/up and down launches and its combine)
+DECODE_SYMBOLS = ("decode_split_kernel", "window_split_kernel", "window_merge_kernel", "expert_kernel",
+                  "combine_kernel")
+
+
 def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
     """Device time by kernel over a short steady window of ``n`` decode
     launches of ``rep`` (the full-width replica, then the paged-tree one,
     whose queue carries the ``shared``-token system prompt of its cell, then
-    the hybrid and the SSM ones with their ``prompt``-token queue).
+    the hybrid and the SSM ones with their ``prompt``-token queue): replayed
+    CUDA graphs, the replicas being compiled, with the device time of the
+    port's decode kernels inside them (``port_decode_kernels_ms``).
 
     The profiler's own host overhead lengthens the launches it records, so
     the idle share divides the device-busy time per launch by the wall time
@@ -2348,22 +2486,14 @@ def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
         wall_ms = (time.perf_counter() - t0) * 1e3
     while rep.has_work():
         rep.step()
-    # count device-side events only: CPU ops also report the device time of
-    # the kernels they launched, which would count those kernels twice
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0)
-        if us:
-            name = ev.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0][:90]
-            by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    by_name = device_time_by_name(prof)
     if not by_name:
         return dict(measured=False, note="the profiler showed no device time")
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # the port's decode kernels by their symbols: device time attributed to
+    # each kernel node of a replayed graph
+    port = {sym: sum(ms for name, ms in by_name.items() if name.startswith(sym)) for sym in DECODE_SYMBOLS}
     # where the host's time goes: operators by their own host time (the
     # profiler's overhead included), with their call counts
     host = sorted(((ev.key, ev.self_cpu_time_total / 1e3, ev.count) for ev in prof.key_averages()
@@ -2371,6 +2501,7 @@ def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
     return dict(measured=True, launches=n, wall_ms_unprofiled=plain_wall_ms, wall_ms_profiled=wall_ms,
                 device_busy_ms=busy, device_idle_share=max(0.0, 1 - busy / plain_wall_ms),
                 device_idle_share_profiled=max(0.0, 1 - busy / wall_ms), top_kernels_ms=dict(top),
+                replayed=rep._decode.launcher.graph is not None, port_decode_kernels_ms={k: v for k, v in port.items() if v},
                 top_host_ops_ms={name: dict(ms=ms, calls=calls) for name, ms, calls in host})
 
 
@@ -2441,29 +2572,35 @@ def main() -> int:
     emit("smoke_twin_int8", **twin8)
     torch.cuda.empty_cache()
 
+    # the compiled decode launch held against the eager one in every cell
+    graphs = {}
     served, rep = full_width(dev)
     emit("full_width", **served)
+    graphs["full_width"] = compiled_launch(rep, cfg.vocab_size)
     emit("profile", **profile_decode(rep, cfg.vocab_size))
     params = rep.params
     del rep  # free the contiguous replica's cache; its weights serve the paged cell
     torch.cuda.empty_cache()
     paged, rep = paged_tree(dev, params)
     emit("paged_tree", **paged)
+    graphs["paged_tree"] = compiled_launch(rep, cfg.vocab_size, SHARED)
     emit("profile_paged", **profile_decode(rep, cfg.vocab_size, SHARED))
     del rep
     torch.cuda.empty_cache()
-    ep, ep_twin, ep_prof = expert_parallel(dev, params, served)
+    ep, ep_twin, ep_prof, graphs["expert_parallel"] = expert_parallel(dev, params, served)
     emit("expert_parallel", **ep)
     emit("smoke_twin_ep", **ep_twin)
     emit("profile_ep", **ep_prof)
     int8, rep = int8_full_width(dev, params, served)
     emit("int8_full_width", **int8)
+    graphs["int8_full_width"] = compiled_launch(rep, cfg.vocab_size)
     emit("profile_int8", **profile_decode(rep, cfg.vocab_size))
     params8 = rep.params
     del rep
     torch.cuda.empty_cache()
     paged8, rep = paged_tree(dev, params8, int8=True)
     emit("int8_paged_tree", **paged8)
+    graphs["int8_paged_tree"] = compiled_launch(rep, cfg.vocab_size, SHARED)
     del rep
     torch.cuda.empty_cache()
     emit("admit_twice", **admit_twice(dev, params, params8))
@@ -2471,18 +2608,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)
+    graphs["hybrid_window"] = compiled_launch(rep, get_config(HYBRID).vocab_size, prompt=H_PROMPT, gen=H_GEN)
     emit("profile_hybrid", **profile_decode(rep, get_config(HYBRID).vocab_size, prompt=H_PROMPT, gen=H_GEN, n=5))
     del rep
     torch.cuda.empty_cache()
     hybrid8, rep = int8_hybrid_window(dev)
     emit("int8_hybrid_window", **hybrid8)
+    graphs["int8_hybrid_window"] = compiled_launch(rep, get_config(HYBRID).vocab_size, prompt=H_PROMPT, gen=H_GEN)
     del rep  # free the hybrid weights before the SSM cell
     torch.cuda.empty_cache()
     ssm, rep = ssm_serve(dev)
     emit("ssm_serve", **ssm)
     emit("ssm_decode_matches_prefill", **decode_matches_prefill(dev, SSM, 4, {"ssd_scan": 4 * 5}))
+    graphs["ssm_serve"] = compiled_launch(rep, get_config(SSM).vocab_size, prompt=H_PROMPT, gen=H_GEN)
     emit("profile_ssm", **profile_decode(rep, get_config(SSM).vocab_size, prompt=H_PROMPT, gen=H_GEN))
     del rep
+    emit("compiled_launch", **graphs)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

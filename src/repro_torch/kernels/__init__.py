@@ -26,10 +26,13 @@ Every wrapper in ``kernels/<name>/ops.py`` takes its plain version (the
 sibling ``ref.py``) only for CPU tensors; on ``cuda`` it launches its kernel
 or raises, and adds one to its ``launches`` counter per launch; a wrapper
 with an int8 branch also has an ``int8_launches`` counter, for that
-branch's launches (:func:`count_launch`).
+branch's launches (:func:`count_launch`).  A CUDA graph of a launch
+(:mod:`repro_torch.launch.steps`) records the counts its capture took and
+adds them at each replay (:func:`recorded_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -182,6 +185,35 @@ def launch_counts() -> Dict[str, int]:
         if hasattr(w, "int8_launches"):
             counts[name + "_int8"] = w.int8_launches
     return counts
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (named as :func:`launch_counts` names them) to the
+    wrappers' counters: a CUDA graph's replay launches the kernels its
+    capture recorded without running a wrapper that would count them."""
+    wrappers = kernel_wrappers()
+    for name, n in counts.items():
+        if name in wrappers:
+            wrappers[name].launches += n
+        else:
+            wrappers[name[:-len("_int8")]].int8_launches += n
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Take the launches counted inside the block back out of the counters
+    and yield them, a dict filled on exit (name -> count, the nonzero
+    ones): a capture runs the wrappers, which count, but launches
+    nothing until each replay adds the recorded counts
+    (:func:`add_launch_counts`)."""
+    before = launch_counts()
+    taken: Dict[str, int] = {}
+    try:
+        yield taken
+    finally:
+        after = launch_counts()
+        taken.update({n: after[n] - before[n] for n in after if after[n] != before[n]})
+        add_launch_counts({n: -c for n, c in taken.items()})
 
 
 def kernel_wrappers() -> dict:

@@ -6,15 +6,17 @@ spec width 1 on the contiguous plane (port of ``repro/launch/serve.py``'s
 ``ServeReplica`` without programs, forks, fault hooks or the fabric).
 
 Each :meth:`ServeReplica.step` runs ``spec_tokens`` tokens (or tree nodes)
-for every slot in ONE model call; between launches the host verifies each
-slot's draft greedily (rejected cache rows are overwritten by the next
-launch; the plan row the next launch consumes is selected by
-``prev_accept``) and buffers accepted tokens per request until the request
-completes.
+for every slot in ONE model call, a compiled launch (on the card one CUDA
+graph, replayed: :mod:`repro_torch.launch.steps`); between launches the
+host verifies each slot's draft greedily (rejected cache rows are
+overwritten by the next launch; the plan row the next launch consumes is
+selected by ``prev_accept``) and buffers accepted tokens per request until
+the request completes.
 
 Trees (``tree=``): the verifier walks the tree and the accepted root path is
-committed: on a contiguous cache by ``Model.commit_tree_path`` before
-lengths advance (one commit per launch), on the paged plane by commit maps
+committed: on a contiguous cache by ``Model.commit_tree_path`` (compiled
+as :class:`repro_torch.launch.steps.TreeCommit`) before lengths advance
+(one commit per launch), on the paged plane by commit maps
 from the pre-accept lengths that ride the NEXT launch (no commit of its
 own).  Paged plane (``cfg.paged``): a :class:`PageTable` of per-slot block
 tables and a :class:`PrefixTrie` sharing full prompt pages across
@@ -65,7 +67,7 @@ from repro_torch.core.pages import PageTable, PrefixTrie, commit_maps
 from repro_torch.core.plans import TreePlan
 from repro_torch.launch.mesh import backend_for, init_single_rank, make_host_mesh, rank_device
 from repro_torch.launch.speculative import TREE_DRAFTERS, ModelDrafter, greedy_accept_tree
-from repro_torch.launch.steps import admission, build_model, prefill_model, spec_serve_step
+from repro_torch.launch.steps import GraphPool, TreeCommit, admission, build_model, build_spec_serve_step, prefill_model
 from repro_torch.models.transformer import check_spec_width, max_pages_for, num_pages
 
 DRAFTER_CHOICES = ("model", "ngram", "repeat")
@@ -104,7 +106,15 @@ class ServeReplica:
     rank of the mesh serves the same queue.  ``drafter="model"`` drafts with
     a 1-layer model of the same family (``model_drafter``, its weights
     ``drafter_params``, or drawn from seed 7); ``telemetry`` records the
-    plan agreement of every launch in ``agreements``."""
+    plan agreement of every launch in ``agreements``.
+
+    Every decode launch, the contiguous tree commit and the model drafter's
+    launches are compiled launches (:mod:`repro_torch.launch.steps`): on
+    the card each is captured once in a CUDA graph, all of one replica's
+    graphs sharing one memory pool, and replayed; on the CPU each runs
+    eagerly on its static buffers.  Admission is always eager: prompt
+    lengths vary.  :meth:`reset` returns a drained replica to its state at
+    construction, graphs kept."""
 
     def __init__(self, cfg, slots: int, max_len: int, params, *, tree: Optional[TreePlan] = None,
                  drafter: str = "ngram", telemetry: bool = False, drafter_params=None, device=None,
@@ -125,6 +135,13 @@ class ServeReplica:
         self._branchy = tree is not None and not tree.is_chain()
         self.telemetry = telemetry and cfg.decode_plane and cfg.is_moe
         self.cache = self.model.init_cache(slots, max_len)
+        self.paged = bool(cfg.paged)
+        self.graphs = GraphPool(self.model.device) if self.model.device.type == "cuda" else None
+        self._decode = build_spec_serve_step(self.model, params, self.cache, batch=slots, tree=tree,
+                                             telemetry=self.telemetry, max_len=max_len, graphs=self.graphs)
+        self._commit = None
+        if self._branchy and not self.paged:
+            self._commit = TreeCommit(self.cache, batch=slots, T=self.T, graphs=self.graphs)
         self._propose_tree = tree if tree is not None else TreePlan.chain(self.T)
         self._fill = TREE_DRAFTERS.get(drafter, TREE_DRAFTERS["ngram"])
         self.model_drafter = None
@@ -133,11 +150,10 @@ class ServeReplica:
             draft_cfg = dataclasses.replace(cfg, num_layers=1, spec_tokens=1, paged=False)
             draft_model = build_model(draft_cfg, mesh, slots, self.model.device)
             dp = drafter_params if drafter_params is not None else draft_model.init(7)
-            self.model_drafter = ModelDrafter(draft_model, dp, slots, max_len)
+            self.model_drafter = ModelDrafter(draft_model, dp, slots, max_len, graphs=self.graphs)
 
         # paged KV plane: the block table is the control word every launch
         # takes; admission is page binding plus a prefix-trie probe
-        self.paged = bool(cfg.paged)
         self.pager: Optional[PageTable] = None
         self.trie: Optional[PrefixTrie] = None
         self._pending_commit = None  # (dst, src) maps fused into the NEXT launch
@@ -145,9 +161,6 @@ class ServeReplica:
             self.pager = PageTable(slots, max_pages_for(cfg, max_len), num_pages(cfg, slots, max_len),
                                    cfg.page_size)
             self.trie = PrefixTrie(cfg.page_size)
-            self.pages_shared_total = 0
-            self.admissions_paged = 0
-            self.admit_copy_rows = 0
 
         B = slots
         self.lengths = np.zeros((B,), np.int32)
@@ -158,7 +171,9 @@ class ServeReplica:
         self.history: List[List[int]] = [[] for _ in range(B)]
         self.requests: List[Optional[Request]] = [None] * B
         self.emitted: List[List[int]] = [[] for _ in range(B)]
+        self._zero_counters()
 
+    def _zero_counters(self) -> None:
         self.launches = 0
         self.prefills = 0
         self.commits = 0  # contiguous tree-commit passes (the paged plane makes none)
@@ -168,6 +183,28 @@ class ServeReplica:
         self.agreements: List[float] = []
         self.prefill_ms = 0.0
         self.decode_ms = 0.0
+        if self.paged:
+            self.pages_shared_total = 0
+            self.admissions_paged = 0
+            self.admit_copy_rows = 0
+        if self.model_drafter is not None:
+            self.model_drafter.launches = 0
+
+    def reset(self) -> None:
+        """Return a drained replica to its state at construction, its
+        compiled launches kept (a warm-up's captures stay): every counter
+        zeroed and, paged, the trie's pages evicted, so the free pages pop
+        in the same order as from a new pool, and no commit pending.
+        Raises if a request is still in a slot."""
+        if self.has_work():
+            raise RuntimeError("reset of a replica that still serves requests")
+        if self.paged:
+            while self.trie.evict_one(self.pager):
+                pass
+            if self.pager.allocated_pages() or self.trie.nodes:
+                raise AssertionError("pages still bound after the trie was drained")
+        self._pending_commit = None
+        self._zero_counters()
 
     # ------------------------------------------------------------------
     def free_slots(self) -> List[int]:
@@ -280,9 +317,7 @@ class ServeReplica:
                 none = np.full((B, T), -1, np.int32)
                 commit = self._pending_commit if self._pending_commit is not None else (none, none)
         t0 = time.perf_counter()
-        y, agree = spec_serve_step(self.model, self.params, self.cache, toks, self.lengths, self.prev_accept,
-                                   tree=self.tree, pages=pages, commit=commit, telemetry=self.telemetry,
-                                   max_len=self.max_len)
+        y, agree = self._decode(toks, self.lengths, self.prev_accept, pages=pages, commit=commit)
         self.decode_ms += (time.perf_counter() - t0) * 1e3
         self.launches += 1
         if self.telemetry:
@@ -318,7 +353,7 @@ class ServeReplica:
             else:
                 # before lengths advance: accepted nodes move from rows
                 # base + u_i to base + i
-                self.model.commit_tree_path(self.cache, self.lengths, path_pad)
+                self._commit(self.lengths, path_pad)
                 self.commits += 1
 
         done: List[Result] = []

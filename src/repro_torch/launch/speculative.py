@@ -14,7 +14,9 @@ from typing import List, Sequence
 
 import numpy as np
 
+from repro_torch.core.control_plane import _top_k
 from repro_torch.core.plans import TreePlan
+from repro_torch.launch.steps import build_spec_serve_step
 
 
 def greedy_accept(draft_row, verified_row, width: int, budget: int) -> int:
@@ -94,17 +96,24 @@ class ModelDrafter:
     missed tokens through batched width-1 ``decode_tokens`` launches.
     :meth:`propose` then runs one batched launch per tree depth: the spine
     follows the draft model's argmax, siblings take the next-ranked logits.
-    Ranks are taken on the host with numpy, so ties break as in the
-    reference.
+    Ranks are taken on the model's device by a stable descending sort
+    (:func:`repro_torch.core.control_plane._top_k`), so only the (B, k) ids
+    cross to the host; they equal the reference's ``np.argsort(-logits)``
+    wherever the k-th and (k+1)-th logits differ, and ties break by the
+    lower index (numpy's unstable sort leaves their order undefined).
+    Every launch goes through a compiled step
+    (:func:`repro_torch.launch.steps.build_spec_serve_step`, a CUDA graph on
+    the card) in the pool ``graphs``.
 
     Draft rows written during ``propose`` are scratch: positions at or past
     a slot's committed length are re-fed (or overwritten) before they are
     ever attended (the length-clamp contract).
     """
 
-    def __init__(self, model, params, slots: int, max_len: int):
+    def __init__(self, model, params, slots: int, max_len: int, *, graphs=None):
         self.model, self.params = model, params
         self.cache = model.init_cache(slots, max_len)
+        self._step = build_spec_serve_step(model, params, self.cache, batch=slots, max_len=max_len, graphs=graphs)
         self.fed = np.zeros((slots,), np.int32)  # cache rows holding real tokens
         self.pending: List[List[int]] = [[] for _ in range(slots)]
         self.launches = 0  # width-1 decode launches (catch-up and drafting)
@@ -120,10 +129,11 @@ class ModelDrafter:
         replay; called by the serve loop after each verify."""
         self.pending[slot].extend(int(t) for t in tokens)
 
-    def _advance(self, toks, lens) -> np.ndarray:
-        logits = self.model.decode_tokens(self.params, self.cache, np.asarray(toks)[:, None], lens)
+    def _advance(self, toks, lens):
+        """One width-1 launch; its (B, V) logits, left on the device."""
+        logits = self._step.launch(np.asarray(toks)[:, None], lens)[0]
         self.launches += 1
-        return logits[:, 0].float().cpu().numpy()
+        return logits[:, 0]
 
     def catch_up(self) -> None:
         """Replay queued accepted tokens, batched across slots; slots with
@@ -155,8 +165,7 @@ class ModelDrafter:
             children = kids[node]
             if not children:
                 break
-            logits = self._advance(cur, pos)
-            top = np.argsort(-logits, axis=-1)[:, : len(children)]
+            top = _top_k(self._advance(cur, pos), len(children))[1].cpu().numpy()
             for rank, child in enumerate(children):
                 toks[:, child] = top[:, rank]
             cur = top[:, 0].astype(np.int32)

@@ -1,22 +1,37 @@
-"""The serve launches as plain eager functions (the port's counterpart of
-``repro/launch/steps.py``'s ``build_spec_serve_step`` and
-``build_admission``, which build jitted, sharded bundles), and
-:func:`build_model`, which binds a model to a mesh.
+"""The serve launches (the port's counterpart of ``repro/launch/steps.py``):
+:func:`build_spec_serve_step`, the decode launch captured once in a CUDA
+graph and replayed (the counterpart of the reference's jitted
+``build_spec_serve_step``), :class:`TreeCommit`, the contiguous tree commit
+compiled the same way (the reference's jitted ``_commit``),
+:func:`admission`, and :func:`build_model`, which binds a model to a mesh.
 
-CUDA graphs for the decode launch come in a later slice.
+A compiled launch (:class:`CompiledLaunch`) owns static device buffers for
+its inputs and is bound to the cache and parameter tensors its body reads
+and writes in place.  On the card its first call runs the body eagerly on
+the replica's capture stream (the warm-up: kernels built and loaded, their
+attributes set, lazily made constants such as the rotary frequencies and
+the tree's control words filled), then captures the body with
+``torch.cuda.graph``; every later call copies the host inputs through
+pinned staging buffers into the static buffers and replays the graph.  A
+failure to capture or replay raises: nothing on the card falls back to an
+eager launch.  On the CPU there are no graphs: the same object runs the
+body eagerly on its static buffers.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plans import TreePlan
+from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import STATE_KINDS, decode_constants, max_pages_for
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
 from repro_torch.parallel.sharding import batch_spec, expert_slice
 
@@ -43,27 +58,6 @@ def build_model(cfg: ModelConfig, mesh, batch: int, device=None) -> Model:
             decode_apply = make_sharded_decode_apply(cfg, mesh, baxes)
     return Model(cfg, mesh.device, moe_apply=moe_apply, decode_moe_apply=decode_apply,
                  experts=expert_slice(cfg, mesh) if cfg.is_moe else None)
-
-
-def spec_serve_step(
-    model: Model, params: Params, cache: List[Params], tokens: np.ndarray, lengths: np.ndarray,
-    prev_accept: np.ndarray, *, tree: Optional[TreePlan] = None, pages: Optional[np.ndarray] = None,
-    commit: Optional[Tuple[np.ndarray, np.ndarray]] = None, telemetry: bool = False,
-    max_len: Optional[int] = None,
-) -> Tuple[np.ndarray, Optional[float]]:
-    """One speculative launch: tokens (B, T), lengths (B,), prev_accept (B,),
-    and under the paged plane the block table (B, max_pages) and, for
-    branchy trees, the previous round's commit maps ``(dst, src)`` -> (the
-    model's greedy token per position (B, T) on the host, the plan agreement
-    or None).  ``max_len`` is the slot budget positions are checked against
-    when no layer holds a full-length cache (rolling windows, ``rec``
-    state).  The argmax runs on the device, so only B*T ids cross to the
-    host; the cache is updated in place."""
-    out = model.decode_tokens(params, cache, tokens, lengths, prev_accept, telemetry=telemetry, tree=tree,
-                              pages=pages, commit=commit, max_len=max_len)
-    logits, metrics = out if telemetry else (out, None)
-    y = torch.argmax(logits, dim=-1).cpu().numpy()
-    return y, (metrics["plan_agreement"] if telemetry else None)
 
 
 def prefill_model(model: Model) -> Model:
@@ -97,3 +91,257 @@ def admission(
     logits = pf_model.prefill(params, prompt, one)[0]
     model.write_cache_slot_paged(cache, one, slot, rows)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# compiled launches (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+
+def _slots(tree, out: Optional[list] = None) -> List[Tuple[dict, str]]:
+    """(dict, key) of every tensor leaf of nested dicts and lists, found once
+    so that a launch's binding check is one flat pass."""
+    out = [] if out is None else out
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            if isinstance(value, torch.Tensor):
+                out.append((tree, key))
+            else:
+                _slots(value, out)
+    elif isinstance(tree, (list, tuple)):
+        for value in tree:
+            _slots(value, out)
+    return out
+
+
+class GraphPool:
+    """The memory pool and the capture stream that every CUDA graph of one
+    replica shares (its decode step, its tree commit, its drafter's step).
+    Graphs that share a pool must replay in one stream's order, never two
+    at once, as one replica's launches do."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.handle = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(self.device)
+
+    def reserved_bytes(self) -> Optional[int]:
+        """Bytes of card memory the pool holds (the allocator's snapshot),
+        or None where the snapshot names no pool."""
+        segments = torch.cuda.memory_snapshot()
+        if segments and "segment_pool_id" not in segments[0]:
+            return None
+        return sum(s["total_size"] for s in segments if tuple(s["segment_pool_id"]) == tuple(self.handle))
+
+
+class CompiledLaunch:
+    """``body(inputs) -> tuple of output tensors`` over static input buffers
+    ``inputs`` (name -> (shape, dtype)) on ``device``, bound to the tensor
+    leaves of ``bound`` (nested dicts and lists: every tensor the body reads
+    or writes in place, whose addresses a graph keeps).  A call raises if a
+    leaf was replaced in its dict (or re-pointed) instead of written in
+    place.
+
+    On the card the outputs of a replay are the graph's static tensors
+    (``outputs``), overwritten by the next call; the first call's are its
+    warm-up's, copied there.  The kernel launches the capture counted
+    (``replay_launches``) are added to the wrappers' counters at each
+    replay, so a replay counts as an eager launch does."""
+
+    def __init__(self, body: Callable, inputs: Dict[str, Tuple[tuple, torch.dtype]], bound, device,
+                 graphs: Optional[GraphPool] = None):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._body, self._bound = body, _slots(bound)
+        self.inputs = {n: torch.zeros(shape, dtype=dt, device=self.device) for n, (shape, dt) in inputs.items()}
+        self._ptrs = [d[k].data_ptr() for d, k in self._bound]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Tuple[torch.Tensor, ...] = ()
+        self.replay_launches: Dict[str, int] = {}
+        self.capture_s: Optional[float] = None
+        if self.cuda:
+            self.graphs = graphs or GraphPool(self.device)
+            self._staging = {n: torch.zeros(shape, dtype=dt, pin_memory=True) for n, (shape, dt) in inputs.items()}
+            self._staged = torch.cuda.Event()
+
+    def check_binding(self) -> None:
+        """Raise if a bound leaf was replaced (or re-pointed) since the
+        launch was built: one host pass over the leaves, every call."""
+        if [d[k].data_ptr() for d, k in self._bound] != self._ptrs:
+            raise RuntimeError("a tensor this launch is bound to was replaced instead of written in place: "
+                               "build the launch again for the new cache or parameters")
+
+    def __call__(self, arrays: Dict[str, np.ndarray]) -> Tuple[torch.Tensor, ...]:
+        self.check_binding()
+        for name, a in arrays.items():
+            if a.shape != tuple(self.inputs[name].shape):
+                raise ValueError(f"{name} of shape {a.shape} for a launch built for {tuple(self.inputs[name].shape)}")
+        if not self.cuda:
+            for name, a in arrays.items():
+                self.inputs[name].copy_(torch.from_numpy(a))
+            self.outputs = self._body(self.inputs)
+            return self.outputs
+        self._staged.synchronize()  # the previous call's copies have left the staging buffers
+        for name, a in arrays.items():
+            np.copyto(self._staging[name].numpy(), a)
+            self.inputs[name].copy_(self._staging[name], non_blocking=True)
+        self._staged.record()
+        if self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            add_launch_counts(self.replay_launches)
+        return self.outputs
+
+    def _capture(self) -> None:
+        """This call's launch run eagerly on the capture stream (the
+        warm-up), then the body captured: the capture runs no kernel, so the
+        cache is written once."""
+        cur, side = torch.cuda.current_stream(self.device), self.graphs.stream
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = self._body(self.inputs)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with recorded_launches() as taken:
+            # thread_local: a host sync in this thread breaks the capture,
+            # one in another thread (NCCL's watchdog polling its events) does not
+            with torch.cuda.graph(graph, pool=self.graphs.handle, stream=side, capture_error_mode="thread_local"):
+                outputs = self._body(self.inputs)
+        self.capture_s = time.perf_counter() - t0
+        for out, got in zip(outputs, first):
+            out.copy_(got)
+            got.record_stream(cur)
+        self.graph, self.outputs, self.replay_launches = graph, outputs, taken
+
+
+class _SpecServeStep:
+    """One speculative decode launch of ``model`` over ``cache`` with
+    ``params``, compiled (:class:`CompiledLaunch`) for one shape key
+    ``(batch, T, tree, plane, telemetry)``; the plane is contiguous, paged
+    chain or paged branchy, read from the cache.  Its static inputs are
+    tokens (B, T), lengths and prev_accept (B,), under the paged plane the
+    block table (B, max_pages) int32 and, for a branchy tree, the commit
+    maps dst and src (B, T); its outputs are the logits (B, T, V)
+    (:attr:`logits`), the greedy ids (B, T) and, with telemetry, the summed
+    plan agreement.  A call checks its inputs as
+    :meth:`Model.decode_tokens` does and returns (the greedy ids on the
+    host, the plan agreement or None): only the B*T ids (and the agreement
+    scalar) cross to the host.
+
+    The body also takes the device constants it reads from process-wide
+    caches (:func:`repro_torch.models.transformer.decode_constants`), and
+    the step keeps the last run's: a graph keeps their addresses, so they
+    live as long as it does, whatever the caches evict.  With :attr:`recorder` set to a list, each
+    call appends its checked host inputs ``(tokens, lengths, prev_accept,
+    {"pages": ..., "commit": ...})`` (copies), in the form a call takes."""
+
+    def __init__(self, model: Model, params: Params, cache: List[Params], *, batch: int,
+                 tree: Optional[TreePlan] = None, telemetry: bool = False, max_len: Optional[int] = None,
+                 graphs: Optional[GraphPool] = None):
+        cfg = model.cfg
+        Tn = tree.num_nodes if tree is not None else max(cfg.spec_tokens, 1)
+        attn = [c for kind, c in zip(cfg.layer_kinds, cache) if kind not in STATE_KINDS]
+        paged = bool(attn) and "pk" in attn[0]
+        self.branchy = paged and tree is not None and not tree.is_chain()
+        self.plane = "paged branchy" if self.branchy else "paged chain" if paged else "contiguous"
+        self.key = (batch, Tn, tree, self.plane, telemetry)
+        self.model, self.params, self.cache = model, params, cache
+        self.tree, self.telemetry, self.max_len = tree, telemetry, max_len
+        inputs = {"tokens": ((batch, Tn), torch.int64), "lengths": ((batch,), torch.int64),
+                  "prev_accept": ((batch,), torch.int64)}
+        if paged:
+            if max_len is None:
+                raise ValueError("a paged step needs max_len, which sets its block table's width")
+            inputs["pages"] = ((batch, max_pages_for(cfg, max_len)), torch.int32)
+        if self.branchy:
+            inputs["dst"] = inputs["src"] = ((batch, Tn), torch.int64)
+        plan = tree if tree is not None else TreePlan.chain(Tn)
+        branchy = self.branchy
+        self.recorder: Optional[list] = None
+        self._constants: List[torch.Tensor] = []
+        held = self._constants
+
+        def body(x):
+            held[:] = decode_constants(cfg, plan, x["tokens"].device)
+            logits, agreement = model.decode_body(
+                params, cache, x["tokens"], x["lengths"], x["prev_accept"], tree=plan, pages=x.get("pages"),
+                commit=(x["dst"], x["src"]) if branchy else None, telemetry=telemetry)
+            ids = torch.argmax(logits, dim=-1)
+            return (logits, ids) if agreement is None else (logits, ids, agreement)
+
+        self.launcher = CompiledLaunch(body, inputs, [params, cache], model.device, graphs)
+        if self.launcher.cuda:
+            self._ids = torch.zeros((batch, Tn), dtype=torch.int64, pin_memory=True)
+            self._agreement = torch.zeros((), dtype=torch.float32, pin_memory=True)
+
+    @property
+    def logits(self) -> torch.Tensor:
+        """The last call's logits (B, T, V), on the model's device (on the
+        card the graph's static output, overwritten by the next call)."""
+        return self.launcher.outputs[0]
+
+    def launch(self, tokens, lengths, prev_accept=None, *, pages=None, commit=None) -> Tuple[torch.Tensor, ...]:
+        """Check and stage the inputs, run the launch; returns its device
+        outputs (logits, ids[, agreement]) and reads nothing back."""
+        tokens, lengths, prev, _, pages, commit = self.model.decode_inputs(
+            self.cache, tokens, lengths, prev_accept, tree=self.tree, pages=pages, commit=commit,
+            max_len=self.max_len)
+        arrays = {"tokens": tokens, "lengths": lengths, "prev_accept": prev}
+        if pages is not None:
+            arrays["pages"] = pages
+        if self.branchy:
+            if commit is None:
+                raise ValueError("a branchy paged step takes the commit maps (dst, src) at every launch")
+            arrays["dst"], arrays["src"] = commit
+        elif commit is not None:
+            raise ValueError(f"a {self.plane} step takes no commit maps")
+        if self.recorder is not None:
+            kw = {"pages": None if pages is None else pages.copy(),
+                  "commit": None if commit is None else tuple(m.copy() for m in commit)}
+            self.recorder.append((tokens.copy(), lengths.copy(), prev.copy(), kw))
+        return self.launcher(arrays)
+
+    def __call__(self, tokens, lengths, prev_accept=None, *, pages=None,
+                 commit=None) -> Tuple[np.ndarray, Optional[float]]:
+        out = self.launch(tokens, lengths, prev_accept, pages=pages, commit=commit)
+        agreement = out[2] if len(out) > 2 else None
+        if self.launcher.cuda:
+            self._ids.copy_(out[1], non_blocking=True)
+            if agreement is not None:
+                self._agreement.copy_(agreement, non_blocking=True)
+                agreement = self._agreement
+            torch.cuda.current_stream(self.launcher.device).synchronize()
+            ids = self._ids.numpy().copy()
+        else:
+            ids = out[1].numpy()
+        return ids, (self.model.plan_agreement(agreement) if self.telemetry else None)
+
+
+def build_spec_serve_step(model: Model, params: Params, cache: List[Params], *, batch: int,
+                          tree: Optional[TreePlan] = None, telemetry: bool = False, max_len: Optional[int] = None,
+                          graphs: Optional[GraphPool] = None) -> _SpecServeStep:
+    """The compiled decode launch bound to one replica's ``params`` and
+    ``cache`` (:class:`_SpecServeStep`); ``max_len`` is the slot budget
+    positions are checked against (and, paged, sets the block table's
+    width); ``graphs`` is the replica's shared pool, a new one if None."""
+    return _SpecServeStep(model, params, cache, batch=batch, tree=tree, telemetry=telemetry, max_len=max_len,
+                          graphs=graphs)
+
+
+class TreeCommit:
+    """:meth:`Model.commit_tree_path` on a contiguous cache, compiled for
+    (B, T) (:class:`CompiledLaunch`): static lengths (B,) and path (B, T)
+    buffers, one graph."""
+
+    def __init__(self, cache: List[Params], *, batch: int, T: int, graphs: Optional[GraphPool] = None):
+        def body(x):
+            Model.commit_rows(cache, x["lengths"], x["path"])
+            return ()
+
+        self.launcher = CompiledLaunch(body, {"lengths": ((batch,), torch.int64), "path": ((batch, T), torch.int64)},
+                                      cache, cache[0]["k"].device, graphs)
+
+    def __call__(self, lengths, path) -> None:
+        self.launcher({"lengths": np.asarray(lengths, np.int64), "path": np.asarray(path, np.int64)})

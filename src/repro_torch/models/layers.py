@@ -8,6 +8,7 @@ computes the same thing (see :func:`storage_dtype`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional
 
@@ -113,7 +114,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
+    """The (head_dim / 2,) f32 rotary frequencies, made once per (head_dim,
+    theta, device): building them copies ``theta`` from the host, which on
+    the card is a synchronous copy (twice a layer of every launch, and
+    illegal inside a CUDA graph's capture).  Callers must not write to the
+    shared tensor."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
 

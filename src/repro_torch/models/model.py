@@ -128,8 +128,34 @@ class Model:
 
         With ``telemetry`` returns ``(logits, {"plan_agreement": float})``:
         the mean stale-vs-fresh plan top-k agreement over the MoE layers
-        (one device read per launch)."""
-        tokens = self._tokens(tokens)
+        (one device read per launch).
+
+        The launch is :meth:`decode_inputs` (the host checks) and then
+        :meth:`decode_body` (the device work) on the inputs copied to the
+        model's device."""
+        tokens, lengths, prev, tree, pages, commit = self.decode_inputs(
+            cache, tokens, lengths, prev_accept, tree=tree, pages=pages, commit=commit, max_len=max_len)
+        dev = self.device
+        logits, agreement = self.decode_body(
+            params, cache, torch.as_tensor(tokens, device=dev), torch.as_tensor(lengths, device=dev),
+            torch.as_tensor(prev, device=dev), tree=tree,
+            pages=None if pages is None else torch.as_tensor(pages, device=dev),
+            commit=None if commit is None else tuple(torch.as_tensor(m, device=dev) for m in commit),
+            telemetry=telemetry)
+        if telemetry:
+            return logits, {"plan_agreement": self.plan_agreement(agreement)}
+        return logits
+
+    def decode_inputs(self, cache: List[Params], tokens, lengths, prev_accept=None, *,
+                      tree: Optional[TreePlan] = None, pages=None, commit: Optional[Tuple] = None,
+                      max_len: Optional[int] = None):
+        """The host half of :meth:`decode_tokens`: its checks, raising its
+        ``ValueError``s, and its inputs as host arrays ``(tokens (B, T)
+        int64, lengths (B,) int64, prev_accept (B,) int64, tree, pages
+        (B, max_pages) int32 or None, commit (dst, src) int64 or None)``,
+        ``tree`` the chain when None was given.  Reads nothing on the
+        device."""
+        tokens = np.asarray(tokens, np.int64)
         B, Tn = tokens.shape
         tree = TreePlan.chain(Tn) if tree is None else tree
         if tree.num_nodes != Tn:
@@ -141,35 +167,50 @@ class Model:
             raise ValueError("paged cache without a block table: pass pages=(B, max_pages) int32 "
                              "(see models.transformer.identity_page_table)")
         if paged:
-            pages = torch.as_tensor(np.asarray(pages, np.int32), device=self.device)
+            pages = np.asarray(pages, np.int32)
             max_len = pages.shape[1] * self.cfg.page_size
         elif attn and not T.window_of(self.cfg):
             max_len = attn[0]["k"].shape[1]
         if lengths.min() < 0 or (max_len is not None and lengths.max() + Tn > max_len):
             raise ValueError(f"positions up to {lengths.max() + Tn - 1} fall outside the cache of {max_len} rows")
-        lengths_t = torch.as_tensor(lengths, device=self.device)
         prev = np.zeros((B,), np.int64) if prev_accept is None else np.asarray(prev_accept, np.int64).reshape(B)
         if prev.min() < 0 or prev.max() >= max(self.cfg.spec_tokens, 1):
             raise ValueError(f"prev_accept {prev.tolist()} selects no row of a {self.cfg.spec_tokens}-row plan vector")
-        prev_t = torch.as_tensor(prev, device=self.device)
         if commit is not None:
-            commit = tuple(torch.as_tensor(np.asarray(m, np.int64), device=self.device) for m in commit)
+            commit = tuple(np.asarray(m, np.int64) for m in commit)
+        return tokens, lengths, prev, tree, (pages if paged else None), commit
+
+    @torch.no_grad()
+    def decode_body(self, params: Params, cache: List[Params], tokens: torch.Tensor, lengths: torch.Tensor,
+                    prev_accept: torch.Tensor, *, tree: TreePlan, pages: Optional[torch.Tensor] = None,
+                    commit: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, telemetry: bool = False):
+        """The device half of :meth:`decode_tokens`: every input already on
+        the model's device (tokens (B, T), lengths and prev_accept (B,)
+        int64, pages (B, max_pages) int32, commit maps (B, Tc) int64), no
+        check and no read back to the host, so a CUDA graph can capture it
+        (:mod:`repro_torch.launch.steps`).  Returns ``(logits (B, T, V),
+        agreement)``: with ``telemetry`` the 0-d sum of the MoE layers'
+        plan agreements (:meth:`plan_agreement` makes it the mean), else
+        None."""
         x = self._embed(params, tokens)
         route_src = x
         agree = []
         for kind, p, c in zip(self.cfg.layer_kinds, params["layers"], cache):
             x, route_src, a = T.apply_layer_decode_spec(
-                x, route_src, p, c, kind, self.cfg, lengths_t, prev_t,
+                x, route_src, p, c, kind, self.cfg, lengths, prev_accept,
                 telemetry=telemetry, tree=tree, pages=pages, commit=commit,
                 moe_apply=self.moe_apply, decode_apply=self.decode_moe_apply,
             )
             if a is not None:
                 agree.append(a)
-        logits = self.logits(params, x)
-        if telemetry:
-            mean = float(torch.stack(agree).sum()) / max(len(agree), 1) if agree else 0.0
-            return logits, {"plan_agreement": mean}
-        return logits
+        return self.logits(params, x), (torch.stack(agree).sum() if agree else None)
+
+    def plan_agreement(self, total) -> float:
+        """The mean plan agreement from :meth:`decode_body`'s sum (0.0 when
+        no layer reported one): one read of a 0-d tensor."""
+        if total is None:
+            return 0.0
+        return float(total) / sum(kind == "moe" for kind in self.cfg.layer_kinds)
 
     # ------------------------------------------------------------------
     # continuous-batching cache surgery (in place)
@@ -248,10 +289,17 @@ class Model:
         themselves.  Only K/V (with an int8 cache's scale rows) move: plan
         rows stay node-indexed.  The gather lands in a temporary before the
         scatter."""
+        dev = cache[0]["k"].device
+        Model.commit_rows(cache, torch.as_tensor(np.asarray(lengths, np.int64), device=dev),
+                          torch.as_tensor(np.asarray(path, np.int64), device=dev))
+
+    @staticmethod
+    def commit_rows(cache: List[Params], lengths: torch.Tensor, path: torch.Tensor) -> None:
+        """The device half of :meth:`commit_tree_path`: lengths (B,) and
+        path (B, T) int64 already on the cache's device, nothing read back,
+        so a CUDA graph can capture it."""
         k0 = cache[0]["k"]
         dev = k0.device
-        lengths = torch.as_tensor(np.asarray(lengths, np.int64), device=dev)
-        path = torch.as_tensor(np.asarray(path, np.int64), device=dev)
         Tn = path.shape[1]
         dst = lengths[:, None] + torch.arange(Tn, device=dev)[None, :]
         src = lengths[:, None] + path

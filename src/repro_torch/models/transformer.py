@@ -386,6 +386,15 @@ def _tree_tensors(tree: TreePlan, device: torch.device):
             torch.tensor(tree.parents[1:], dtype=torch.int64, device=device))
 
 
+def decode_constants(cfg: ModelConfig, tree: TreePlan, device: torch.device) -> List[torch.Tensor]:
+    """The device tensors a decode launch under ``tree`` reads from the
+    process-wide caches rather than from its params or cache (the tree's
+    control words, the rotary frequencies), on ``device`` as a tensor names
+    it (with its index).  A CUDA graph keeps their addresses, so a compiled
+    launch holds these references for as long as its graph lives."""
+    return [*_tree_tensors(tree, device), L.rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta, device)]
+
+
 def _tree_rows(lengths: torch.Tensor, tree: TreePlan):
     """(cache rows, rotary positions), both (B, T): node t sits at row
     ``lengths + t`` (each node needs its own KV row; siblings share a depth)

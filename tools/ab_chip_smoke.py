@@ -8,10 +8,13 @@ other (never two at once), and keeps each run's record and output as
 ``chiprun_out/ab_<n>_<tag>.json`` / ``.txt``.  Then prints, and writes to
 ``chiprun_out/ab_summary.json``, one table of what the serving cells
 measured in each run: ``prefill_ms_mean`` and ``ms_per_decode_launch`` of
-every cell, the device idle share of every profile phase, and the ``ms``
-(and ``device_ms``) of every kernel row.  Exits non-zero if any run did.
-Needs the card; a checkout is any directory holding the repository's files
-(``git archive`` of a commit unpacked under ``build/``).
+every cell, the device idle share of every profile phase, the ``ms`` (and
+``device_ms``) of every kernel row, and, where the run has the phase
+``compiled_launch``, each cell's eager and replayed ms per decode launch
+and idle share.
+Exits non-zero if any run did.  Needs the card; a checkout is any
+directory holding the repository's files (``git archive`` of a commit
+unpacked under ``build/``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,10 @@ def summary(record: dict) -> dict:
     idle = {p: record.get(p, {}).get("device_idle_share") for p in PROFILES}
     kern = {n: {m: r.get(m) for m in ("ms", "device_ms")} for n, r in record.get("kernels_vs_plain", {}).items()
             if isinstance(r, dict)}
-    return {"cells": cells, "idle": idle, "kernels": kern}
+    graphs = {c: {m: r.get(m) for m in ("eager_ms_per_decode_launch", "replayed_ms_per_decode_launch",
+                                       "eager_idle_share", "replayed_idle_share")}
+              for c, r in record.get("compiled_launch", {}).items()}
+    return {"cells": cells, "idle": idle, "kernels": kern, "compiled_launch": graphs}
 
 
 def main() -> int:
