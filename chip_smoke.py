@@ -50,6 +50,20 @@ cells and the ``profile*`` phases time replayed graphs; phase
 run eagerly and replayed from the same admitted state: bitwise-equal
 logits and cache leaves, with both sides' ms per decode launch and idle
 share, the capture seconds and the graph pool's bytes.
+Request programs and the fabric (phases ``smoke_twin_programs``,
+``programs``, ``forks``, ``fabric_crash``): the f32 smoke twins with a
+JSON-schema program, a steered tree and a 2-way fork, card against CPU;
+while the 4-layer Qwen3-MoE weights are resident, the README's JSON-schema
+program and a literal token-id program served on the contiguous,
+paged-tree and int8 paged-tree replicas beside their unconstrained runs (no
+token outside its grammar, every stream a word of it, steered and
+unsteered streams identical; the masked verify's cost on the card), then
+fork 2 with join first and join all on the paged plane (no prompt row of a
+full page copied); then Qwen3-MoE at full widths cut to 1 layer served
+through ``ServeFabric`` twice, clean and with a crash at launch 3 and
+checkpoints every 2 rounds (streams byte-identical; the dead replica
+freed, the rebuilt one restored from the checkpoint, its graphs captured
+again).
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -103,9 +117,13 @@ PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flas
                       "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074}
 
 RECORD: dict = {}
+START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
+    """Print one phase's record as a JSON line (with the script's seconds
+    so far, ``script_s``) and keep it for ``chiprun_out/chip_smoke.json``."""
+    fields["script_s"] = time.perf_counter() - START
     RECORD[phase] = fields
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -2506,6 +2524,437 @@ def profile_decode(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=3):
 
 
 # ---------------------------------------------------------------------------
+# request programs, forks and the fabric
+# ---------------------------------------------------------------------------
+
+# the README's JSON-schema program, a literal token-id program (a tool-call
+# delimiter's shape: 8 fixed ids), and the README's fork program (join first
+# and join all)
+JSON_SPEC = {"segments": [{"kind": "json_schema", "schema": {"type": "object", "properties": {
+    "a": {"type": "integer", "maxDigits": 2}, "b": {"type": "boolean"}}}}]}
+TOKENS_SPEC = {"segments": [{"kind": "tokens", "tokens": [151644, 8948, 198, 2610, 525, 264, 151645, 198]}]}
+FORK_SEGMENTS = [{"kind": "json_schema", "schema": {"enum": [17, 42]}}, {"kind": "literal", "text": ";done"}]
+# the crash cell: Qwen3-MoE at full widths cut to 1 layer (a checkpoint
+# holds every weight: 8.7 GB), 4 slots, 8 requests of 64/96/128 tokens with
+# ragged generation lengths, so that requests finish before the crash at
+# launch 3 and the requests served after it sit beside other neighbours
+FABRIC_LAYERS, FABRIC_GENS = 1, (8, 2, 8, 3, 8, 2, 8, 5)
+
+
+def program_run(rep, reqs, tag, spec, path):
+    """Serve ``reqs`` (each carrying ``spec``, or none) through the drained
+    replica ``rep`` and gate the run: every request answered, no token
+    outside its automaton's allowed set, every constrained stream a word of
+    its grammar (or, unconstrained, GEN + 1 tokens), every kernel of
+    ``path`` launched.  Returns the run's record (with its streams) and
+    leaves ``rep`` drained and reset."""
+    import torch
+
+    from repro_torch.core.programs import compile_program
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = serve.serve_queue(rep, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    streams = {rid: r.tokens for rid, r in results.items()}
+    if sorted(streams) != sorted(r.rid for r in reqs) or any(r.error for r in results.values()):
+        raise AssertionError(f"{tag}: unanswered or failed requests: {results}")
+    if rep.prog_masked_emissions:
+        raise AssertionError(f"{tag}: {rep.prog_masked_emissions} tokens emitted outside their allowed sets")
+    if spec is None:
+        if any(len(t) != GEN + 1 for t in streams.values()):
+            raise AssertionError(f"{tag}: short streams {streams}")
+    else:
+        auto = compile_program(spec, rep.cfg.vocab_size).automaton
+        for rid, res in results.items():
+            for s in res.branches or [res.tokens]:
+                if not auto.accepts(s):
+                    raise AssertionError(f"{tag}: request {rid} stream {s} is not accepted by its automaton")
+    if min(counts[n] for n in path) <= 0:
+        raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
+    out = dict(
+        requests=len(reqs), wall_s=wall, generated_tokens=rep.accepted_total, tok_per_s=rep.accepted_total / wall,
+        decode_launches=rep.launches, ms_per_decode_launch=rep.decode_ms / max(rep.launches, 1),
+        accepts_per_launch=rep.accepted_total / max(rep.launches, 1),
+        prefills=rep.prefills, prefill_ms_mean=rep.prefill_ms / max(rep.prefills, 1),
+        kernel_launches=counts, streams=streams,
+    )
+    if rep.model_drafter is not None:
+        out["drafter_launches"] = rep.model_drafter.launches
+    if spec is not None:
+        out.update(
+            forks_started=rep.forks_started, forks_live_max=rep.forks_live_max,
+            fork_kv_rows_copied=rep.fork_kv_rows_copied, prog_tokens=rep.prog_tokens, prog_masked_emissions=rep.prog_masked_emissions,
+            states_visited=len(rep.prog_states_seen), masked_nodes=rep.prog_mask_cnt,
+            masked_fraction=rep.prog_mask_frac_sum / max(rep.prog_mask_cnt, 1),
+            verify_launches=rep.verify_launches, verify_ms_per_launch=rep.verify_ms / max(rep.verify_launches, 1),
+            stream_lens=sorted(len(t) for t in streams.values()),
+        )
+    if rep.paged:
+        out["paged"] = rep.paged_stats()
+    rep.reset()
+    return out
+
+
+def masked_verify_cost(rep, spec):
+    """The masked verify alone on the card at a full launch's shape: every
+    node of every slot (B * T rows of the last launch's logits, the
+    compiled program's start state), its device ms a call by the profiler,
+    its ms a call by CUDA events (the host's issue of its five operations
+    and two uploads included) and by the host clock with the ids read
+    back."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import masked_argmax_rows
+
+    table = rep._compiled_program(spec)
+    logits = rep._decode.logits.reshape(rep.B * rep.T, -1)
+    rows = np.arange(rep.B * rep.T)
+    states = np.full(rep.B * rep.T, table.automaton.start)
+
+    def call():
+        return masked_argmax_rows(logits, table.allowed, rows, states)
+
+    want = torch.where(table.allowed[states[0]], logits.float(), torch.finfo(torch.float32).min)
+    if not torch.equal(call(), torch.argmax(want, -1)):
+        raise AssertionError("masked verify: the card's ids differ from the argmax of the masked logits")
+    call()
+    torch.cuda.synchronize()
+    n = 20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    busy = sum(device_time_by_name(prof).values())
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call().cpu()  # as the serve loop takes it: the ids read back
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    nbytes = rows.size * logits.shape[1] * (4 + 1)  # each masked row's logits and allowed flags, read once
+    return dict(rows=int(rows.size), vocab=int(logits.shape[1]), device_ms=busy / n if busy else None,
+                event_ms=time_ms(call), host_ms_with_read_back=host_ms, bytes_read=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, allowed_table_bytes=table.nbytes)
+
+
+def programs(dev, params, params8):
+    """Request programs at full width on the 4-layer cut with
+    ``full_width``'s traffic (4 slots, 8 requests of 64/96/128 tokens, 32
+    generated): (a) contiguous at spec 4 with the ngram drafter, unconstrained,
+    under the README's JSON-schema program and under a literal token-id
+    program; (b) paged, tree 2,1, the model drafter (the target's first
+    layer), unconstrained, JSON steered and JSON unsteered (streams must be
+    identical); (c) the same on the int8 plane, unconstrained and JSON.
+    Each replica warms up on one programmed request first (its graphs
+    captured, the program compiled: compile seconds at vocabulary 151,936).
+    Then ``forks`` on (b)'s replica: 8 requests behind the 64-token shared
+    prompt, fork 2, join first and join all; no prompt row may be copied
+    for a full page.  Returns (programs record, forks record)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plans import TreePlan
+    from repro_torch.launch import serve
+
+    tree = TreePlan.from_branching(TREE)
+    base = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True)
+    draft = dict(params, layers=params["layers"][:1])
+    draft8 = dict(params8, layers=params8["layers"][:1])
+    ways = {
+        "contiguous_spec4_ngram": (
+            dataclasses.replace(base, spec_tokens=SPEC), params, dict(drafter="ngram"), PROMPT + GEN + SPEC, 0,
+            CONTIGUOUS_KERNELS, [("unconstrained", None, True), ("json_schema", JSON_SPEC, True),
+                                 ("token_literal", TOKENS_SPEC, True)]),
+        "paged_tree2x1_model": (
+            dataclasses.replace(base, spec_tokens=tree.num_nodes, paged=True, page_size=PAGE), params,
+            dict(tree=tree, drafter="model", drafter_params=draft), PAGED_MAX_LEN, SHARED, PAGED_KERNELS,
+            [("unconstrained", None, True), ("json_schema_steered", JSON_SPEC, True),
+             ("json_schema_unsteered", JSON_SPEC, False)]),
+        "int8_paged_tree2x1_model": (
+            dataclasses.replace(base, spec_tokens=tree.num_nodes, paged=True, page_size=PAGE, kv_dtype="int8",
+                                expert_dtype="int8"), params8,
+            dict(tree=tree, drafter="model", drafter_params=draft8), PAGED_MAX_LEN, SHARED,
+            int8_path(PAGED_KERNELS), [("unconstrained", None, True), ("json_schema", JSON_SPEC, True)]),
+    }
+    out, fork_rep = {}, None
+    for way, (cfg, p, kw, max_len, shared, path, runs) in ways.items():
+        rep = serve.ServeReplica(cfg, SLOTS, max_len, p, device=dev, **kw)
+        serve.serve_queue(rep, serve.synthetic_requests(cfg.vocab_size, PROMPT, 4, 1, shared, JSON_SPEC))
+        rep.reset()
+        torch.cuda.synchronize()
+        row = {}
+        for tag, spec, steer in runs:
+            rep.steer_drafter = steer
+            reqs = serve.synthetic_requests(cfg.vocab_size, PROMPT, GEN, REQUESTS, shared, spec)
+            row[tag] = program_run(rep, reqs, f"programs {way} {tag}", spec, path)
+            if spec is not None:
+                row[tag]["allowed_table_bytes"] = rep._compiled_program(spec).nbytes
+        row["compile_s"] = {json.loads(k)["segments"][0]["kind"]: v for k, v in rep.compile_s.items()}
+        if "json_schema_unsteered" in row:
+            if row["json_schema_steered"]["streams"] != row["json_schema_unsteered"]["streams"]:
+                raise AssertionError(f"programs {way}: steered and unsteered streams differ")
+            row["steered_streams_equal_unsteered"] = True
+        row["masked_verify_alone"] = masked_verify_cost(rep, JSON_SPEC)
+        for r in row.values():
+            if isinstance(r, dict):
+                r.pop("streams", None)
+        out[way] = row
+        if way == "paged_tree2x1_model":
+            fork_rep = rep
+        del rep
+        torch.cuda.empty_cache()
+    forks = {}
+    for join in ("first", "all"):
+        spec = {"fork": 2, "join": join, "segments": FORK_SEGMENTS}
+        reqs = serve.synthetic_requests(base.vocab_size, PROMPT, GEN, REQUESTS, SHARED, spec)
+        row = program_run(fork_rep, reqs, f"forks join {join}", spec, PAGED_KERNELS)
+        row.pop("streams")
+        # a later branch writes only its partial last page: no prompt row of a full page is copied
+        partial = sum(len(r.prompt) % PAGE for r in reqs)
+        if row["fork_kv_rows_copied"] != partial or row["forks_started"] != REQUESTS:
+            raise AssertionError(f"forks join {join}: {row['forks_started']} forks copied "
+                                 f"{row['fork_kv_rows_copied']} rows, not {partial}")
+        row.update(prompt_lens=sorted({len(r.prompt) for r in reqs}), page_size=PAGE,
+                   full_page_prompt_rows=sum(len(r.prompt) - len(r.prompt) % PAGE for r in reqs),
+                   expected_fork_rows_copied=partial)
+        forks[join] = row
+    return out, forks
+
+
+class CrashProbe:
+    """The fault hook of ``fabric_crash``: the injector's verdict, with the
+    card's allocated bytes and the answered requests read just before the
+    injected crash, the allocated bytes at the rebuilt replica's second
+    launch (its graphs captured by then), the slot layout (each slot's
+    request id) of every launch, and a weak reference to each replica the
+    factory builds (the dead one must be freed, nothing else may keep it)."""
+
+    def __init__(self, injector):
+        import weakref
+
+        self.injector, self.weakref = injector, weakref.ref
+        self.fabric = None
+        self.built = []  # weak references, in build order
+        self.layouts = []  # (build, slot layout) of every launch
+        self.before_crash = self.after_rejoin = self.answered_before_crash = self.crash_round = None
+        self.graphs_after_rejoin = self.dead_freed_at_rejoin = None
+
+    def check(self, replica, step, phase="launch", rids=()):
+        import torch
+
+        if phase == "launch":
+            rep = self.built[-1]()
+            self.layouts.append((len(self.built), tuple(r.rid if r is not None else None for r in rep.requests)))
+            del rep
+        if phase == "launch" and len(self.built) == 1 and step == 3:
+            torch.cuda.synchronize()
+            self.before_crash = torch.cuda.memory_allocated()
+            self.answered_before_crash, self.crash_round = len(self.fabric.results), self.fabric.round
+        if phase == "launch" and len(self.built) == 2 and step == 2 and self.after_rejoin is None:
+            torch.cuda.synchronize()
+            self.after_rejoin = torch.cuda.memory_allocated()
+            self.dead_freed_at_rejoin = self.built[0]() is None  # no collection forced
+            rep = self.built[1]()
+            launchers = [rep._decode.launcher] + ([rep._commit.launcher] if rep._commit else [])
+            self.graphs_after_rejoin = sum(lc.graph is not None for lc in launchers)
+        return self.injector.check(replica, step, phase, rids)
+
+    def lives(self) -> dict:
+        """Each request's launches in the build that answered it: the slot
+        layout of each, its own slot first."""
+        out = {}
+        for build, layout in self.layouts:
+            for rid in layout:
+                if rid is not None:
+                    life = out.setdefault(rid, [build, []])
+                    if life[0] != build:
+                        out[rid] = life = [build, []]
+                    life[1].append((layout.index(rid), layout))
+        return {rid: life for rid, (_, life) in out.items()}
+
+
+def fabric_crash(dev):
+    """The in-process fabric on the card: Qwen3-MoE at full widths cut to 1
+    layer (a checkpoint holds every weight: 8.7 GB), 4 slots, spec 4, ngram,
+    8 requests of 64/96/128 tokens generating 2 to 8 tokens
+    (``FABRIC_GENS``), served through ``ServeFabric`` with one replica
+    twice: without faults, then with ``crash@step=3``,
+    ``checkpoint_every=2`` and a ``CheckpointManager`` in a temporary
+    directory (deleted at the end).  The crash drops the replica; the
+    rebuilt one restores its weights from the checkpoint and captures its
+    graphs again.  The gate needs the saves up to the one restored; every
+    save after the first links the unchanged weight files.  Gates: the two
+    runs' streams byte-identical; a request answered before the crash, and
+    a request whose launches ran beside other neighbours or in another
+    slot than in the clean run (else the gate could not see a row that
+    depends on its batch); crashes 1, rejoins 1, restores >= 1, dropped 0,
+    duplicates 0; the dead replica freed by the time the rebuilt one
+    launches (no collection forced: nothing keeps a reference to it)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.fabric import FabricConfig, ServeFabric
+    from repro_torch.runtime.faults import FaultInjector, parse_faults
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=FABRIC_LAYERS, decode_plane=True, spec_tokens=SPEC)
+    t0 = time.perf_counter()
+    params = Model(cfg, device=dev).init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    max_len = PROMPT + max(FABRIC_GENS) + SPEC
+    ladder = serve.degrade_ladder(None, SPEC)
+    reqs = [dataclasses.replace(r, gen=g) for r, g in zip(
+        serve.synthetic_requests(cfg.vocab_size, PROMPT, max(FABRIC_GENS), len(FABRIC_GENS)), FABRIC_GENS)]
+    runs, lives = {}, {}
+    with tempfile.TemporaryDirectory(prefix="fabric_crash_") as tmp:
+        for tag, faults in (("clean", ""), ("crash", "crash@step=3")):
+            probe = CrashProbe(FaultInjector(parse_faults(faults)))
+            ckpt = CheckpointManager(tmp, keep=2, cfg=cfg) if faults else None
+            make = serve.make_replica_factory(cfg, SLOTS, max_len, params, ladder, fault_hook=probe.check,
+                                              launch_timeout=30.0, device=dev)
+
+            def build(w, level, params_=None, shrunk=False, make=make, probe=probe):
+                rep = make(w, level, params_, shrunk)
+                probe.built.append(probe.weakref(rep))
+                return rep
+
+            fabric = ServeFabric(
+                build, list(reqs),
+                FabricConfig(n_replicas=1, launch_timeout=30.0, checkpoint_every=2 if faults else 0,
+                             max_degrade_level=len(ladder) - 1, synthetic_step_times=True),
+                ckpt=ckpt, restore_params=(lambda mgr: mgr.restore(dev)[0]) if ckpt else None, params=params)
+            probe.fabric = fabric
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = fabric.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            probe.fabric = None
+            st = fabric.stats
+            if any(r.error for r in results.values()) or len(results) != len(reqs):
+                raise AssertionError(f"fabric {tag}: unanswered or failed requests: {results}")
+            row = dict(wall_s=wall, generated_tokens=st["accepted"], tok_per_s=st["accepted"] / wall,
+                       launches=st["launches"], prefills=st["prefills"], rounds=fabric.round,
+                       **{k: st[k] for k in ("crashes", "rejoins", "rewarm_prefills", "restores", "checkpoints",
+                                             "dropped", "duplicates")},
+                       streams={rid: r.tokens for rid, r in results.items()})
+            if ckpt is not None:
+                row.update(saves=[dict(step=s, seconds=sec, bytes=b, bytes_written=w)
+                                  for s, sec, b, w in ckpt.saves],
+                           crash_round=probe.crash_round,
+                           saves_until_restore=sum(s <= ckpt.restores[0][0] for s, *_ in ckpt.saves),
+                           restores_log=[dict(step=s, seconds=sec, bytes=b) for s, sec, b in ckpt.restores],
+                           answered_before_crash=probe.answered_before_crash,
+                           memory_allocated_before_crash=probe.before_crash,
+                           memory_allocated_after_rejoin=probe.after_rejoin,
+                           graphs_captured_after_rejoin=probe.graphs_after_rejoin,
+                           dead_replica_freed=probe.dead_freed_at_rejoin)
+            runs[tag], lives[tag] = row, probe.lives()
+            del fabric, results, make, build, probe
+    # the device-to-host half of a save: every weight copied to pageable host memory once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [t.cpu() for t in _leaves(params)]
+    weights_to_host_s = time.perf_counter() - t0
+    del host
+    clean, crash = runs["clean"], runs["crash"]
+    if crash["streams"] != clean["streams"]:
+        rid = min(r for r in clean["streams"] if clean["streams"][r] != crash["streams"].get(r))
+        raise AssertionError(f"fabric crash: request {rid} stream {crash['streams'].get(rid)} after the crash != "
+                             f"{clean['streams'][rid]} without it")
+    moved = sorted(rid for rid in lives["clean"] if lives["clean"][rid] != lives["crash"].get(rid))
+    slot_moved = sorted(rid for rid in lives["clean"]
+                        if {b for b, _ in lives["clean"][rid]} != {b for b, _ in lives["crash"].get(rid, [])})
+    crash.update(requests_beside_other_neighbours=moved, requests_in_other_slot=slot_moved)
+    if not crash["answered_before_crash"] or not moved:
+        raise AssertionError(f"fabric crash: the crashed run repeats the clean run's batches "
+                             f"({crash['answered_before_crash']} answered before the crash, {moved} served beside "
+                             "other neighbours): the gate sees nothing")
+    if (crash["crashes"], crash["rejoins"], crash["dropped"], crash["duplicates"]) != (1, 1, 0, 0) \
+            or crash["restores"] < 1 or clean["crashes"] or clean["dropped"] or clean["duplicates"]:
+        raise AssertionError(f"fabric crash: stats {crash} (clean run {clean})")
+    if not crash["dead_replica_freed"] or (torch.device(dev).type == "cuda" and not crash["graphs_captured_after_rejoin"]):
+        raise AssertionError(f"fabric crash: dead replica still referenced or no graph captured after the rejoin: "
+                             f"{crash}")
+    for row in runs.values():
+        row.pop("streams")
+    return dict(layers=FABRIC_LAYERS, slots=SLOTS, requests=len(reqs), gens=list(FABRIC_GENS), spec_tokens=SPEC,
+                weight_bytes=weight_bytes, init_s=init_s, weights_to_host_s=weights_to_host_s,
+                streams_byte_identical=True, **runs)
+
+
+def smoke_twin_programs(dev):
+    """The f32 smoke twins with request programs, on the card and on the CPU
+    from the same weights: the spec-4 chain under the JSON-schema program,
+    the paged tree 2,1 with the model drafter, steered, and a 2-way fork
+    (join all) on the paged plane.  Streams (and fork branches) identical,
+    no masked emission, the guided drafter and the masked verify run on
+    the card."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.plans import TreePlan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    fork = {"fork": 2, "join": "all", "segments": FORK_SEGMENTS}
+    runs = {
+        "spec4_ngram_json": dict(spec=4, program=JSON_SPEC),
+        "paged_tree2x1_model_steered_json": dict(spec=4, tree=(2, 1), drafter="model", ps=8, program=JSON_SPEC),
+        "paged_tree2x1_fork2_all": dict(spec=4, tree=(2, 1), ps=8, program=fork),
+    }
+    out = {}
+    for name, r in runs.items():
+        tree = TreePlan.from_branching(r["tree"]) if "tree" in r else None
+        drafter = r.get("drafter", "ngram")
+        cfg = dataclasses.replace(get_smoke_config(ARCH), decode_plane=True, spec_tokens=r["spec"],
+                                  paged=bool(r.get("ps")), page_size=r.get("ps") or 16)
+        params_cpu = Model(cfg, device="cpu").init(0)
+        draft_cpu = dict(params_cpu, layers=params_cpu["layers"][:1]) if drafter == "model" else None
+        reqs = serve.synthetic_requests(cfg.vocab_size, 12, 24, 6, 0, r["program"])
+        max_len = 12 + 24 + r["spec"]
+        kw = dict(tree=tree, drafter=drafter)
+        reset_launch_counts()
+        rep = serve.ServeReplica(cfg, 3, max_len, _to(params_cpu, dev), device=dev, drafter_params=_to(draft_cpu, dev),
+                                 **kw)
+        gpu = serve.serve_queue(rep, reqs)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        cpu_rep = serve.ServeReplica(cfg, 3, max_len, params_cpu, device="cpu", drafter_params=draft_cpu, **kw)
+        cpu = serve.serve_queue(cpu_rep, reqs)
+        g = {rid: (res.tokens, res.branches) for rid, res in gpu.items()}
+        c = {rid: (res.tokens, res.branches) for rid, res in cpu.items()}
+        tag = f"smoke twin programs {name}"
+        if g != c:
+            rid = min(i for i in g if g[i] != c.get(i))
+            raise AssertionError(f"{tag}: request {rid}: card {g[rid]} != CPU {c.get(rid)}")
+        if len(g) != len(reqs) or rep.prog_masked_emissions or not rep.verify_launches:
+            raise AssertionError(f"{tag}: {len(g)} answers, {rep.prog_masked_emissions} masked emissions, "
+                                 f"{rep.verify_launches} masked verifies")
+        path = PAGED_KERNELS if r.get("ps") else CONTIGUOUS_KERNELS
+        if min(counts[n] for n in path) <= 0:
+            raise AssertionError(f"{tag}: a kernel of its path never launched: {counts}")
+        out[name] = dict(streams_identical=True, requests=len(g), decode_launches=rep.launches,
+                         verify_launches=rep.verify_launches, accepted_total=rep.accepted_total,
+                         drafted_total=rep.drafted_total, prog_tokens=rep.prog_tokens,
+                         forks_started=rep.forks_started, fork_kv_rows_copied=rep.fork_kv_rows_copied,
+                         stream_lens=sorted(len(t) for t, _ in g.values()), launches=counts)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNELS = {
@@ -2570,6 +3019,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     twin8 = smoke_twin(dev, names=["int8_spec4_ngram", "int8_paged_tree2x1_model_shared16", "int8_hybrid_spec1"])
     emit("smoke_twin_int8", **twin8)
+    emit("smoke_twin_programs", **smoke_twin_programs(dev))
     torch.cuda.empty_cache()
 
     # the compiled decode launch held against the eager one in every cell
@@ -2604,7 +3054,12 @@ def main() -> int:
     del rep
     torch.cuda.empty_cache()
     emit("admit_twice", **admit_twice(dev, params, params8))
-    del params, params8  # free the MoE weights before the hybrid cell
+    progs, forks = programs(dev, params, params8)
+    emit("programs", **progs)
+    emit("forks", **forks)
+    del params, params8  # free the MoE weights before the crash cell and the hybrid cell
+    torch.cuda.empty_cache()
+    emit("fabric_crash", **fabric_crash(dev))
     torch.cuda.empty_cache()
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)

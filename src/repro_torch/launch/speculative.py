@@ -1,22 +1,25 @@
 """Speculative-decode drafters and verify rule (port of the reference's
-``launch/speculative.py`` without request-program guides).
+``launch/speculative.py``).
 
 The verify rule is greedy: position 0 of a launch is the model's own next
 token (always accepted); a draft node stays accepted while its token equals
 what the model emitted for its parent.  A chain is the degenerate tree, so
-one walk (:func:`greedy_accept_tree`) serves both.  The host drafters
-(``repeat``, ``ngram``) are numpy only; :class:`ModelDrafter` drafts with a
-small model through the same decode plane.
+one walk (:func:`greedy_accept_tree`) serves both; under a request program
+:func:`accept_tree_program` adds the automaton's earliest-accept stop.  The
+host drafters (``repeat``, ``ngram``) are numpy only, and
+:func:`steer_tree_tokens` clamps their drafts to a program's allowed sets;
+:class:`ModelDrafter` drafts with a small model through the same decode
+plane, its logits masked on the card for guided slots.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.control_plane import _top_k
 from repro_torch.core.plans import TreePlan
-from repro_torch.launch.steps import build_spec_serve_step
+from repro_torch.launch.steps import build_spec_serve_step, masked_top_k
 
 
 def greedy_accept(draft_row, verified_row, width: int, budget: int) -> int:
@@ -52,6 +55,38 @@ def greedy_accept_tree(draft_row, verified_row, tree: TreePlan, budget: int) -> 
     return path
 
 
+def accept_tree_program(draft_row, verified_row, tree: TreePlan, budget: int,
+                        automaton, state0: int) -> Tuple[List[int], int, bool]:
+    """Program-aware greedy tree verification.
+
+    The walk of :func:`greedy_accept_tree` (the verified emissions along the
+    accepted path equal draft tokens, so advancing the automaton by each
+    emission tracks the committed stream's state), plus the earliest-accept
+    stop: the walk ends the moment an emission drives the automaton into an
+    accepting state, so nothing past the grammar's end is committed even
+    when deeper draft nodes match.
+
+    Returns ``(path, state_after, done)``: the accepted node path, the
+    automaton state after the path's emissions (the slot's carried state:
+    rejected nodes never advanced it), and whether the stream completed.
+    """
+    kids = tree.children()
+    path = [0]
+    cur = 0
+    st = int(state0)
+    while True:
+        want = int(verified_row[cur])
+        st = automaton.step(st, want)
+        if st < 0 or automaton.is_accept(st) or len(path) >= budget:
+            break
+        nxt = next((c for c in kids[cur] if int(draft_row[c]) == want), None)
+        if nxt is None:
+            break
+        path.append(nxt)
+        cur = nxt
+    return path, st, automaton.is_accept(st)
+
+
 def _followers(history: Sequence[int], tok: int, limit: int) -> List[int]:
     """Distinct tokens that followed ``tok`` in history, most recent first."""
     out: List[int] = []
@@ -84,6 +119,45 @@ def draft_tree_ngram(history, last_tok: int, tree: TreePlan) -> List[int]:
 
 
 TREE_DRAFTERS = {"repeat": draft_tree_repeat, "ngram": draft_tree_ngram}
+
+
+def steer_tree_tokens(toks_row, tree: TreePlan, automaton, state0: int,
+                      history: Sequence[int] = ()) -> np.ndarray:
+    """Clamp a filled draft tree to the automaton's allowed sets.
+
+    Walks the tree in topological order carrying the automaton state per
+    node (node 0 is the already-committed last token, so its state is the
+    slot state itself).  A drafted token outside its node's allowed set is
+    replaced, preferring historical followers that ARE allowed, then the
+    lowest allowed ids, and duplicate siblings are spread over the allowed
+    set (a duplicate sibling can never out-accept its twin).  Past an
+    accepting or rejected state the draft passes through untouched.
+    """
+    toks = [int(v) for v in toks_row]
+    kids = tree.children()
+    states = [-1] * tree.num_nodes
+    states[0] = int(state0)
+    for node, children in enumerate(kids):
+        if not children:
+            continue
+        ps = states[node]
+        if ps < 0 or automaton.is_accept(ps):
+            for c in children:
+                states[c] = ps  # stream already ended (or died): don't-care
+            continue
+        allow = automaton.allowed(ps)
+        allow_set = {int(v) for v in allow}
+        cand = [f for f in _followers(history, toks[node], len(children) + 4) if f in allow_set]
+        used: set = set()
+        for c in children:
+            if toks[c] not in allow_set or toks[c] in used:
+                pick = next((f for f in cand if f not in used), None)
+                if pick is None:
+                    pick = next((int(v) for v in allow if int(v) not in used), int(allow[0]))
+                toks[c] = pick
+            used.add(toks[c])
+            states[c] = automaton.step(ps, toks[c])
+    return np.asarray(toks, np.int32)
 
 
 class ModelDrafter:
@@ -150,24 +224,51 @@ class ModelDrafter:
             self._advance(toks, lens)
             self.fed = self.fed + adv
 
-    def propose(self, last_tok, lengths, tree: TreePlan) -> np.ndarray:
+    def propose(self, last_tok, lengths, tree: TreePlan, guides=None) -> np.ndarray:
         """(B,) last accepted tokens + committed lengths -> (B, T) tree
         tokens: children of the spine node at depth d get the draft model's
         top-``len(children)`` tokens, the first child (the spine) continues
-        from the top-1."""
+        from the top-1.
+
+        ``guides`` (optional, per slot) is ``(table, state)`` for a
+        program-constrained slot (``table`` a
+        :class:`repro_torch.launch.steps.ProgramTable`) or None: that slot's
+        logits are ranked on the card among the tokens its spine state
+        allows (:func:`repro_torch.launch.steps.masked_top_k`), so the
+        sibling budget goes to tokens the masked verifier could accept.
+        Ranks past the allowed count fall back to the top allowed token."""
         B = len(last_tok)
         kids = tree.children()
         toks = np.zeros((B, tree.num_nodes), np.int32)
         toks[:, 0] = last_tok
         cur = np.asarray(last_tok, np.int32).copy()
         pos = np.asarray(lengths, np.int32).copy()
+        states = [None if guides is None or guides[b] is None else int(guides[b][1]) for b in range(B)]
         for node in tree.spine():
             children = kids[node]
             if not children:
                 break
-            top = _top_k(self._advance(cur, pos), len(children))[1].cpu().numpy()
+            k = len(children)
+            logits = self._advance(cur, pos)
+            top = _top_k(logits, k)[1].cpu().numpy()
+            # guided rows, grouped by program table: one masked ranking each
+            groups = {}
+            for b in range(B):
+                st = states[b]
+                if st is None or st < 0 or guides[b][0].automaton.is_accept(st):
+                    continue  # stream over (or dead): the draft is don't-care
+                groups.setdefault(id(guides[b][0]), (guides[b][0], []))[1].append(b)
+            for table, rows in groups.values():
+                sts = [states[b] for b in rows]
+                order = masked_top_k(logits, table.allowed, np.asarray(rows), np.asarray(sts), k).cpu().numpy()
+                for b, st, o in zip(rows, sts, order):
+                    n_allow = int(table.allowed_count[st])
+                    top[b] = [o[r] if r < n_allow else o[0] for r in range(k)]
             for rank, child in enumerate(children):
                 toks[:, child] = top[:, rank]
+            for b in range(B):
+                if states[b] is not None and states[b] >= 0:
+                    states[b] = guides[b][0].automaton.step(states[b], int(top[b, 0]))
             cur = top[:, 0].astype(np.int32)
             pos += 1
         return toks

@@ -3,7 +3,11 @@
 graph and replayed (the counterpart of the reference's jitted
 ``build_spec_serve_step``), :class:`TreeCommit`, the contiguous tree commit
 compiled the same way (the reference's jitted ``_commit``),
-:func:`admission`, and :func:`build_model`, which binds a model to a mesh.
+:func:`admission` (a fork's too), :func:`build_model`, which binds a model
+to a mesh, and the two operations request programs run on the card outside
+the graphs: the masked verify (:func:`masked_argmax_rows`) and the guided
+ranking (:func:`masked_top_k`) over a program's allowed-token table
+(:class:`ProgramTable`).
 
 A compiled launch (:class:`CompiledLaunch`) owns static device buffers for
 its inputs and is bound to the cache and parameter tensors its body reads
@@ -21,12 +25,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.control_plane import _top_k
 from repro_torch.core.plans import TreePlan
 from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
@@ -71,8 +76,8 @@ def prefill_model(model: Model) -> Model:
 
 
 def admission(
-    model: Model, params: Params, cache: List[Params], prompt: np.ndarray, slot: int,
-    rows: Optional[np.ndarray] = None, pf_model: Optional[Model] = None,
+    model: Model, params: Params, cache: List[Params], prompt: np.ndarray, slot: Union[int, Sequence[int]],
+    rows: Union[None, np.ndarray, Sequence[np.ndarray]] = None, pf_model: Optional[Model] = None,
 ) -> torch.Tensor:
     """B=1 prefill of ``prompt`` into batch row ``slot`` -> last-position
     logits (V,).
@@ -82,15 +87,80 @@ def admission(
     the same rows).  Paged (``rows`` given, the (max_len,) physical-row
     vector of the replica's page binding): a contiguous B=1 prefill into a
     fresh cache of ``pf_model`` (see :func:`prefill_model`), then only the
-    rows the vector names are written into the pool."""
+    rows the vector names are written into the pool.
+
+    A fork admits one prompt into several slots off ONE prefill: ``slot``
+    is then the list of slots and, paged, ``rows`` one vector per slot.
+    Contiguous, every cache leaf of the first slot (K/V, plan rows, rolling
+    buffers, recurrent state) is copied to the others; paged, the one B=1
+    cache is written through each slot's vector (full prompt pages the
+    trie already shares are never written again)."""
+    slots = [int(slot)] if np.ndim(slot) == 0 else [int(b) for b in slot]
     prompt = np.asarray(prompt)[None]
     if rows is None:
-        return model.prefill(params, prompt, cache, slot=slot)[0]
+        logits = model.prefill(params, prompt, cache, slot=slots[0])[0]
+        for b in slots[1:]:
+            model.copy_cache_slot(cache, slots[0], b)
+        return logits
+    vectors = [rows] if np.ndim(slot) == 0 else list(rows)
     pf_model = pf_model or prefill_model(model)
-    one = pf_model.init_cache(1, len(rows))
+    one = pf_model.init_cache(1, len(vectors[0]))
     logits = pf_model.prefill(params, prompt, one)[0]
-    model.write_cache_slot_paged(cache, one, slot, rows)
+    for b, r in zip(slots, vectors):
+        model.write_cache_slot_paged(cache, one, b, r)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# request programs on the card: masked verify and the guided drafter's ranking
+# ---------------------------------------------------------------------------
+
+
+class ProgramTable:
+    """One compiled request program's allowed sets, made once per program:
+    ``allowed`` the (S, V) bool table ``trans >= 0`` on ``device``, and on
+    the host ``allowed_count`` (S,) and ``masked_frac`` (S,), the share of
+    the vocabulary each state masks (the reference's ``1 - mask.mean()``)."""
+
+    def __init__(self, program, device):
+        self.program = program
+        self.automaton = program.automaton
+        mask = self.automaton.trans >= 0
+        self.allowed = torch.as_tensor(mask, device=device)
+        self.allowed_count = mask.sum(axis=1)
+        self.masked_frac = 1.0 - mask.mean(axis=1)
+
+    @property
+    def nbytes(self) -> int:
+        return self.allowed.numel() * self.allowed.element_size()
+
+
+def _masked(logits: torch.Tensor, allowed: torch.Tensor, rows: np.ndarray, states: np.ndarray) -> torch.Tensor:
+    """(M, V) f32: ``logits[row]`` where ``allowed[state]`` admits the
+    token, the f32 minimum elsewhere (the reference's fill), per pair."""
+    dev = logits.device
+    sel = logits.index_select(0, torch.as_tensor(rows, dtype=torch.int64, device=dev)).float()
+    ok = allowed.index_select(0, torch.as_tensor(states, dtype=torch.int64, device=dev))
+    return torch.where(ok, sel, torch.finfo(torch.float32).min)
+
+
+def masked_argmax_rows(logits: torch.Tensor, allowed: torch.Tensor, rows: np.ndarray,
+                       states: np.ndarray) -> torch.Tensor:
+    """The masked verify: for each (row, state) pair, the argmax of
+    ``logits[row]`` over the tokens ``allowed[state]`` admits -> (M,) ids
+    on the logits' device; ties go to the first maximum, as the
+    reference's ``masked_argmax`` (``np.argmax``) takes them."""
+    return _masked(logits, allowed, rows, states).argmax(-1)
+
+
+def masked_top_k(logits: torch.Tensor, allowed: torch.Tensor, rows: np.ndarray, states: np.ndarray,
+                 k: int) -> torch.Tensor:
+    """The guided ranking: for each (row, state) pair, the ``k`` best
+    tokens of ``logits[row]`` among those ``allowed[state]`` admits, best
+    first, ties to the lower id (a stable descending sort, the order of
+    the reference's ``np.argsort(-masked, kind="stable")``); past the
+    allowed count come disallowed ids.  (M, k) ids on the logits' device."""
+    return _top_k(_masked(logits, allowed, rows, states), k)[1]
 
 
 # ---------------------------------------------------------------------------

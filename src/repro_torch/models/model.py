@@ -224,6 +224,14 @@ class Model:
                 leaf[slot].copy_(o[name][0])
 
     @staticmethod
+    def copy_cache_slot(cache: List[Params], src: int, dst: int) -> None:
+        """Copy batch row ``src`` of every leaf of a contiguous cache into
+        row ``dst``, in place (a fork's branches off one prefill)."""
+        for c in cache:
+            for leaf in c.values():
+                leaf[dst].copy_(leaf[src])
+
+    @staticmethod
     def write_cache_slot_paged(cache: List[Params], one_cache: List[Params], slot: int, rows) -> None:
         """Paged admission, in place: scatter a CONTIGUOUS B=1 cache's K/V
         rows into the pool rows that ``rows`` names, never a stripe copy.

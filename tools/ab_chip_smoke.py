@@ -38,7 +38,7 @@ def summary(record: dict) -> dict:
             if isinstance(r, dict)}
     graphs = {c: {m: r.get(m) for m in ("eager_ms_per_decode_launch", "replayed_ms_per_decode_launch",
                                        "eager_idle_share", "replayed_idle_share")}
-              for c, r in record.get("compiled_launch", {}).items()}
+              for c, r in record.get("compiled_launch", {}).items() if isinstance(r, dict)}
     return {"cells": cells, "idle": idle, "kernels": kern, "compiled_launch": graphs}
 
 
