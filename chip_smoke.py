@@ -64,6 +64,14 @@ through ``ServeFabric`` twice, clean and with a crash at launch 3 and
 checkpoints every 2 rounds (streams byte-identical; the dead replica
 freed, the rebuilt one restored from the checkpoint, its graphs captured
 again).
+The cross-process fabric (phase ``xproc_crash``): the same cell served by
+2 spawned worker processes of 4 slots each through ``CrossProcessFabric``,
+worker 0 SIGKILLing itself before its launch 3 (seen only as missed
+heartbeats), its requests requeued to a replacement that restores the
+weights from the supervisor's checkpoint (streams equal to the in-process
+clean run; the seconds from the kill to its detection, to the
+replacement's hello and first answer; the card's free memory around the
+kill; no worker left alive).
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -2778,6 +2786,19 @@ class CrashProbe:
         return {rid: life for rid, (_, life) in out.items()}
 
 
+def fabric_cell():
+    """(config, slot budget, requests) of the crash cells: Qwen3-MoE at full
+    widths cut to ``FABRIC_LAYERS``, spec ``SPEC``, the CLI's synthetic
+    queue of ``len(FABRIC_GENS)`` requests generating ``FABRIC_GENS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=FABRIC_LAYERS, decode_plane=True, spec_tokens=SPEC)
+    reqs = [dataclasses.replace(r, gen=g) for r, g in zip(
+        serve.synthetic_requests(cfg.vocab_size, PROMPT, max(FABRIC_GENS), len(FABRIC_GENS)), FABRIC_GENS)]
+    return cfg, PROMPT + max(FABRIC_GENS) + SPEC, reqs
+
+
 def fabric_crash(dev):
     """The in-process fabric on the card: Qwen3-MoE at full widths cut to 1
     layer (a checkpoint holds every weight: 8.7 GB), 4 slots, spec 4, ngram,
@@ -2800,22 +2821,18 @@ def fabric_crash(dev):
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.runtime.fabric import FabricConfig, ServeFabric
     from repro_torch.runtime.faults import FaultInjector, parse_faults
 
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=FABRIC_LAYERS, decode_plane=True, spec_tokens=SPEC)
+    cfg, max_len, reqs = fabric_cell()
     t0 = time.perf_counter()
     params = Model(cfg, device=dev).init(0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    max_len = PROMPT + max(FABRIC_GENS) + SPEC
     ladder = serve.degrade_ladder(None, SPEC)
-    reqs = [dataclasses.replace(r, gen=g) for r, g in zip(
-        serve.synthetic_requests(cfg.vocab_size, PROMPT, max(FABRIC_GENS), len(FABRIC_GENS)), FABRIC_GENS)]
     runs, lives = {}, {}
     with tempfile.TemporaryDirectory(prefix="fabric_crash_") as tmp:
         for tag, faults in (("clean", ""), ("crash", "crash@step=3")):
@@ -2887,11 +2904,213 @@ def fabric_crash(dev):
     if not crash["dead_replica_freed"] or (torch.device(dev).type == "cuda" and not crash["graphs_captured_after_rejoin"]):
         raise AssertionError(f"fabric crash: dead replica still referenced or no graph captured after the rejoin: "
                              f"{crash}")
+    clean_streams = clean["streams"]
     for row in runs.values():
         row.pop("streams")
     return dict(layers=FABRIC_LAYERS, slots=SLOTS, requests=len(reqs), gens=list(FABRIC_GENS), spec_tokens=SPEC,
                 weight_bytes=weight_bytes, init_s=init_s, weights_to_host_s=weights_to_host_s,
-                streams_byte_identical=True, **runs)
+                streams_byte_identical=True, **runs), clean_streams
+
+
+class WatchedWorker:
+    """A worker process's handle as ``xproc_crash`` sees it: the supervisor
+    talks through it unchanged, and it notes when the first ``hello`` and
+    the first ``done`` of its own incarnation arrived (host clock), how many
+    requests that incarnation answered, its farewell ``stats`` (launches,
+    prefills, kernel launch counts), when its process exited (a thread
+    waits on the process's sentinel, so the time does not hang on the
+    supervisor's polls), when the supervisor killed it, and the longest
+    time between two of its messages as the supervisor read them (a stall
+    of the supervisor's own shows in every worker at once)."""
+
+    def __init__(self, handle, worker, inc, probe):
+        import threading
+        from multiprocessing.connection import wait
+
+        self.handle, self.worker, self.inc, self.probe = handle, worker, inc, probe
+        self.spawned = time.perf_counter()
+        self.hello = self.first_done = self.died = self.killed = self.restored = self.stats = None
+        self.answered = 0
+        self.last_msg, self.longest_silence = None, 0.0
+
+        def watch():
+            wait([handle.proc.sentinel])
+            self.died = time.perf_counter()
+
+        threading.Thread(target=watch, daemon=True).start()
+
+    @property
+    def proc(self):
+        return self.handle.proc
+
+    def send(self, msg):
+        self.handle.send(msg)
+
+    def recv(self):
+        msgs = self.handle.recv()
+        now = time.perf_counter()
+        for tag, p in msgs:
+            if p.get("inc") != self.inc:
+                continue
+            if self.last_msg is not None:
+                self.longest_silence = max(self.longest_silence, now - self.last_msg)
+            self.last_msg = now
+            if tag == "hello" and self.hello is None:
+                self.hello, self.restored = now, int(p.get("restored", 0))
+            elif tag == "done":
+                self.first_done = self.first_done or now
+                self.answered += len(p["results"])
+            elif tag == "stats":
+                self.stats = p
+        self.probe.polled()
+        return msgs
+
+    def kill(self):
+        self.killed = time.perf_counter()
+        self.handle.kill()
+        self.probe.mark("after_kill")
+
+    def close(self):
+        self.handle.close()
+
+
+class XprocProbe:
+    """The worker handles of ``xproc_crash`` and the card's free bytes
+    (``torch.cuda.mem_get_info``): before the spawn, the least read while
+    two workers were up (each past its ``hello``, neither exited), right
+    after the dead worker was killed and reaped, and the least read at
+    any poll."""
+
+    def __init__(self, free_bytes):
+        self.free_bytes = free_bytes
+        self.handles, self.free = [], {}
+        self.free_min = None
+
+    def spawn_fn(self, spawn):
+        def wrapped(worker, inc, proc_faults):
+            h = WatchedWorker(spawn(worker, inc, proc_faults), worker, inc, self)
+            self.handles.append(h)
+            return h
+        return wrapped
+
+    def mark(self, name):
+        self.free.setdefault(name, self.free_bytes())
+
+    def polled(self):
+        free = self.free_bytes()
+        self.free_min = free if self.free_min is None else min(self.free_min, free)
+        if sum(1 for h in self.handles if h.hello and h.died is None) == 2:
+            self.free["workers_up"] = min(self.free.get("workers_up", free), free)
+
+
+def xproc_crash(dev, clean_streams):
+    """The cross-process fabric on the card: ``fabric_crash``'s cell (Qwen3-MoE
+    at full widths cut to 1 layer, spec 4, ngram, the 8 requests of
+    ``FABRIC_GENS``) served by 2 worker processes of ``SLOTS`` slots each
+    (spawned; each builds its replica on the card from seed 0 and loads the
+    kernel libraries built at the start), supervised by
+    ``CrossProcessFabric`` with the CLI's settings (heartbeats every 0.25
+    s, 12 misses, a 60 s boot holiday, a round every 0.1 s), with
+    ``kill@step=3:replica=0`` and checkpoints in a temporary directory
+    (deleted at the end).  The supervisor's weights are drawn on the card
+    from seed 0, as the workers draw theirs, and held in host memory.
+    Gates: every stream equal, rid by rid, to ``fabric_crash``'s clean
+    in-process stream; kills 1, spawns 3, restores >= 1 (the replacement's
+    hello), requeued >= 1, dropped 0, duplicates 0, no error result; a
+    request answered before the kill (by the killed worker); kernels 1, 2, 3, 4 and 7 launched in
+    the surviving workers (their farewell counts); no worker process alive
+    after shutdown, and the card's free memory back within 1 GB of its
+    value before the spawn."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import serve
+    from repro_torch.runtime.fabric import CrossProcessFabric
+    from repro_torch.runtime.faults import parse_faults
+    from repro_torch.runtime.transport import MonotonicClock, make_process_spawn
+
+    t_phase = time.perf_counter()
+    cfg, max_len, reqs = fabric_cell()
+    faults = "kill@step=3:replica=0"
+    t0 = time.perf_counter()
+    params = serve.supervisor_params(cfg, torch.device(dev))
+    supervisor_weights_s = time.perf_counter() - t0
+    probe = XprocProbe(lambda: torch.cuda.mem_get_info()[0])
+    with tempfile.TemporaryDirectory(prefix="xproc_crash_") as tmp:
+        ckpt = CheckpointManager(tmp, keep=2, cfg=cfg)
+        spec = dict(kind="serve", arch=ARCH, smoke=False, num_layers=FABRIC_LAYERS, decode_plane=True,
+                    spec_tokens=SPEC, paged=False, page_size=cfg.page_size, kv_dtype=cfg.kv_dtype,
+                    expert_dtype=cfg.expert_dtype, drafter="ngram", slots=SLOTS, max_len=max_len, seed=0,
+                    faults=faults, launch_timeout=30.0, ckpt_dir=tmp, heartbeat_every=0.25, device=str(dev))
+        fabric = CrossProcessFabric(probe.spawn_fn(make_process_spawn(spec)), [dataclasses.replace(r) for r in reqs],
+                                    serve.xfabric_config(2, SLOTS, checkpoint=True), clock=MonotonicClock(),
+                                    specs=parse_faults(faults), ckpt=ckpt, params=params)
+        torch.cuda.empty_cache()
+        probe.mark("before_spawn")
+        t0 = time.perf_counter()
+        try:
+            results = fabric.run()
+        finally:
+            for h in probe.handles:  # a failed run leaves no worker behind
+                h.close()
+        wall = time.perf_counter() - t0
+        saves = [dict(step=s, seconds=sec, bytes=b, bytes_written=w) for s, sec, b, w in ckpt.saves]
+    del params
+    alive = [(h.worker, h.inc) for h in probe.handles if h.proc.is_alive()]
+    t0 = time.perf_counter()
+    while probe.free_bytes() < probe.free["before_spawn"] - 2 ** 30 and time.perf_counter() - t0 < 30:
+        time.sleep(0.1)
+    probe.mark("after_shutdown")
+    free_back_s = time.perf_counter() - t0
+    st = fabric.stats
+    streams = {rid: r.tokens for rid, r in results.items()}
+    if streams != clean_streams:
+        rid = min(r for r in clean_streams if clean_streams[r] != streams.get(r))
+        raise AssertionError(f"xproc crash: request {rid} stream {streams.get(rid)} through the workers != "
+                             f"{clean_streams[rid]} in-process")
+    errors = [(r.rid, r.error) for r in results.values() if r.error is not None]
+    if errors or (st["kills"], st["spawns"], st["dropped"], st["duplicates"]) != (1, 3, 0, 0) \
+            or st["restores"] < 1 or st["requeued"] < 1:
+        raise AssertionError(f"xproc crash: stats {st}, errors {errors}")
+    killed = next(h for h in probe.handles if (h.worker, h.inc) == (0, 0))
+    replacement = next(h for h in probe.handles if (h.worker, h.inc) == (0, 1))
+    if not killed.answered or killed.died is None or replacement.restored != 1:
+        raise AssertionError(f"xproc crash: the killed worker answered {killed.answered} requests, exited at "
+                             f"{killed.died}, the replacement restored {replacement.restored}")
+    launched = {}
+    for h in probe.handles:
+        for name, n in ((h.stats or {}).get("kernels") or {}).items():
+            launched[name] = launched.get(name, 0) + n
+    missing = [k for k in CONTIGUOUS_KERNELS if not launched.get(k)]
+    if missing:
+        raise AssertionError(f"xproc crash: kernels {missing} never launched in the surviving workers: {launched}")
+    if alive or probe.free["after_shutdown"] < probe.free["before_spawn"] - 2 ** 30:
+        raise AssertionError(f"xproc crash: workers {alive} alive after shutdown, free bytes {probe.free}")
+    answered = sum(len(t) for t in streams.values())
+    return dict(
+        layers=FABRIC_LAYERS, workers=2, slots_per_worker=SLOTS, requests=len(reqs), gens=list(FABRIC_GENS),
+        spec_tokens=SPEC, faults=faults, heartbeat_every=0.25, heartbeat_miss_limit=12, poll_every=0.1,
+        supervisor_weights_s=supervisor_weights_s, wall_s=wall, rounds=fabric.round, tokens_answered=answered,
+        tok_per_s=answered / wall, streams_equal_in_process_clean=True,
+        **{k: st[k] for k in ("kills", "spawns", "restores", "requeued", "heartbeat_misses", "stale_messages",
+                              "checkpoints", "admitted", "launches", "prefills", "accepted", "dropped",
+                              "duplicates")},
+        killed_worker_answered=killed.answered,
+        kill_to_detection_s=killed.killed - killed.died, kill_to_replacement_hello_s=replacement.hello - killed.died,
+        kill_to_replacement_first_done_s=replacement.first_done - killed.died,
+        boot_s={f"{h.worker}.{h.inc}": h.hello - h.spawned for h in probe.handles if h.hello},
+        longest_silence_s={f"{h.worker}.{h.inc}": h.longest_silence for h in probe.handles},
+        per_worker={f"{h.worker}.{h.inc}": dict(launches=h.stats.get("launches"), prefills=h.stats.get("prefills"),
+                                                answered=h.answered,
+                                                kernel_launches={k: n for k, n in h.stats["kernels"].items() if n})
+                    for h in probe.handles if h.stats},
+        kernel_launches={k: n for k, n in launched.items() if n}, first_save=saves[0] if saves else None,
+        later_saves_s=[sv["seconds"] for sv in saves[1:]], saves=len(saves),
+        free_bytes=probe.free, free_min_bytes=probe.free_min, free_back_s=free_back_s, workers_alive_after=alive,
+        phase_s=time.perf_counter() - t_phase,
+    )
 
 
 def smoke_twin_programs(dev):
@@ -3059,7 +3278,10 @@ def main() -> int:
     emit("forks", **forks)
     del params, params8  # free the MoE weights before the crash cell and the hybrid cell
     torch.cuda.empty_cache()
-    emit("fabric_crash", **fabric_crash(dev))
+    crash, clean_streams = fabric_crash(dev)
+    emit("fabric_crash", **crash)
+    torch.cuda.empty_cache()
+    emit("xproc_crash", **xproc_crash(dev, clean_streams))
     torch.cuda.empty_cache()
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)

@@ -91,13 +91,13 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=No
 
 
 def read_leaf(path, dtype: str) -> Leaf:
-    """One ``.npy`` leaf whose manifest type is ``dtype``: a numpy array, or
-    for ``"bfloat16"`` (stored as ``<V2``) a CPU bf16 tensor over the same
-    bytes."""
+    """One ``.npy`` leaf (a path or an open binary file) whose manifest type
+    is ``dtype``: a numpy array, or for ``"bfloat16"`` (stored as ``<V2``) a
+    CPU bf16 tensor over the same bytes."""
     arr = np.load(path)
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         if dtype != "bfloat16":
-            raise ValueError(f"{Path(path).name}: 2-byte raw elements, but the manifest says {dtype!r}")
+            raise ValueError(f"{Path(getattr(path, 'name', path)).name}: 2-byte raw elements, but the manifest says {dtype!r}")
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return arr
 

@@ -229,18 +229,32 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def _read(self, d: Path, files: List[dict]) -> Dict[str, Any]:
-        out = {}
-        for rec in files:
-            try:
-                out[rec["name"]] = read_leaf(d / rec["file"], rec["dtype"])
-            except (OSError, EOFError, ValueError) as err:
-                # a missing or truncated leaf file: torn data, not a caller error
-                raise TornCheckpointError(f"checkpoint leaf {rec.get('name', rec.get('file'))} unreadable: "
-                                          f"{err}") from err
-            if tuple(out[rec["name"]].shape) != tuple(rec["shape"]):
-                raise TornCheckpointError(f"checkpoint leaf {rec['name']} has shape "
-                                          f"{tuple(out[rec['name']].shape)}, the manifest {tuple(rec['shape'])}")
-        return out
+        # every leaf file is opened before any is read: a save running in
+        # another process may GC this step's names meanwhile, never the data
+        # of files already open
+        handles = []
+        try:
+            for rec in files:
+                try:
+                    handles.append(open(d / rec["file"], "rb"))
+                except OSError as err:
+                    raise TornCheckpointError(f"checkpoint leaf {rec.get('name', rec.get('file'))} unreadable: "
+                                              f"{err}") from err
+            out = {}
+            for rec, fh in zip(files, handles):
+                try:
+                    out[rec["name"]] = read_leaf(fh, rec["dtype"])
+                except (OSError, EOFError, ValueError) as err:
+                    # a truncated leaf file: torn data, not a caller error
+                    raise TornCheckpointError(f"checkpoint leaf {rec.get('name', rec.get('file'))} unreadable: "
+                                              f"{err}") from err
+                if tuple(out[rec["name"]].shape) != tuple(rec["shape"]):
+                    raise TornCheckpointError(f"checkpoint leaf {rec['name']} has shape "
+                                              f"{tuple(out[rec['name']].shape)}, the manifest {tuple(rec['shape'])}")
+            return out
+        finally:
+            for fh in handles:
+                fh.close()
 
     def _restore_step(self, step: int, device, mesh) -> Tuple[Any, Dict[str, Any], int, Dict]:
         t0 = time.perf_counter()

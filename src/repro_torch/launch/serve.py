@@ -3,9 +3,8 @@ tree speculation on the Agile decode plane, over a contiguous or a paged KV
 cache, over rolling-window caches and RG-LRU state for the hybrid
 RecurrentGemma family, or over SSD state for the Mamba-2 family, both at
 spec width 1 on the contiguous plane, with request programs (constrained
-decode, fork/join) and behind the in-process fault-tolerant fabric (port of
-``repro/launch/serve.py``; its cross-process fabric, ``--workers``, is not
-ported yet).
+decode, fork/join), behind the in-process fault-tolerant fabric or across
+worker processes (port of ``repro/launch/serve.py``).
 
 Each :meth:`ServeReplica.step` runs ``spec_tokens`` tokens (or tree nodes)
 for every slot in ONE model call, a compiled launch (on the card one CUDA
@@ -65,6 +64,18 @@ step, graphs captured again):
         --smoke --decode-plane --spec-tokens 3 --slots 2 --gen 24 --device cpu \\
         --inject crash@step=3 --program '{"segments":[{"kind":"json_schema",
         "schema":{"type":"object","properties":{"a":{"type":"integer","maxDigits":2}}}}]}'
+
+The cross-process fabric (``--workers N``, ``--heartbeat-every``,
+``--heartbeat-miss-limit``, ``--deadline``, ``--queue-limit``): N worker
+processes (spawned; :mod:`repro_torch.runtime.worker`), each a one-device
+replica on ``--device``, supervised by
+:class:`repro_torch.runtime.fabric.CrossProcessFabric` through messages and
+heartbeats alone; a silent worker is declared dead, its requests requeued
+and a replacement spawned that restores the weights from the checkpoint
+directory (``kill@step=N`` and ``hang@step=N`` act on the worker process):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
+        --smoke --decode-plane --spec-tokens 3 --workers 2 --inject kill@step=7 --device cpu
 
 Expert parallelism (``--model N``): the replica's MoE layers run on a
 ``(data, model)`` mesh (:mod:`repro_torch.launch.mesh`), the experts split
@@ -800,6 +811,155 @@ def _dump_tokens(path: str, results: Dict[int, Result]) -> None:
         json.dump({str(rid): list(map(int, r.tokens)) for rid, r in sorted(results.items())}, f)
 
 
+def supervisor_params(cfg, device) -> Any:
+    """The weights a cross-process supervisor checkpoints: drawn from seed 0
+    on ``device``, the workers' device type (a CUDA generator's stream is
+    not the CPU's, so weights drawn elsewhere would differ from the
+    workers'), and held in host memory: on the card each leaf is copied to
+    the host and the card's copy freed before any worker spawns."""
+    from repro_torch.models.model import Model
+
+    params = Model(cfg, device=device).init(0)
+    if device.type != "cuda":
+        return params
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(host(v) for v in tree)
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    params = host(params)
+    torch.cuda.empty_cache()
+    return params
+
+
+def xfabric_config(workers: int, slots: int, *, heartbeat_every: float = 0.25, heartbeat_miss_limit: int = 12,
+                   queue_limit: int = 0, checkpoint: bool = False):
+    """The CLI's cross-process supervision: a 60 s liveness holiday while a
+    worker boots (interpreter start and ``import torch``; the heartbeat
+    thread starts before the model build, so builds and captures need no
+    headroom), a round every ``min(heartbeat_every / 2, 0.1)`` s, and with
+    a checkpoint a snapshot at round 1 and every 50 rounds."""
+    from repro_torch.runtime.fabric import XFabricConfig
+
+    return XFabricConfig(
+        workers=workers, slots_per_worker=slots, heartbeat_every=heartbeat_every,
+        heartbeat_miss_limit=heartbeat_miss_limit, spawn_grace=60.0, poll_every=min(heartbeat_every / 2, 0.1),
+        queue_limit=queue_limit, checkpoint_every=50 if checkpoint else 0,
+    )
+
+
+def run_cross_process(args, cfg, requests, params, specs, ckpt, *, spec_width: int, branching, max_len: int,
+                      device) -> int:
+    """Serve through the cross-process fabric: real OS worker processes,
+    heartbeat liveness, deadline-aware admission, checkpoint re-warm.
+
+    Every worker builds a one-device :class:`ServeReplica` on ``device``
+    from the config fields in its spec and the seed (a replacement from the
+    newest checkpoint), loading the kernel libraries built here first.
+    Returns a process exit code: nonzero on any unanswered, dropped or
+    duplicated rid, on an error result that no injected fault, deadline or
+    queue limit explains, or on a token emitted outside its program's
+    allowed set: a zero exit IS the exactly-once assertion."""
+    from repro_torch.runtime.fabric import CrossProcessFabric
+    from repro_torch.runtime.transport import MonotonicClock, make_process_spawn
+
+    if device.type == "cuda":
+        from repro_torch.kernels import build_all
+
+        build_all()
+    clock = MonotonicClock()
+    if args.deadline > 0:
+        t0 = clock.now()
+        for req in requests:
+            req.deadline = t0 + args.deadline
+    spec_base = dict(
+        kind="serve", arch=args.arch, smoke=args.smoke, decode_plane=cfg.decode_plane, spec_tokens=spec_width,
+        draft_tree=branching, paged=cfg.paged, page_size=cfg.page_size, kv_dtype=cfg.kv_dtype,
+        expert_dtype=cfg.expert_dtype, drafter=args.drafter, slots=args.slots, max_len=max_len, seed=0,
+        faults=args.inject, launch_timeout=args.launch_timeout, ckpt_dir=str(ckpt.dir) if ckpt is not None else None,
+        heartbeat_every=args.heartbeat_every, device=str(device),
+    )
+    fabric = CrossProcessFabric(
+        make_process_spawn(spec_base), requests,
+        xfabric_config(args.workers, args.slots, heartbeat_every=args.heartbeat_every,
+                       heartbeat_miss_limit=args.heartbeat_miss_limit, queue_limit=args.queue_limit,
+                       checkpoint=ckpt is not None),
+        clock=clock, specs=specs, ckpt=ckpt, params=params,
+    )
+    t0 = clock.now()
+    results = fabric.run()
+    wall = clock.now() - t0
+    _dump_tokens(args.dump_tokens, results)
+
+    st = fabric.stats
+    finished = sum(1 for r in results.values() if r.error is None)
+    print(f"served {finished}/{len(requests)} requests across {args.workers} worker processes ({args.slots} "
+          f"slots each, {device}): {st['accepted']} tokens in {wall:.1f} s ({st['launches']} launches, "
+          f"{st['admitted']} admissions)")
+    print(f"xproc fabric: {st['kills']} kills, {st['heartbeat_misses']} heartbeat misses, {st['spawns']} spawns "
+          f"({st['restores']} checkpoint re-warms), {st['requeued']} re-queued, {st['deadline_expired']} "
+          f"deadline-expired, {st['backpressure_rejects']} backpressure-rejected, {st['transient_failures']} "
+          f"transient, {st['poisoned']} poisoned, {st['stale_messages']} stale messages dropped, "
+          f"{st['dropped']} dropped, {st['duplicates']} duplicates")
+
+    unanswered = [r.rid for r in requests if r.rid not in results]
+    errors = [r for r in results.values() if r.error is not None]
+    expected_errors = any(s.kind == "poison" for s in specs) or args.deadline > 0 or args.queue_limit > 0
+    code = 0
+    if unanswered:
+        print(f"FABRIC ERROR: {len(unanswered)} requests unanswered: {unanswered}")
+        code = 1
+    if errors and not expected_errors:
+        print(f"FABRIC ERROR: {len(errors)} requests errored without an explaining fault/deadline/queue-limit: "
+              f"{[(r.rid, r.error) for r in errors]}")
+        code = 1
+    if st["duplicates"] or st["dropped"]:
+        print(f"FABRIC ERROR: {st['duplicates']} duplicate / {st['dropped']} dropped results")
+        code = 1
+    if args.program:
+        print(f"programs: {st['prog_tokens']} constrained tokens, {st['forks_started']} forks, "
+              f"{st['fork_kv_rows_copied']} KV rows copied at fork, {st['prog_masked_emissions']} masked emissions")
+        if st["prog_masked_emissions"]:
+            print(f"FABRIC ERROR: {st['prog_masked_emissions']} tokens emitted outside their automaton's "
+                  f"allowed set")
+            code = 1
+    return code
+
+
+def _cli_checkpoint(args, cfg, checkpoint_every: int):
+    """(manager, temporary directory) of the CLI's fabric checkpoints: a
+    ``CheckpointManager`` keeping 2 steps in ``--checkpoint-dir``, or in a
+    temporary directory the caller cleans up; (None, None) without
+    checkpoints."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    if not checkpoint_every:
+        return None, None
+    tmpdir = None if args.checkpoint_dir else tempfile.TemporaryDirectory(prefix="serve_fabric_ckpt_")
+    return CheckpointManager(args.checkpoint_dir or tmpdir.name, keep=2, cfg=cfg), tmpdir
+
+
+def _cross_process_cli(args, cfg, T: int, specs, prog_spec, checkpoint_every: int, device) -> int:
+    """The CLI's run through worker processes: the synthetic queue, and with
+    a checkpoint the supervisor's weights and a manager (a temporary
+    directory unless ``--checkpoint-dir``)."""
+    max_len = args.prompt_len + args.shared_prefix + args.gen + T
+    requests = synthetic_requests(cfg.vocab_size, args.prompt_len, args.gen,
+                                  args.requests or 2 * args.slots * args.fabric, args.shared_prefix, prog_spec)
+    ckpt, tmpdir = _cli_checkpoint(args, cfg, checkpoint_every)
+    params = supervisor_params(cfg, device) if ckpt is not None else None
+    branching = [int(v) for v in args.draft_tree.split(",") if v.strip()] or None
+    try:
+        return run_cross_process(args, cfg, requests, params, specs, ckpt, spec_width=T, branching=branching,
+                                 max_len=max_len, device=device)
+    finally:
+        if tmpdir is not None:
+            tmpdir.cleanup()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -850,6 +1010,22 @@ def main(argv=None) -> int:
                          "directory when faults are injected")
     ap.add_argument("--checkpoint-every", type=int, default=0,
                     help="rounds between fabric snapshots (0 = off; defaults to 4 when --inject is set)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="serve through N real OS worker processes (the cross-process fabric): heartbeat-"
+                         "supervised one-device replicas whose only coupling to the supervisor is messages and "
+                         "the checkpoint directory (0 = the in-process --fabric supervisor)")
+    ap.add_argument("--heartbeat-every", type=float, default=0.25,
+                    help="worker heartbeat period in seconds (cross-process fabric); liveness deadlines are "
+                         "multiples of it")
+    ap.add_argument("--heartbeat-miss-limit", type=int, default=12,
+                    help="consecutive missed heartbeat deadlines before a worker is declared dead, reaped and "
+                         "respawned")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request deadline in seconds from submission (cross-process fabric; 0 = none): a "
+                         "request expired while queued errors without costing a launch")
+    ap.add_argument("--queue-limit", type=int, default=0,
+                    help="admission queue high-water mark (cross-process fabric; 0 = unbounded): submissions "
+                         "past it are rejected with a counted error result")
     ap.add_argument("--device", default=None, help="cuda (default: cuda:LOCAL_RANK) or cpu")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel mesh axis (1 in this slice: batch sharding comes later)")
@@ -879,6 +1055,10 @@ def main(argv=None) -> int:
     except NotImplementedError as err:
         ap.error(str(err))
     telemetry = args.telemetry and cfg.decode_plane and cfg.is_moe
+    if args.workers < 0:
+        ap.error(f"--workers must be >= 0, got {args.workers}")
+    if args.workers and (args.model > 1 or args.data > 1):
+        ap.error("--workers serves through one-device worker processes: --model and --data stay 1")
     if args.data != 1:
         ap.error("--data > 1 (batch sharding over the data axis) comes in a later slice; serve with --data 1")
     if args.model < 1:
@@ -913,6 +1093,8 @@ def main(argv=None) -> int:
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if args.workers:
+        return _cross_process_cli(args, cfg, T, specs, prog_spec, checkpoint_every, device)
     own_group = not dist.is_initialized()
     if own_group:
         if world:
@@ -931,7 +1113,6 @@ def _serve_cli(args, cfg, tree: Optional[TreePlan], T: int, telemetry: bool, mes
                checkpoint_every: int) -> int:
     """The CLI's serving run on this rank of ``mesh``, through the fabric;
     rank 0 prints and dumps."""
-    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.runtime.faults import FaultInjector
     from repro_torch.runtime.straggler import StragglerDetector
 
@@ -943,13 +1124,7 @@ def _serve_cli(args, cfg, tree: Optional[TreePlan], T: int, telemetry: bool, mes
                                   args.shared_prefix, prog_spec)
     params = model.init(0)  # this rank's expert slice, cut layer by layer
     injector = FaultInjector(specs) if specs else None
-    tmpdir = ckpt = None
-    if checkpoint_every:
-        ckpt_dir = args.checkpoint_dir
-        if not ckpt_dir:
-            tmpdir = tempfile.TemporaryDirectory(prefix="serve_fabric_ckpt_")
-            ckpt_dir = tmpdir.name
-        ckpt = CheckpointManager(ckpt_dir, keep=2, cfg=cfg)
+    ckpt, tmpdir = _cli_checkpoint(args, cfg, checkpoint_every)
     ladder = degrade_ladder(tree, T)
     make = make_replica_factory(cfg, B, max_len, params, ladder, drafter=args.drafter, telemetry=telemetry,
                                 fault_hook=injector.check if injector else None,

@@ -1,7 +1,10 @@
 """Elastic serve fabric: N data-parallel serve replicas behind one shared
 admission queue, supervised for crashes, transient launch failures, stalls,
-and poisoned prompts (the port's copy of the in-process half of
-``repro/runtime/fabric.py``; the cross-process fabric is not ported yet).
+and poisoned prompts (the port's copy of ``repro/runtime/fabric.py``):
+:class:`ServeFabric` supervises replicas in its own process,
+:class:`CrossProcessFabric` supervises worker processes
+(:mod:`repro_torch.runtime.worker`) through messages
+(:mod:`repro_torch.runtime.transport`) and heartbeats alone.
 
 This is the cluster-granularity analogue of the paper's *autonomous,
 peer-to-peer, temporally loosely-coupled* control plane: each replica is an
@@ -12,7 +15,8 @@ checkpoint snapshot.  The supervisor imports neither torch nor the model
 stack: replicas are built through an injected factory, so the policy layer
 (retry, backoff, re-admission, degradation) is testable without devices.
 
-Robustness contract (proven by ``tests/test_torch_fabric.py``):
+Robustness contract of :class:`ServeFabric` (proven by ``tests/test_torch_fabric.py``;
+:class:`CrossProcessFabric`'s by ``tests/test_torch_xproc.py``):
 
 * **Exactly-once results.**  Tokens are buffered inside a replica and only
   *published* when a request completes; on replica death the partial buffer
@@ -477,6 +481,433 @@ class ServeFabric:
         for w in range(n):
             self._absorb(self.replicas[w])
             self.replicas[w] = None
+        self.stats["dropped"] = sum(
+            1 for rid in self.by_rid if rid not in self.results
+        )
+        return self.results
+
+
+# ---------------------------------------------------------------------------
+# cross-process fabric: heartbeat-supervised OS worker processes
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class XFabricConfig:
+    """Policy knobs for :class:`CrossProcessFabric`.
+
+    All durations are seconds on the fabric's injected clock, so the same
+    config drives real ``multiprocessing`` workers (monotonic clock) and
+    deterministic loopback tests (manual clock, one ``poll_every`` tick per
+    scheduling round).
+    """
+
+    workers: int = 1
+    slots_per_worker: int = 1
+    heartbeat_every: float = 0.25      # worker emission period AND deadline unit
+    heartbeat_miss_limit: int = 4      # consecutive missed deadlines -> dead
+    spawn_grace: float = 5.0           # liveness holiday while a worker boots
+    poll_every: Optional[float] = None  # supervisor round period; None = heartbeat_every
+    queue_limit: int = 0               # admission high-water mark; 0 = unbounded
+    request_retry_budget: int = 2      # failed admissions before an error result
+    max_spawns: int = 4                # deaths per worker slot before retirement
+    checkpoint_every: int = 0          # supervisor rounds between snapshots; 0 = off
+    max_rounds: int = 200_000          # hard guard against supervision livelock
+
+    def poll(self) -> float:
+        return self.heartbeat_every if self.poll_every is None else self.poll_every
+
+
+class CrossProcessFabric:
+    """Supervisor for worker *processes*: liveness by heartbeat, state by disk.
+
+    The in-process :class:`ServeFabric` observes failures as Python
+    exceptions.  Here that coupling is gone: workers are autonomous loops
+    behind a message channel (``runtime.transport``), and the only failure
+    signal the supervisor trusts is **silence** — a worker that misses
+    ``heartbeat_miss_limit`` consecutive heartbeat deadlines (SIGKILL'd,
+    hung, or wedged behind a slow pipe) is declared dead, reaped, its
+    in-flight rids re-enqueued at the queue front, and a replacement spawned
+    that re-warms from the on-disk checkpoint directory — no shared Python
+    state of any kind.  Messages from a dead incarnation are discarded by
+    tag, so a zombie's late ``done`` can never double-publish a stream.
+
+    Admission adds the latency contract the in-process fabric lacked:
+
+    * **Deadlines** — a request past its deadline while still queued is
+      answered with an error *without ever costing a launch*; one that was
+      in flight on a crashed worker and is already expired is not re-run.
+    * **Backpressure** — ``submit`` past the ``queue_limit`` high-water mark
+      answers immediately with a rejection result (counted, never silently
+      dropped) instead of growing the queue without bound.
+
+    Exactly-once carries over from the in-process fabric: results publish
+    once per rid, dedup is by rid, and greedy decode determinism makes
+    faulted cross-process runs byte-identical to the sequential oracle.
+    """
+
+    def __init__(
+        self,
+        spawn: Callable[[int, int, List[dict]], Any],
+        requests: List[Request],
+        cfg: XFabricConfig,
+        *,
+        clock: Optional[Any] = None,
+        specs: Any = (),
+        ckpt: Optional[Any] = None,  # a repro_torch.checkpoint.CheckpointManager
+        params: Optional[Any] = None,
+    ):
+        from repro_torch.runtime.faults import split_process_specs
+        from repro_torch.runtime.transport import MonotonicClock
+
+        if len({r.rid for r in requests}) != len(requests):
+            raise ValueError("request ids must be unique")
+        self.spawn_fn = spawn
+        self.cfg = cfg
+        self.clock = clock if clock is not None else MonotonicClock()
+        self.ckpt = ckpt
+        self.params = params
+        proc, slow, _ = split_process_specs(specs)
+        # kill/hang reservations: "remaining" charges spec.times globally at
+        # spawn so a wildcard kill fires on exactly one worker fleet-wide
+        self._proc = [
+            {"kind": s.kind, "step": s.step, "replica": s.replica,
+             "remaining": s.times if s.times > 0 else -1}
+            for s in proc
+        ]
+        self._slow = list(slow)
+        n = cfg.workers
+        self.handles: List[Optional[Any]] = [None] * n
+        self.next_inc = [0] * n        # incarnation counter per worker slot
+        self.cur_inc = [-1] * n
+        self.last_hb = [0.0] * n
+        self.misses = [0] * n
+        self.deaths = [0] * n
+        self.retired = [False] * n
+        self.free = [0] * n            # supervisor-side slot accounting
+        self.assigned: Dict[int, int] = {}          # rid -> worker
+        self.order: List[List[int]] = [[] for _ in range(n)]  # admission order
+        self.queue: Deque[Request] = deque()
+        self.by_rid: Dict[int, Request] = {}
+        self.results: Dict[int, Result] = {}
+        self.request_retries: Dict[int, int] = {}
+        self.round = 0
+        self._stats_msgs = 0
+        self.stats: Dict[str, Any] = {
+            "kills": 0, "heartbeat_misses": 0, "deadline_expired": 0,
+            "backpressure_rejects": 0, "spawns": 0, "restores": 0,
+            "requeued": 0, "stale_messages": 0, "transient_failures": 0,
+            "request_retries": 0, "poisoned": 0, "rejected": 0,
+            "duplicates": 0, "dropped": 0, "retired": 0, "checkpoints": 0,
+            "admitted": 0,
+            # absorbed worker counters (from shutdown stats messages)
+            "launches": 0, "prefills": 0, "accepted": 0, "drafted": 0,
+            "prog_tokens": 0, "prog_masked_emissions": 0,
+            "forks_started": 0, "fork_kv_rows_copied": 0,
+        }
+        for req in requests:
+            self.submit(req)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> bool:
+        """Admit a request to the supervisor queue; False = backpressure."""
+        if req.rid in self.by_rid:
+            raise ValueError(f"duplicate rid {req.rid}")
+        self.by_rid[req.rid] = req
+        if self.cfg.queue_limit > 0 and len(self.queue) >= self.cfg.queue_limit:
+            self.stats["backpressure_rejects"] += 1
+            self._publish(Result(
+                rid=req.rid, tokens=[],
+                error=f"rejected: admission queue at high-water mark "
+                      f"({self.cfg.queue_limit})",
+            ))
+            return False
+        self.queue.append(req)
+        return True
+
+    def _publish(self, res: Result) -> None:
+        if res.rid in self.results:
+            self.stats["duplicates"] += 1
+            return
+        res.retries = self.request_retries.get(res.rid, 0)
+        self.results[res.rid] = res
+
+    def _expired(self, req: Request) -> bool:
+        return req.deadline is not None and self.clock.now() > req.deadline
+
+    # ------------------------------------------------------------------
+    # worker lifecycle
+    # ------------------------------------------------------------------
+    def _reserve_proc_faults(self, w: int) -> List[dict]:
+        out = []
+        for entry in self._proc:
+            if entry["replica"] is not None and entry["replica"] != w:
+                continue
+            if entry["remaining"] == 0:
+                continue
+            if entry["remaining"] > 0:
+                entry["remaining"] -= 1
+            out.append({"kind": entry["kind"], "step": entry["step"]})
+        return out
+
+    def _spawn(self, w: int) -> None:
+        from repro_torch.runtime.transport import SlowPipe
+
+        inc = self.next_inc[w]
+        self.next_inc[w] += 1
+        handle = self.spawn_fn(w, inc, self._reserve_proc_faults(w))
+        for s in self._slow:
+            if s.replica in (None, w):
+                handle = SlowPipe(handle, self.clock, s.secs, times=s.times)
+        self.handles[w] = handle
+        self.cur_inc[w] = inc
+        # future-dated "heartbeat": a booting worker gets spawn_grace of
+        # silence before deadlines start counting (first real message resets)
+        self.last_hb[w] = self.clock.now() + self.cfg.spawn_grace
+        self.misses[w] = 0
+        self.free[w] = self.cfg.slots_per_worker
+        self.order[w] = []
+        self.stats["spawns"] += 1
+
+    def _declare_dead(self, w: int) -> None:
+        """Heartbeat deadline exhausted: reap, re-enqueue, respawn."""
+        self.stats["kills"] += 1
+        handle = self.handles[w]
+        if handle is not None:
+            handle.kill()
+            handle.close()
+        self.handles[w] = None
+        self.cur_inc[w] = -1  # every further message from this worker is stale
+        pending: List[Request] = []
+        for rid in self.order[w]:
+            self.assigned.pop(rid, None)
+            if rid in self.results:
+                continue
+            req = self.by_rid[rid]
+            if self._expired(req):
+                # expired while in flight on the crashed worker: answer now,
+                # never re-run a stream nobody is waiting for
+                self.stats["deadline_expired"] += 1
+                self._publish(Result(
+                    rid=rid, tokens=[], replica=w,
+                    error=f"deadline expired while in flight on dead worker {w}",
+                ))
+            else:
+                pending.append(req)
+        for req in reversed(pending):  # queue front, admission order preserved
+            self.queue.appendleft(req)
+            self.stats["requeued"] += 1
+        self.order[w] = []
+        self.deaths[w] += 1
+        if self.deaths[w] > self.cfg.max_spawns:
+            self.retired[w] = True
+            self.stats["retired"] += 1
+            if all(self.retired) and not self._done():
+                raise RuntimeError(
+                    "cross-process fabric out of capacity: every worker slot "
+                    f"retired after {sum(self.deaths)} deaths with work remaining"
+                )
+        else:
+            self._spawn(w)
+
+    # ------------------------------------------------------------------
+    # message pump + liveness
+    # ------------------------------------------------------------------
+    def _slots_of(self, rid: int) -> int:
+        """Decode slots a dispatched rid holds on its worker (fork width)."""
+        req = self.by_rid.get(rid)
+        return program_slots(getattr(req, "program", None)) if req is not None else 1
+
+    def _handle_admit_failed(self, w: int, p: dict) -> None:
+        rid = int(p["rid"])
+        self.assigned.pop(rid, None)
+        if rid in self.order[w]:
+            self.order[w].remove(rid)
+        self.free[w] += self._slots_of(rid)
+        if p.get("kind") == "rejected":
+            self.stats["rejected"] += 1
+            self._publish(Result(rid=rid, tokens=[], replica=w, error=str(p.get("error"))))
+            return
+        count = self.request_retries.get(rid, 0) + 1
+        self.request_retries[rid] = count
+        self.stats["request_retries"] += 1
+        if count > self.cfg.request_retry_budget:
+            self.stats["poisoned"] += 1
+            self._publish(Result(
+                rid=rid, tokens=[], replica=w,
+                error=f"admission failed {count} times "
+                      f"(budget {self.cfg.request_retry_budget}): {p.get('error')}",
+            ))
+        elif rid in self.by_rid:
+            self.queue.append(self.by_rid[rid])  # retry later, other prompts first
+
+    def _pump(self) -> None:
+        for w in range(self.cfg.workers):
+            handle = self.handles[w]
+            if handle is None or self.retired[w]:
+                continue
+            for tag, p in handle.recv():
+                if p.get("inc") != self.cur_inc[w]:
+                    self.stats["stale_messages"] += 1
+                    continue
+                # any live message is proof of liveness; deadlines restart
+                self.last_hb[w] = self.clock.now()
+                self.misses[w] = 0
+                if tag == "hello":
+                    self.stats["restores"] += int(p.get("restored", 0))
+                elif tag == "hb":
+                    pass
+                elif tag == "done":
+                    for rid, tokens in p["results"]:
+                        self._publish(Result(rid=int(rid), tokens=list(tokens), replica=w))
+                        self.assigned.pop(int(rid), None)
+                        if int(rid) in self.order[w]:
+                            self.order[w].remove(int(rid))
+                        self.free[w] += self._slots_of(int(rid))
+                elif tag == "admitted":
+                    pass
+                elif tag == "admit_failed":
+                    self._handle_admit_failed(w, p)
+                elif tag == "transient":
+                    self.stats["transient_failures"] += 1
+                elif tag == "stats":
+                    self._stats_msgs += 1
+                    self.stats["launches"] += int(p.get("launches", 0))
+                    self.stats["prefills"] += int(p.get("prefills", 0))
+                    self.stats["accepted"] += int(p.get("accepted", 0))
+                    self.stats["drafted"] += int(p.get("drafted", 0))
+                    self.stats["prog_tokens"] += int(p.get("prog_tokens", 0))
+                    self.stats["prog_masked_emissions"] += int(
+                        p.get("prog_masked_emissions", 0))
+                    self.stats["forks_started"] += int(p.get("forks_started", 0))
+                    self.stats["fork_kv_rows_copied"] += int(
+                        p.get("fork_kv_rows_copied", 0))
+
+    def _check_liveness(self) -> None:
+        now = self.clock.now()
+        for w in range(self.cfg.workers):
+            if self.handles[w] is None or self.retired[w]:
+                continue
+            age = now - self.last_hb[w]
+            if age <= 0:
+                continue
+            missed = int(age // self.cfg.heartbeat_every)
+            if missed > self.misses[w]:
+                self.stats["heartbeat_misses"] += missed - self.misses[w]
+                self.misses[w] = missed
+            if self.misses[w] >= self.cfg.heartbeat_miss_limit:
+                self._declare_dead(w)
+
+    # ------------------------------------------------------------------
+    # dispatch / checkpoint
+    # ------------------------------------------------------------------
+    def _dispatch(self) -> None:
+        for w in range(self.cfg.workers):
+            if self.handles[w] is None or self.retired[w]:
+                continue
+            while self.free[w] > 0 and self.queue:
+                req = self.queue[0]
+                if req.rid in self.results:
+                    self.queue.popleft()
+                    continue
+                if self._expired(req):
+                    self.queue.popleft()
+                    self.stats["deadline_expired"] += 1
+                    self._publish(Result(
+                        rid=req.rid, tokens=[],
+                        error="deadline expired while queued (never launched)",
+                    ))
+                    continue
+                needed = program_slots(getattr(req, "program", None))
+                if needed > self.cfg.slots_per_worker:
+                    self.queue.popleft()
+                    self.stats["rejected"] += 1
+                    self._publish(Result(
+                        rid=req.rid, tokens=[],
+                        error=f"program forks {needed} ways but workers have "
+                              f"{self.cfg.slots_per_worker} slots",
+                    ))
+                    continue
+                if self.free[w] < needed:
+                    break  # fork needs more slots than this worker has free
+                self.queue.popleft()
+                prompt = req.prompt if req.prompt is not None else []
+                self.handles[w].send(("admit", {
+                    "rid": int(req.rid),
+                    "prompt": [int(t) for t in list(prompt)],
+                    "gen": int(req.gen),
+                    "program": getattr(req, "program", None),
+                }))
+                self.assigned[req.rid] = w
+                self.order[w].append(req.rid)
+                self.free[w] -= needed
+                self.stats["admitted"] += 1
+
+    def _maybe_checkpoint(self) -> None:
+        if self.ckpt is None or self.cfg.checkpoint_every <= 0:
+            return
+        # round 1 always snapshots, so the very first replacement worker has
+        # a committed step to re-warm from regardless of poll cadence
+        if self.round != 1 and self.round % self.cfg.checkpoint_every:
+            return
+        ledger = {
+            str(w): {"rids": list(self.order[w])}
+            for w in range(self.cfg.workers)
+            if self.handles[w] is not None
+        }
+        self.ckpt.save(
+            self.round,
+            self.params if self.params is not None else {},
+            {},
+            extra={"round": self.round, "ledger": ledger},
+        )
+        self.stats["checkpoints"] += 1
+
+    # ------------------------------------------------------------------
+    # main loop
+    # ------------------------------------------------------------------
+    def _done(self) -> bool:
+        return len(self.results) >= len(self.by_rid)
+
+    def _shutdown(self) -> None:
+        waiting = []
+        for w in range(self.cfg.workers):
+            if self.handles[w] is not None and not self.retired[w]:
+                self.handles[w].send(("shutdown", {}))
+                waiting.append(w)
+        # drain the farewell "stats" messages (bounded: a worker that dies
+        # instead of answering must not stall the exit path)
+        for _ in range(50):
+            if self._stats_msgs >= len(waiting):
+                break
+            self._pump()
+            self.clock.sleep(min(self.cfg.poll(), 0.05))
+        for w in range(self.cfg.workers):
+            if self.handles[w] is not None:
+                self.handles[w].kill()
+                self.handles[w].close()
+                self.handles[w] = None
+
+    def run(self) -> Dict[int, Result]:
+        for w in range(self.cfg.workers):
+            self._spawn(w)
+        while not self._done():
+            self.round += 1
+            if self.round > self.cfg.max_rounds:
+                self._shutdown()
+                raise RuntimeError(
+                    f"cross-process fabric made no progress in "
+                    f"{self.cfg.max_rounds} rounds"
+                )
+            self._pump()
+            self._check_liveness()
+            self._dispatch()
+            self._maybe_checkpoint()
+            if not self._done():
+                self.clock.sleep(self.cfg.poll())
+        self._shutdown()
         self.stats["dropped"] = sum(
             1 for rid in self.by_rid if rid not in self.results
         )
