@@ -72,6 +72,22 @@ weights from the supervisor's checkpoint (streams equal to the in-process
 clean run; the seconds from the kill to its detection, to the
 replacement's hello and first answer; the card's free memory around the
 kill; no worker left alive).
+The rest of the model registry (phases ``smoke_twin_archs``,
+``arch_sweep``, ``llama4_serve``, ``profile_llama4``, ``dense_serve``,
+``profile_dense``):
+kernels 1, 5 and 7 at head dims 96 and 160 and kernels 2-4 at
+Llama-4-Maverick's shapes (top-1 of 128 experts, d 5120, f 8192) as
+``kernels_vs_plain`` rows ``*_hd96``, ``*_hd160`` and ``*_llama4``; the f32
+smoke twins of Llama-4 (top-1 and a shared expert), Qwen1.5-4B (QKV bias)
+on the paged plane, the vision and audio frontend stubs, draft trees on
+rolling-window layers through the paged plane (full precision and int8),
+and RecurrentGemma and Mamba-2 on ``--paged``, card against CPU; every
+registered arch at its published widths in bf16 (2 layers; Llama-4 1,
+RecurrentGemma one rec, rec, attn block) through its kernels and through
+their plain versions on the card, within 2e-2 of the logit scale (and on
+the paged plane bitwise the contiguous launches); then Llama-4-Maverick cut
+to 1 layer and Qwen1.5-4B uncut served on ``full_width``'s traffic, both
+in ``compiled_launch``.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -79,6 +95,7 @@ Needs one card, no network, and imports no jax.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -106,6 +123,22 @@ H_MAX_LEN = H_PROMPT + H_GEN + 1            # 4,161 rows of slot budget
 # the SSM cell: Mamba-2-2.7B uncut on the hybrid cell's traffic (the same
 # slots, requests, prompt buckets, generated tokens and slot budget)
 SSM = "mamba2-2.7b"
+# the arch sweep: every registered arch at its published widths in bf16, cut
+# to 2 layers (Llama-4-Maverick to 1: one layer's experts are 32.2 GB;
+# RecurrentGemma to one rec, rec, attn block); one prompt of 320 tokens
+# (Phi-3-Vision's 256 frontend positions fit in it), then 4 decode launches
+SWEEP_PROMPT, SWEEP_LAUNCHES, SWEEP_LAYERS = 320, 4, 2
+SWEEP_DEPTH = {"llama4-maverick-400b-a17b": 1, "recurrentgemma-2b": 3}
+SWEEP_TOL = 2e-2            # kernel path vs plain path, of the logit scale (bf16)
+# the last slice's serving cells: Llama-4-Maverick at full widths cut 48 -> 1
+# layer (phase llama4_serve), Qwen1.5-4B uncut (40 layers, dense_serve); both
+# on full_width's traffic
+LLAMA4_LAYERS = 1
+DENSE = "qwen1.5-4b"
+DENSE_KERNELS = ("flash_decode", "flash_attention")
+# the reference's rolling-window test stack (tests/test_paged_decode.py's
+# _local_cfg): Qwen3-32B's smoke config with every layer local
+LOCAL = dict(attention_kind="local", local_window=16)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
@@ -613,6 +646,8 @@ def kernel_phase(cfg, dev):
     rows.update(hybrid_kernel_rows(dev, gen, tol))
     rows["ssd_scan"] = ssd_kernel_row(dev, gen, tol)
     rows.update(int8_kernel_rows(cfg, dev, gen, tol))
+    rows.update(head_dim_kernel_rows(dev, gen, tol))
+    rows.update(llama4_kernel_rows(dev, gen, tol))
     return rows
 
 
@@ -1371,6 +1406,249 @@ def int8_kernel_rows(cfg, dev, gen, tol):
     return rows
 
 
+# the archs of the last slice that bring the attention kernels new head dims:
+# Phi-3-Vision-4.2B (hd 96, 32 q heads over 32 kv heads: G = 1) and
+# StableLM-12B (hd 160, 32 over 8: G = 4)
+HD_ARCHS = {96: "phi-3-vision-4.2b", 160: "stablelm-12b"}
+LLAMA4 = "llama4-maverick-400b-a17b"
+
+
+def head_dim_kernel_rows(dev, gen, tol):
+    """Kernels 1, 5 and 7 at head dims 96 and 160 (their CUDA-core
+    instantiations; kernel 7's bf16 tensor-core build stays at 128 and 256):
+    kernel 1 at row 1's shape (4 slots x spec 4 over a 164-row cache), kernel
+    5 at row 5's (tree 2,1 over 60 pages of 16 through a scrambled table),
+    kernel 7 over one ``SWEEP_PROMPT``-token prompt, each in f32 and bf16
+    against its plain version, bitwise on a repeat, with the card's bound,
+    the plain version's time and SDPA's where one call computes it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf16 = torch.bfloat16
+    rows = {}
+    for hd, arch in HD_ARCHS.items():
+        cfg = get_config(arch)
+        nq, nkv = cfg.num_heads, cfg.num_kv_heads
+        assert cfg.resolved_head_dim == hd
+        G = nq // nkv
+        # ---- kernel 1
+        B, T = SLOTS, SPEC
+        max_len = PROMPT + GEN + SPEC
+        base = torch.tensor([70, 100, 130, max_len - SPEC], dtype=torch.int32, device=dev)
+        lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
+        chain = torch.full((T,), -1, dtype=torch.int32, device=dev)
+        q32, k32, v32 = (torch.randn(s, generator=gen, device=dev) for s in
+                         ((B, T, nq, hd), (B, max_len, nkv, hd), (B, max_len, nkv, hd)))
+        err32 = check_close(f"flash_decode hd {hd} f32",
+                            fa_ops.flash_decode_kernel(q32, k32, v32, lengths, chain, base),
+                            fa_ref.flash_decode(q32, k32, v32, lengths, chain, base), tol["f32"])
+        q, kk, vv = q32.to(bf16), k32.to(bf16), v32.to(bf16)
+
+        def kernel_decode(q=q, kk=kk, vv=vv, lengths=lengths, chain=chain, base=base):
+            return fa_ops.flash_decode_kernel(q, kk, vv, lengths, chain, base)
+
+        err = check_bf16(f"flash_decode hd {hd} bf16", kernel_decode(),
+                         fa_ref.flash_decode(q, kk, vv, lengths, chain, base))
+        mask = (torch.arange(max_len, device=dev)[None, None, :] < lengths.reshape(B, T)[:, :, None])[:, None]
+        L = lengths.reshape(B, T).long()
+        nbytes = 2 * q.numel() * 2 + int(L.max(dim=1).values.sum()) * nkv * hd * 2 * 2 + (B * T + T + B) * 4
+        flops = float(L.sum()) * nq * hd * 4
+        ms, lib_ms, turns = in_turns(kernel_decode, _sdpa_decode(q, kk, vv, mask), iters=50)
+        rows[f"flash_decode_hd{hd}"] = dict(
+            max_abs_err=err, max_abs_err_f32=err32, ms=ms, ms_in_turns=turns,
+            plain_ms=time_ms(lambda: fa_ref.flash_decode(q, kk, vv, lengths, chain, base)),
+            library_ms=lib_ms, library_call="scaled_dot_product_attention (boolean mask, kv heads expanded "
+                                            "beforehand)",
+            device_ms=device_ms(kernel_decode, ""), bitwise_repeat=bitwise_repeat(f"flash_decode hd {hd}",
+                                                                                   kernel_decode),
+            arch=arch, group=G, heads_held_per_pass=f"{min(G, 16)} of 16",
+            shapes=f"q {tuple(q.shape)}, kv {tuple(kk.shape)}, lengths {lengths.tolist()}",
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        )
+        del q32, k32, v32, q, kk, vv
+        # ---- kernel 5
+        B, T, ps, mp, n_pages, base_l, base, lengths, words, table_np, table = _paged_case(dev)
+        q32 = torch.randn((B, T, nq, hd), generator=gen, device=dev)
+        pk32, pv32 = (torch.randn((n_pages * ps, nkv, hd), generator=gen, device=dev) for _ in range(2))
+
+        def run(q, pk, pv, lengths=lengths, table=table, words=words, base=base, ps=ps):
+            return fa_ops.flash_decode_paged_kernel(q, pk, pv, lengths, table, words, base, page_size=ps)
+
+        err32 = check_close(f"flash_decode_paged hd {hd} f32", run(q32, pk32, pv32),
+                            fa_ref.flash_decode_paged(q32, pk32, pv32, lengths, table, words, base, ps), tol["f32"])
+        q, pk, pv = q32.to(bf16), pk32.to(bf16), pv32.to(bf16)
+        err = check_bf16(f"flash_decode_paged hd {hd} bf16", run(q, pk, pv),
+                         fa_ref.flash_decode_paged(q, pk, pv, lengths, table, words, base, ps))
+        ident = torch.arange(n_pages, dtype=torch.int32, device=dev)
+        if not torch.equal(fa_ops.flash_decode_paged_kernel(q, pk, pv, lengths, ident, words, base, page_size=ps),
+                           fa_ops.flash_decode_kernel(q, pk.view(B, mp * ps, nkv, hd), pv.view(B, mp * ps, nkv, hd),
+                                                      lengths, words, base)):
+            raise AssertionError(f"flash_decode_paged hd {hd}: identity table is not bitwise the contiguous kernel")
+        S = mp * ps
+        vis = fa_ref.visible_rows(lengths, words, base, B, T, S)[:, None]
+        Lmax = lengths.reshape(B, T).max(dim=1).values.tolist()
+        touched = {(int(table_np[b, i // ps]), i % ps) for b in range(B) for i in range(Lmax[b])}
+        nbytes = 2 * q.numel() * 2 + len(touched) * nkv * hd * 2 * 2 + (B * T + B * mp + T + B) * 4
+        flops = float(vis.sum()) * nq * hd * 4
+        rows[f"flash_decode_paged_hd{hd}"] = dict(
+            max_abs_err=err, max_abs_err_f32=err32, identity_table_bitwise=True,
+            ms=time_ms(lambda: run(q, pk, pv), iters=50), device_ms=device_ms(lambda: run(q, pk, pv), ""),
+            plain_ms=time_ms(lambda: fa_ref.flash_decode_paged(q, pk, pv, lengths, table, words, base, ps)),
+            library_ms=None, library_call=None,
+            bitwise_repeat=bitwise_repeat(f"flash_decode_paged hd {hd}", lambda: run(q, pk, pv)), arch=arch,
+            shapes=f"q {tuple(q.shape)}, pool {tuple(pk.shape)} ({n_pages} pages of {ps}), base {base_l}, "
+                   f"tree {TREE}, {len(touched)} distinct rows read",
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        )
+        del q32, pk32, pv32, q, pk, pv
+        # ---- kernel 7: one causal prompt of SWEEP_PROMPT tokens
+        Sp = SWEEP_PROMPT
+        q32, k32, v32 = (torch.randn((1, Sp, n, hd), generator=gen, device=dev) for n in (nq, nkv, nkv))
+        err32 = check_close(f"flash_attention hd {hd} f32", fa_ops.flash_attention_kernel(q32, k32, v32, causal=True),
+                            fa_ref.flash_attention(q32, k32, v32, causal=True), tol["f32"])
+        q, k, v = q32.to(bf16), k32.to(bf16), v32.to(bf16)
+
+        def kernel_prefill(q=q, k=k, v=v):
+            return fa_ops.flash_attention_kernel(q, k, v, causal=True)
+
+        err = check_bf16(f"flash_attention hd {hd} bf16", kernel_prefill(),
+                         fa_ref.flash_attention(q, k, v, causal=True))
+        qt = q.transpose(1, 2)
+        kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1) for c in (k, v))
+        pairs = Sp * (Sp + 1) // 2
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        flops = float(pairs) * nq * hd * 4
+        ms, lib_ms, turns = in_turns(kernel_prefill, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters=10, reps=3)
+        rows[f"flash_attention_hd{hd}"] = dict(
+            max_abs_err=err, max_abs_err_f32=err32, ms=ms, ms_in_turns=turns,
+            plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True), iters=2, reps=3),
+            library_ms=lib_ms, library_call="scaled_dot_product_attention (is_causal, kv heads expanded beforehand)",
+            device_ms=device_ms(kernel_prefill, "flash_attention", n=5), path=fa_ops.flash_attention_path(bf16, hd),
+            bitwise_repeat=bitwise_repeat(f"flash_attention hd {hd}", kernel_prefill), arch=arch,
+            shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal ({pairs} visible pairs a head)",
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        )
+        del q32, k32, v32, q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def llama4_kernel_rows(dev, gen, tol):
+    """Kernels 2, 3 and 4 at Llama-4-Maverick's shapes: top-1 routing over 128
+    experts of d 5120 and f 8192 (bf16 stacks, 32.2 GB).  Kernel 2 over 16
+    decode tokens (4 slots x spec 4), kernels 3 and 4 over one 128-token
+    admission prompt; each against its plain version (bf16 out at one ulp,
+    f32 out at 1e-4 of the scale), bitwise on a repeat.  No one PyTorch call
+    computes either function: the composites (gather + ``bmm``) are timed
+    beside them."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.control_plane import capacity_for, route_topk, route_topk_decode
+    from repro_torch.kernels.moe_decode import ops as md_ops
+    from repro_torch.kernels.moe_decode import ref as md_ref
+    from repro_torch.kernels.moe_fused import ops as mf_ops
+    from repro_torch.kernels.moe_fused import ref as mf_ref
+
+    cfg = get_config(LLAMA4)
+    bf16 = torch.bfloat16
+    E, k, d, f = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.d_ff_expert
+    rows = {}
+    wg, wu, wd = (torch.randn(s, generator=gen, device=dev, dtype=bf16).mul_(a) for s, a in
+                  (((E, d, f), d ** -0.5), ((E, d, f), d ** -0.5), ((E, f, d), f ** -0.5)))
+    router = torch.randn((d, E), generator=gen, device=dev) * 0.02
+    # ---- kernel 2: 16 decode tokens, top-1
+    Tt = SLOTS * SPEC
+    x = torch.randn((Tt, d), generator=gen, device=dev).to(bf16)
+    plan = route_topk_decode(x.float(), router, k)
+    ids, w = plan.expert_ids.contiguous(), plan.weights.contiguous()
+    distinct = int(torch.unique(ids).numel())
+
+    def kernel_moe():
+        return md_ops.decode_moe_kernel(x, ids, w, wg, wu, wd)
+
+    err = check_close("decode_moe llama4 bf16", kernel_moe(), md_ref.decode_moe(x, ids, w, wg, wu, wd), tol["f32_out"])
+
+    def composite_decode():
+        e = ids.reshape(-1).long()
+        xs = x.repeat_interleave(k, 0)[:, None]
+        h = torch.nn.functional.silu(torch.bmm(xs, wg[e])) * torch.bmm(xs, wu[e])
+        return (torch.bmm(h, wd[e])[:, 0].float() * w.reshape(-1, 1)).reshape(Tt, k, d).sum(1)
+
+    nbytes = distinct * 3 * d * f * 2 + Tt * d * 2 + Tt * k * 8 + Tt * d * 4
+    flops = Tt * k * 6.0 * d * f
+    ms, comp_ms, turns = in_turns(kernel_moe, composite_decode, iters=10)
+    rows["decode_moe_llama4"] = dict(
+        max_abs_err=err, ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+        composite_call="gather of the named experts' stacks + torch.bmm x3 (in turns)",
+        device_ms=device_ms(kernel_moe, "", n=10), device_ms_by_launch=moe_decode_launches(kernel_moe),
+        plain_ms=time_ms(lambda: md_ref.decode_moe(x, ids, w, wg, wu, wd), iters=3, reps=3),
+        library_ms=None, library_call=None, bitwise_repeat=bitwise_repeat("decode_moe llama4", kernel_moe),
+        shapes=f"x {tuple(x.shape)}, top-{k} of {E} experts ({distinct} distinct), d {d}, f {f}",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    # ---- kernels 3 and 4: one 128-token prompt
+    Tp = PROMPT
+    C = capacity_for(Tp, E, k, cfg.capacity_factor)
+    xp = torch.randn((Tp, d), generator=gen, device=dev).to(bf16)
+    pplan, _ = route_topk(xp.float(), router, k, C)
+    idx, sw = pplan.flat_idx.contiguous(), pplan.slot_w.contiguous()
+    occ = idx < Tp
+    n_occ, used = int(occ.sum()), int(occ.reshape(E, C).any(1).sum())
+
+    def kernel_gather():
+        return mf_ops.gather_swiglu(xp, idx, wg, wu)
+
+    h = kernel_gather()
+    err_g = check_bf16("gather_swiglu llama4 bf16", h, mf_ref.gather_swiglu(xp, idx, wg, wu))
+
+    def kernel_down():
+        return mf_ops.down_combine(h, wd, idx, sw, Tp)
+
+    err_d = check_close("down_combine llama4 bf16", kernel_down(), mf_ref.down_combine(h, wd, idx, sw, Tp),
+                        tol["f32_out"])
+
+    def composite_gather():
+        slots = torch.cat([xp, xp.new_zeros((1, d))])[idx.long()].reshape(E, C, d)
+        return torch.nn.functional.silu(torch.bmm(slots, wg)) * torch.bmm(slots, wu)
+
+    def composite_down():
+        y = torch.bmm(h, wd).reshape(E * C, d).float() * sw[:, None]
+        return torch.zeros((Tp + 1, d), device=dev).index_add_(0, idx.long(), y)[:Tp]
+
+    shapes = f"x {tuple(xp.shape)}, top-{k} of {E}, C {C} ({n_occ} slots occupied, {used} experts used), d {d}, f {f}"
+    nbytes = used * 2 * d * f * 2 + Tp * d * 2 + E * C * 4 + E * C * f * 2
+    flops = n_occ * 4.0 * d * f
+    ms, comp_ms, turns = in_turns(kernel_gather, composite_gather, iters=5, reps=3)
+    rows["gather_swiglu_llama4"] = dict(
+        max_abs_err=err_g, ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+        composite_call="index gather + torch.bmm x2 (in turns)",
+        device_ms=device_ms(kernel_gather, "gather_swiglu", n=5),
+        plain_ms=time_ms(lambda: mf_ref.gather_swiglu(xp, idx, wg, wu), iters=1, reps=3),
+        library_ms=None, library_call=None, path=mf_ops.gather_swiglu_path(bf16, d, f, True),
+        bitwise_repeat=bitwise_repeat("gather_swiglu llama4", kernel_gather), shapes=shapes,
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    nbytes = used * f * d * 2 + n_occ * f * 2 + E * C * 8 + Tp * d * 4
+    flops = n_occ * 2.0 * f * d
+    ms, comp_ms, turns = in_turns(kernel_down, composite_down, iters=5, reps=3)
+    rows["down_combine_llama4"] = dict(
+        max_abs_err=err_d, ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+        composite_call="torch.bmm + index_add_ (in turns)", device_ms=device_ms(kernel_down, "", n=5),
+        plain_ms=time_ms(lambda: mf_ref.down_combine(h, wd, idx, sw, Tp), iters=1, reps=3),
+        library_ms=None, library_call=None, path=mf_ops.down_combine_path(bf16, f, d, True),
+        bitwise_repeat=bitwise_repeat("down_combine llama4", kernel_down), shapes=shapes,
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del wg, wu, wd, h
+    torch.cuda.empty_cache()
+    return rows
+
+
 def ssd_work(T, H, P, N, q, in_bytes, with_h0=False, with_cum=True):
     """(bytes, flops) one scan needs at batch 1 over chunks of ``q`` steps:
     each input read once (x, B, C in ``in_bytes`` each, dt in f32, and with
@@ -1525,6 +1803,7 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
     from repro_torch.core.plans import TreePlan
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
     from repro_torch.models.model import Model
 
     runs = {
@@ -1540,19 +1819,34 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
         "int8_spec4_ngram": dict(spec=4, int8=True),
         "int8_paged_tree2x1_model_shared16": dict(spec=4, tree=(2, 1), drafter="model", ps=8, shared=16, int8=True),
         "int8_hybrid_spec1": dict(arch=HYBRID, slots=2, prompt=48, requests=4, int8=True),
+        # the last slice's archs and planes (phase smoke_twin_archs)
+        # (the dense smoke stacks' random weights make ngram drafts miss:
+        # the target's first layer drafts, so some drafts are accepted)
+        "llama4_spec4": dict(arch=LLAMA4, spec=4, archs=True),
+        "dense_qkvbias_paged": dict(arch=DENSE, spec=3, ps=8, drafter="model", archs=True,
+                                    kernels=("flash_decode_paged", "flash_attention")),
+        "vlm_frontend": dict(arch="phi-3-vision-4.2b", spec=3, drafter="model", kernels=DENSE_KERNELS, archs=True),
+        "audio_frontend": dict(arch="musicgen-large", spec=3, drafter="model", kernels=DENSE_KERNELS, archs=True),
+        "local_paged_tree2x1": dict(arch="qwen3-32b", spec=4, tree=(2, 1), ps=8, prompt=24, gen=12, drafter="model",
+                                    archs=True, cfg=LOCAL, kernels=("flash_attention",)),
+        "int8_local_paged_tree2x1": dict(arch="qwen3-32b", spec=4, tree=(2, 1), ps=8, prompt=24, gen=12,
+                                         drafter="model", archs=True, int8=True, cfg=LOCAL, kernels=("flash_attention",)),
+        "hybrid_paged": dict(arch=HYBRID, slots=2, prompt=48, requests=4, ps=8, archs=True),
+        "ssm_paged": dict(arch=SSM, slots=2, prompt=520, requests=4, ps=8, archs=True),
     }
-    names = names or [n for n, r in runs.items() if not (r.get("mesh") or r.get("int8"))]
+    names = names or [n for n, r in runs.items() if not (r.get("mesh") or r.get("int8") or r.get("archs"))]
     out = {}
     for name in names:
         run = runs[name]
         r = dict(arch=ARCH, spec=1, drafter="ngram", tree=None, ps=0, shared=0, slots=3, prompt=16, gen=8,
-                 requests=6, mesh=False, int8=False)
+                 requests=6, mesh=False, int8=False, cfg={}, kernels=None)
         r.update(run)
         spec, drafter, ps, shared = r["spec"], r["drafter"], r["ps"], r["shared"]
         tree = TreePlan.from_branching(r["tree"]) if r["tree"] else None
-        quant = dict(kv_dtype="int8", expert_dtype="int8" if r["arch"] == ARCH else "") if r["int8"] else {}
+        moe_arch = get_smoke_config(r["arch"]).is_moe
+        quant = dict(kv_dtype="int8", expert_dtype="int8" if moe_arch else "") if r["int8"] else {}
         cfg = dataclasses.replace(get_smoke_config(r["arch"]), decode_plane=True, spec_tokens=spec,
-                                  paged=ps > 0, page_size=ps or 16, **quant)
+                                  paged=ps > 0, page_size=ps or 16, **quant, **r["cfg"])
         params_cpu = Model(cfg, device="cpu").init(0)
         # the draft model is the target cut to its first layer (self-drafting):
         # a drafter with weights of its own never hits on random weights
@@ -1580,7 +1874,7 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
                                  f"first int8 row differing between card and CPU caches: {flip}")
         if len(g) != r["requests"] or any(len(t) != r["gen"] + 1 for t in g.values()):
             raise AssertionError(f"{tag}: unanswered or short streams: {g}")
-        expect = {HYBRID: HYBRID_KERNELS, SSM: SSM_KERNELS}.get(
+        expect = r["kernels"] or {HYBRID: HYBRID_KERNELS, SSM: SSM_KERNELS}.get(
             r["arch"], EP_KERNELS if r["mesh"] else PAGED_KERNELS if ps else CONTIGUOUS_KERNELS)
         if r["int8"]:
             expect = int8_path(expect)
@@ -1612,6 +1906,11 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
             if not (min(lens) > 256 and all(n % cfg.ssm_chunk for n in lens)):
                 raise AssertionError(f"{tag}: prompts {lens} do not cross 256 tokens with ragged tails")
             row.update(prompt_lens=lens, ssm_chunk=cfg.ssm_chunk)
+        if r["tree"] and T.window_of(cfg):
+            # the accepted rows of a rolling tree move mod W through the commit maps
+            row.update(commit_moves=rep.commit_moves, window_slots=rep.cache[0]["k"].shape[1])
+            if max(len(q.prompt) for q in reqs) + r["gen"] <= rep.cache[0]["k"].shape[1]:
+                raise AssertionError(f"{tag}: no stream passes the {rep.cache[0]['k'].shape[1]}-slot rolling buffer")
         if ps:
             st = rep.paged_stats()
             if shared and st["pages_shared_total"] <= 0:
@@ -1619,7 +1918,7 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
             if rep.pager.snapshot() != cpu_rep.pager.snapshot():
                 raise AssertionError(f"{tag}: card and CPU block tables differ")
             row.update(paged=st)
-            if r["int8"]:
+            if r["int8"] and "pk" in rep.cache[0]:
                 row.update(cow_copies_scale_rows=cow_check(rep.cache, ps))
         out[name] = dict(row, streams=g)
     # greedy verify: the paged tree serves the same queue as the spec-4
@@ -1691,6 +1990,16 @@ def _to(tree, dev):
 
 
 def full_width(dev):
+    """Qwen3-MoE at full widths, cut to ``LAYERS`` layers (phase ``full_width``)."""
+    return serve_cell(dev, ARCH, LAYERS, CONTIGUOUS_KERNELS, "full width")
+
+
+def serve_cell(dev, arch, layers, expect, tag):
+    """``arch`` at published widths cut to ``layers`` layers on the decode
+    plane, spec 4 with ngram drafts, 4 slots, 8 requests of 64/96/128-token
+    prompts generating 32 tokens; every kernel of ``expect`` must launch.
+    Returns (the cell's record, the replica with the measured run's last
+    requests drained)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1698,7 +2007,7 @@ def full_width(dev):
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=SPEC)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, decode_plane=True, spec_tokens=SPEC)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)
@@ -1723,18 +2032,18 @@ def full_width(dev):
 
     streams = {rid: r.tokens for rid, r in results.items()}
     if sorted(streams) != list(range(REQUESTS)) or any(r.error for r in results.values()):
-        raise AssertionError(f"full width: unanswered or failed requests: {results}")
+        raise AssertionError(f"{tag}: unanswered or failed requests: {results}")
     for rid, toks in streams.items():
         if len(toks) != GEN + 1 or not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"full width: request {rid} stream malformed: {toks}")
-    if min(counts[n] for n in CONTIGUOUS_KERNELS) <= 0:
-        raise AssertionError(f"full width: a kernel never launched on the main path: {counts}")
+            raise AssertionError(f"{tag}: request {rid} stream malformed: {toks}")
+    if min(counts[n] for n in expect) <= 0:
+        raise AssertionError(f"{tag}: a kernel never launched on the main path: {counts}")
     one = model.init_cache(1, max_len)
     logits = model.prefill(params, reqs[0].prompt[None], one)
     if not (logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())):
-        raise AssertionError("full width: prefill logits not finite or of the wrong shape")
+        raise AssertionError(f"{tag}: prefill logits not finite or of the wrong shape")
     served = dict(
-        layers=LAYERS, layers_published=get_config(ARCH).num_layers, dtype=cfg.dtype,
+        arch=arch, layers=layers, layers_published=get_config(arch).num_layers, dtype=cfg.dtype,
         slots=SLOTS, prompt_len=PROMPT, gen=GEN, requests=REQUESTS, spec_tokens=SPEC, drafter="ngram",
         weight_bytes=weight_bytes, init_s=init_s, peak_memory_bytes=torch.cuda.max_memory_allocated(),
         wall_s=wall, generated_tokens=rep.accepted_total, tok_per_s=rep.accepted_total / wall,
@@ -2321,6 +2630,176 @@ def decode_matches_prefill(dev, arch, layers, expect, prompt_len=2100, steps=4):
     torch.cuda.empty_cache()
     return dict(layers=layers, dtype="float32", prompt_len=prompt_len, steps=steps, max_abs_err=max(errs),
                 kernel_launches=counts, tolerance="1e-4 x max(1, max |prefill logit|)")
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block every kernel wrapper a model path calls runs its
+    plain version on the card's tensors (``kernels/*/ref.py``): the arch
+    sweep's yardstick.  The port itself never does this; its wrappers take
+    the plain version only for CPU tensors.  The wrappers' launch counters
+    do not move inside the block."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.moe_decode import ops as md_ops
+    from repro_torch.kernels.moe_decode import ref as md_ref
+    from repro_torch.kernels.moe_fused import ops as mf_ops
+    from repro_torch.kernels.moe_fused import ref as mf_ref
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models import rglru
+
+    def words(q, anc, base):
+        return fa_ops._control_words(q.shape[0], q.shape[1], q.device, anc, base)
+
+    def rglru_plain(a, b, h0=None):
+        h0 = a.new_zeros((a.shape[0], a.shape[2]), dtype=torch.float32) if h0 is None else h0
+        return rg_ref.rglru_scan(a, b, h0)
+
+    patches = [
+        (fa_ops, "flash_decode_kernel", lambda q, k, v, lengths, anc=None, base=None, scales=None:
+            fa_ref.flash_decode(q, k, v, lengths, *words(q, anc, base), scales)),
+        (fa_ops, "flash_decode_paged_kernel", lambda q, pk, pv, lengths, table, anc=None, base=None, scales=None, *,
+            page_size: fa_ref.flash_decode_paged(q, pk, pv, lengths, table, *words(q, anc, base), page_size, scales)),
+        (fa_ops, "flash_decode_window_kernel", lambda q, k, v, positions, scales=None, *, window:
+            fa_ref.flash_decode_window(q, k, v, positions, min(int(window), k.shape[1]), scales)),
+        (fa_ops, "flash_attention_kernel", lambda q, k, v, *, causal=True, window=0:
+            fa_ref.flash_attention(q, k, v, causal=causal, window=window)),
+        (md_ops, "decode_moe_kernel", md_ref.decode_moe),
+        (mf_ops, "gather_swiglu", mf_ref.gather_swiglu),
+        (mf_ops, "down_combine", mf_ref.down_combine),
+        (rglru, "rglru_scan", rglru_plain),
+        (ssd_ops, "ssd_scan", lambda x, dt, a, bm, cm, chunk=128, h0=None: ssd_ref.ssd_chunked(x, dt, a, bm, cm, chunk,
+                                                                                                h0)),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def arch_sweep(dev):
+    """Every registered arch at its published widths in bf16, cut to
+    ``SWEEP_LAYERS`` layers (``SWEEP_DEPTH`` where that differs), from
+    seed-0 weights on the card: one ``SWEEP_PROMPT``-token prompt (a
+    frontend arch's admission input, the zero stub), then
+    ``SWEEP_LAUNCHES`` decode launches (spec 4, or 1 for the recurrent
+    stacks; the last greedy token and fixed random drafts, one accepted a
+    launch), through the kernels and again through their plain versions
+    (:func:`plain_versions`) on the same inputs.  Gates: finite logits of
+    the right shape; the kernel path's prefill and decode logits within
+    ``SWEEP_TOL`` of the logit scale of the plain path's; for a
+    full-attention stack the same launches on the paged plane (the
+    prefilled cache paginated, the identity block table) bitwise the
+    contiguous launches; every kernel of the arch's path launched.
+    Reports launch counts, weight bytes, peak memory and ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+
+    out = {}
+    for arch in list_archs():
+        full = get_config(arch)
+        layers = SWEEP_DEPTH.get(arch, SWEEP_LAYERS)
+        recurrent = any(k in T.STATE_KINDS for k in full.layer_kinds[:layers])
+        Tn = 1 if recurrent else SPEC
+        cfg = dataclasses.replace(full, num_layers=layers, decode_plane=True, spec_tokens=Tn)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev)
+        params = model.init(0)
+        weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        rng = np.random.default_rng(len(arch))
+        prompt = rng.integers(0, cfg.vocab_size, (1, SWEEP_PROMPT))
+        drafts = rng.integers(0, cfg.vocab_size, (SWEEP_LAUNCHES, Tn))
+        max_len = SWEEP_PROMPT + SWEEP_LAUNCHES + Tn
+        pool = not recurrent and not T.window_of(cfg)
+
+        def run(tokens=None, paged=False):
+            """Prefill and the decode launches; ``tokens`` fixes each
+            launch's input (else the greedy token + drafts)."""
+            cache = model.init_cache(1, max_len)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = [model.prefill(params, prompt, cache, frontend=model.frontend_stub(1)).float()]
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            pm = pages = None
+            if paged:
+                pm = Model(dataclasses.replace(cfg, paged=True), device=dev)
+                cache = pm.paginate_cache(cache, max_len)
+                pages = T.identity_page_table(pm.cfg, 1, max_len)
+            used, t0 = [], time.perf_counter()
+            for i in range(SWEEP_LAUNCHES):
+                toks = drafts[i:i + 1].copy() if tokens is None else tokens[i]
+                if tokens is None:
+                    toks[0, 0] = int(logits[-1].reshape(-1, cfg.vocab_size)[0].argmax())
+                used.append(toks)
+                lg = (pm or model).decode_tokens(params, cache, toks, [SWEEP_PROMPT + i], [0], pages=pages)
+                logits.append(lg.float())
+            torch.cuda.synchronize()
+            return logits, used, prefill_ms, (time.perf_counter() - t0) * 1e3 / SWEEP_LAUNCHES
+
+        reset_launch_counts()
+        got, used, prefill_ms, decode_ms = run()
+        paged_equal = None
+        if pool:
+            got_p, _, _, _ = run(used, paged=True)
+            paged_equal = all(torch.equal(a, b) for a, b in zip(got[1:], got_p[1:]))
+            if not paged_equal:
+                raise AssertionError(f"arch sweep {arch}: the paged launches (identity table) are not bitwise "
+                                     f"the contiguous ones")
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with plain_versions():
+            want, _, plain_prefill_ms, plain_decode_ms = run(used)
+        if counts != launch_counts():
+            raise AssertionError(f"arch sweep {arch}: a kernel launched on the plain path")
+        errs = []
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not (g.shape[-1] == cfg.vocab_size and bool(torch.isfinite(g).all())):
+                raise AssertionError(f"arch sweep {arch}: step {i} logits not finite or of the wrong shape")
+            scale = max(1.0, float(w.abs().max()))
+            errs.append(float((g - w).abs().max()) / scale)
+            if errs[-1] > SWEEP_TOL:
+                raise AssertionError(f"arch sweep {arch}: step {i} logits differ from the plain path's by "
+                                     f"{errs[-1]:.3e} of the scale {scale:.3g} (> {SWEEP_TOL})")
+        kinds = set(cfg.layer_kinds)
+        expect = ["flash_attention"] if kinds & {"attn", "moe"} else []
+        if kinds & {"attn", "moe"}:
+            expect.append("flash_decode_window" if T.window_of(cfg) else "flash_decode")
+        if pool:
+            expect.append("flash_decode_paged")
+        if "moe" in kinds:
+            expect += ["decode_moe", "gather_swiglu", "down_combine"]
+        if "rec" in kinds:
+            expect.append("rglru_scan")
+        if "ssm" in kinds:
+            expect.append("ssd_scan")
+        if min(counts[n] for n in expect) <= 0:
+            raise AssertionError(f"arch sweep {arch}: a kernel of its path never launched: {counts}")
+        out[arch] = dict(
+            layers=layers, layers_published=full.num_layers, head_dim=cfg.resolved_head_dim,
+            group=cfg.num_heads // cfg.num_kv_heads, spec_tokens=Tn, frontend=cfg.frontend,
+            max_err_of_scale=max(errs), errs_of_scale=errs, paged_bitwise_contiguous=paged_equal,
+            kernel_launches={n: counts[n] for n in expect}, weight_bytes=weight_bytes, peak_memory_bytes=peak,
+            prefill_ms=prefill_ms, decode_ms_per_launch=decode_ms, plain_prefill_ms=plain_prefill_ms,
+            plain_decode_ms_per_launch=plain_decode_ms,
+        )
+        del model, params, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def compiled_launch(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=4):
@@ -3204,6 +3683,14 @@ KERNELS = {
                                  "src/repro/kernels/flash_attention/decode.py:294"),
 }
 EP_ONLY = ("grouped_gemm", "moe_dispatch", "moe_combine")
+# kernels_vs_plain rows of the last slice: row -> (the wrapper whose launches
+# count, the arch of the run that launches it at that shape)
+ARCH_ROWS = {f"{k}_hd{hd}": (k, arch) for hd, arch in HD_ARCHS.items()
+             for k in ("flash_decode", "flash_decode_paged", "flash_attention")}
+ARCH_ROWS.update({f"{k}_llama4": (k, LLAMA4) for k in ("decode_moe", "gather_swiglu", "down_combine")})
+# smoke twins of the last slice's archs and planes (phase smoke_twin_archs)
+ARCH_TWINS = ("llama4_spec4", "dense_qkvbias_paged", "vlm_frontend", "audio_frontend", "local_paged_tree2x1",
+              "int8_local_paged_tree2x1", "hybrid_paged", "ssm_paged")
 
 
 def main() -> int:
@@ -3239,6 +3726,8 @@ def main() -> int:
     twin8 = smoke_twin(dev, names=["int8_spec4_ngram", "int8_paged_tree2x1_model_shared16", "int8_hybrid_spec1"])
     emit("smoke_twin_int8", **twin8)
     emit("smoke_twin_programs", **smoke_twin_programs(dev))
+    torch.cuda.empty_cache()
+    emit("smoke_twin_archs", **smoke_twin(dev, names=list(ARCH_TWINS)))
     torch.cuda.empty_cache()
 
     # the compiled decode launch held against the eager one in every cell
@@ -3299,7 +3788,22 @@ def main() -> int:
     emit("ssm_decode_matches_prefill", **decode_matches_prefill(dev, SSM, 4, {"ssd_scan": 4 * 5}))
     graphs["ssm_serve"] = compiled_launch(rep, get_config(SSM).vocab_size, prompt=H_PROMPT, gen=H_GEN)
     emit("profile_ssm", **profile_decode(rep, get_config(SSM).vocab_size, prompt=H_PROMPT, gen=H_GEN))
+    del rep  # free the SSM weights before the arch sweep
+    torch.cuda.empty_cache()
+    sweep = arch_sweep(dev)
+    emit("arch_sweep", **sweep)
+    llama4, rep = serve_cell(dev, LLAMA4, LLAMA4_LAYERS, CONTIGUOUS_KERNELS, "llama4 serve")
+    emit("llama4_serve", **llama4)
+    graphs["llama4_serve"] = compiled_launch(rep, get_config(LLAMA4).vocab_size)
+    emit("profile_llama4", **profile_decode(rep, get_config(LLAMA4).vocab_size))
+    del rep  # free the Llama-4 weights before the dense cell
+    torch.cuda.empty_cache()
+    dense, rep = serve_cell(dev, DENSE, get_config(DENSE).num_layers, DENSE_KERNELS, "dense serve")
+    emit("dense_serve", **dense)
+    graphs["dense_serve"] = compiled_launch(rep, get_config(DENSE).vocab_size)
+    emit("profile_dense", **profile_decode(rep, get_config(DENSE).vocab_size))
     del rep
+    torch.cuda.empty_cache()
     emit("compiled_launch", **graphs)
 
     kernels = []
@@ -3315,6 +3819,18 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    # the last slice's rows: kernels 1, 5, 7 at hd 96 and 160 (launches in the
+    # arch sweep's run of the arch with that head dim), kernels 2-4 at
+    # Llama-4's shapes (launches in llama4_serve)
+    for name, (wrapper, arch) in ARCH_ROWS.items():
+        source, replaces = KERNELS[wrapper]
+        r = rows[name]
+        counts = sweep[arch]["kernel_launches"] if arch != LLAMA4 else llama4["kernel_launches"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=counts[wrapper], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)

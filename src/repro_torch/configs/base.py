@@ -3,8 +3,8 @@
 A copy of ``repro/configs/base.py``'s :class:`ModelConfig`, registry and
 ``shrink``: the port keeps its own copy so that it imports nothing of the
 JAX package.  Field names and defaults are the reference's, so a config
-built by either package describes the same model.  Shape cells and the
-other archs come with later slices.
+built by either package describes the same model.  Shape cells (training
+and dry-run plumbing) are not ported.
 """
 from __future__ import annotations
 

@@ -43,7 +43,7 @@
 //    O (64 x hd f32) stays in registers.
 //  * No atomics and a fixed key order: a repeated launch is bitwise equal.
 //
-// CUDA cores (f32 at every hd, bf16 at hd 16, 32, 64):
+// CUDA cores (f32 at every hd, bf16 at hd 16, 32, 64, 96 and 160):
 //  * One block per (tile of query positions, kv head, sequence) takes the
 //    whole query group of that KV head: BQ positions x group heads = up to
 //    64 (query, head) rows, so each K/V tile is read from memory once per
@@ -438,8 +438,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 }  // namespace
 
 // q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out (B, Sq, nq, hd), all
-// contiguous; nq / nkv <= 64; f32 at hd in {16, 32, 64, 128, 256}, bf16 at
-// hd in {16, 32, 64} (bf16 at 128 and 256 is repro_flash_attention_tc's).
+// contiguous; nq / nkv <= 64; f32 at hd in {16, 32, 64, 96, 128, 160, 256},
+// bf16 at hd in {16, 32, 64, 96, 160} (bf16 at 128 and 256 is
+// repro_flash_attention_tc's).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
                                      int Sq, int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
                                      void* stream) {
@@ -451,6 +452,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
       case 16: return launch_hd<T, 16>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 32: return launch_hd<T, 32>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 64: return launch_hd<T, 64>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 96: return launch_hd<T, 96>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 160: return launch_hd<T, 160>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 128:
         if constexpr (F32) return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
         return (int)cudaErrorInvalidValue;

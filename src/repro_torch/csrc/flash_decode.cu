@@ -138,13 +138,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
+// the largest power of two dividing n, at most cap
+__host__ __device__ constexpr int pow2_part(int n, int cap) {
+  return (n % 2 == 0 && cap > 1) ? 2 * pow2_part(n / 2, cap / 2) : 1;
+}
+
 // EPL consecutive stored elements starting at p (one 16-, 8-, 4-, 2- or
 // 1-byte load, or several 16-byte ones), widened to f32 and multiplied by
-// the row's scale.
+// the row's scale.  A load takes the largest power-of-two run dividing EPL
+// that fits 16 bytes: EPL itself, or 16 bytes' worth, at the power-of-two
+// head dims; one element at a time at hd 96 and 160 (EPL 3 and 5), whose
+// runs start at odd multiples of the element size.
 template <typename TKV, int EPL>
 __device__ __forceinline__ void load_run(const TKV* p, float scale, float (&x)[EPL]) {
-  constexpr int BYTES = EPL * (int)sizeof(TKV);
-  constexpr int PER = BYTES > 16 ? 16 / (int)sizeof(TKV) : EPL;  // elements a load
+  constexpr int PER = pow2_part(EPL, 16 / (int)sizeof(TKV));  // elements a load
   struct alignas(PER * sizeof(TKV)) Raw { TKV e[PER]; };
 #pragma unroll
   for (int h = 0; h < EPL / PER; ++h) {
@@ -384,7 +391,9 @@ int launch_window(int dtype, int kv_dtype, const void* q, const void* k, const v
       REPRO_WINDOW_HD(16);
       REPRO_WINDOW_HD(32);
       REPRO_WINDOW_HD(64);
+      REPRO_WINDOW_HD(96);
       REPRO_WINDOW_HD(128);
+      REPRO_WINDOW_HD(160);
       REPRO_WINDOW_HD(256);
       default: return (int)cudaErrorInvalidValue;
     }
@@ -437,6 +446,9 @@ __global__ void __launch_bounds__(SPLIT_THREADS, HD <= 128 ? 2 : 1) decode_split
   constexpr int HG = SPLIT_THREADS / HD;           // P.V: thread groups, one output dim a thread
   constexpr int GH = GP / HG;                      // heads a thread of P.V sums
   static_assert(HD % PIECE == 0 && HD <= SPLIT_THREADS && GP % HG == 0, "head dim");
+  // Where HG * HD < SPLIT_THREADS (hd 96: 2 groups over 192 threads; hd 160:
+  // 1 over 160) the threads past HG * HD hold no (group, dim) pair: they skip
+  // P.V and write nothing, and every dim of every head still has one owner.
   const int b = blockIdx.x / nsplit, c = blockIdx.x - b * nsplit, t = blockIdx.y, kvh = blockIdx.z;
   const int G = nq / nkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -479,6 +491,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS, HD <= 128 ? 2 : 1) decode_split
   float* pbase = part + ((long)(b * Tn + t) * nq + (long)kvh * G) * head_stride + (long)c * (HD + 2);
   const bool holds = lane * EPL < HD;
   const int d = tid % HD, hg = tid / HD;  // P.V: output dim d of heads [hg*GH, (hg+1)*GH)
+  const bool pv = hg < HG;                // a (group, dim) pair of P.V is this thread's
 
   for (int g0 = 0; g0 < G; g0 += GP) {  // one pass for up to 16 heads
     const int gn = min(GP, G - g0);
@@ -572,10 +585,10 @@ __global__ void __launch_bounds__(SPLIT_THREADS, HD <= 128 ? 2 : 1) decode_split
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
       __syncthreads();
       // P.V: thread (hg, d) sums dim d of heads [hg*GH, (hg+1)*GH)
-      const float* ph = sc + hg * GH;
+      const float* ph = sc + (pv ? hg : 0) * GH;
 #pragma unroll
-      for (int i = 0; i < GH; ++i) a[i] *= corr[hg * GH + i];
-      for (int r = 0; r < n; ++r) {
+      for (int i = 0; i < GH; ++i) a[i] *= corr[(pv ? hg : 0) * GH + i];
+      for (int r = 0; r < (pv ? n : 0); ++r) {
         float x[1];
         load_run<TKV, 1>(vt + r * HD + d, Q8 ? vscale[r] : 1.f, x);
         if constexpr (GH % 4 == 0) {
@@ -595,22 +608,21 @@ __global__ void __launch_bounds__(SPLIT_THREADS, HD <= 128 ? 2 : 1) decode_split
       }
     }
     __syncthreads();  // m and l of every head are final
-    if (nsplit == 1) {
+    if (pv) {
 #pragma unroll
       for (int i = 0; i < GH; ++i) {
         const int gg = hg * GH + i;
-        if (gg < gn) out[q_row + (long)(g0 + gg) * HD + d] = from_f32<T>(a[i] / fmaxf(lrun[gg], 1e-30f));
+        if (gg >= gn) continue;
+        if (nsplit == 1) {
+          out[q_row + (long)(g0 + gg) * HD + d] = from_f32<T>(a[i] / fmaxf(lrun[gg], 1e-30f));
+        } else {
+          pbase[(g0 + gg) * head_stride + d] = a[i];
+        }
       }
-    } else {
-#pragma unroll
-      for (int i = 0; i < GH; ++i) {
-        const int gg = hg * GH + i;
-        if (gg < gn) pbase[(g0 + gg) * head_stride + d] = a[i];
-      }
-      if (tid < gn) {
-        pbase[(g0 + tid) * head_stride + HD] = mrun[tid];
-        pbase[(g0 + tid) * head_stride + HD + 1] = lrun[tid];
-      }
+    }
+    if (nsplit > 1 && tid < gn) {
+      pbase[(g0 + tid) * head_stride + HD] = mrun[tid];
+      pbase[(g0 + tid) * head_stride + HD + 1] = lrun[tid];
     }
     __syncthreads();  // the running m, l and the probability tile are reset by the next pass
   }
@@ -662,7 +674,9 @@ int launch_decode(int dtype, int kv_dtype, const void* q, const void* k, const v
       REPRO_DECODE_HD(16);
       REPRO_DECODE_HD(32);
       REPRO_DECODE_HD(64);
+      REPRO_DECODE_HD(96);
       REPRO_DECODE_HD(128);
+      REPRO_DECODE_HD(160);
       REPRO_DECODE_HD(256);
       default: return (int)cudaErrorInvalidValue;
     }
@@ -675,7 +689,8 @@ int launch_decode(int dtype, int kv_dtype, const void* q, const void* k, const v
 
 // dtype: q's (and out's) type code, 0 f32 or 1 bf16; kv_dtype: K/V's, the
 // same as q's, or 2 (int8: ks/vs are the per-row f32 scales, indexed like the
-// K/V rows; otherwise they may be null).  hd in {16, 32, 64, 128, 256}; q,
+// K/V rows; otherwise they may be null).  hd in {16, 32, 64, 96, 128, 160,
+// 256}; q,
 // k and v 16-byte aligned.  anc (Tn,) and base (B,) may be null: the chain
 // word -1 and a committed prefix of 0.  nsplit = min(ceil(S / 64), 32)
 // (any other is refused); with nsplit > 1 part is an f32 scratch of
@@ -705,7 +720,8 @@ extern "C" int repro_flash_decode_paged(int dtype, int kv_dtype, const void* q, 
 // int32 absolute position of each token, nondecreasing in t, with Tn <= W;
 // limit = min(window, W); int8: ks/vs (B*W,), one scale per slot.  part is
 // the f32 scratch of (B*Tn*nq, nsplit, hd + 2) floats; nsplit =
-// ceil(limit / 64), the rows a split takes; hd in {16, 32, 64, 128, 256}.
+// ceil(limit / 64), the rows a split takes; hd in {16, 32, 64, 96, 128, 160,
+// 256}.
 // Two launches on the stream: the splits, the merge.
 extern "C" int repro_flash_decode_window(int dtype, int kv_dtype, const void* q, const void* k, const void* v,
                                          const void* ks, const void* vs, void* out, void* part,

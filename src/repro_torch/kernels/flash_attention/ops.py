@@ -100,7 +100,9 @@ def _control_words(B: int, T: int, dev, anc_words, base):
 # made from others)
 DECODE_CHUNK = 64
 DECODE_MAX_SPLITS = 32
-_HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims kernels 1, 5, 6 and 7 are built for
+# the head dims kernels 1, 5, 6 and 7 are built for: the powers of two, and
+# 96 (Phi-3-Vision) and 160 (StableLM-12B)
+_HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 # the C signatures of repro_flash_decode and (one more pointer, the table,
 # and one more int) repro_flash_decode_paged
 _DECODE_ARGTYPES = [[ctypes.c_int] * 2 + [ctypes.c_void_p] * (10 + paged) + [ctypes.c_int] * (6 + paged)

@@ -1,8 +1,10 @@
 """Serving driver of the port: continuous-batching replicas with chain or
 tree speculation on the Agile decode plane, over a contiguous or a paged KV
-cache, over rolling-window caches and RG-LRU state for the hybrid
-RecurrentGemma family, or over SSD state for the Mamba-2 family, both at
-spec width 1 on the contiguous plane, with request programs (constrained
+cache, over rolling-window caches (chains, and on the paged plane draft
+trees) and RG-LRU state for the hybrid RecurrentGemma family, or over SSD
+state for the Mamba-2 family, both at spec width 1, for every arch of the
+registry (dense, MoE with top-1 routing and a shared expert, and the
+vision / audio frontend stubs), with request programs (constrained
 decode, fork/join), behind the in-process fault-tolerant fabric or across
 worker processes (port of ``repro/launch/serve.py``).
 
@@ -22,13 +24,19 @@ from the pre-accept lengths that ride the NEXT launch (no commit of its
 own).  Paged plane (``cfg.paged``): a :class:`PageTable` of per-slot block
 tables and a :class:`PrefixTrie` sharing full prompt pages across
 admissions; admission binds pages and writes only the rows it owns.
+Rolling buffers and recurrent state stay unpaged there; the commit maps
+move a rolling tree's accepted rows mod W.  A frontend arch's admission
+passes the reference's zero frontend input (1, F, frontend_dim) and
+refuses a prompt shorter than F (``RequestRejected``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
         --smoke --decode-plane --paged --page-size 8 --draft-tree 2,1 --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
         --smoke --decode-plane --prompt-len 48 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
-        --smoke --decode-plane --prompt-len 40 --device cpu
+        --smoke --decode-plane --paged --prompt-len 40 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b \\
+        --smoke --decode-plane --spec-tokens 4 --device cpu
 
 The quantized bandwidth plane (``--kv-dtype int8``: int8 KV rows with
 per-token scales; ``--expert-dtype int8``: decode reads int8 twins of the
@@ -400,7 +408,8 @@ class ServeReplica:
         """Prefill ``req`` into a free slot; returns the (first) slot.
 
         Raises :class:`RequestRejected` for requests that can never finish
-        within the slot budget (checked before any launch) and lets the
+        within the slot budget, and for a frontend arch's prompt shorter
+        than its frontend positions (checked before any launch), and lets the
         fault hook veto the admission while no state has been touched.  A
         fork program admits into ``fork`` slots off ONE prefill
         (:func:`repro_torch.launch.steps.admission`); branch ``i``'s first
@@ -413,6 +422,10 @@ class ServeReplica:
             raise RequestRejected(f"bad program spec: {err}", rid=req.rid)
         prog = table.program if table is not None else None  # the RequestProgram: fork, join, automaton
         k = prog.fork if prog is not None else 1
+        if self.cfg.frontend and len(req.prompt) < self.cfg.frontend_tokens:
+            raise RequestRejected(
+                f"prompt len {len(req.prompt)} is shorter than the {self.cfg.frontend_tokens} frontend "
+                f"positions it must cover", rid=req.rid)
         if len(req.prompt) + req.gen + self.T > self.max_len:
             raise RequestRejected(
                 f"prompt len {len(req.prompt)} + gen {req.gen} + spec width "
@@ -441,7 +454,8 @@ class ServeReplica:
                     self.fork_kv_rows_copied += self.admit_copy_rows - copied0
         elif k > 1:
             self.fork_kv_rows_copied += (k - 1) * len(prompt)
-        logits = admission(self.model, self.params, self.cache, prompt, slots, rows, self._pf_model)
+        logits = admission(self.model, self.params, self.cache, prompt, slots, rows, self._pf_model,
+                           self.model.frontend_stub(1))
         if prog is not None:
             auto = prog.automaton
             firsts = [int(v) for v in masked_top_k(logits[None], table.allowed, np.zeros(1, np.int64),
@@ -1047,9 +1061,6 @@ def main(argv=None) -> int:
         paged=args.paged or cfg.paged, page_size=args.page_size or cfg.page_size,
         kv_dtype=args.kv_dtype or cfg.kv_dtype, expert_dtype=args.expert_dtype or cfg.expert_dtype,
     )
-    if "ssm" in cfg.layer_kinds and (args.paged or args.draft_tree):
-        ap.error("Mamba-2 (ssm) archs serve on the contiguous decode plane at spec width 1; "
-                 "--paged and --draft-tree for them come in a later slice")
     try:
         check_spec_width(cfg, T)
     except NotImplementedError as err:

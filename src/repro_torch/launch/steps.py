@@ -78,6 +78,7 @@ def prefill_model(model: Model) -> Model:
 def admission(
     model: Model, params: Params, cache: List[Params], prompt: np.ndarray, slot: Union[int, Sequence[int]],
     rows: Union[None, np.ndarray, Sequence[np.ndarray]] = None, pf_model: Optional[Model] = None,
+    frontend: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """B=1 prefill of ``prompt`` into batch row ``slot`` -> last-position
     logits (V,).
@@ -94,18 +95,19 @@ def admission(
     Contiguous, every cache leaf of the first slot (K/V, plan rows, rolling
     buffers, recurrent state) is copied to the others; paged, the one B=1
     cache is written through each slot's vector (full prompt pages the
-    trie already shares are never written again)."""
+    trie already shares are never written again).  ``frontend`` (1, F,
+    frontend_dim) goes to the prefill (:meth:`Model.prefill`)."""
     slots = [int(slot)] if np.ndim(slot) == 0 else [int(b) for b in slot]
     prompt = np.asarray(prompt)[None]
     if rows is None:
-        logits = model.prefill(params, prompt, cache, slot=slots[0])[0]
+        logits = model.prefill(params, prompt, cache, slot=slots[0], frontend=frontend)[0]
         for b in slots[1:]:
             model.copy_cache_slot(cache, slots[0], b)
         return logits
     vectors = [rows] if np.ndim(slot) == 0 else list(rows)
     pf_model = pf_model or prefill_model(model)
     one = pf_model.init_cache(1, len(vectors[0]))
-    logits = pf_model.prefill(params, prompt, one)[0]
+    logits = pf_model.prefill(params, prompt, one, frontend=frontend)[0]
     for b, r in zip(slots, vectors):
         model.write_cache_slot_paged(cache, one, b, r)
     return logits
@@ -314,7 +316,8 @@ class _SpecServeStep:
         Tn = tree.num_nodes if tree is not None else max(cfg.spec_tokens, 1)
         attn = [c for kind, c in zip(cfg.layer_kinds, cache) if kind not in STATE_KINDS]
         paged = bool(attn) and "pk" in attn[0]
-        self.branchy = paged and tree is not None and not tree.is_chain()
+        # the paged plane's commit maps also move rolling buffers' rows
+        self.branchy = cfg.paged and tree is not None and not tree.is_chain()
         self.plane = "paged branchy" if self.branchy else "paged chain" if paged else "contiguous"
         self.key = (batch, Tn, tree, self.plane, telemetry)
         self.model, self.params, self.cache = model, params, cache

@@ -1,7 +1,7 @@
 """Model facade (port of ``repro/models/model.py``): init, cache, prefill,
 speculative chain and tree decode, and the cache surgery of continuous
 batching (contiguous, paged and rolling) for the ``moe``/``attn``/``rec``/``ssm``
-decoder stack.
+decoder stack, with the vision / audio frontend stub.
 
 The cache is updated in place by :meth:`Model.prefill`,
 :meth:`Model.decode_tokens` and the surgery methods; the first two return
@@ -56,10 +56,27 @@ class Model:
         return T.init_cache(self.cfg, batch, max_len, self.device)
 
     # ------------------------------------------------------------------
-    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings scaled by sqrt(d_model); with a frontend config
+        and ``frontend`` (B, F, frontend_dim) the first F positions are
+        ``frontend @ params["frontend"]["proj"]`` instead (the reference's
+        vision / audio stub)."""
         dtype = L.act_dtype(self.cfg)
         x = L.embed(tokens, params["embed"], dtype)
+        if self.cfg.frontend and frontend is not None:
+            F = frontend.shape[1]
+            fx = torch.einsum("bfe,ed->bfd", frontend.to(dtype), params["frontend"]["proj"].to(dtype))
+            x = torch.cat([fx, x[:, F:]], dim=1)
         return x * torch.sqrt(torch.tensor(float(self.cfg.d_model), dtype=torch.float32)).to(dtype)
+
+    def frontend_stub(self, batch: int = 1) -> Optional[torch.Tensor]:
+        """The frontend input admission passes, as the reference's replica
+        does: zeros (batch, frontend_tokens, frontend_dim) in bf16 on the
+        model's device, or None without a frontend."""
+        if not self.cfg.frontend:
+            return None
+        return torch.zeros((batch, self.cfg.frontend_tokens, self.cfg.frontend_dim), dtype=torch.bfloat16,
+                           device=self.device)
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """f32 logits against ``params["unembed"]``: the untied table, or the
@@ -72,15 +89,21 @@ class Model:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, params: Params, tokens, cache: List[Params], slot: int = 0) -> torch.Tensor:
+    def prefill(self, params: Params, tokens, cache: List[Params], slot: int = 0,
+                frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Run the (B, S) prompt(s) and write their K/V and seeded plans into
         batch rows ``[slot, slot + B)`` of ``cache`` in place (admission
         writes a B=1 prefill straight into its slot); returns the
-        last-position logits (B, V)."""
+        last-position logits (B, V).  ``frontend`` (B, F, frontend_dim)
+        replaces the first F positions' embeddings (:meth:`_embed`); a
+        prompt shorter than F raises ``ValueError`` (the reference's
+        concatenation would make F rows of it)."""
         tokens = self._tokens(tokens)
         B, S = tokens.shape
+        if self.cfg.frontend and frontend is not None and S < frontend.shape[1]:
+            raise ValueError(f"a prompt of {S} tokens is shorter than the {frontend.shape[1]} frontend positions")
         positions = torch.arange(S, device=self.device).expand(B, S)
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, None if frontend is None else frontend.to(self.device))
         route_src = x  # layer-0 control-plane source = embeddings
         rows = slice(slot, slot + B)
         for kind, p, c in zip(self.cfg.layer_kinds, params["layers"], cache):
@@ -243,11 +266,14 @@ class Model:
         Shared pages are never written and the pool is never zeroed.  An
         int8 pool's scale rows (``pks``/``pvs``, from the prefill's
         ``ks``/``vs``) go through the same row scatter, trash row included.
-        The DecodePlan leaves are per slot and are written at batch
-        ``slot``.  The row vector crosses to the device once for all
-        layers."""
-        R = cache[0]["pk"].shape[0] - 1
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=cache[0]["pk"].device).clamp(max=R)
+        The DecodePlan leaves, rolling buffers (unpaged under
+        ``cfg.paged``) and ``rec``/``ssm`` state are per slot and are
+        written at batch ``slot``.  The row vector crosses to the device
+        once for all layers."""
+        pools = [c["pk"] for c in cache if "pk" in c]
+        if pools:
+            R = pools[0].shape[0] - 1
+            idx = torch.as_tensor(np.asarray(rows, np.int64), device=pools[0].device).clamp(max=R)
         for c, o in zip(cache, one_cache):
             for name, leaf in c.items():
                 if name in T.POOL_LEAVES:
@@ -264,10 +290,14 @@ class Model:
         so the paged chain path is bitwise the contiguous path on it.  An
         int8 cache's scale rows flatten the same way into ``pks``/``pvs``,
         padded with ONES (their initial value) where the payload is padded
-        with zeros.  Plan leaves are copied unchanged."""
+        with zeros.  Plan leaves, rolling buffers and ``rec``/``ssm`` state
+        are copied unchanged (they stay unpaged)."""
         ps, mp = self.cfg.page_size, T.max_pages_for(self.cfg, max_len)
         out = []
         for c in cache:
+            if T.window_of(self.cfg):
+                out.append({name: leaf.clone() for name, leaf in c.items()})
+                continue
             n = {}
             for name, leaf in c.items():
                 if name in ("k", "v"):

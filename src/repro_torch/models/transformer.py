@@ -25,10 +25,21 @@ keeps a rolling buffer of ``min(max_len, window + spec slack)`` rows, the
 token at position ``pos`` in slot ``pos % W`` (:func:`rolling_rows`);
 prefill attends through the window mask and decode through the
 window-steered flash-decode kernel, so KV memory is bounded by the window
-whatever the prompt's length.  ``rec`` layers (RG-LRU,
+whatever the prompt's length.  Rolling buffers stay unpaged under
+``cfg.paged`` (their bound is the window, not ``max_len``): chains decode
+through the window kernel, branchy draft trees through the
+ancestor-masked plain attention :func:`_decode_attn_rolling_tree`, whose
+accepted path moves arrive as the next launch's commit maps, mod W.
+``rec`` layers (RG-LRU,
 :mod:`repro_torch.models.rglru`) and ``ssm`` layers (Mamba-2 SSD,
 :mod:`repro_torch.models.mamba2`; a single pre-norm and no FFN) carry
-``h``/``conv`` state instead of K/V and decode one token per launch.
+``h``/``conv`` state instead of K/V and decode one token per launch (they
+pass through the paged plane untouched).
+
+Modality frontends (``cfg.frontend``, the reference's vision and audio
+stubs): ``params["frontend"]["proj"]`` (frontend_dim, d_model) projects
+precomputed frontend embeddings onto the first ``frontend_tokens``
+positions of the prompt (:meth:`repro_torch.models.model.Model._embed`).
 
 Paged KV plane (``cfg.paged``): the full-attention KV lives in a flat pool
 ``pk``/``pv`` of ``num_pages * page_size`` rows with no batch axis, addressed
@@ -48,6 +59,7 @@ rows and their scales (the kernels' int8 branch).  Every cache mutation
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -57,6 +69,7 @@ from repro_torch.core.control_plane import route_topk_decode, topk_agreement
 from repro_torch.core.plans import DecodePlan, TreePlan
 from repro_torch.core.quant import quantize_int8
 from repro_torch.kernels.flash_attention import flash_attention, flash_decode, flash_decode_paged, flash_decode_window
+from repro_torch.kernels.flash_attention.ref import dequantize_rows
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import Params
@@ -94,15 +107,6 @@ def _check_kind(kind: str, cfg: ModelConfig) -> None:
         raise ValueError(f"kv_dtype must be '' or 'int8', got {cfg.kv_dtype!r}")
     if cfg.attention_kind == "local" and cfg.local_window <= 0:
         raise ValueError("local attention needs local_window > 0")
-    if window_of(cfg) and cfg.paged:
-        raise NotImplementedError(
-            "rolling-window layers on the paged KV plane come with rolling-window trees in a later slice"
-        )
-    if kind == "ssm" and cfg.paged:
-        raise NotImplementedError(
-            "Mamba-2 (ssm) stacks serve on the contiguous decode plane; the paged plane for them "
-            "comes in a later slice"
-        )
 
 
 def check_spec_width(cfg: ModelConfig, T: int) -> None:
@@ -154,6 +158,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, experts: O
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(generator, cfg.vocab_size, cfg.d_model, torch.float32, device)
+    if cfg.frontend:
+        params["frontend"] = {"proj": L.dense_init(generator, cfg.frontend_dim, cfg.d_model, L.act_dtype(cfg), device)}
     return place_tied_unembed(params, cfg)
 
 
@@ -203,8 +209,8 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     ``ssm`` layers: the SSD state (``h`` (B, H, N, P) f32, ``conv``).
     Attention layers: contiguous KV stripes (B, S, nkv, hd) with
     ``S = rolling_rows(cfg, max_len)`` (a rolling buffer under local
-    attention), or under ``cfg.paged`` the flat pool (num_pages * page_size
-    + 1 trash row, nkv, hd), plus, for MoE layers on the decode plane, the
+    attention, paged or not), or under ``cfg.paged`` for full attention the
+    flat pool (num_pages * page_size + 1 trash row, nkv, hd), plus, for MoE layers on the decode plane, the
     carried DecodePlan: one row per draft position when ``spec_tokens > 1``
     (per slot, paged or not).  Under ``cfg.kv_dtype == "int8"`` the K/V
     rows are int8 and each row has an f32 scale, ``ks``/``vs`` (B, S) or
@@ -217,7 +223,7 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     hd = cfg.resolved_head_dim
     quant = cfg.kv_dtype == "int8"
     dt = torch.int8 if quant else L.act_dtype(cfg)
-    if cfg.paged:
+    if cfg.paged and not window_of(cfg):
         rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
         c = {
             "pk": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
@@ -457,6 +463,62 @@ def _decode_attn_rolling(
     return _attn_out(out, p)
 
 
+def _decode_attn_rolling_tree(
+    xn: torch.Tensor,       # (B, T, d): T draft-tree nodes per sequence
+    p: Params,
+    cfg: ModelConfig,
+    cache: Params,
+    lengths: torch.Tensor,  # (B,) committed-prefix length per sequence
+    window: int,
+    tree: TreePlan,
+) -> torch.Tensor:
+    """Ancestor-masked tree attention against a rolling (modulo) buffer, in
+    plain torch as in the reference (which has no kernel for it).
+
+    Node t lands at slot ``(lengths + t) % W`` with rotary position
+    ``lengths + depth(t)``.  A slot is visible to node t iff it holds a
+    written row, lies inside t's window measured in SEQUENTIAL positions (a
+    draft row's is ``lengths + depth``, a committed row's its position), and
+    is committed or on t's root path.  The accepted path's moves arrive as
+    the next launch's commit maps, mod W (:func:`_apply_commit`).  An int8
+    buffer is read dequantized (its scale rows are written with the
+    payload)."""
+    B, T, _ = xn.shape
+    W = cache["k"].shape[1]
+    if T > W:
+        raise ValueError(f"a draft tree of {T} nodes exceeds the rolling buffer of {W} slots")
+    dev = xn.device
+    depths, words, _ = _tree_tensors(tree, dev)
+    nodes = torch.arange(T, dtype=torch.int64, device=dev)
+    base = lengths[:, None].to(torch.int64)
+    pos = base + depths[None, :]
+    q, k, v = L._qkv(xn, p, cfg, pos)
+    bidx = torch.arange(B, device=dev)[:, None]
+    scales = _write_rows(cache, KV_LEAVES, (bidx, torch.remainder(base + nodes[None, :], W)), k, v)
+    limit = min(window, W)
+    hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    head = base + T - 1  # (B, 1): the last written row's position
+    slot = torch.arange(W, dtype=torch.int64, device=dev)[None, :]
+    abs_pos = head - torch.remainder(torch.remainder(head, W) - slot, W)  # (B, W)
+    u = abs_pos - base  # draft-row index of each slot (>= 0 iff a draft row)
+    in_draft = (u >= 0) & (u < T)
+    uc = u.clamp(0, T - 1)
+    table = ((words[:, None].to(torch.int64) >> nodes[None, :]) & 1).bool()  # (T, T): u on t's root path
+    anc_ok = table[:, uc].permute(1, 0, 2)  # (B, T, W)
+    eff = torch.where(in_draft, base + depths[uc], abs_pos)
+    valid = ((abs_pos >= 0)[:, None, :] & (eff[:, None, :] > pos[:, :, None] - limit)
+             & ((u < 0)[:, None, :] | (in_draft[:, None, :] & anc_ok)))  # (B, T, W)
+    ck, cv = cache["k"], cache["v"]
+    if scales is not None:
+        ck, cv = dequantize_rows(ck, scales[0]), dequantize_rows(cv, scales[1])
+    qg = q.reshape(B, T, nkv, cfg.num_heads // nkv, hd).to(torch.float32)
+    s = torch.einsum("btngh,bsnh->bngts", qg, ck.to(torch.float32)) * (1.0 / math.sqrt(hd))
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, L.NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bngts,bsnh->btngh", w, cv.to(torch.float32)).reshape(B, T, cfg.num_heads, hd)
+    return _attn_out(out.to(xn.dtype), p)
+
+
 def _paged_rows(pages: torch.Tensor, pos: torch.Tensor, ps: int, R: int) -> torch.Tensor:
     """Translate logical positions to physical pool rows via the block table.
 
@@ -482,16 +544,31 @@ def _apply_commit(
     """Fused tree commit, in place: move the accepted path's KV rows, one
     gather and one scatter, at the top of the decode launch (before any new
     writes).  ``commit = (dst, src)`` are (B, Tc) LOGICAL positions with -1
-    as the no-op; pool caches translate through the block table.  The
-    gather lands in a temporary before the scatter, so overlapping (dst,
-    src) windows are safe; no-op moves land in the trash row.  An int8
-    pool's scale rows move with their payload, through the same maps."""
-    if "pk" not in cache:
-        raise NotImplementedError(
-            "fused commit maps apply to paged caches (rolling-window trees come in a later "
-            "slice); contiguous trees commit through Model.commit_tree_path"
-        )
+    as the no-op; pool caches translate through the block table, rolling
+    caches (unpaged under ``cfg.paged``) move slots mod W.  The gather lands
+    in a temporary before the scatter, so overlapping (dst, src) windows
+    are safe.  A pool's no-op moves land in its trash row; a rolling
+    buffer has none, so its no-op entry i rewrites the slot of position
+    ``L + i`` with its own old value (L, the pre-accept length, is
+    ``dst - i`` of any real move of the row; no real move of the row
+    writes that slot, and a row with none rewrites slots i): the
+    reference's dropped write, with no host read.  An int8 cache's scale
+    rows move with their payload, through the same maps."""
     dst, src = commit
+    if "pk" not in cache:
+        B, W = cache["k"].shape[:2]
+        Tc = dst.shape[1]
+        col = torch.arange(Tc, dtype=dst.dtype, device=dst.device)[None, :]
+        base = torch.where(dst >= 0, dst - col, torch.full_like(dst, -1)).amax(dim=1, keepdim=True).clamp(min=0)
+        own = torch.remainder(base + col, W)
+        dst_slot = torch.where(dst >= 0, torch.remainder(dst, W), own)
+        src_slot = torch.where(dst >= 0, torch.remainder(src.clamp(min=0), W), own)
+        bidx = torch.arange(B, device=dst.device)[:, None]
+        for name in KV_LEAVES:
+            if name in cache:
+                moved = cache[name][bidx, src_slot]
+                cache[name][bidx, dst_slot] = moved
+        return
     R, ps = _pool_size(cache), cfg.page_size
     src_rows = torch.clamp(_paged_rows(pages, src.clamp(min=0), ps, R), max=R - 1)
     dst_rows = torch.where(dst >= 0, _paged_rows(pages, dst.clamp(min=0), ps, R), torch.full_like(dst, R))
@@ -573,8 +650,10 @@ def apply_layer_decode_spec(
     launch writes.
 
     Local-attention layers serve chains through the rolling buffer
-    (:func:`_decode_attn_rolling`); branchy trees on them need the paged
-    plane's commit maps and come in a later slice.  ``rec`` and ``ssm``
+    (:func:`_decode_attn_rolling`) and, under ``cfg.paged`` (whose commit
+    maps move their accepted rows mod W), branchy trees through
+    :func:`_decode_attn_rolling_tree`; the contiguous plane refuses
+    branchy trees on them, as the reference does.  ``rec`` and ``ssm``
     layers run one RG-LRU or SSD step at T = 1 and refuse T > 1
     (:func:`check_spec_width`).
 
@@ -596,13 +675,18 @@ def apply_layer_decode_spec(
     if tree is None:
         tree = TreePlan.chain(T)
     window = window_of(cfg)
-    if window and not tree.is_chain():
+    rolling_tree = bool(window) and not tree.is_chain()
+    if rolling_tree and not cfg.paged:
         raise NotImplementedError(
-            "branchy draft trees on rolling-window layers need the paged plane's fused commit "
-            "maps (rolling-window trees come in a later slice); serve local-attention archs with chains"
+            "branchy draft trees on rolling-window layers need the paged "
+            "KV plane's fused commit maps (cfg.paged=True); the legacy "
+            "contiguous path serves local-attention archs with chain "
+            "drafts only"
         )
     xn = L.rms_norm(x, p["ln1"])
-    if window:
+    if rolling_tree:
+        a = _decode_attn_rolling_tree(xn, p["attn"], cfg, cache, lengths, window, tree)
+    elif window:
         a = _decode_attn_rolling(xn, p["attn"], cfg, cache, lengths, window)
     elif paged:
         a = _decode_attn_paged_tree(xn, p["attn"], cfg, cache, lengths, tree, pages)

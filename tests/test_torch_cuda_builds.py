@@ -3,7 +3,10 @@ sources, its library swapped in under the same wrappers.
 
 * Parity with another checkout: the kernels a change leaves alone give
   bitwise what that checkout's build gives on the same inputs: the window
-  flash-decode (kernel 6; f32, bf16, int8 K/V), both builds of kernel 7
+  flash-decode (kernel 6; f32, bf16, int8 K/V), the contiguous and paged
+  decode (kernels 1 and 5 at hd 128, tree words; f32, bf16, int8 K/V: the
+  head dims 96 and 160 added instantiations and a P.V guard that the
+  power-of-two builds never take), both builds of kernel 7
   (CUDA cores: f32 at every head dim, bf16 at 16, 32 and 64; tensor cores:
   bf16 at 128 and 256), both builds of kernel 8 (CUDA cores: f32, and bf16
   at a ragged shape; tensor cores: bf16 at M tiles of 16, 64 and 256, its
@@ -13,6 +16,7 @@ sources, its library swapped in under the same wrappers.
   cores: f32, and bf16 at f 84; tensor cores: bf16 at slot tiles of 16 and
   64) and kernel 4's CUDA-core build (f32, and bf16 at f 84; its bf16
   tensor-core build is new).  The C entry points
+  ``repro_flash_decode``, ``repro_flash_decode_paged``,
   ``repro_flash_decode_window``, ``repro_flash_attention``,
   ``repro_flash_attention_tc``, ``repro_grouped_gemm``,
   ``repro_grouped_gemm_tc``, ``repro_ssd_scan``, ``repro_gather_swiglu``,
@@ -85,6 +89,9 @@ def _swapped(name: str, lib: ctypes.CDLL):
 # ---------------------------------------------------------------------------
 
 WINDOW_CASES = [f"flash_decode_window {kind}{tag}" for tag in ("float32", "bfloat16") for kind in ("", "int8 ")]
+# kernels 1 and 5 at Qwen3-MoE's head dim (tree 2,1 words, a scrambled block table)
+DECODE_CASES = [f"flash_decode {kind}{tag} {policy}" for tag in ("float32", "bfloat16") for kind in ("", "int8 ")
+                for policy in ("contiguous", "paged")]
 PREFILL_CASES = [f"flash_attention {tag} hd {hd} window {w}"
                  for tag, hds in (("float32", (16, 32, 64, 128, 256)), ("bfloat16", (16, 32, 64, 128, 256)))
                  for hd in hds for w in (0, 45)]
@@ -101,7 +108,7 @@ SSD_CASES = [f"ssd_scan {tag} {shape}" for tag, shape in
 MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine") for tag, shape in
              (("float32", "40,8,7,96,80"), ("float32", "128,128,16,4096,1536"), ("bfloat16", "40,8,16,96,84"))] + \
             [f"gather_swiglu bfloat16 {shape} tc" for shape in ("128,128,16,4096,1536", "40,8,40,96,80")]
-SOURCE = {"flash_decode_window": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
+SOURCE = {"flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
           "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused"}
 
 
@@ -147,6 +154,26 @@ def _run(case: str, dev) -> torch.Tensor:
         assert mf_ops.down_combine_path(dt, f, d, True) == "cuda_cores"
         h = torch.randn((E, C, f), generator=g, device=dev).to(dt)
         return mf_ops.down_combine(h, w1.transpose(1, 2).contiguous(), plan.flat_idx, plan.slot_w, T)
+    if words[0] == "flash_decode":
+        from repro_torch.core.plans import TreePlan
+
+        B, T, nq, nkv, hd, S, ps = 2, 4, 16, 4, 128, 240, 16
+        q = torch.randn((B, T, nq, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, S, nkv, hd), generator=g, device=dev) for _ in range(2))
+        scales = None
+        if "int8" in words:
+            (k, ks), (v, vs) = (quantize_int8(c, axis=(-2, -1)) for c in (k, v))
+            scales = torch.stack([ks[..., 0, 0], vs[..., 0, 0]]).reshape(2, -1).contiguous()
+        else:
+            k, v = k.to(dt), v.to(dt)
+        base = torch.tensor([61, 190], dtype=torch.int32, device=dev)
+        lengths = (base[:, None] + torch.arange(1, T + 1, dtype=torch.int32, device=dev)).reshape(-1).contiguous()
+        anc = torch.tensor(TreePlan.from_branching((2, 1)).ancestor_words(), dtype=torch.int32, device=dev)
+        if words[-1] == "contiguous":
+            return fa_ops.flash_decode_kernel(q, k, v, lengths, anc, base, scales)
+        table = torch.randperm(B * S // ps, generator=g, device=dev).to(torch.int32)
+        return fa_ops.flash_decode_paged_kernel(q, k.reshape(B * S, nkv, hd), v.reshape(B * S, nkv, hd), lengths,
+                                                table, anc, base, scales, page_size=ps)
     # the window decode: 4 slots of 10 heads over one KV head, hd 256, a
     # 300-slot rolling buffer, window 160, positions before and past the wrap
     B, nq, nkv, hd, W = 4, 10, 1, 256, 300
@@ -172,7 +199,7 @@ def other_libs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WINDOW_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES)
+@pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)

@@ -218,11 +218,14 @@ def test_flash_decode_many_slots_above_the_split_cap_on_card(cuda):
 # kernel 2's plans: (T, k, E, d, f, ids or None for a random top-k plan).
 # "shard slice": a top-8 plan over 32 experts as shard 1 of 2 sees it, local
 # expert 0 named by every foreign assignment (more than 16, at weight 0);
-# "all ids equal": one expert named 24 times (three groups of 8)
+# "all ids equal": one expert named 24 times (three groups of 8); "top-1":
+# Llama-4's routing (k = 1) at small widths, and at its widths (d 5120, f
+# 8192) over 16 experts
 def _decode_moe_plan(case, rng):
     T, k, E, d, f = {"small": (5, 4, 16, 256, 192), "serving": (16, 8, 128, 4096, 1536),
                      "ragged": (5, 4, 16, 100, 84), "T=1": (1, 8, 128, 4096, 1536),
-                     "all ids equal": (6, 4, 16, 256, 192), "shard slice": (16, 8, 16, 512, 256)}[case]
+                     "all ids equal": (6, 4, 16, 256, 192), "shard slice": (16, 8, 16, 512, 256),
+                     "top-1": (9, 1, 32, 256, 192), "top-1 wide": (16, 1, 16, 5120, 8192)}[case]
     if case == "all ids equal":
         ids = np.zeros((T, k), np.int32)
     elif case == "shard slice":
@@ -239,7 +242,8 @@ def _decode_moe_plan(case, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("case", ["small", "serving", "ragged", "T=1", "all ids equal", "shard slice"])
+@pytest.mark.parametrize("case", ["small", "serving", "ragged", "T=1", "all ids equal", "shard slice", "top-1",
+                                  "top-1 wide"])
 def test_decode_moe_kernel_matches_plain_on_card(cuda, dtype, case):
     """Kernel 2 (int8: the int8 branch with bf16 x) against its plain
     version within 1e-4 of the output scale, and bitwise on a repeated
@@ -702,3 +706,104 @@ def test_down_combine_is_fixed_order_on_card(cuda, dtype):
     torch.cuda.synchronize()
     assert bool((first[[1, 3, 5]] == 0).all())
     _close(first, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,d,f", [(40, 8, 96, 80), (128, 16, 5120, 8192)])
+def test_fused_moe_kernels_top1_on_card(cuda, dtype, T, E, d, f):
+    """Kernels 3 and 4 over a top-1 plan (Llama-4's routing; at its widths d
+    5120, f 8192 over 16 experts too): within one bf16 ulp (f32 1e-4) of
+    the plain versions, bitwise on a repeated launch."""
+    rng = np.random.default_rng(T)
+    x = _t(rng.standard_normal((T, d)).astype(np.float32))
+    router = _t(rng.standard_normal((d, E)).astype(np.float32))
+    C = T  # no drops: every token's one expert keeps it
+    plan, _ = route_topk(x, router, 1, C)
+    assert int((plan.flat_idx < T).sum()) == T and bool((plan.slot_w[plan.flat_idx < T] == 1.0).all())
+    idx, sw = plan.flat_idx.to(cuda), plan.slot_w.to(cuda)
+    xt = x.to(cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(T)
+    wg, wu = ((torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).to(dtype) for _ in range(2))
+    wd = (torch.randn((E, f, d), generator=g, device=cuda) * f ** -0.5).to(dtype)
+    h = mf_ops.gather_swiglu(xt, idx, wg, wu)
+    assert torch.equal(h, mf_ops.gather_swiglu(xt, idx, wg, wu))
+    torch.cuda.synchronize()
+    _close(h, mf_ref.gather_swiglu(xt, idx, wg, wu), dtype)
+    y = mf_ops.down_combine(h, wd, idx, sw, T)
+    assert torch.equal(y, mf_ops.down_combine(h, wd, idx, sw, T))
+    torch.cuda.synchronize()
+    _close(y, mf_ref.down_combine(h, wd, idx, sw, T), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("hd,nq,nkv", [(96, 4, 4), (160, 8, 2)])
+def test_decode_kernels_at_head_dims_96_and_160_on_card(cuda, kv, hd, nq, nkv):
+    """Kernels 1 and 5 (and their int8 branches) at Phi-3-Vision's head dim
+    96 with G = 1 (192 of a block's 256 threads own a P.V (group, dim)
+    pair) and StableLM-12B's 160 with G = 4 (160 of 256): split edges
+    around the 64-row chunks, chain and tree words, against the plain
+    version and bitwise on a repeat; the paged launch with the identity
+    table is bitwise the contiguous one."""
+    tree = TreePlan.from_branching((2, 1))
+    T, S = tree.num_nodes, 240
+    for policy in ("contiguous", "paged"):
+        q, run, plain = _decode_inputs(cuda, policy, kv, T, S, nq=nq, nkv=nkv, hd=hd, seed=hd)
+        words = torch.tensor(tree.ancestor_words(), dtype=torch.int32, device=cuda)
+        full = torch.full((T,), -1, dtype=torch.int32, device=cuda)
+        for L in (1, 63, 64, 65, 212, S):
+            lengths = torch.tensor([[max(1, n - T + 1 + t) for t in range(T)] for n in (L, S + 1 - L)],
+                                   dtype=torch.int32, device=cuda).reshape(-1)
+            base = (lengths.reshape(2, T)[:, 0] - 1).contiguous()
+            for w in (None, words):
+                got = run(lengths, w, base)
+                assert torch.equal(got, run(lengths, w, base)), (policy, L)
+                torch.cuda.synchronize()
+                _close(got, plain(lengths, full if w is None else w, base), q.dtype)
+    dt = torch.bfloat16 if kv == "int8" else kv
+    if kv != "int8":
+        q, k, v = (_t(a).to(cuda, dt) for a in _decode_case(hd + 1, 2, T, nq, nkv, hd, S))
+        lengths = torch.tensor([5, 6, 7, 8, 200, 201, 202, 203], dtype=torch.int32, device=cuda)
+        ident = torch.arange(2 * S // 16, dtype=torch.int32, device=cuda)
+        paged = fa_ops.flash_decode_paged_kernel(q, k.reshape(2 * S, nkv, hd), v.reshape(2 * S, nkv, hd), lengths,
+                                                 ident, page_size=16)
+        assert torch.equal(paged, fa_ops.flash_decode_kernel(q, k, v, lengths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,nq,nkv", [(96, 4, 4), (160, 8, 2)])
+def test_window_and_prefill_kernels_at_head_dims_96_and_160_on_card(cuda, dtype, hd, nq, nkv):
+    """Kernel 6 (rolling buffers across the wrap, T = 3) and kernel 7
+    (causal and windowed, ragged tiles; the CUDA-core build at both
+    dtypes) at head dims 96 and 160, against their plain versions."""
+    T, W, window, idx = 3, 80, 70, [2, 63, 150, 400]
+    B = len(idx)
+    q, k, v = (_t(a).to(cuda, dtype) for a in _decode_case(hd, B, T, nq, nkv, hd, W))
+    pos = (torch.tensor(idx, dtype=torch.int32)[:, None] + torch.arange(T, dtype=torch.int32)).reshape(-1).to(cuda)
+    got = fa_ops.flash_decode_window_kernel(q, k, v, pos, window=window)
+    assert torch.equal(got, fa_ops.flash_decode_window_kernel(q, k, v, pos, window=window))
+    torch.cuda.synchronize()
+    _close(got, fa_ref.flash_decode_window(q, k, v, pos, min(window, W)), dtype)
+    assert fa_ops.flash_attention_path(dtype, hd) == "cuda_cores"
+    for B, S, causal, win in ((2, 77, True, 0), (1, 130, True, 33), (1, 45, False, 0)):
+        rng = np.random.default_rng(S + hd)
+        q = _t(rng.standard_normal((B, S, nq, hd)).astype(np.float32)).to(cuda, dtype)
+        k, v = (_t(rng.standard_normal((B, S, nkv, hd)).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+        got = fa_ops.flash_attention_kernel(q, k, v, causal=causal, window=win)
+        torch.cuda.synchronize()
+        _close(got, fa_ref.flash_attention(q, k, v, causal=causal, window=win), dtype)
+
+
+def test_head_dims_outside_the_builds_raise():
+    """A head dim no kernel is built for raises before any launch (on the
+    CPU the plain version would compute it; on the card there is no
+    kernel, and nothing falls back)."""
+    q = torch.zeros((1, 1, 2, 80))
+    k = torch.zeros((1, 8, 2, 80))
+    lengths = torch.ones((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim 80 not in"):
+        fa_ops._launch_decode("repro_flash_decode", q, k, k, (), lengths, None, None, None, (8,), 8, 2,
+                              "flash_decode")
+    assert 96 in fa_ops._HEAD_DIMS and 160 in fa_ops._HEAD_DIMS

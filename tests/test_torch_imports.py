@@ -53,7 +53,11 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                 "repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
                 "repro_torch.launch.mesh", "repro_torch.parallel.sharding", "repro_torch.parallel.moe_parallel",
                 "repro_torch.kernels.grouped_gemm.ops", "repro_torch.kernels.grouped_gemm.ref",
-                "repro_torch.kernels.moe_dispatch.ops", "repro_torch.kernels.moe_dispatch.ref"):
+                "repro_torch.kernels.moe_dispatch.ops", "repro_torch.kernels.moe_dispatch.ref",
+                "repro_torch.configs.llama4_maverick_400b_a17b", "repro_torch.configs.musicgen_large",
+                "repro_torch.configs.phi_3_vision_4_2b", "repro_torch.configs.qwen1_5_4b",
+                "repro_torch.configs.qwen3_32b", "repro_torch.configs.stablelm_12b",
+                "repro_torch.configs.starcoder2_3b"):
         assert mod in names.split(), mod
 
 

@@ -96,15 +96,20 @@ def _check_partition(ids: torch.Tensor):
 
 
 def _plans():
-    """(name, T, k, E, ids or None): random top-k plans, T = 1, one expert
-    named by every assignment, and shard slices of a top-8 plan over 32
+    """(name, T, k, E, ids or None): random top-k plans (top-1 too), T = 1,
+    one expert named by every assignment, and shard slices of a top-8 plan over 32
     experts held by 2 shards of 16 (local expert 0 named by the foreign
     assignments: more than GROUP of them, at weight 0)."""
     rng = np.random.default_rng(5)
     full = np.stack([rng.permutation(32)[:8] for _ in range(16)]).astype(np.int32)
+    # top-1 (Llama-4's routing): 16 tokens over 128 experts (mostly groups of
+    # one), over 8 (groups of up to 8 and more than one group an expert),
+    # and one expert named by all 20
     return [("random", 16, 8, 32, None), ("T=1", 1, 8, 32, None), ("random k=2", 9, 2, 8, None),
             ("all ids equal", 6, 4, 8, np.zeros((6, 4), np.int32)),
-            ("shard 0 of 2", 16, 8, 16, full), ("shard 1 of 2", 16, 8, 16, full)]
+            ("shard 0 of 2", 16, 8, 16, full), ("shard 1 of 2", 16, 8, 16, full),
+            ("top-1 of 128", 16, 1, 128, None), ("top-1 of 8", 40, 1, 8, None),
+            ("top-1 all ids equal", 20, 1, 8, np.zeros((20, 1), np.int32))]
 
 
 @pytest.mark.parametrize("name,T,k,E,ids", _plans(), ids=[p[0] for p in _plans()])

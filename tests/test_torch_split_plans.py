@@ -78,7 +78,7 @@ def test_window_split_formula_covers_each_visible_slot_once(T, W, window, starts
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 128, 160, 256])
 def test_flash_attention_every_build_pair_matches_jax_on_cpu(dtype, hd):
     """Each (dtype, head dim) kernel 7 is built for, on the CPU (the plain
     version), against the JAX package's kernel in interpret mode: GQA with a

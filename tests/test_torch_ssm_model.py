@@ -130,6 +130,14 @@ def test_ssm_layers_refuse_multi_token_launches():
 
 
 def test_ssm_stack_refuses_the_paged_plane():
+    """The paged plane takes an ``ssm`` stack as the reference does: its
+    SSD state stays unpaged (no pool), and what it still refuses there is
+    a multi-token (tree) launch."""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TModel(dataclasses.replace(tcfg, paged=True), device="cpu").init_cache(1, 32)
+    m = TModel(dataclasses.replace(tcfg, paged=True), device="cpu")
+    cache = m.init_cache(1, 32)
+    assert [sorted(c) for c in cache] == [["conv", "h"]] * tcfg.num_layers
+    p = m.init(0)
+    m.prefill(p, np.arange(5, dtype=np.int32)[None], cache)
+    with pytest.raises(NotImplementedError, match="serve rec/ssm archs with spec_tokens=1"):
+        m.decode_tokens(p, cache, [[1, 2]], [5], max_len=32)

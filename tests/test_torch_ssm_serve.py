@@ -66,8 +66,11 @@ def test_ssm_serve_refuses_multi_token_launches_trees_and_pages(capsys):
     with pytest.raises(NotImplementedError, match="serve rec/ssm archs with spec_tokens=1"):
         tserve.ServeReplica(cfg, 1, 32, {}, device="cpu")
     base = ["--arch", ARCH, "--smoke", "--decode-plane", "--device", "cpu"]
+    # --paged serves (tests/test_torch_ssm_paged.py); a draft tree is a
+    # multi-token launch, refused as the reference refuses it
     for extra, words in ((["--spec-tokens", "4"], "multi-token decode for 'ssm' layers"),
-                         (["--paged"], "later slice"), (["--draft-tree", "2,1"], "later slice")):
+                         (["--paged", "--draft-tree", "2,1"], "multi-token decode for 'ssm' layers"),
+                         (["--draft-tree", "2,1"], "serve rec/ssm archs with spec_tokens=1")):
         with pytest.raises(SystemExit) as exit_:
             tserve.main(base + extra)
         assert exit_.value.code == 2
