@@ -130,6 +130,7 @@ SSM = "mamba2-2.7b"
 SWEEP_PROMPT, SWEEP_LAUNCHES, SWEEP_LAYERS = 320, 4, 2
 SWEEP_DEPTH = {"llama4-maverick-400b-a17b": 1, "recurrentgemma-2b": 3}
 SWEEP_TOL = 2e-2            # kernel path vs plain path, of the logit scale (bf16)
+SWEEP_WINDOW = 128          # the mixed ("attn", "local") stacks' window: the prompt passes it
 # the last slice's serving cells: Llama-4-Maverick at full widths cut 48 -> 1
 # layer (phase llama4_serve), Qwen1.5-4B uncut (40 layers, dense_serve); both
 # on full_width's traffic
@@ -139,6 +140,8 @@ DENSE_KERNELS = ("flash_decode", "flash_attention")
 # the reference's rolling-window test stack (tests/test_paged_decode.py's
 # _local_cfg): Qwen3-32B's smoke config with every layer local
 LOCAL = dict(attention_kind="local", local_window=16)
+# a stack mixing full and rolling-window layers (the per-layer local kind)
+MIXED = dict(block_pattern=("attn", "local"), local_window=8)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
@@ -152,10 +155,13 @@ PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234
                "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
                "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
                "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389,
-               "rglru_scan": 0.2003, "rglru_scan_bf16": 1.393}
-# and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8)
+               "rglru_scan": 0.2003, "rglru_scan_bf16": 1.393,
+               "flash_attention_hd96": 0.1140, "flash_attention_hd160": 0.1707}
+# and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8;
+# kernel 7 at hd 96 and 160 on CUDA cores)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
-                      "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074}
+                      "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074, "flash_attention_hd96": 0.0869,
+                      "flash_attention_hd160": 0.1289}
 
 RECORD: dict = {}
 START = time.perf_counter()
@@ -1414,11 +1420,13 @@ LLAMA4 = "llama4-maverick-400b-a17b"
 
 
 def head_dim_kernel_rows(dev, gen, tol):
-    """Kernels 1, 5 and 7 at head dims 96 and 160 (their CUDA-core
-    instantiations; kernel 7's bf16 tensor-core build stays at 128 and 256):
+    """Kernels 1, 5, 6 and 7 at head dims 96 and 160 (kernels 1, 5 and 6 on
+    CUDA cores; kernel 7 in bf16 on the tensor cores, in f32 on CUDA cores):
     kernel 1 at row 1's shape (4 slots x spec 4 over a 164-row cache), kernel
     5 at row 5's (tree 2,1 over 60 pages of 16 through a scrambled table),
-    kernel 7 over one ``SWEEP_PROMPT``-token prompt, each in f32 and bf16
+    kernel 7 over one ``SWEEP_PROMPT``-token prompt (f32 and bf16) and one
+    ``H_PROMPT``-token prompt (``_long``, bf16), kernel 6 and its int8
+    branch over a 2,048-row rolling window (:func:`window_rows`), each
     against its plain version, bitwise on a repeat, with the card's bound,
     the plain version's time and SDPA's where one call computes it."""
     import torch
@@ -1504,37 +1512,163 @@ def head_dim_kernel_rows(dev, gen, tol):
             bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
         )
         del q32, pk32, pv32, q, pk, pv
-        # ---- kernel 7: one causal prompt of SWEEP_PROMPT tokens
+        # ---- kernel 7: one causal prompt of SWEEP_PROMPT tokens, then one of H_PROMPT
         Sp = SWEEP_PROMPT
         q32, k32, v32 = (torch.randn((1, Sp, n, hd), generator=gen, device=dev) for n in (nq, nkv, nkv))
         err32 = check_close(f"flash_attention hd {hd} f32", fa_ops.flash_attention_kernel(q32, k32, v32, causal=True),
                             fa_ref.flash_attention(q32, k32, v32, causal=True), tol["f32"])
-        q, k, v = q32.to(bf16), k32.to(bf16), v32.to(bf16)
-
-        def kernel_prefill(q=q, k=k, v=v):
-            return fa_ops.flash_attention_kernel(q, k, v, causal=True)
-
-        err = check_bf16(f"flash_attention hd {hd} bf16", kernel_prefill(),
-                         fa_ref.flash_attention(q, k, v, causal=True))
-        qt = q.transpose(1, 2)
-        kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1) for c in (k, v))
-        pairs = Sp * (Sp + 1) // 2
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        flops = float(pairs) * nq * hd * 4
-        ms, lib_ms, turns = in_turns(kernel_prefill, lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=10, reps=3)
         rows[f"flash_attention_hd{hd}"] = dict(
-            max_abs_err=err, max_abs_err_f32=err32, ms=ms, ms_in_turns=turns,
-            plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True), iters=2, reps=3),
-            library_ms=lib_ms, library_call="scaled_dot_product_attention (is_causal, kv heads expanded beforehand)",
-            device_ms=device_ms(kernel_prefill, "flash_attention", n=5), path=fa_ops.flash_attention_path(bf16, hd),
-            bitwise_repeat=bitwise_repeat(f"flash_attention hd {hd}", kernel_prefill), arch=arch,
-            shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal ({pairs} visible pairs a head)",
-            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
-        )
-        del q32, k32, v32, q, k, v, qt, kt, vt
+            prefill_row(q32.to(bf16), k32.to(bf16), v32.to(bf16), arch, G), max_abs_err_f32=err32,
+            previous_ms=PREVIOUS_MS[f"flash_attention_hd{hd}"],
+            previous_device_ms=PREVIOUS_DEVICE_MS[f"flash_attention_hd{hd}"])
+        del q32, k32, v32
+        q, k, v = (torch.randn((1, H_PROMPT, n, hd), generator=gen, device=dev).to(bf16) for n in (nq, nkv, nkv))
+        rows[f"flash_attention_hd{hd}_long"] = prefill_row(q, k, v, arch, G)
+        del q, k, v
+        torch.cuda.empty_cache()
+        # ---- kernel 6 (and its int8 branch): a synthetic rolling window at the arch's heads
+        rows[f"flash_decode_window_hd{hd}"], rows[f"flash_decode_window_int8_hd{hd}"] = window_rows(
+            dev, gen, tol, nq, nkv, hd, arch)
         torch.cuda.empty_cache()
     return rows
+
+
+def prefill_row(q, k, v, arch, G):
+    """Kernel 7's row on bf16 ``q``, ``k``, ``v`` (one causal prompt): the
+    bf16 gate against the plain version, a bitwise repeat, ms in turns with
+    SDPA (``is_causal``, kv heads expanded beforehand), the profiler's
+    device ms for both, and the bound of this prompt's visible pairs."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    _, S, nq, hd = q.shape
+    tag = f"flash_attention hd {hd} S {S}"
+
+    def kernel_prefill():
+        return fa_ops.flash_attention_kernel(q, k, v, causal=True)
+
+    err = check_bf16(f"{tag} bf16", kernel_prefill(), fa_ref.flash_attention(q, k, v, causal=True))
+    qt = q.transpose(1, 2)
+    kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1) for c in (k, v))
+
+    def lib_prefill():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    pairs = S * (S + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+    flops = float(pairs) * nq * hd * 4
+    ms, lib_ms, turns = in_turns(kernel_prefill, lib_prefill, iters=10, reps=3)
+    path = fa_ops.flash_attention_path(q.dtype, hd)
+    return dict(
+        max_abs_err=err, ms=ms, ms_in_turns=turns,
+        plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True), iters=2, reps=3),
+        library_ms=lib_ms, library_call="scaled_dot_product_attention (is_causal, kv heads expanded beforehand)",
+        device_ms=device_ms(kernel_prefill, "flash_attention", n=5),
+        library_device_ms=device_ms(lib_prefill, "", n=5), path=path,
+        bitwise_repeat=bitwise_repeat(tag, kernel_prefill), arch=arch,
+        ptxas=ptxas("flash_attention", f"flash_attention_tc_kernelILi{hd}E"),
+        # the launch's request, computed here from Layout<HD>::BYTES (Q, two K/V
+        # stages of ceil(hd / 64) boxes each, three mbarriers, 1 KB of swizzle
+        # alignment), not read from the build
+        dynamic_smem_bytes_computed=5 * -(-hd // 64) * 64 * 128 + 3 * 8 + 1024,
+        shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal ({pairs} visible pairs a head)",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+
+
+def window_rows(dev, gen, tol, nq, nkv, hd, arch):
+    """Rows 6 and 6q at an arch's heads: ``H_SLOTS`` slots, one token each,
+    over a synthetic rolling buffer of ``W = 2,048`` rows at positions past
+    the wrap (row 6's), window W.  Row 6: f32 and bf16 against the plain
+    version, SDPA over the window gathered into position order as the
+    library call.  Row 6q: int8 rows with f32 scales, bitwise the launch on
+    the dequantized buffers (f32 and bf16 q) and held against the plain
+    version; no one PyTorch call reads them, so gather + dequantize + SDPA
+    is timed beside it.  Both with device ms, a bitwise repeat and the byte
+    bound of the rows each token sees."""
+    import torch
+
+    from repro_torch.core.quant import quantize_int8
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    bf16, B, W, G = torch.bfloat16, H_SLOTS, 2048, nq // nkv
+    idx = [2100, 2900, 3600, 4160]
+    pos = torch.tensor(idx, dtype=torch.int32, device=dev)
+    q32 = torch.randn((B, 1, nq, hd), generator=gen, device=dev)
+    k32, v32 = (torch.randn((B, W, nkv, hd), generator=gen, device=dev) for _ in range(2))
+    q, kk, vv = q32.to(bf16), k32.to(bf16), v32.to(bf16)
+    tag = f"flash_decode_window hd {hd}"
+
+    def run(qq, k_, v_, sc=None):
+        return fa_ops.flash_decode_window_kernel(qq, k_, v_, pos, sc, window=W)
+
+    err32 = check_close(f"{tag} f32", run(q32, k32, v32), fa_ref.flash_decode_window(q32, k32, v32, pos, W),
+                        tol["f32"])
+    err = check_bf16(f"{tag} bf16", run(q, kk, vv), fa_ref.flash_decode_window(q, kk, vv, pos, W))
+    p_all = pos.long()[:, None] - W + 1 + torch.arange(W, device=dev)[None, :]
+    slots = torch.remainder(p_all.clamp(min=0), W)
+    bidx = torch.arange(B, device=dev)[:, None]
+    vis = (p_all >= 0)[:, None, None, :]
+    qt = q.transpose(1, 2)
+    kt, vt = (c[bidx, slots].transpose(1, 2).repeat_interleave(G, 1) for c in (kk, vv))
+
+    def lib_window():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+
+    n_vis = [min(W, p + 1) for p in idx]
+    flops = float(sum(n_vis)) * nq * hd * 4
+    nbytes = 2 * q.numel() * 2 + sum(n_vis) * nkv * hd * 2 * 2 + B * 4
+    ms, lib_ms, turns = in_turns(lambda: run(q, kk, vv), lib_window, iters=20)
+    shapes = f"q {tuple(q.shape)}, rolling kv {tuple(kk.shape)}, positions {idx}, window {W}"
+    row = dict(
+        max_abs_err=err, max_abs_err_f32=err32, ms=ms, ms_in_turns=turns,
+        plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, kk, vv, pos, W), iters=5, reps=3),
+        library_ms=lib_ms, library_call="scaled_dot_product_attention over the window gathered into position "
+                                        "order (boolean mask, kv heads expanded beforehand)",
+        device_ms=device_ms(lambda: run(q, kk, vv), "window_"), library_device_ms=device_ms(lib_window, "", n=10),
+        bitwise_repeat=bitwise_repeat(tag, lambda: run(q, kk, vv)), arch=arch, shapes=shapes,
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del kt, vt, k32, v32, kk, vv
+    (k8, ks), (v8, vs) = (quantize_int8(torch.randn((B, W, nkv, hd), generator=gen, device=dev), axis=(-2, -1))
+                          for _ in range(2))
+    ks, vs = ks[..., 0, 0].contiguous(), vs[..., 0, 0].contiguous()
+    scales = torch.stack([ks, vs]).reshape(2, -1).contiguous()
+    kd, vd = (c.float() * sc[..., None, None] for c, sc in ((k8, ks), (v8, vs)))
+    tag = f"flash_decode_window int8 hd {hd}"
+    if not torch.equal(run(q32, k8, v8, scales), run(q32, kd, vd)):
+        raise AssertionError(f"{tag}: the int8 launch (f32 q) is not bitwise the dequantized launch")
+    got = run(q, k8, v8, scales)
+    if not torch.equal(got, run(q32.to(bf16).float(), kd, vd).to(bf16)):
+        raise AssertionError(f"{tag}: the int8 launch (bf16 q) is not bitwise the dequantized launch")
+    err = check_bf16(f"{tag} vs plain", got, fa_ref.flash_decode_window(q, k8, v8, pos, W, scales))
+    err32 = check_close(f"{tag} f32 q vs plain", run(q32, k8, v8, scales),
+                        fa_ref.flash_decode_window(q32, k8, v8, pos, W, scales), tol["f32"])
+
+    def composite_window():
+        kt, vt = ((c[bidx, slots].float() * sc[bidx, slots][..., None, None]).to(bf16).transpose(1, 2)
+                  .repeat_interleave(G, 1) for c, sc in ((k8, ks), (v8, vs)))
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=vis)
+
+    nbytes8 = 2 * q.numel() * 2 + sum(n_vis) * (nkv * hd + 4) * 2 + B * 4
+    flops8 = flops + sum(n_vis) * nkv * hd * 2.0
+    ms, comp_ms, turns = in_turns(lambda: run(q, k8, v8, scales), composite_window, iters=20)
+    row8 = dict(
+        max_abs_err=err, max_abs_err_f32=err32, bitwise_vs_dequantized_launch=True, ms=ms, ms_in_turns=turns,
+        plain_ms=time_ms(lambda: fa_ref.flash_decode_window(q, k8, v8, pos, W, scales), iters=5, reps=3),
+        library_ms=None, library_call="none: no PyTorch call reads int8 K/V with per-row scales",
+        composite_ms=comp_ms,
+        composite_call="gather the window into position order + dequantize to bf16 + scaled_dot_product_attention",
+        device_ms=device_ms(lambda: run(q, k8, v8, scales), "window_"),
+        bitwise_repeat=bitwise_repeat(tag, lambda: run(q, k8, v8, scales)), arch=arch,
+        shapes=f"q {tuple(q.shape)}, int8 rolling kv {tuple(k8.shape)} + scales {tuple(scales.shape)}, "
+               f"positions {idx}, window {W}",
+        bytes=nbytes8, flops=flops8, **dict(zip(("bound_ms", "bound_by"), bound(nbytes8, flops8))),
+    )
+    return row, row8
 
 
 def llama4_kernel_rows(dev, gen, tol):
@@ -1833,6 +1967,13 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
                                          drafter="model", archs=True, int8=True, cfg=LOCAL, kernels=("flash_attention",)),
         "hybrid_paged": dict(arch=HYBRID, slots=2, prompt=48, requests=4, ps=8, archs=True),
         "ssm_paged": dict(arch=SSM, slots=2, prompt=520, requests=4, ps=8, archs=True),
+        # the per-layer local block kind: Qwen1.5-4B's smoke stack with layer 0
+        # full attention and layer 1 a rolling window of 8, prompts of 24
+        "mixed_local_spec2": dict(arch=DENSE, spec=2, prompt=24, gen=12, drafter="model", archs=True, cfg=MIXED,
+                                  kernels=("flash_attention", "flash_decode", "flash_decode_window")),
+        "mixed_local_paged_spec2": dict(arch=DENSE, spec=2, prompt=24, gen=12, ps=8, drafter="model", archs=True,
+                                        cfg=MIXED, kernels=("flash_attention", "flash_decode_paged",
+                                                            "flash_decode_window")),
     }
     names = names or [n for n, r in runs.items() if not (r.get("mesh") or r.get("int8") or r.get("archs"))]
     out = {}
@@ -1906,7 +2047,7 @@ def smoke_twin(dev, names=None, meshes=(None, None)):
             if not (min(lens) > 256 and all(n % cfg.ssm_chunk for n in lens)):
                 raise AssertionError(f"{tag}: prompts {lens} do not cross 256 tokens with ragged tails")
             row.update(prompt_lens=lens, ssm_chunk=cfg.ssm_chunk)
-        if r["tree"] and T.window_of(cfg):
+        if r["tree"] and T.window_of(cfg, cfg.layer_kinds[0]):
             # the accepted rows of a rolling tree move mod W through the commit maps
             row.update(commit_moves=rep.commit_moves, window_slots=rep.cache[0]["k"].shape[1])
             if max(len(q.prompt) for q in reqs) + r["gen"] <= rep.cache[0]["k"].shape[1]:
@@ -2693,113 +2834,133 @@ def arch_sweep(dev):
     ``SWEEP_LAUNCHES`` decode launches (spec 4, or 1 for the recurrent
     stacks; the last greedy token and fixed random drafts, one accepted a
     launch), through the kernels and again through their plain versions
-    (:func:`plain_versions`) on the same inputs.  Gates: finite logits of
-    the right shape; the kernel path's prefill and decode logits within
-    ``SWEEP_TOL`` of the logit scale of the plain path's; for a
-    full-attention stack the same launches on the paged plane (the
+    (:func:`plain_versions`) on the same inputs.  Then the two archs of
+    ``HD_ARCHS`` again as mixed stacks (``<arch>+local``: ``block_pattern``
+    ("attn", "local"), window ``SWEEP_WINDOW``, which the prompt passes and
+    the rolling buffer wraps; ``<arch>+local+int8`` with int8 KV rows), so
+    kernel 6 runs at hd 96 and 160 on a full-width path.  Gates: finite
+    logits of the right shape; the kernel path's prefill and decode logits
+    within ``SWEEP_TOL`` of the logit scale of the plain path's; for a stack
+    with a full-attention layer the same launches on the paged plane (the
     prefilled cache paginated, the identity block table) bitwise the
     contiguous launches; every kernel of the arch's path launched.
     Reports launch counts, weight bytes, peak memory and ms."""
-    import numpy as np
-    import torch
-
     from repro_torch.configs import get_config, list_archs
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models import transformer as T
-    from repro_torch.models.model import Model
 
     out = {}
     for arch in list_archs():
         full = get_config(arch)
-        layers = SWEEP_DEPTH.get(arch, SWEEP_LAYERS)
-        recurrent = any(k in T.STATE_KINDS for k in full.layer_kinds[:layers])
-        Tn = 1 if recurrent else SPEC
-        cfg = dataclasses.replace(full, num_layers=layers, decode_plane=True, spec_tokens=Tn)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model = Model(cfg, device=dev)
-        params = model.init(0)
-        weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-        rng = np.random.default_rng(len(arch))
-        prompt = rng.integers(0, cfg.vocab_size, (1, SWEEP_PROMPT))
-        drafts = rng.integers(0, cfg.vocab_size, (SWEEP_LAUNCHES, Tn))
-        max_len = SWEEP_PROMPT + SWEEP_LAUNCHES + Tn
-        pool = not recurrent and not T.window_of(cfg)
-
-        def run(tokens=None, paged=False):
-            """Prefill and the decode launches; ``tokens`` fixes each
-            launch's input (else the greedy token + drafts)."""
-            cache = model.init_cache(1, max_len)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits = [model.prefill(params, prompt, cache, frontend=model.frontend_stub(1)).float()]
-            torch.cuda.synchronize()
-            prefill_ms = (time.perf_counter() - t0) * 1e3
-            pm = pages = None
-            if paged:
-                pm = Model(dataclasses.replace(cfg, paged=True), device=dev)
-                cache = pm.paginate_cache(cache, max_len)
-                pages = T.identity_page_table(pm.cfg, 1, max_len)
-            used, t0 = [], time.perf_counter()
-            for i in range(SWEEP_LAUNCHES):
-                toks = drafts[i:i + 1].copy() if tokens is None else tokens[i]
-                if tokens is None:
-                    toks[0, 0] = int(logits[-1].reshape(-1, cfg.vocab_size)[0].argmax())
-                used.append(toks)
-                lg = (pm or model).decode_tokens(params, cache, toks, [SWEEP_PROMPT + i], [0], pages=pages)
-                logits.append(lg.float())
-            torch.cuda.synchronize()
-            return logits, used, prefill_ms, (time.perf_counter() - t0) * 1e3 / SWEEP_LAUNCHES
-
-        reset_launch_counts()
-        got, used, prefill_ms, decode_ms = run()
-        paged_equal = None
-        if pool:
-            got_p, _, _, _ = run(used, paged=True)
-            paged_equal = all(torch.equal(a, b) for a, b in zip(got[1:], got_p[1:]))
-            if not paged_equal:
-                raise AssertionError(f"arch sweep {arch}: the paged launches (identity table) are not bitwise "
-                                     f"the contiguous ones")
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        with plain_versions():
-            want, _, plain_prefill_ms, plain_decode_ms = run(used)
-        if counts != launch_counts():
-            raise AssertionError(f"arch sweep {arch}: a kernel launched on the plain path")
-        errs = []
-        for i, (g, w) in enumerate(zip(got, want)):
-            if not (g.shape[-1] == cfg.vocab_size and bool(torch.isfinite(g).all())):
-                raise AssertionError(f"arch sweep {arch}: step {i} logits not finite or of the wrong shape")
-            scale = max(1.0, float(w.abs().max()))
-            errs.append(float((g - w).abs().max()) / scale)
-            if errs[-1] > SWEEP_TOL:
-                raise AssertionError(f"arch sweep {arch}: step {i} logits differ from the plain path's by "
-                                     f"{errs[-1]:.3e} of the scale {scale:.3g} (> {SWEEP_TOL})")
-        kinds = set(cfg.layer_kinds)
-        expect = ["flash_attention"] if kinds & {"attn", "moe"} else []
-        if kinds & {"attn", "moe"}:
-            expect.append("flash_decode_window" if T.window_of(cfg) else "flash_decode")
-        if pool:
-            expect.append("flash_decode_paged")
-        if "moe" in kinds:
-            expect += ["decode_moe", "gather_swiglu", "down_combine"]
-        if "rec" in kinds:
-            expect.append("rglru_scan")
-        if "ssm" in kinds:
-            expect.append("ssd_scan")
-        if min(counts[n] for n in expect) <= 0:
-            raise AssertionError(f"arch sweep {arch}: a kernel of its path never launched: {counts}")
-        out[arch] = dict(
-            layers=layers, layers_published=full.num_layers, head_dim=cfg.resolved_head_dim,
-            group=cfg.num_heads // cfg.num_kv_heads, spec_tokens=Tn, frontend=cfg.frontend,
-            max_err_of_scale=max(errs), errs_of_scale=errs, paged_bitwise_contiguous=paged_equal,
-            kernel_launches={n: counts[n] for n in expect}, weight_bytes=weight_bytes, peak_memory_bytes=peak,
-            prefill_ms=prefill_ms, decode_ms_per_launch=decode_ms, plain_prefill_ms=plain_prefill_ms,
-            plain_decode_ms_per_launch=plain_decode_ms,
-        )
-        del model, params, got, want
-    torch.cuda.empty_cache()
+        out[arch] = sweep_one(dev, arch, full, {}, SWEEP_DEPTH.get(arch, SWEEP_LAYERS))
+    for arch in HD_ARCHS.values():
+        for tag, kv in (("+local", {}), ("+local+int8", dict(kv_dtype="int8"))):
+            mixed = dict(block_pattern=("attn", "local"), local_window=SWEEP_WINDOW, **kv)
+            out[arch + tag] = sweep_one(dev, arch + tag, get_config(arch), mixed, SWEEP_LAYERS)
     return out
+
+
+def sweep_one(dev, name, full, extra, layers):
+    """One arch-sweep run (:func:`arch_sweep`) of config ``full`` with the
+    fields ``extra``, cut to ``layers`` layers; ``name`` tags its errors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+
+    recurrent = any(k in T.STATE_KINDS for k in full.layer_kinds[:layers])
+    Tn = 1 if recurrent else SPEC
+    cfg = dataclasses.replace(full, num_layers=layers, decode_plane=True, spec_tokens=Tn, **extra)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    params = model.init(0)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rng = np.random.default_rng(len(name))
+    prompt = rng.integers(0, cfg.vocab_size, (1, SWEEP_PROMPT))
+    drafts = rng.integers(0, cfg.vocab_size, (SWEEP_LAUNCHES, Tn))
+    max_len = SWEEP_PROMPT + SWEEP_LAUNCHES + Tn
+    pool = T.has_full_attention(cfg)
+
+    def run(tokens=None, paged=False):
+        """Prefill and the decode launches; ``tokens`` fixes each
+        launch's input (else the greedy token + drafts)."""
+        cache = model.init_cache(1, max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = [model.prefill(params, prompt, cache, frontend=model.frontend_stub(1)).float()]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        pm = pages = None
+        if paged:
+            pm = Model(dataclasses.replace(cfg, paged=True), device=dev)
+            cache = pm.paginate_cache(cache, max_len)
+            pages = T.identity_page_table(pm.cfg, 1, max_len)
+        used, t0 = [], time.perf_counter()
+        for i in range(SWEEP_LAUNCHES):
+            toks = drafts[i:i + 1].copy() if tokens is None else tokens[i]
+            if tokens is None:
+                toks[0, 0] = int(logits[-1].reshape(-1, cfg.vocab_size)[0].argmax())
+            used.append(toks)
+            lg = (pm or model).decode_tokens(params, cache, toks, [SWEEP_PROMPT + i], [0], pages=pages)
+            logits.append(lg.float())
+        torch.cuda.synchronize()
+        return logits, used, prefill_ms, (time.perf_counter() - t0) * 1e3 / SWEEP_LAUNCHES
+
+    reset_launch_counts()
+    got, used, prefill_ms, decode_ms = run()
+    paged_equal = None
+    if pool:
+        got_p, _, _, _ = run(used, paged=True)
+        paged_equal = all(torch.equal(a, b) for a, b in zip(got[1:], got_p[1:]))
+        if not paged_equal:
+            raise AssertionError(f"arch sweep {name}: the paged launches (identity table) are not bitwise "
+                                 f"the contiguous ones")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with plain_versions():
+        want, _, plain_prefill_ms, plain_decode_ms = run(used)
+    if counts != launch_counts():
+        raise AssertionError(f"arch sweep {name}: a kernel launched on the plain path")
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (g.shape[-1] == cfg.vocab_size and bool(torch.isfinite(g).all())):
+            raise AssertionError(f"arch sweep {name}: step {i} logits not finite or of the wrong shape")
+        scale = max(1.0, float(w.abs().max()))
+        errs.append(float((g - w).abs().max()) / scale)
+        if errs[-1] > SWEEP_TOL:
+            raise AssertionError(f"arch sweep {name}: step {i} logits differ from the plain path's by "
+                                 f"{errs[-1]:.3e} of the scale {scale:.3g} (> {SWEEP_TOL})")
+    attn = [k for k in cfg.layer_kinds if k not in T.STATE_KINDS]
+    expect = ["flash_attention"] if attn else []
+    if any(T.window_of(cfg, k) for k in attn):
+        expect.append("flash_decode_window")
+    if pool:
+        expect += ["flash_decode", "flash_decode_paged"]
+    kinds = set(cfg.layer_kinds)
+    if "moe" in kinds:
+        expect += ["decode_moe", "gather_swiglu", "down_combine"]
+    if "rec" in kinds:
+        expect.append("rglru_scan")
+    if "ssm" in kinds:
+        expect.append("ssd_scan")
+    if cfg.kv_dtype == "int8":
+        expect = int8_path(expect)
+    if min(counts[n] for n in expect) <= 0:
+        raise AssertionError(f"arch sweep {name}: a kernel of its path never launched: {counts}")
+    row = dict(
+        layers=layers, layers_published=full.num_layers, head_dim=cfg.resolved_head_dim,
+        group=cfg.num_heads // cfg.num_kv_heads, spec_tokens=Tn, frontend=cfg.frontend,
+        max_err_of_scale=max(errs), errs_of_scale=errs, paged_bitwise_contiguous=paged_equal,
+        kernel_launches={n: counts[n] for n in expect}, weight_bytes=weight_bytes, peak_memory_bytes=peak,
+        prefill_ms=prefill_ms, decode_ms_per_launch=decode_ms, plain_prefill_ms=plain_prefill_ms,
+        plain_decode_ms_per_launch=plain_decode_ms,
+    )
+    if extra:
+        row.update(block_pattern=cfg.block_pattern, local_window=cfg.local_window, kv_dtype=cfg.kv_dtype)
+    del model, params, got, want
+    torch.cuda.empty_cache()
+    return row
 
 
 def compiled_launch(rep, vocab, shared=0, prompt=PROMPT, gen=GEN, n=4):
@@ -3687,10 +3848,15 @@ EP_ONLY = ("grouped_gemm", "moe_dispatch", "moe_combine")
 # count, the arch of the run that launches it at that shape)
 ARCH_ROWS = {f"{k}_hd{hd}": (k, arch) for hd, arch in HD_ARCHS.items()
              for k in ("flash_decode", "flash_decode_paged", "flash_attention")}
+# kernel 7 at a 4,096-token prompt (launches: the arch's sweep run), kernel 6
+# and its int8 branch (launches: the sweep's mixed local stacks of the arch)
+ARCH_ROWS.update({f"flash_attention_hd{hd}_long": ("flash_attention", arch) for hd, arch in HD_ARCHS.items()})
+ARCH_ROWS.update({f"flash_decode_window{q}_hd{hd}": (f"flash_decode_window{q}", f"{arch}+local{q.replace('_', '+')}")
+                  for hd, arch in HD_ARCHS.items() for q in ("", "_int8")})
 ARCH_ROWS.update({f"{k}_llama4": (k, LLAMA4) for k in ("decode_moe", "gather_swiglu", "down_combine")})
 # smoke twins of the last slice's archs and planes (phase smoke_twin_archs)
 ARCH_TWINS = ("llama4_spec4", "dense_qkvbias_paged", "vlm_frontend", "audio_frontend", "local_paged_tree2x1",
-              "int8_local_paged_tree2x1", "hybrid_paged", "ssm_paged")
+              "int8_local_paged_tree2x1", "hybrid_paged", "ssm_paged", "mixed_local_spec2", "mixed_local_paged_spec2")
 
 
 def main() -> int:
@@ -3821,9 +3987,9 @@ def main() -> int:
             launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
-    # the last slice's rows: kernels 1, 5, 7 at hd 96 and 160 (launches in the
-    # arch sweep's run of the arch with that head dim), kernels 2-4 at
-    # Llama-4's shapes (launches in llama4_serve)
+    # the last slices' rows: kernels 1, 5, 6, 6q, 7 at hd 96 and 160 (launches
+    # in the arch sweep's run of the arch with that head dim, or of its mixed
+    # local stack), kernels 2-4 at Llama-4's shapes (launches in llama4_serve)
     for name, (wrapper, arch) in ARCH_ROWS.items():
         source, replaces = KERNELS[wrapper]
         r = rows[name]

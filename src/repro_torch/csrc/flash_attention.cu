@@ -12,38 +12,57 @@
 // What bounds it on the card: operations.  A 4,096-token RecurrentGemma
 // prompt under a 2,048 window makes 6.29 M visible (query, key) pairs per
 // head, 4 * hd FLOPs each: ~6.4e10 FLOPs against ~63 MB of q, k, v and out,
-// ~1,000 FLOP a byte, above the card's ~295.  On CUDA cores in f32 that is
-// ~1 ms at best (67 TFLOP/s); the bf16 tensor cores offer 989.
+// ~1,000 FLOP a byte, above the card's ~295; a 4,096-token causal prompt of
+// Phi-3-Vision (32 heads of 96) or StableLM-12B (32 of 160) is 1.0e11 or
+// 1.7e11 FLOPs against ~0.1 GB.  On CUDA cores in f32 that is ~1 ms at best
+// (67 TFLOP/s); the bf16 tensor cores offer 989.
 //
 // Two paths, chosen by the wrapper from dtype and hd alone:
 //
-// Tensor cores (bf16, hd 128 and 256; the serving paths' prefill).  One
-// warpgroup (128 threads) per (tile of query positions, kv head, sequence):
+// Tensor cores (bf16, hd 96, 128, 160 and 256: every registered arch's
+// prefill).  One warpgroup (128 threads) per (tile of query positions, kv
+// head, sequence):
 //  * Rows are (query position, head) pairs of one KV head's group, 64 a
 //    block: 6 positions x 10 heads + 4 dead rows for RecurrentGemma, 4 x 16
-//    for Qwen3-MoE.  Each K/V tile then feeds the whole group.  Dead rows
-//    and the ragged last tile's rows are computed and never stored.
+//    for Qwen3-MoE, 16 x 4 for StableLM-12B, 64 x 1 for Phi-3-Vision.  Each
+//    K/V tile then feeds the whole group.  Dead rows and the ragged last
+//    tile's rows are computed and never stored.
 //  * TMA brings Q once and K/V tiles of 64 keys into a two-stage ring,
 //    completing on mbarriers: tile i + 1 loads while tile i computes.  Each
-//    tile is hd / 64 boxes of 64 rows x 128 bytes, 128-byte swizzled (Q 32
-//    KB, K and V 32 KB each per stage at hd 256: ~160 KB, one block an SM;
-//    80 KB at hd 128).  Keys past Skv arrive as zeros and are masked.
-//  * S = Q K^T by wgmma m64n64k16 (bf16 in, f32 out) from shared memory;
-//    the causal / window mask and the online softmax (exp2, f32) run on the
-//    accumulator registers, each thread holding two rows.  Key tiles wholly
-//    outside the band are never visited.
+//    tile is ceil(hd / 64) boxes of 64 rows x 128 bytes, 128-byte swizzled;
+//    the tensor maps keep the true hd as their innermost dim, so at hd 96
+//    and 160 TMA fills the columns past hd (32 of the last box) with zeros,
+//    and each barrier expects the whole boxes' bytes, zeros included.  Q
+//    16 / 24 / 32 KB and K, V as much each per stage at hd 96 / 160 / 256:
+//    ~80 / 121 / 161 KB.  Keys past Skv arrive as zeros and are masked.
+//  * S = Q K^T by hd / 16 steps of wgmma m64n64k16 (bf16 in, f32 out) from
+//    shared memory (the zero columns are never multiplied); the causal /
+//    window mask and the online softmax (exp2, f32) run on the accumulator
+//    registers, each thread holding two rows.  Key tiles wholly outside the
+//    band are never visited.
 //  * O += P V by wgmma m64n{hd}k16 with P as the register A operand (the
 //    accumulator layout of S is the A layout) and V read MN-major (V's rows
-//    are keys, hd contiguous).  bf16 P alone would carry a 2^-9 relative
-//    error into every output (above the bf16 gate's 1e-3 x rms floor where
-//    outputs cancel; tests/test_torch_cuda_builds.py builds this file with
-//    the lo half zeroed and counts the misses), so P is split into
+//    are keys, hd contiguous) across the 64-column boxes.  At hd 96 and 160
+//    N is not a whole number of the swizzle's 64-column atoms; the
+//    descriptor (column blocks a box apart) still addresses the partial
+//    last atom (tests/test_torch_cuda_kernels.py holds it at ragged
+//    shapes).  N padded to 128 / 192 over the zero columns was right too,
+//    but it multiplies the zeros and holds 16 / 32 more accumulator
+//    registers a thread.  bf16 P
+//    alone would carry a 2^-9 relative error into every output (above the
+//    bf16 gate's 1e-3 x rms floor where outputs cancel;
+//    tests/test_torch_cuda_builds.py builds this file with the lo half
+//    zeroed and counts the misses at hd 256 and 160), so P is split into
 //    hi = bf16(P) and lo = bf16(P - hi) and both products go into the same
 //    f32 accumulator: P is carried to ~2^-17, for twice the P.V work.
-//    O (64 x hd f32) stays in registers.
+//    O (64 x hd f32, hd / 2 registers a thread) stays in registers.
 //  * No atomics and a fixed key order: a repeated launch is bitwise equal.
+//  * What still bounds it: S, the softmax and P.V run one after another in
+//    the one warpgroup (each wgmma waited on before the softmax), so the
+//    tensor cores idle while the exponentials run, and P.V is done twice
+//    (hi, lo): ~5x the operation bound at 4,096 tokens.
 //
-// CUDA cores (f32 at every hd, bf16 at hd 16, 32, 64, 96 and 160):
+// CUDA cores (f32 at every hd, bf16 at hd 16, 32 and 64):
 //  * One block per (tile of query positions, kv head, sequence) takes the
 //    whole query group of that KV head: BQ positions x group heads = up to
 //    64 (query, head) rows, so each K/V tile is read from memory once per
@@ -224,12 +243,12 @@ constexpr int ROWS = 64;           // (query position, head) rows a block
 constexpr int BN = 64;             // keys a tile
 constexpr int BOX = 64 * 128;      // bytes of one box: 64 rows x 64 bf16
 
-// shared memory: Q (hd / 64 boxes), then two stages of K and V, then three
+// shared memory: Q (ceil(hd / 64) boxes), then two stages of K and V, then three
 // mbarriers (Q, stage 0, stage 1); the base is aligned to 1,024 bytes (the
 // 128-byte swizzle's period) by hand
 template <int HD>
 struct Layout {
-  static constexpr int KB = HD / 64;
+  static constexpr int KB = (HD + 63) / 64;
   static constexpr int KV = KB * BOX;
   static constexpr int STAGE = 2 * KB * BOX;
   static constexpr int BAR = KV + 2 * STAGE;
@@ -378,9 +397,16 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
       if constexpr (HD == 256) {
         sm90::wgmma_rs_m64n256k16(o, ah, dv);
         sm90::wgmma_rs_m64n256k16(o, al, dv);
-      } else {
+      } else if constexpr (HD == 160) {
+        sm90::wgmma_rs_m64n160k16(o, ah, dv);
+        sm90::wgmma_rs_m64n160k16(o, al, dv);
+      } else if constexpr (HD == 128) {
         sm90::wgmma_rs_m64n128k16(o, ah, dv);
         sm90::wgmma_rs_m64n128k16(o, al, dv);
+      } else {
+        static_assert(HD == 96, "the tensor-core build's head dims: 96, 128, 160, 256");
+        sm90::wgmma_rs_m64n96k16(o, ah, dv);
+        sm90::wgmma_rs_m64n96k16(o, al, dv);
       }
     }
     sm90::wgmma_commit();
@@ -439,7 +465,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 // q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out (B, Sq, nq, hd), all
 // contiguous; nq / nkv <= 64; f32 at hd in {16, 32, 64, 96, 128, 160, 256},
-// bf16 at hd in {16, 32, 64, 96, 160} (bf16 at 128 and 256 is
+// bf16 at hd in {16, 32, 64} (bf16 at 96, 128, 160 and 256 is
 // repro_flash_attention_tc's).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
                                      int Sq, int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
@@ -452,10 +478,14 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
       case 16: return launch_hd<T, 16>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 32: return launch_hd<T, 32>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 64: return launch_hd<T, 64>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 96: return launch_hd<T, 96>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 160: return launch_hd<T, 160>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 96:
+        if constexpr (F32) return launch_hd<T, 96>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
       case 128:
         if constexpr (F32) return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
+      case 160:
+        if constexpr (F32) return launch_hd<T, 160>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
         return (int)cudaErrorInvalidValue;
       case 256:
         if constexpr (F32) return launch_hd<T, 256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
@@ -467,15 +497,17 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
 }
 
 // The tensor-core path: bf16 q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out
-// (B, Sq, nq, hd), all contiguous and 16-byte aligned; hd in {128, 256};
-// nq / nkv <= 64.
+// (B, Sq, nq, hd), all contiguous and 16-byte aligned; hd in {96, 128, 160,
+// 256}; nq / nkv <= 64.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                                         int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
                                         void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > tc::ROWS || window < 0)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
+    case 96: return tc::launch<96>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
     case 128: return tc::launch<128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    case 160: return tc::launch<160>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
     case 256: return tc::launch<256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -359,15 +359,21 @@ def flash_decode_window(
     return flash_decode_window_kernel(q, k, v, positions, scales, window=window)
 
 
-_FA_TC_HEAD_DIMS = (128, 256)
+_FA_TC_HEAD_DIMS = (96, 128, 160, 256)
 _FA_MAX_GROUP = 64
+# the C signatures of repro_flash_attention_tc and (a dtype code first)
+# repro_flash_attention
+_FA_TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_FA_ARGTYPES = [ctypes.c_int] + _FA_TC_ARGTYPES
 
 
 def flash_attention_path(dtype: torch.dtype, hd: int) -> str:
     """Which build of kernel 7 a launch takes, from its dtype and head dim
     alone: ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA) for bf16 at head
-    dims 128 and 256, the serving paths' prefill; ``"cuda_cores"`` (f32
-    products) for f32 and for bf16 at the small head dims."""
+    dims 96, 128, 160 and 256, every registered arch's prefill;
+    ``"cuda_cores"`` (f32 products) for f32 at every head dim and for bf16
+    at 16, 32 and 64.  Raises ``ValueError`` for a head dim no build has."""
+    _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", "flash_attention")
     return "tensor_cores" if dtype == torch.bfloat16 and hd in _FA_TC_HEAD_DIMS else "cuda_cores"
 
 
@@ -385,33 +391,43 @@ def flash_attention_kernel(
     :func:`flash_attention_path` names."""
     what = "flash_attention"
     B, Sq, nq, hd = q.shape
-    _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, f"k shape {tuple(k.shape)}", what)
-    _check(v.shape == k.shape, f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
-    Skv, nkv = k.shape[1], k.shape[2]
-    _check(nq % nkv == 0, f"{nq} query heads not a multiple of {nkv} kv heads", what)
-    _check(q.dtype == k.dtype == v.dtype, f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
-    _check(window >= 0, f"window must be >= 0, got {window}", what)
+    _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, lambda: f"k shape {tuple(k.shape)}", what)
+    _check(v.shape == k.shape, lambda: f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
+    nkv = k.shape[2]
+    _check(nq % nkv == 0, lambda: f"{nq} query heads not a multiple of {nkv} kv heads", what)
+    _check(q.dtype == k.dtype == v.dtype, lambda: f"dtypes {q.dtype}, {k.dtype}, {v.dtype} differ", what)
+    _check(window >= 0, lambda: f"window must be >= 0, got {window}", what)
     dev = q.device
     _check(k.device == dev and v.device == dev, "tensors on different devices", what)
     if dev.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window)
-    _check(dev.type == "cuda", f"unsupported device {dev}", what)
-    _check(hd in _HEAD_DIMS, f"head_dim {hd} not in {_HEAD_DIMS}", what)
-    _check(nq // nkv <= _FA_MAX_GROUP, f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
-    _check(all(t.is_contiguous() for t in (q, k, v)), "tensors must be contiguous", what)
+    _check(dev.type == "cuda", lambda: f"unsupported device {dev}", what)
+    out = _launch_prefill(q, k, v, causal, window)
+    flash_attention_kernel.launches += 1
+    return out
+
+
+def _launch_prefill(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """Kernel 7's launch checks, then its launch on the build
+    :func:`flash_attention_path` names (``repro_flash_attention_tc`` or
+    ``repro_flash_attention``); a refused launch raises, nothing falls
+    back."""
+    what = "flash_attention"
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    path = flash_attention_path(q.dtype, hd)
+    _check(nq // nkv <= _FA_MAX_GROUP, lambda: f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
+    _check(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(), "tensors must be contiguous", what)
     out = torch.empty_like(q)
     shape = (B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))
-    if flash_attention_path(q.dtype, hd) == "tensor_cores":
-        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), "q, k and v must be 16-byte aligned", what)
-        fn = function("flash_attention", "repro_flash_attention_tc",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-        rc = fn(ptr(q), ptr(k), ptr(v), ptr(out), *shape)
+    if path == "tensor_cores":
+        _check((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0, "q, k and v must be 16-byte aligned", what)
+        rc = function("flash_attention", "repro_flash_attention_tc", _FA_TC_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape)
     else:
-        fn = function("flash_attention", "repro_flash_attention",
-                      [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-        rc = fn(dtype_code(q.dtype), ptr(q), ptr(k), ptr(v), ptr(out), *shape)
+        rc = function("flash_attention", "repro_flash_attention", _FA_ARGTYPES)(
+            dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape)
     check_launch(rc, what)
-    flash_attention_kernel.launches += 1
     return out
 
 

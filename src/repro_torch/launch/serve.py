@@ -767,7 +767,7 @@ def make_replica_factory(cfg, slots: int, max_len: int, params, ladder, *, draft
     (``shrink_to``) is not ported yet."""
     if shrink_to is not None:
         raise NotImplementedError("the elastic re-shard rebuild (shrink_to, runtime.elastic) comes with the "
-                                  "cross-process fabric in a later slice of the port")
+                                  "distribution slice, a later slice of the port (with the data axis)")
 
     def make(replica_id: int, level: int, params_=None, shrunk: bool = False):
         tr, width = ladder[min(level, len(ladder) - 1)]
@@ -1100,7 +1100,7 @@ def main(argv=None) -> int:
                  f"torchrun --nproc-per-node {args.data * args.model} (WORLD_SIZE is {world or 'unset'})")
     if checkpoint_every and args.model > 1:
         ap.error("fabric checkpoints of a rank's expert slice (--inject or --checkpoint-every with "
-                 "--model > 1) come with the cross-process fabric in a later slice")
+                 "--model > 1) come with a sharded fabric save in the distribution slice, a later slice of the port")
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)

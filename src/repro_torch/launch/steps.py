@@ -36,7 +36,7 @@ from repro_torch.core.plans import TreePlan
 from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import STATE_KINDS, decode_constants, max_pages_for
+from repro_torch.models.transformer import decode_constants, max_pages_for
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
 from repro_torch.parallel.sharding import batch_spec, expert_slice
 
@@ -314,8 +314,7 @@ class _SpecServeStep:
                  graphs: Optional[GraphPool] = None):
         cfg = model.cfg
         Tn = tree.num_nodes if tree is not None else max(cfg.spec_tokens, 1)
-        attn = [c for kind, c in zip(cfg.layer_kinds, cache) if kind not in STATE_KINDS]
-        paged = bool(attn) and "pk" in attn[0]
+        paged = any("pk" in c for c in cache)
         # the paged plane's commit maps also move rolling buffers' rows
         self.branchy = cfg.paged and tree is not None and not tree.is_chain()
         self.plane = "paged branchy" if self.branchy else "paged chain" if paged else "contiguous"

@@ -1,6 +1,6 @@
 """Model facade (port of ``repro/models/model.py``): init, cache, prefill,
 speculative chain and tree decode, and the cache surgery of continuous
-batching (contiguous, paged and rolling) for the ``moe``/``attn``/``rec``/``ssm``
+batching (contiguous, paged and rolling) for the ``moe``/``attn``/``local``/``rec``/``ssm``
 decoder stack, with the vision / audio frontend stub.
 
 The cache is updated in place by :meth:`Model.prefill`,
@@ -184,16 +184,17 @@ class Model:
         if tree.num_nodes != Tn:
             raise ValueError(f"tree has {tree.num_nodes} nodes but the launch carries {Tn} tokens")
         lengths = np.asarray(lengths, np.int64).reshape(B)
-        attn = [c for kind, c in zip(self.cfg.layer_kinds, cache) if kind not in T.STATE_KINDS]
-        paged = bool(attn) and "pk" in attn[0]
+        full = [c for kind, c in zip(self.cfg.layer_kinds, cache)
+                if kind not in T.STATE_KINDS and not T.window_of(self.cfg, kind)]
+        paged = bool(full) and "pk" in full[0]
         if paged and pages is None:
             raise ValueError("paged cache without a block table: pass pages=(B, max_pages) int32 "
                              "(see models.transformer.identity_page_table)")
         if paged:
             pages = np.asarray(pages, np.int32)
             max_len = pages.shape[1] * self.cfg.page_size
-        elif attn and not T.window_of(self.cfg):
-            max_len = attn[0]["k"].shape[1]
+        elif full:
+            max_len = full[0]["k"].shape[1]
         if lengths.min() < 0 or (max_len is not None and lengths.max() + Tn > max_len):
             raise ValueError(f"positions up to {lengths.max() + Tn - 1} fall outside the cache of {max_len} rows")
         prev = np.zeros((B,), np.int64) if prev_accept is None else np.asarray(prev_accept, np.int64).reshape(B)
@@ -294,8 +295,8 @@ class Model:
         are copied unchanged (they stay unpaged)."""
         ps, mp = self.cfg.page_size, T.max_pages_for(self.cfg, max_len)
         out = []
-        for c in cache:
-            if T.window_of(self.cfg):
+        for kind, c in zip(self.cfg.layer_kinds, cache):
+            if kind not in T.STATE_KINDS and T.window_of(self.cfg, kind):
                 out.append({name: leaf.clone() for name, leaf in c.items()})
                 continue
             n = {}

@@ -1,4 +1,4 @@
-"""Decoder stack for the ``moe``, ``attn``, ``rec`` and ``ssm`` layer kinds
+"""Decoder stack for the ``moe``, ``attn``, ``local``, ``rec`` and ``ssm`` layer kinds
 (port of ``repro/models/transformer.py``: contiguous, paged and
 rolling-window KV caches, RG-LRU and SSD state, chain and tree
 speculation).
@@ -20,9 +20,11 @@ the plan for the next one.  Attention reads only each token's valid cache
 prefix (:mod:`repro_torch.kernels.flash_attention`), the expert FFN runs the
 plan-steered kernel (:mod:`repro_torch.kernels.moe_decode`).
 
-Local attention (``cfg.attention_kind == "local"``): every attention layer
-keeps a rolling buffer of ``min(max_len, window + spec slack)`` rows, the
-token at position ``pos`` in slot ``pos % W`` (:func:`rolling_rows`);
+Local attention (a ``local`` layer, or every attention layer under
+``cfg.attention_kind == "local"``; :func:`window_of` decides per layer, so
+one stack may mix full and windowed layers): the layer keeps a rolling
+buffer of ``min(max_len, window + spec slack)`` rows, the token at
+position ``pos`` in slot ``pos % W`` (:func:`rolling_rows`);
 prefill attends through the window mask and decode through the
 window-steered flash-decode kernel, so KV memory is bounded by the window
 whatever the prompt's length.  Rolling buffers stay unpaged under
@@ -83,7 +85,7 @@ from repro_torch.models.layers import Params
 MoeApply = Callable[[torch.Tensor, Optional[torch.Tensor], Params], Tuple[torch.Tensor, Any]]
 DecodeApply = Callable[[torch.Tensor, DecodePlan, Params], torch.Tensor]
 
-_KINDS = ("attn", "moe", "rec", "ssm")
+_KINDS = ("attn", "local", "moe", "rec", "ssm")
 # the paged pool's leaves: int8-or-not payload rows, then (int8) their scales
 POOL_LEAVES = ("pk", "pv", "pks", "pvs")
 # the contiguous (or rolling) cache's leaves, in the same order
@@ -93,19 +95,29 @@ KV_LEAVES = ("k", "v", "ks", "vs")
 STATE_KINDS = ("rec", "ssm")
 
 
-def window_of(cfg: ModelConfig) -> int:
-    """The attention layers' local window (0 = full attention)."""
-    return cfg.local_window if cfg.attention_kind == "local" else 0
+def window_of(cfg: ModelConfig, kind: str) -> int:
+    """The local window of an attention layer of ``kind`` (0 = full
+    attention): ``cfg.local_window`` for a ``local`` layer and, under
+    ``cfg.attention_kind == "local"``, for every attention layer (the
+    reference's per-layer rule)."""
+    return cfg.local_window if kind == "local" or cfg.attention_kind == "local" else 0
+
+
+def has_full_attention(cfg: ModelConfig) -> bool:
+    """Whether some layer keeps a full-length KV cache (an ``attn`` or
+    ``moe`` layer outside local attention): the layers the paged plane
+    pools and whose rows bound a position."""
+    return any(k not in STATE_KINDS and not window_of(cfg, k) for k in cfg.layer_kinds)
 
 
 def _check_kind(kind: str, cfg: ModelConfig) -> None:
     if kind not in _KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is ported in a later slice")
+        raise ValueError(f"unknown layer kind {kind!r}; known: {_KINDS}")
     if cfg.attention_kind not in ("full", "local"):
         raise NotImplementedError("this slice serves full and local attention")
     if cfg.kv_dtype not in ("", "int8"):
         raise ValueError(f"kv_dtype must be '' or 'int8', got {cfg.kv_dtype!r}")
-    if cfg.attention_kind == "local" and cfg.local_window <= 0:
+    if kind not in STATE_KINDS and (kind == "local" or cfg.attention_kind == "local") and cfg.local_window <= 0:
         raise ValueError("local attention needs local_window > 0")
 
 
@@ -191,13 +203,14 @@ def identity_page_table(cfg: ModelConfig, batch: int, max_len: int) -> torch.Ten
     return torch.arange(batch, dtype=torch.int32)[:, None] * mp + torch.arange(mp, dtype=torch.int32)[None, :]
 
 
-def rolling_rows(cfg: ModelConfig, max_len: int) -> int:
-    """Rows of an attention layer's contiguous cache: ``max_len``, or for
-    local attention ``min(max_len, window + slack)``.  The slack is
+def rolling_rows(cfg: ModelConfig, max_len: int, kind: str) -> int:
+    """Rows of the contiguous cache of an attention layer of ``kind``:
+    ``max_len``, or for a local layer ``min(max_len, window + slack)``
+    (:func:`window_of`).  The slack is
     ``spec_tokens - 1`` rounded up to 8: a launch writes all T tokens before
     attending, and with exactly ``window`` slots the later tokens would
     evict positions still inside the earlier tokens' windows."""
-    window = window_of(cfg)
+    window = window_of(cfg, kind)
     if not window:
         return max_len
     slack = -(-(max(int(cfg.spec_tokens), 1) - 1) // 8) * 8
@@ -208,8 +221,8 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     """``rec`` layers: the RG-LRU state (``h`` (B, W) f32, ``conv``);
     ``ssm`` layers: the SSD state (``h`` (B, H, N, P) f32, ``conv``).
     Attention layers: contiguous KV stripes (B, S, nkv, hd) with
-    ``S = rolling_rows(cfg, max_len)`` (a rolling buffer under local
-    attention, paged or not), or under ``cfg.paged`` for full attention the
+    ``S = rolling_rows(cfg, max_len, kind)`` (a rolling buffer for a local
+    layer, paged or not), or under ``cfg.paged`` for full attention the
     flat pool (num_pages * page_size + 1 trash row, nkv, hd), plus, for MoE layers on the decode plane, the
     carried DecodePlan: one row per draft position when ``spec_tokens > 1``
     (per slot, paged or not).  Under ``cfg.kv_dtype == "int8"`` the K/V
@@ -223,7 +236,7 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     hd = cfg.resolved_head_dim
     quant = cfg.kv_dtype == "int8"
     dt = torch.int8 if quant else L.act_dtype(cfg)
-    if cfg.paged and not window_of(cfg):
+    if cfg.paged and not window_of(cfg, kind):
         rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
         c = {
             "pk": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
@@ -233,7 +246,7 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
             c["pks"] = torch.ones((rows,), dtype=torch.float32, device=device)
             c["pvs"] = torch.ones((rows,), dtype=torch.float32, device=device)
     else:
-        S = rolling_rows(cfg, max_len)
+        S = rolling_rows(cfg, max_len, kind)
         c = {
             "k": torch.zeros((batch, S, cfg.num_kv_heads, hd), dtype=dt, device=device),
             "v": torch.zeros((batch, S, cfg.num_kv_heads, hd), dtype=dt, device=device),
@@ -313,7 +326,7 @@ def apply_layer_prefill(
             "prefill writes contiguous stripes; paged caches are seeded through "
             "admission (a contiguous B=1 prefill, then Model.write_cache_slot_paged)"
         )
-    window = window_of(cfg)
+    window = window_of(cfg, kind)
     W = cache["k"].shape[1]
     if S > W and not window:
         raise ValueError(f"prompt of {S} tokens exceeds the cache length {W}")
@@ -674,7 +687,7 @@ def apply_layer_decode_spec(
         _apply_commit(cache, commit, pages, cfg)
     if tree is None:
         tree = TreePlan.chain(T)
-    window = window_of(cfg)
+    window = window_of(cfg, kind)
     rolling_tree = bool(window) and not tree.is_chain()
     if rolling_tree and not cfg.paged:
         raise NotImplementedError(

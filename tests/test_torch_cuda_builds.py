@@ -7,8 +7,9 @@ sources, its library swapped in under the same wrappers.
   decode (kernels 1 and 5 at hd 128, tree words; f32, bf16, int8 K/V: the
   head dims 96 and 160 added instantiations and a P.V guard that the
   power-of-two builds never take), both builds of kernel 7
-  (CUDA cores: f32 at every head dim, bf16 at 16, 32 and 64; tensor cores:
-  bf16 at 128 and 256), both builds of kernel 8 (CUDA cores: f32, and bf16
+  (CUDA cores: f32 at every head dim, 96 and 160 included, bf16 at 16, 32
+  and 64; tensor cores: bf16 at 128 and 256, whose template now also
+  builds 96 and 160), both builds of kernel 8 (CUDA cores: f32, and bf16
   at a ragged shape; tensor cores: bf16 at M tiles of 16, 64 and 256, its
   main loop now shared with kernel 4 through ``csrc/grouped_tc.cuh``),
   kernel 11's CUDA-core build (f32, also at Mamba-2-2.7B's widths, and bf16
@@ -28,7 +29,8 @@ sources, its library swapped in under the same wrappers.
 
 * Kernel 7's tensor-core path carries P into P.V as hi + lo bf16 halves.
   Built with the lo half zeroed (bf16 P alone), it misses the bf16 gate at
-  RecurrentGemma's prefill shape, which the shipped build holds.  Kernel
+  RecurrentGemma's prefill shape (hd 256) and StableLM-12B's (hd 160),
+  which the shipped build holds.  Kernel
   11's tensor-core build carries S, the state and w o x the same way;
   built with its lo halves zeroed it misses the 1e-4 gate at Mamba-2-2.7B's
   admission shape.
@@ -93,7 +95,7 @@ WINDOW_CASES = [f"flash_decode_window {kind}{tag}" for tag in ("float32", "bfloa
 DECODE_CASES = [f"flash_decode {kind}{tag} {policy}" for tag in ("float32", "bfloat16") for kind in ("", "int8 ")
                 for policy in ("contiguous", "paged")]
 PREFILL_CASES = [f"flash_attention {tag} hd {hd} window {w}"
-                 for tag, hds in (("float32", (16, 32, 64, 128, 256)), ("bfloat16", (16, 32, 64, 128, 256)))
+                 for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)), ("bfloat16", (16, 32, 64, 128, 256)))
                  for hd in hds for w in (0, 45)]
 # E,M,K,N; "tc" names a case of the tensor-core build
 GEMM_CASES = [f"grouped_gemm {tag} {shape}" for tag, shape in
@@ -224,9 +226,11 @@ def _misses(got, want) -> int:
 
 
 @pytest.mark.cuda
-def test_flash_attention_p_needs_its_lo_half_on_card(cuda, tmp_path):
+@pytest.mark.parametrize("hd,nq,nkv,window", [(256, 10, 1, 2048), (160, 32, 8, 0)])
+def test_flash_attention_p_needs_its_lo_half_on_card(cuda, tmp_path, hd, nq, nkv, window):
     """RecurrentGemma's prefill shape, q (1, 4096, 10, 256) over one KV head,
-    causal, window 2,048: the shipped build holds the gate on every element;
+    causal, window 2,048, and StableLM-12B's, q (1, 4096, 32, 160) over 8
+    KV heads, causal: the shipped build holds the gate on every element;
     the same source with P's lo half zeroed misses it on some."""
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
@@ -236,13 +240,13 @@ def test_flash_attention_p_needs_its_lo_half_on_card(cuda, tmp_path):
     hi_only = _build(csrc, "flash_attention", tmp_path / "build")
 
     g = torch.Generator(device=cuda).manual_seed(7)
-    q = torch.randn((1, 4096, 10, 256), generator=g, device=cuda).to(torch.bfloat16)
-    k, v = (torch.randn((1, 4096, 1, 256), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
-    assert fa_ops.flash_attention_path(q.dtype, 256) == "tensor_cores"
-    want = fa_ref.flash_attention(q, k, v, causal=True, window=2048)
-    shipped = _misses(fa_ops.flash_attention_kernel(q, k, v, causal=True, window=2048), want)
+    q = torch.randn((1, 4096, nq, hd), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((1, 4096, nkv, hd), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    assert fa_ops.flash_attention_path(q.dtype, hd) == "tensor_cores"
+    want = fa_ref.flash_attention(q, k, v, causal=True, window=window)
+    shipped = _misses(fa_ops.flash_attention_kernel(q, k, v, causal=True, window=window), want)
     with _swapped("flash_attention", hi_only):
-        dropped = _misses(fa_ops.flash_attention_kernel(q, k, v, causal=True, window=2048), want)
+        dropped = _misses(fa_ops.flash_attention_kernel(q, k, v, causal=True, window=window), want)
     print(f"elements outside the bf16 gate of {want.numel()}: hi + lo {shipped}, hi only {dropped}")
     assert shipped == 0
     assert dropped > 0

@@ -425,13 +425,16 @@ def test_flash_decode_window_split_edges_on_card(cuda, dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,nq,nkv", [(256, 10, 1), (128, 16, 2), (256, 16, 1), (128, 10, 2)])
+@pytest.mark.parametrize("hd,nq,nkv", [(256, 10, 1), (128, 16, 2), (256, 16, 1), (128, 10, 2), (96, 32, 32),
+                                      (96, 4, 4), (160, 8, 2)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 45), (False, 0)])
 def test_flash_attention_tensor_core_path_on_card(cuda, hd, nq, nkv, causal, window):
-    """bf16 at hd 128 and 256 takes the wgmma path: groups of 10 (4 dead rows
-    a 64-row tile) and 16, B = 2, S = 197 (a ragged last query tile and a
-    ragged last key tile), window edges inside a 64-key tile; held by the
-    bf16 gate and bitwise equal on a repeated launch."""
+    """bf16 at hd 96, 128, 160 and 256 takes the wgmma path: groups of 10
+    (4 dead rows a 64-row tile), 16, 4 and 1, B = 2, S = 197 (a ragged last
+    query tile and a ragged last key tile), window edges inside a 64-key
+    tile; at 96 and 160 the last 64-column box is part zeros and P.V runs
+    at N = 96 and 160.  Held by the bf16 gate and bitwise equal on a
+    repeated launch."""
     from repro_torch.kernels.flash_attention import ops as ops_
 
     assert ops_.flash_attention_path(torch.bfloat16, hd) == "tensor_cores"
@@ -776,8 +779,9 @@ def test_decode_kernels_at_head_dims_96_and_160_on_card(cuda, kv, hd, nq, nkv):
 @pytest.mark.parametrize("hd,nq,nkv", [(96, 4, 4), (160, 8, 2)])
 def test_window_and_prefill_kernels_at_head_dims_96_and_160_on_card(cuda, dtype, hd, nq, nkv):
     """Kernel 6 (rolling buffers across the wrap, T = 3) and kernel 7
-    (causal and windowed, ragged tiles; the CUDA-core build at both
-    dtypes) at head dims 96 and 160, against their plain versions."""
+    (causal and windowed, ragged tiles; the CUDA-core build in f32, the
+    tensor-core build in bf16) at head dims 96 and 160, against their plain
+    versions."""
     T, W, window, idx = 3, 80, 70, [2, 63, 150, 400]
     B = len(idx)
     q, k, v = (_t(a).to(cuda, dtype) for a in _decode_case(hd, B, T, nq, nkv, hd, W))
@@ -786,7 +790,7 @@ def test_window_and_prefill_kernels_at_head_dims_96_and_160_on_card(cuda, dtype,
     assert torch.equal(got, fa_ops.flash_decode_window_kernel(q, k, v, pos, window=window))
     torch.cuda.synchronize()
     _close(got, fa_ref.flash_decode_window(q, k, v, pos, min(window, W)), dtype)
-    assert fa_ops.flash_attention_path(dtype, hd) == "cuda_cores"
+    assert fa_ops.flash_attention_path(dtype, hd) == ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
     for B, S, causal, win in ((2, 77, True, 0), (1, 130, True, 33), (1, 45, False, 0)):
         rng = np.random.default_rng(S + hd)
         q = _t(rng.standard_normal((B, S, nq, hd)).astype(np.float32)).to(cuda, dtype)
@@ -794,6 +798,24 @@ def test_window_and_prefill_kernels_at_head_dims_96_and_160_on_card(cuda, dtype,
         got = fa_ops.flash_attention_kernel(q, k, v, causal=causal, window=win)
         torch.cuda.synchronize()
         _close(got, fa_ref.flash_attention(q, k, v, causal=causal, window=win), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 128, 160, 256])
+def test_cuda_core_entry_refuses_bf16_at_the_tensor_core_head_dims_on_card(cuda, hd):
+    """``repro_flash_attention`` (the CUDA-core build) returns an error for
+    bf16 at every head dim the tensor-core build takes, so no caller reaches
+    the slower build by calling it; f32 at the same head dim launches."""
+    from repro_torch import kernels
+
+    fn = kernels.function("flash_attention", "repro_flash_attention", fa_ops._FA_ARGTYPES)
+    for dtype, refused in ((torch.bfloat16, True), (torch.float32, False)):
+        q = torch.zeros((1, 9, 2, hd), dtype=dtype, device=cuda)
+        out = torch.empty_like(q)
+        rc = fn(kernels.dtype_code(dtype), q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 9, 9, 2, 2,
+                hd, 1, 0, 0.1, kernels.stream_of(q))
+        torch.cuda.synchronize()
+        assert (rc != 0) == refused, (dtype, rc)
 
 
 def test_head_dims_outside_the_builds_raise():

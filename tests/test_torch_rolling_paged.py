@@ -59,7 +59,7 @@ def test_paged_rolling_chain_crosses_wrap_bitwise(max_len, launches):
     m.prefill(params, prompts, cache)
     pm = Model(dataclasses.replace(cfg, paged=True), device="cpu")
     pcache = pm.paginate_cache(cache, max_len)
-    rows = T.rolling_rows(cfg, max_len)
+    rows = T.rolling_rows(cfg, max_len, "attn")
     assert all("pk" not in c and c["k"].shape[1] == rows for c in pcache)  # rolling leaves stay unpaged
     assert all("pk" not in c for c in pm.init_cache(B, max_len))
     pages = T.identity_page_table(pm.cfg, B, max_len)

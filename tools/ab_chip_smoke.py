@@ -9,9 +9,9 @@ other (never two at once), and keeps each run's record and output as
 ``chiprun_out/ab_summary.json``, one table of what the serving cells
 measured in each run: ``prefill_ms_mean`` and ``ms_per_decode_launch`` of
 every cell, the device idle share of every profile phase, the ``ms`` (and
-``device_ms``) of every kernel row, and, where the run has the phase
+``device_ms``) of every kernel row, where the run has the phase
 ``compiled_launch``, each cell's eager and replayed ms per decode launch
-and idle share.
+and idle share, and each arch-sweep run's prefill and decode ms.
 Exits non-zero if any run did.  Needs the card; a checkout is any
 directory holding the repository's files (``git archive`` of a commit
 unpacked under ``build/``).
@@ -39,7 +39,9 @@ def summary(record: dict) -> dict:
     graphs = {c: {m: r.get(m) for m in ("eager_ms_per_decode_launch", "replayed_ms_per_decode_launch",
                                        "eager_idle_share", "replayed_idle_share")}
               for c, r in record.get("compiled_launch", {}).items() if isinstance(r, dict)}
-    return {"cells": cells, "idle": idle, "kernels": kern, "compiled_launch": graphs}
+    sweep = {a: {m: r.get(m) for m in ("prefill_ms", "decode_ms_per_launch")}
+             for a, r in record.get("arch_sweep", {}).items() if isinstance(r, dict)}
+    return {"cells": cells, "idle": idle, "kernels": kern, "compiled_launch": graphs, "arch_sweep": sweep}
 
 
 def main() -> int:
