@@ -88,6 +88,17 @@ their plain versions on the card, within 2e-2 of the logit scale (and on
 the paged plane bitwise the contiguous launches); then Llama-4-Maverick cut
 to 1 layer and Qwen1.5-4B uncut served on ``full_width``'s traffic, both
 in ``compiled_launch``.
+Training (phases ``train_twin``, ``train_full_width``, ``train_restart``,
+``train_sweep``; ``kernels_vs_plain`` rows ``flash_attention_bwd*``):
+kernel 7's backward against its plain version at StarCoder2-3B's heads
+and at head dims 64, 96 and 160 (the LSE forward's O bitwise the serving
+launch's; SDPA's backward timed beside it), the f32 smoke config trained
+3 steps on the card and on the CPU (losses and params equal), StarCoder2-3B
+at published widths cut to 20 layers trained 6 steps of 4 x 2,048 tokens
+(bf16 over f32 master weights, AdamW, remat; a seventh step profiled),
+the same cut to 2 layers through the fault-tolerant ``Trainer`` with a
+failure injected and replayed, and one step of MusicGen, Phi-3-Vision and
+StableLM-12B cut to 2 layers.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -654,6 +665,7 @@ def kernel_phase(cfg, dev):
     rows.update(int8_kernel_rows(cfg, dev, gen, tol))
     rows.update(head_dim_kernel_rows(dev, gen, tol))
     rows.update(llama4_kernel_rows(dev, gen, tol))
+    rows.update(bwd_kernel_rows(dev, gen))
     return rows
 
 
@@ -3816,6 +3828,314 @@ def smoke_twin_programs(dev):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# training: kernel 7's backward, StarCoder2-3B at full width
+# ---------------------------------------------------------------------------
+
+TRAIN = "starcoder2-3b"
+# of 30: f32 params, gradients and AdamW's two moments of 30 layers (~69 GB)
+# leave no room for activations on one 80 GB card; 20 layers are ~47.6 GB
+TRAIN_LAYERS = 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+TRAIN_LR = 3e-4
+RESTART_LAYERS, RESTART_BATCH, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 2, 4, 2, 3
+# kernel 7's backward at the dense archs' other head dims (hd -> arch), each
+# also trained one step at published widths cut to SWEEP_TRAIN_LAYERS layers
+BWD_ARCHS = {64: "musicgen-large", 96: "phi-3-vision-4.2b", 160: "stablelm-12b"}
+SWEEP_TRAIN_LAYERS = 2
+BWD_SYMBOLS = ("row_dot_kernel", "dkv_kernel", "dq_kernel")
+
+
+def bwd_kernel_rows(dev, gen):
+    """Kernel 7's backward (``7_bwd``) against its plain version at
+    StarCoder2-3B's heads (24 q / 2 kv of 128; row ``flash_attention_bwd``)
+    and at the other dense head dims (``flash_attention_bwd_hd64/96/160``),
+    causal ``TRAIN_SEQ``-token bf16 sequences at the batch of the training
+    run that launches each (``TRAIN_BATCH`` for StarCoder2-3B's
+    ``train_full_width``, 1 for ``train_sweep``'s archs): the LSE forward's O
+    bitwise the serving launch's and its log-sum-exps within 1e-4 of the
+    plain version's (``7_lse``), dQ / dK / dV by the bf16 gate of row 7 on
+    the same O and lse, a bitwise repeat, ms in turns with SDPA's backward
+    (the yardstick), device ms by launch, and the operation bound of 5
+    products of 2 * pairs * hd a head at the bf16 tensor rate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    rows = {}
+    for name, arch in [("flash_attention_bwd", TRAIN)] + [(f"flash_attention_bwd_hd{hd}", a)
+                                                         for hd, a in BWD_ARCHS.items()]:
+        cfg = get_config(arch)
+        nq, nkv, hd, S = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, TRAIN_SEQ
+        G, B = nq // nkv, TRAIN_BATCH if arch == TRAIN else 1
+        tag = f"{name} ({arch})"
+        q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True)
+        if not torch.equal(out, fa_ops.flash_attention_kernel(q, k, v, causal=True)):
+            raise AssertionError(f"{tag}: the LSE forward's O is not bitwise the serving launch's")
+        lse_err = check_close(f"{tag} lse", lse, fa_ref.flash_attention_lse(q, k, v, causal=True)[1], 1e-4)
+
+        def kernel():
+            return fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=True)
+
+        want = fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        err = max(check_bf16(f"{tag} {g}", got, w) for g, got, w in zip(("dq", "dk", "dv"), kernel(), want))
+        del want
+        qt = q.transpose(1, 2).detach().requires_grad_(True)
+        kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_(True) for c in (k, v))
+        o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True)
+
+        pairs = S * (S + 1) // 2
+        flops = 5 * 2.0 * pairs * hd * nq * B
+        nbytes = (3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4 + (q.numel() + 2 * k.numel()) * 2
+        ms, lib_ms, turns = in_turns(kernel, lib, iters=3, reps=3)
+        rows[name] = dict(
+            max_abs_err=err, lse_max_abs_err=lse_err, lse_o_bitwise_serving=True, ms=ms, ms_in_turns=turns,
+            plain_ms=time_ms(lambda: fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True), iters=1,
+                             reps=3),
+            library_ms=lib_ms, library_device_ms=device_ms(lib, "", n=3),
+            library_call="scaled_dot_product_attention's backward (autograd, is_causal, kv heads expanded "
+                         "beforehand)",
+            device_ms=device_ms(kernel, "", n=3),
+            device_ms_by_launch={sym: device_ms(kernel, sym, n=3) for sym in BWD_SYMBOLS},
+            bitwise_repeat=bitwise_repeat(tag, lambda: torch.cat([t.reshape(-1) for t in kernel()])),
+            arch=arch, group=G, path_forward=fa_ops.flash_attention_path(q.dtype, hd),
+            ptxas=ptxas("flash_attention_bwd", f"kernelI13__nv_bfloat16Li{hd}E"),
+            batch=B, shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal ({pairs} visible pairs a head)",
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+        )
+        del q, k, v, do, out, lse, qt, kt, vt, o_lib
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _finite(name, values):
+    import math
+
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"{name}: a non-finite value in {values}")
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def train_full_width(dev):
+    """StarCoder2-3B at published widths, depth cut to ``TRAIN_LAYERS``:
+    bf16 compute over f32 master weights, AdamW, remat, ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens of ``MarkovLMDataset`` a step through the loader,
+    ``TRAIN_STEPS`` steps of ``build_train_step``, then one more under the
+    profiler (device time by kernel, busy and idle share).  Gates: every
+    loss and grad norm finite; per step 2 x ``TRAIN_LAYERS`` launches of
+    kernel 7 (forward and its recompute) and ``TRAIN_LAYERS`` of its
+    backward."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import MarkovLMDataset, ShardedLoader
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step
+
+    cfg = dataclasses.replace(get_config(TRAIN), num_layers=TRAIN_LAYERS)
+    assert cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32" and cfg.optimizer == "adamw"
+    L, B, S = cfg.num_layers, TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = build_train_step(cfg, dev, ShapeCell("train_full_width", S, B, "train"), lr=TRAIN_LR,
+                               total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    params = step_fn.model.init(0, train=True)
+    opt = step_fn.optimizer.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    loader = ShardedLoader(MarkovLMDataset(cfg.vocab_size, S, seed=0), B, dev)
+    times, losses, gnorms = [], [], []
+    reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        step, batch = next(loader)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, step, batch["tokens"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    counts = {n: c for n, c in launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    _finite("train_full_width loss", losses)
+    _finite("train_full_width grad_norm", gnorms)
+    want = {"flash_attention": TRAIN_STEPS * 2 * L, "flash_attention_bwd": TRAIN_STEPS * L}
+    if counts != want:
+        raise AssertionError(f"train_full_width: launches {counts}, expected {want}")
+    step, batch = next(loader)
+    loader.close()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, step, batch["tokens"])
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_time_by_name(prof)
+    busy = sum(by_name.values())
+    ms = statistics.median(times[1:]) * 1e3
+    d, nq, nkv, hd, f, V = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size
+    matmul_params = L * (2 * d * nq * hd + 2 * d * nkv * hd + 3 * d * f) + V * d
+    pairs = S * (S + 1) // 2
+    model_flops = 6.0 * B * S * matmul_params + 3 * 4.0 * B * pairs * nq * hd * L
+    kernel_ms = {sym: sum(v for n, v in by_name.items() if sym in n)
+                 for sym in ("flash_attention_tc_kernel", *BWD_SYMBOLS)}
+    out = dict(
+        arch=TRAIN, layers=L, of_layers=get_config(TRAIN).num_layers, batch=B, seq_len=S, steps=TRAIN_STEPS,
+        dtype=cfg.dtype, param_dtype=cfg.param_dtype, optimizer=cfg.optimizer, remat=cfg.remat,
+        ms_per_step=ms, step_ms_each=[x * 1e3 for x in times], tokens_per_s=B * S / (ms / 1e3),
+        model_flops_per_step=model_flops, model_flops_share_of_bf16_peak=model_flops / (ms / 1e3) / BF16_FLOPS,
+        loss=losses, grad_norm=gnorms, params=sum(t.numel() for t in _leaves(params)),
+        param_bytes=_tree_bytes(params), opt_state_bytes=_tree_bytes(opt), state_bytes_allocated=state_bytes,
+        peak_memory_allocated=peak, init_s=init_s, kernel_launches=counts,
+        launches_per_step={n: c / TRAIN_STEPS for n, c in counts.items()},
+        profiled_step=dict(wall_ms=prof_wall_ms, device_busy_ms=busy,
+                           device_idle_share_profiled=max(0.0, 1 - busy / prof_wall_ms),
+                           device_idle_share=max(0.0, 1 - busy / ms),
+                           kernel7_ms=kernel_ms, top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])),
+    )
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_twin(dev):
+    """The f32 smoke config, 3 steps of ``build_train_step`` on the card and
+    on the CPU plain path from the same initial weights and batches: losses
+    within 1e-5 relative, params within 1e-5, and the card's steps through
+    kernel 7 and its backward (one launch each a layer a step)."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_smoke_config
+    from repro_torch.data import MarkovLMDataset
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step
+
+    cfg = get_smoke_config(TRAIN)
+    B, S, steps = 2, 64, 3
+    cell = ShapeCell("train_twin", S, B, "train")
+    card, cpu = (build_train_step(cfg, d, cell, lr=1e-3, total_steps=10) for d in (dev, "cpu"))
+    p_cpu = cpu.model.init(0, train=True)
+    p_card = _to(cpu.model.init(0, train=True), dev)  # the same numbers: one seed, one CPU generator
+    o_cpu, o_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
+    ds = MarkovLMDataset(cfg.vocab_size, S, seed=0)
+    losses = []
+    reset_launch_counts()
+    for i in range(steps):
+        tokens = torch.from_numpy(ds.batch(i, B)["tokens"])
+        p_card, o_card, _, m_card = card(p_card, o_card, i, tokens.to(dev))
+        p_cpu, o_cpu, _, m_cpu = cpu(p_cpu, o_cpu, i, tokens)
+        a, b = float(m_card["loss"]), float(m_cpu["loss"])
+        losses.append((a, b))
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"train_twin step {i}: card loss {a} vs CPU {b}")
+    counts = {n: c for n, c in launch_counts().items() if c}
+    want = {"flash_attention": steps * cfg.num_layers, "flash_attention_bwd": steps * cfg.num_layers}
+    if counts != want:
+        raise AssertionError(f"train_twin: launches {counts}, expected {want}")
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(_leaves(p_card), _leaves(p_cpu)))
+    if not err <= 1e-5:
+        raise AssertionError(f"train_twin: params differ by {err:.3e} after {steps} steps")
+    return dict(arch=cfg.name, steps=steps, batch=B, seq_len=S, losses_card_cpu=losses, params_max_abs_err=err,
+                kernel_launches=counts)
+
+
+def train_restart(dev):
+    """StarCoder2-3B at published widths cut to ``RESTART_LAYERS`` layers
+    through the fault-tolerant ``Trainer``: checkpoints every
+    ``RESTART_EVERY`` steps in a temporary directory, a failure injected at
+    step ``RESTART_FAIL`` (restore, seek the stream, replay).  Gate: the
+    replayed step's loss equals the first run's to 5 decimals (bitwise
+    equality reported beside it); the checkpoints' save / restore seconds
+    and bytes."""
+    import tempfile
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.runtime import FailureInjector, Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config(TRAIN), num_layers=RESTART_LAYERS)
+    cell = ShapeCell("train_restart", TRAIN_SEQ, RESTART_BATCH, "train")
+    with tempfile.TemporaryDirectory(prefix="train_restart_") as tmp:
+        tr = Trainer(cfg, cell, dev, TrainerConfig(num_steps=RESTART_STEPS, checkpoint_every=RESTART_EVERY,
+                                                   checkpoint_dir=tmp, keep_checkpoints=1, log_every=100),
+                     failure_injector=FailureInjector(fail_at=[RESTART_FAIL]))
+        t0 = time.perf_counter()
+        res = tr.run()
+        wall_s = time.perf_counter() - t0
+        saves, restores = tr.ckpt.saves, tr.ckpt.restores
+    per_step = {}
+    for m in res["metrics"]:
+        per_step.setdefault(m["step"], []).append(m["loss"])
+    replayed = {s: ls for s, ls in per_step.items() if len(ls) > 1}
+    if res["restarts"] != 1 or sorted(replayed) != [RESTART_FAIL]:
+        raise AssertionError(f"train_restart: restarts {res['restarts']}, replayed steps {sorted(replayed)}")
+    _finite("train_restart loss", [m["loss"] for m in res["metrics"]])
+    for s, ls in replayed.items():
+        if len({round(x, 5) for x in ls}) != 1:
+            raise AssertionError(f"train_restart: step {s} replayed as {ls}")
+    return dict(arch=TRAIN, layers=RESTART_LAYERS, batch=RESTART_BATCH, seq_len=TRAIN_SEQ, steps=RESTART_STEPS,
+                checkpoint_every=RESTART_EVERY, fail_at=RESTART_FAIL, restarts=res["restarts"],
+                losses_by_step=per_step, replayed_bitwise={s: len(set(ls)) == 1 for s, ls in replayed.items()},
+                checkpoint_saves=[dict(step=s, seconds=sec, bytes=b) for s, sec, b, _ in saves],
+                checkpoint_restores=[dict(step=s, seconds=sec, bytes=b) for s, sec, b in restores], wall_s=wall_s)
+
+
+def train_sweep(dev):
+    """One training step of each dense arch of ``BWD_ARCHS`` at published
+    widths, cut to ``SWEEP_TRAIN_LAYERS`` layers (bf16 over f32 master
+    weights, AdamW, remat, one ``TRAIN_SEQ``-token sequence; the frontend
+    stub's features for Phi-3-Vision and MusicGen): kernel 7 and its
+    backward at hd 64, 96 and 160 on a training path.  Gates: loss and grad
+    norm finite, 2 launches of kernel 7 a layer and 1 of its backward."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import MarkovLMDataset, ShardedLoader
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step
+
+    out = {}
+    for hd, arch in BWD_ARCHS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=SWEEP_TRAIN_LAYERS)
+        step_fn = build_train_step(cfg, dev, ShapeCell("train_sweep", TRAIN_SEQ, 1, "train"), lr=TRAIN_LR,
+                                   total_steps=10)
+        params = step_fn.model.init(0, train=True)
+        opt = step_fn.optimizer.init(params)
+        spec = (cfg.frontend_tokens, cfg.frontend_dim) if cfg.frontend else None
+        loader = ShardedLoader(MarkovLMDataset(cfg.vocab_size, TRAIN_SEQ, seed=0), 1, dev, frontend_spec=spec)
+        step, batch = next(loader)
+        loader.close()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, step, batch["tokens"], batch.get("frontend"))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        counts = {n: c for n, c in launch_counts().items() if c}
+        vals = {k: float(v) for k, v in m.items()}
+        _finite(f"train_sweep {arch}", list(vals.values()))
+        L = cfg.num_layers
+        if counts != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
+            raise AssertionError(f"train_sweep {arch}: launches {counts}")
+        out[arch] = dict(head_dim=hd, layers=L, frontend=cfg.frontend, first_step_ms=step_ms, metrics=vals,
+                         param_bytes=_tree_bytes(params), kernel_launches=counts)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+    return out
+
+
 KERNELS = {
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_attention/decode.py:162"),
@@ -3854,6 +4174,8 @@ ARCH_ROWS.update({f"flash_attention_hd{hd}_long": ("flash_attention", arch) for 
 ARCH_ROWS.update({f"flash_decode_window{q}_hd{hd}": (f"flash_decode_window{q}", f"{arch}+local{q.replace('_', '+')}")
                   for hd, arch in HD_ARCHS.items() for q in ("", "_int8")})
 ARCH_ROWS.update({f"{k}_llama4": (k, LLAMA4) for k in ("decode_moe", "gather_swiglu", "down_combine")})
+# kernel 7's backward rows -> the arch of the training run that launches it
+TRAIN_ROWS = {"flash_attention_bwd": TRAIN, **{f"flash_attention_bwd_hd{hd}": a for hd, a in BWD_ARCHS.items()}}
 # smoke twins of the last slice's archs and planes (phase smoke_twin_archs)
 ARCH_TWINS = ("llama4_spec4", "dense_qkvbias_paged", "vlm_frontend", "audio_frontend", "local_paged_tree2x1",
               "int8_local_paged_tree2x1", "hybrid_paged", "ssm_paged", "mixed_local_spec2", "mixed_local_paged_spec2")
@@ -3972,6 +4294,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("compiled_launch", **graphs)
 
+    # training: the twin, the full-width cell, the restart, the head-dim sweep
+    emit("train_twin", **train_twin(dev))
+    train = train_full_width(dev)
+    emit("train_full_width", **train)
+    emit("train_restart", **train_restart(dev))
+    tsweep = train_sweep(dev)
+    emit("train_sweep", **tsweep)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rows[name]
@@ -3998,6 +4328,17 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counts[wrapper], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    # kernel 7's backward (launches: the full-width training cell, or the
+    # sweep's step of the arch with that head dim)
+    for name, arch in TRAIN_ROWS.items():
+        r = rows[name]
+        counts = train["kernel_launches"] if arch == TRAIN else tsweep[arch]["kernel_launches"]
+        kernels.append(dict(
+            name=name, route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces=KERNELS["flash_attention"][1], launches=counts["flash_attention_bwd"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -45,10 +45,10 @@ from repro_torch.parallel.sharding import expert_slice, is_expert_stack
 Leaf = Union[np.ndarray, torch.Tensor]  # a bf16 leaf is a CPU bf16 tensor
 
 
-def _put(tree: dict, path, arr: Leaf, cfg: ModelConfig, device, mesh) -> None:
+def _put(tree: dict, path, arr: Leaf, cfg: ModelConfig, device, mesh, train: bool = False) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
-    dt = storage_dtype(cfg, path[-1])
+    dt = getattr(torch, cfg.param_dtype) if train else storage_dtype(cfg, path[-1])
     sl = expert_slice(cfg, mesh)
     if sl is not None and is_expert_stack(path, arr.shape):
         arr = arr[sl]  # the rank's expert slice, cut before the copy
@@ -63,10 +63,15 @@ def _put(tree: dict, path, arr: Leaf, cfg: ModelConfig, device, mesh) -> None:
         tree[path[-1]] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dt)
 
 
-def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=None) -> Params:
+def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=None, *, train: bool = False) -> Params:
     """{leaf name: array} as the reference writes them -> port params (this
     rank's expert slice when ``mesh`` has a ``model`` axis of more than one
-    rank).  A bf16 leaf may come as a CPU bf16 tensor (:func:`read_leaf`)."""
+    rank).  A bf16 leaf may come as a CPU bf16 tensor (:func:`read_leaf`).
+    With ``train`` every leaf is placed in ``cfg.param_dtype`` (the f32
+    master weights of :meth:`Model.init(train=True)
+    <repro_torch.models.model.Model.init>`) and tied embeddings get no
+    ``unembed`` copy.  A tree of the params' layout whose leaves are dicts
+    (Adafactor's state: ``.../wq/vr``) comes back with those dicts."""
     pat = cfg.block_pattern
     n_sb = cfg.num_layers // len(pat)
     layers = [dict() for _ in range(cfg.num_layers)]
@@ -74,20 +79,34 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=No
     for name, arr in arrays.items():
         parts = name.split("/")
         if parts[0] != "blocks":
-            _put(params, parts, arr, cfg, device, mesh)
+            _put(params, parts, arr, cfg, device, mesh, train)
         elif parts[1] == "scan":
             j = int(parts[2][1:])
             if arr.shape[0] != n_sb:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n_sb} super-blocks")
             for s in range(n_sb):
-                _put(layers[s * len(pat) + j], parts[3:], arr[s], cfg, device, mesh)
+                _put(layers[s * len(pat) + j], parts[3:], arr[s], cfg, device, mesh, train)
         elif parts[1] == "rest":
-            _put(layers[n_sb * len(pat) + int(parts[2])], parts[3:], arr, cfg, device, mesh)
+            _put(layers[n_sb * len(pat) + int(parts[2])], parts[3:], arr, cfg, device, mesh, train)
         else:
             raise ValueError(f"unknown parameter leaf {name!r}")
     if any(not layer for layer in layers):
         raise ValueError("the leaves do not cover every layer of the config")
-    return place_tied_unembed(params, cfg)
+    return params if train else place_tied_unembed(params, cfg)
+
+
+def tree_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device) -> dict:
+    """A training tree from its reference-named leaves, in f32: a tree of the
+    params' layout (names ``embed``, ``blocks/...``) through
+    :func:`params_from_numpy`, and a dict of such trees (AdamW's ``m/...``
+    and ``v/...``) key by key."""
+    if any(name.split("/")[0] in ("blocks", "embed") for name in arrays):
+        return params_from_numpy(cfg, arrays, device, train=True)
+    groups: Dict[str, Dict[str, Leaf]] = {}
+    for name, arr in arrays.items():
+        head, _, rest = name.partition("/")
+        groups.setdefault(head, {})[rest] = arr
+    return {head: tree_from_numpy(cfg, sub, device) for head, sub in groups.items()}
 
 
 def read_leaf(path, dtype: str) -> Leaf:

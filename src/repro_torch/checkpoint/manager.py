@@ -18,7 +18,12 @@ step directory crosses between the two packages both ways.  bf16 leaves are
 stored as the reference stores them (``<V2``, manifest dtype
 ``"bfloat16"``) and read back as bf16 bits.  ``opt_state`` and any params
 that are not the port's model tree are nested dicts of arrays, flattened by
-sorted key.
+sorted key; a subtree in the model's layout inside them (AdamW's ``m`` and
+``v``, Adafactor's whole state) is written under the reference's names
+too (``m/blocks/scan/b0/attn/wq``), so a trainer's step directory holds
+what the reference's holds.  A ``train`` manager places restored params
+at ``cfg.param_dtype`` and rebuilds such an optimizer state
+(:func:`bridge.tree_from_numpy`).
 
 Weights that never change (a serving fabric checkpoints the same params
 every few rounds) are written once: when every tensor of ``params`` is the
@@ -42,7 +47,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.checkpoint.bridge import leaf_order, leaves_from_params, params_from_numpy, read_leaf
+from repro_torch.checkpoint.bridge import (
+    leaf_order,
+    leaves_from_params,
+    params_from_numpy,
+    read_leaf,
+    tree_from_numpy,
+)
 
 
 class TornCheckpointError(Exception):
@@ -61,16 +72,6 @@ def _jsonify(obj: Any) -> Any:
     if isinstance(obj, np.generic):
         return obj.item()
     return obj
-
-
-def _flat(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(name, leaf) pairs of a nested dict of arrays, keys sorted."""
-    if not isinstance(tree, dict):
-        return [(prefix, tree)]
-    out = []
-    for key in sorted(tree, key=str):
-        out.extend(_flat(tree[key], f"{prefix}/{key}" if prefix else str(key)))
-    return out
 
 
 def write_leaf(path: Path, leaf) -> Tuple[List[int], str, int]:
@@ -128,27 +129,39 @@ def _identity(tree: Any) -> Optional[Tuple[list, tuple]]:
 class CheckpointManager:
     """``cfg`` (a :class:`repro_torch.configs.ModelConfig`) names the model
     whose params :meth:`save` writes and :meth:`restore` places; without it
-    params are plain nested dicts of arrays.  ``saves`` logs each call's
-    (step, seconds, bytes, bytes written: 0 for linked params),
-    ``restores`` each call's (step, seconds, bytes)."""
+    params are plain nested dicts of arrays.  ``train`` restores the
+    training layout: f32 master params and the optimizer state as trees.
+    ``saves`` logs each call's (step, seconds, bytes, bytes written: 0 for
+    linked params), ``restores`` each call's (step, seconds, bytes)."""
 
-    def __init__(self, directory, *, keep: int = 3, cfg=None):
+    def __init__(self, directory, *, keep: int = 3, cfg=None, train: bool = False):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.cfg = cfg
+        self.train = train
         self.saves: List[Tuple[int, float, int, int]] = []
         self.restores: List[Tuple[int, float, int]] = []
         # the last model-params save: (step, weak references, key, manifest records, bytes)
         self._last: Optional[Tuple[int, list, tuple, List[dict], int]] = None
 
     # ------------------------------------------------------------------
+    def _items(self, tree: Any) -> List[Tuple[str, Any]]:
+        """(name, thunk) pairs of a nested dict of arrays (names joined by
+        "/"); a subtree in the model's layout goes through
+        :func:`leaves_from_params`."""
+        if self.cfg is not None and isinstance(tree, dict) and "layers" in tree:
+            return leaves_from_params(self.cfg, tree)
+        if not isinstance(tree, dict):
+            return [("", lambda v=tree: v)]
+        return [(f"{key}/{name}" if name else str(key), make)
+                for key in tree for name, make in self._items(tree[key])]
+
     def _write_tree(self, step_dir: Path, tree: Any, prefix: str, model: bool) -> Tuple[List[dict], int]:
         if model:
             items = leaves_from_params(self.cfg, tree)
         else:
-            items = [(n, (lambda v=v: v)) for n, v in sorted(_flat(tree), key=lambda nv: leaf_order(nv[0]))] \
-                if tree else []
+            items = sorted(self._items(tree), key=lambda item: leaf_order(item[0])) if tree else []
         files, total = [], 0
         for i, (name, make) in enumerate(items):
             fn = f"{prefix}.{i:05d}.npy"
@@ -268,7 +281,10 @@ class CheckpointManager:
         opt = self._read(d, files_o)
         nbytes = sum(a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
                      for a in list(arrays.values()) + list(opt.values()))
-        params = params_from_numpy(self.cfg, arrays, device, mesh) if self.cfg is not None and arrays else arrays
+        params = params_from_numpy(self.cfg, arrays, device, mesh, train=self.train) \
+            if self.cfg is not None and arrays else arrays
+        if self.train and opt:
+            opt = tree_from_numpy(self.cfg, opt, device)
         if isinstance(device, torch.device) and device.type == "cuda":
             torch.cuda.synchronize(device)
         self.restores.append((manifest["step"], time.perf_counter() - t0, nbytes))

@@ -1,6 +1,8 @@
 """Architecture configs of the port; importing this package registers them."""
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPE_CELLS,
     ModelConfig,
+    ShapeCell,
     get_config,
     get_smoke_config,
     list_archs,

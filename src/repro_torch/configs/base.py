@@ -1,10 +1,9 @@
 """Model configuration and the arch registry of the PyTorch port.
 
-A copy of ``repro/configs/base.py``'s :class:`ModelConfig`, registry and
-``shrink``: the port keeps its own copy so that it imports nothing of the
-JAX package.  Field names and defaults are the reference's, so a config
-built by either package describes the same model.  Shape cells (training
-and dry-run plumbing) are not ported.
+A copy of ``repro/configs/base.py``'s :class:`ModelConfig`, shape cells,
+registry and ``shrink``: the port keeps its own copy so that it imports
+nothing of the JAX package.  Field names and defaults are the reference's,
+so a config built by either package describes the same model.
 """
 from __future__ import annotations
 
@@ -192,6 +191,27 @@ class ModelConfig:
             (self.num_experts - self.top_k) * ffn_expert
         )
         return self.num_params() - inactive
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str  # train | prefill | decode
+
+
+SHAPE_CELLS: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

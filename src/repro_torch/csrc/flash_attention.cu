@@ -79,6 +79,14 @@
 //    lane) lives in registers.
 //  * Q, K and V tiles are kept in f32 in shared memory: at hd 256 that is
 //    ~130 KB, above the 48 KB default, so the launch opts in.
+//
+// Training (repro_flash_attention_lse, repro_flash_attention_tc_lse): both
+// builds are templates over LSE; the LSE instantiations also write each
+// (query position, head) row's f32 log-sum-exp of its scaled scores, lse
+// (B, Sq, nq), which kernel 7's backward (flash_attention_bwd.cu) recomputes
+// P from.  The serving instantiations (LSE false) are unchanged, and the
+// LSE ones compute O with the same instructions, so O is bitwise the
+// serving entry's.
 #include <type_traits>
 
 #include "common.cuh"
@@ -97,10 +105,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * ((size_t)MAX_ROWS * (HD + 4) + (size_t)BK * (HD + 4) + (size_t)BK * HD);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-    int Sq, int Skv, int nq, int nkv, int BQ, int causal, int window, float scale) {
+    float* __restrict__ lse, int Sq, int Skv, int nq, int nkv, int BQ, int causal, int window, float scale) {
   constexpr int QS = HD + 4;           // padded row stride: 16-byte aligned, conflict-free
   constexpr int NJ = (HD + 31) / 32;   // output dims per lane
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -212,23 +220,30 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
       const int d = lane + 32 * jj;
       if (d < HD) o[d] = from_f32<T>(acc[i][jj] / denom);
     }
+    // the row's log-sum-exp of its scaled scores (+inf for a row that sees
+    // no key, so the backward's exp(s - lse) is 0 there)
+    if constexpr (LSE) {
+      if (lane == 0)
+        lse[((long)b * Sq + qpos[i]) * nq + (long)kvh * G + g] =
+            l[i] > 0.f ? m[i] + logf(l[i]) : __int_as_float(0x7f800000);
+    }
   }
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int nq, int nkv,
-              int causal, int window, float scale, void* stream) {
+template <typename T, int HD, bool LSE>
+int launch_hd(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv, int nq,
+              int nkv, int causal, int window, float scale, void* stream) {
   const int G = nq / nkv;
   const int BQ = MAX_ROWS / G;
   const size_t smem = smem_bytes<HD>();
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, HD, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((Sq + BQ - 1) / BQ, nkv, B);
-  flash_attention_kernel<T, HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, nq, nkv, BQ, causal, window, scale);
+  flash_attention_kernel<T, HD, LSE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Skv, nq, nkv, BQ, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -255,11 +270,11 @@ struct Layout {
   static constexpr int BYTES = BAR + 3 * 8 + 1024;
 };
 
-template <int HD>
+template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq, int Skv, int nq, int nkv,
-    int BQ, int causal, int window, float scale_log2) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Sq,
+    int Skv, int nq, int nkv, int BQ, int causal, int window, float scale_log2) {
   using L = Layout<HD>;
   constexpr int NO = HD / 2;  // O accumulator registers a thread
   extern __shared__ unsigned char smem_raw[];
@@ -427,12 +442,19 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
           __floats2bfloat162_rn(o[4 * j + 2 * i] / den, o[4 * j + 2 * i + 1] / den);
     }
+    // the row's natural log-sum-exp (m and l are in base-2 units of the
+    // scaled scores); the four threads of a quad hold the same row
+    if constexpr (LSE) {
+      if ((lane & 3) == 0)
+        lse[((long)b * Sq + qpos[i]) * nq + (long)kvh * G + g] =
+            l[i] > 0.f ? (m[i] + log2f(l[i])) * 0.6931471805599453f : __int_as_float(0x7f800000);
+    }
   }
 }
 
-template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int nq, int nkv,
-           int causal, int window, float scale, void* stream) {
+template <int HD, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv, int nq,
+           int nkv, int causal, int window, float scale, void* stream) {
   const int G = nq / nkv, BQ = ROWS / G;
   const cuuint64_t e = sizeof(__nv_bfloat16);
   // Q as (hd, G, nkv, Sq, B): a box of (64, G, 1, BQ, 1) is one block's rows
@@ -450,16 +472,63 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
     return (int)cudaErrorInvalidValue;
   const int smem = Layout<HD>::BYTES;
   // the opt-in above 48 KB, once a process (the port drives one card a process)
-  static const cudaError_t opted = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
+  static const cudaError_t opted = cudaFuncSetAttribute(flash_attention_tc_kernel<HD, LSE>,
                                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opted != cudaSuccess) return (int)opted;
   dim3 grid((Sq + BQ - 1) / BQ, nkv, B);
-  flash_attention_tc_kernel<HD><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)out, Sq, Skv, nq, nkv, BQ, causal, window, scale * 1.4426950408889634f);
+  flash_attention_tc_kernel<HD, LSE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)out, lse, Sq, Skv, nq, nkv, BQ, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
+
+template <bool LSE>
+int cuda_cores(int dtype, const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv,
+               int nq, int nkv, int hd, int causal, int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > MAX_ROWS || window < 0)
+    return (int)cudaErrorInvalidValue;
+  REPRO_DISPATCH(dtype, T, {
+    constexpr bool F32 = std::is_same<T, float>::value;
+    switch (hd) {
+      case 16: return launch_hd<T, 16, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 32: return launch_hd<T, 32, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 64: return launch_hd<T, 64, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 96:
+        if constexpr (F32)
+          return launch_hd<T, 96, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
+      case 128:
+        if constexpr (F32)
+          return launch_hd<T, 128, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
+      case 160:
+        if constexpr (F32)
+          return launch_hd<T, 160, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
+      case 256:
+        if constexpr (F32)
+          return launch_hd<T, 256, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool LSE>
+int tensor_cores(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq, int Skv, int nq,
+                 int nkv, int hd, int causal, int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > tc::ROWS || window < 0)
+    return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 96: return tc::launch<96, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    case 128: return tc::launch<128, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    case 160: return tc::launch<160, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    case 256: return tc::launch<256, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -470,30 +539,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
                                      int Sq, int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
                                      void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > MAX_ROWS || window < 0)
-    return (int)cudaErrorInvalidValue;
-  REPRO_DISPATCH(dtype, T, {
-    constexpr bool F32 = std::is_same<T, float>::value;
-    switch (hd) {
-      case 16: return launch_hd<T, 16>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 32: return launch_hd<T, 32>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 64: return launch_hd<T, 64>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 96:
-        if constexpr (F32) return launch_hd<T, 96>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-        return (int)cudaErrorInvalidValue;
-      case 128:
-        if constexpr (F32) return launch_hd<T, 128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-        return (int)cudaErrorInvalidValue;
-      case 160:
-        if constexpr (F32) return launch_hd<T, 160>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-        return (int)cudaErrorInvalidValue;
-      case 256:
-        if constexpr (F32) return launch_hd<T, 256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-        return (int)cudaErrorInvalidValue;
-      default: return (int)cudaErrorInvalidValue;
-    }
-  });
-  return (int)cudaErrorInvalidValue;
+  return cuda_cores<false>(dtype, q, k, v, out, nullptr, B, Sq, Skv, nq, nkv, hd, causal, window, scale, stream);
 }
 
 // The tensor-core path: bf16 q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out
@@ -502,13 +548,22 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                                         int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
                                         void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > tc::ROWS || window < 0)
-    return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 96: return tc::launch<96>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-    case 128: return tc::launch<128>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-    case 160: return tc::launch<160>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-    case 256: return tc::launch<256>(q, k, v, out, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return tensor_cores<false>(q, k, v, out, nullptr, B, Sq, Skv, nq, nkv, hd, causal, window, scale, stream);
+}
+
+// The training forward: the same two builds, separate instantiations that
+// also write each (query position, head) row's f32 log-sum-exp of its
+// scaled scores into lse (B, Sq, nq), which the backward
+// (flash_attention_bwd.cu) recomputes P from.  O is computed exactly as
+// the serving entries above compute it.
+extern "C" int repro_flash_attention_lse(int dtype, const void* q, const void* k, const void* v, void* out,
+                                         float* lse, int B, int Sq, int Skv, int nq, int nkv, int hd, int causal,
+                                         int window, float scale, void* stream) {
+  return cuda_cores<true>(dtype, q, k, v, out, lse, B, Sq, Skv, nq, nkv, hd, causal, window, scale, stream);
+}
+
+extern "C" int repro_flash_attention_tc_lse(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                                            int Sq, int Skv, int nq, int nkv, int hd, int causal, int window,
+                                            float scale, void* stream) {
+  return tensor_cores<true>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, hd, causal, window, scale, stream);
 }

@@ -12,7 +12,11 @@ hosts without ``nvcc`` import these modules and run the plain versions.
                    positions over a rolling window buffer (one source,
                    three row-address policies, each over a full-precision
                    or an int8 cache with per-row scales)
-  flash_attention  blocked causal / local-window GQA prefill attention
+  flash_attention  blocked causal / local-window GQA prefill attention (and,
+                   for training, its instantiations that also write each
+                   row's log-sum-exp)
+  flash_attention_bwd  kernel 7's backward: dQ, dK, dV from the forward's
+                   output and log-sum-exps (training)
   moe_decode       plan-steered expert SwiGLU for tiny T (decode), over
                    full-precision or int8 expert stacks
   moe_fused        prefill MoE: gather + gate/up + SwiGLU, down + a
@@ -46,7 +50,7 @@ REPO = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "repro_torch"
 SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan", "ssd_scan",
-           "grouped_gemm", "moe_dispatch")
+           "grouped_gemm", "moe_dispatch", "flash_attention_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -178,7 +182,7 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     """name -> launches since the last reset, for every kernel of the
-    serving paths and, as ``<name>_int8``, every int8 branch."""
+    serving and training paths and, as ``<name>_int8``, every int8 branch."""
     counts = {}
     for name, w in kernel_wrappers().items():
         counts[name] = w.launches
@@ -217,8 +221,10 @@ def recorded_launches():
 
 
 def kernel_wrappers() -> dict:
-    """name -> wrapper function for every kernel of the serving paths."""
+    """name -> wrapper function for every kernel of the serving and
+    training paths."""
     from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_kernel,
         flash_attention_kernel,
         flash_decode_kernel,
         flash_decode_paged_kernel,
@@ -244,4 +250,5 @@ def kernel_wrappers() -> dict:
         "grouped_gemm": grouped_gemm,
         "moe_dispatch": dispatch,
         "moe_combine": combine,
+        "flash_attention_bwd": flash_attention_bwd_kernel,
     }

@@ -389,7 +389,16 @@ def flash_attention_kernel(
     in q's type.  Query position i sees key j iff (not causal or j <= i) and
     (not window or i - j < window).  On the card the launch takes the path
     :func:`flash_attention_path` names."""
-    what = "flash_attention"
+    _check_prefill(q, k, v, window, "flash_attention")
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    out = _launch_prefill(q, k, v, causal, window)
+    flash_attention_kernel.launches += 1
+    return out
+
+
+def _check_prefill(q, k, v, window: int, what: str) -> None:
+    """The shape, type and device contract of kernel 7 and its backward."""
     B, Sq, nq, hd = q.shape
     _check(k.ndim == 4 and k.shape[0] == B and k.shape[3] == hd, lambda: f"k shape {tuple(k.shape)}", what)
     _check(v.shape == k.shape, lambda: f"v shape {tuple(v.shape)} != k shape {tuple(k.shape)}", what)
@@ -399,19 +408,15 @@ def flash_attention_kernel(
     _check(window >= 0, lambda: f"window must be >= 0, got {window}", what)
     dev = q.device
     _check(k.device == dev and v.device == dev, "tensors on different devices", what)
-    if dev.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
-    _check(dev.type == "cuda", lambda: f"unsupported device {dev}", what)
-    out = _launch_prefill(q, k, v, causal, window)
-    flash_attention_kernel.launches += 1
-    return out
+    _check(dev.type in ("cpu", "cuda"), lambda: f"unsupported device {dev}", what)
 
 
-def _launch_prefill(q, k, v, causal: bool, window: int) -> torch.Tensor:
+def _launch_prefill(q, k, v, causal: bool, window: int, lse: bool = False):
     """Kernel 7's launch checks, then its launch on the build
     :func:`flash_attention_path` names (``repro_flash_attention_tc`` or
-    ``repro_flash_attention``); a refused launch raises, nothing falls
-    back."""
+    ``repro_flash_attention``, with ``lse`` their ``_lse`` instantiations,
+    which also return each row's log-sum-exp); a refused launch raises,
+    nothing falls back.  Returns out, or with ``lse`` (out, lse)."""
     what = "flash_attention"
     B, Sq, nq, hd = q.shape
     Skv, nkv = k.shape[1], k.shape[2]
@@ -419,19 +424,106 @@ def _launch_prefill(q, k, v, causal: bool, window: int) -> torch.Tensor:
     _check(nq // nkv <= _FA_MAX_GROUP, lambda: f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
     _check(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(), "tensors must be contiguous", what)
     out = torch.empty_like(q)
+    lse_out = torch.empty((B, Sq, nq), dtype=torch.float32, device=q.device) if lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + ((lse_out.data_ptr(),) if lse else ())
     shape = (B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))
+    suffix = "_lse" if lse else ""
     if path == "tensor_cores":
         _check((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0, "q, k and v must be 16-byte aligned", what)
-        rc = function("flash_attention", "repro_flash_attention_tc", _FA_TC_ARGTYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape)
+        rc = function("flash_attention", "repro_flash_attention_tc" + suffix,
+                      _FA_TC_LSE_ARGTYPES if lse else _FA_TC_ARGTYPES)(*ptrs, *shape)
     else:
-        rc = function("flash_attention", "repro_flash_attention", _FA_ARGTYPES)(
-            dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape)
+        rc = function("flash_attention", "repro_flash_attention" + suffix, _FA_LSE_ARGTYPES if lse else _FA_ARGTYPES)(
+            dtype_code(q.dtype), *ptrs, *shape)
     check_launch(rc, what)
-    return out
+    return (out, lse_out) if lse else out
 
 
 flash_attention_kernel.launches = 0
+
+
+# the C signatures of repro_flash_attention_tc_lse and (a dtype code first)
+# repro_flash_attention_lse: the serving ones with the lse pointer after out;
+# and of repro_flash_attention_bwd
+_FA_TC_LSE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_FA_LSE_ARGTYPES = [ctypes.c_int] + _FA_TC_LSE_ARGTYPES
+_FA_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def flash_attention_lse_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                               window: int = 0):
+    """Kernel 7's training forward: ``(out, lse)``, ``out`` as
+    :func:`flash_attention_kernel` computes it (bitwise, on the card: the
+    LSE instantiation of the same build) and ``lse`` (B, Sq, nq) f32 each
+    row's log-sum-exp of its scaled scores, +inf for a row that sees no
+    key.  Counted as a launch of :func:`flash_attention_kernel`."""
+    _check_prefill(q, k, v, window, "flash_attention")
+    if q.device.type == "cpu":
+        return ref.flash_attention_lse(q, k, v, causal=causal, window=window)
+    out = _launch_prefill(q, k, v, causal, window, lse=True)
+    flash_attention_kernel.launches += 1
+    return out
+
+
+def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
+    """Kernel 7's backward (``csrc/flash_attention_bwd.cu``): ``(dq, dk,
+    dv)`` in the inputs' type from the forward's ``out`` and ``lse`` and
+    the output gradient ``dout`` (B, Sq, nq, hd).  On the card one call is
+    three launches (D = rowsum(dout * out) into an f32 scratch allocated
+    here, dK/dV, dQ), counted once; on the CPU the plain version
+    :func:`ref.flash_attention_bwd`."""
+    what = "flash_attention_bwd"
+    _check_prefill(q, k, v, window, what)
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    _check(out.shape == q.shape and dout.shape == q.shape and out.dtype == q.dtype and dout.dtype == q.dtype,
+           lambda: f"out {tuple(out.shape)} {out.dtype} and dout {tuple(dout.shape)} {dout.dtype} must match q", what)
+    _check(lse.shape == (B, Sq, nq) and lse.dtype == torch.float32, lambda: f"lse must be ({B}, {Sq}, {nq}) f32", what)
+    _check(all(t.device == q.device for t in (out, lse, dout)), "tensors on different devices", what)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
+    _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", what)
+    _check(nq // nkv <= _FA_MAX_GROUP, lambda: f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
+    _check(all(t.is_contiguous() for t in (q, k, v, out, lse, dout)), "tensors must be contiguous", what)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty((B, Sq, nq), dtype=torch.float32, device=q.device)
+    rc = function("flash_attention_bwd", "repro_flash_attention_bwd", _FA_BWD_ARGTYPES)(
+        dtype_code(q.dtype), *(t.data_ptr() for t in (q, k, v, out, dout, lse, scratch, dq, dk, dv)),
+        B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))
+    check_launch(rc, what)
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+
+
+class _FlashAttentionTrain(torch.autograd.Function):
+    """Kernel 7 with its gradient: the forward saves q, k, v, out and lse,
+    the backward launches :func:`flash_attention_bwd_kernel` (on the CPU
+    both halves are the plain versions; on the card neither ever is)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_lse_kernel(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+                                                window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """Differentiable prefill attention in the model's layout (the training
+    forward): :func:`flash_attention`'s output, with the gradient of q, k
+    and v computed by kernel 7's backward."""
+    return _FlashAttentionTrain.apply(q.contiguous(), k.contiguous(), v.contiguous(), bool(causal), int(window))
 
 
 def flash_attention(

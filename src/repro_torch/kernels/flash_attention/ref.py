@@ -10,7 +10,11 @@ logical row ``p`` of sequence ``b`` from pool row
 rolling buffer's slots by the absolute position each holds, reconstructed
 from the launch's last write (the reference's jnp path); the prefill
 version is the model's blockwise attention (``layers.blockwise_attention``),
-as the reference's ``flash_attention/ref.py`` is.
+as the reference's ``flash_attention/ref.py`` is.  Its training
+counterparts: :func:`flash_attention_lse` adds each row's log-sum-exp, and
+:func:`flash_attention_bwd` is the backward written out (the gradient the
+reference takes by autodiff through the blockwise attention), both over
+the whole (Sq, Skv) score matrix in f32.
 
 With ``scales`` the cache is int8 and is dequantized elementwise (one f32
 scale per cache row, ``scales[0]`` K's and ``scales[1]`` V's) before any
@@ -130,3 +134,54 @@ def flash_attention(
     window: int = 0,
 ) -> torch.Tensor:
     return blockwise_attention(q, k, v, causal=causal, local_window=window)
+
+
+def _scores(q, k, causal: bool, window: int):
+    """(B, nq, Sq, Skv) f32 scaled scores, -inf where a query does not see
+    the key, and k's heads expanded to q's (GQA)."""
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    kx = k.repeat_interleave(nq // nkv, dim=2)
+    s = torch.einsum("bqnh,bknh->bnqk", q.to(torch.float32), kx.to(torch.float32)) * (1.0 / math.sqrt(hd))
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    vis = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        vis &= j <= i
+    if window:
+        vis &= i - j < window
+    return s.masked_fill(~vis, float("-inf"))
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
+    """(out, lse): :func:`flash_attention`'s output and the (B, Sq, nq) f32
+    log-sum-exp of each row's scaled scores (+inf for a row that sees no
+    key, as the kernel writes it)."""
+    lse = torch.logsumexp(_scores(q, k, causal, window), dim=-1).permute(0, 2, 1)
+    lse = lse.masked_fill(lse == float("-inf"), float("inf")).contiguous()
+    return flash_attention(q, k, v, causal=causal, window=window), lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) in the inputs' type: P = exp(s - lse), D = rowsum(dout
+    * out), dS = P (dout v^T - D), dq = scale dS k, dk = scale dS^T q
+    (summed over each kv head's query group), dv = P^T dout; f32 inside."""
+    B, Sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    G = nq // nkv
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    p = torch.exp(_scores(q, k, causal, window) - lse.permute(0, 2, 1)[..., None].to(f32))
+    do = dout.to(f32)
+    vx = v.repeat_interleave(G, dim=2).to(f32)
+    dp = torch.einsum("bqnh,bknh->bnqk", do, vx)
+    d = (do * out.to(f32)).sum(dim=-1).permute(0, 2, 1)[..., None]  # (B, nq, Sq, 1)
+    ds = p * (dp - d)
+    kx = k.repeat_interleave(G, dim=2).to(f32)
+    dq = torch.einsum("bnqk,bknh->bqnh", ds, kx) * scale
+    dk = torch.einsum("bnqk,bqnh->bknh", ds, q.to(f32)) * scale
+    dv = torch.einsum("bnqk,bqnh->bknh", p, do)
+    Skv = k.shape[1]
+    dk = dk.reshape(B, Skv, nkv, G, hd).sum(dim=3)
+    dv = dv.reshape(B, Skv, nkv, G, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,5 +1,7 @@
-"""The serve launches (the port's counterpart of ``repro/launch/steps.py``):
-:func:`build_spec_serve_step`, the decode launch captured once in a CUDA
+"""The train step and the serve launches (the port's counterpart of
+``repro/launch/steps.py``): :func:`build_train_step` (one device: the
+gradient by autograd through kernel 7 and its backward, the global-norm
+clip and the optimizer update in place), :func:`build_spec_serve_step`, the decode launch captured once in a CUDA
 graph and replayed (the counterpart of the reference's jitted
 ``build_spec_serve_step``), :class:`TreeCommit`, the contiguous tree commit
 compiled the same way (the reference's jitted ``_commit``),
@@ -30,15 +32,71 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.core.control_plane import _top_k
 from repro_torch.core.plans import TreePlan
 from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import decode_constants, max_pages_for
+from repro_torch.models.transformer import check_trainable, decode_constants, max_pages_for
+from repro_torch.optim import clip_by_global_norm, cosine_schedule, make_optimizer, tree_leaves, tree_unflatten
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
 from repro_torch.parallel.sharding import batch_spec, expert_slice
+
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+class _TrainStep:
+    """The step :func:`build_train_step` returns; ``model`` and
+    ``optimizer`` are the ones it runs."""
+
+    def __init__(self, cfg: ModelConfig, device, *, lr: float, total_steps: int, grad_clip: float):
+        self.cfg, self.grad_clip = cfg, grad_clip
+        self.model = Model(cfg, device)
+        self.optimizer = make_optimizer(cfg.optimizer, cosine_schedule(lr, 100, total_steps))
+
+    def __call__(self, params, opt_state, step, tokens, frontend=None):
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            for t in leaves:
+                t.requires_grad_(True)
+            try:
+                loss, metrics = self.model.forward_train(params, tokens, frontend)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            finally:
+                for t in leaves:
+                    t.requires_grad_(False)
+        # a leaf the loss does not reach (a frontend projection given no
+        # frontend input) gets zeros, as jax.grad gives it
+        grads = tree_unflatten(params, [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)])
+        grads, gnorm = clip_by_global_norm(grads, self.grad_clip)
+        params, opt_state = self.optimizer.update(grads, opt_state, params, step)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, int(step) + 1, metrics
+
+
+def build_train_step(cfg: ModelConfig, device, cell: ShapeCell, *, lr: float = 3e-4, total_steps: int = 10_000,
+                     grad_clip: float = 1.0) -> _TrainStep:
+    """``(params, opt_state, step, tokens, frontend=None) -> (params,
+    opt_state, step + 1, metrics)``: the reference's jitted train step on
+    one device.  The loss and its gradient come from
+    :meth:`Model.forward_train` under autograd (kernel 7 forward, its
+    hand-written backward), the gradients are clipped to ``grad_clip``
+    global norm and the optimizer (``cfg.optimizer`` on the reference's
+    cosine schedule: 100 warm-up steps, ``total_steps``) updates ``params``
+    and ``opt_state`` in place.  ``metrics``: the model's ``loss``, ``ce``,
+    ``lb_loss``, ``z_loss`` and ``grad_norm``, 0-d f32 tensors on the
+    device (nothing is read back).  ``cell`` is unused: it keeps the
+    reference's signature, whose cell only chose mesh shardings.  Raises
+    ``NotImplementedError`` for a stack whose layers training cannot
+    differentiate yet (:func:`repro_torch.models.transformer.check_trainable`)."""
+    check_trainable(cfg)
+    return _TrainStep(cfg, device, lr=lr, total_steps=total_steps, grad_clip=grad_clip)
 
 
 def build_model(cfg: ModelConfig, mesh, batch: int, device=None) -> Model:

@@ -4,7 +4,9 @@ reference's shapes and scales.  Plain functions on tensors.
 
 Weights are stored in the type each use computes in: the reference casts
 them with ``.astype(x.dtype)`` at every use, so storing them already cast
-computes the same thing (see :func:`storage_dtype`).
+computes the same thing (see :func:`storage_dtype`).  The uses still cast,
+as the reference does: a no-op on the serving store, and the cast from the
+f32 master weights that training keeps (``Model.init(train=True)``).
 """
 from __future__ import annotations
 
@@ -141,11 +143,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def _qkv(x: torch.Tensor, p: Params, cfg: ModelConfig, positions: torch.Tensor):
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"])
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(x.dtype))
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"].to(x.dtype), k + p["bk"].to(x.dtype), v + p["bv"].to(x.dtype)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -203,6 +205,18 @@ def blockwise_attention(
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def attention_block_train(x: torch.Tensor, p: Params, cfg: ModelConfig, *, positions: torch.Tensor,
+                          local_window: int = 0) -> torch.Tensor:
+    """The training attention sub-block (the reference's ``attention_block``
+    without a cache): :func:`_qkv`, kernel 7 with its backward
+    (``flash_attention_train``), then ``wo`` cast to the activations' type."""
+    from repro_torch.kernels.flash_attention import flash_attention_train
+
+    q, k, v = _qkv(x, p, cfg, positions)
+    out = flash_attention_train(q, k, v, causal=True, window=local_window)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(out.dtype))
+
+
 # ---------------------------------------------------------------------------
 # FFN, embeddings
 # ---------------------------------------------------------------------------
@@ -210,9 +224,9 @@ def blockwise_attention(
 
 def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
     """SwiGLU over the last axis of x (tokens (..., d) -> (..., d))."""
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
-    return (torch.nn.functional.silu(g) * u) @ p["w_down"]
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    return (torch.nn.functional.silu(g) * u) @ p["w_down"].to(x.dtype)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, dtype) -> torch.Tensor:

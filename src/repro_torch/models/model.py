@@ -1,7 +1,9 @@
 """Model facade (port of ``repro/models/model.py``): init, cache, prefill,
 speculative chain and tree decode, and the cache surgery of continuous
 batching (contiguous, paged and rolling) for the ``moe``/``attn``/``local``/``rec``/``ssm``
-decoder stack, with the vision / audio frontend stub.
+decoder stack, with the vision / audio frontend stub; and the training
+forward (:meth:`Model.forward_train`, the next-token loss) of ``attn`` and
+``local`` stacks over f32 master weights (``init(train=True)``).
 
 The cache is updated in place by :meth:`Model.prefill`,
 :meth:`Model.decode_tokens` and the surgery methods; the first two return
@@ -13,6 +15,7 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -43,14 +46,16 @@ class Model:
         self.experts = experts
 
     # ------------------------------------------------------------------
-    def init(self, seed: Union[int, torch.Generator] = 0) -> Params:
+    def init(self, seed: Union[int, torch.Generator] = 0, *, train: bool = False) -> Params:
         """Random weights drawn on the model's device from a seeded generator
-        (of the expert stacks, the model's ``experts`` slice)."""
+        (of the expert stacks, the model's ``experts`` slice).  ``train``
+        keeps every leaf in ``cfg.param_dtype`` (f32 master weights, cast to
+        ``cfg.dtype`` where each is used, as the reference trains)."""
         gen = seed
         if not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(seed))
-        return T.init_params(self.cfg, gen, self.device, self.experts)
+        return T.init_params(self.cfg, gen, self.device, self.experts, train=train)
 
     def init_cache(self, batch: int, max_len: int) -> List[Params]:
         return T.init_cache(self.cfg, batch, max_len, self.device)
@@ -80,9 +85,68 @@ class Model:
 
     def logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """f32 logits against ``params["unembed"]``: the untied table, or the
-        f32 copy of the tied embedding (:func:`transformer.place_tied_unembed`)."""
+        f32 copy of the tied embedding (:func:`transformer.place_tied_unembed`);
+        training params of a tied model have no copy and read ``embed``."""
         x = L.rms_norm(x, params["final_norm"])
-        return L.unembed(x, params["unembed"])
+        return L.unembed(x, params["unembed"] if "unembed" in params else params["embed"])
+
+    # ------------------------------------------------------------------
+    # train forward
+    # ------------------------------------------------------------------
+    def stack_train(self, params: Params, x: torch.Tensor, positions: torch.Tensor):
+        """The layers, training-style (:func:`transformer.apply_layer_train`);
+        returns ``(x, aux (2,))``.  Under ``cfg.remat`` each whole super-block
+        (one cycle of ``cfg.block_pattern``) runs inside
+        ``torch.utils.checkpoint.checkpoint`` (its activations are recomputed
+        in the backward, as the reference's ``jax.checkpoint(sb_fn)``); a
+        pattern-incomplete tail is not rematerialized, as in the reference."""
+        cfg = self.cfg
+        pat = cfg.block_pattern
+        n_sb = cfg.num_layers // len(pat)
+        layers = params["layers"]
+        route_src = x  # layer-0 control-plane source = embeddings
+
+        def sb_fn(h, rs, s):
+            aux = torch.zeros((2,), dtype=torch.float32, device=h.device)
+            for j, kind in enumerate(pat):
+                h, rs, a = T.apply_layer_train(h, rs, layers[s * len(pat) + j], kind, cfg, positions)
+                aux = aux + a
+            return h, rs, aux
+
+        aux_total = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        for s in range(n_sb):
+            if cfg.remat:
+                x, route_src, a = torch.utils.checkpoint.checkpoint(sb_fn, x, route_src, s, use_reentrant=False)
+            else:
+                x, route_src, a = sb_fn(x, route_src, s)
+            aux_total = aux_total + a
+        kinds = cfg.layer_kinds
+        for i in range(n_sb * len(pat), cfg.num_layers):
+            x, route_src, a = T.apply_layer_train(x, route_src, layers[i], kinds[i], cfg, positions)
+            aux_total = aux_total + a
+        return x, aux_total
+
+    def forward_train(self, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None, *,
+                      lb_coef: float = 0.01, z_coef: float = 1e-4):
+        """Next-token cross-entropy over the backbone (f32 logits), frontend
+        positions masked; ``(loss, {"loss", "ce", "lb_loss", "z_loss"})``,
+        each a 0-d f32 tensor, as the reference's."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        x = self._embed(params, tokens, None if frontend is None else frontend.to(self.device))
+        x, aux = self.stack_train(params, x, positions)
+        logits = self.logits(params, x)  # (B, S, V) f32
+        lg = logits[:, :-1]
+        nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, tokens[:, 1:, None])[..., 0]  # (B, S-1)
+        F = cfg.frontend_tokens if cfg.frontend else 0
+        mask = (torch.arange(S - 1, device=self.device) >= F).to(torch.float32)[None, :]
+        denom = torch.clamp(mask.sum() * B, min=1.0)
+        ce = (nll * mask).sum() / denom
+        n_moe = max(sum(1 for k in cfg.layer_kinds if k == "moe"), 1)
+        loss = ce + lb_coef * aux[0] / n_moe + z_coef * aux[1] / n_moe
+        return loss, {"loss": loss, "ce": ce, "lb_loss": aux[0] / n_moe, "z_loss": aux[1] / n_moe}
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens, np.int64), device=self.device)

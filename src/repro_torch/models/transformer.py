@@ -60,6 +60,7 @@ rows and their scales (the kernels' int8 branch).  Every cache mutation
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Any, Callable, List, Optional, Tuple
@@ -158,11 +159,18 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, device,
     return p
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device, experts: Optional[slice] = None) -> Params:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, experts: Optional[slice] = None, *,
+                train: bool = False) -> Params:
     """Random weights with the reference's shapes and scales, drawn on
     ``device`` from ``generator`` (the numbers are not the reference's: the
     two frameworks' generators differ).  ``experts`` keeps that slice of
-    every expert stack, cut layer by layer as it is drawn."""
+    every expert stack, cut layer by layer as it is drawn.  With ``train``
+    every leaf is drawn in ``cfg.param_dtype`` (the reference's f32 master
+    weights, cast where each is used) and tied embeddings keep no
+    ``unembed`` copy: the logits read ``embed`` itself, so both uses train
+    the one table."""
+    if train:
+        cfg = dataclasses.replace(cfg, dtype=cfg.param_dtype)
     params: Params = {
         "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model, L.act_dtype(cfg), device),
         "layers": [init_layer(generator, kind, cfg, device, experts) for kind in cfg.layer_kinds],
@@ -172,7 +180,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, experts: O
         params["unembed"] = L.init_embedding(generator, cfg.vocab_size, cfg.d_model, torch.float32, device)
     if cfg.frontend:
         params["frontend"] = {"proj": L.dense_init(generator, cfg.frontend_dim, cfg.d_model, L.act_dtype(cfg), device)}
-    return place_tied_unembed(params, cfg)
+    return params if train else place_tied_unembed(params, cfg)
 
 
 def place_tied_unembed(params: Params, cfg: ModelConfig) -> Params:
@@ -362,6 +370,46 @@ def apply_layer_prefill(
             pw.copy_(seed.weights)
     y, route_src = _ffn(kind, cfg, p, h, ffn_in, route_src, moe_apply)
     return h + y, route_src
+
+
+# the layer kinds training differentiates: their only kernel is kernel 7,
+# which has a hand-written backward; the MoE, RG-LRU and SSD kernels do not yet
+TRAIN_KINDS = ("attn", "local")
+
+
+def check_trainable(cfg: ModelConfig, kinds=None) -> None:
+    """Raise ``NotImplementedError`` for a stack (or the layer ``kinds``
+    given) with a layer training cannot differentiate yet, naming the slice
+    that brings it."""
+    kinds = sorted({k for k in (kinds or cfg.layer_kinds) if k not in TRAIN_KINDS})
+    if kinds:
+        raise NotImplementedError(
+            f"training {cfg.name} needs the backward of its {'/'.join(kinds)} layers' kernels "
+            "(3/4 and 8-10 for moe, 12 for rec, 11 for ssm), which the next training slice brings "
+            "(ROADMAP.md, Queue A); this slice trains dense and local stacks")
+
+
+def apply_layer_train(
+    x: torch.Tensor,                    # (B, S, d)
+    route_src: Optional[torch.Tensor],
+    p: Params,
+    kind: str,
+    cfg: ModelConfig,
+    positions: torch.Tensor,            # (B, S)
+):
+    """One ``attn`` or ``local`` layer, training-style full-sequence pass
+    (no cache): the pre-norm attention sub-block through kernel 7 and its
+    backward (:func:`layers.attention_block_train`), then the SwiGLU FFN,
+    each weight cast to the activations' type at use.  The reference's
+    ``_res`` barrier is the identity.  Returns ``(x, route_src, aux)`` with
+    ``aux`` (2,) f32 zeros (no router)."""
+    if kind not in TRAIN_KINDS:
+        check_trainable(cfg, (kind,))
+    a = L.attention_block_train(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions=positions,
+                                local_window=window_of(cfg, kind))
+    h = x + a
+    x = h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"])
+    return x, route_src, torch.zeros((2,), dtype=torch.float32, device=x.device)
 
 
 def _attn_out(out: torch.Tensor, p: Params) -> torch.Tensor:

@@ -1,0 +1,204 @@
+"""Optimizers (the port's counterpart of ``repro/optim/optimizers.py``).
+
+``Optimizer`` is an (init, update) pair:
+
+    state = opt.init(params)
+    params, state = opt.update(grads, state, params, step)
+
+The reference returns an update tree that the step adds to the params; here
+``update`` adds it in place, one leaf at a time under ``torch.no_grad()``,
+and writes the state in place too, so the transient memory is a few
+tensors of the largest leaf, never a second copy of the model (at
+StarCoder2-3B's widths the params and AdamW's two moments are already
+~36 GB of f32).  The arithmetic follows the reference's expression by
+expression, its scalars (bias corrections, the learning rate) in f32.
+
+Trees are the model's params layout (nested dicts and lists of tensors);
+AdamW's state is ``{"m": tree, "v": tree}``, Adafactor's a tree of the
+params' layout whose leaves are ``{"vr", "vc"}`` (factored, >= 2-D) or
+``{"v"}``: the reference's state, leaf for leaf.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, List, NamedTuple, Optional, Tuple
+
+import torch
+
+Params = Any
+Schedule = Callable[[Any], float]
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Params], Any]
+    update: Callable[..., Tuple[Params, Any]]  # (grads, state, params, step) -> (params, state), in place
+
+
+def _walk(structure, *trees, path: Tuple = ()) -> Iterator[Tuple]:
+    """(path, leaf of ``structure``, the same place of each tree) over
+    ``structure``'s tensor leaves, in its order; a tree may hold a subtree
+    (Adafactor's per-leaf dicts) where ``structure`` holds a tensor."""
+    if isinstance(structure, dict):
+        for key in structure:
+            yield from _walk(structure[key], *(t[key] for t in trees), path=path + (key,))
+    elif isinstance(structure, (list, tuple)):
+        for i, sub in enumerate(structure):
+            yield from _walk(sub, *(t[i] for t in trees), path=path + (i,))
+    else:
+        yield (path, structure, *trees)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a tree of dicts and lists, in its order."""
+    return [leaf for _, leaf in _walk(tree)]
+
+
+def tree_unflatten(structure, leaves) -> Params:
+    """A tree of ``structure``'s layout holding ``leaves`` (in
+    :func:`tree_leaves`'s order)."""
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), structure)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares in f32 (a 0-d tensor
+    on the leaves' device; nothing is read back)."""
+    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
+    """Scale ``grads`` in place by min(1, max_norm / norm); returns (grads,
+    norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _lr(lr, step) -> float:
+    return lr(step) if callable(lr) else float(_f32(lr))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+def adamw(
+    lr: Schedule | float,
+    *,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    decay_mask: Optional[Callable[[Tuple, Any], bool]] = None,
+) -> Optimizer:
+    """AdamW with decoupled weight decay.  1-D params (norms, biases) are
+    excluded from decay by default; ``decay_mask(path, p)`` overrides that
+    (``path`` the leaf's keys and list indices)."""
+
+    def _decay(path, p) -> bool:
+        if decay_mask is not None:
+            return decay_mask(path, p)
+        return p.ndim >= 2
+
+    def init(params):
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {"m": _tree_map(zeros, params), "v": _tree_map(zeros, params)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        step_f = _f32(int(step)) + 1.0
+        bc1 = float(1.0 - _f32(b1) ** step_f)
+        bc2 = float(1.0 - _f32(b2) ** step_f)
+        lr_t = _lr(lr, step)
+        lr_wd = float(_f32(lr_t) * _f32(weight_decay))
+        for path, p, g, m, v in _walk(params, grads, state["m"], state["v"]):
+            g32 = g.to(torch.float32)
+            m.mul_(b1).add_((1 - b1) * g32)
+            v.mul_(b2).add_((1 - b2) * g32 * g32)
+            u = m / bc1
+            u.mul_(-lr_t).div_((v / bc2).sqrt_().add_(eps))
+            if _decay(path, p):
+                u.sub_(lr_wd * p.to(torch.float32))
+            p.add_(u.to(p.dtype))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor (factored second moments)
+# ---------------------------------------------------------------------------
+
+
+def adafactor(
+    lr: Schedule | float,
+    *,
+    decay_rate: float = 0.8,
+    eps: float = 1e-30,
+    clip_threshold: float = 1.0,
+    weight_decay: float = 0.0,
+) -> Optimizer:
+    """Adafactor (Shazeer & Stern 2018), simplified as the reference: factored
+    v for ndim >= 2 (row / column means over the last two axes), full v
+    otherwise; update RMS clipping; no first moment."""
+
+    def init(params):
+        def one(p):
+            if p.ndim >= 2:
+                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32, device=p.device)}
+            return {"v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+
+        return _tree_map(one, params)
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        beta2_t = 1.0 - (_f32(int(step)) + 1.0) ** (-decay_rate)
+        beta2, one_minus = float(beta2_t), float(1.0 - beta2_t)
+        lr_t = _lr(lr, step)
+        lr_wd = float(_f32(lr_t) * _f32(weight_decay))
+        for _, p, g, s in _walk(params, grads, state):
+            g32 = g.to(torch.float32)
+            g2 = g32 * g32 + eps
+            if p.ndim >= 2:
+                vr = s["vr"].mul_(beta2).add_(one_minus * g2.mean(dim=-1))
+                vc = s["vc"].mul_(beta2).add_(one_minus * g2.mean(dim=-2))
+                denom = vr.mean(dim=-1, keepdim=True)
+                r = (vr / torch.clamp(denom, min=eps))[..., None]
+                u = g32 * torch.rsqrt(torch.clamp(r * vc[..., None, :], min=eps))
+            else:
+                v = s["v"].mul_(beta2).add_(one_minus * g2)
+                u = g32 * torch.rsqrt(torch.clamp(v, min=eps))
+            del g2
+            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            u.div_(torch.clamp(rms / clip_threshold, min=1.0)).mul_(-lr_t)
+            if weight_decay and p.ndim >= 2:
+                u.sub_(lr_wd * p.to(torch.float32))
+            p.add_(u.to(p.dtype))
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, lr: Schedule | float, **kw) -> Optimizer:
+    if name == "adamw":
+        return adamw(lr, **kw)
+    if name == "adafactor":
+        return adafactor(lr, **kw)
+    raise ValueError(f"unknown optimizer {name!r}")

@@ -1,8 +1,9 @@
 """The serve fabric's runtime: fault injection, straggler detection, the
 in-process supervisor and the cross-process one with its transport and
-worker loop.  The policy modules use numpy and the standard library only;
-replicas come from an injected factory (in-process) or a spawn function
-(worker processes), so the policy runs without a model or a device."""
+worker loop; and the fault-tolerant trainer.  The policy modules use numpy
+and the standard library only; replicas come from an injected factory
+(in-process) or a spawn function (worker processes), so the policy runs
+without a model or a device."""
 from repro_torch.runtime.fabric import (  # noqa: F401
     CrossProcessFabric,
     FabricConfig,
@@ -22,6 +23,7 @@ from repro_torch.runtime.faults import (  # noqa: F401
     split_process_specs,
 )
 from repro_torch.runtime.straggler import Mitigation, StragglerDetector  # noqa: F401
+from repro_torch.runtime.trainer import FailureInjector, Trainer, TrainerConfig  # noqa: F401
 from repro_torch.runtime.transport import (  # noqa: F401
     LoopbackHandle,
     ManualClock,

@@ -38,6 +38,14 @@ def test_registry_equals_the_reference():
     assert set(NEW_ARCHS) <= set(t_archs()) and len(t_archs()) == 10
 
 
+def test_shape_cells_equal_the_reference():
+    from repro.configs import SHAPE_CELLS as j_cells
+    from repro_torch.configs import SHAPE_CELLS as t_cells
+
+    assert {n: dataclasses.asdict(c) for n, c in t_cells.items()} == {
+        n: dataclasses.asdict(c) for n, c in j_cells.items()}
+
+
 @pytest.mark.parametrize("arch", j_archs())
 def test_full_and_smoke_configs_equal_the_reference(arch):
     assert dataclasses.asdict(t_full(arch)) == dataclasses.asdict(j_full(arch))

@@ -22,7 +22,11 @@ sources, its library swapped in under the same wrappers.
   ``repro_flash_attention_tc``, ``repro_grouped_gemm``,
   ``repro_grouped_gemm_tc``, ``repro_ssd_scan``, ``repro_gather_swiglu``,
   ``repro_gather_swiglu_tc`` and ``repro_down_combine`` must keep their
-  signatures in both trees.
+  signatures in both trees.  The training entries
+  (``repro_flash_attention_lse``, ``repro_flash_attention_tc_lse``, and
+  ``repro_flash_attention_bwd`` in the library ``flash_attention_bwd``) are
+  new: the serving entries above are held against the other checkout, and
+  the new library is built alone with the package's flags.
   Skips unless ``REPRO_OTHER_CHECKOUT`` names the other checkout's root:
 
       REPRO_OTHER_CHECKOUT=/path/to/other PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_builds.py
@@ -291,3 +295,22 @@ def test_ssd_scan_needs_its_lo_halves_on_card(cuda, tmp_path):
           f"hi only {miss(y_hi, want_y):.3f} / {miss(h_hi, want_h):.3f}")
     assert miss(y, want_y) <= 1.0 and miss(h, want_h) <= 1.0
     assert miss(y_hi, want_y) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# the training library
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_training_entries_build_with_the_package_flags_on_card(cuda, tmp_path):
+    """``csrc/flash_attention_bwd.cu`` builds alone with the package's
+    flags and exports kernel 7's backward; kernel 7's library exports the
+    LSE entries beside the serving ones."""
+    lib = _build(kernels.CSRC, "flash_attention_bwd", tmp_path / "build")
+    assert hasattr(lib, "repro_flash_attention_bwd")
+    assert "flash_attention_bwd" in kernels.SOURCES
+    fa = kernels.library("flash_attention")
+    for symbol in ("repro_flash_attention", "repro_flash_attention_tc", "repro_flash_attention_lse",
+                   "repro_flash_attention_tc_lse"):
+        assert hasattr(fa, symbol), symbol

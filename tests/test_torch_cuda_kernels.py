@@ -829,3 +829,84 @@ def test_head_dims_outside_the_builds_raise():
         fa_ops._launch_decode("repro_flash_decode", q, k, k, (), lengths, None, None, None, (8,), 8, 2,
                               "flash_decode")
     assert 96 in fa_ops._HEAD_DIMS and 160 in fa_ops._HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's backward (training): the LSE forward and the three-launch
+# backward against their plain versions
+# ---------------------------------------------------------------------------
+
+# B, S, nq, nkv, hd, causal, window: MHA, GQA up to StarCoder2-3B's group
+# of 12, ragged last tiles, windows, and every head dim of the builds
+BWD_CASES = {
+    "hd16_g2_w7": (2, 33, 4, 2, 16, True, 7),
+    "hd32_noncausal": (1, 45, 6, 3, 32, False, 0),
+    "hd64_mha": (2, 70, 4, 4, 64, True, 0),
+    "hd96_mha_w45": (1, 130, 4, 4, 96, True, 45),
+    "hd128_g12": (1, 200, 24, 2, 128, True, 0),
+    "hd160_g4": (1, 150, 8, 2, 160, True, 0),
+    "hd256_g10_w30": (1, 100, 10, 1, 256, True, 30),
+}
+
+
+def _bwd_inputs(cuda, dtype, case):
+    B, S, nq, nkv, hd, causal, window = BWD_CASES[case]
+    rng = np.random.default_rng(S + hd)
+    q, do = (_t(rng.standard_normal((B, S, nq, hd)).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    k, v = (_t(rng.standard_normal((B, S, nkv, hd)).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    return q, k, v, do, causal, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_attention_lse_forward_matches_plain_on_card(cuda, dtype, case):
+    """The LSE instantiation's O is bitwise the serving launch's; its
+    log-sum-exps agree with the plain version's to 1e-4 (f32 sums in
+    another order, in base 2 on the tensor cores)."""
+    q, k, v, _, causal, window = _bwd_inputs(cuda, dtype, case)
+    out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fa_ops.flash_attention_kernel(q, k, v, causal=causal, window=window))
+    _, want = fa_ref.flash_attention_lse(q, k, v, causal=causal, window=window)
+    assert float((lse - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_attention_bwd_matches_plain_on_card(cuda, dtype, case):
+    """dQ, dK, dV against the plain backward on the same inputs (the
+    kernel's own O and lse), with the forward's gate; a repeat is
+    bitwise."""
+    q, k, v, do, causal, window = _bwd_inputs(cuda, dtype, case)
+    out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=causal, window=window)
+    before = fa_ops.flash_attention_bwd_kernel.launches
+    got = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal, window=window)
+    again = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_bwd_kernel.launches == before + 2
+    want = fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _close(g, w, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_train_runs_the_kernels_on_card(cuda):
+    """The autograd entry point on the card: the forward counts one launch
+    of kernel 7, the backward one of its backward, and the gradients are
+    the backward kernel's on the forward's O and lse."""
+    q, k, v, do, causal, window = _bwd_inputs(cuda, torch.bfloat16, "hd128_g12")
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    f0, b0 = fa_ops.flash_attention_kernel.launches, fa_ops.flash_attention_bwd_kernel.launches
+    out = fa_ops.flash_attention_train(qg, kg, vg, causal=causal, window=window)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention_kernel.launches - f0, fa_ops.flash_attention_bwd_kernel.launches - b0) == (1, 1)
+    o2, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=causal, window=window)
+    assert torch.equal(out.detach(), o2)
+    want = fa_ops.flash_attention_bwd_kernel(q, k, v, o2, lse, do, causal=causal, window=window)
+    for t, w in zip((qg, kg, vg), want):
+        assert torch.equal(t.grad, w)

@@ -1,5 +1,6 @@
 """PyTorch port, boundaries: the port imports neither jax nor the JAX
-package, and its entry points refuse to fall back to the CPU silently."""
+package (the training modules included), and its entry points refuse to
+fall back to the CPU silently."""
 from __future__ import annotations
 
 import dataclasses
@@ -57,7 +58,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                 "repro_torch.configs.llama4_maverick_400b_a17b", "repro_torch.configs.musicgen_large",
                 "repro_torch.configs.phi_3_vision_4_2b", "repro_torch.configs.qwen1_5_4b",
                 "repro_torch.configs.qwen3_32b", "repro_torch.configs.stablelm_12b",
-                "repro_torch.configs.starcoder2_3b"):
+                "repro_torch.configs.starcoder2_3b", "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+                "repro_torch.data.pipeline", "repro_torch.runtime.trainer", "repro_torch.launch.train"):
         assert mod in names.split(), mod
 
 
@@ -75,4 +77,8 @@ def test_entry_points_without_a_card_raise(monkeypatch):
         serve.ServeReplica(cfg, 1, 16, {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-moe-235b-a22b", "--smoke"])
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--steps", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"

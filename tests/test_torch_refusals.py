@@ -1,14 +1,16 @@
-"""PyTorch port, what the serve layer still refuses: the elastic re-shard
-rebuild (``make_replica_factory(shrink_to=...)``) and fabric checkpoints at
-``--model > 1`` both name the distribution slice that brings them (the
-cross-process fabric they used to wait for has shipped).  CPU only.
+"""PyTorch port, what the serve and train layers still refuse: the elastic
+re-shard rebuild (``make_replica_factory(shrink_to=...)``) and fabric
+checkpoints at ``--model > 1`` both name the distribution slice that brings
+them (the cross-process fabric they used to wait for has shipped); the
+train CLI refuses ``moe``, ``rec`` and ``ssm`` archs, naming the next
+training slice, and ``--data`` / ``--model`` > 1.  CPU only.
 """
 from __future__ import annotations
 
 import pytest
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 ARCH = "qwen3-moe-235b-a22b"
 
@@ -30,3 +32,22 @@ def test_cli_refuses_fabric_checkpoints_of_an_expert_slice_naming_the_distributi
     err = capsys.readouterr().err
     assert "sharded fabric save in the distribution slice" in err
     assert "cross-process fabric" not in err
+
+
+@pytest.mark.parametrize("arch,kind", [("qwen3-moe-235b-a22b", "moe"), ("llama4-maverick-400b-a17b", "moe"),
+                                       ("recurrentgemma-2b", "rec"), ("mamba2-2.7b", "ssm")])
+def test_train_cli_refuses_archs_without_backward_kernels_naming_the_next_slice(capsys, tmp_path, arch, kind):
+    with pytest.raises(SystemExit) as exit_:
+        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1", "--ckpt", str(tmp_path)])
+    assert exit_.value.code == 2
+    err = capsys.readouterr().err
+    assert f"{kind} layers" in err and "next training slice" in err and "Queue A" in err
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("flag", ["--data", "--model"])
+def test_train_cli_refuses_more_than_one_rank(capsys, tmp_path, flag):
+    with pytest.raises(SystemExit) as exit_:
+        train.main(["--arch", "starcoder2-3b", "--smoke", "--device", "cpu", flag, "2", "--ckpt", str(tmp_path)])
+    assert exit_.value.code == 2
+    assert "distribution slice" in capsys.readouterr().err
