@@ -91,8 +91,11 @@ in ``compiled_launch``.
 Training (phases ``train_twin``, ``train_full_width``, ``train_restart``,
 ``train_sweep``; ``kernels_vs_plain`` rows ``flash_attention_bwd*``):
 kernel 7's backward against its plain version at StarCoder2-3B's heads
-and at head dims 64, 96 and 160 (the LSE forward's O bitwise the serving
-launch's; SDPA's backward timed beside it), the f32 smoke config trained
+and at head dims 64, 96 and 160, each on the tensor-core build (registers,
+spills and a SASS census with ``HGMMA``; the LSE forward's O bitwise the
+serving launch's; SDPA's backward timed beside it; kernel 7's forward at
+MusicGen's heads, CUDA cores, as row ``flash_attention_hd64``),
+the f32 smoke config trained
 3 steps on the card and on the CPU (losses and params equal), StarCoder2-3B
 at published widths cut to 20 layers trained 6 steps of 4 x 2,048 tokens
 (bf16 over f32 master weights, AdamW, remat; a seventh step profiled),
@@ -3843,7 +3846,11 @@ RESTART_LAYERS, RESTART_BATCH, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 2
 # also trained one step at published widths cut to SWEEP_TRAIN_LAYERS layers
 BWD_ARCHS = {64: "musicgen-large", 96: "phi-3-vision-4.2b", 160: "stablelm-12b"}
 SWEEP_TRAIN_LAYERS = 2
-BWD_SYMBOLS = ("row_dot_kernel", "dkv_kernel", "dq_kernel")
+# kernel 7's backward's launches by build: the CUDA-core build's three and
+# the tensor-core build's four (``flash_attention_bwd_path``)
+BWD_LAUNCHES = {"cuda_cores": ("row_dot_kernel", "dkv_kernel", "dq_kernel"),
+                "tensor_cores": ("bwd_prep_tc_kernel", "dkv_tc_kernel", "dkv_reduce_kernel", "dq_tc_kernel")}
+BWD_SYMBOLS = BWD_LAUNCHES["cuda_cores"] + BWD_LAUNCHES["tensor_cores"]
 
 
 def bwd_kernel_rows(dev, gen):
@@ -3857,7 +3864,12 @@ def bwd_kernel_rows(dev, gen):
     plain version's (``7_lse``), dQ / dK / dV by the bf16 gate of row 7 on
     the same O and lse, a bitwise repeat, ms in turns with SDPA's backward
     (the yardstick), device ms by launch, and the operation bound of 5
-    products of 2 * pairs * hd a head at the bf16 tensor rate."""
+    products of 2 * pairs * hd a head at the bf16 tensor rate.  Each row
+    runs the tensor-core build (``path``; a row on another build fails):
+    registers and spills of its dK/dV and dQ kernels, and a SASS census
+    that must show ``HGMMA``.  Where the arch's forward takes kernel 7's
+    CUDA-core build (MusicGen's heads), its ``prefill_row`` on the same
+    inputs is row ``flash_attention_hd64``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3871,6 +3883,9 @@ def bwd_kernel_rows(dev, gen):
         nq, nkv, hd, S = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, TRAIN_SEQ
         G, B = nq // nkv, TRAIN_BATCH if arch == TRAIN else 1
         tag = f"{name} ({arch})"
+        path = fa_ops.flash_attention_bwd_path(torch.bfloat16, hd)
+        if path != "tensor_cores":
+            raise AssertionError(f"{tag}: the bf16 backward takes the {path} build, not the tensor cores")
         q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
         out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True)
@@ -3896,6 +3911,11 @@ def bwd_kernel_rows(dev, gen):
         flops = 5 * 2.0 * pairs * hd * nq * B
         nbytes = (3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4 + (q.numel() + 2 * k.numel()) * 2
         ms, lib_ms, turns = in_turns(kernel, lib, iters=3, reps=3)
+        launches = BWD_LAUNCHES[path]
+        names = (f"dkv_tc_kernelILi{hd}E", f"dq_tc_kernelILi{hd}E")
+        sass = sass_census("flash_attention_bwd", *names)
+        if len(sass) != len(names) or not all(c.get("HGMMA") for c in sass.values()):
+            raise AssertionError(f"{tag}: no HGMMA in the SASS of the tensor-core build's kernels: {sass}")
         rows[name] = dict(
             max_abs_err=err, lse_max_abs_err=lse_err, lse_o_bitwise_serving=True, ms=ms, ms_in_turns=turns,
             plain_ms=time_ms(lambda: fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True), iters=1,
@@ -3904,13 +3924,16 @@ def bwd_kernel_rows(dev, gen):
             library_call="scaled_dot_product_attention's backward (autograd, is_causal, kv heads expanded "
                          "beforehand)",
             device_ms=device_ms(kernel, "", n=3),
-            device_ms_by_launch={sym: device_ms(kernel, sym, n=3) for sym in BWD_SYMBOLS},
+            device_ms_by_launch={sym: device_ms(kernel, sym, n=3) for sym in launches},
             bitwise_repeat=bitwise_repeat(tag, lambda: torch.cat([t.reshape(-1) for t in kernel()])),
-            arch=arch, group=G, path_forward=fa_ops.flash_attention_path(q.dtype, hd),
-            ptxas=ptxas("flash_attention_bwd", f"kernelI13__nv_bfloat16Li{hd}E"),
+            arch=arch, group=G, path=path, path_forward=fa_ops.flash_attention_path(q.dtype, hd),
+            ptxas=ptxas("flash_attention_bwd", *names), sass=sass,
             batch=B, shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal ({pairs} visible pairs a head)",
             bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
         )
+        if fa_ops.flash_attention_path(q.dtype, hd) == "cuda_cores":
+            # the forward of a trained arch on the CUDA-core build (MusicGen's)
+            rows[f"flash_attention_hd{hd}"] = prefill_row(q, k, v, arch, G)
         del q, k, v, do, out, lse, qt, kt, vt, o_lib
         torch.cuda.empty_cache()
     return rows
@@ -4340,6 +4363,16 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
+    # kernel 7's forward at MusicGen's heads (the CUDA-core build; launches:
+    # the sweep's MusicGen step)
+    fwd = rows["flash_attention_hd64"]
+    source, replaces = KERNELS["flash_attention"]
+    kernels.append(dict(
+        name="flash_attention_hd64", route="cuda", source=source, replaces=replaces,
+        launches=tsweep[BWD_ARCHS[64]]["kernel_launches"]["flash_attention"], max_abs_err=fwd["max_abs_err"],
+        ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
+        library_ms=fwd["library_ms"],
+    ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

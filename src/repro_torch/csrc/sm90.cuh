@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's tensor-core kernels
-// (flash_attention.cu, grouped_gemm.cu, moe_fused.cu, ssd_scan.cu): TMA
-// tile and bulk loads completing on mbarriers, 16-byte cp.async copies,
-// shared-memory matrix descriptors for 128-byte-swizzled tiles, and
-// warpgroup MMA (wgmma) on bf16 with f32 accumulators, as inline PTX.
+// (flash_attention.cu, flash_attention_bwd.cu, grouped_gemm.cu, moe_fused.cu,
+// ssd_scan.cu): TMA tile and bulk loads completing on mbarriers, 16-byte
+// cp.async copies, shared-memory matrix descriptors for 128-byte-swizzled
+// tiles, and warpgroup MMA (wgmma) on bf16 with f32 accumulators, as
+// inline PTX.
 // A tile here is rows of 64 bf16 (128 bytes), written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1,024-byte-aligned region: 16-byte
 // chunk j of row r lands at chunk j ^ (r % 8).
@@ -155,6 +156,18 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, 
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32) += A (64 x 16, shared, K-major) . B (32 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -448,6 +448,33 @@ flash_attention_kernel.launches = 0
 _FA_TC_LSE_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 _FA_LSE_ARGTYPES = [ctypes.c_int] + _FA_TC_LSE_ARGTYPES
 _FA_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# and of repro_flash_attention_bwd_tc: the same without the dtype code
+_FA_BWD_TC_ARGTYPES = _FA_BWD_ARGTYPES[1:]
+_FA_BWD_TC_HEAD_DIMS = (64, 96, 128, 160)
+
+
+def flash_attention_bwd_path(dtype: torch.dtype, hd: int) -> str:
+    """Which build of kernel 7's backward a launch takes, from its dtype and
+    head dim alone: ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA, four
+    launches) for bf16 at head dims 64, 96, 128 and 160, every registered
+    arch that trains; ``"cuda_cores"`` (f32 products, three launches) for
+    f32 at every head dim and for bf16 at 16, 32 and 256.  Raises
+    ``ValueError`` for a head dim or a dtype no build has."""
+    what = "flash_attention_bwd"
+    _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", what)
+    _check(dtype in (torch.float32, torch.bfloat16), lambda: f"dtype {dtype} is neither float32 nor bfloat16", what)
+    return "tensor_cores" if dtype == torch.bfloat16 and hd in _FA_BWD_TC_HEAD_DIMS else "cuda_cores"
+
+
+def bwd_scratch_floats(path: str, B: int, Sq: int, Skv: int, nq: int, hd: int) -> int:
+    """f32 scratch of a backward launch: D (B, Sq, nq) on the CUDA cores; on
+    the tensor cores lse in base 2 and D per head over positions padded to
+    a multiple of 64, (B, nq, Sp) each, then the per-head partial dK and dV,
+    (B, Skv, nq, hd) each (``repro_flash_attention_bwd_tc``'s layout)."""
+    if path == "cuda_cores":
+        return B * Sq * nq
+    Sp = -(-Sq // 64) * 64
+    return 2 * B * nq * Sp + 2 * B * Skv * nq * hd
 
 
 def flash_attention_lse_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -469,29 +496,48 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True, 
     """Kernel 7's backward (``csrc/flash_attention_bwd.cu``): ``(dq, dk,
     dv)`` in the inputs' type from the forward's ``out`` and ``lse`` and
     the output gradient ``dout`` (B, Sq, nq, hd).  On the card one call is
-    three launches (D = rowsum(dout * out) into an f32 scratch allocated
-    here, dK/dV, dQ), counted once; on the CPU the plain version
+    the launches of the build :func:`flash_attention_bwd_path` names (three
+    on the CUDA cores, four on the tensor cores, with an f32 scratch
+    allocated here), counted once; on the CPU the plain version
     :func:`ref.flash_attention_bwd`."""
     what = "flash_attention_bwd"
     _check_prefill(q, k, v, window, what)
     B, Sq, nq, hd = q.shape
-    Skv, nkv = k.shape[1], k.shape[2]
     _check(out.shape == q.shape and dout.shape == q.shape and out.dtype == q.dtype and dout.dtype == q.dtype,
            lambda: f"out {tuple(out.shape)} {out.dtype} and dout {tuple(dout.shape)} {dout.dtype} must match q", what)
     _check(lse.shape == (B, Sq, nq) and lse.dtype == torch.float32, lambda: f"lse must be ({B}, {Sq}, {nq}) f32", what)
     _check(all(t.device == q.device for t in (out, lse, dout)), "tensors on different devices", what)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal, window=window)
-    _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", what)
+    grads = _launch_bwd(q, k, v, out, lse, dout, causal, window)
+    flash_attention_bwd_kernel.launches += 1
+    return grads
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
+    """Kernel 7's backward's launch checks, then its launches on the build
+    :func:`flash_attention_bwd_path` names (``repro_flash_attention_bwd_tc``
+    or ``repro_flash_attention_bwd``); a refused launch raises, nothing
+    falls back.  Returns (dq, dk, dv)."""
+    what = "flash_attention_bwd"
+    B, Sq, nq, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    path = flash_attention_bwd_path(q.dtype, hd)
     _check(nq // nkv <= _FA_MAX_GROUP, lambda: f"a query group of {nq // nkv} heads exceeds {_FA_MAX_GROUP}", what)
     _check(all(t.is_contiguous() for t in (q, k, v, out, lse, dout)), "tensors must be contiguous", what)
+    if path == "tensor_cores":
+        _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)),
+               "q, k, v, out and dout must be 16-byte aligned", what)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((B, Sq, nq), dtype=torch.float32, device=q.device)
-    rc = function("flash_attention_bwd", "repro_flash_attention_bwd", _FA_BWD_ARGTYPES)(
-        dtype_code(q.dtype), *(t.data_ptr() for t in (q, k, v, out, dout, lse, scratch, dq, dk, dv)),
-        B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))
+    scratch = torch.empty((bwd_scratch_floats(path, B, Sq, Skv, nq, hd),), dtype=torch.float32, device=q.device)
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, out, dout, lse, scratch, dq, dk, dv))
+    shape = (B, Sq, Skv, nq, nkv, hd, int(causal), int(window), 1.0 / math.sqrt(hd), stream_of(q))
+    if path == "tensor_cores":
+        rc = function("flash_attention_bwd", "repro_flash_attention_bwd_tc", _FA_BWD_TC_ARGTYPES)(*ptrs, *shape)
+    else:
+        rc = function("flash_attention_bwd", "repro_flash_attention_bwd", _FA_BWD_ARGTYPES)(
+            dtype_code(q.dtype), *ptrs, *shape)
     check_launch(rc, what)
-    flash_attention_bwd_kernel.launches += 1
     return dq, dk, dv
 
 

@@ -22,11 +22,12 @@ sources, its library swapped in under the same wrappers.
   ``repro_flash_attention_tc``, ``repro_grouped_gemm``,
   ``repro_grouped_gemm_tc``, ``repro_ssd_scan``, ``repro_gather_swiglu``,
   ``repro_gather_swiglu_tc`` and ``repro_down_combine`` must keep their
-  signatures in both trees.  The training entries
-  (``repro_flash_attention_lse``, ``repro_flash_attention_tc_lse``, and
-  ``repro_flash_attention_bwd`` in the library ``flash_attention_bwd``) are
-  new: the serving entries above are held against the other checkout, and
-  the new library is built alone with the package's flags.
+  signatures in both trees.  Kernel 7's backward's CUDA-core build
+  (``repro_flash_attention_bwd`` in the library ``flash_attention_bwd``:
+  f32 at every head dim, bf16 at 16, 32 and 256) is held against the other
+  checkout too; its tensor-core build (``repro_flash_attention_bwd_tc``,
+  bf16 at 64, 96, 128 and 160) is new.  The library is also built alone
+  with the package's flags.
   Skips unless ``REPRO_OTHER_CHECKOUT`` names the other checkout's root:
 
       REPRO_OTHER_CHECKOUT=/path/to/other PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_builds.py
@@ -37,7 +38,10 @@ sources, its library swapped in under the same wrappers.
   which the shipped build holds.  Kernel
   11's tensor-core build carries S, the state and w o x the same way;
   built with its lo halves zeroed it misses the 1e-4 gate at Mamba-2-2.7B's
-  admission shape.
+  admission shape.  Kernel 7's backward's tensor-core build carries P and
+  dS the same way; with both lo halves zeroed it misses the bf16 gate on
+  dV (through P) and on dQ and dK (through dS) at StarCoder2-3B's and
+  StableLM-12B's training heads.
 
 Imports no jax.
 """
@@ -114,8 +118,14 @@ SSD_CASES = [f"ssd_scan {tag} {shape}" for tag, shape in
 MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine") for tag, shape in
              (("float32", "40,8,7,96,80"), ("float32", "128,128,16,4096,1536"), ("bfloat16", "40,8,16,96,84"))] + \
             [f"gather_swiglu bfloat16 {shape} tc" for shape in ("128,128,16,4096,1536", "40,8,40,96,80")]
+# kernel 7's backward on its CUDA-core build: f32 at every head dim, bf16
+# at the head dims the tensor cores do not take
+BWD_CASES = [f"flash_attention_bwd {tag} hd {hd} window {w}"
+             for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)), ("bfloat16", (16, 32, 256)))
+             for hd in hds for w in (0, 45)]
 SOURCE = {"flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
-          "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused"}
+          "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused",
+          "flash_attention_bwd": "flash_attention_bwd"}
 
 
 def _run(case: str, dev) -> torch.Tensor:
@@ -134,6 +144,15 @@ def _run(case: str, dev) -> torch.Tensor:
         q = torch.randn((1, Sq, nq, hd), generator=g, device=dev).to(dt)
         k, v = (torch.randn((1, Sq, nkv, hd), generator=g, device=dev).to(dt) for _ in range(2))
         return fa_ops.flash_attention_kernel(q, k, v, causal=True, window=window)
+    if words[0] == "flash_attention_bwd":
+        hd, window = int(words[3]), int(words[5])
+        S, nq, nkv = (300, 10, 1) if hd == 256 else (197, 16, 4)
+        q, do = (torch.randn((1, S, nq, hd), generator=g, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((1, S, nkv, hd), generator=g, device=dev).to(dt) for _ in range(2))
+        assert fa_ops.flash_attention_bwd_path(dt, hd) == "cuda_cores"
+        out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True, window=window)
+        grads = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=True, window=window)
+        return torch.cat([t.reshape(-1) for t in grads])
     if words[0] == "grouped_gemm":
         E, M, K, N = (int(n) for n in words[2].split(","))
         x = torch.randn((E, M, K), generator=g, device=dev).to(dt)
@@ -205,7 +224,8 @@ def other_libs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES)
+@pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES
+                         + BWD_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)
@@ -254,6 +274,42 @@ def test_flash_attention_p_needs_its_lo_half_on_card(cuda, tmp_path, hd, nq, nkv
     print(f"elements outside the bf16 gate of {want.numel()}: hi + lo {shipped}, hi only {dropped}")
     assert shipped == 0
     assert dropped > 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 7's backward: the lo halves of P and dS are needed
+# ---------------------------------------------------------------------------
+
+BWD_LO_LINE = "lo = *reinterpret_cast<const uint32_t*>(&l);"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nkv,hd", [(24, 2, 128), (32, 8, 160)])
+def test_flash_attention_bwd_needs_its_lo_halves_on_card(cuda, tmp_path, nq, nkv, hd):
+    """StarCoder2-3B's training heads (24 q / 2 kv of 128) and
+    StableLM-12B's (32 / 8 of 160), one causal 2,048-token bf16 sequence:
+    the shipped tensor-core build holds the bf16 gate on every element of
+    dQ, dK and dV; the same source with the lo halves of P and dS zeroed
+    misses it on each (dV through P, dQ and dK through dS)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    src = (csrc / "flash_attention_bwd.cu").read_text()
+    assert src.count(BWD_LO_LINE) == 1, "the lo halves' line moved: update BWD_LO_LINE"
+    (csrc / "flash_attention_bwd.cu").write_text(src.replace(BWD_LO_LINE, "lo = 0u;"))
+    hi_only = _build(csrc, "flash_attention_bwd", tmp_path / "build")
+
+    g = torch.Generator(device=cuda).manual_seed(28)
+    q, do = (torch.randn((1, 2048, nq, hd), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, 2048, nkv, hd), generator=g, device=cuda).to(torch.bfloat16) for _ in range(2))
+    assert fa_ops.flash_attention_bwd_path(q.dtype, hd) == "tensor_cores"
+    out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True)
+    want = fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    shipped = [_misses(a, w) for a, w in zip(fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do), want)]
+    with _swapped("flash_attention_bwd", hi_only):
+        dropped = [_misses(a, w) for a, w in zip(fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do), want)]
+    print(f"dq, dk, dv elements outside the bf16 gate: hi + lo {shipped}, hi only {dropped}")
+    assert shipped == [0, 0, 0]
+    assert all(n > 0 for n in dropped)
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +364,7 @@ def test_training_entries_build_with_the_package_flags_on_card(cuda, tmp_path):
     flags and exports kernel 7's backward; kernel 7's library exports the
     LSE entries beside the serving ones."""
     lib = _build(kernels.CSRC, "flash_attention_bwd", tmp_path / "build")
-    assert hasattr(lib, "repro_flash_attention_bwd")
+    assert hasattr(lib, "repro_flash_attention_bwd") and hasattr(lib, "repro_flash_attention_bwd_tc")
     assert "flash_attention_bwd" in kernels.SOURCES
     fa = kernels.library("flash_attention")
     for symbol in ("repro_flash_attention", "repro_flash_attention_tc", "repro_flash_attention_lse",

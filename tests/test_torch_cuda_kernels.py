@@ -837,7 +837,10 @@ def test_head_dims_outside_the_builds_raise():
 # ---------------------------------------------------------------------------
 
 # B, S, nq, nkv, hd, causal, window: MHA, GQA up to StarCoder2-3B's group
-# of 12, ragged last tiles, windows, and every head dim of the builds
+# of 12, ragged last tiles, windows, and every head dim of the builds; the
+# tc_* cases are the tensor-core build's (bf16 at hd 64, 96, 128, 160): S
+# not a multiple of 64, batch 2, G = 1, 4, 8 and 12, causal windows, a
+# bidirectional window and no mask
 BWD_CASES = {
     "hd16_g2_w7": (2, 33, 4, 2, 16, True, 7),
     "hd32_noncausal": (1, 45, 6, 3, 32, False, 0),
@@ -846,6 +849,16 @@ BWD_CASES = {
     "hd128_g12": (1, 200, 24, 2, 128, True, 0),
     "hd160_g4": (1, 150, 8, 2, 160, True, 0),
     "hd256_g10_w30": (1, 100, 10, 1, 256, True, 30),
+    "tc_hd64_g8_b2": (2, 131, 16, 2, 64, True, 0),
+    "tc_hd64_g1_noncausal": (1, 97, 4, 4, 64, False, 0),
+    "tc_hd96_g12_w70": (1, 260, 12, 1, 96, True, 70),
+    "tc_hd96_g4_b2": (2, 65, 8, 2, 96, True, 0),
+    "tc_hd128_g12_b2": (2, 150, 24, 2, 128, True, 0),
+    "tc_hd128_g8_w100": (1, 333, 16, 2, 128, True, 100),
+    "tc_hd128_g1_b2_w33": (2, 190, 4, 4, 128, True, 33),
+    "tc_hd160_g4_b2_w45": (2, 211, 8, 2, 160, True, 45),
+    "tc_hd160_g8_bidir_w50": (1, 140, 8, 1, 160, False, 50),
+    "tc_hd160_g1": (1, 64, 2, 2, 160, True, 0),
 }
 
 
@@ -875,17 +888,26 @@ def test_flash_attention_lse_forward_matches_plain_on_card(cuda, dtype, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
-def test_flash_attention_bwd_matches_plain_on_card(cuda, dtype, case):
+def test_flash_attention_bwd_matches_plain_on_card(cuda, dtype, case, monkeypatch):
     """dQ, dK, dV against the plain backward on the same inputs (the
-    kernel's own O and lse), with the forward's gate; a repeat is
-    bitwise."""
+    kernel's own O and lse), with the forward's gate; a repeat is bitwise;
+    the launch takes the C entry of the build ``flash_attention_bwd_path``
+    names (the tensor cores for bf16 at hd 64, 96, 128 and 160)."""
     q, k, v, do, causal, window = _bwd_inputs(cuda, dtype, case)
     out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=causal, window=window)
+    path = fa_ops.flash_attention_bwd_path(dtype, q.shape[-1])
+    assert path == ("tensor_cores" if dtype == torch.bfloat16 and q.shape[-1] in (64, 96, 128, 160)
+                    else "cuda_cores")
+    symbols, real = [], fa_ops.function
+    monkeypatch.setattr(fa_ops, "function", lambda name, symbol, argtypes: symbols.append(symbol)
+                        or real(name, symbol, argtypes))
     before = fa_ops.flash_attention_bwd_kernel.launches
     got = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal, window=window)
     again = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa_ops.flash_attention_bwd_kernel.launches == before + 2
+    entry = "repro_flash_attention_bwd_tc" if path == "tensor_cores" else "repro_flash_attention_bwd"
+    assert symbols == [entry, entry]
     want = fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
     for g, a, w in zip(got, again, want):
         assert g.dtype == w.dtype and g.shape == w.shape
