@@ -94,7 +94,9 @@ kernel 7's backward against its plain version at StarCoder2-3B's heads
 and at head dims 64, 96 and 160, each on the tensor-core build (registers,
 spills and a SASS census with ``HGMMA``; the LSE forward's O bitwise the
 serving launch's; SDPA's backward timed beside it; kernel 7's forward at
-MusicGen's heads, CUDA cores, as row ``flash_attention_hd64``),
+MusicGen's heads on the tensor-core template at hd 64, as rows
+``flash_attention_hd64`` (2,048 tokens) and ``flash_attention_hd64_long``
+(4,096)),
 the f32 smoke config trained
 3 steps on the card and on the CPU (losses and params equal), StarCoder2-3B
 at published widths cut to 20 layers trained 6 steps of 4 x 2,048 tokens
@@ -170,12 +172,12 @@ PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234
                "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
                "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389,
                "rglru_scan": 0.2003, "rglru_scan_bf16": 1.393,
-               "flash_attention_hd96": 0.1140, "flash_attention_hd160": 0.1707}
+               "flash_attention_hd96": 0.1140, "flash_attention_hd160": 0.1707, "flash_attention_hd64": 1.364}
 # and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8;
-# kernel 7 at hd 96 and 160 on CUDA cores)
+# kernel 7 at hd 96, 160 and 64 on CUDA cores)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
                       "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074, "flash_attention_hd96": 0.0869,
-                      "flash_attention_hd160": 0.1289}
+                      "flash_attention_hd160": 0.1289, "flash_attention_hd64": 0.818}
 
 RECORD: dict = {}
 START = time.perf_counter()
@@ -208,24 +210,55 @@ def time_ms(fn, iters: int = 10, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def device_ms(fn, match: str, n: int = 20):
+def trace_gaps(prof, what: str, calls: int = 0, match: str = "") -> dict:
+    """Where a ``torch.profiler`` trace recorded fewer device kernels than
+    were launched, the counts, also kept in ``RECORD["incomplete_traces"]``
+    (empty when none is short): device kernels recorded against the host's
+    kernel launches the trace holds (eager launches: a replayed graph's
+    kernels have no launch of their own), and with ``calls``, each kernel
+    name containing ``match`` that is not a whole multiple of ``calls``
+    (the same launches every call)."""
+    from torch.autograd import DeviceType
+
+    evs = prof.key_averages()
+    launched = sum(ev.count for ev in evs if ev.device_type == DeviceType.CPU and "LaunchKernel" in ev.key)
+    kernels = sum(ev.count for ev in evs if ev.device_type == DeviceType.CUDA
+                  and not any(w in ev.key for w in ("Memcpy", "Memset")))
+    gap = dict(launched=launched, recorded=kernels) if kernels < launched else {}
+    if calls:
+        short = {ev.key[:90]: ev.count for ev in evs
+                 if ev.device_type == DeviceType.CUDA and match in ev.key and ev.count % calls}
+        if short:
+            gap.update(recorded_by_name=short, calls=calls)
+    if gap:
+        RECORD.setdefault("incomplete_traces", []).append(dict(what=what, **gap))
+    return gap
+
+
+def device_ms(fn, match: str, n: int = 20, tries: int = 3):
     """Mean device time per call of the kernels whose names contain
     ``match`` over ``n`` calls of ``fn``, from ``torch.profiler`` (None when
     it shows no device time): the kernel alone, where ``time_ms`` of a
-    microsecond kernel measures how fast the host issues its wrapper."""
+    microsecond kernel measures how fast the host issues its wrapper.  Late
+    in this script's run a trace can miss launches; one that did
+    (:func:`trace_gaps`) is taken again, up to ``tries`` times, and if none
+    is whole the reading is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
-             if ev.device_type == DeviceType.CUDA and match in ev.key)
-    return us / 1e3 / n if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        if not trace_gaps(prof, f"device_ms {match!r}", calls=n, match=match):
+            us = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+                     if ev.device_type == DeviceType.CUDA and match in ev.key)
+            return us / 1e3 / n if us else None
+    return None
 
 
 def moe_decode_launches(fn) -> dict:
@@ -1549,10 +1582,12 @@ def head_dim_kernel_rows(dev, gen, tol):
 
 
 def prefill_row(q, k, v, arch, G):
-    """Kernel 7's row on bf16 ``q``, ``k``, ``v`` (one causal prompt): the
-    bf16 gate against the plain version, a bitwise repeat, ms in turns with
-    SDPA (``is_causal``, kv heads expanded beforehand), the profiler's
-    device ms for both, and the bound of this prompt's visible pairs."""
+    """Kernel 7's row on bf16 ``q``, ``k``, ``v`` (one causal prompt) on the
+    tensor-core build (``path``; another build fails): the bf16 gate
+    against the plain version, a bitwise repeat, ms in turns with SDPA
+    (``is_causal``, kv heads expanded beforehand), the profiler's device ms
+    for both, registers, spills and a SASS census of the kernel that ran
+    (``HGMMA`` required), and the bound of this prompt's visible pairs."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1560,6 +1595,13 @@ def prefill_row(q, k, v, arch, G):
 
     _, S, nq, hd = q.shape
     tag = f"flash_attention hd {hd} S {S}"
+    path = fa_ops.flash_attention_path(q.dtype, hd)
+    if path != "tensor_cores":
+        raise AssertionError(f"{tag}: bf16 takes the {path} build, not the tensor cores")
+    name = f"flash_attention_tc_kernelILi{hd}E"
+    sass = sass_census("flash_attention", name)
+    if not sass or not all(c.get("HGMMA") for c in sass.values()):
+        raise AssertionError(f"{tag}: no HGMMA in the SASS of {name}: {sass}")
 
     def kernel_prefill():
         return fa_ops.flash_attention_kernel(q, k, v, causal=True)
@@ -1575,7 +1617,6 @@ def prefill_row(q, k, v, arch, G):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     flops = float(pairs) * nq * hd * 4
     ms, lib_ms, turns = in_turns(kernel_prefill, lib_prefill, iters=10, reps=3)
-    path = fa_ops.flash_attention_path(q.dtype, hd)
     return dict(
         max_abs_err=err, ms=ms, ms_in_turns=turns,
         plain_ms=time_ms(lambda: fa_ref.flash_attention(q, k, v, causal=True), iters=2, reps=3),
@@ -1583,7 +1624,7 @@ def prefill_row(q, k, v, arch, G):
         device_ms=device_ms(kernel_prefill, "flash_attention", n=5),
         library_device_ms=device_ms(lib_prefill, "", n=5), path=path,
         bitwise_repeat=bitwise_repeat(tag, kernel_prefill), arch=arch,
-        ptxas=ptxas("flash_attention", f"flash_attention_tc_kernelILi{hd}E"),
+        ptxas=ptxas("flash_attention", name), sass=sass,
         # the launch's request, computed here from Layout<HD>::BYTES (Q, two K/V
         # stages of ceil(hd / 64) boxes each, three mbarriers, 1 KB of swizzle
         # alignment), not read from the build
@@ -3111,9 +3152,11 @@ def _leaves(tree):
 def device_time_by_name(prof) -> dict:
     """Device ms by kernel (or copy) name from a ``torch.profiler`` run,
     counting device-side events only: CPU ops also report the device time
-    of the kernels they launched, which would count those kernels twice."""
+    of the kernels they launched, which would count those kernels twice.
+    A trace with fewer kernels than launches is noted (:func:`trace_gaps`)."""
     from torch.autograd import DeviceType
 
+    trace_gaps(prof, "device_time_by_name")
     by_name = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -3867,9 +3910,10 @@ def bwd_kernel_rows(dev, gen):
     products of 2 * pairs * hd a head at the bf16 tensor rate.  Each row
     runs the tensor-core build (``path``; a row on another build fails):
     registers and spills of its dK/dV and dQ kernels, and a SASS census
-    that must show ``HGMMA``.  Where the arch's forward takes kernel 7's
-    CUDA-core build (MusicGen's heads), its ``prefill_row`` on the same
-    inputs is row ``flash_attention_hd64``."""
+    that must show ``HGMMA``.  At MusicGen's heads (hd 64, the one arch
+    whose forward no other row times) kernel 7's forward is row
+    ``flash_attention_hd64`` (:func:`prefill_row` on the same inputs) and,
+    on one ``H_PROMPT``-token prompt, ``flash_attention_hd64_long``."""
     import torch
 
     from repro_torch.configs import get_config
@@ -3931,11 +3975,20 @@ def bwd_kernel_rows(dev, gen):
             batch=B, shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal ({pairs} visible pairs a head)",
             bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
         )
-        if fa_ops.flash_attention_path(q.dtype, hd) == "cuda_cores":
-            # the forward of a trained arch on the CUDA-core build (MusicGen's)
-            rows[f"flash_attention_hd{hd}"] = prefill_row(q, k, v, arch, G)
+        if hd == 64:
+            rows["flash_attention_hd64"] = dict(prefill_row(q, k, v, arch, G),
+                                                previous_ms=PREVIOUS_MS["flash_attention_hd64"],
+                                                previous_device_ms=PREVIOUS_DEVICE_MS["flash_attention_hd64"])
         del q, k, v, do, out, lse, qt, kt, vt, o_lib
         torch.cuda.empty_cache()
+        if hd == 64:
+            q, k, v = (torch.randn((1, H_PROMPT, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+                       for n in (nq, nkv, nkv))
+            rows["flash_attention_hd64_long"] = dict(
+                prefill_row(q, k, v, arch, G),
+                launches_note=f"the kernels line counts the arch sweep's {SWEEP_PROMPT}-token MusicGen prefills")
+            del q, k, v
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -4116,12 +4169,14 @@ def train_restart(dev):
 
 
 def train_sweep(dev):
-    """One training step of each dense arch of ``BWD_ARCHS`` at published
+    """Two training steps of each dense arch of ``BWD_ARCHS`` at published
     widths, cut to ``SWEEP_TRAIN_LAYERS`` layers (bf16 over f32 master
     weights, AdamW, remat, one ``TRAIN_SEQ``-token sequence; the frontend
     stub's features for Phi-3-Vision and MusicGen): kernel 7 and its
-    backward at hd 64, 96 and 160 on a training path.  Gates: loss and grad
-    norm finite, 2 launches of kernel 7 a layer and 1 of its backward."""
+    backward at hd 64, 96 and 160 on a training path; a second step on the
+    next batch is ``step_ms``, without the first step's one-time work.
+    Gates: losses and grad norms finite, each step 2 launches of kernel 7 a
+    layer and 1 of its backward."""
     import torch
 
     from repro_torch.configs import ShapeCell, get_config
@@ -4138,22 +4193,26 @@ def train_sweep(dev):
         opt = step_fn.optimizer.init(params)
         spec = (cfg.frontend_tokens, cfg.frontend_dim) if cfg.frontend else None
         loader = ShardedLoader(MarkovLMDataset(cfg.vocab_size, TRAIN_SEQ, seed=0), 1, dev, frontend_spec=spec)
-        step, batch = next(loader)
+        batches = [next(loader) for _ in range(2)]
         loader.close()
         torch.cuda.synchronize()
         reset_launch_counts()
-        t = time.perf_counter()
-        params, opt, _, m = step_fn(params, opt, step, batch["tokens"], batch.get("frontend"))
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t) * 1e3
+        step_ms, metrics = [], []
+        for step, batch in batches:
+            t = time.perf_counter()
+            params, opt, _, m = step_fn(params, opt, step, batch["tokens"], batch.get("frontend"))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            _finite(f"train_sweep {arch}", list(metrics[-1].values()))
         counts = {n: c for n, c in launch_counts().items() if c}
-        vals = {k: float(v) for k, v in m.items()}
-        _finite(f"train_sweep {arch}", list(vals.values()))
         L = cfg.num_layers
-        if counts != {"flash_attention": 2 * L, "flash_attention_bwd": L}:
+        if counts != {"flash_attention": 4 * L, "flash_attention_bwd": 2 * L}:
             raise AssertionError(f"train_sweep {arch}: launches {counts}")
-        out[arch] = dict(head_dim=hd, layers=L, frontend=cfg.frontend, first_step_ms=step_ms, metrics=vals,
+        out[arch] = dict(head_dim=hd, layers=L, frontend=cfg.frontend, first_step_ms=step_ms[0],
+                         step_ms=step_ms[1], metrics=metrics[0], second_step_metrics=metrics[1],
                          param_bytes=_tree_bytes(params), kernel_launches=counts)
+        print(f"train_sweep {arch}: step ms {step_ms[0]:.2f} (first), {step_ms[1]:.2f} (second)", flush=True)
         del params, opt, step_fn
         torch.cuda.empty_cache()
     return out
@@ -4363,16 +4422,19 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
-    # kernel 7's forward at MusicGen's heads (the CUDA-core build; launches:
-    # the sweep's MusicGen step)
-    fwd = rows["flash_attention_hd64"]
+    # kernel 7's forward at MusicGen's heads (the tensor-core template at hd
+    # 64; launches: the training sweep's MusicGen steps at 2,048 tokens, and
+    # for the 4,096-token row the arch sweep's MusicGen prefills, which run
+    # at SWEEP_PROMPT tokens, as the hd 96 and 160 `_long` rows count theirs)
     source, replaces = KERNELS["flash_attention"]
-    kernels.append(dict(
-        name="flash_attention_hd64", route="cuda", source=source, replaces=replaces,
-        launches=tsweep[BWD_ARCHS[64]]["kernel_launches"]["flash_attention"], max_abs_err=fwd["max_abs_err"],
-        ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"], bound_by=fwd["bound_by"],
-        library_ms=fwd["library_ms"],
-    ))
+    for name, counts in (("flash_attention_hd64", tsweep[BWD_ARCHS[64]]["kernel_launches"]),
+                         ("flash_attention_hd64_long", sweep[BWD_ARCHS[64]]["kernel_launches"])):
+        fwd = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=counts["flash_attention"],
+            max_abs_err=fwd["max_abs_err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+            bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+        ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,9 +19,9 @@
 //
 // Two paths, chosen by the wrapper from dtype and hd alone:
 //
-// Tensor cores (bf16, hd 96, 128, 160 and 256: every registered arch's
-// prefill).  One warpgroup (128 threads) per (tile of query positions, kv
-// head, sequence):
+// Tensor cores (bf16, hd 64, 96, 128, 160 and 256: every registered arch's
+// prefill), one template over hd.  One warpgroup (128 threads) per (tile of
+// query positions, kv head, sequence):
 //  * Rows are (query position, head) pairs of one KV head's group, 64 a
 //    block: 6 positions x 10 heads + 4 dead rows for RecurrentGemma, 4 x 16
 //    for Qwen3-MoE, 16 x 4 for StableLM-12B, 64 x 1 for Phi-3-Vision.  Each
@@ -62,7 +62,30 @@
 //    tensor cores idle while the exponentials run, and P.V is done twice
 //    (hi, lo): ~5x the operation bound at 4,096 tokens.
 //
-// CUDA cores (f32 at every hd, bf16 at hd 16, 32 and 64):
+// hd 64 (MusicGen's 32 heads of 64; LEAN<HD> below) has the least matrix
+// work for each exponential, so the softmax's instructions bound it more
+// than the tensor cores do.  Its instantiation keeps the rows, ring, hi + lo
+// P and key order above, and cuts those instructions:
+//  * Four blocks share an SM (116 registers and ~42 KB of shared memory a
+//    block: Q 8 KB, two stages of K and V 8 KB each), so one block's
+//    exponentials run while another's wgmma do.  The grid is one row of
+//    (query tile, kv head) pairs, every head's last query tile (the most
+//    causal keys) first: the heaviest blocks start in the first wave and
+//    the lightest fill the tail (the template's order, each head's tiles
+//    in turn, left the last head's heaviest tiles to start at the end).
+//  * Only a tile that reaches past Skv, the causal diagonal or the window's
+//    edge is masked; the row max is a tree over the raw scores, scaled
+//    once; the exponentials one ex2.approx each (FFMA of the raw score,
+//    scale and max); O rescaled only where a warp's row max moved; P packed
+//    by cvt.rn.bf16x2 (no PRMTs); P.V issued 16 keys at a time as each
+//    step's P is made.
+//  * tools/fa_hd64_variants.py builds it without these cuts (the plain
+//    template at hd 64) and times both beside SDPA.  The schedules it was
+//    chosen over (a third ring stage, tile i + 1's S issued before tile
+//    i's softmax, two warpgroups on one ring) were slower (PERF.md,
+//    section 6).  P.V twice (hi, lo) keeps it above SDPA's device time.
+//
+// CUDA cores (f32 at every hd, bf16 at hd 16 and 32):
 //  * One block per (tile of query positions, kv head, sequence) takes the
 //    whole query group of that KV head: BQ positions x group heads = up to
 //    64 (query, head) rows, so each K/V tile is read from memory once per
@@ -270,6 +293,28 @@ struct Layout {
   static constexpr int BYTES = BAR + 3 * 8 + 1024;
 };
 
+// hd 64 takes the loop's lean softmax and its own block order (the file's
+// header says why)
+template <int HD>
+constexpr bool LEAN = HD == 64;
+
+// two floats as a bf16 pair in one register (a in the low half), rounded
+// to nearest: one F2FP, where __floats2bfloat162_rn and the halves' reads
+// cost PRMTs around it
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(b), "f"(a));
+  return r;
+}
+
+// 2^x by one MUFU.EX2 (relative error ~2^-22; results below 2^-126 flush
+// to 0): exp2f adds a scaling of subnormal results around it
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 template <int HD, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -281,9 +326,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
   const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + L::BAR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kvh = blockIdx.y, b = blockIdx.z;
+  // hd 64's grid is one row of (query tile, kv head) pairs, every head's
+  // last query tile (the most causal keys) first
+  const int kvh = LEAN<HD> ? blockIdx.x % nkv : blockIdx.y, b = blockIdx.z;
   const int G = nq / nkv;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (LEAN<HD> ? gridDim.x / nkv - 1 - blockIdx.x / nkv : blockIdx.x) * BQ;
   const int nqpos = min(BQ, Sq - q0);
   const int nrows = nqpos * G;
   const int q_last = q0 + nqpos - 1;
@@ -354,79 +401,169 @@ __global__ void __launch_bounds__(THREADS, 1) flash_attention_tc_kernel(
     sm90::wgmma_wait<0>();
     sm90::fence_operands(s);
 
-    // mask and online softmax; s[e] is row r0 + 8 ((e >> 1) & 1), key
-    // k0 + 8 (e >> 2) + cq + (e & 1)
-    float mx[2] = {m[0], m[1]};
+    if constexpr (LEAN<HD>) {
+      // mask only a tile that reaches past Skv, the causal diagonal or the
+      // window's edge; s[e] is row r0 + 8 ((e >> 1) & 1), key
+      // k0 + 8 (e >> 2) + cq + (e & 1)
+      if (k0 + BN > Skv || (causal && k0 + BN - 1 > q0) || (window > 0 && q_last - k0 >= window)) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int i = (e >> 1) & 1;
-      const int kpos = k0 + 8 * (e >> 2) + cq + (e & 1);
-      bool ok = live[i] && kpos < Skv;
-      if (causal) ok = ok && kpos <= qpos[i];
-      if (window > 0) ok = ok && qpos[i] - kpos < window;
-      s[e] = ok ? s[e] * scale_log2 : REPRO_NEG_INF;
-      mx[i] = fmaxf(mx[i], s[e]);
-    }
-    float corr[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      corr[i] = exp2f(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      const int i = (e >> 1) & 1;
-      const float p = s[e] == REPRO_NEG_INF ? 0.f : exp2f(s[e] - mx[i]);
-      s[e] = p;
-      rsum[i] += p;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
-      rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
-      l[i] = l[i] * corr[i] + rsum[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) o[j] *= corr[(j >> 1) & 1];
-
-    // P as the A operand, hi and lo bf16 halves: register x packs s[2x],
-    // s[2x + 1]; step ks takes registers 4 ks .. 4 ks + 3
-    uint32_t ph[16], pl[16];
-#pragma unroll
-    for (int x = 0; x < 16; ++x) {
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * x], s[2 * x + 1]);
-      const __nv_bfloat162 lo =
-          __floats2bfloat162_rn(s[2 * x] - __low2float(hi), s[2 * x + 1] - __high2float(hi));
-      ph[x] = *reinterpret_cast<const uint32_t*>(&hi);
-      pl[x] = *reinterpret_cast<const uint32_t*>(&lo);
-    }
-    sm90::fence_operands(o);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < BN / 16; ++ks) {
-      const uint64_t dv = sm90::desc_mnmajor(sv + ks * 16 * 128, BOX);
-      const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
-      const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
-      if constexpr (HD == 256) {
-        sm90::wgmma_rs_m64n256k16(o, ah, dv);
-        sm90::wgmma_rs_m64n256k16(o, al, dv);
-      } else if constexpr (HD == 160) {
-        sm90::wgmma_rs_m64n160k16(o, ah, dv);
-        sm90::wgmma_rs_m64n160k16(o, al, dv);
-      } else if constexpr (HD == 128) {
-        sm90::wgmma_rs_m64n128k16(o, ah, dv);
-        sm90::wgmma_rs_m64n128k16(o, al, dv);
-      } else {
-        static_assert(HD == 96, "the tensor-core build's head dims: 96, 128, 160, 256");
-        sm90::wgmma_rs_m64n96k16(o, ah, dv);
-        sm90::wgmma_rs_m64n96k16(o, al, dv);
+        for (int e = 0; e < 32; ++e) {
+          const int i = (e >> 1) & 1;
+          const int kpos = k0 + 8 * (e >> 2) + cq + (e & 1);
+          bool ok = kpos < Skv;
+          if (causal) ok = ok && kpos <= qpos[i];
+          if (window > 0) ok = ok && qpos[i] - kpos < window;
+          s[e] = ok ? s[e] : REPRO_NEG_INF;
+        }
       }
+      // the row max of the raw scores by a tree (depth 4, not a chain of
+      // 16), scaled once; m stays in base-2 units of the scaled scores
+      float ms[2], corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float t[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n) t[n] = fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]);
+#pragma unroll
+        for (int w = 4; w > 0; w >>= 1)
+#pragma unroll
+          for (int n = 0; n < w; ++n) t[n] = fmaxf(t[n], t[n + w]);
+        float mx = fmaxf(m[i], t[0] * scale_log2);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        // a row that has seen no key keeps max REPRO_NEG_INF; its offset 0
+        // sends its masked scores to 0.  corr is exactly 1 where the max
+        // did not move
+        ms[i] = mx == REPRO_NEG_INF ? 0.f : mx;
+        corr[i] = mx == m[i] ? 1.f : exp2_ftz(m[i] - mx);
+        m[i] = mx;
+      }
+      // O rescaled only where a row of the warp's moved its max (none,
+      // often, once the max has settled)
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < NO; ++j) o[j] *= corr[(j >> 1) & 1];
+      }
+      sm90::fence_operands(o);
+      // P.V in steps of 16 keys, each issued as soon as its P is made, so
+      // the tensor cores start on step 0 while step 1's exponentials run.
+      // Step ks: P = 2^(s scale_log2 - ms) of s[8 ks .. 8 ks + 7], its row
+      // sums, and its hi and lo bf16 halves as the A operand (register x
+      // packs s[2x], s[2x + 1])
+      float rsum[2] = {0.f, 0.f};
+      uint32_t ph[16], pl[16];
+#pragma unroll
+      for (int ks = 0; ks < BN / 16; ++ks) {
+        float part[2][4];
+#pragma unroll
+        for (int e = 8 * ks; e < 8 * ks + 8; ++e) {
+          const int i = (e >> 1) & 1;
+          s[e] = exp2_ftz(fmaf(s[e], scale_log2, -ms[i]));
+          part[i][((e - 8 * ks) >> 2) * 2 + (e & 1)] = s[e];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) rsum[i] += (part[i][0] + part[i][1]) + (part[i][2] + part[i][3]);
+#pragma unroll
+        for (int x = 4 * ks; x < 4 * ks + 4; ++x) {
+          ph[x] = pack_bf16(s[2 * x], s[2 * x + 1]);
+          const float h0 = __uint_as_float(ph[x] << 16), h1 = __uint_as_float(ph[x] & 0xffff0000u);
+          pl[x] = pack_bf16(s[2 * x] - h0, s[2 * x + 1] - h1);
+        }
+        const uint64_t dv = sm90::desc_mnmajor(sv + ks * 16 * 128, BOX);
+        const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
+        const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
+        sm90::wgmma_fence();
+        sm90::wgmma_rs_m64n64k16(o, ah, dv);
+        sm90::wgmma_rs_m64n64k16(o, al, dv);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+        rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+        l[i] = l[i] * corr[i] + rsum[i];
+      }
+      // P's registers are read by the wgmma after their issue: kept live
+      // until it is done
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
+      sm90::fence_operands(ph);
+      sm90::fence_operands(pl);
+    } else {
+      // mask and online softmax; s[e] is row r0 + 8 ((e >> 1) & 1), key
+      // k0 + 8 (e >> 2) + cq + (e & 1)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        const int kpos = k0 + 8 * (e >> 2) + cq + (e & 1);
+        bool ok = live[i] && kpos < Skv;
+        if (causal) ok = ok && kpos <= qpos[i];
+        if (window > 0) ok = ok && qpos[i] - kpos < window;
+        s[e] = ok ? s[e] * scale_log2 : REPRO_NEG_INF;
+        mx[i] = fmaxf(mx[i], s[e]);
+      }
+      float corr[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        corr[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        const float p = s[e] == REPRO_NEG_INF ? 0.f : exp2f(s[e] - mx[i]);
+        s[e] = p;
+        rsum[i] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
+        rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
+        l[i] = l[i] * corr[i] + rsum[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) o[j] *= corr[(j >> 1) & 1];
+
+      // P as the A operand, hi and lo bf16 halves: register x packs s[2x],
+      // s[2x + 1]; step ks takes registers 4 ks .. 4 ks + 3
+      uint32_t ph[16], pl[16];
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s[2 * x], s[2 * x + 1]);
+        const __nv_bfloat162 lo =
+            __floats2bfloat162_rn(s[2 * x] - __low2float(hi), s[2 * x + 1] - __high2float(hi));
+        ph[x] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[x] = *reinterpret_cast<const uint32_t*>(&lo);
+      }
+      sm90::fence_operands(o);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BN / 16; ++ks) {
+        const uint64_t dv = sm90::desc_mnmajor(sv + ks * 16 * 128, BOX);
+        const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2], ph[4 * ks + 3]};
+        const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2], pl[4 * ks + 3]};
+        if constexpr (HD == 256) {
+          sm90::wgmma_rs_m64n256k16(o, ah, dv);
+          sm90::wgmma_rs_m64n256k16(o, al, dv);
+        } else if constexpr (HD == 160) {
+          sm90::wgmma_rs_m64n160k16(o, ah, dv);
+          sm90::wgmma_rs_m64n160k16(o, al, dv);
+        } else if constexpr (HD == 128) {
+          sm90::wgmma_rs_m64n128k16(o, ah, dv);
+          sm90::wgmma_rs_m64n128k16(o, al, dv);
+        } else {
+          static_assert(HD == 96, "the tensor-core build's head dims: 64 (LEAN), 96, 128, 160, 256");
+          sm90::wgmma_rs_m64n96k16(o, ah, dv);
+          sm90::wgmma_rs_m64n96k16(o, al, dv);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(o);
     }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_operands(o);
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
@@ -475,7 +612,8 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   static const cudaError_t opted = cudaFuncSetAttribute(flash_attention_tc_kernel<HD, LSE>,
                                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (opted != cudaSuccess) return (int)opted;
-  dim3 grid((Sq + BQ - 1) / BQ, nkv, B);
+  const int tiles = (Sq + BQ - 1) / BQ;
+  const dim3 grid = LEAN<HD> ? dim3(tiles * nkv, 1, B) : dim3(tiles, nkv, B);
   flash_attention_tc_kernel<HD, LSE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       tq, tk, tv, (__nv_bfloat16*)out, lse, Sq, Skv, nq, nkv, BQ, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
@@ -493,7 +631,10 @@ int cuda_cores(int dtype, const void* q, const void* k, const void* v, void* out
     switch (hd) {
       case 16: return launch_hd<T, 16, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
       case 32: return launch_hd<T, 32, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
-      case 64: return launch_hd<T, 64, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+      case 64:
+        if constexpr (F32)
+          return launch_hd<T, 64, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
+        return (int)cudaErrorInvalidValue;
       case 96:
         if constexpr (F32)
           return launch_hd<T, 96, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
@@ -522,6 +663,7 @@ int tensor_cores(const void* q, const void* k, const void* v, void* out, float* 
   if (B <= 0 || Sq <= 0 || Skv <= 0 || nkv <= 0 || nq % nkv != 0 || nq / nkv > tc::ROWS || window < 0)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
+    case 64: return tc::launch<64, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
     case 96: return tc::launch<96, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
     case 128: return tc::launch<128, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
     case 160: return tc::launch<160, LSE>(q, k, v, out, lse, B, Sq, Skv, nq, nkv, causal, window, scale, stream);
@@ -534,7 +676,7 @@ int tensor_cores(const void* q, const void* k, const void* v, void* out, float* 
 
 // q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out (B, Sq, nq, hd), all
 // contiguous; nq / nkv <= 64; f32 at hd in {16, 32, 64, 96, 128, 160, 256},
-// bf16 at hd in {16, 32, 64} (bf16 at 96, 128, 160 and 256 is
+// bf16 at hd in {16, 32} (bf16 at 64, 96, 128, 160 and 256 is
 // repro_flash_attention_tc's).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out, int B,
                                      int Sq, int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
@@ -543,8 +685,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
 }
 
 // The tensor-core path: bf16 q (B, Sq, nq, hd), k/v (B, Skv, nkv, hd), out
-// (B, Sq, nq, hd), all contiguous and 16-byte aligned; hd in {96, 128, 160,
-// 256}; nq / nkv <= 64.
+// (B, Sq, nq, hd), all contiguous and 16-byte aligned; hd in {64, 96, 128,
+// 160, 256}; nq / nkv <= 64.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                                         int Skv, int nq, int nkv, int hd, int causal, int window, float scale,
                                         void* stream) {

@@ -144,6 +144,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// and the register A operand of a wgmma still in flight: kept live (its
+// registers not reused) until the wait that follows the fence
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 // D (64 x 64) += A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(

@@ -359,7 +359,7 @@ def flash_decode_window(
     return flash_decode_window_kernel(q, k, v, positions, scales, window=window)
 
 
-_FA_TC_HEAD_DIMS = (96, 128, 160, 256)
+_FA_TC_HEAD_DIMS = (64, 96, 128, 160, 256)
 _FA_MAX_GROUP = 64
 # the C signatures of repro_flash_attention_tc and (a dtype code first)
 # repro_flash_attention
@@ -370,9 +370,9 @@ _FA_ARGTYPES = [ctypes.c_int] + _FA_TC_ARGTYPES
 def flash_attention_path(dtype: torch.dtype, hd: int) -> str:
     """Which build of kernel 7 a launch takes, from its dtype and head dim
     alone: ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA) for bf16 at head
-    dims 96, 128, 160 and 256, every registered arch's prefill;
+    dims 64, 96, 128, 160 and 256, every registered arch's prefill;
     ``"cuda_cores"`` (f32 products) for f32 at every head dim and for bf16
-    at 16, 32 and 64.  Raises ``ValueError`` for a head dim no build has."""
+    at 16 and 32.  Raises ``ValueError`` for a head dim no build has."""
     _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", "flash_attention")
     return "tensor_cores" if dtype == torch.bfloat16 and hd in _FA_TC_HEAD_DIMS else "cuda_cores"
 

@@ -7,9 +7,9 @@ sources, its library swapped in under the same wrappers.
   decode (kernels 1 and 5 at hd 128, tree words; f32, bf16, int8 K/V: the
   head dims 96 and 160 added instantiations and a P.V guard that the
   power-of-two builds never take), both builds of kernel 7
-  (CUDA cores: f32 at every head dim, 96 and 160 included, bf16 at 16, 32
-  and 64; tensor cores: bf16 at 128 and 256, whose template now also
-  builds 96 and 160), both builds of kernel 8 (CUDA cores: f32, and bf16
+  (CUDA cores: f32 at every head dim, 96 and 160 included, bf16 at 16 and
+  32; tensor cores: bf16 at 96, 128, 160 and 256, whose template now also
+  builds hd 64 in a branch of its own), both builds of kernel 8 (CUDA cores: f32, and bf16
   at a ragged shape; tensor cores: bf16 at M tiles of 16, 64 and 256, its
   main loop now shared with kernel 4 through ``csrc/grouped_tc.cuh``),
   kernel 11's CUDA-core build (f32, also at Mamba-2-2.7B's widths, and bf16
@@ -35,7 +35,9 @@ sources, its library swapped in under the same wrappers.
 * Kernel 7's tensor-core path carries P into P.V as hi + lo bf16 halves.
   Built with the lo half zeroed (bf16 P alone), it misses the bf16 gate at
   RecurrentGemma's prefill shape (hd 256) and StableLM-12B's (hd 160),
-  which the shipped build holds.  Kernel
+  which the shipped build holds.  The hd 64 branch carries P the same way;
+  its misses with the lo half zeroed at MusicGen-large's prompt are
+  counted.  Kernel
   11's tensor-core build carries S, the state and w o x the same way;
   built with its lo halves zeroed it misses the 1e-4 gate at Mamba-2-2.7B's
   admission shape.  Kernel 7's backward's tensor-core build carries P and
@@ -102,8 +104,11 @@ WINDOW_CASES = [f"flash_decode_window {kind}{tag}" for tag in ("float32", "bfloa
 # kernels 1 and 5 at Qwen3-MoE's head dim (tree 2,1 words, a scrambled block table)
 DECODE_CASES = [f"flash_decode {kind}{tag} {policy}" for tag in ("float32", "bfloat16") for kind in ("", "int8 ")
                 for policy in ("contiguous", "paged")]
+# kernel 7: f32 at every head dim and bf16 at 16 and 32 (CUDA cores), bf16
+# at 96-256 (the tensor-core template; its hd 64 branch is new, not compared)
 PREFILL_CASES = [f"flash_attention {tag} hd {hd} window {w}"
-                 for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)), ("bfloat16", (16, 32, 64, 128, 256)))
+                 for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)),
+                                  ("bfloat16", (16, 32, 96, 128, 160, 256)))
                  for hd in hds for w in (0, 45)]
 # E,M,K,N; "tc" names a case of the tensor-core build
 GEMM_CASES = [f"grouped_gemm {tag} {shape}" for tag, shape in
@@ -274,6 +279,35 @@ def test_flash_attention_p_needs_its_lo_half_on_card(cuda, tmp_path, hd, nq, nkv
     print(f"elements outside the bf16 gate of {want.numel()}: hi + lo {shipped}, hi only {dropped}")
     assert shipped == 0
     assert dropped > 0
+
+
+P64_LO_LINE = "pl[x] = pack_bf16(s[2 * x] - h0, s[2 * x + 1] - h1);"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2048, 4096])
+def test_flash_attention_hd64_lo_half_misses_on_card(cuda, tmp_path, S):
+    """MusicGen-large's heads (32 query and 32 KV heads of 64), one causal
+    prompt of 2,048 and of 4,096 tokens: the shipped hd 64 instantiation
+    (hi + lo halves of P, its own packing line in the template's hd 64
+    branch) holds the bf16 gate on every element; the same source with
+    that lo half zeroed is counted (printed), not required to miss."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    src = (csrc / "flash_attention.cu").read_text()
+    assert src.count(P64_LO_LINE) == 1, "the hd 64 lo half's line moved: update P64_LO_LINE"
+    (csrc / "flash_attention.cu").write_text(src.replace(P64_LO_LINE, "pl[x] = 0u;"))
+    hi_only = _build(csrc, "flash_attention", tmp_path / "build")
+
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((1, S, 32, 64), generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    assert fa_ops.flash_attention_path(q.dtype, 64) == "tensor_cores"
+    want = fa_ref.flash_attention(q, k, v, causal=True)
+    shipped = _misses(fa_ops.flash_attention_kernel(q, k, v, causal=True), want)
+    with _swapped("flash_attention", hi_only):
+        dropped = _misses(fa_ops.flash_attention_kernel(q, k, v, causal=True), want)
+    print(f"hd 64, S {S}: elements outside the bf16 gate of {want.numel()}: hi + lo {shipped}, hi only {dropped}")
+    assert shipped == 0
 
 
 # ---------------------------------------------------------------------------

@@ -426,15 +426,16 @@ def test_flash_decode_window_split_edges_on_card(cuda, dtype, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,nq,nkv", [(256, 10, 1), (128, 16, 2), (256, 16, 1), (128, 10, 2), (96, 32, 32),
-                                      (96, 4, 4), (160, 8, 2)])
+                                      (96, 4, 4), (160, 8, 2), (64, 32, 32), (64, 16, 4), (64, 10, 1)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 45), (False, 0)])
 def test_flash_attention_tensor_core_path_on_card(cuda, hd, nq, nkv, causal, window):
-    """bf16 at hd 96, 128, 160 and 256 takes the wgmma path: groups of 10
-    (4 dead rows a 64-row tile), 16, 4 and 1, B = 2, S = 197 (a ragged last
-    query tile and a ragged last key tile), window edges inside a 64-key
-    tile; at 96 and 160 the last 64-column box is part zeros and P.V runs
-    at N = 96 and 160.  Held by the bf16 gate and bitwise equal on a
-    repeated launch."""
+    """bf16 at hd 64, 96, 128, 160 and 256 takes the wgmma path: groups of
+    10 (4 dead rows a 64-row tile), 16, 4 and 1, B = 2, S = 197 (a ragged
+    last query tile and a ragged last key tile), window edges inside a
+    64-key tile; at 96 and 160 the last 64-column box is part zeros and P.V
+    runs at N = 96 and 160; hd 64 takes the template's lean softmax (only
+    edge tiles masked, P.V issued 16 keys at a time).  Held by the bf16
+    gate and bitwise equal on a repeated launch."""
     from repro_torch.kernels.flash_attention import ops as ops_
 
     assert ops_.flash_attention_path(torch.bfloat16, hd) == "tensor_cores"
@@ -447,6 +448,29 @@ def test_flash_attention_tensor_core_path_on_card(cuda, hd, nq, nkv, causal, win
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, fa_ref.flash_attention(q, k, v, causal=causal, window=window), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2048, 4096])
+def test_flash_attention_hd64_musicgen_prompt_on_card(cuda, S):
+    """MusicGen-large's heads (32 query and 32 KV heads of 64), one causal
+    bf16 prompt of 2,048 and of 4,096 tokens, on the tensor cores: held by
+    the bf16 gate against the plain version, bitwise equal on a repeated
+    launch, and the LSE launch's O bitwise the serving launch's with its
+    log-sum-exps within 1e-4 of the plain version's."""
+    from repro_torch.kernels.flash_attention import ops as ops_
+
+    assert ops_.flash_attention_path(torch.bfloat16, 64) == "tensor_cores"
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, k, v = (torch.randn((1, S, 32, 64), generator=g, device=cuda).to(torch.bfloat16) for _ in range(3))
+    got = ops_.flash_attention_kernel(q, k, v, causal=True)
+    assert torch.equal(got, ops_.flash_attention_kernel(q, k, v, causal=True))
+    out, lse = ops_.flash_attention_lse_kernel(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    want, want_lse = fa_ref.flash_attention_lse(q, k, v, causal=True)
+    _close(got, want, torch.bfloat16)
+    assert float((lse - want_lse).abs().max()) <= 1e-4 * max(1.0, float(want_lse.abs().max()))
 
 
 def _rglru_gates(seed, B, T, W, gates):
@@ -801,7 +825,7 @@ def test_window_and_prefill_kernels_at_head_dims_96_and_160_on_card(cuda, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [96, 128, 160, 256])
+@pytest.mark.parametrize("hd", [64, 96, 128, 160, 256])
 def test_cuda_core_entry_refuses_bf16_at_the_tensor_core_head_dims_on_card(cuda, hd):
     """``repro_flash_attention`` (the CUDA-core build) returns an error for
     bf16 at every head dim the tensor-core build takes, so no caller reaches

@@ -18,10 +18,10 @@ HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_path_at_every_dtype_and_head_dim(dtype, hd):
-    """bf16 at 96, 128, 160 and 256 (every registered arch's prefill) takes
-    the tensor cores; f32 at every head dim and bf16 at 16, 32, 64 take
-    the CUDA-core build."""
-    tc = dtype == torch.bfloat16 and hd in (96, 128, 160, 256)
+    """bf16 at 64, 96, 128, 160 and 256 (every registered arch's prefill)
+    takes the tensor cores; f32 at every head dim and bf16 at 16 and 32
+    take the CUDA-core build."""
+    tc = dtype == torch.bfloat16 and hd in (64, 96, 128, 160, 256)
     assert fa_ops.flash_attention_path(dtype, hd) == ("tensor_cores" if tc else "cuda_cores")
     assert fa_ops._HEAD_DIMS == HEAD_DIMS
 
