@@ -88,8 +88,10 @@ their plain versions on the card, within 2e-2 of the logit scale (and on
 the paged plane bitwise the contiguous launches); then Llama-4-Maverick cut
 to 1 layer and Qwen1.5-4B uncut served on ``full_width``'s traffic, both
 in ``compiled_launch``.
-Training (phases ``train_twin``, ``train_full_width``, ``train_restart``,
-``train_sweep``; ``kernels_vs_plain`` rows ``flash_attention_bwd*``):
+Training (phases ``train_twin``, ``train_full_width``,
+``train_moe_full_width``, ``train_rec_full_width``, ``train_restart``,
+``train_sweep``; ``kernels_vs_plain`` rows ``flash_attention_bwd*``,
+``moe_gather_swiglu_bwd``, ``moe_down_combine_bwd``, ``rglru_scan_bwd``):
 kernel 7's backward against its plain version at StarCoder2-3B's heads
 and at head dims 64, 96 and 160, each on the tensor-core build (registers,
 spills and a SASS census with ``HGMMA``; the LSE forward's O bitwise the
@@ -97,10 +99,15 @@ serving launch's; SDPA's backward timed beside it; kernel 7's forward at
 MusicGen's heads on the tensor-core template at hd 64, as rows
 ``flash_attention_hd64`` (2,048 tokens) and ``flash_attention_hd64_long``
 (4,096)),
-the f32 smoke config trained
-3 steps on the card and on the CPU (losses and params equal), StarCoder2-3B
-at published widths cut to 20 layers trained 6 steps of 4 x 2,048 tokens
-(bf16 over f32 master weights, AdamW, remat; a seventh step profiled),
+the backwards of kernels 3, 4 and 12 against their plain versions at
+Qwen3-MoE's and RecurrentGemma-2B's training shapes (and ragged ones, f32
+and bf16, bitwise repeats), the f32 smoke configs of StarCoder2, Qwen3-MoE
+and RecurrentGemma trained 3 steps on the card and on the CPU (losses and
+params equal), StarCoder2-3B at published widths cut to 20 layers trained
+6 steps of 4 x 2,048 tokens (bf16 over f32 master weights, AdamW, remat; a
+seventh step profiled), Qwen3-MoE at published widths cut to 2 layers
+(Adafactor; every router moves) and RecurrentGemma-2B uncut, 3 steps of 2
+x 2,048 tokens each and a profiled one,
 the same cut to 2 layers through the fault-tolerant ``Trainer`` with a
 failure injected and replayed, and one step of MusicGen, Phi-3-Vision and
 StableLM-12B cut to 2 layers.
@@ -702,6 +709,7 @@ def kernel_phase(cfg, dev):
     rows.update(head_dim_kernel_rows(dev, gen, tol))
     rows.update(llama4_kernel_rows(dev, gen, tol))
     rows.update(bwd_kernel_rows(dev, gen))
+    rows.update(train_bwd_rows(dev, gen))
     return rows
 
 
@@ -1195,8 +1203,8 @@ def rglru_kernel_row(dev, gen, tol, Wl):
                f"{rg_ops.CHUNK // rg_ops.SEGMENT} segments of {rg_ops.SEGMENT} steps a chunk in registers; "
                f"aggregates published under flags, the carry folded from h0 over every earlier chunk in "
                f"ascending order; one launch after a memset of the flags",
-        ptxas=ptxas("rglru_scan", "rglru_chunk_kernel"),
-        sass=sass_census("rglru_scan", "rglru_chunk_kernel"),
+        ptxas=ptxas("rglru_scan", "rglru_chunk_kernelILb0E"),
+        sass=sass_census("rglru_scan", "rglru_chunk_kernelILb0E"),
         shapes=f"a, b {tuple(a32.shape)} f32 (the model's gates) and bf16, h0 {tuple(h0.shape)}; also the "
                f"first 2,048 and 3,072 steps",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))),
@@ -2844,10 +2852,10 @@ def plain_versions():
     from repro_torch.kernels.moe_decode import ref as md_ref
     from repro_torch.kernels.moe_fused import ops as mf_ops
     from repro_torch.kernels.moe_fused import ref as mf_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rglru_scan import ref as rg_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    from repro_torch.models import rglru
 
     def words(q, anc, base):
         return fa_ops._control_words(q.shape[0], q.shape[1], q.device, anc, base)
@@ -2868,7 +2876,7 @@ def plain_versions():
         (md_ops, "decode_moe_kernel", md_ref.decode_moe),
         (mf_ops, "gather_swiglu", mf_ref.gather_swiglu),
         (mf_ops, "down_combine", mf_ref.down_combine),
-        (rglru, "rglru_scan", rglru_plain),
+        (rg_ops, "rglru_scan", rglru_plain),
         (ssd_ops, "ssd_scan", lambda x, dt, a, bm, cm, chunk=128, h0=None: ssd_ref.ssd_chunked(x, dt, a, bm, cm, chunk,
                                                                                                 h0)),
     ]
@@ -3893,7 +3901,6 @@ SWEEP_TRAIN_LAYERS = 2
 # the tensor-core build's four (``flash_attention_bwd_path``)
 BWD_LAUNCHES = {"cuda_cores": ("row_dot_kernel", "dkv_kernel", "dq_kernel"),
                 "tensor_cores": ("bwd_prep_tc_kernel", "dkv_tc_kernel", "dkv_reduce_kernel", "dq_tc_kernel")}
-BWD_SYMBOLS = BWD_LAUNCHES["cuda_cores"] + BWD_LAUNCHES["tensor_cores"]
 
 
 def bwd_kernel_rows(dev, gen):
@@ -4004,94 +4011,27 @@ def _tree_bytes(tree) -> int:
 
 
 def train_full_width(dev):
-    """StarCoder2-3B at published widths, depth cut to ``TRAIN_LAYERS``:
-    bf16 compute over f32 master weights, AdamW, remat, ``TRAIN_BATCH`` x
-    ``TRAIN_SEQ`` tokens of ``MarkovLMDataset`` a step through the loader,
-    ``TRAIN_STEPS`` steps of ``build_train_step``, then one more under the
-    profiler (device time by kernel, busy and idle share).  Gates: every
-    loss and grad norm finite; per step 2 x ``TRAIN_LAYERS`` launches of
-    kernel 7 (forward and its recompute) and ``TRAIN_LAYERS`` of its
-    backward."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import ShapeCell, get_config
-    from repro_torch.data import MarkovLMDataset, ShardedLoader
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.steps import build_train_step
+    """StarCoder2-3B at published widths, depth cut to ``TRAIN_LAYERS``,
+    AdamW, ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, ``TRAIN_STEPS`` steps:
+    :func:`train_cell`, with kernel 7 twice a layer a step (forward and
+    its recompute) and its backward once."""
+    from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config(TRAIN), num_layers=TRAIN_LAYERS)
-    assert cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32" and cfg.optimizer == "adamw"
-    L, B, S = cfg.num_layers, TRAIN_BATCH, TRAIN_SEQ
-    torch.cuda.reset_peak_memory_stats()
-    step_fn = build_train_step(cfg, dev, ShapeCell("train_full_width", S, B, "train"), lr=TRAIN_LR,
-                               total_steps=TRAIN_STEPS)
-    t0 = time.perf_counter()
-    params = step_fn.model.init(0, train=True)
-    opt = step_fn.optimizer.init(params)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    state_bytes = torch.cuda.memory_allocated()
-    loader = ShardedLoader(MarkovLMDataset(cfg.vocab_size, S, seed=0), B, dev)
-    times, losses, gnorms = [], [], []
-    reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
-        step, batch = next(loader)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        params, opt, _, m = step_fn(params, opt, step, batch["tokens"])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-    counts = {n: c for n, c in launch_counts().items() if c}
-    peak = torch.cuda.max_memory_allocated()
-    _finite("train_full_width loss", losses)
-    _finite("train_full_width grad_norm", gnorms)
-    want = {"flash_attention": TRAIN_STEPS * 2 * L, "flash_attention_bwd": TRAIN_STEPS * L}
-    if counts != want:
-        raise AssertionError(f"train_full_width: launches {counts}, expected {want}")
-    step, batch = next(loader)
-    loader.close()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        params, opt, _, m = step_fn(params, opt, step, batch["tokens"])
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t) * 1e3
-    by_name = device_time_by_name(prof)
-    busy = sum(by_name.values())
-    ms = statistics.median(times[1:]) * 1e3
-    d, nq, nkv, hd, f, V = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size
-    matmul_params = L * (2 * d * nq * hd + 2 * d * nkv * hd + 3 * d * f) + V * d
-    pairs = S * (S + 1) // 2
-    model_flops = 6.0 * B * S * matmul_params + 3 * 4.0 * B * pairs * nq * hd * L
-    kernel_ms = {sym: sum(v for n, v in by_name.items() if sym in n)
-                 for sym in ("flash_attention_tc_kernel", *BWD_SYMBOLS)}
-    out = dict(
-        arch=TRAIN, layers=L, of_layers=get_config(TRAIN).num_layers, batch=B, seq_len=S, steps=TRAIN_STEPS,
-        dtype=cfg.dtype, param_dtype=cfg.param_dtype, optimizer=cfg.optimizer, remat=cfg.remat,
-        ms_per_step=ms, step_ms_each=[x * 1e3 for x in times], tokens_per_s=B * S / (ms / 1e3),
-        model_flops_per_step=model_flops, model_flops_share_of_bf16_peak=model_flops / (ms / 1e3) / BF16_FLOPS,
-        loss=losses, grad_norm=gnorms, params=sum(t.numel() for t in _leaves(params)),
-        param_bytes=_tree_bytes(params), opt_state_bytes=_tree_bytes(opt), state_bytes_allocated=state_bytes,
-        peak_memory_allocated=peak, init_s=init_s, kernel_launches=counts,
-        launches_per_step={n: c / TRAIN_STEPS for n, c in counts.items()},
-        profiled_step=dict(wall_ms=prof_wall_ms, device_busy_ms=busy,
-                           device_idle_share_profiled=max(0.0, 1 - busy / prof_wall_ms),
-                           device_idle_share=max(0.0, 1 - busy / ms),
-                           kernel7_ms=kernel_ms, top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])),
-    )
-    del params, opt, step_fn
-    torch.cuda.empty_cache()
-    return out
+    assert cfg.optimizer == "adamw"
+    return dict(train_cell(dev, "train_full_width", cfg, TRAIN_BATCH, TRAIN_STEPS),
+                of_layers=get_config(TRAIN).num_layers)
+
+
+TWIN_ARCHS = (TRAIN, ARCH, HYBRID)  # a dense, a moe (Adafactor) and a rec stack
 
 
 def train_twin(dev):
-    """The f32 smoke config, 3 steps of ``build_train_step`` on the card and
-    on the CPU plain path from the same initial weights and batches: losses
-    within 1e-5 relative, params within 1e-5, and the card's steps through
-    kernel 7 and its backward (one launch each a layer a step)."""
+    """The f32 smoke config of each of ``TWIN_ARCHS``, 3 steps of
+    ``build_train_step`` on the card and on the CPU plain path from the same
+    initial weights and batches: losses within 1e-5 relative, params within
+    1e-5, and the card's steps through each kernel of the stack and its
+    backward (:func:`train_launches`: no remat at smoke size)."""
     import torch
 
     from repro_torch.configs import ShapeCell, get_smoke_config
@@ -4099,33 +4039,36 @@ def train_twin(dev):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import build_train_step
 
-    cfg = get_smoke_config(TRAIN)
-    B, S, steps = 2, 64, 3
-    cell = ShapeCell("train_twin", S, B, "train")
-    card, cpu = (build_train_step(cfg, d, cell, lr=1e-3, total_steps=10) for d in (dev, "cpu"))
-    p_cpu = cpu.model.init(0, train=True)
-    p_card = _to(cpu.model.init(0, train=True), dev)  # the same numbers: one seed, one CPU generator
-    o_cpu, o_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
-    ds = MarkovLMDataset(cfg.vocab_size, S, seed=0)
-    losses = []
-    reset_launch_counts()
-    for i in range(steps):
-        tokens = torch.from_numpy(ds.batch(i, B)["tokens"])
-        p_card, o_card, _, m_card = card(p_card, o_card, i, tokens.to(dev))
-        p_cpu, o_cpu, _, m_cpu = cpu(p_cpu, o_cpu, i, tokens)
-        a, b = float(m_card["loss"]), float(m_cpu["loss"])
-        losses.append((a, b))
-        if not abs(a - b) <= 1e-5 * abs(b):
-            raise AssertionError(f"train_twin step {i}: card loss {a} vs CPU {b}")
-    counts = {n: c for n, c in launch_counts().items() if c}
-    want = {"flash_attention": steps * cfg.num_layers, "flash_attention_bwd": steps * cfg.num_layers}
-    if counts != want:
-        raise AssertionError(f"train_twin: launches {counts}, expected {want}")
-    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(_leaves(p_card), _leaves(p_cpu)))
-    if not err <= 1e-5:
-        raise AssertionError(f"train_twin: params differ by {err:.3e} after {steps} steps")
-    return dict(arch=cfg.name, steps=steps, batch=B, seq_len=S, losses_card_cpu=losses, params_max_abs_err=err,
-                kernel_launches=counts)
+    out = {}
+    for arch in TWIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        B, S, steps = 2, 64, 3
+        cell = ShapeCell("train_twin", S, B, "train")
+        card, cpu = (build_train_step(cfg, d, cell, lr=1e-3, total_steps=10) for d in (dev, "cpu"))
+        p_cpu = cpu.model.init(0, train=True)
+        p_card = _to(cpu.model.init(0, train=True), dev)  # the same numbers: one seed, one CPU generator
+        o_cpu, o_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
+        ds = MarkovLMDataset(cfg.vocab_size, S, seed=0)
+        losses = []
+        reset_launch_counts()
+        for i in range(steps):
+            tokens = torch.from_numpy(ds.batch(i, B)["tokens"])
+            p_card, o_card, _, m_card = card(p_card, o_card, i, tokens.to(dev))
+            p_cpu, o_cpu, _, m_cpu = cpu(p_cpu, o_cpu, i, tokens)
+            a, b = float(m_card["loss"]), float(m_cpu["loss"])
+            losses.append((a, b))
+            if not abs(a - b) <= 1e-5 * abs(b):
+                raise AssertionError(f"train_twin {arch} step {i}: card loss {a} vs CPU {b}")
+        counts = {n: c for n, c in launch_counts().items() if c}
+        want = {n: steps * c for n, c in train_launches(cfg).items()}
+        if counts != want:
+            raise AssertionError(f"train_twin {arch}: launches {counts}, expected {want}")
+        err = max(float((a.cpu() - b).abs().max()) for a, b in zip(_leaves(p_card), _leaves(p_cpu)))
+        if not err <= 1e-5:
+            raise AssertionError(f"train_twin {arch}: params differ by {err:.3e} after {steps} steps")
+        out[arch] = dict(arch=cfg.name, kinds=sorted(set(cfg.layer_kinds)), optimizer=cfg.optimizer, steps=steps,
+                         batch=B, seq_len=S, losses_card_cpu=losses, params_max_abs_err=err, kernel_launches=counts)
+    return out
 
 
 def train_restart(dev):
@@ -4216,6 +4159,372 @@ def train_sweep(dev):
         del params, opt, step_fn
         torch.cuda.empty_cache()
     return out
+
+
+# the training backward kernels of the MoE and RG-LRU stacks (3_bwd, 4_bwd,
+# 12_bwd): their launches by wrapper, the Qwen3-MoE cell's depth (of 94: two
+# layers, so the lookahead plan of layer 1 routes from layer 0's residual
+# stream) and the steps of both training cells (then one more, profiled)
+MOE_BWD_LAUNCHES = {"down_combine_bwd": ("down_dh_kernel", "down_dw_kernel", "down_dsw_kernel"),
+                    "gather_swiglu_bwd": ("gate_up_dgu_kernel", "gate_up_dw_kernel", "gate_up_dxs_kernel",
+                                          "gate_up_dx_kernel")}
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH, REC_TRAIN_BATCH, CELL_TRAIN_STEPS = 2, 2, 10
+REC_RAGGED_T = 2000  # kernel 12's backward off its 128-step chunks
+
+
+def _moe_bwd_composites(x, idx, cidx, wg, wu, wd, sw, h, dy, dh):
+    """The two backward functions composed from PyTorch calls in the
+    operands' type (gathers, ``torch.bmm``, elementwise, a gather-sum per
+    token): no one call computes either."""
+    import torch
+
+    E, C, f = h.shape
+    T, d = x.shape
+    k = cidx.numel() // T
+    occ = (idx < T).reshape(E, C, 1)
+
+    def down():
+        rows = torch.cat([dy, dy.new_zeros((1, d))])[idx.long()].reshape(E, C, d)
+        w = torch.where(occ, sw.reshape(E, C, 1), 0.0)
+        q = torch.bmm(rows.to(h.dtype), wd.transpose(1, 2))
+        return (w * q).to(h.dtype), torch.bmm(h.transpose(1, 2), (w * rows).to(h.dtype)), (h * q).float().sum(-1)
+
+    def gather():
+        xs = torch.cat([x, x.new_zeros((1, d))])[idx.long()].reshape(E, C, d)
+        g, u = torch.bmm(xs, wg).float(), torch.bmm(xs, wu).float()
+        sg = torch.sigmoid(g)
+        dhf = torch.where(occ, dh.float(), 0.0)
+        dg, du = (dhf * u * sg * (1 + g * (1 - sg))).to(x.dtype), (dhf * g * sg).to(x.dtype)
+        xt = xs.transpose(1, 2)
+        dxs = torch.bmm(dg, wg.transpose(1, 2)).float() + torch.bmm(du, wu.transpose(1, 2)).float()
+        dx = torch.cat([dxs.reshape(E * C, d), dxs.new_zeros((1, d))])[cidx.long()].reshape(T, k, d).sum(1)
+        return dx.to(x.dtype), torch.bmm(xt, dg), torch.bmm(xt, du)
+
+    return down, gather
+
+
+def train_bwd_rows(dev, gen):
+    """The training backward kernels of this slice against their plain
+    versions on the card: rows ``moe_down_combine_bwd`` (4_bwd) and
+    ``moe_gather_swiglu_bwd`` (3_bwd) at Qwen3-MoE's shapes (T =
+    ``MOE_TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, 128 experts top-8 at the
+    config's capacity, d 4096, f 1536, bf16; the bf16 gate of row 3,
+    :func:`check_bf16`, on every bf16 output, the f32 bound on the f32 slot
+    weights' gradient) and in f32 at a ragged shape with empty and dropped
+    slots (1e-4 of the output scale); ``rglru_scan_bwd`` (12_bwd) at
+    RecurrentGemma-2B's (``REC_TRAIN_BATCH``, ``TRAIN_SEQ``, 2,560) with
+    f32 and bf16 gates and at ``REC_RAGGED_T`` steps with h0 (row 12's f32
+    bound; bf16 gradients by the bf16 gate).  Each: a bitwise repeat,
+    CUDA-event ms, device ms (by launch: ``train_moe_full_width``'s profiled
+    step), the plain version's ms, the composed PyTorch time for 3 and 4
+    (in turns with the kernel),
+    registers and spills, and the bound: bytes (each operand read once,
+    each output written once) or operations at the inputs' type's rate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.control_plane import capacity_for, route_topk
+    from repro_torch.kernels.moe_fused import ops as mf_ops
+    from repro_torch.kernels.moe_fused import ref as mf_ref
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+    bf16 = torch.bfloat16
+    rows = {}
+
+    def moe_case(T, d, f, E, k, cf, dtype, router_std=0.02):
+        x32 = torch.randn((T, d), generator=gen, device=dev)
+        router = torch.randn((d, E), generator=gen, device=dev) * router_std
+        plan, _ = route_topk(x32, router, k, capacity_for(T, E, k, cf))
+        x = x32.to(dtype)
+        del x32
+        wg, wu = ((torch.randn((E, d, f), generator=gen, device=dev) * d ** -0.5).to(dtype) for _ in range(2))
+        wd = (torch.randn((E, f, d), generator=gen, device=dev) * f ** -0.5).to(dtype)
+        dy = torch.randn((T, d), generator=gen, device=dev)
+        return x, plan, wg, wu, wd, dy
+
+    def hold(tag, got, want, f32_tol=1e-4):
+        return max(check_close(f"{tag} {i}", g, w, f32_tol) if g.dtype == torch.float32 else check_bf16(f"{tag} {i}", g, w)
+                   for i, (g, w) in enumerate(zip(got, want)))
+
+    # the ragged f32 case first (small), then the full-width bf16 one
+    x, plan, wg, wu, wd, dy = moe_case(1000, 264, 200, 24, 4, 1.0, torch.float32, router_std=0.2)
+    T = x.shape[0]
+    idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
+    ragged = dict(empty_slots=int((idx >= T).sum()), dropped=int((cidx == idx.numel()).sum()))
+    if not (ragged["empty_slots"] and ragged["dropped"]):
+        raise AssertionError(f"moe bwd ragged case: {ragged}")
+    h = mf_ops.gather_swiglu(x, idx, wg, wu)
+    down32 = lambda: mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
+    err_down32 = hold("4_bwd f32", down32(), mf_ref.down_combine_bwd(dy, h, wd, idx, sw))
+    dh = down32()[0]
+    gather32 = lambda: mf_ops.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)
+    err_gather32 = hold("3_bwd f32", gather32(), mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu))
+    cat = lambda fn: lambda: torch.cat([t.reshape(-1).float() for t in fn()])
+    repeat32 = bitwise_repeat("4_bwd f32", cat(down32)) and bitwise_repeat("3_bwd f32", cat(gather32))
+    ragged.update(shapes=f"x {tuple(x.shape)}, E {wg.shape[0]}, C {idx.numel() // wg.shape[0]}, d {x.shape[1]}, "
+                         f"f {wg.shape[2]}, top-4, capacity factor 1.0, a skewed router")
+    del x, plan, wg, wu, wd, dy, h, dh
+    torch.cuda.empty_cache()
+
+    cfg = get_config(ARCH)
+    T, d, f, E, k = MOE_TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff_expert, cfg.num_experts, cfg.top_k
+    x, plan, wg, wu, wd, dy = moe_case(T, d, f, E, k, cfg.capacity_factor, bf16)
+    idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
+    C = idx.numel() // E
+    occ = idx < T
+    n_occ, used = int(occ.sum()), int(occ.reshape(E, C).any(1).sum())
+    h = mf_ops.gather_swiglu(x, idx, wg, wu)
+
+    def kernel_down():
+        return mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
+
+    got = kernel_down()
+    err_down = hold("4_bwd bf16", got, mf_ref.down_combine_bwd(dy, h, wd, idx, sw))
+    dh = got[0]
+    del got
+
+    def kernel_gather():
+        return mf_ops.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)
+
+    err_gather = hold("3_bwd bf16", kernel_gather(), mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu))
+    torch.cuda.empty_cache()
+    comp_down, comp_gather = _moe_bwd_composites(x, idx, cidx, wg, wu, wd, sw, h, dy, dh)
+    shapes = (f"x {tuple(x.shape)} bf16 (T = {MOE_TRAIN_BATCH} x {TRAIN_SEQ}), E {E}, C {C} ({n_occ} slots occupied, "
+              f"{used} experts used), d {d}, f {f}, top-{k}; dy f32")
+    common = dict(route="cuda", source="src/repro_torch/csrc/moe_fused_bwd.cu", shapes=shapes, ragged_f32=ragged,
+                  library_ms=None, library_call="none: no one PyTorch call computes the backward")
+    for name, kernel, comp, plain, err, err32, wrapper, nbytes, flops in (
+            ("moe_down_combine_bwd", kernel_down, comp_down,
+             lambda: mf_ref.down_combine_bwd(dy, h, wd, idx, sw), err_down, err_down32, "down_combine_bwd",
+             T * d * 4 + E * C * (f * 2 + 8) + used * f * d * 2 + E * C * (f * 2 + 4) + E * f * d * 2,
+             n_occ * (4.0 * d * f + 2.0 * f)),
+            ("moe_gather_swiglu_bwd", kernel_gather, comp_gather,
+             lambda: mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu), err_gather, err_gather32,
+             "gather_swiglu_bwd",
+             E * C * (f * 2 + 4) + T * d * 2 + used * 2 * d * f * 2 + T * k * 4 + T * d * 2 + E * 2 * d * f * 2,
+             n_occ * 12.0 * d * f)):
+        ms, comp_ms, turns = in_turns(kernel, comp, iters=1, reps=3)
+        rows[name] = dict(
+            common, max_abs_err=err, max_abs_err_f32_ragged=err32, ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+            composite_call="gathers + torch.bmm in bf16 + elementwise + a gather-sum per token (in turns)",
+            device_ms=device_ms(kernel, "", n=2),
+            plain_ms=time_ms(plain, iters=1, reps=2),
+            bitwise_repeat=bitwise_repeat(name, cat(kernel)) and repeat32, path="cuda_cores",
+            ptxas=ptxas("moe_fused_bwd", *MOE_BWD_LAUNCHES[wrapper]),
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+            bound_ms_f32_rate=bound(nbytes, flops, F32_FLOPS)[0],
+        )
+        torch.cuda.empty_cache()
+    del x, plan, wg, wu, wd, dy, h, dh, comp_down, comp_gather
+    torch.cuda.empty_cache()
+
+    Wl = get_config(HYBRID).lru_width
+    B = REC_TRAIN_BATCH
+    errs, by_case = {}, {}
+    for tag, T, dtype, with_h0 in (("f32", TRAIN_SEQ, torch.float32, False), ("bf16", TRAIN_SEQ, bf16, False),
+                                   ("f32 ragged h0", REC_RAGGED_T, torch.float32, True),
+                                   ("bf16 ragged h0", REC_RAGGED_T, bf16, True)):
+        a = (torch.rand((B, T, Wl), generator=gen, device=dev) * 0.499 + 0.5).to(dtype)
+        b = (torch.randn((B, T, Wl), generator=gen, device=dev) * 0.1).to(dtype)
+        h0 = torch.randn((B, Wl), generator=gen, device=dev) if with_h0 else None
+        g = torch.randn((B, T, Wl), generator=gen, device=dev)
+        h = rg_ops.rglru_scan(a, b, h0)
+
+        def kernel(a=a, h=h, g=g, h0=h0):
+            return rg_ops.rglru_scan_bwd(a, h, g, h0)
+
+        want = rg_ref.rglru_scan_bwd(a, h, g, h0)
+        errs[tag] = hold(f"12_bwd {tag}", [t for t in kernel() if t is not None], [t for t in want if t is not None])
+        del want
+        el = a.element_size()
+        nbytes = B * T * Wl * (el + 4 + 4 + 2 * el) + (2 * B * Wl * 4 if with_h0 else 0)
+        flops = 3.0 * B * T * Wl
+        by_case[tag] = dict(
+            ms=time_ms(kernel, iters=10), device_ms=device_ms(kernel, "", n=10),
+            kernel_device_ms=device_ms(kernel, "rglru_chunk_kernel", n=10),
+            bitwise_repeat=bitwise_repeat(f"12_bwd {tag}", lambda: torch.cat([t.reshape(-1).float() for t in kernel()
+                                                                              if t is not None])),
+            path=rg_ops.rglru_scan_path(Wl, True), shapes=f"a, b, h, g ({B}, {T}, {Wl}), gates {tag.split()[0]}"
+                                                        + (", h0" if with_h0 else ""),
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, F32_FLOPS))))
+        if tag == "f32":
+            by_case[tag]["plain_ms"] = time_ms(lambda: rg_ref.rglru_scan_bwd(a, h, g, h0), iters=1, reps=2)
+        del a, b, h0, g, h
+        torch.cuda.empty_cache()
+    head = by_case["f32"]
+    rows["rglru_scan_bwd"] = dict(
+        route="cuda", source="src/repro_torch/csrc/rglru_scan.cu", max_abs_err=errs["f32"], max_abs_err_by_case=errs,
+        by_case=by_case, ms=head["ms"], device_ms=head["device_ms"], plain_ms=head["plain_ms"],
+        library_ms=None, library_call="none: no PyTorch call computes a linear recurrence, forward or reverse",
+        composite_ms=None, bitwise_repeat=all(c["bitwise_repeat"] for c in by_case.values()),
+        design=f"kernel 12's chunked, flagged scan instantiated over reversed time (chunks of {rg_ops.CHUNK} steps "
+               f"mirrored: chunk 0 holds the last steps), the gradients in its walk's epilogue; one launch after "
+               f"the flags' memset",
+        ptxas=ptxas("rglru_scan", "rglru_chunk_kernelILb1E"), sass=sass_census("rglru_scan", "rglru_chunk_kernelILb1E"),
+        shapes=head["shapes"], bytes=head["bytes"], flops=head["flops"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"])
+    return rows
+
+
+def train_launches(cfg) -> dict:
+    """Kernel launches a training step makes: each layer's forward kernels
+    once, again for a layer inside a rematerialized super-block (the
+    recompute), and each backward kernel once (``dense`` routing runs no
+    kernel in its MoE layers)."""
+    pat = cfg.block_pattern
+    in_scan = (cfg.num_layers // len(pat)) * len(pat)
+    fwd = {"attn": ("flash_attention",), "local": ("flash_attention",), "rec": ("rglru_scan",),
+           "moe": ("flash_attention",) + (() if cfg.route_mode == "dense" else ("gather_swiglu", "down_combine"))}
+    bwd = {"rglru_scan": "rglru_scan_bwd", "flash_attention": "flash_attention_bwd",
+           "gather_swiglu": "gather_swiglu_bwd", "down_combine": "down_combine_bwd"}
+    out: dict = {}
+    for i, kind in enumerate(cfg.layer_kinds):
+        for name in fwd[kind]:
+            out[name] = out.get(name, 0) + (2 if cfg.remat and i < in_scan else 1)
+            out[bwd[name]] = out.get(bwd[name], 0) + 1
+    return out
+
+
+def train_cell(dev, tag, cfg, batch, steps, probe=None):
+    """``steps`` steps of ``build_train_step`` on ``batch`` x ``TRAIN_SEQ``
+    tokens of ``MarkovLMDataset`` a step through the loader (bf16 over f32
+    master weights, the config's optimizer, remat), then one more under the
+    profiler.  Gates: every loss and grad norm finite, the launches of
+    :func:`train_launches` each step.  ``probe(params)`` -> value, taken
+    before the first step and after the last, goes to the record's
+    ``probe`` (before, after).  Reports ms a step, tokens/s, model FLOPs (6
+    a matmul parameter a token for the active parameters, and the causal
+    attention products) over the bf16 peak, peak memory, device time by
+    kernel and the idle share of the profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import MarkovLMDataset, ShardedLoader
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step
+
+    assert cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
+    S = TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = build_train_step(cfg, dev, ShapeCell(tag, S, batch, "train"), lr=TRAIN_LR, total_steps=steps)
+    t0 = time.perf_counter()
+    params = step_fn.model.init(0, train=True)
+    opt = step_fn.optimizer.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    before = probe(params) if probe else None
+    loader = ShardedLoader(MarkovLMDataset(cfg.vocab_size, S, seed=0), batch, dev)
+    times, losses, gnorms, aux = [], [], [], []
+    reset_launch_counts()
+    for _ in range(steps):
+        step, data = next(loader)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, step, data["tokens"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        aux.append({n: float(m[n]) for n in ("lb_loss", "z_loss")})
+    counts = {n: c for n, c in launch_counts().items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    after = probe(params) if probe else None
+    _finite(f"{tag} loss", losses)
+    _finite(f"{tag} grad_norm", gnorms)
+    want = {n: steps * c for n, c in train_launches(cfg).items()}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    step, data = next(loader)
+    loader.close()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, _, m = step_fn(params, opt, step, data["tokens"])
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    by_name = device_time_by_name(prof)
+    busy = sum(by_name.values())
+    ms = statistics.median(times[1:]) * 1e3
+    d, nq, hd, L = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
+    counts_p = cfg.param_counts()
+    matmul_params = cfg.num_active_params() - counts_p["norms"] - (0 if cfg.tie_embeddings else counts_p["embed"])
+    pairs = S * (S + 1) // 2 if not cfg.local_window or cfg.local_window >= S else S * cfg.local_window
+    n_attn = sum(1 for k_ in cfg.layer_kinds if k_ != "rec")
+    model_flops = 6.0 * batch * S * matmul_params + 3 * 4.0 * batch * pairs * nq * hd * n_attn
+    ours = ("gate_up_", "down_", "rglru_chunk_kernel", "flash_attention", "dkv", "dq", "bwd_prep", "row_dot",
+            "gather_swiglu", "combine_rows")
+    out = dict(
+        arch=cfg.name, layers=L, batch=batch, seq_len=S, steps=steps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
+        optimizer=cfg.optimizer, remat=cfg.remat, route_mode=cfg.route_mode if cfg.is_moe else None,
+        ms_per_step=ms, ms_per_step_range=(min(times[1:]) * 1e3, max(times[1:]) * 1e3),
+        step_ms_each=[x * 1e3 for x in times], tokens_per_s=batch * S / (ms / 1e3),
+        model_flops_per_step=model_flops, model_flops_share_of_bf16_peak=model_flops / (ms / 1e3) / BF16_FLOPS,
+        loss=losses, grad_norm=gnorms, router_aux=aux, params=sum(t.numel() for t in _leaves(params)),
+        param_bytes=_tree_bytes(params), opt_state_bytes=_tree_bytes(opt), state_bytes_allocated=state_bytes,
+        peak_memory_allocated=peak, init_s=init_s, kernel_launches=counts,
+        launches_per_step={n: c / steps for n, c in counts.items()},
+        profiled_step=dict(wall_ms=prof_wall_ms, device_busy_ms=busy,
+                           device_idle_share_profiled=max(0.0, 1 - busy / prof_wall_ms),
+                           device_idle_share=max(0.0, 1 - busy / ms),
+                           port_kernels_ms={n: v for n, v in sorted(by_name.items(), key=lambda kv: -kv[1])
+                                            if any(o in n for o in ours)},
+                           top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:15])),
+    )
+    if probe:
+        out["probe"] = (before, after)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_full_width(dev):
+    """Qwen3-MoE at published widths (d 4096, 64 / 4 heads of 128, 128
+    experts top-8, f 1536, vocabulary 151,936), depth cut 94 ->
+    ``MOE_TRAIN_LAYERS`` (layer 1's lookahead plan routes from layer 0's
+    residual stream), Adafactor, ``MOE_TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens:
+    :func:`train_cell`, with kernels 3 and 4 twice a layer a step (forward
+    and recompute), 3_bwd and 4_bwd once.  Gate also: every router's
+    weights moved in the steps (Adafactor moves a weight only where its
+    gradient is non-zero)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.control_plane import capacity_for
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MOE_TRAIN_LAYERS)
+    assert cfg.optimizer == "adafactor" and cfg.route_mode == "lookahead"
+
+    def routers(params):
+        return [layer["moe"]["router"].detach().clone() for layer in params["layers"]]
+
+    out = train_cell(dev, "train_moe_full_width", cfg, MOE_TRAIN_BATCH, CELL_TRAIN_STEPS, probe=routers)
+    before, after = out.pop("probe")
+    moved = [float((a - b).abs().max()) for a, b in zip(after, before)]
+    if not all(m > 0 for m in moved):
+        raise AssertionError(f"train_moe_full_width: a router did not move (max |change| {moved})")
+    out.update(of_layers=get_config(ARCH).num_layers, router_max_abs_change=moved,
+               capacity=capacity_for(MOE_TRAIN_BATCH * TRAIN_SEQ, cfg.num_experts, cfg.top_k, cfg.capacity_factor))
+    del before, after
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_rec_full_width(dev):
+    """RecurrentGemma-2B at published widths and uncut (26 layers: 8
+    super-blocks of rec, rec, attn and a rec, rec tail; d 2560, W 2560,
+    window 2048, vocabulary 256,000), AdamW, ``REC_TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens: :func:`train_cell`, with kernel 12 twice a
+    rematerialized rec layer a step and once a tail layer, 12_bwd once a
+    rec layer, kernel 7 and its backward on the 8 attention layers."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(HYBRID)
+    assert cfg.optimizer == "adamw"
+    return train_cell(dev, "train_rec_full_width", cfg, REC_TRAIN_BATCH, CELL_TRAIN_STEPS)
 
 
 KERNELS = {
@@ -4376,10 +4685,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit("compiled_launch", **graphs)
 
-    # training: the twin, the full-width cell, the restart, the head-dim sweep
+    # training: the twins, the full-width cells, the restart, the head-dim sweep
     emit("train_twin", **train_twin(dev))
     train = train_full_width(dev)
     emit("train_full_width", **train)
+    train_moe = train_moe_full_width(dev)
+    emit("train_moe_full_width", **train_moe)
+    train_rec = train_rec_full_width(dev)
+    emit("train_rec_full_width", **train_rec)
     emit("train_restart", **train_restart(dev))
     tsweep = train_sweep(dev)
     emit("train_sweep", **tsweep)
@@ -4434,6 +4747,17 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces, launches=counts["flash_attention"],
             max_abs_err=fwd["max_abs_err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+        ))
+    # this slice's backward kernels (launches: the MoE and RG-LRU training cells)
+    for name, wrapper, counts, replaces in (
+            ("moe_down_combine_bwd", "down_combine_bwd", train_moe["kernel_launches"], KERNELS["down_combine"][1]),
+            ("moe_gather_swiglu_bwd", "gather_swiglu_bwd", train_moe["kernel_launches"], KERNELS["gather_swiglu"][1]),
+            ("rglru_scan_bwd", "rglru_scan_bwd", train_rec["kernel_launches"], KERNELS["rglru_scan"][1])):
+        r = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"], replaces=replaces, launches=counts[wrapper],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

@@ -71,7 +71,10 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=No
     master weights of :meth:`Model.init(train=True)
     <repro_torch.models.model.Model.init>`) and tied embeddings get no
     ``unembed`` copy.  A tree of the params' layout whose leaves are dicts
-    (Adafactor's state: ``.../wq/vr``) comes back with those dicts."""
+    (Adafactor's state: ``.../wq/vr``) comes back with those dicts; the
+    column mean ``vc`` of a stacked 1-D leaf, which has no super-block axis,
+    is held by the stack's first layer alone
+    (:mod:`repro_torch.optim.optimizers`)."""
     pat = cfg.block_pattern
     n_sb = cfg.num_layers // len(pat)
     layers = [dict() for _ in range(cfg.num_layers)]
@@ -82,6 +85,9 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=No
             _put(params, parts, arr, cfg, device, mesh, train)
         elif parts[1] == "scan":
             j = int(parts[2][1:])
+            if parts[-1] == "vc" and arr.ndim == 1:  # Adafactor's column mean of a stacked 1-D leaf
+                _put(layers[j], parts[3:], arr, cfg, device, mesh, train)
+                continue
             if arr.shape[0] != n_sb:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n_sb} super-blocks")
             for s in range(n_sb):
@@ -171,6 +177,11 @@ def leaves_from_params(cfg: ModelConfig, params: Params) -> List[Tuple[str, Call
 
     def stacked(j, path, like):
         def make():
+            sibling = layers[j]
+            for key in path[:-1]:
+                sibling = sibling[key]
+            if path[-1] == "vc" and sibling["vr"].ndim == 0:  # the stack's one, in its first layer
+                return like.cpu()
             host = torch.empty((n_sb, *like.shape), dtype=like.dtype)
             for s in range(n_sb):
                 leaf = layers[s * len(pat) + j]

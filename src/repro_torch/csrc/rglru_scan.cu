@@ -47,6 +47,18 @@
 // folding their aggregates.  In the same call chunks of 64 (two blocks an
 // SM) took 0.066 and 0.056, a __threadfence beside each release and acquire
 // 0.067 and 0.055, the three-launch form 0.085 and 0.061.
+//
+// The backward (training), repro_rglru_scan_bwd: the same kernel
+// instantiated with REV, one launch after the flags' memset.  Given g =
+// dL/dh it runs the reverse recurrence delta_t = g_t + a_{t+1} delta_{t+1}
+// (delta_{T-1} = g_{T-1}) as the forward scan over reversed time: step r is
+// time t = T-1-r, its multiplier a_{t+1} (1 at r = 0) and its input g_t, so
+// the chunks and segments are the forward's, mirrored (chunk 0 holds the
+// last 128 steps), and every sum is again fixed by the shapes alone.  The
+// walk's epilogue writes db_t = delta_t and da_t = delta_t h_{t-1} (the
+// forward's output one step earlier; h0, or 0, at t = 0) in a's type, and
+// dh0 = a_0 delta_0 (f32) when h0 was given.  The ticket is the only atomic
+// either direction takes: it orders the blocks, no value passes through it.
 #include "common.cuh"
 
 namespace {
@@ -102,20 +114,29 @@ __host__ __device__ inline long flag_words(int B, int nchunks, int ntiles) {
 }
 
 // One thread's segment: SEG steps of V channels of a and b, loaded at once
-// and kept in registers for both walks.
-template <typename T, int V>
+// and kept in registers for both walks.  Step s is at element at0 + s *
+// stride (stride -W in the reversed walk); with one_first step 0's
+// multiplier is 1 and is not read (the reversed walk's first step, which has
+// no a_{t+1}).
+template <typename TA, typename TB, int V>
 struct Segment {
-  Pack<T, V> a[SEG], b[SEG];
+  Pack<TA, V> a[SEG];
+  Pack<TB, V> b[SEG];
   int n;  // steps inside T
 
-  __device__ __forceinline__ void load(const T* __restrict__ pa, const T* __restrict__ pb, long at0, int W, int steps,
-                                       bool live) {
+  __device__ __forceinline__ void load(const TA* __restrict__ pa, const TB* __restrict__ pb, long at0, long stride,
+                                       int steps, bool live, bool one_first) {
     n = live ? steps : 0;
 #pragma unroll
     for (int s = 0; s < SEG; ++s) {
       if (s < n) {
-        a[s] = *reinterpret_cast<const Pack<T, V>*>(pa + at0 + (long)s * W);
-        b[s] = *reinterpret_cast<const Pack<T, V>*>(pb + at0 + (long)s * W);
+        if (s == 0 && one_first) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) a[s].v[v] = from_f32<TA>(1.0f);
+        } else {
+          a[s] = *reinterpret_cast<const Pack<TA, V>*>(pa + at0 + s * stride);
+        }
+        b[s] = *reinterpret_cast<const Pack<TB, V>*>(pb + at0 + s * stride);
       }
     }
   }
@@ -157,6 +178,38 @@ struct Segment {
       }
     }
   }
+
+  // the reversed walk again from delta: step s at element at0 - s W (time
+  // t0 - s), writing db = delta and da = delta h_{t-1} (hp: the segment's
+  // h_{t-1}, loaded before the walk)
+  __device__ __forceinline__ void walk_bwd(float (&dl)[V], const Pack<float, V> (&hp)[SEG], TA* __restrict__ db,
+                                           TA* __restrict__ da, long at0, int W) const {
+#pragma unroll
+    for (int s = 0; s < SEG; ++s) {
+      if (s < n) {
+        Pack<TA, V> ds, as;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          dl[v] = fmaf(to_f32(a[s].v[v]), dl[v], to_f32(b[s].v[v]));
+          ds.v[v] = from_f32<TA>(dl[v]);
+          as.v[v] = from_f32<TA>(dl[v] * hp[s].v[v]);
+        }
+        *reinterpret_cast<Pack<TA, V>*>(db + at0 - (long)s * W) = ds;
+        *reinterpret_cast<Pack<TA, V>*>(da + at0 - (long)s * W) = as;
+      }
+    }
+  }
+};
+
+// What the reversed instantiation reads and writes beside the forward's
+// operands (all null in the forward): the forward's output h, h0's gradient,
+// a's and b's gradients.
+template <typename TA>
+struct Grads {
+  const float* h;  // (B, T, W): the forward's output
+  float* dh0;      // (B, W) or null
+  TA* da;          // (B, T, W)
+  TA* db;          // (B, T, W)
 };
 
 // A block's segment aggregates (one row a warp) and the carry into its chunk.
@@ -188,13 +241,19 @@ struct Shared {
   }
 };
 
-// Load the block's segment and publish its aggregate to shared memory.
-template <typename T, int V>
-__device__ __forceinline__ void segment_phase(Segment<T, V>& seg, Shared<V>& sm, const T* a, const T* b, int bb,
-                                              int c, int ch, int Tn, int W, int warp, int lane) {
+// Load the block's segment and publish its aggregate to shared memory.  In
+// the reversed walk step r is time Tn-1-r and its multiplier a_{t+1} is read
+// one time step on (a + W).
+template <bool REV, typename TA, typename TB, int V>
+__device__ __forceinline__ void segment_phase(Segment<TA, TB, V>& seg, Shared<V>& sm, const TA* a, const TB* b,
+                                              int bb, int c, int ch, int Tn, int W, int warp, int lane) {
   const int t0 = c * CHUNK + warp * SEG;
   const bool live = ch < W;  // V divides W, so a live lane's V channels all are
-  seg.load(a, b, ((long)bb * Tn + t0) * W + ch, W, max(0, min(SEG, Tn - t0)), live);
+  const int steps = max(0, min(SEG, Tn - t0));
+  if (REV)
+    seg.load(a + W, b, ((long)bb * Tn + Tn - 1 - t0) * W + ch, -(long)W, steps, live, t0 == 0);
+  else
+    seg.load(a, b, ((long)bb * Tn + t0) * W + ch, W, steps, live, false);
   float A[V], H[V];
   seg.aggregate(A, H);
   if (live) {
@@ -206,8 +265,8 @@ __device__ __forceinline__ void segment_phase(Segment<T, V>& seg, Shared<V>& sm,
 // After the chunk's carry is in shared memory: the segment's carry (the
 // chunk's, then the segments before it), then the walk.
 template <typename T, int V>
-__device__ __forceinline__ void walk_phase(const Segment<T, V>& seg, const Shared<V>& sm, float* out, int bb, int c,
-                                           int ch, int Tn, int W, int warp, int lane) {
+__device__ __forceinline__ void walk_phase(const Segment<T, T, V>& seg, const Shared<V>& sm, float* out, int bb,
+                                           int c, int ch, int Tn, int W, int warp, int lane) {
   if (seg.n == 0) return;
   float h[V];
 #pragma unroll
@@ -216,10 +275,44 @@ __device__ __forceinline__ void walk_phase(const Segment<T, V>& seg, const Share
   seg.walk(h, out + ((long)bb * Tn + c * CHUNK + warp * SEG) * W + ch, W);
 }
 
-template <typename T, int V>
+// The reversed walk: h_{t-1} of the segment's steps loaded first, then the
+// walk from the segment's carry with the gradients as its epilogue; the step
+// at t = 0 also writes dh0 = a_0 delta_0.
+template <typename TA, int V>
+__device__ __forceinline__ void walk_phase_bwd(const Segment<TA, float, V>& seg, const Shared<V>& sm, const TA* a,
+                                               const float* h0, const Grads<TA>& gr, int bb, int c, int ch, int Tn,
+                                               int W, int warp, int lane) {
+  if (seg.n == 0) return;
+  const int t0 = Tn - 1 - (c * CHUNK + warp * SEG);
+  const long at0 = ((long)bb * Tn + t0) * W + ch;
+  Pack<float, V> hp[SEG];
+#pragma unroll
+  for (int s = 0; s < SEG; ++s) {
+    if (s < seg.n) {
+      if (t0 - s > 0) {
+        hp[s] = *reinterpret_cast<const Pack<float, V>*>(gr.h + at0 - (long)(s + 1) * W);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) hp[s].v[v] = h0 != nullptr ? h0[(long)bb * W + ch + v] : 0.0f;
+      }
+    }
+  }
+  float dl[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) dl[v] = sm.carry[lane * V + v];
+  sm.fold(dl, warp, lane);
+  seg.walk_bwd(dl, hp, gr.db, gr.da, at0, W);
+  if (gr.dh0 != nullptr && t0 - (seg.n - 1) == 0) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) gr.dh0[(long)bb * W + ch + v] = to_f32(a[(long)bb * Tn * W + ch + v]) * dl[v];
+  }
+}
+
+template <bool REV, typename TA, typename TB, int V>
 __global__ void __launch_bounds__(THREADS, 1) rglru_chunk_kernel(
-    const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ h0, float* __restrict__ out,
-    int* __restrict__ flags, float* __restrict__ agg, int B, int Tn, int W, int nchunks, int ntiles) {
+    const TA* __restrict__ a, const TB* __restrict__ b, const float* __restrict__ h0, float* __restrict__ out,
+    int* __restrict__ flags, float* __restrict__ agg, int B, int Tn, int W, int nchunks, int ntiles,
+    Grads<TA> grads) {
   __shared__ Shared<V> sm;
   __shared__ int s_ticket;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -237,8 +330,8 @@ __global__ void __launch_bounds__(THREADS, 1) rglru_chunk_kernel(
   const int tile = ticket % ntiles, row = ticket / ntiles, bb = row % B, c = row / B;
   const int ch = tile * 32 * V + lane * V;
   const bool live = ch < W;
-  Segment<T, V> seg;
-  segment_phase(seg, sm, a, b, bb, c, ch, Tn, W, warp, lane);
+  Segment<TA, TB, V> seg;
+  segment_phase<REV>(seg, sm, a, b, bb, c, ch, Tn, W, warp, lane);
   __syncthreads();
   trace_point(ticket, 2);
 
@@ -261,7 +354,7 @@ __global__ void __launch_bounds__(THREADS, 1) rglru_chunk_kernel(
   // loads in flight a lane
   if (warp < V) {
     const int k = warp * 32 + lane, chf = tile * 32 * V + k;
-    float carry = (h0 != nullptr && chf < W) ? h0[(long)bb * W + chf] : 0.0f;
+    float carry = (!REV && h0 != nullptr && chf < W) ? h0[(long)bb * W + chf] : 0.0f;
     if (c > 0) {
       const int* fl = flags + 1 + chunk_row * ntiles + tile;
       for (int j = lane; j < c; j += 32) {
@@ -283,22 +376,25 @@ __global__ void __launch_bounds__(THREADS, 1) rglru_chunk_kernel(
   }
   __syncthreads();
   trace_point(ticket, 5);
-  walk_phase(seg, sm, out, bb, c, ch, Tn, W, warp, lane);
+  if constexpr (REV)
+    walk_phase_bwd(seg, sm, a, h0, grads, bb, c, ch, Tn, W, warp, lane);
+  else
+    walk_phase(seg, sm, out, bb, c, ch, Tn, W, warp, lane);
   trace_point(ticket, 6);
 }
 
-template <typename T, int V>
+template <bool REV, typename TA, typename TB, int V>
 int launch(const void* a, const void* b, const void* h0, void* out, void* scratch, int B, int Tn, int W,
-           cudaStream_t stream) {
+           cudaStream_t stream, Grads<TA> grads = {}) {
   const int nchunks = (Tn + CHUNK - 1) / CHUNK, ntiles = (W + 32 * V - 1) / (32 * V);
   const long words = flag_words(B, nchunks, ntiles);
   const long blocks = (long)B * nchunks * ntiles;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(scratch, 0, words * sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
-  rglru_chunk_kernel<T, V><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      (const T*)a, (const T*)b, (const float*)h0, (float*)out, (int*)scratch, (float*)scratch + words, B, Tn, W,
-      nchunks, ntiles);
+  rglru_chunk_kernel<REV, TA, TB, V><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      (const TA*)a, (const TB*)b, (const float*)h0, (float*)out, (int*)scratch, (float*)scratch + words, B, Tn, W,
+      nchunks, ntiles, grads);
   return (int)cudaGetLastError();
 }
 
@@ -312,9 +408,30 @@ extern "C" int repro_rglru_scan(int dtype, const void* a, const void* b, const v
   cudaStream_t st = (cudaStream_t)stream;
   REPRO_DISPATCH(dtype, T, {
     if (vec == LANE_CHANNELS && W % LANE_CHANNELS == 0) {
-      return launch<T, LANE_CHANNELS>(a, b, h0, out, scratch, B, Tn, W, st);
+      return launch<false, T, T, LANE_CHANNELS>(a, b, h0, out, scratch, B, Tn, W, st);
     }
-    if (vec == 1) return launch<T, 1>(a, b, h0, out, scratch, B, Tn, W, st);
+    if (vec == 1) return launch<false, T, T, 1>(a, b, h0, out, scratch, B, Tn, W, st);
+    return (int)cudaErrorInvalidValue;
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: a (B, T, W) in the dtype code's type, g = dL/dh and h (the
+// forward's output) (B, T, W) f32, h0 (B, W) f32 or null; writes da, db (B,
+// T, W) in a's type and, when both are given, dh0 (B, W) f32.  vec and
+// scratch as repro_rglru_scan's; 16-byte alignment of a, g, h, da and db
+// (and h0) for vec 4.
+extern "C" int repro_rglru_scan_bwd(int dtype, const void* a, const void* g, const void* h, const void* h0, void* da,
+                                    void* db, void* dh0, void* scratch, int B, int Tn, int W, int vec,
+                                    void* stream) {
+  if (B <= 0 || Tn <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  REPRO_DISPATCH(dtype, T, {
+    const Grads<T> gr{(const float*)h, h0 != nullptr ? (float*)dh0 : nullptr, (T*)da, (T*)db};
+    if (vec == LANE_CHANNELS && W % LANE_CHANNELS == 0) {
+      return launch<true, T, float, LANE_CHANNELS>(a, g, h0, nullptr, scratch, B, Tn, W, st, gr);
+    }
+    if (vec == 1) return launch<true, T, float, 1>(a, g, h0, nullptr, scratch, B, Tn, W, st, gr);
     return (int)cudaErrorInvalidValue;
   });
   return (int)cudaErrorInvalidValue;

@@ -23,7 +23,10 @@ hosts without ``nvcc`` import these modules and run the plain versions.
                    fixed-order combine
   grouped_gemm     y[e] = x[e] @ w[e] over expert slots (the a2a down projection)
   moe_dispatch     plan-steered dispatch into expert slots and weighted combine
-  rglru_scan       the RG-LRU's diagonal linear recurrence (prefill)
+  moe_fused_bwd    kernels 3 and 4's backward: dx and the three stacks'
+                   gradients, and the plan's slot weights' (training)
+  rglru_scan       the RG-LRU's diagonal linear recurrence (prefill), and
+                   its reversed instantiation, the backward (training)
   ssd_scan         Mamba-2's chunked state-space-dual scan (prefill)
 
 Every wrapper in ``kernels/<name>/ops.py`` takes its plain version (the
@@ -50,7 +53,7 @@ REPO = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "repro_torch"
 SOURCES = ("flash_decode", "flash_attention", "moe_decode", "moe_fused", "rglru_scan", "ssd_scan",
-           "grouped_gemm", "moe_dispatch", "flash_attention_bwd")
+           "grouped_gemm", "moe_dispatch", "flash_attention_bwd", "moe_fused_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -233,8 +236,8 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
     from repro_torch.kernels.moe_decode.ops import decode_moe_kernel
     from repro_torch.kernels.moe_dispatch.ops import combine, dispatch
-    from repro_torch.kernels.moe_fused.ops import down_combine, gather_swiglu
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.moe_fused.ops import down_combine, down_combine_bwd, gather_swiglu, gather_swiglu_bwd
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     return {
@@ -251,4 +254,7 @@ def kernel_wrappers() -> dict:
         "moe_dispatch": dispatch,
         "moe_combine": combine,
         "flash_attention_bwd": flash_attention_bwd_kernel,
+        "gather_swiglu_bwd": gather_swiglu_bwd,
+        "down_combine_bwd": down_combine_bwd,
+        "rglru_scan_bwd": rglru_scan_bwd,
     }

@@ -8,7 +8,10 @@ cores (wgmma; weights by TMA, and for ``gather_swiglu`` the slots' rows
 gathered by cp.async, for ``down_combine`` h's slot tiles by TMA),
 everything else on CUDA cores.
 :func:`fused_moe_fn` runs a :class:`~repro_torch.core.plans.DispatchPlan`
-through both.  The kernel reads x (T, d) and treats index T as a zero row,
+through both, under an autograd Function whose backward is
+:func:`down_combine_bwd` then :func:`gather_swiglu_bwd`
+(``csrc/moe_fused_bwd.cu``, CUDA cores, fixed order; their plain versions
+on the CPU).  The kernel reads x (T, d) and treats index T as a zero row,
 so the wrapper builds no padded copy of x.  :func:`fused_experts_fn` runs
 slots that are already expert-major (the expert-parallel a2a body's
 post-all_to_all tensor) through ``gather_swiglu`` over the identity index
@@ -27,6 +30,9 @@ _SIG = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_v
 _SIG_TC = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_DOWN = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_DOWN_TC = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIG_DOWN_BWD = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIG_GATHER_BWD = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+BWD_TILE = 64  # output columns a block of the backward's products (csrc/moe_fused_bwd.cu BN)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -141,6 +147,132 @@ def down_combine(
 down_combine.launches = 0
 
 
+def down_combine_bwd(
+    dy: torch.Tensor,        # (T, d) f32, the gradient of down_combine's output
+    h: torch.Tensor,         # (E, C, f)
+    w_down: torch.Tensor,    # (E, f, d)
+    flat_idx: torch.Tensor,  # (E*C,) int32, T = empty
+    slot_w: torch.Tensor,    # (E*C,) f32
+):
+    """Kernel 4's backward (4_bwd): ``(dh, dw_down, dslot_w)``, dh (E, C,
+    f) and dw_down (E, f, d) in h's type, dslot_w (E*C,) f32.  dh = slot_w
+    (dy[idx] Wd^T), dWd[e] = h[e]^T (slot_w dy[idx]) over slots in
+    ascending order, d slot_w = <h, dy[idx] Wd^T>: the dot against the
+    unweighted row the dh launch forms, summed over its 64-column tiles in
+    ascending order (no product recomputed, nothing saved by the forward).
+    An empty slot gets zeros.  On the card three launches (dh, dWd, the
+    tiles' sum) over an f32 scratch allocated here, counted once."""
+    E, C, f = h.shape
+    d = w_down.shape[-1]
+    T = dy.shape[0]
+    _check(dy.dtype == torch.float32 and dy.ndim == 2 and dy.shape[1] == d, f"dy must be (T, {d}) f32")
+    _check(w_down.shape == (E, f, d) and w_down.dtype == h.dtype, f"w_down {tuple(w_down.shape)} {w_down.dtype}")
+    _check(flat_idx.dtype == torch.int32 and flat_idx.shape == (E * C,), "flat_idx must be (E*C,) int32")
+    _check(slot_w.dtype == torch.float32 and slot_w.shape == (E * C,), "slot_w must be (E*C,) f32")
+    if h.device.type == "cpu":
+        _check(all(t.device.type == "cpu" for t in (dy, w_down, flat_idx, slot_w)), "tensors on different devices")
+        return ref.down_combine_bwd(dy, h, w_down, flat_idx, slot_w)
+    _cuda_ready((dy, h, w_down, flat_idx, slot_w))
+    out = _launch_down_combine_bwd(dy, h, w_down, flat_idx, slot_w)
+    down_combine_bwd.launches += 1
+    return out
+
+
+def _launch_down_combine_bwd(dy, h, w_down, flat_idx, slot_w):
+    """4_bwd's C entry on the wrapper's checked tensors, with its outputs
+    and scratch allocated here; a refused launch raises."""
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    E, C, f = h.shape
+    T, d = dy.shape
+    part = torch.empty((E * C * -(-f // BWD_TILE),), dtype=torch.float32, device=h.device)
+    dh, dwd = torch.empty_like(h), torch.empty_like(w_down)
+    dsw = torch.empty((E * C,), dtype=torch.float32, device=h.device)
+    rc = function("moe_fused_bwd", "repro_down_combine_bwd", _SIG_DOWN_BWD)(
+        dtype_code(h.dtype), ptr(dy), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(part), ptr(dh),
+        ptr(dwd), ptr(dsw), T, E, C, d, f, stream_of(h))
+    check_launch(rc, "down_combine_bwd")
+    return dh, dwd, dsw
+
+
+down_combine_bwd.launches = 0
+
+
+def gather_swiglu_bwd(
+    dh: torch.Tensor,         # (E, C, f), the gradient of gather_swiglu's output
+    x: torch.Tensor,          # (T, d)
+    flat_idx: torch.Tensor,   # (E*C,) int32, T = empty
+    flat_cidx: torch.Tensor,  # (T*k,) int32 slot of each assignment, E*C = dropped
+    w_gate: torch.Tensor,     # (E, d, f)
+    w_up: torch.Tensor,
+):
+    """Kernel 3's backward (3_bwd): ``(dx, dw_gate, dw_up)`` in x's type.
+    g = xs Wg and u = xs Wu are recomputed per (expert, slot tile); dg = dh
+    u silu'(g), du = dh silu(g); dWg[e] = xs[e]^T dg[e], dWu[e] = xs[e]^T
+    du[e] over slots in ascending order; dxs = dg Wg^T + du Wu^T; dx[t] =
+    the sum of its slots' rows in ascending j of the combine words (a gather
+    per token).  On the card four launches over two f32 scratches allocated
+    here (dg and du, dxs), counted once."""
+    E, C, f = dh.shape
+    T, d = x.shape
+    _check(w_gate.shape == (E, d, f) and w_up.shape == w_gate.shape, f"w_gate/w_up shapes {tuple(w_gate.shape)}")
+    _check(x.dtype == dh.dtype == w_gate.dtype == w_up.dtype, "dh, x and the expert stacks must share a dtype")
+    _check(flat_idx.dtype == torch.int32 and flat_idx.shape == (E * C,), "flat_idx must be (E*C,) int32")
+    _check(flat_cidx.dtype == torch.int32 and flat_cidx.ndim == 1 and T > 0 and flat_cidx.numel() % T == 0,
+           "flat_cidx must be (T*k,) int32")
+    k = flat_cidx.numel() // T
+    if x.device.type == "cpu":
+        _check(all(t.device.type == "cpu" for t in (dh, flat_idx, flat_cidx, w_gate, w_up)),
+               "tensors on different devices")
+        return ref.gather_swiglu_bwd(dh, x, flat_idx, flat_cidx, w_gate, w_up)
+    _cuda_ready((dh, x, flat_idx, flat_cidx, w_gate, w_up))
+    out = _launch_gather_swiglu_bwd(dh, x, flat_idx, flat_cidx, w_gate, w_up)
+    gather_swiglu_bwd.launches += 1
+    return out
+
+
+def _launch_gather_swiglu_bwd(dh, x, flat_idx, flat_cidx, w_gate, w_up):
+    """3_bwd's C entry on the wrapper's checked tensors, with its outputs
+    and scratches allocated here; a refused launch raises."""
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    E, C, f = dh.shape
+    T, d = x.shape
+    dgu = torch.empty((2 * E * C * f,), dtype=torch.float32, device=x.device)
+    dxs = torch.empty((E * C * d,), dtype=torch.float32, device=x.device)
+    dx, dwg, dwu = torch.empty_like(x), torch.empty_like(w_gate), torch.empty_like(w_up)
+    rc = function("moe_fused_bwd", "repro_gather_swiglu_bwd", _SIG_GATHER_BWD)(
+        dtype_code(x.dtype), ptr(dh), ptr(x), ptr(flat_idx), ptr(flat_cidx), ptr(w_gate), ptr(w_up), ptr(dgu),
+        ptr(dxs), ptr(dx), ptr(dwg), ptr(dwu), T, E, C, d, f, flat_cidx.numel() // T, stream_of(x))
+    check_launch(rc, "gather_swiglu_bwd")
+    return dx, dwg, dwu
+
+
+gather_swiglu_bwd.launches = 0
+
+
+class _FusedMoeTrain(torch.autograd.Function):
+    """Kernels 3 and 4 with their gradient: the forward is the two
+    launches (saving h), the backward launches :func:`down_combine_bwd`
+    then :func:`gather_swiglu_bwd` (on the CPU every half is a plain
+    version; on the card none ever is).  The plan's integer words carry no
+    gradient; slot_w's reaches the router through the plan's scatter."""
+
+    @staticmethod
+    def forward(ctx, x, flat_idx, slot_w, w_gate, w_up, w_down, flat_cidx):
+        h = gather_swiglu(x, flat_idx, w_gate, w_up)
+        y = down_combine(h, w_down, flat_idx, slot_w, x.shape[0])
+        ctx.save_for_backward(x, flat_idx, slot_w, w_gate, w_up, w_down, flat_cidx, h)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, flat_idx, slot_w, w_gate, w_up, w_down, flat_cidx, h = ctx.saved_tensors
+        dh, dwd, dsw = down_combine_bwd(dy.contiguous(), h, w_down, flat_idx, slot_w)
+        dx, dwg, dwu = gather_swiglu_bwd(dh, x, flat_idx, flat_cidx, w_gate, w_up)
+        return dx, None, dsw, dwg, dwu, dwd, None
+
+
 def fused_moe_apply(x, flat_idx, slot_w, w_gate, w_up, w_down) -> torch.Tensor:
     """Full plan-steered expert pipeline, (T, d) -> (T, d), two launches."""
     h = gather_swiglu(x, flat_idx, w_gate, w_up)
@@ -148,11 +280,17 @@ def fused_moe_apply(x, flat_idx, slot_w, w_gate, w_up, w_down) -> torch.Tensor:
 
 
 def fused_moe_fn(x: torch.Tensor, plan: DispatchPlan, p) -> torch.Tensor:
-    """Plan-level entry point used by :func:`repro_torch.models.moe.moe_ffn`."""
-    return fused_moe_apply(
-        x.contiguous(), plan.flat_dispatch_idx().contiguous(), plan.flat_slot_w().contiguous(),
-        p["w_gate"], p["w_up"], p["w_down"],
-    )
+    """Plan-level entry point used by :func:`repro_torch.models.moe.moe_ffn`,
+    (T, d) -> (T, d) f32: the two launches under :class:`_FusedMoeTrain`,
+    so that under autograd x, the plan's slot weights and the three stacks
+    get their gradient from the two backward kernels (with no gradient
+    asked for, as when serving, no graph is kept).  The stacks are cast to
+    x's type first (the f32 master weights' bf16 use; a no-op when
+    serving)."""
+    cidx, _ = plan.flat_combine_words()
+    w = [p[n].to(x.dtype).contiguous() for n in ("w_gate", "w_up", "w_down")]
+    return _FusedMoeTrain.apply(x.contiguous(), plan.flat_dispatch_idx().contiguous(),
+                                plan.flat_slot_w().contiguous(), *w, cidx.contiguous())
 
 
 def fused_experts_fn(x_slots: torch.Tensor, p) -> torch.Tensor:

@@ -13,6 +13,11 @@ with chunks 0..c-1's aggregates in ascending order; each segment then walks
 again from the chunk's carry folded with the segments before it.  That
 order depends on the shapes alone, never on the build or on timing
 (``tests/test_torch_rglru_chunks.py`` models it in torch).
+
+For training, :func:`rglru_scan_train` is the scan under an autograd
+Function whose backward is :func:`rglru_scan_bwd`: the same kernel
+instantiated over reversed time (the chunks and segments mirrored), one
+launch after the flags' memset, writing the gates' gradients in its walk.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ SEGMENT = 8    # steps each of its warps walks (SEG)
 LANE_CHANNELS = 4  # channels a lane on the "vector" build; a block's tile is 32 lanes
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -87,3 +93,80 @@ def rglru_scan(
 
 
 rglru_scan.launches = 0
+
+
+def rglru_scan_bwd(
+    a: torch.Tensor,                    # (B, T, W) f32 or bf16: the forward's gates
+    h: torch.Tensor,                    # (B, T, W) f32: the forward's output
+    g: torch.Tensor,                    # (B, T, W) f32: dL/dh
+    h0: Optional[torch.Tensor] = None,  # (B, W) f32, or None (zeros)
+):
+    """Kernel 12's backward (12_bwd): ``(da, db, dh0)`` with delta_t = g_t
+    + a_{t+1} delta_{t+1}, db_t = delta_t, da_t = delta_t h_{t-1} (h0, or
+    0, before the first step), in a's type, and dh0 = a_0 delta_0 (f32;
+    None without h0).  On the card one launch of the reversed instantiation
+    after its flags' memset, over the forward's scratch layout, counted
+    once."""
+    _check(a.ndim == 3 and h.shape == a.shape and g.shape == a.shape,
+           f"a {tuple(a.shape)}, h {tuple(h.shape)} and g {tuple(g.shape)} must be (B, T, W)")
+    _check(h.dtype == g.dtype == torch.float32, "h and g must be f32")
+    B, T, W = a.shape
+    dev = a.device
+    _check(h0 is None or h0.shape == (B, W), f"h0 shape {None if h0 is None else tuple(h0.shape)} != {(B, W)}")
+    _check(all(t.device == dev for t in (h, g) + (() if h0 is None else (h0,))), "tensors on different devices")
+    if dev.type == "cpu":
+        return ref.rglru_scan_bwd(a, h, g, h0)
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check(all(t.is_contiguous() for t in (a, h, g)), "tensors must be contiguous")
+    out = _launch_bwd(a, h, g, None if h0 is None else h0.to(torch.float32).contiguous())
+    rglru_scan_bwd.launches += 1
+    return out
+
+
+def _launch_bwd(a, h, g, h0):
+    """12_bwd's C entry on the wrapper's checked tensors (h0 f32 or
+    None), its outputs and scratch allocated here; the build as
+    :func:`rglru_scan_path` names it, every operand's alignment counted; a
+    refused launch raises."""
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    B, T, W = a.shape
+    dev = a.device
+    aligned = a.data_ptr() % (LANE_CHANNELS * a.element_size()) == 0 and all(
+        t.data_ptr() % (LANE_CHANNELS * 4) == 0 for t in (h, g) + (() if h0 is None else (h0,)))
+    vec = LANE_CHANNELS if rglru_scan_path(W, aligned) == "vector" else 1
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = None if h0 is None else torch.empty((B, W), dtype=torch.float32, device=dev)
+    scratch = torch.empty((scratch_words(B, T, W, vec),), dtype=torch.int32, device=dev)
+    rc = function("rglru_scan", "repro_rglru_scan_bwd", _BWD_ARGTYPES)(
+        dtype_code(a.dtype), ptr(a), ptr(g), ptr(h), None if h0 is None else ptr(h0), ptr(da), ptr(db),
+        None if dh0 is None else ptr(dh0), ptr(scratch), B, T, W, vec, stream_of(a))
+    check_launch(rc, "rglru_scan_bwd")
+    return da, db, dh0
+
+
+rglru_scan_bwd.launches = 0
+
+
+class _RglruScanTrain(torch.autograd.Function):
+    """Kernel 12 with its gradient: the forward launches :func:`rglru_scan`
+    and saves a and h, the backward launches :func:`rglru_scan_bwd` (on the
+    CPU both are the plain versions; on the card neither ever is)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        da, db, dh0 = rglru_scan_bwd(a, h, g.contiguous(), h0)
+        return da, db, None if dh0 is None else dh0.to(h0.dtype)
+
+
+def rglru_scan_train(a: torch.Tensor, b: torch.Tensor, h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable :func:`rglru_scan` (the training forward): (B, T, W)
+    f32, with the gradient of a, b and h0 from kernel 12's backward."""
+    return _RglruScanTrain.apply(a.contiguous(), b.contiguous(), h0)

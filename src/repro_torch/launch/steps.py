@@ -1,6 +1,6 @@
 """The train step and the serve launches (the port's counterpart of
 ``repro/launch/steps.py``): :func:`build_train_step` (one device: the
-gradient by autograd through kernel 7 and its backward, the global-norm
+gradient by autograd through kernels 7, 3/4 and 12 and their backwards, the global-norm
 clip and the optimizer update in place), :func:`build_spec_serve_step`, the decode launch captured once in a CUDA
 graph and replayed (the counterpart of the reference's jitted
 ``build_spec_serve_step``), :class:`TreeCommit`, the contiguous tree commit
@@ -39,7 +39,8 @@ from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import check_trainable, decode_constants, max_pages_for
-from repro_torch.optim import clip_by_global_norm, cosine_schedule, make_optimizer, tree_leaves, tree_unflatten
+from repro_torch.optim import (clip_by_global_norm, cosine_schedule, make_optimizer, scan_of, tree_leaves,
+                                tree_unflatten)
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
 from repro_torch.parallel.sharding import batch_spec, expert_slice
 
@@ -57,7 +58,7 @@ class _TrainStep:
     def __init__(self, cfg: ModelConfig, device, *, lr: float, total_steps: int, grad_clip: float):
         self.cfg, self.grad_clip = cfg, grad_clip
         self.model = Model(cfg, device)
-        self.optimizer = make_optimizer(cfg.optimizer, cosine_schedule(lr, 100, total_steps))
+        self.optimizer = make_optimizer(cfg.optimizer, cosine_schedule(lr, 100, total_steps), scan=scan_of(cfg))
 
     def __call__(self, params, opt_state, step, tokens, frontend=None):
         leaves = tree_leaves(params)
@@ -85,8 +86,8 @@ def build_train_step(cfg: ModelConfig, device, cell: ShapeCell, *, lr: float = 3
     """``(params, opt_state, step, tokens, frontend=None) -> (params,
     opt_state, step + 1, metrics)``: the reference's jitted train step on
     one device.  The loss and its gradient come from
-    :meth:`Model.forward_train` under autograd (kernel 7 forward, its
-    hand-written backward), the gradients are clipped to ``grad_clip``
+    :meth:`Model.forward_train` under autograd (kernels 7, 3/4 and 12
+    forward, their hand-written backwards), the gradients are clipped to ``grad_clip``
     global norm and the optimizer (``cfg.optimizer`` on the reference's
     cosine schedule: 100 warm-up steps, ``total_steps``) updates ``params``
     and ``opt_state`` in place.  ``metrics``: the model's ``loss``, ``ce``,

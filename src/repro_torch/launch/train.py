@@ -6,9 +6,9 @@ fault-tolerant :class:`repro_torch.runtime.Trainer`, on one device.
         --smoke --steps 50 --device cpu
 
 Without ``--device`` it runs on the card.  This slice trains one device
-(``--data`` and ``--model`` stay 1) and the dense and ``local`` stacks:
-an arch with ``moe``, ``rec`` or ``ssm`` layers exits 2, naming the slice
-that brings their backward kernels.
+(``--data`` and ``--model`` stay 1) and the ``attn``, ``local``, ``moe``
+and ``rec`` stacks (every arch but Mamba-2): an arch with ``ssm`` layers
+exits 2, naming the slice that brings kernel 11's backward.
 """
 from __future__ import annotations
 

@@ -2,8 +2,9 @@
 speculative chain and tree decode, and the cache surgery of continuous
 batching (contiguous, paged and rolling) for the ``moe``/``attn``/``local``/``rec``/``ssm``
 decoder stack, with the vision / audio frontend stub; and the training
-forward (:meth:`Model.forward_train`, the next-token loss) of ``attn`` and
-``local`` stacks over f32 master weights (``init(train=True)``).
+forward (:meth:`Model.forward_train`, the next-token loss) of ``attn``,
+``local``, ``moe`` and ``rec`` stacks over f32 master weights
+(``init(train=True)``).
 
 The cache is updated in place by :meth:`Model.prefill`,
 :meth:`Model.decode_tokens` and the surgery methods; the first two return

@@ -7,7 +7,9 @@
                   stream (``route_src``) and arrives as an input.
 
 The prefill data plane is the fused pair of kernels
-(:mod:`repro_torch.kernels.moe_fused`) for every token count; the decode data
+(:mod:`repro_torch.kernels.moe_fused`) for every token count, under
+autograd with its hand-written backward when training (the plan's combine
+weights carry the gradient into the router); the decode data
 plane executes the cache-carried DecodePlan
 (:mod:`repro_torch.kernels.moe_decode`), over the int8 twins of the stacks
 under ``cfg.expert_dtype == "int8"`` (:func:`quantize_expert_stacks`).
@@ -102,7 +104,8 @@ def moe_ffn(
     capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, RouterAux]:
     """Apply the MoE FFN; with ``plan`` (lookahead mode) the router does not
-    run here."""
+    run here.  Differentiable on every path (the fused pair through its
+    backward kernels, :func:`fused_moe_fn`)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     T = B * S
@@ -111,10 +114,10 @@ def moe_ffn(
         probs = torch.softmax(logits, dim=-1)
         top_w, top_e = _top_k(probs, cfg.top_k)
         top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-        mask = torch.zeros_like(probs).scatter_(1, top_e, top_w)
-        g = torch.einsum("td,edf->etf", xf, p["w_gate"])
-        u = torch.einsum("td,edf->etf", xf, p["w_up"])
-        y_all = torch.einsum("etf,efd->etd", torch.nn.functional.silu(g) * u, p["w_down"])
+        mask = torch.zeros_like(probs).scatter(1, top_e, top_w)
+        g = torch.einsum("td,edf->etf", xf, p["w_gate"].to(xf.dtype))
+        u = torch.einsum("td,edf->etf", xf, p["w_up"].to(xf.dtype))
+        y_all = torch.einsum("etf,efd->etd", torch.nn.functional.silu(g) * u, p["w_down"].to(xf.dtype))
         y = torch.einsum("etd,te->td", y_all.to(torch.float32), mask).to(x.dtype)
         z = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = RouterAux(z, torch.mean(torch.logsumexp(logits, dim=-1) ** 2), z)

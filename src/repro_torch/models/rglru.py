@@ -12,7 +12,9 @@ RG-LRU (per channel, diagonal gates, as in the reference):
 
 Prefill runs the recurrence through the ``rglru_scan`` kernel
 (:mod:`repro_torch.kernels.rglru_scan`; the plain version :func:`linear_scan`
-on the CPU); decode is a single step carrying ``(h, conv tail)``.  The gates
+on the CPU) under autograd, with its reversed instantiation as the backward
+when training (:func:`rec_block_prefill` is also the training pass); decode
+is a single step carrying ``(h, conv tail)``.  The gates
 and the state ``h`` are f32 whatever the model's type; ``gelu`` is the tanh
 approximation (``jax.nn.gelu``'s default).
 """
@@ -24,7 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan.ref import linear_scan  # noqa: F401  (the plain scan, the reference's name)
 from repro_torch.models.layers import Params, act_dtype, dense_init, normal
 
@@ -84,16 +86,19 @@ def init_rec_state(batch: int, cfg: ModelConfig, device) -> Dict[str, torch.Tens
 
 
 def rec_block_prefill(x: torch.Tensor, p: Params, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The prompt's pass (B, T, d) -> (y (B, T, d), final state).  The conv
-    tail holds the last K-1 inputs of the conv, zeros before the prompt's
-    start (the causal pad), so a prompt shorter than K-1 also continues
-    exactly."""
-    u = torch.einsum("btd,dw->btw", x, p["w_x"])
+    """The prompt's pass (B, T, d) -> (y (B, T, d), final state), also the
+    training pass (its ``y``; reference ``rec_block``): every weight cast
+    to x's type at use (a no-op when serving), the scan differentiable
+    (:func:`~repro_torch.kernels.rglru_scan.ops.rglru_scan_train`).  The
+    conv tail holds the last K-1 inputs of the conv, zeros before the
+    prompt's start (the causal pad), so a prompt shorter than K-1 also
+    continues exactly."""
+    u = torch.einsum("btd,dw->btw", x, p["w_x"].to(x.dtype))
     u_conv = causal_conv1d(u, p["conv_w"], p["conv_b"])
     a, b = rg_lru_gates(u_conv, p)
-    h_all = rglru_scan(a.contiguous(), b.contiguous())  # (B, T, W) f32
-    gate = _gelu(torch.einsum("btd,dw->btw", x, p["w_gate"]))
-    y = torch.einsum("btw,wd->btd", h_all.to(x.dtype) * gate, p["w_out"])
+    h_all = scan_ops.rglru_scan_train(a, b)  # (B, T, W) f32
+    gate = _gelu(torch.einsum("btd,dw->btw", x, p["w_gate"].to(x.dtype)))
+    y = torch.einsum("btw,wd->btd", h_all.to(x.dtype) * gate, p["w_out"].to(x.dtype))
     K = p["conv_w"].shape[0]
     up = torch.nn.functional.pad(u, (0, 0, max(K - 1 - u.shape[1], 0), 0))
     return y, {"h": h_all[:, -1], "conv": up[:, up.shape[1] - (K - 1):]}

@@ -372,9 +372,10 @@ def apply_layer_prefill(
     return h + y, route_src
 
 
-# the layer kinds training differentiates: their only kernel is kernel 7,
-# which has a hand-written backward; the MoE, RG-LRU and SSD kernels do not yet
-TRAIN_KINDS = ("attn", "local")
+# the layer kinds training differentiates: each kernel they run has a
+# hand-written backward (7 for attention, 3/4 for moe, 12 for rec); the SSD
+# scan's (kernel 11) does not yet
+TRAIN_KINDS = ("attn", "local", "moe", "rec")
 
 
 def check_trainable(cfg: ModelConfig, kinds=None) -> None:
@@ -385,8 +386,8 @@ def check_trainable(cfg: ModelConfig, kinds=None) -> None:
     if kinds:
         raise NotImplementedError(
             f"training {cfg.name} needs the backward of its {'/'.join(kinds)} layers' kernels "
-            "(3/4 and 8-10 for moe, 12 for rec, 11 for ssm), which the next training slice brings "
-            "(ROADMAP.md, Queue A); this slice trains dense and local stacks")
+            "(11, the SSD scan, for ssm), which the next training slice brings "
+            "(ROADMAP.md, Queue A); this slice trains attn, local, moe and rec stacks")
 
 
 def apply_layer_train(
@@ -397,19 +398,31 @@ def apply_layer_train(
     cfg: ModelConfig,
     positions: torch.Tensor,            # (B, S)
 ):
-    """One ``attn`` or ``local`` layer, training-style full-sequence pass
-    (no cache): the pre-norm attention sub-block through kernel 7 and its
-    backward (:func:`layers.attention_block_train`), then the SwiGLU FFN,
-    each weight cast to the activations' type at use.  The reference's
-    ``_res`` barrier is the identity.  Returns ``(x, route_src, aux)`` with
-    ``aux`` (2,) f32 zeros (no router)."""
+    """One layer, training-style full-sequence pass (no cache), each
+    weight cast to the activations' type at use; the reference's ``_res``
+    barrier is the identity.  ``attn``/``local``/``moe``: the pre-norm
+    attention sub-block through kernel 7 and its backward
+    (:func:`layers.attention_block_train`), then the SwiGLU FFN, or for
+    ``moe`` the routed experts through kernels 3/4 and their backward
+    (:func:`moe.moe_layer`; ``aux`` its [load-balance, z] losses, and
+    ``h`` the next layer's ``route_src``).  ``rec``: the RG-LRU block
+    through kernel 12 and its backward (:func:`rglru.rec_block_prefill`'s
+    output), then the SwiGLU FFN.  Returns ``(x, route_src, aux)``,
+    ``aux`` (2,) f32 (zeros without a router)."""
     if kind not in TRAIN_KINDS:
         check_trainable(cfg, (kind,))
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    if kind == "rec":
+        h = x + rglru.rec_block_prefill(L.rms_norm(x, p["ln1"]), p["rec"], cfg)[0]
+        return h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"]), route_src, aux
     a = L.attention_block_train(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions=positions,
                                 local_window=window_of(cfg, kind))
     h = x + a
-    x = h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"])
-    return x, route_src, torch.zeros((2,), dtype=torch.float32, device=x.device)
+    ffn_in = L.rms_norm(h, p["ln2"])
+    if kind == "moe":
+        y, r = moe.moe_layer(ffn_in, route_src, p["moe"], cfg)
+        return h + y, h, torch.stack([r.load_balance_loss, r.router_z_loss])
+    return h + L.swiglu(ffn_in, p["ffn"]), route_src, aux
 
 
 def _attn_out(out: torch.Tensor, p: Params) -> torch.Tensor:

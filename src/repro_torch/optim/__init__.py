@@ -7,6 +7,7 @@ from repro_torch.optim.optimizers import (  # noqa: F401
     clip_by_global_norm,
     global_norm,
     make_optimizer,
+    scan_of,
     tree_leaves,
     tree_unflatten,
 )

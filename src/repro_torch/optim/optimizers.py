@@ -17,6 +17,18 @@ Trees are the model's params layout (nested dicts and lists of tensors);
 AdamW's state is ``{"m": tree, "v": tree}``, Adafactor's a tree of the
 params' layout whose leaves are ``{"vr", "vc"}`` (factored, >= 2-D) or
 ``{"v"}``: the reference's state, leaf for leaf.
+
+The reference keeps each layer leaf of a whole super-block stacked on a
+leading super-block axis (its ``lax.scan`` layout), and its optimizers act
+on those stacked arrays; the port keeps one dict per layer.  Given
+``scan=(n_superblocks, pattern_length)`` (:func:`scan_of`) the port's
+optimizers act as the reference's do on the stacked array the layer leaves
+``layers[s * P + j]...`` (s < n_superblocks) form: its ``ndim`` (one more
+than a layer's) picks AdamW's decay and Adafactor's factoring, and
+Adafactor's update RMS is that of the whole stack.  A 1-D layer leaf (a
+norm's scale) stacks to (n_superblocks, d): factored, its ``vr`` one 0-d
+tensor a layer and its ``vc`` (d,) (the reference's column mean runs over
+the super-block axis) held by the stack's first layer ``layers[j]`` alone.
 """
 from __future__ import annotations
 
@@ -45,6 +57,37 @@ def _walk(structure, *trees, path: Tuple = ()) -> Iterator[Tuple]:
             yield from _walk(sub, *(t[i] for t in trees), path=path + (i,))
     else:
         yield (path, structure, *trees)
+
+
+Scan = Optional[Tuple[int, int]]  # (super-blocks, pattern length) of the reference's stacked layer leaves
+
+
+def scan_of(cfg) -> Tuple[int, int]:
+    """``(n_superblocks, pattern_length)`` of a model config: the layers
+    the reference stacks (the rest, a pattern-incomplete tail, it keeps
+    unstacked)."""
+    return cfg.num_layers // len(cfg.block_pattern), len(cfg.block_pattern)
+
+
+def _groups(scan: Scan, structure, *trees) -> List[Tuple[bool, List[Tuple]]]:
+    """:func:`_walk`'s items grouped as the reference stacks them:
+    ``(stacked, items)``, items ``(path, leaf, ...)`` of the layers
+    ``s * P + j`` in ascending s for one (pattern slot j, path within the
+    layer), or one unstacked item."""
+    n_sb, P = scan or (0, 1)
+    out: List[Tuple[bool, List[Tuple]]] = []
+    stacks = {}
+    for item in _walk(structure, *trees):
+        path = item[0]
+        if path[:1] == ("layers",) and path[1] < n_sb * P:
+            key = (path[1] % P, path[2:])
+            if key not in stacks:
+                stacks[key] = []
+                out.append((True, stacks[key]))
+            stacks[key].append(item)
+        else:
+            out.append((False, [item]))
+    return out
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -106,15 +149,12 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     decay_mask: Optional[Callable[[Tuple, Any], bool]] = None,
+    scan: Scan = None,
 ) -> Optimizer:
     """AdamW with decoupled weight decay.  1-D params (norms, biases) are
-    excluded from decay by default; ``decay_mask(path, p)`` overrides that
-    (``path`` the leaf's keys and list indices)."""
-
-    def _decay(path, p) -> bool:
-        if decay_mask is not None:
-            return decay_mask(path, p)
-        return p.ndim >= 2
+    excluded from decay by default (a stacked layer leaf counts the
+    super-block axis, ``scan``, as the reference does); ``decay_mask(path,
+    p)`` overrides that (``path`` the leaf's keys and list indices)."""
 
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -127,13 +167,14 @@ def adamw(
         bc2 = float(1.0 - _f32(b2) ** step_f)
         lr_t = _lr(lr, step)
         lr_wd = float(_f32(lr_t) * _f32(weight_decay))
+        stacked = {item[0] for st, items in _groups(scan, params) if st for item in items}
         for path, p, g, m, v in _walk(params, grads, state["m"], state["v"]):
             g32 = g.to(torch.float32)
             m.mul_(b1).add_((1 - b1) * g32)
             v.mul_(b2).add_((1 - b2) * g32 * g32)
             u = m / bc1
             u.mul_(-lr_t).div_((v / bc2).sqrt_().add_(eps))
-            if _decay(path, p):
+            if decay_mask(path, p) if decay_mask is not None else p.ndim + (path in stacked) >= 2:
                 u.sub_(lr_wd * p.to(torch.float32))
             p.add_(u.to(p.dtype))
         return params, state
@@ -153,19 +194,39 @@ def adafactor(
     eps: float = 1e-30,
     clip_threshold: float = 1.0,
     weight_decay: float = 0.0,
+    scan: Scan = None,
 ) -> Optimizer:
     """Adafactor (Shazeer & Stern 2018), simplified as the reference: factored
     v for ndim >= 2 (row / column means over the last two axes), full v
-    otherwise; update RMS clipping; no first moment."""
+    otherwise; update RMS clipping; no first moment.  ``scan``: the layer
+    leaves the reference stacks are updated as their stack (module
+    docstring): factored, one RMS a stack."""
+
+    def one(p):
+        if p.ndim >= 2:
+            return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32, device=p.device)}
+        return {"v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
 
     def init(params):
-        def one(p):
-            if p.ndim >= 2:
-                return {"vr": torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32, device=p.device)}
-            return {"v": torch.zeros(p.shape, dtype=torch.float32, device=p.device)}
+        state = _tree_map(one, params)
+        for stacked, items in _groups(scan, params):
+            p = items[0][1]
+            if stacked and p.ndim == 1:  # (n, d): a row mean a layer, the column mean in the first
+                for i, (path, _) in enumerate(items):
+                    s = {"vr": torch.zeros((), dtype=torch.float32, device=p.device)}
+                    if i == 0:
+                        s["vc"] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    _set(state, path, s)
+        return state
 
-        return _tree_map(one, params)
+    def _u(g, s):
+        """The unclipped update of one leaf (a layer of a stack) from its updated state."""
+        g32 = g.to(torch.float32)
+        if "v" in s:
+            return g32 * torch.rsqrt(torch.clamp(s["v"], min=eps))
+        r = (s["vr"] / torch.clamp(s["vr"].mean(dim=-1, keepdim=True), min=eps))[..., None]
+        return g32 * torch.rsqrt(torch.clamp(r * s["vc"][..., None, :], min=eps))
 
     @torch.no_grad()
     def update(grads, state, params, step):
@@ -173,30 +234,56 @@ def adafactor(
         beta2, one_minus = float(beta2_t), float(1.0 - beta2_t)
         lr_t = _lr(lr, step)
         lr_wd = float(_f32(lr_t) * _f32(weight_decay))
-        for _, p, g, s in _walk(params, grads, state):
-            g32 = g.to(torch.float32)
-            g2 = g32 * g32 + eps
-            if p.ndim >= 2:
-                vr = s["vr"].mul_(beta2).add_(one_minus * g2.mean(dim=-1))
-                vc = s["vc"].mul_(beta2).add_(one_minus * g2.mean(dim=-2))
-                denom = vr.mean(dim=-1, keepdim=True)
-                r = (vr / torch.clamp(denom, min=eps))[..., None]
-                u = g32 * torch.rsqrt(torch.clamp(r * vc[..., None, :], min=eps))
+        for stacked, items in _groups(scan, params, grads, state):
+            p0 = items[0][1]
+            layer_u = _u
+            if stacked and p0.ndim == 1:
+                vc = items[0][3]["vc"]
+                col = torch.zeros_like(vc)
+                for _, _, g, s in items:
+                    g2 = g.to(torch.float32) ** 2 + eps
+                    s["vr"].mul_(beta2).add_(one_minus * g2.mean())
+                    col.add_(g2)
+                vc.mul_(beta2).add_(one_minus * (col / len(items)))
+                denom = torch.clamp(torch.stack([s["vr"] for *_, s in items]).mean(), min=eps)
+
+                def layer_u(g, s):
+                    return g.to(torch.float32) * torch.rsqrt(torch.clamp((s["vr"] / denom) * vc, min=eps))
             else:
-                v = s["v"].mul_(beta2).add_(one_minus * g2)
-                u = g32 * torch.rsqrt(torch.clamp(v, min=eps))
-            del g2
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u.div_(torch.clamp(rms / clip_threshold, min=1.0)).mul_(-lr_t)
-            if weight_decay and p.ndim >= 2:
-                u.sub_(lr_wd * p.to(torch.float32))
-            p.add_(u.to(p.dtype))
+                for _, p, g, s in items:
+                    g2 = g.to(torch.float32) ** 2 + eps
+                    if p.ndim >= 2:
+                        s["vr"].mul_(beta2).add_(one_minus * g2.mean(dim=-1))
+                        s["vc"].mul_(beta2).add_(one_minus * g2.mean(dim=-2))
+                    else:
+                        s["v"].mul_(beta2).add_(one_minus * g2)
+                    del g2
+            # the RMS of the (stacked) leaf's update, then each layer's update again, clipped by it
+            if len(items) > 1:
+                ss = sum(torch.sum(layer_u(g, s) ** 2) for _, _, g, s in items)
+                rms = torch.sqrt(ss / (len(items) * p0.numel()) + 1e-30)
+            for _, p, g, s in items:
+                u = layer_u(g, s)
+                if len(items) == 1:
+                    rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+                u.div_(torch.clamp(rms / clip_threshold, min=1.0)).mul_(-lr_t)
+                if weight_decay and p.ndim + stacked >= 2:
+                    u.sub_(lr_wd * p.to(torch.float32))
+                p.add_(u.to(p.dtype))
         return params, state
 
     return Optimizer(init, update)
 
 
+def _set(tree, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree[key]
+    tree[path[-1]] = value
+
+
 def make_optimizer(name: str, lr: Schedule | float, **kw) -> Optimizer:
+    """``adamw`` or ``adafactor`` with ``lr`` and keyword arguments ``kw``
+    (``scan``: :func:`scan_of` a model config, as the train step passes it)."""
     if name == "adamw":
         return adamw(lr, **kw)
     if name == "adafactor":

@@ -1,0 +1,133 @@
+"""PyTorch port, on the card: the training backward kernels 3_bwd, 4_bwd
+(``csrc/moe_fused_bwd.cu``) and 12_bwd (the reversed instantiation in
+``csrc/rglru_scan.cu``) against their plain versions, at ragged shapes
+(empty slots, dropped assignments, T off the scan's chunk, W off its
+4-channel lanes, h0), f32 and bf16, each bitwise on a repeat; and the
+autograd Functions on the card counting one launch each way.
+
+Runs only where ``torch.cuda.is_available()``; elsewhere every test skips
+(a CUDA kernel has no CPU mode).  Imports no jax:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_bwd.py
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core.control_plane import capacity_for, route_topk
+from repro_torch.kernels.moe_fused import ops as mf_ops
+from repro_torch.kernels.moe_fused import ref as mf_ref
+from repro_torch.kernels.rglru_scan import ops as rg_ops
+from repro_torch.kernels.rglru_scan import ref as rg_ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _hold(name, got, want):
+    """f32 outputs: 1e-4 of the output scale (sums in another order); bf16
+    outputs elementwise: one bf16 ulp (2^-7 of the value) plus 1e-3 x rms."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    g, w = got.float(), want.float()
+    if got.dtype == torch.float32:
+        err = float((g - w).abs().max())
+        assert err <= 1e-4 * max(1.0, float(w.abs().max())), (name, err)
+    else:
+        lim = 2.0 ** -7 * w.abs() + 1e-3 * float(w.pow(2).mean().sqrt())
+        assert int(((g - w).abs() > lim).sum()) == 0, name
+
+
+# T, d, f, E, k, capacity factor
+MOE_CASES = {"ragged_drops": (37, 24, 40, 12, 2, 0.3), "top1": (13, 16, 24, 8, 1, 1.25),
+             "wide": (300, 72, 136, 6, 3, 1.0), "aligned": (256, 128, 192, 16, 4, 1.25)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_backward_kernels_match_plain_on_card(cuda, case, dtype):
+    T, d, f, E, k, cf = MOE_CASES[case]
+    rng = np.random.default_rng(T)
+    t = lambda *shape, s=1.0: torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
+    x, router = t(T, d), t(d, E)
+    plan, _ = route_topk(x, router, k, capacity_for(T, E, k, cf))
+    x = x.to(dtype)
+    wg, wu, wd = (w.to(dtype) for w in (t(E, d, f, s=d ** -0.5), t(E, d, f, s=d ** -0.5), t(E, f, d, s=f ** -0.5)))
+    idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
+    h = mf_ops.gather_swiglu(x, idx, wg, wu)
+    dy = t(T, d)
+
+    def down():
+        return mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
+
+    got = down()
+    for name, g, w in zip(("dh", "dw_down", "dslot_w"), got, mf_ref.down_combine_bwd(dy, h, wd, idx, sw)):
+        _hold(f"4_bwd {name}", g, w)
+    dh = got[0]
+
+    def gather():
+        return mf_ops.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)
+
+    for name, g, w in zip(("dx", "dw_gate", "dw_up"), gather(), mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)):
+        _hold(f"3_bwd {name}", g, w)
+    for fn in (down, gather):
+        a, b = fn(), fn()
+        assert all(torch.equal(p, q) for p, q in zip(a, b)), "a repeated launch is not bitwise equal"
+
+
+# B, T, W, h0, gate dtype
+SCAN_CASES = {"ragged_h0": (2, 133, 12, True, torch.float32), "scalar_lanes": (1, 300, 10, True, torch.float32),
+              "bf16_chunks": (2, 260, 64, True, torch.bfloat16), "no_h0": (1, 4096, 256, False, torch.float32),
+              "one_step": (3, 1, 8, True, torch.bfloat16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_backward_kernel_matches_plain_on_card(cuda, case):
+    B, T, W, with_h0, dtype = SCAN_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    a = (torch.rand((B, T, W), generator=gen, device=cuda) * 0.499 + 0.5).to(dtype)
+    b = (torch.randn((B, T, W), generator=gen, device=cuda) * 0.1).to(dtype)
+    h0 = torch.randn((B, W), generator=gen, device=cuda) if with_h0 else None
+    g = torch.randn((B, T, W), generator=gen, device=cuda)
+    h = rg_ops.rglru_scan(a, b, h0)
+
+    def kernel():
+        return rg_ops.rglru_scan_bwd(a, h, g, h0)
+
+    got, want = kernel(), rg_ref.rglru_scan_bwd(a, h, g, h0)
+    for name, x, y in zip(("da", "db", "dh0"), got, want):
+        if y is None:
+            assert x is None
+        else:
+            _hold(f"12_bwd {name}", x, y)
+    again = kernel()
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again)), "a repeated launch is not bitwise equal"
+
+
+@pytest.mark.cuda
+def test_training_functions_launch_each_backward_once_on_card(cuda):
+    T, d, f, E, k = 64, 32, 48, 8, 2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((T, d), generator=gen, device=cuda, requires_grad=True)
+    router = torch.randn((d, E), generator=gen, device=cuda, requires_grad=True)
+    p = {n: (torch.randn(s, generator=gen, device=cuda) * 0.2).requires_grad_(True)
+         for n, s in (("w_gate", (E, d, f)), ("w_up", (E, d, f)), ("w_down", (E, f, d)))}
+    a = (torch.rand((2, 150, 16), generator=gen, device=cuda) * 0.5 + 0.5).requires_grad_(True)
+    b = torch.randn((2, 150, 16), generator=gen, device=cuda, requires_grad=True)
+    kernels.reset_launch_counts()
+    plan, _ = route_topk(x, router, k, capacity_for(T, E, k, 1.0))
+    loss = mf_ops.fused_moe_fn(x, plan, p).square().sum() + rg_ops.rglru_scan_train(a, b).sum()
+    loss.backward()
+    counts = {n: c for n, c in kernels.launch_counts().items() if c}
+    assert counts == {"gather_swiglu": 1, "down_combine": 1, "gather_swiglu_bwd": 1, "down_combine_bwd": 1,
+                      "rglru_scan": 1, "rglru_scan_bwd": 1}
+    assert float(router.grad.abs().max()) > 0 and all(t.grad is not None for t in (x, a, b, *p.values()))

@@ -1,8 +1,10 @@
 """PyTorch port, kernel 7's backward on the CPU: which build
 (``flash_attention_bwd_path``) a launch takes at every dtype and head dim,
-that every registered arch that trains takes the tensor cores in bf16, the
-wrapper's refusals before anything is built or launched (on the card
-nothing falls back to another build or to the plain version), the C entry
+the build each registered arch that trains takes in bf16 (the tensor
+cores, but for the archs of ``CUDA_CORE_TRAINING``: RecurrentGemma-2B at
+hd 256 takes the CUDA-core build), the wrapper's refusals before anything
+is built or launched (on the card nothing falls back to another build or
+to the plain version), the C entry
 each build's launch names, the plain backward against ``jax.vjp`` of the
 reference's ``blockwise_attention`` at the tensor-core build's head dims and
 groups, and the tensor-core build's precision design emulated in torch: P
@@ -27,6 +29,9 @@ from repro_torch.models.transformer import check_trainable
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 TC_HEAD_DIMS = (64, 96, 128, 160)
+# trainable archs whose head dim the tensor-core backward lacks; an entry goes when its head
+# dim gets a tensor-core backward (ROADMAP Queue B item 14)
+CUDA_CORE_TRAINING = {"recurrentgemma-2b": 256}
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
@@ -41,17 +46,22 @@ def test_flash_attention_bwd_path_at_every_dtype_and_head_dim(dtype, hd):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_every_trainable_arch_takes_the_tensor_cores_in_bf16(arch):
-    """The archs training takes (dense and local stacks) train in bf16 at
-    head dims the tensor-core build has; the others are refused before
-    their backward could run."""
+    """Every arch that trains (all stacks but ``ssm``) trains in bf16, and
+    its head dim takes the tensor-core backward, except the archs named in
+    ``CUDA_CORE_TRAINING``, which take the CUDA-core build at the head dim
+    named there; the ``ssm`` archs are refused before their backward could
+    run."""
     cfg = get_config(arch)
     try:
         check_trainable(cfg)
     except NotImplementedError:
-        assert {"moe", "rec", "ssm"} & set(cfg.layer_kinds)
+        assert "ssm" in cfg.layer_kinds
         return
     assert cfg.dtype == "bfloat16"
-    assert fa_ops.flash_attention_bwd_path(torch.bfloat16, cfg.resolved_head_dim) == "tensor_cores"
+    hd = cfg.resolved_head_dim
+    want = "cuda_cores" if CUDA_CORE_TRAINING.get(arch) == hd else "tensor_cores"
+    assert fa_ops.flash_attention_bwd_path(torch.bfloat16, hd) == want
+    assert hd in HEAD_DIMS
 
 
 def _inputs(B, S, nq, nkv, hd, dtype=torch.bfloat16, seed=0):

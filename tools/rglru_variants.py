@@ -113,7 +113,7 @@ def main() -> int:
             raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
         libs[name] = ctypes.CDLL(str(lib))
         ptx = [ln.strip() for ln in log.splitlines() if "Used" in ln or ("spill" in ln and " 0 bytes spill" not in ln)]
-        kern = "rglru_scan_kernel" if name == PARENT else ("_kernel" if name == THREE else "rglru_chunk_kernel")
+        kern = "rglru_scan_kernel" if name == PARENT else ("_kernel" if name == THREE else "rglru_chunk_kernelILb0E")
         lines.append({"variant": name, "ptxas": ptx, "census": census_of(lib, kern)})
         print(json.dumps(lines[-1]), flush=True)
         if name in (PARENT, SHIPPED):
