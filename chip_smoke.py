@@ -98,10 +98,13 @@ spills and a SASS census with ``HGMMA``; the LSE forward's O bitwise the
 serving launch's; SDPA's backward timed beside it; kernel 7's forward at
 MusicGen's heads on the tensor-core template at hd 64, as rows
 ``flash_attention_hd64`` (2,048 tokens) and ``flash_attention_hd64_long``
-(4,096)),
+(4,096)), and at RecurrentGemma-2B's heads (hd 256, its CUDA-core build)
+as row ``flash_attention_bwd_hd256`` beside SDPA's backward,
 the backwards of kernels 3, 4 and 12 against their plain versions at
 Qwen3-MoE's and RecurrentGemma-2B's training shapes (and ragged ones, f32
-and bf16, bitwise repeats), the f32 smoke configs of StarCoder2, Qwen3-MoE
+and bf16, bitwise repeats; 3 and 4 on their tensor-core builds at bf16,
+with an ``HGMMA`` census, device ms by launch and the parent build's
+time), the f32 smoke configs of StarCoder2, Qwen3-MoE
 and RecurrentGemma trained 3 steps on the card and on the CPU (losses and
 params equal), StarCoder2-3B at published widths cut to 20 layers trained
 6 steps of 4 x 2,048 tokens (bf16 over f32 master weights, AdamW, remat; a
@@ -173,13 +176,15 @@ F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
 # or one thread per channel, walking its whole run; f32 products on CUDA
 # cores), at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md, section
 # 6; kernel 11's with bf16 x, B, C; kernel 12's with f32 gates and, as
-# rglru_scan_bf16, bf16 ones)
+# rglru_scan_bf16, bf16 ones); and of 3_bwd and 4_bwd's CUDA-core builds at
+# Qwen3-MoE's training shapes (PERF.md, section 6)
 PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515,
                "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
                "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
                "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389,
                "rglru_scan": 0.2003, "rglru_scan_bf16": 1.393,
-               "flash_attention_hd96": 0.1140, "flash_attention_hd160": 0.1707, "flash_attention_hd64": 1.364}
+               "flash_attention_hd96": 0.1140, "flash_attention_hd160": 0.1707, "flash_attention_hd64": 1.364,
+               "moe_down_combine_bwd": 44.24, "moe_gather_swiglu_bwd": 120.47}
 # and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8;
 # kernel 7 at hd 96, 160 and 64 on CUDA cores)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
@@ -709,6 +714,7 @@ def kernel_phase(cfg, dev):
     rows.update(head_dim_kernel_rows(dev, gen, tol))
     rows.update(llama4_kernel_rows(dev, gen, tol))
     rows.update(bwd_kernel_rows(dev, gen))
+    rows["flash_attention_bwd_hd256"] = bwd_hd256_row(dev, gen)
     rows.update(train_bwd_rows(dev, gen))
     return rows
 
@@ -4161,13 +4167,86 @@ def train_sweep(dev):
     return out
 
 
+def bwd_hd256_row(dev, gen):
+    """Kernel 7's backward at RecurrentGemma-2B's heads (10 q / 1 kv of 256;
+    row ``flash_attention_bwd_hd256``), ``REC_TRAIN_BATCH`` causal
+    ``TRAIN_SEQ``-token bf16 sequences under the config's window (it covers
+    every causal pair at that length, so SDPA's causal mask is the same):
+    the CUDA-core build (``path``: bf16 at hd 256 takes no tensor cores),
+    dQ / dK / dV by row 7's bf16 gate against the plain backward on the LSE
+    forward's O and lse, a bitwise repeat, ms in turns with SDPA's backward
+    (the yardstick, kv heads expanded), device ms by launch, and the
+    operation bound of 5 products of 2 * pairs * hd a head at the bf16
+    tensor rate.  It times a build this slice leaves as it is."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    cfg = get_config(HYBRID)
+    nq, nkv, hd, S, B, window = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, TRAIN_SEQ, REC_TRAIN_BATCH,
+                                 cfg.local_window)
+    assert window >= S, "the row's SDPA yardstick takes the window for the causal mask"
+    G, tag = nq // nkv, f"flash_attention_bwd_hd256 ({HYBRID})"
+    path = fa_ops.flash_attention_bwd_path(torch.bfloat16, hd)
+    q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True, window=window)
+
+    def kernel():
+        return fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=True, window=window)
+
+    want = fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True, window=window)
+    err = max(check_bf16(f"{tag} {g}", got, w) for g, got, w in zip(("dq", "dk", "dv"), kernel(), want))
+    del want
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt, vt = (c.transpose(1, 2).repeat_interleave(G, 1).detach().requires_grad_(True) for c in (k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+
+    def lib():
+        return torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True)
+
+    pairs = S * (S + 1) // 2
+    flops = 5 * 2.0 * pairs * hd * nq * B
+    nbytes = (3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4 + (q.numel() + 2 * k.numel()) * 2
+    ms, lib_ms, turns = in_turns(kernel, lib, iters=2, reps=3)
+    row = dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu", max_abs_err=err, ms=ms, ms_in_turns=turns,
+        plain_ms=time_ms(lambda: fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True, window=window),
+                         iters=1, reps=3),
+        library_ms=lib_ms, library_device_ms=device_ms(lib, "", n=3),
+        library_call="scaled_dot_product_attention's backward (autograd, is_causal, kv heads expanded "
+                     "beforehand)",
+        device_ms=device_ms(kernel, "", n=3),
+        device_ms_by_launch={sym: device_ms(kernel, sym, n=3) for sym in BWD_LAUNCHES[path]},
+        bitwise_repeat=bitwise_repeat(tag, lambda: torch.cat([t.reshape(-1) for t in kernel()])),
+        arch=HYBRID, group=G, path=path, ptxas=ptxas("flash_attention_bwd", "13__nv_bfloat16Li256E"), batch=B,
+        window=window, shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal, window {window} ({pairs} visible "
+                              f"pairs a head)",
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+    )
+    del q, k, v, do, out, lse, qt, kt, vt, o_lib
+    torch.cuda.empty_cache()
+    return row
+
+
 # the training backward kernels of the MoE and RG-LRU stacks (3_bwd, 4_bwd,
 # 12_bwd): their launches by wrapper, the Qwen3-MoE cell's depth (of 94: two
 # layers, so the lookahead plan of layer 1 routes from layer 0's residual
 # stream) and the steps of both training cells (then one more, profiled)
-MOE_BWD_LAUNCHES = {"down_combine_bwd": ("down_dh_kernel", "down_dw_kernel", "down_dsw_kernel"),
-                    "gather_swiglu_bwd": ("gate_up_dgu_kernel", "gate_up_dw_kernel", "gate_up_dxs_kernel",
-                                          "gate_up_dx_kernel")}
+MOE_BWD_LAUNCHES = {
+    "down_combine_bwd": {"cuda_cores": ("down_dh_kernel", "down_dw_kernel", "down_dsw_kernel"),
+                         "tensor_cores": ("units_kernel", "split_rows_kernel", "down_dh_tc_kernel",
+                                          "down_dw_tc_kernel", "down_dsw_kernel")},
+    "gather_swiglu_bwd": {"cuda_cores": ("gate_up_dgu_kernel", "gate_up_dw_kernel", "gate_up_dxs_kernel",
+                                         "gate_up_dx_kernel"),
+                          "tensor_cores": ("units_kernel", "gather_rows_kernel", "gate_up_dgu_tc_kernel",
+                                           "gate_up_dw_tc_kernel", "gate_up_dxs_tc_kernel", "gate_up_dx_kernel")}}
+# the tensor-core builds' wgmma kernels, by wrapper (registers, spills, HGMMA)
+MOE_BWD_TC_KERNELS = {"down_combine_bwd": ("down_dh_tc_kernel", "down_dw_tc_kernel"),
+                      "gather_swiglu_bwd": ("gate_up_dgu_tc_kernel", "gate_up_dw_tc_kernel", "gate_up_dxs_tc_kernel")}
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_BATCH, REC_TRAIN_BATCH, CELL_TRAIN_STEPS = 2, 2, 10
 REC_RAGGED_T = 2000  # kernel 12's backward off its 128-step chunks
@@ -4205,22 +4284,27 @@ def _moe_bwd_composites(x, idx, cidx, wg, wu, wd, sw, h, dy, dh):
 
 
 def train_bwd_rows(dev, gen):
-    """The training backward kernels of this slice against their plain
-    versions on the card: rows ``moe_down_combine_bwd`` (4_bwd) and
-    ``moe_gather_swiglu_bwd`` (3_bwd) at Qwen3-MoE's shapes (T =
+    """The training backward kernels of the MoE and RG-LRU stacks against
+    their plain versions on the card: rows ``moe_down_combine_bwd`` (4_bwd)
+    and ``moe_gather_swiglu_bwd`` (3_bwd) at Qwen3-MoE's shapes (T =
     ``MOE_TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, 128 experts top-8 at the
     config's capacity, d 4096, f 1536, bf16; the bf16 gate of row 3,
-    :func:`check_bf16`, on every bf16 output, the f32 bound on the f32 slot
-    weights' gradient) and in f32 at a ragged shape with empty and dropped
-    slots (1e-4 of the output scale); ``rglru_scan_bwd`` (12_bwd) at
-    RecurrentGemma-2B's (``REC_TRAIN_BATCH``, ``TRAIN_SEQ``, 2,560) with
-    f32 and bf16 gates and at ``REC_RAGGED_T`` steps with h0 (row 12's f32
-    bound; bf16 gradients by the bf16 gate).  Each: a bitwise repeat,
-    CUDA-event ms, device ms (by launch: ``train_moe_full_width``'s profiled
-    step), the plain version's ms, the composed PyTorch time for 3 and 4
-    (in turns with the kernel),
-    registers and spills, and the bound: bytes (each operand read once,
-    each output written once) or operations at the inputs' type's rate."""
+    :func:`check_bf16`, on every bf16 output, 1e-4 of the scale on the f32
+    slot weights' gradient), where each must take its tensor-core build
+    (``path``, from ``down_combine_bwd_path`` / ``gather_swiglu_bwd_path``:
+    registers and spills of its wgmma kernels and a SASS census that must
+    show ``HGMMA``), and at a ragged shape with empty and dropped slots, in
+    f32 on the CUDA-core build (1e-4 of the output scale) and in bf16 on the
+    tensor-core build (the same gates as the full shape);
+    ``rglru_scan_bwd`` (12_bwd) at RecurrentGemma-2B's (``REC_TRAIN_BATCH``,
+    ``TRAIN_SEQ``, 2,560) with f32 and bf16 gates and at ``REC_RAGGED_T``
+    steps with h0 (row 12's f32 bound; bf16 gradients by the bf16 gate).
+    Each: a bitwise repeat, CUDA-event ms, device ms (3 and 4 also by
+    launch), the plain version's ms, the composed PyTorch time for 3 and 4
+    (in turns with the kernel) and the parent build's time
+    (``previous_ms``), registers and spills, and the bound: bytes (each
+    operand read once, each output written once) or operations at the
+    inputs' type's rate."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4248,25 +4332,38 @@ def train_bwd_rows(dev, gen):
         return max(check_close(f"{tag} {i}", g, w, f32_tol) if g.dtype == torch.float32 else check_bf16(f"{tag} {i}", g, w)
                    for i, (g, w) in enumerate(zip(got, want)))
 
-    # the ragged f32 case first (small), then the full-width bf16 one
-    x, plan, wg, wu, wd, dy = moe_case(1000, 264, 200, 24, 4, 1.0, torch.float32, router_std=0.2)
-    T = x.shape[0]
-    idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
-    ragged = dict(empty_slots=int((idx >= T).sum()), dropped=int((cidx == idx.numel()).sum()))
-    if not (ragged["empty_slots"] and ragged["dropped"]):
-        raise AssertionError(f"moe bwd ragged case: {ragged}")
-    h = mf_ops.gather_swiglu(x, idx, wg, wu)
-    down32 = lambda: mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
-    err_down32 = hold("4_bwd f32", down32(), mf_ref.down_combine_bwd(dy, h, wd, idx, sw))
-    dh = down32()[0]
-    gather32 = lambda: mf_ops.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)
-    err_gather32 = hold("3_bwd f32", gather32(), mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu))
+    def paths(dtype, d, f):
+        return {"down_combine_bwd": mf_ops.down_combine_bwd_path(dtype, f, d, True),
+                "gather_swiglu_bwd": mf_ops.gather_swiglu_bwd_path(dtype, d, f, True)}
+
+    # the ragged cases first (small): f32 on the CUDA cores, bf16 on the
+    # tensor cores; then the full-width bf16 one
     cat = lambda fn: lambda: torch.cat([t.reshape(-1).float() for t in fn()])
-    repeat32 = bitwise_repeat("4_bwd f32", cat(down32)) and bitwise_repeat("3_bwd f32", cat(gather32))
-    ragged.update(shapes=f"x {tuple(x.shape)}, E {wg.shape[0]}, C {idx.numel() // wg.shape[0]}, d {x.shape[1]}, "
-                         f"f {wg.shape[2]}, top-4, capacity factor 1.0, a skewed router")
-    del x, plan, wg, wu, wd, dy, h, dh
-    torch.cuda.empty_cache()
+    ragged, errs_ragged, repeat_ragged = {}, {}, True
+    for dtype, want_path in ((torch.float32, "cuda_cores"), (bf16, "tensor_cores")):
+        tag = str(dtype).split(".")[1]
+        x, plan, wg, wu, wd, dy = moe_case(1000, 264, 200, 24, 4, 1.0, dtype, router_std=0.2)
+        T = x.shape[0]
+        idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
+        case = dict(empty_slots=int((idx >= T).sum()), dropped=int((cidx == idx.numel()).sum()),
+                    path=paths(dtype, x.shape[1], wg.shape[2]))
+        if not (case["empty_slots"] and case["dropped"]) or set(case["path"].values()) != {want_path}:
+            raise AssertionError(f"moe bwd ragged {tag} case: {case}")
+        h = mf_ops.gather_swiglu(x, idx, wg, wu)
+        down_r = lambda: mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
+        got = down_r()
+        errs_ragged[f"4_bwd {tag}"] = hold(f"4_bwd {tag} ragged", got, mf_ref.down_combine_bwd(dy, h, wd, idx, sw))
+        dh = got[0]
+        gather_r = lambda: mf_ops.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)
+        errs_ragged[f"3_bwd {tag}"] = hold(f"3_bwd {tag} ragged", gather_r(),
+                                           mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu))
+        repeat_ragged &= bitwise_repeat(f"4_bwd {tag}", cat(down_r)) and bitwise_repeat(f"3_bwd {tag}",
+                                                                                         cat(gather_r))
+        case.update(shapes=f"x {tuple(x.shape)}, E {wg.shape[0]}, C {idx.numel() // wg.shape[0]}, d {x.shape[1]}, "
+                           f"f {wg.shape[2]}, top-4, capacity factor 1.0, a skewed router")
+        ragged[tag] = case
+        del x, plan, wg, wu, wd, dy, h, dh, got
+        torch.cuda.empty_cache()
 
     cfg = get_config(ARCH)
     T, d, f, E, k = MOE_TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff_expert, cfg.num_experts, cfg.top_k
@@ -4275,6 +4372,9 @@ def train_bwd_rows(dev, gen):
     C = idx.numel() // E
     occ = idx < T
     n_occ, used = int(occ.sum()), int(occ.reshape(E, C).any(1).sum())
+    full_paths = paths(bf16, d, f)
+    if set(full_paths.values()) != {"tensor_cores"}:
+        raise AssertionError(f"3_bwd / 4_bwd at Qwen3-MoE's shapes take {full_paths}, not the tensor cores")
     h = mf_ops.gather_swiglu(x, idx, wg, wu)
 
     def kernel_down():
@@ -4293,26 +4393,32 @@ def train_bwd_rows(dev, gen):
     comp_down, comp_gather = _moe_bwd_composites(x, idx, cidx, wg, wu, wd, sw, h, dy, dh)
     shapes = (f"x {tuple(x.shape)} bf16 (T = {MOE_TRAIN_BATCH} x {TRAIN_SEQ}), E {E}, C {C} ({n_occ} slots occupied, "
               f"{used} experts used), d {d}, f {f}, top-{k}; dy f32")
-    common = dict(route="cuda", source="src/repro_torch/csrc/moe_fused_bwd.cu", shapes=shapes, ragged_f32=ragged,
+    common = dict(route="cuda", source="src/repro_torch/csrc/moe_fused_bwd.cu", shapes=shapes, ragged=ragged,
                   library_ms=None, library_call="none: no one PyTorch call computes the backward")
-    for name, kernel, comp, plain, err, err32, wrapper, nbytes, flops in (
+    for name, kernel, comp, plain, err, wrapper, nbytes, flops in (
             ("moe_down_combine_bwd", kernel_down, comp_down,
-             lambda: mf_ref.down_combine_bwd(dy, h, wd, idx, sw), err_down, err_down32, "down_combine_bwd",
+             lambda: mf_ref.down_combine_bwd(dy, h, wd, idx, sw), err_down, "down_combine_bwd",
              T * d * 4 + E * C * (f * 2 + 8) + used * f * d * 2 + E * C * (f * 2 + 4) + E * f * d * 2,
              n_occ * (4.0 * d * f + 2.0 * f)),
             ("moe_gather_swiglu_bwd", kernel_gather, comp_gather,
-             lambda: mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu), err_gather, err_gather32,
-             "gather_swiglu_bwd",
+             lambda: mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu), err_gather, "gather_swiglu_bwd",
              E * C * (f * 2 + 4) + T * d * 2 + used * 2 * d * f * 2 + T * k * 4 + T * d * 2 + E * 2 * d * f * 2,
              n_occ * 12.0 * d * f)):
+        path = full_paths[wrapper]
+        tc_names = MOE_BWD_TC_KERNELS[wrapper]
+        sass = sass_census("moe_fused_bwd", *tc_names)
+        if len(sass) != len(tc_names) or not all(c.get("HGMMA") for c in sass.values()):
+            raise AssertionError(f"{name}: no HGMMA in the SASS of the tensor-core build's kernels: {sass}")
         ms, comp_ms, turns = in_turns(kernel, comp, iters=1, reps=3)
         rows[name] = dict(
-            common, max_abs_err=err, max_abs_err_f32_ragged=err32, ms=ms, composite_ms=comp_ms, ms_in_turns=turns,
+            common, max_abs_err=err, max_abs_err_ragged=errs_ragged, ms=ms, composite_ms=comp_ms,
+            ms_in_turns=turns, previous_ms=PREVIOUS_MS[name],
             composite_call="gathers + torch.bmm in bf16 + elementwise + a gather-sum per token (in turns)",
             device_ms=device_ms(kernel, "", n=2),
+            device_ms_by_launch={sym: device_ms(kernel, sym, n=2) for sym in MOE_BWD_LAUNCHES[wrapper][path]},
             plain_ms=time_ms(plain, iters=1, reps=2),
-            bitwise_repeat=bitwise_repeat(name, cat(kernel)) and repeat32, path="cuda_cores",
-            ptxas=ptxas("moe_fused_bwd", *MOE_BWD_LAUNCHES[wrapper]),
+            bitwise_repeat=bitwise_repeat(name, cat(kernel)) and repeat_ragged, path=path,
+            ptxas=ptxas("moe_fused_bwd", *tc_names), sass=sass,
             bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
             bound_ms_f32_rate=bound(nbytes, flops, F32_FLOPS)[0],
         )
@@ -4748,11 +4854,14 @@ def main() -> int:
             max_abs_err=fwd["max_abs_err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
         ))
-    # this slice's backward kernels (launches: the MoE and RG-LRU training cells)
+    # the backward kernels of the MoE and RG-LRU stacks, and kernel 7's at hd
+    # 256 (launches: the MoE and RG-LRU training cells)
     for name, wrapper, counts, replaces in (
             ("moe_down_combine_bwd", "down_combine_bwd", train_moe["kernel_launches"], KERNELS["down_combine"][1]),
             ("moe_gather_swiglu_bwd", "gather_swiglu_bwd", train_moe["kernel_launches"], KERNELS["gather_swiglu"][1]),
-            ("rglru_scan_bwd", "rglru_scan_bwd", train_rec["kernel_launches"], KERNELS["rglru_scan"][1])):
+            ("rglru_scan_bwd", "rglru_scan_bwd", train_rec["kernel_launches"], KERNELS["rglru_scan"][1]),
+            ("flash_attention_bwd_hd256", "flash_attention_bwd", train_rec["kernel_launches"],
+             KERNELS["flash_attention"][1])):
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=r["source"], replaces=replaces, launches=counts[wrapper],

@@ -10,9 +10,12 @@ everything else on CUDA cores.
 :func:`fused_moe_fn` runs a :class:`~repro_torch.core.plans.DispatchPlan`
 through both, under an autograd Function whose backward is
 :func:`down_combine_bwd` then :func:`gather_swiglu_bwd`
-(``csrc/moe_fused_bwd.cu``, CUDA cores, fixed order; their plain versions
-on the CPU).  The kernel reads x (T, d) and treats index T as a zero row,
-so the wrapper builds no padded copy of x.  :func:`fused_experts_fn` runs
+(``csrc/moe_fused_bwd.cu``, fixed order; on the card each takes one of two
+builds, named by :func:`down_combine_bwd_path` and
+:func:`gather_swiglu_bwd_path`, bf16 with d and f multiples of 8 on tensor
+cores, everything else on CUDA cores; their plain versions on the CPU).
+The kernel reads x (T, d) and treats index T as a zero row, so the wrapper
+builds no padded copy of x.  :func:`fused_experts_fn` runs
 slots that are already expert-major (the expert-parallel a2a body's
 post-all_to_all tensor) through ``gather_swiglu`` over the identity index
 and the grouped GEMM (:mod:`repro_torch.kernels.grouped_gemm`).
@@ -32,7 +35,20 @@ _SIG_DOWN = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctype
 _SIG_DOWN_TC = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_DOWN_BWD = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _SIG_GATHER_BWD = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-BWD_TILE = 64  # output columns a block of the backward's products (csrc/moe_fused_bwd.cu BN)
+_SIG_DOWN_BWD_TC = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_SIG_GATHER_BWD_TC = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# f columns of a tile of the dh product, whose per-tile partial dots of d
+# slot_w the wrapper's scratch holds (csrc/moe_fused_bwd.cu: BN, tc::BN)
+BWD_TILE = {"cuda_cores": 64, "tensor_cores": 256}
+BWD_UNIT = 64  # slots a unit of the tensor-core builds' tiles (csrc/moe_fused_bwd.cu tc::UNIT)
+
+
+def bwd_units_words(E: int, C: int) -> int:
+    """int32 words of the tensor-core backwards' unit scratch: each 64-slot
+    unit's occupancy, the occupied units' list and each expert's start in it
+    (csrc/moe_fused_bwd.cu ``units_kernel``)."""
+    n = E * -(-C // BWD_UNIT)
+    return 2 * n + E + 1
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -65,6 +81,31 @@ def down_combine_path(dtype: torch.dtype, f: int, d: int, aligned: bool) -> str:
     products; f32, and bf16 at any other shape)."""
     ok = dtype == torch.bfloat16 and f > 0 and f % 8 == 0 and d % 8 == 0 and aligned
     return "tensor_cores" if ok else "cuda_cores"
+
+
+def down_combine_bwd_path(dtype: torch.dtype, f: int, d: int, aligned: bool) -> str:
+    """Which build of kernel 4's backward a launch takes, from its dtype, f,
+    d and whether dy, h and the stack start on 16-byte boundaries:
+    ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA: Wd, h, and the slots'
+    dy rows and weighted rows as hi + lo pairs, gathered once; row strides
+    multiples of 16 bytes, so f and d multiples of 8) or ``"cuda_cores"``
+    (f32 products; f32, and bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and f > 0 and d > 0 and f % 8 == 0 and d % 8 == 0 and aligned
+    return "tensor_cores" if ok else "cuda_cores"
+
+
+def gather_swiglu_bwd_path(dtype: torch.dtype, d: int, f: int, aligned: bool) -> str:
+    """Which build of kernel 3's backward a launch takes, from its dtype, d,
+    f and whether dh, x and the stacks start on 16-byte boundaries:
+    ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA: Wg, Wu, the dg/du hi +
+    lo pairs and the slots' x rows, gathered once; d and f multiples of 8)
+    or ``"cuda_cores"`` (f32 products; f32, and bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and f > 0 and d > 0 and f % 8 == 0 and d % 8 == 0 and aligned
+    return "tensor_cores" if ok else "cuda_cores"
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def gather_swiglu(
@@ -158,10 +199,13 @@ def down_combine_bwd(
     f) and dw_down (E, f, d) in h's type, dslot_w (E*C,) f32.  dh = slot_w
     (dy[idx] Wd^T), dWd[e] = h[e]^T (slot_w dy[idx]) over slots in
     ascending order, d slot_w = <h, dy[idx] Wd^T>: the dot against the
-    unweighted row the dh launch forms, summed over its 64-column tiles in
-    ascending order (no product recomputed, nothing saved by the forward).
-    An empty slot gets zeros.  On the card three launches (dh, dWd, the
-    tiles' sum) over an f32 scratch allocated here, counted once."""
+    unweighted row the dh launch forms, summed over its tiles of f columns
+    (``BWD_TILE``) in ascending order (no product recomputed, nothing saved
+    by the forward).  An empty slot gets zeros.  On the card the build
+    :func:`down_combine_bwd_path` names, its scratch allocated here, counted
+    once: three launches on CUDA cores (dh, dWd, the tiles' sum), five on
+    tensor cores (the occupied slot units, the slots' dy rows and their
+    weighted rows gathered as bf16 hi + lo pairs, dh, dWd, the sum)."""
     E, C, f = h.shape
     d = w_down.shape[-1]
     T = dy.shape[0]
@@ -179,18 +223,28 @@ def down_combine_bwd(
 
 
 def _launch_down_combine_bwd(dy, h, w_down, flat_idx, slot_w):
-    """4_bwd's C entry on the wrapper's checked tensors, with its outputs
-    and scratch allocated here; a refused launch raises."""
+    """4_bwd's C entry, the build :func:`down_combine_bwd_path` names, on
+    the wrapper's checked tensors, with its outputs and scratch allocated
+    here; a refused launch raises."""
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
     E, C, f = h.shape
     T, d = dy.shape
-    part = torch.empty((E * C * -(-f // BWD_TILE),), dtype=torch.float32, device=h.device)
+    dev = h.device
+    path = down_combine_bwd_path(h.dtype, f, d, _aligned(dy, h, w_down))
+    part = torch.empty((E * C * -(-f // BWD_TILE[path]),), dtype=torch.float32, device=dev)
     dh, dwd = torch.empty_like(h), torch.empty_like(w_down)
-    dsw = torch.empty((E * C,), dtype=torch.float32, device=h.device)
-    rc = function("moe_fused_bwd", "repro_down_combine_bwd", _SIG_DOWN_BWD)(
-        dtype_code(h.dtype), ptr(dy), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(part), ptr(dh),
-        ptr(dwd), ptr(dsw), T, E, C, d, f, stream_of(h))
+    dsw = torch.empty((E * C,), dtype=torch.float32, device=dev)
+    if path == "tensor_cores":
+        units = torch.empty((bwd_units_words(E, C),), dtype=torch.int32, device=dev)
+        rpairs, spairs = (torch.empty((2 * E * C * d,), dtype=torch.bfloat16, device=dev) for _ in range(2))
+        rc = function("moe_fused_bwd", "repro_down_combine_bwd_tc", _SIG_DOWN_BWD_TC)(
+            ptr(dy), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(units), ptr(rpairs), ptr(spairs), ptr(part),
+            ptr(dh), ptr(dwd), ptr(dsw), T, E, C, d, f, stream_of(h))
+    else:
+        rc = function("moe_fused_bwd", "repro_down_combine_bwd", _SIG_DOWN_BWD)(
+            dtype_code(h.dtype), ptr(dy), ptr(h), ptr(w_down), ptr(flat_idx), ptr(slot_w), ptr(part), ptr(dh),
+            ptr(dwd), ptr(dsw), T, E, C, d, f, stream_of(h))
     check_launch(rc, "down_combine_bwd")
     return dh, dwd, dsw
 
@@ -211,8 +265,12 @@ def gather_swiglu_bwd(
     u silu'(g), du = dh silu(g); dWg[e] = xs[e]^T dg[e], dWu[e] = xs[e]^T
     du[e] over slots in ascending order; dxs = dg Wg^T + du Wu^T; dx[t] =
     the sum of its slots' rows in ascending j of the combine words (a gather
-    per token).  On the card four launches over two f32 scratches allocated
-    here (dg and du, dxs), counted once."""
+    per token).  On the card the build :func:`gather_swiglu_bwd_path`
+    names, its scratch allocated here, counted once: four launches on CUDA
+    cores (dg/du, dWg/dWu, dxs, dx over f32 dg/du and dxs scratches), six on
+    tensor cores (the occupied slot units, the slots' x rows gathered
+    into the dxs scratch, dg/du written as bf16 hi + lo pairs, dWg/dWu, dxs,
+    dx)."""
     E, C, f = dh.shape
     T, d = x.shape
     _check(w_gate.shape == (E, d, f) and w_up.shape == w_gate.shape, f"w_gate/w_up shapes {tuple(w_gate.shape)}")
@@ -232,18 +290,28 @@ def gather_swiglu_bwd(
 
 
 def _launch_gather_swiglu_bwd(dh, x, flat_idx, flat_cidx, w_gate, w_up):
-    """3_bwd's C entry on the wrapper's checked tensors, with its outputs
-    and scratches allocated here; a refused launch raises."""
+    """3_bwd's C entry, the build :func:`gather_swiglu_bwd_path` names, on
+    the wrapper's checked tensors, with its outputs and scratches allocated
+    here; a refused launch raises."""
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
     E, C, f = dh.shape
     T, d = x.shape
-    dgu = torch.empty((2 * E * C * f,), dtype=torch.float32, device=x.device)
-    dxs = torch.empty((E * C * d,), dtype=torch.float32, device=x.device)
+    dev = x.device
+    k = flat_cidx.numel() // T
+    dxs = torch.empty((E * C * d,), dtype=torch.float32, device=dev)
     dx, dwg, dwu = torch.empty_like(x), torch.empty_like(w_gate), torch.empty_like(w_up)
-    rc = function("moe_fused_bwd", "repro_gather_swiglu_bwd", _SIG_GATHER_BWD)(
-        dtype_code(x.dtype), ptr(dh), ptr(x), ptr(flat_idx), ptr(flat_cidx), ptr(w_gate), ptr(w_up), ptr(dgu),
-        ptr(dxs), ptr(dx), ptr(dwg), ptr(dwu), T, E, C, d, f, flat_cidx.numel() // T, stream_of(x))
+    if gather_swiglu_bwd_path(x.dtype, d, f, _aligned(dh, x, w_gate, w_up)) == "tensor_cores":
+        units = torch.empty((bwd_units_words(E, C),), dtype=torch.int32, device=dev)
+        dgu = torch.empty((4 * E * C * f,), dtype=torch.bfloat16, device=dev)  # the bytes of an f32 dg and du
+        rc = function("moe_fused_bwd", "repro_gather_swiglu_bwd_tc", _SIG_GATHER_BWD_TC)(
+            ptr(dh), ptr(x), ptr(flat_idx), ptr(flat_cidx), ptr(w_gate), ptr(w_up), ptr(units), ptr(dgu), ptr(dxs),
+            ptr(dx), ptr(dwg), ptr(dwu), T, E, C, d, f, k, stream_of(x))
+    else:
+        dgu = torch.empty((2 * E * C * f,), dtype=torch.float32, device=dev)
+        rc = function("moe_fused_bwd", "repro_gather_swiglu_bwd", _SIG_GATHER_BWD)(
+            dtype_code(x.dtype), ptr(dh), ptr(x), ptr(flat_idx), ptr(flat_cidx), ptr(w_gate), ptr(w_up), ptr(dgu),
+            ptr(dxs), ptr(dx), ptr(dwg), ptr(dwu), T, E, C, d, f, k, stream_of(x))
     check_launch(rc, "gather_swiglu_bwd")
     return dx, dwg, dwu
 

@@ -43,7 +43,13 @@ sources, its library swapped in under the same wrappers.
   admission shape.  Kernel 7's backward's tensor-core build carries P and
   dS the same way; with both lo halves zeroed it misses the bf16 gate on
   dV (through P) and on dQ and dK (through dS) at StarCoder2-3B's and
-  StableLM-12B's training heads.
+  StableLM-12B's training heads.  Kernels 3 and 4's backwards' tensor-core
+  builds carry dy, the weighted slot rows and dg/du the same way; with
+  either set of lo halves zeroed the outputs they feed miss their gates.
+  Those backwards' CUDA-core builds (``repro_down_combine_bwd``,
+  ``repro_gather_swiglu_bwd`` in the library ``moe_fused_bwd``: f32, and
+  bf16 at a d or f not a multiple of 8) are held against the other
+  checkout too; their tensor-core builds are new.
 
 Imports no jax.
 """
@@ -128,9 +134,14 @@ MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine
 BWD_CASES = [f"flash_attention_bwd {tag} hd {hd} window {w}"
              for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)), ("bfloat16", (16, 32, 256)))
              for hd in hds for w in (0, 45)]
+# kernels 3 and 4's backwards on their CUDA-core builds (T,E,C,d,f): f32, and
+# bf16 at a d or an f the tensor cores do not take
+MOE_BWD_CASES = [f"moe_fused_bwd {tag} {shape}" for tag, shape in
+                 (("float32", "300,6,104,72,136"), ("float32", "256,16,80,128,192"), ("bfloat16", "50,6,24,20,36"),
+                  ("bfloat16", "300,6,104,72,84"))]
 SOURCE = {"flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
           "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused",
-          "flash_attention_bwd": "flash_attention_bwd"}
+          "flash_attention_bwd": "flash_attention_bwd", "moe_fused_bwd": "moe_fused_bwd"}
 
 
 def _run(case: str, dev) -> torch.Tensor:
@@ -158,6 +169,22 @@ def _run(case: str, dev) -> torch.Tensor:
         out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True, window=window)
         grads = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=True, window=window)
         return torch.cat([t.reshape(-1) for t in grads])
+    if words[0] == "moe_fused_bwd":
+        from repro_torch.core.control_plane import route_topk
+        from repro_torch.kernels.moe_fused import ops as mf_ops
+
+        T, E, C, d, f = (int(n) for n in words[2].split(","))
+        x = torch.randn((T, d), generator=g, device=dev)
+        plan, _ = route_topk(x, torch.randn((d, E), generator=g, device=dev), 2, C)
+        wg, wu = ((torch.randn((E, d, f), generator=g, device=dev) * d ** -0.5).to(dt) for _ in range(2))
+        wd = (torch.randn((E, f, d), generator=g, device=dev) * f ** -0.5).to(dt)
+        x, dy = x.to(dt), torch.randn((T, d), generator=g, device=dev)
+        assert mf_ops.down_combine_bwd_path(dt, f, d, True) == mf_ops.gather_swiglu_bwd_path(dt, d, f, True) \
+            == "cuda_cores"
+        h = mf_ops.gather_swiglu(x, plan.flat_idx, wg, wu)
+        dh, dwd, dsw = mf_ops.down_combine_bwd(dy, h, wd, plan.flat_idx, plan.slot_w)
+        grads = mf_ops.gather_swiglu_bwd(dh, x, plan.flat_idx, plan.flat_cidx, wg, wu)
+        return torch.cat([t.reshape(-1).float() for t in (dh, dwd, dsw, *grads)])
     if words[0] == "grouped_gemm":
         E, M, K, N = (int(n) for n in words[2].split(","))
         x = torch.randn((E, M, K), generator=g, device=dev).to(dt)
@@ -230,7 +257,7 @@ def other_libs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES
-                         + BWD_CASES)
+                         + BWD_CASES + MOE_BWD_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)
@@ -344,6 +371,75 @@ def test_flash_attention_bwd_needs_its_lo_halves_on_card(cuda, tmp_path, nq, nkv
     print(f"dq, dk, dv elements outside the bf16 gate: hi + lo {shipped}, hi only {dropped}")
     assert shipped == [0, 0, 0]
     assert all(n > 0 for n in dropped)
+
+
+# ---------------------------------------------------------------------------
+# kernels 3 and 4's backwards: the lo halves of dy, the weighted rows and
+# dg/du are needed
+# ---------------------------------------------------------------------------
+
+MOE_BWD_LO_LINES = {
+    "dy": ("__floats2bfloat162_rn(v[2 * i] - __low2float(hp), v[2 * i + 1] - __high2float(hp))",),
+    "dg/du": ("__floats2bfloat162_rn(dg[0] - __low2float(gh), dg[1] - __high2float(gh))",
+              "__floats2bfloat162_rn(du[0] - __low2float(uh), du[1] - __high2float(uh))"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zeroed", sorted(MOE_BWD_LO_LINES))
+def test_moe_backward_lo_halves_misses_on_card(cuda, tmp_path, zeroed):
+    """bf16 at a quarter of Qwen3-MoE's widths (T 2,048, d 1,024, f 768, 32
+    experts top-8, capacity factor 1.25): the shipped tensor-core builds
+    hold the bf16 gate on dh, dWd, dx, dWg and dWu and 1e-4 of the scale on
+    d slot_w against the plain versions; built with the lo halves of dy's
+    and the weighted slot rows' pairs zeroed (``dy``), dh and dWd miss the
+    gate and d slot_w its bound, and with dg/du's zeroed, dx, dWg and dWu
+    miss it.  The misses are counted (printed)."""
+    from repro_torch.core.control_plane import capacity_for, route_topk
+    from repro_torch.kernels.moe_fused import ops as mf_ops
+    from repro_torch.kernels.moe_fused import ref as mf_ref
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    src = (csrc / "moe_fused_bwd.cu").read_text()
+    for line in MOE_BWD_LO_LINES[zeroed]:
+        assert src.count(line) == 1, f"the {zeroed} lo half's line moved: update MOE_BWD_LO_LINES"
+        src = src.replace(line, "__floats2bfloat162_rn(0.f, 0.f)")
+    (csrc / "moe_fused_bwd.cu").write_text(src)
+    hi_only = _build(csrc, "moe_fused_bwd", tmp_path / "build")
+
+    T, d, f, E, k = 2048, 1024, 768, 32, 8
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.randn((T, d), generator=g, device=cuda)
+    plan, _ = route_topk(x, torch.randn((d, E), generator=g, device=cuda) * 0.02, k, capacity_for(T, E, k, 1.25))
+    x = x.to(torch.bfloat16)
+    wg, wu = ((torch.randn((E, d, f), generator=g, device=cuda) * d ** -0.5).to(torch.bfloat16) for _ in range(2))
+    wd = (torch.randn((E, f, d), generator=g, device=cuda) * f ** -0.5).to(torch.bfloat16)
+    dy = torch.randn((T, d), generator=g, device=cuda)
+    idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
+    assert mf_ops.down_combine_bwd_path(x.dtype, f, d, True) == "tensor_cores"
+    h = mf_ops.gather_swiglu(x, idx, wg, wu)
+    want4 = mf_ref.down_combine_bwd(dy, h, wd, idx, sw)
+    want3 = mf_ref.gather_swiglu_bwd(want4[0], x, idx, cidx, wg, wu)
+    scale = 1e-4 * max(1.0, float(want4[2].abs().max()))
+
+    def counts():
+        dh, dwd, dsw = mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
+        out = dict(dh=_misses(dh, want4[0]), dwd=_misses(dwd, want4[1]),
+                   dslot_w_over_bound=float((dsw - want4[2]).abs().max()) / scale)
+        out.update(zip(("dx", "dwg", "dwu"), (_misses(a, w) for a, w in zip(
+            mf_ops.gather_swiglu_bwd(want4[0], x, idx, cidx, wg, wu), want3))))
+        return out
+
+    shipped = counts()
+    with _swapped("moe_fused_bwd", hi_only):
+        dropped = counts()
+    print(f"{zeroed} lo halves: shipped {shipped}, zeroed {dropped}")
+    assert shipped["dslot_w_over_bound"] <= 1.0 and all(shipped[n] == 0 for n in ("dh", "dwd", "dx", "dwg", "dwu"))
+    if zeroed == "dy":
+        assert dropped["dh"] > 0 and dropped["dwd"] > 0 and dropped["dslot_w_over_bound"] > 1.0
+    else:
+        assert dropped["dx"] > 0 and dropped["dwg"] > 0 and dropped["dwu"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 ``csrc/rglru_scan.cu``) against their plain versions, at ragged shapes
 (empty slots, dropped assignments, T off the scan's chunk, W off its
 4-channel lanes, h0), f32 and bf16, each bitwise on a repeat; and the
-autograd Functions on the card counting one launch each way.
+autograd Functions on the card counting one launch each way.  3_bwd and
+4_bwd take their tensor-core builds for bf16 with d and f multiples of 8
+(each case asserts the build it takes): C off the 64-slot units, an expert
+with no occupied slot, several 256-column tiles with a ragged last one;
+bf16 at d 20 keeps the CUDA-core build.
 
 Runs only where ``torch.cuda.is_available()``; elsewhere every test skips
 (a CUDA kernel has no CPU mode).  Imports no jax:
@@ -17,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.control_plane import capacity_for, route_topk
+from repro_torch.core.control_plane import capacity_for, make_dispatch_plan, route_topk
 from repro_torch.kernels.moe_fused import ops as mf_ops
 from repro_torch.kernels.moe_fused import ref as mf_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -45,9 +49,11 @@ def _hold(name, got, want):
         assert int(((g - w).abs() > lim).sum()) == 0, name
 
 
-# T, d, f, E, k, capacity factor
+# T, d, f, E, k, capacity factor; "idle" cases never route to expert 0
 MOE_CASES = {"ragged_drops": (37, 24, 40, 12, 2, 0.3), "top1": (13, 16, 24, 8, 1, 1.25),
-             "wide": (300, 72, 136, 6, 3, 1.0), "aligned": (256, 128, 192, 16, 4, 1.25)}
+             "wide": (300, 72, 136, 6, 3, 1.0), "aligned": (256, 128, 192, 16, 4, 1.25),
+             "tiles_idle": (600, 520, 328, 6, 2, 1.0), "ragged_idle": (1000, 264, 200, 24, 4, 1.0),
+             "d20": (50, 20, 36, 6, 2, 1.0)}
 
 
 @pytest.mark.cuda
@@ -58,17 +64,36 @@ def test_moe_backward_kernels_match_plain_on_card(cuda, case, dtype):
     rng = np.random.default_rng(T)
     t = lambda *shape, s=1.0: torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)).to(cuda)
     x, router = t(T, d), t(d, E)
-    plan, _ = route_topk(x, router, k, capacity_for(T, E, k, cf))
+    C = capacity_for(T, E, k, cf)
+    if case.endswith("idle"):  # the router's top k with expert 0 left out: it gets no token
+        probs = torch.softmax(x @ router, dim=-1)
+        top_w, top_e = torch.topk(probs[:, 1:], k, dim=-1)
+        plan = make_dispatch_plan(top_e + 1, top_w / top_w.sum(-1, keepdim=True), E, C)
+    else:
+        plan, _ = route_topk(x, router, k, C)
     x = x.to(dtype)
     wg, wu, wd = (w.to(dtype) for w in (t(E, d, f, s=d ** -0.5), t(E, d, f, s=d ** -0.5), t(E, f, d, s=f ** -0.5)))
     idx, sw, cidx = plan.flat_idx, plan.slot_w, plan.flat_cidx
+    if case.endswith("idle"):
+        assert not bool((idx[:C] < T).any()) and C % mf_ops.BWD_UNIT != 0
+        assert bool((cidx == idx.numel()).any()), "the case must drop an assignment"
     h = mf_ops.gather_swiglu(x, idx, wg, wu)
     dy = t(T, d)
+    want = "tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 else "cuda_cores"
+    assert mf_ops.down_combine_bwd_path(dtype, f, d, True) == mf_ops.gather_swiglu_bwd_path(dtype, d, f, True) == want
+    entries = []
+    function = kernels.function
+
+    def recording(name, symbol, argtypes):  # the C entries the wrappers launch
+        entries.append(symbol)
+        return function(name, symbol, argtypes)
 
     def down():
         return mf_ops.down_combine_bwd(dy, h, wd, idx, sw)
 
-    got = down()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "function", recording)
+        got = down()
     for name, g, w in zip(("dh", "dw_down", "dslot_w"), got, mf_ref.down_combine_bwd(dy, h, wd, idx, sw)):
         _hold(f"4_bwd {name}", g, w)
     dh = got[0]
@@ -76,8 +101,13 @@ def test_moe_backward_kernels_match_plain_on_card(cuda, case, dtype):
     def gather():
         return mf_ops.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)
 
-    for name, g, w in zip(("dx", "dw_gate", "dw_up"), gather(), mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kernels, "function", recording)
+        got = gather()
+    for name, g, w in zip(("dx", "dw_gate", "dw_up"), got, mf_ref.gather_swiglu_bwd(dh, x, idx, cidx, wg, wu)):
         _hold(f"3_bwd {name}", g, w)
+    tail = "_tc" if want == "tensor_cores" else ""
+    assert entries == [f"repro_down_combine_bwd{tail}", f"repro_gather_swiglu_bwd{tail}"]
     for fn in (down, gather):
         a, b = fn(), fn()
         assert all(torch.equal(p, q) for p, q in zip(a, b)), "a repeated launch is not bitwise equal"

@@ -131,6 +131,10 @@ def test_moe_backward_c_entries_take_their_arguments_and_scratch(dtype, monkeypa
     E, _, f = wg.shape
     C = plan.flat_idx.numel() // E
     calls = _fake_function(monkeypatch)
+    # the CUDA-core entries (bf16 at this shape would take the tensor-core
+    # ones, held in tests/test_torch_moe_bwd_tc.py)
+    monkeypatch.setattr(mf_ops, "down_combine_bwd_path", lambda *a: "cuda_cores")
+    monkeypatch.setattr(mf_ops, "gather_swiglu_bwd_path", lambda *a: "cuda_cores")
     dh = torch.zeros((E, C, f), dtype=dtype)
     out = mf_ops._launch_down_combine_bwd(torch.zeros((T, d)), dh, wd, plan.flat_idx, plan.slot_w)
     assert [t.shape for t in out] == [(E, C, f), (E, f, d), (E * C,)]
