@@ -98,8 +98,9 @@ spills and a SASS census with ``HGMMA``; the LSE forward's O bitwise the
 serving launch's; SDPA's backward timed beside it; kernel 7's forward at
 MusicGen's heads on the tensor-core template at hd 64, as rows
 ``flash_attention_hd64`` (2,048 tokens) and ``flash_attention_hd64_long``
-(4,096)), and at RecurrentGemma-2B's heads (hd 256, its CUDA-core build)
-as row ``flash_attention_bwd_hd256`` beside SDPA's backward,
+(4,096)), and at RecurrentGemma-2B's heads (hd 256, on the tensor cores
+too: two warpgroups a dK/dV block) as row ``flash_attention_bwd_hd256``
+beside SDPA's backward and the CUDA-core build's earlier time,
 the backwards of kernels 3, 4 and 12 against their plain versions at
 Qwen3-MoE's and RecurrentGemma-2B's training shapes (and ragged ones, f32
 and bf16, bitwise repeats; 3 and 4 on their tensor-core builds at bf16,
@@ -177,19 +178,22 @@ F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
 # cores), at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md, section
 # 6; kernel 11's with bf16 x, B, C; kernel 12's with f32 gates and, as
 # rglru_scan_bf16, bf16 ones); and of 3_bwd and 4_bwd's CUDA-core builds at
-# Qwen3-MoE's training shapes (PERF.md, section 6)
+# Qwen3-MoE's training shapes and 7_bwd's at RecurrentGemma-2B's (PERF.md,
+# section 6)
 PREVIOUS_MS = {"flash_decode_window": 2.0794, "flash_decode_window_int8": 1.8234, "flash_attention": 6.2515,
                "flash_decode": 0.1042, "flash_decode_int8": 0.1106, "flash_decode_paged": 0.1839,
                "flash_decode_paged_int8": 0.1775, "grouped_gemm": 1.0188, "gather_swiglu": 3.9923,
                "ssd_scan": 1.9367, "decode_moe": 2.2314, "decode_moe_int8": 2.8808, "down_combine": 3.0389,
                "rglru_scan": 0.2003, "rglru_scan_bf16": 1.393,
                "flash_attention_hd96": 0.1140, "flash_attention_hd160": 0.1707, "flash_attention_hd64": 1.364,
-               "moe_down_combine_bwd": 44.24, "moe_gather_swiglu_bwd": 120.47}
+               "moe_down_combine_bwd": 44.24, "moe_gather_swiglu_bwd": 120.47, "flash_attention_bwd_hd256": 16.28}
 # and their device times where the profiler read them (kernels 1, 1q, 5, 5q, 8;
-# kernel 7 at hd 96, 160 and 64 on CUDA cores)
+# kernel 7 at hd 96, 160 and 64 on CUDA cores; its backward at hd 256 on CUDA
+# cores, a call in a profiled RecurrentGemma-2B training step)
 PREVIOUS_DEVICE_MS = {"flash_decode": 0.1003, "flash_decode_int8": 0.1073, "flash_decode_paged": 0.1805,
                       "flash_decode_paged_int8": 0.1712, "grouped_gemm": 1.0074, "flash_attention_hd96": 0.0869,
-                      "flash_attention_hd160": 0.1289, "flash_attention_hd64": 0.818}
+                      "flash_attention_hd160": 0.1289, "flash_attention_hd64": 0.818,
+                      "flash_attention_bwd_hd256": 16.1}
 
 RECORD: dict = {}
 START = time.perf_counter()
@@ -4172,12 +4176,16 @@ def bwd_hd256_row(dev, gen):
     row ``flash_attention_bwd_hd256``), ``REC_TRAIN_BATCH`` causal
     ``TRAIN_SEQ``-token bf16 sequences under the config's window (it covers
     every causal pair at that length, so SDPA's causal mask is the same):
-    the CUDA-core build (``path``: bf16 at hd 256 takes no tensor cores),
-    dQ / dK / dV by row 7's bf16 gate against the plain backward on the LSE
-    forward's O and lse, a bitwise repeat, ms in turns with SDPA's backward
-    (the yardstick, kv heads expanded), device ms by launch, and the
-    operation bound of 5 products of 2 * pairs * hd a head at the bf16
-    tensor rate.  It times a build this slice leaves as it is."""
+    the tensor-core build (``path``; a row on another build fails; dK/dV
+    by two warpgroups a block, one keeping dV and one dK), registers and
+    spills of its hd 256 dK/dV and dQ kernels and a SASS census that must
+    show ``HGMMA``, dQ / dK / dV by row 7's bf16 gate against the plain
+    backward on the LSE forward's O and lse, a bitwise repeat, ms in turns
+    with SDPA's backward (the yardstick, kv heads expanded), below the plain
+    version's or the row fails, device ms by launch, the CUDA-core build's
+    ms before this build took hd 256 (``previous_ms``), and the operation
+    bound of 5 products of 2 * pairs * hd a head at the bf16 tensor
+    rate."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4190,6 +4198,8 @@ def bwd_hd256_row(dev, gen):
     assert window >= S, "the row's SDPA yardstick takes the window for the causal mask"
     G, tag = nq // nkv, f"flash_attention_bwd_hd256 ({HYBRID})"
     path = fa_ops.flash_attention_bwd_path(torch.bfloat16, hd)
+    if path != "tensor_cores":
+        raise AssertionError(f"{tag}: the bf16 backward takes the {path} build, not the tensor cores")
     q, do = (torch.randn((B, S, nq, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     k, v = (torch.randn((B, S, nkv, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True, window=window)
@@ -4211,18 +4221,26 @@ def bwd_hd256_row(dev, gen):
     pairs = S * (S + 1) // 2
     flops = 5 * 2.0 * pairs * hd * nq * B
     nbytes = (3 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4 + (q.numel() + 2 * k.numel()) * 2
-    ms, lib_ms, turns = in_turns(kernel, lib, iters=2, reps=3)
+    ms, lib_ms, turns = in_turns(kernel, lib, iters=3, reps=3)
+    plain_ms = time_ms(lambda: fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True, window=window),
+                       iters=1, reps=3)
+    if not ms < plain_ms:
+        raise AssertionError(f"{tag}: {ms:.3f} ms a call, not below the plain version's {plain_ms:.3f}")
+    names = (f"dkv_tc_kernelILi{hd}E", f"dq_tc_kernelILi{hd}E")
+    sass = sass_census("flash_attention_bwd", *names)
+    if len(sass) != len(names) or not all(c.get("HGMMA") for c in sass.values()):
+        raise AssertionError(f"{tag}: no HGMMA in the SASS of the tensor-core build's kernels: {sass}")
     row = dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu", max_abs_err=err, ms=ms, ms_in_turns=turns,
-        plain_ms=time_ms(lambda: fa_ref.flash_attention_bwd(q, k, v, out, lse, do, causal=True, window=window),
-                         iters=1, reps=3),
+        plain_ms=plain_ms, previous_ms=PREVIOUS_MS["flash_attention_bwd_hd256"],
+        previous_device_ms=PREVIOUS_DEVICE_MS["flash_attention_bwd_hd256"],
         library_ms=lib_ms, library_device_ms=device_ms(lib, "", n=3),
         library_call="scaled_dot_product_attention's backward (autograd, is_causal, kv heads expanded "
                      "beforehand)",
         device_ms=device_ms(kernel, "", n=3),
         device_ms_by_launch={sym: device_ms(kernel, sym, n=3) for sym in BWD_LAUNCHES[path]},
         bitwise_repeat=bitwise_repeat(tag, lambda: torch.cat([t.reshape(-1) for t in kernel()])),
-        arch=HYBRID, group=G, path=path, ptxas=ptxas("flash_attention_bwd", "13__nv_bfloat16Li256E"), batch=B,
+        arch=HYBRID, group=G, path=path, ptxas=ptxas("flash_attention_bwd", *names), sass=sass, batch=B,
         window=window, shapes=f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal, window {window} ({pairs} visible "
                               f"pairs a head)",
         bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),

@@ -450,15 +450,15 @@ _FA_LSE_ARGTYPES = [ctypes.c_int] + _FA_TC_LSE_ARGTYPES
 _FA_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 # and of repro_flash_attention_bwd_tc: the same without the dtype code
 _FA_BWD_TC_ARGTYPES = _FA_BWD_ARGTYPES[1:]
-_FA_BWD_TC_HEAD_DIMS = (64, 96, 128, 160)
+_FA_BWD_TC_HEAD_DIMS = (64, 96, 128, 160, 256)
 
 
 def flash_attention_bwd_path(dtype: torch.dtype, hd: int) -> str:
     """Which build of kernel 7's backward a launch takes, from its dtype and
     head dim alone: ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA, four
-    launches) for bf16 at head dims 64, 96, 128 and 160, every registered
-    arch that trains; ``"cuda_cores"`` (f32 products, three launches) for
-    f32 at every head dim and for bf16 at 16, 32 and 256.  Raises
+    launches) for bf16 at head dims 64, 96, 128, 160 and 256, every
+    registered arch that trains; ``"cuda_cores"`` (f32 products, three
+    launches) for f32 at every head dim and for bf16 at 16 and 32.  Raises
     ``ValueError`` for a head dim or a dtype no build has."""
     what = "flash_attention_bwd"
     _check(hd in _HEAD_DIMS, lambda: f"head_dim {hd} not in {_HEAD_DIMS}", what)
@@ -470,7 +470,9 @@ def bwd_scratch_floats(path: str, B: int, Sq: int, Skv: int, nq: int, hd: int) -
     """f32 scratch of a backward launch: D (B, Sq, nq) on the CUDA cores; on
     the tensor cores lse in base 2 and D per head over positions padded to
     a multiple of 64, (B, nq, Sp) each, then the per-head partial dK and dV,
-    (B, Skv, nq, hd) each (``repro_flash_attention_bwd_tc``'s layout)."""
+    (B, Skv, nq, hd) each (``repro_flash_attention_bwd_tc``'s layout, the
+    same at every head dim: at hd 256 one warpgroup writes a head's partial
+    dV and another its partial dK)."""
     if path == "cuda_cores":
         return B * Sq * nq
     Sp = -(-Sq // 64) * 64

@@ -24,9 +24,9 @@ sources, its library swapped in under the same wrappers.
   ``repro_gather_swiglu_tc`` and ``repro_down_combine`` must keep their
   signatures in both trees.  Kernel 7's backward's CUDA-core build
   (``repro_flash_attention_bwd`` in the library ``flash_attention_bwd``:
-  f32 at every head dim, bf16 at 16, 32 and 256) is held against the other
+  f32 at every head dim, bf16 at 16 and 32) is held against the other
   checkout too; its tensor-core build (``repro_flash_attention_bwd_tc``,
-  bf16 at 64, 96, 128 and 160) is new.  The library is also built alone
+  bf16 at 64, 96, 128, 160 and, new, 256) is not.  The library is also built alone
   with the package's flags.
   Skips unless ``REPRO_OTHER_CHECKOUT`` names the other checkout's root:
 
@@ -42,8 +42,8 @@ sources, its library swapped in under the same wrappers.
   built with its lo halves zeroed it misses the 1e-4 gate at Mamba-2-2.7B's
   admission shape.  Kernel 7's backward's tensor-core build carries P and
   dS the same way; with both lo halves zeroed it misses the bf16 gate on
-  dV (through P) and on dQ and dK (through dS) at StarCoder2-3B's and
-  StableLM-12B's training heads.  Kernels 3 and 4's backwards' tensor-core
+  dV (through P) and on dQ and dK (through dS) at StarCoder2-3B's,
+  StableLM-12B's and RecurrentGemma-2B's training heads.  Kernels 3 and 4's backwards' tensor-core
   builds carry dy, the weighted slot rows and dg/du the same way; with
   either set of lo halves zeroed the outputs they feed miss their gates.
   Those backwards' CUDA-core builds (``repro_down_combine_bwd``,
@@ -130,9 +130,10 @@ MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine
              (("float32", "40,8,7,96,80"), ("float32", "128,128,16,4096,1536"), ("bfloat16", "40,8,16,96,84"))] + \
             [f"gather_swiglu bfloat16 {shape} tc" for shape in ("128,128,16,4096,1536", "40,8,40,96,80")]
 # kernel 7's backward on its CUDA-core build: f32 at every head dim, bf16
-# at the head dims the tensor cores do not take
+# at the head dims the tensor cores do not take (bf16 at hd 256 left with
+# its move to the tensor cores)
 BWD_CASES = [f"flash_attention_bwd {tag} hd {hd} window {w}"
-             for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)), ("bfloat16", (16, 32, 256)))
+             for tag, hds in (("float32", (16, 32, 64, 96, 128, 160, 256)), ("bfloat16", (16, 32)))
              for hd in hds for w in (0, 45)]
 # kernels 3 and 4's backwards on their CUDA-core builds (T,E,C,d,f): f32, and
 # bf16 at a d or an f the tensor cores do not take
@@ -345,13 +346,14 @@ BWD_LO_LINE = "lo = *reinterpret_cast<const uint32_t*>(&l);"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq,nkv,hd", [(24, 2, 128), (32, 8, 160)])
+@pytest.mark.parametrize("nq,nkv,hd", [(24, 2, 128), (32, 8, 160), (10, 1, 256)])
 def test_flash_attention_bwd_needs_its_lo_halves_on_card(cuda, tmp_path, nq, nkv, hd):
-    """StarCoder2-3B's training heads (24 q / 2 kv of 128) and
-    StableLM-12B's (32 / 8 of 160), one causal 2,048-token bf16 sequence:
-    the shipped tensor-core build holds the bf16 gate on every element of
-    dQ, dK and dV; the same source with the lo halves of P and dS zeroed
-    misses it on each (dV through P, dQ and dK through dS)."""
+    """StarCoder2-3B's training heads (24 q / 2 kv of 128), StableLM-12B's
+    (32 / 8 of 160) and RecurrentGemma-2B's (10 / 1 of 256), one causal
+    2,048-token bf16 sequence: the shipped tensor-core build holds the bf16
+    gate on every element of dQ, dK and dV; the same source with the lo
+    halves of P and dS zeroed misses it on each (dV through P, dQ and dK
+    through dS)."""
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, csrc)
     src = (csrc / "flash_attention_bwd.cu").read_text()
@@ -491,10 +493,15 @@ def test_ssd_scan_needs_its_lo_halves_on_card(cuda, tmp_path):
 @pytest.mark.cuda
 def test_training_entries_build_with_the_package_flags_on_card(cuda, tmp_path):
     """``csrc/flash_attention_bwd.cu`` builds alone with the package's
-    flags and exports kernel 7's backward; kernel 7's library exports the
-    LSE entries beside the serving ones."""
+    flags and exports kernel 7's backward, whose CUDA-core entry refuses
+    bf16 at the tensor-core head dims before it touches a pointer; kernel
+    7's library exports the LSE entries beside the serving ones."""
     lib = _build(kernels.CSRC, "flash_attention_bwd", tmp_path / "build")
     assert hasattr(lib, "repro_flash_attention_bwd") and hasattr(lib, "repro_flash_attention_bwd_tc")
+    fn = lib.repro_flash_attention_bwd
+    fn.argtypes, fn.restype = fa_ops._FA_BWD_ARGTYPES, ctypes.c_int
+    for hd in fa_ops._FA_BWD_TC_HEAD_DIMS:  # B, Sq, Skv, nq, nkv, hd, causal, window, scale, stream
+        assert fn(1, *[None] * 10, 1, 64, 64, 10, 1, hd, 1, 0, 1.0, None) == 1, hd  # cudaErrorInvalidValue
     assert "flash_attention_bwd" in kernels.SOURCES
     fa = kernels.library("flash_attention")
     for symbol in ("repro_flash_attention", "repro_flash_attention_tc", "repro_flash_attention_lse",

@@ -861,10 +861,12 @@ def test_head_dims_outside_the_builds_raise():
 # ---------------------------------------------------------------------------
 
 # B, S, nq, nkv, hd, causal, window: MHA, GQA up to StarCoder2-3B's group
-# of 12, ragged last tiles, windows, and every head dim of the builds; the
-# tc_* cases are the tensor-core build's (bf16 at hd 64, 96, 128, 160): S
-# not a multiple of 64, batch 2, G = 1, 4, 8 and 12, causal windows, a
-# bidirectional window and no mask
+# of 12, ragged last tiles, windows, and every head dim of the builds; in
+# bf16 every case from hd 64 up is the tensor-core build's, and the tc_*
+# cases are written for it: S not a multiple of 64, batch 2, G = 1, 4, 8, 10
+# and 12, causal windows, a bidirectional window and no mask (hd 256 at
+# RecurrentGemma-2B's group of 10: hd256_g10_w30 under a window of 30,
+# tc_hd256_g10_b2 ragged at batch 2)
 BWD_CASES = {
     "hd16_g2_w7": (2, 33, 4, 2, 16, True, 7),
     "hd32_noncausal": (1, 45, 6, 3, 32, False, 0),
@@ -883,6 +885,7 @@ BWD_CASES = {
     "tc_hd160_g4_b2_w45": (2, 211, 8, 2, 160, True, 45),
     "tc_hd160_g8_bidir_w50": (1, 140, 8, 1, 160, False, 50),
     "tc_hd160_g1": (1, 64, 2, 2, 160, True, 0),
+    "tc_hd256_g10_b2": (2, 161, 10, 1, 256, True, 0),
 }
 
 
@@ -916,11 +919,11 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda, dtype, case, monkeypatc
     """dQ, dK, dV against the plain backward on the same inputs (the
     kernel's own O and lse), with the forward's gate; a repeat is bitwise;
     the launch takes the C entry of the build ``flash_attention_bwd_path``
-    names (the tensor cores for bf16 at hd 64, 96, 128 and 160)."""
+    names (the tensor cores for bf16 at hd 64, 96, 128, 160 and 256)."""
     q, k, v, do, causal, window = _bwd_inputs(cuda, dtype, case)
     out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=causal, window=window)
     path = fa_ops.flash_attention_bwd_path(dtype, q.shape[-1])
-    assert path == ("tensor_cores" if dtype == torch.bfloat16 and q.shape[-1] in (64, 96, 128, 160)
+    assert path == ("tensor_cores" if dtype == torch.bfloat16 and q.shape[-1] in fa_ops._FA_BWD_TC_HEAD_DIMS
                     else "cuda_cores")
     symbols, real = [], fa_ops.function
     monkeypatch.setattr(fa_ops, "function", lambda name, symbol, argtypes: symbols.append(symbol)

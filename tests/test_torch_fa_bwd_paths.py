@@ -1,13 +1,12 @@
 """PyTorch port, kernel 7's backward on the CPU: which build
 (``flash_attention_bwd_path``) a launch takes at every dtype and head dim,
 the build each registered arch that trains takes in bf16 (the tensor
-cores, but for the archs of ``CUDA_CORE_TRAINING``: RecurrentGemma-2B at
-hd 256 takes the CUDA-core build), the wrapper's refusals before anything
-is built or launched (on the card nothing falls back to another build or
-to the plain version), the C entry
-each build's launch names, the plain backward against ``jax.vjp`` of the
-reference's ``blockwise_attention`` at the tensor-core build's head dims and
-groups, and the tensor-core build's precision design emulated in torch: P
+cores, RecurrentGemma-2B's hd 256 included), the wrapper's refusals before
+anything is built or launched (on the card nothing falls back to another
+build or to the plain version), the C entry each build's launch names,
+the plain backward against ``jax.vjp`` of the reference's
+``blockwise_attention`` at the tensor-core build's head dims and groups,
+and the tensor-core build's precision design emulated in torch: P
 and dS as hi + lo bf16 A operands with f32 sums hold row 7's bf16 gate
 against the plain backward, hi alone misses it.
 """
@@ -28,17 +27,17 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.models.transformer import check_trainable
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
-TC_HEAD_DIMS = (64, 96, 128, 160)
-# trainable archs whose head dim the tensor-core backward lacks; an entry goes when its head
-# dim gets a tensor-core backward (ROADMAP Queue B item 14)
-CUDA_CORE_TRAINING = {"recurrentgemma-2b": 256}
+TC_HEAD_DIMS = (64, 96, 128, 160, 256)
+# trainable archs whose head dim the tensor-core backward lacks (none since
+# hd 256 took the tensor cores); an entry would name the arch and its head dim
+CUDA_CORE_TRAINING: dict = {}
 
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_path_at_every_dtype_and_head_dim(dtype, hd):
-    """bf16 at 64, 96, 128 and 160 takes the tensor cores; f32 at every
-    head dim and bf16 at 16, 32 and 256 take the CUDA-core build."""
+    """bf16 at 64, 96, 128, 160 and 256 takes the tensor cores; f32 at
+    every head dim and bf16 at 16 and 32 take the CUDA-core build."""
     tc = dtype == torch.bfloat16 and hd in TC_HEAD_DIMS
     assert fa_ops.flash_attention_bwd_path(dtype, hd) == ("tensor_cores" if tc else "cuda_cores")
     assert fa_ops._HEAD_DIMS == HEAD_DIMS
@@ -124,7 +123,7 @@ def test_what_neither_build_takes_is_refused(no_library):
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 64), (torch.bfloat16, 160), (torch.float32, 128),
-                                      (torch.bfloat16, 256)])
+                                      (torch.bfloat16, 256), (torch.float32, 256)])
 def test_each_build_launches_its_own_entry_with_its_scratch(dtype, hd, monkeypatch):
     """The launch calls the C entry of the build the path names, once,
     with the shapes, the mask and 1 / sqrt(hd), and a scratch of the size
@@ -167,8 +166,10 @@ def test_each_build_launches_its_own_entry_with_its_scratch(dtype, hd, monkeypat
 
 
 # B, S, nq, nkv, hd, window: the tensor-core head dims at groups 8, 1, 12, 4
+# and (RecurrentGemma-2B's) 10
 JAX_CASES = {"hd64_g8": (1, 70, 16, 2, 64, 0), "hd96_g1_w33": (2, 50, 2, 2, 96, 33),
-             "hd128_g12": (1, 45, 12, 1, 128, 0), "hd160_g4_w20": (1, 66, 8, 2, 160, 20)}
+             "hd128_g12": (1, 45, 12, 1, 128, 0), "hd160_g4_w20": (1, 66, 8, 2, 160, 20),
+             "hd256_g10_w40": (1, 70, 10, 1, 256, 40)}
 
 
 @pytest.mark.parametrize("case", sorted(JAX_CASES))
@@ -242,7 +243,7 @@ def _misses(got, want) -> int:
     return int(((got - want).abs() > lim).sum())
 
 
-@pytest.mark.parametrize("hd,nq,nkv,window", [(128, 12, 1, 0), (160, 8, 2, 40)])
+@pytest.mark.parametrize("hd,nq,nkv,window", [(128, 12, 1, 0), (160, 8, 2, 40), (256, 10, 1, 2048)])
 def test_tensor_core_precision_needs_the_lo_halves_of_p_and_ds(hd, nq, nkv, window):
     """bf16 inputs on the plain backward's own O and lse: the emulated
     design with hi + lo P and dS holds the gate on every element of dQ,

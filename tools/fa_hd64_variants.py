@@ -34,16 +34,10 @@ causal, windowed and full).  One JSON line a measurement; all also go to
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import variant_builds as vb
 
 LEAN_LINE = "constexpr bool LEAN = HD == 64;"
 PV_CHAIN = "        } else {\n          static_assert(HD == 96,"
@@ -61,24 +55,6 @@ KERNEL_NAMES = ("flash_attention_tc_kernelILi64E", "flash_attention_tc64_kernel"
                 "flash_attention_kernelI13__nv_bfloat16Li64E")
 
 
-def build(i: int, csrc_from: Path, subs: dict, out_dir: Path):
-    from repro_torch import kernels
-
-    csrc = out_dir / f"v{i}"
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(csrc_from, csrc)
-    src = (csrc / "flash_attention.cu").read_text()
-    for old, new in subs.items():
-        assert src.count(old) == 1, f"{old!r} moved: update tools/fa_hd64_variants.py"
-        src = src.replace(old, new)
-    (csrc / "flash_attention.cu").write_text(src)
-    lib = csrc / "lib.so"
-    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
-                             str(csrc / "flash_attention.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return lib, proc
-
-
 def main() -> int:
     import torch
 
@@ -94,26 +70,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("fa_hd64_variants: no CUDA device is available", file=sys.stderr)
         return 1
-    out_dir = ROOT / "build" / "fa_hd64_variants"
+    out_dir = vb.ROOT / "build" / "fa_hd64_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {name: build(i, kernels.CSRC, subs, out_dir) for i, (name, subs) in enumerate(VARIANTS.items())}
+    jobs = {name: vb.start(out_dir, name, kernels.CSRC, "flash_attention.cu", subs) for name, subs in VARIANTS.items()}
     for spec in args.csrc:
         tag, path = spec.split("=", 1)
-        jobs[tag] = build(len(jobs), Path(path).resolve(), {}, out_dir)
-    libs, lines = {}, []
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-        libs[name] = ctypes.CDLL(str(lib))
-        ptx, take = [], False
-        for ln in log.splitlines():
-            if "Compiling entry function" in ln:
-                take = any(k in ln for k in KERNEL_NAMES)
-            elif take and ("Used" in ln or "spill" in ln):
-                ptx.append(ln.strip())
-        lines.append({"variant": name, "ptxas": ptx, "census": census_of(lib, *KERNEL_NAMES)})
-        print(json.dumps(lines[-1]), flush=True)
+        jobs[tag] = vb.start(out_dir, tag, Path(path).resolve(), "flash_attention.cu")
+    rec = vb.Record("fa_hd64_variants")
+    libs = {}
+    for name, (lib, cdll, log) in vb.finish(jobs).items():
+        libs[name] = cdll
+        rec.emit(variant=name, ptxas=vb.ptxas(log, *KERNEL_NAMES), census=census_of(lib, *KERNEL_NAMES))
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -121,11 +88,6 @@ def main() -> int:
     def inputs(B, S, nq, nkv, seed):
         g = torch.Generator(device=dev).manual_seed(seed)
         return tuple(torch.randn((B, S, n, 64), generator=g, device=dev).to(bf16) for n in (nq, nkv, nkv))
-
-    def misses(got, want):
-        g, w = got.float(), want.float()
-        lim = 2.0 ** -7 * w.abs() + 1e-3 * float(w.pow(2).mean().sqrt())
-        return int(((g - w).abs() > lim).sum())
 
     def launch(name, q, k, v, causal, window):
         """A launch of ``name``'s tensor-core entry, or where that refuses
@@ -149,9 +111,8 @@ def main() -> int:
             q, k, v = inputs(B, S, nq, nkv, 10 + n)
             got = launch(name, q, k, v, causal, window)
             want = fa_ref.flash_attention(q, k, v, causal=causal, window=window)
-            lines.append({"variant": name, "small": [B, S, nq, nkv, causal, window], "misses": misses(got, want),
-                          "bitwise_repeat": torch.equal(got, launch(name, q, k, v, causal, window))})
-            print(json.dumps(lines[-1]), flush=True)
+            rec.emit(variant=name, small=[B, S, nq, nkv, causal, window], misses=vb.misses(got, want),
+                     bitwise_repeat=torch.equal(got, launch(name, q, k, v, causal, window)))
 
     names = list(libs)
     for S in (2048, 4096):
@@ -162,30 +123,26 @@ def main() -> int:
         def sdpa():
             return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-        for rnd, order in enumerate((names, names[::-1])):
-            lines.append({"round": rnd, "S": S, "variant": "SDPA (is_causal)", "device_ms": device_ms(sdpa, "", n=20),
-                          "ms": time_ms(sdpa, iters=20)})
-            print(json.dumps(lines[-1]), flush=True)
+        for rnd, order in vb.rounds(names):
+            rec.emit(round=rnd, S=S, variant="SDPA (is_causal)", device_ms=device_ms(sdpa, "", n=20),
+                     ms=time_ms(sdpa, iters=20))
             for name in order:
                 def run(name=name):
                     return launch(name, q, k, v, True, 0)
 
                 got = run()
-                rec = {"round": rnd, "S": S, "variant": name, "device_ms": device_ms(run, "flash_attention", n=20),
-                       "ms": time_ms(run, iters=20), "misses": misses(got, want),
-                       "bitwise_repeat": torch.equal(got, run())}
-                if rec["misses"] == 0:
-                    rec["max_abs_err"] = check_bf16(f"{name} S {S}", got, want)
+                line = {"round": rnd, "S": S, "variant": name, "device_ms": device_ms(run, "flash_attention", n=20),
+                        "ms": time_ms(run, iters=20), "misses": vb.misses(got, want),
+                        "bitwise_repeat": torch.equal(got, run())}
+                if line["misses"] == 0:
+                    line["max_abs_err"] = check_bf16(f"{name} S {S}", got, want)
                 if name == "shipped":
                     o, _ = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True)
-                    rec["lse_o_bitwise_serving"] = torch.equal(o, got)
-                lines.append(rec)
-                print(json.dumps(rec), flush=True)
+                    line["lse_o_bitwise_serving"] = torch.equal(o, got)
+                rec.emit(**line)
         del q, k, v, want, qt, kt, vt
         torch.cuda.empty_cache()
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "fa_hd64_variants.json").write_text(json.dumps(lines, indent=1))
+    rec.save()
     return 0
 
 

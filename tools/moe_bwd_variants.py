@@ -35,64 +35,19 @@ Needs the card.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import variant_builds as vb
 
 DY_LO = ("__floats2bfloat162_rn(v[2 * i] - __low2float(hp), v[2 * i + 1] - __high2float(hp))",)
 DGU_LO = ("__floats2bfloat162_rn(dg[0] - __low2float(gh), dg[1] - __high2float(gh))",
           "__floats2bfloat162_rn(du[0] - __low2float(uh), du[1] - __high2float(uh))")
 VARIANTS = {"dy lo zeroed": DY_LO, "dg/du lo zeroed": DGU_LO}
-RECORD: list = []
-
-
-def emit(**fields) -> None:
-    RECORD.append(fields)
-    print(json.dumps(fields), flush=True)
-
-
-def build(sources: dict) -> dict:
-    """Each ``csrc/moe_fused_bwd.cu`` of ``sources`` (tag -> csrc directory)
-    built with the package's flags, all at once; tag -> library."""
-    from repro_torch import kernels
-
-    out_dir = kernels.REPO / "build" / "moe_bwd_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for tag, csrc in sources.items():
-        out = out_dir / f"{tag.replace(' ', '_').replace('/', '_')}.so"
-        procs[tag] = (out, subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(out),
-                                             str(csrc / "moe_fused_bwd.cu")], stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for tag, (out, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{tag}: nvcc failed\n{log[-3000:]}")
-        libs[tag] = ctypes.CDLL(str(out))
-    return libs
-
-
-def variant_source(tag: str, lines) -> Path:
-    from repro_torch import kernels
-
-    csrc = kernels.REPO / "build" / "moe_bwd_variants" / tag.replace(" ", "_").replace("/", "_")
-    if csrc.exists():
-        shutil.rmtree(csrc)
-    shutil.copytree(kernels.CSRC, csrc)
-    src = (csrc / "moe_fused_bwd.cu").read_text()
-    for line in lines:
-        assert src.count(line) == 1, f"{tag}: the lo half's line moved: {line}"
-        src = src.replace(line, "__floats2bfloat162_rn(0.f, 0.f)")
-    (csrc / "moe_fused_bwd.cu").write_text(src)
-    return csrc
+ZERO = "__floats2bfloat162_rn(0.f, 0.f)"
+REC = vb.Record("moe_bwd_variants")
+emit = REC.emit
 
 
 def case_inputs(name: str, gen, dev):
@@ -114,12 +69,6 @@ def case_inputs(name: str, gen, dev):
     wd = (torch.randn((E, f, d), generator=gen, device=dev) * f ** -0.5).to(torch.bfloat16)
     dy = torch.randn((T, d), generator=gen, device=dev)
     return x, plan, wg, wu, wd, dy
-
-
-def misses(got, want) -> int:
-    g, w = got.float(), want.float()
-    lim = 2.0 ** -7 * w.abs() + 1e-3 * w.pow(2).mean().sqrt()
-    return int(((g - w).abs() > lim).sum())
 
 
 def main() -> int:
@@ -151,9 +100,14 @@ def main() -> int:
     emit(build="shipped", ptxas=cs.ptxas("moe_fused_bwd", *tc_kernels),
          sass={k: {o: v.get(o) for o in ("all", "HGMMA", "STG")} for k, v in cs.census_of(path, *tc_kernels).items()})
     libs = {"shipped": (shipped, None), "cuda cores": (shipped, "cuda_cores")}
-    sources = {tag: variant_source(tag, lines) for tag, lines in VARIANTS.items()}
-    sources.update(spec.split("=", 1) for spec in args.csrc)
-    for tag, lib in build({t: Path(c) for t, c in sources.items()}).items():
+    out_dir = vb.ROOT / "build" / "moe_bwd_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {tag: vb.start(out_dir, tag, kernels.CSRC, "moe_fused_bwd.cu", dict.fromkeys(lines, ZERO))
+            for tag, lines in VARIANTS.items()}
+    for spec in args.csrc:
+        tag, csrc = spec.split("=", 1)
+        jobs[tag] = vb.start(out_dir, tag, Path(csrc).resolve(), "moe_fused_bwd.cu")
+    for tag, (_, lib, _) in vb.finish(jobs).items():
         libs[tag] = (lib, None if hasattr(lib, "repro_down_combine_bwd_tc") else "cuda_cores")
 
     @contextlib.contextmanager
@@ -193,8 +147,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 scale = max(1.0, float(want4[2].abs().max()))
                 emit(case=case, build=tag,
-                     misses={n: misses(g, w) for n, g, w in zip(("dh", "dwd"), got4[:2], want4[:2])}
-                     | {n: misses(g, w) for n, g, w in zip(("dx", "dwg", "dwu"), got3, want3)},
+                     misses={n: vb.misses(g, w) for n, g, w in zip(("dh", "dwd"), got4[:2], want4[:2])}
+                     | {n: vb.misses(g, w) for n, g, w in zip(("dx", "dwg", "dwu"), got3, want3)},
                      dslot_w_err_over_1e4_scale=float((got4[2] - want4[2]).abs().max()) / (1e-4 * scale),
                      bitwise_repeat=bool(torch.equal(cat(down), cat(down)) and torch.equal(cat(gather), cat(gather))))
             del got4, got3
@@ -222,9 +176,7 @@ def main() -> int:
                                           for n in dict.fromkeys(cs.MOE_BWD_LAUNCHES["down_combine_bwd"][p]
                                                                  + cs.MOE_BWD_LAUNCHES["gather_swiglu_bwd"][p])})
         del comp_down, comp_gather
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "moe_bwd_variants.json").write_text(json.dumps(RECORD, indent=1))
+    REC.save()
     return 0
 
 

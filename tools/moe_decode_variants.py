@@ -18,16 +18,9 @@ Needs the card.
 """
 from __future__ import annotations
 
-import ctypes
-import json
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import variant_builds as vb
 
 BK, STAGES, BOUNDS = "constexpr int BK = 64;", "constexpr int STAGES = 3;", "__launch_bounds__(THREADS, 2) expert_kernel("
 VARIANTS = {
@@ -42,21 +35,6 @@ VARIANTS = {
 }
 
 
-def build(name: str, subs: dict, out_dir: Path) -> subprocess.Popen:
-    from repro_torch import kernels
-
-    csrc = out_dir / f"v{list(VARIANTS).index(name)}"
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(kernels.CSRC, csrc)
-    src = (csrc / "moe_decode.cu").read_text()
-    for old, new in subs.items():
-        assert src.count(old) == 1, f"{old!r} moved: update tools/moe_decode_variants.py"
-        src = src.replace(old, new)
-    (csrc / "moe_decode.cu").write_text(src)
-    return subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(csrc), "-o", str(csrc / "lib.so"),
-                             str(csrc / "moe_decode.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
 def main() -> int:
     import torch
 
@@ -69,19 +47,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("moe_decode_variants: no CUDA device is available", file=sys.stderr)
         return 1
-    out_dir = ROOT / "build" / "moe_decode_variants"
+    out_dir = vb.ROOT / "build" / "moe_decode_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: build(name, subs, out_dir) for name, subs in VARIANTS.items()}
-    libs, lines = {}, []
-    for i, (name, proc) in enumerate(procs.items()):
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-        regs = sorted({int(ln.split("Used")[1].split()[0]) for ln in log.splitlines() if "Used" in ln})
-        spills = sorted({ln.strip() for ln in log.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln})
-        libs[name] = ctypes.CDLL(str(out_dir / f"v{i}" / "lib.so"))
-        lines.append({"variant": name, "registers": regs, "spills": spills})
-        print(json.dumps(lines[-1]), flush=True)
+    rec = vb.Record("moe_decode_variants")
+    libs = {}
+    for name, (_, lib, log) in vb.finish({name: vb.start(out_dir, name, kernels.CSRC, "moe_decode.cu", subs)
+                                          for name, subs in VARIANTS.items()}).items():
+        libs[name] = lib
+        regs = sorted({int(ln.split("Used")[1].split()[0]) for ln in vb.ptxas(log) if "Used" in ln})
+        spills = sorted({ln for ln in vb.ptxas(log) if "spill" in ln and " 0 bytes spill stores" not in ln})
+        rec.emit(variant=name, registers=regs, spills=spills)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -105,19 +80,17 @@ def main() -> int:
     ours = kernels.library("moe_decode")
     names = list(VARIANTS)
     try:
-        for rnd, order in enumerate((names, names[::-1])):
+        for rnd, order in vb.rounds(names):
             for name in order:
                 kernels._LIBS["moe_decode"] = libs[name]
                 for kind, fn in runs.items():
                     by = moe_decode_launches(fn)
-                    lines.append({"round": rnd, "variant": name, "stacks": kind, "device_ms": by,
-                                  "device_ms_total": sum(v or 0.0 for v in by.values()),
-                                  "bitwise_shipped": torch.equal(fn(), shipped[kind])})
-                    print(json.dumps(lines[-1]), flush=True)
+                    rec.emit(round=rnd, variant=name, stacks=kind, device_ms=by,
+                             device_ms_total=sum(v or 0.0 for v in by.values()),
+                             bitwise_shipped=torch.equal(fn(), shipped[kind]))
     finally:
         kernels._LIBS["moe_decode"] = ours
-    (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "moe_decode_variants.json").write_text(json.dumps(lines, indent=1))
+    rec.save()
     return 0
 
 

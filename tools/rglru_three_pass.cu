@@ -21,8 +21,8 @@ __global__ void __launch_bounds__(THREADS, 1) aggregate_kernel(const T* __restri
   __shared__ Shared<V> sm;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.y, bb = blockIdx.z, ch = blockIdx.x * 32 * V + lane * V;
-  Segment<T, V> seg;
-  segment_phase(seg, sm, a, b, bb, c, ch, Tn, W, warp, lane);
+  Segment<T, T, V> seg;
+  segment_phase<false>(seg, sm, a, b, bb, c, ch, Tn, W, warp, lane);
   __syncthreads();
   if (warp == 0 && ch < W) {
     float Ac[V], Hc[V];
@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(THREADS, 1) walk_kernel(const T* __restrict__ 
   __shared__ Shared<V> sm;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c = blockIdx.y, bb = blockIdx.z, ch = blockIdx.x * 32 * V + lane * V;
-  Segment<T, V> seg;
-  segment_phase(seg, sm, a, b, bb, c, ch, Tn, W, warp, lane);
+  Segment<T, T, V> seg;
+  segment_phase<false>(seg, sm, a, b, bb, c, ch, Tn, W, warp, lane);
   if (warp == 0 && ch < W) {
 #pragma unroll
     for (int v = 0; v < V; ++v) sm.carry[lane * V + v] = carry[((long)bb * nchunks + c) * W + ch + v];

@@ -28,14 +28,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
-sys.path.insert(0, str(ROOT))
+import variant_builds as vb
 
 SEG, WARPS = "constexpr int SEG = 8;", "constexpr int WARPS = 16;"
 BOUNDS = "__launch_bounds__(THREADS, 1) rglru_chunk_kernel("
@@ -60,25 +57,6 @@ ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_v
 PARENT_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def build(i: int, name: str, csrc_from: Path, subs: dict, source: Path, out_dir: Path, flags=()):
-    from repro_torch import kernels
-
-    csrc = out_dir / f"v{i}"
-    shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(csrc_from, csrc)
-    src = (csrc / "rglru_scan.cu").read_text()
-    for old, new in subs.items():
-        assert src.count(old) == 1, f"{old!r} moved: update tools/rglru_variants.py"
-        src = src.replace(old, new)
-    (csrc / "rglru_scan.cu").write_text(src)
-    if source.parent != csrc_from:
-        shutil.copy(source, csrc / source.name)
-    lib = csrc / "lib.so"
-    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", str(csrc), "-o", str(lib),
-                             str(csrc / source.name)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return lib, proc
-
-
 def main() -> int:
     import torch
 
@@ -94,28 +72,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("rglru_variants: no CUDA device is available", file=sys.stderr)
         return 1
-    out_dir = ROOT / "build" / "rglru_variants"
+    out_dir = vb.ROOT / "build" / "rglru_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    shipped_src = kernels.CSRC / "rglru_scan.cu"
-    jobs = {name: build(i, name, kernels.CSRC, subs, shipped_src, out_dir)
-            for i, (name, (subs, _)) in enumerate(VARIANTS.items())}
-    jobs[TRACED] = build(len(jobs), TRACED, kernels.CSRC, {}, shipped_src, out_dir, ("-DREPRO_RGLRU_TRACE",))
-    jobs[THREE] = build(len(jobs), THREE, kernels.CSRC, {}, ROOT / "tools" / "rglru_three_pass.cu", out_dir)
+    jobs = {name: vb.start(out_dir, name, kernels.CSRC, "rglru_scan.cu", subs)
+            for name, (subs, _) in VARIANTS.items()}
+    jobs[TRACED] = vb.start(out_dir, TRACED, kernels.CSRC, "rglru_scan.cu", flags=("-DREPRO_RGLRU_TRACE",))
+    jobs[THREE] = vb.start(out_dir, THREE, kernels.CSRC, vb.ROOT / "tools" / "rglru_three_pass.cu")
     if args.parent_csrc is not None:
-        jobs[PARENT] = build(len(jobs), PARENT, args.parent_csrc.resolve(), {},
-                             args.parent_csrc.resolve() / "rglru_scan.cu", out_dir)
-    libs, lines = {}, []
-    out = ROOT / "chiprun_out"
+        jobs[PARENT] = vb.start(out_dir, PARENT, args.parent_csrc.resolve(), "rglru_scan.cu")
+    rec = vb.Record("rglru_variants")
+    libs = {}
+    out = vb.ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{log[-3000:]}")
-        libs[name] = ctypes.CDLL(str(lib))
-        ptx = [ln.strip() for ln in log.splitlines() if "Used" in ln or ("spill" in ln and " 0 bytes spill" not in ln)]
+    for name, (lib, cdll, log) in vb.finish(jobs).items():
+        libs[name] = cdll
+        ptx = [ln for ln in vb.ptxas(log) if "Used" in ln or ("spill" in ln and " 0 bytes spill" not in ln)]
         kern = "rglru_scan_kernel" if name == PARENT else ("_kernel" if name == THREE else "rglru_chunk_kernelILb0E")
-        lines.append({"variant": name, "ptxas": ptx, "census": census_of(lib, kern)})
-        print(json.dumps(lines[-1]), flush=True)
+        rec.emit(variant=name, ptxas=ptx, census=census_of(lib, kern))
         if name in (PARENT, SHIPPED):
             sass = subprocess.run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(lib)],
                                   capture_output=True, text=True, timeout=300).stdout
@@ -160,16 +133,15 @@ def main() -> int:
 
     shipped = {k: caller(SHIPPED, a, b)().clone() for k, (a, b) in inputs.items()}
     names = list(jobs)
-    for rnd, order in enumerate((names, names[::-1])):
+    for rnd, order in vb.rounds(names):
         for name in order:
             for kind, (a, b) in inputs.items():
                 run = caller(name, a, b)
                 got = run().clone()
                 torch.cuda.synchronize()
-                lines.append({"round": rnd, "variant": name, "gates": kind, "device_ms": device_ms(run, "", n=20),
-                              "ms": time_ms(run, iters=20), "bitwise_shipped": torch.equal(got, shipped[kind]),
-                              "max_abs_err_plain": float((got - plain[kind]).abs().max())})
-                print(json.dumps(lines[-1]), flush=True)
+                rec.emit(round=rnd, variant=name, gates=kind, device_ms=device_ms(run, "", n=20),
+                         ms=time_ms(run, iters=20), bitwise_shipped=torch.equal(got, shipped[kind]),
+                         max_abs_err_plain=float((got - plain[kind]).abs().max()))
     # one traced launch a gate type: each block's phases in ns (%globaltimer)
     copy = libs[TRACED].repro_rglru_trace_copy
     copy.argtypes, copy.restype = [ctypes.c_void_p, ctypes.c_ulong], ctypes.c_int
@@ -190,15 +162,13 @@ def main() -> int:
         chunk = torch.arange(nblocks) // (nblocks // nc)
         cuts = (0, nc // 3, 2 * nc // 3, nc)
         thirds = {f"chunks {lo}-{hi - 1}": (chunk >= lo) & (chunk < hi) for lo, hi in zip(cuts, cuts[1:])}
-        lines.append({
-            "trace": kind, "blocks": nblocks, "span_ns": float(t[:, 6].max()),
-            "mean_blocks_resident": float(life.sum() / t[:, 6].max()),
-            "mean_ns": {n: float(v.mean()) for n, v in phase.items()} | {"life": float(life.mean())},
-            "mean_ns_by_chunk": {k: {n: float(v[m].mean()) for n, v in phase.items()} for k, m in thirds.items()},
-            "sms_used": int(raw[:, 0].unique().numel())})
-        print(json.dumps(lines[-1]), flush=True)
+        rec.emit(trace=kind, blocks=nblocks, span_ns=float(t[:, 6].max()),
+                 mean_blocks_resident=float(life.sum() / t[:, 6].max()),
+                 mean_ns={n: float(v.mean()) for n, v in phase.items()} | {"life": float(life.mean())},
+                 mean_ns_by_chunk={k: {n: float(v[m].mean()) for n, v in phase.items()} for k, m in thirds.items()},
+                 sms_used=int(raw[:, 0].unique().numel()))
         (out / f"rglru_trace_{kind}.json").write_text(json.dumps(raw.tolist()))
-    (out / "rglru_variants.json").write_text(json.dumps(lines, indent=1))
+    rec.save()
     return 0
 
 
