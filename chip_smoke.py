@@ -89,9 +89,11 @@ the paged plane bitwise the contiguous launches); then Llama-4-Maverick cut
 to 1 layer and Qwen1.5-4B uncut served on ``full_width``'s traffic, both
 in ``compiled_launch``.
 Training (phases ``train_twin``, ``train_full_width``,
-``train_moe_full_width``, ``train_rec_full_width``, ``train_restart``,
-``train_sweep``; ``kernels_vs_plain`` rows ``flash_attention_bwd*``,
-``moe_gather_swiglu_bwd``, ``moe_down_combine_bwd``, ``rglru_scan_bwd``):
+``train_moe_full_width``, ``train_rec_full_width``,
+``train_ssm_full_width``, ``train_restart``, ``train_sweep``;
+``kernels_vs_plain`` rows ``flash_attention_bwd*``,
+``moe_gather_swiglu_bwd``, ``moe_down_combine_bwd``, ``rglru_scan_bwd``,
+``ssd_scan_bwd``):
 kernel 7's backward against its plain version at StarCoder2-3B's heads
 and at head dims 64, 96 and 160, each on the tensor-core build (registers,
 spills and a SASS census with ``HGMMA``; the LSE forward's O bitwise the
@@ -105,13 +107,17 @@ the backwards of kernels 3, 4 and 12 against their plain versions at
 Qwen3-MoE's and RecurrentGemma-2B's training shapes (and ragged ones, f32
 and bf16, bitwise repeats; 3 and 4 on their tensor-core builds at bf16,
 with an ``HGMMA`` census, device ms by launch and the parent build's
-time), the f32 smoke configs of StarCoder2, Qwen3-MoE
-and RecurrentGemma trained 3 steps on the card and on the CPU (losses and
-params equal), StarCoder2-3B at published widths cut to 20 layers trained
+time), kernel 11's backward at Mamba-2-2.7B's training shape (bf16 x, B
+and C as views of one projection on its TF32 tensor-core build, f32 and a
+ragged T from h0 with a gradient of the final state on CUDA cores; device
+ms by launch), the f32 smoke configs
+of StarCoder2, Qwen3-MoE, RecurrentGemma and Mamba-2 trained 3 steps on
+the card and on the CPU (losses and params equal), StarCoder2-3B at published widths cut to 20 layers trained
 6 steps of 4 x 2,048 tokens (bf16 over f32 master weights, AdamW, remat; a
 seventh step profiled), Qwen3-MoE at published widths cut to 2 layers
-(Adafactor; every router moves) and RecurrentGemma-2B uncut, 3 steps of 2
-x 2,048 tokens each and a profiled one,
+(Adafactor; every router moves), RecurrentGemma-2B uncut and Mamba-2-2.7B
+uncut (64 ``ssm`` layers, AdamW), 10 steps of 2 x 2,048 tokens each and a
+profiled one,
 the same cut to 2 layers through the fault-tolerant ``Trainer`` with a
 failure injected and replayed, and one step of MusicGen, Phi-3-Vision and
 StableLM-12B cut to 2 layers.
@@ -720,6 +726,7 @@ def kernel_phase(cfg, dev):
     rows.update(bwd_kernel_rows(dev, gen))
     rows["flash_attention_bwd_hd256"] = bwd_hd256_row(dev, gen)
     rows.update(train_bwd_rows(dev, gen))
+    rows["ssd_scan_bwd"] = ssd_bwd_row(dev, gen, tol)
     return rows
 
 
@@ -4033,7 +4040,7 @@ def train_full_width(dev):
                 of_layers=get_config(TRAIN).num_layers)
 
 
-TWIN_ARCHS = (TRAIN, ARCH, HYBRID)  # a dense, a moe (Adafactor) and a rec stack
+TWIN_ARCHS = (TRAIN, ARCH, HYBRID, SSM)  # a dense, a moe (Adafactor), a rec and an ssm stack
 
 
 def train_twin(dev):
@@ -4500,9 +4507,10 @@ def train_launches(cfg) -> dict:
     pat = cfg.block_pattern
     in_scan = (cfg.num_layers // len(pat)) * len(pat)
     fwd = {"attn": ("flash_attention",), "local": ("flash_attention",), "rec": ("rglru_scan",),
+           "ssm": ("ssd_scan",),
            "moe": ("flash_attention",) + (() if cfg.route_mode == "dense" else ("gather_swiglu", "down_combine"))}
     bwd = {"rglru_scan": "rglru_scan_bwd", "flash_attention": "flash_attention_bwd",
-           "gather_swiglu": "gather_swiglu_bwd", "down_combine": "down_combine_bwd"}
+           "gather_swiglu": "gather_swiglu_bwd", "down_combine": "down_combine_bwd", "ssd_scan": "ssd_scan_bwd"}
     out: dict = {}
     for i, kind in enumerate(cfg.layer_kinds):
         for name in fwd[kind]:
@@ -4577,10 +4585,14 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None):
     counts_p = cfg.param_counts()
     matmul_params = cfg.num_active_params() - counts_p["norms"] - (0 if cfg.tie_embeddings else counts_p["embed"])
     pairs = S * (S + 1) // 2 if not cfg.local_window or cfg.local_window >= S else S * cfg.local_window
-    n_attn = sum(1 for k_ in cfg.layer_kinds if k_ != "rec")
+    n_attn = sum(1 for k_ in cfg.layer_kinds if k_ in ("attn", "local", "moe"))
     model_flops = 6.0 * batch * S * matmul_params + 3 * 4.0 * batch * pairs * nq * hd * n_attn
+    n_ssm = sum(1 for k_ in cfg.layer_kinds if k_ == "ssm")
+    if n_ssm:  # the SSD scan's products at the model's chunk, forward and twice that backward
+        P_, N_ = cfg.ssm_head_dim, cfg.ssm_state
+        model_flops += 3 * batch * n_ssm * ssd_work(S, cfg.ssm_expand * d // P_, P_, N_, cfg.ssm_chunk, 2)[1]
     ours = ("gate_up_", "down_", "rglru_chunk_kernel", "flash_attention", "dkv", "dq", "bwd_prep", "row_dot",
-            "gather_swiglu", "combine_rows")
+            "gather_swiglu", "combine_rows", "ssd_scan_kernel", "chunk_state", "state_pass", "chunk_scan", "bwd::")
     out = dict(
         arch=cfg.name, layers=L, batch=batch, seq_len=S, steps=steps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
         optimizer=cfg.optimizer, remat=cfg.remat, route_mode=cfg.route_mode if cfg.is_moe else None,
@@ -4649,6 +4661,134 @@ def train_rec_full_width(dev):
     cfg = get_config(HYBRID)
     assert cfg.optimizer == "adamw"
     return train_cell(dev, "train_rec_full_width", cfg, REC_TRAIN_BATCH, CELL_TRAIN_STEPS)
+
+
+def train_ssm_full_width(dev):
+    """Mamba-2-2.7B at published widths and uncut (64 ``ssm`` layers, d
+    2560, 80 heads of 64, state 128, chunk 256, vocabulary 50,280, tied),
+    AdamW, ``REC_TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens: :func:`train_cell`,
+    with kernel 11 twice a layer a step (forward and recompute, bf16 x, B
+    and C as views of the conv output: the tensor-core build) and 11_bwd
+    once a layer."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(SSM)
+    assert cfg.optimizer == "adamw" and set(cfg.layer_kinds) == {"ssm"}
+    return train_cell(dev, "train_ssm_full_width", cfg, REC_TRAIN_BATCH, CELL_TRAIN_STEPS)
+
+
+SSD_RAGGED_T = 2100  # 11_bwd off its 64-step chunks and the model's 256
+SSD_BWD_LAUNCHES = ("bwd::state_terms_kernel", "bwd::state_pass_kernel", "bwd::grad_kernel", "bwd::sum_kernel")
+
+
+def ssd_bwd_work(B, T, H, P, N, q, in_bytes, with_state=False):
+    """(bytes, flops) 11_bwd needs: x, B, C read once (``in_bytes`` each),
+    dt and dy in f32 (and h0, dh_final), dx, dB, dC written once in the
+    inputs' type, ddt, da (and dh0) in f32; per chunk of n rows at the
+    model's chunk ``q``, C B^T over its causal pairs and the two products
+    of dCB (summed over heads first) once, and per head dS and S^T dy over
+    the pairs and five N x P products (the chunk state, the state
+    gradient's input term, and the three that read the states)."""
+    flops = 0.0
+    for t0 in range(0, T, q):
+        n = min(q, T - t0)
+        pairs = n * (n + 1) / 2
+        flops += 6 * pairs * N + H * (4 * pairs * P + 10 * n * N * P)
+    nbytes = (2 * (T * H * P + 2 * T * N) * in_bytes + T * H * 4 * 2 + T * H * P * 4) * B + H * 4
+    if with_state:
+        nbytes += 3 * B * H * N * P * 4
+    return nbytes, B * flops
+
+
+def ssd_bwd_row(dev, gen, tol):
+    """Kernel 11's backward (11_bwd) against its plain version
+    (``ssd_chunked_bwd`` at the model's chunk of 256) at Mamba-2-2.7B's
+    training shape (``REC_TRAIN_BATCH`` x ``TRAIN_SEQ``, 80 heads of 64,
+    state 128): bf16 x, B and C as views of one projection (the training
+    path's layout, on the tensor-core build; the row's headline), the same
+    in f32 (CUDA cores), and a ragged
+    ``SSD_RAGGED_T``-step f32 case from a random h0 with a gradient of the
+    final state.  Gate: row 11's f32 gate (1e-4 of the scale) on every f32
+    output; dx, dB and dC of the bf16 case are bf16 (the inputs' type, as
+    autograd routes them) and take the bf16 gate of :func:`check_bf16`.
+    Each case: a bitwise repeat, CUDA-event ms, device ms and device ms by
+    launch; the plain version's ms; the bound by :func:`ssd_bwd_work` at the
+    bf16 tensor rate for bf16 inputs (and at the f32 rate beside it)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+
+    cfg = get_config(SSM)
+    P, N, Q = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    H = cfg.ssm_expand * cfg.d_model // P
+    B = REC_TRAIN_BATCH
+    a = -torch.linspace(1.0, 16.0, H, device=dev)
+    names = ("dx", "ddt", "da", "dB", "dC", "dh0")
+    errs, by_case = {}, {}
+    for tag, T, dtype, with_state in (("bf16", TRAIN_SEQ, torch.bfloat16, False),
+                                      ("f32", TRAIN_SEQ, torch.float32, False),
+                                      ("f32 ragged h0", SSD_RAGGED_T, torch.float32, True)):
+        proj = (torch.randn((B, T, H * P + 2 * N), generator=gen, device=dev) * 0.5).to(dtype)
+        x, bm, cm = proj[..., :H * P].reshape(B, T, H, P), proj[..., H * P:H * P + N], proj[..., H * P + N:]
+        dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=gen, device=dev) - 1.0)
+        dy = torch.randn((B, T, H, P), generator=gen, device=dev)
+        h0 = torch.randn((B, H, N, P), generator=gen, device=dev) if with_state else None
+        dhf = torch.randn((B, H, N, P), generator=gen, device=dev) if with_state else None
+
+        def kernel(x=x, dt=dt, bm=bm, cm=cm, dy=dy, dhf=dhf, h0=h0):
+            return ssd_ops.ssd_scan_bwd(x, dt, a, bm, cm, Q, dy, dhf, h0)
+
+        def plain(x=x, dt=dt, bm=bm, cm=cm, dy=dy, dhf=dhf, h0=h0):
+            return ssd_ref.ssd_chunked_bwd(x, dt, a, bm, cm, Q, dy, dhf, h0)
+
+        path = ssd_ops.ssd_scan_bwd_path(dtype, N, P)
+        if path != ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"):
+            raise AssertionError(f"11_bwd {tag} takes the {path} build")
+        got, want = kernel(), plain()
+        errs[tag] = {}
+        for name, g, w in zip(names, got, want):
+            if w is None:
+                assert g is None, f"11_bwd {tag} {name}"
+                continue
+            errs[tag][name] = (check_close(f"11_bwd {tag} {name}", g, w, tol["f32"]) if g.dtype == torch.float32
+                               else check_bf16(f"11_bwd {tag} {name}", g, w))
+        del got, want
+        nbytes, flops = ssd_bwd_work(B, T, H, P, N, Q, proj.element_size(), with_state)
+        rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        case = dict(
+            ms=time_ms(kernel, iters=3, reps=3), device_ms=device_ms(kernel, "", n=3),
+            device_ms_by_launch={sym.split("::")[1]: device_ms(kernel, sym, n=3) for sym in SSD_BWD_LAUNCHES},
+            bitwise_repeat=bitwise_repeat(f"11_bwd {tag}", lambda: torch.cat([t.reshape(-1).float() for t in kernel()
+                                                                              if t is not None])),
+            shapes=f"x ({B}, {T}, {H}, {P}) {tag.split()[0]} (a view of the ({B}, {T}, {H * P + 2 * N}) projection), "
+                   f"dt ({B}, {T}, {H}) f32, B and C ({B}, {T}, {N}) views, dy f32"
+                   + (", h0 and dh_final" if with_state else ""),
+            bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops, rate))),
+            bound_ms_f32_rate=bound(nbytes, flops, F32_FLOPS)[0], path=path)
+        if tag == "bf16":
+            case["plain_ms"] = time_ms(plain, iters=1, reps=2)
+        by_case[tag] = case
+        del proj, x, bm, cm, dt, dy, h0, dhf
+        torch.cuda.empty_cache()
+    head = by_case["bf16"]
+    nc = -(-TRAIN_SEQ // ssd_ops.BWD_CHUNK)
+    return dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan.cu", max_abs_err=max(errs["bf16"].values()),
+        max_abs_err_by_case=errs, by_case=by_case, ms=head["ms"], device_ms=head["device_ms"],
+        device_ms_by_launch=head["device_ms_by_launch"], plain_ms=head["plain_ms"], library_ms=None,
+        library_call="none: no PyTorch call computes a selective scan's backward",
+        bitwise_repeat=all(c["bitwise_repeat"] for c in by_case.values()),
+        path=head["path"],
+        design=f"chunks of {ssd_ops.BWD_CHUNK} steps: chunk states and the state gradient's input terms, both "
+               f"state passes, a block per (batch, chunk, head) for dx, ddt, dcum and the head's dB / dC shares, the "
+               f"fixed-order sums over heads; no atomics; bf16 at N 128, P 64 on TF32 mma.sync (f32 operands as hi + "
+               f"lo), f32 on CUDA cores",
+        scratch_bytes=ssd_ops.bwd_scratch_floats(B, TRAIN_SEQ, H, N, P) * 4, chunks=nc,
+        ptxas=ptxas("ssd_scan", "state_terms_kernel", "grad_kernel", "bwd17state_pass", "sum_kernel"),
+        shapes=head["shapes"], bytes=head["bytes"], flops=head["flops"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], bound_ms_f32_rate=head["bound_ms_f32_rate"])
 
 
 KERNELS = {
@@ -4817,6 +4957,8 @@ def main() -> int:
     emit("train_moe_full_width", **train_moe)
     train_rec = train_rec_full_width(dev)
     emit("train_rec_full_width", **train_rec)
+    train_ssm = train_ssm_full_width(dev)
+    emit("train_ssm_full_width", **train_ssm)
     emit("train_restart", **train_restart(dev))
     tsweep = train_sweep(dev)
     emit("train_sweep", **tsweep)
@@ -4872,12 +5014,13 @@ def main() -> int:
             max_abs_err=fwd["max_abs_err"], ms=fwd["ms"], plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
         ))
-    # the backward kernels of the MoE and RG-LRU stacks, and kernel 7's at hd
-    # 256 (launches: the MoE and RG-LRU training cells)
+    # the backward kernels of the MoE, RG-LRU and Mamba-2 stacks, and kernel
+    # 7's at hd 256 (launches: the MoE, RG-LRU and Mamba-2 training cells)
     for name, wrapper, counts, replaces in (
             ("moe_down_combine_bwd", "down_combine_bwd", train_moe["kernel_launches"], KERNELS["down_combine"][1]),
             ("moe_gather_swiglu_bwd", "gather_swiglu_bwd", train_moe["kernel_launches"], KERNELS["gather_swiglu"][1]),
             ("rglru_scan_bwd", "rglru_scan_bwd", train_rec["kernel_launches"], KERNELS["rglru_scan"][1]),
+            ("ssd_scan_bwd", "ssd_scan_bwd", train_ssm["kernel_launches"], KERNELS["ssd_scan"][1]),
             ("flash_attention_bwd_hd256", "flash_attention_bwd", train_rec["kernel_launches"],
              KERNELS["flash_attention"][1])):
         r = rows[name]

@@ -1,1 +1,2 @@
-"""Control words (plans) and the control plane that computes them."""
+"""Control words (plans), the control plane that computes them, and the
+host-only Agile PE Assignment (``cdfg``, ``agile``)."""

@@ -4,7 +4,8 @@ Small integer tensors that fully determine what the data plane does:
 which expert processes which token slot (:class:`DispatchPlan`), which
 expert each decode token runs (:class:`DecodePlan`, carried in the KV
 cache), and which draft token attends to which cache rows
-(:class:`TreePlan`).
+(:class:`TreePlan`); and the pipeline-stage plan Agile PE Assignment
+makes (:class:`StagePlan`, :mod:`repro_torch.core.agile`).
 
 Control-word invariants (the contracts every consumer relies on):
 
@@ -208,3 +209,29 @@ class TreePlan(NamedTuple):
         for t in range(1, self.num_nodes):
             words.append(words[self.parents[t]] | (1 << t))
         return tuple(words)
+
+
+class StagePlan(NamedTuple):
+    """Pipeline-stage configuration from Agile PE Assignment.
+
+    boundaries  tuple of (start, end) block index per stage (contiguous)
+    fold        per-stage time-extension factor (1 = fully spatial)
+    cost        per-stage steady-state cost (max = pipeline II)
+    """
+
+    boundaries: Tuple[Tuple[int, int], ...]
+    fold: Tuple[int, ...]
+    cost: Tuple[float, ...]
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.boundaries)
+
+    @property
+    def ii(self) -> float:
+        return max(self.cost) if self.cost else 0.0
+
+    @property
+    def waste(self) -> float:
+        """PE-waste analogue: total idle cost across stages per pipeline beat."""
+        return sum(self.ii - c for c in self.cost)

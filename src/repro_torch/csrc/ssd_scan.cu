@@ -817,6 +817,769 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
 
 }  // namespace tc
 
+
+// ---------------------------------------------------------------------------
+// backward (11_bwd): chunks of Q = 64 steps, no atomics
+// ---------------------------------------------------------------------------
+//
+// With g the gradient of the state a chunk leaves, hp the state it enters,
+// E_ij = exp(cum_i - cum_j) (i >= j), w_j = exp(cum_last - cum_j) dt_j:
+//
+//   dS_ij = dy_i . x_j        S_ij = (C_i . B_j) E_ij dt_j
+//   dx_j  = sum_i S_ij dy_i + w_j (g^T B_j)
+//   dC_i  = sum_j dCB_ij B_j + exp(cum_i) hp dy_i,   dCB_ij = dS_ij E_ij dt_j
+//   dB_j  = sum_i dCB_ij C_i + w_j g x_j
+//   g_prev = exp(cum_last) g + sum_i exp(cum_i) C_i dy_i^T
+//
+// and the gradient of cum (through E, w, exp(cum_i) and exp(cum_last))
+// becomes ddt and da by a reverse cumsum within the chunk (cum = cumsum(dt
+// a)).  What bounds it: bytes on paper (0.052 ms at Mamba-2-2.7B's training
+// shape: dy in f32 and x, dx in bf16 dominate), operations as built: per
+// (chunk, head) eight products of 64 x 64 x N, 64 x 64 x P or 64 x N x P
+// (3.7 M multiply-adds at N 128, P 64) against ~100 KB of inputs.  Four
+// launches:
+//  (1) per (chunk, head, batch): the chunk's cumsum of dt a (in f64, in
+//      order, as the tensor-core forward computes it), its decay
+//      exp(cum_last), s_c = sum_j w_j B_j x_j^T and r_c = sum_i exp(cum_i)
+//      C_i dy_i^T (N x P each) into the scratch.  The chunk-start states
+//      are recomputed here and in (2), not saved by the forward: the
+//      forward stays the serving launch (its builds keep no per-chunk
+//      states, and under remat a saved copy would be dropped anyway), and
+//      this costs one pass over x and B.
+//  (2) per (batch, head), one thread per 4 state elements: the states
+//      entering the chunks (h0 folded with s_c in chunk order) written over
+//      s_c, then the gradients of the states leaving them (dh_final folded
+//      with r_c in descending order) written over r_c, each chunk's loads
+//      issued a chunk ahead; dh0 is the last.
+//  (3) per (chunk, head, batch), 512 threads and ~214-227 KB of shared
+//      memory (one block an SM): C, B, x, dy, hp and g in f32 (each thread's
+//      loads all issued before its stores), C B^T and dS,
+//      then S, dCB and M_ij = dS_ij (C_i . B_j) E_ij as 64 x 64 tiles; dx,
+//      ddt, this head's share of dB and dC (B, T, H, N), and of da (a value
+//      per (batch, chunk, head)).  Row sums (the chunk's dcum terms) go
+//      through a shared buffer summed in column order; the reverse cumsum
+//      runs in order on one thread.
+//  (4) dB and dC summed over heads in ascending order, and da over (batch,
+//      chunk) in order, by the last block.
+// Every sum runs in a fixed order: a repeated launch is bitwise equal.
+// Rows past T are staged as zeros with dt = 0 and the last cum, add
+// nothing, and are not written.
+//
+// Two builds of (1) and (3), chosen by the wrapper (ops.ssd_scan_bwd_path):
+//  * CUDA cores (f32, and bf16 at any N <= 128, P <= 64 in multiples of 4):
+//    each product a loop of rank-1 updates into a 4 x 4 (or 2 x 4)
+//    register tile a thread, rows and columns strided so that a warp's
+//    reads fall on distinct banks (tile rows padded to an odd length).
+//    Each f32 read from shared memory feeds 1-2 FMAs: shared-memory
+//    bandwidth bounds its products.
+//  * Tensor cores (bf16 x, B and C at N 128, P 64: every Mamba-2 layer):
+//    the same products on mma.sync m16n8k8 in TF32, one 16 x 8 NB tile a
+//    warp, fragments read from the same f32 tiles (rows padded to 4 mod 32
+//    words).  x, B and C are bf16 values, exact in TF32; every other
+//    operand (dy, the states, S, dCB, the scaled rows) is carried as hi +
+//    lo TF32 (v - hi rounded again), and each product with such an operand
+//    issues the hi x hi, hi x lo and lo x hi terms: f32 operands to ~2^-21
+//    of themselves, sums in f32.  (1) runs two blocks an SM (64 registers).
+//    What still bounds it is latency: each block stages, scans, multiplies
+//    and reduces in turn, one block an SM in (3), with serial steps (the
+//    f64 cumsum, the reverse cumsum) on one thread.
+namespace bwd {
+
+constexpr int Q = 64;          // rows of a chunk
+constexpr int THREADS = 512;   // threads of (1) and (3)
+constexpr int TC_N = 128, TC_P = 64;  // the tensor-core build's state size and head dim
+
+// row padding of the f32 tiles: odd on CUDA cores (a warp walks rows or
+// columns), 4 words on tensor cores (an mma fragment reads 8 rows x 4 words)
+template <bool TC>
+struct Pad {
+  static constexpr int V = TC ? 4 : 1;
+  static constexpr int LDQ = Q + V;
+};
+
+// ---- CUDA cores: register tiles ------------------------------------------
+
+template <int R, int C>
+struct Tile {
+  int r[R], c[C];
+  float v[R][C];
+};
+
+// t.v += sum over k < K of a(row, k) b(k, col), in ascending k
+template <int R, int C, typename A, typename B>
+__device__ __forceinline__ void mac(Tile<R, C>& t, int K, A a, B b) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float av[R], bv[C];
+#pragma unroll
+    for (int i = 0; i < R; ++i) av[i] = a(t.r[i], k);
+#pragma unroll
+    for (int j = 0; j < C; ++j) bv[j] = b(k, t.c[j]);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) t.v[i][j] = fmaf(av[i], bv[j], t.v[i][j]);
+  }
+}
+
+// f(tile) for each R x C tile of an M x Nc output (M a multiple of R, Nc of
+// C): the tile owns rows tr + i M / R and columns tc + j Nc / C, consecutive
+// threads taking consecutive tc
+template <int R, int C, typename F>
+__device__ __forceinline__ void for_tiles(int M, int Nc, F f) {
+  const int rt = M / R, ct = Nc / C;
+  for (int u = threadIdx.x; u < rt * ct; u += THREADS) {
+    Tile<R, C> t;
+    const int tr = u / ct, tc = u - tr * ct;
+#pragma unroll
+    for (int i = 0; i < R; ++i) t.r[i] = tr + i * rt;
+#pragma unroll
+    for (int j = 0; j < C; ++j) t.c[j] = tc + j * ct;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) t.v[i][j] = 0.f;
+    f(t);
+  }
+}
+
+// ---- tensor cores: TF32 mma.sync, one tile a warp --------------------------
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The warp's 16 x 8 NB tile of an M x Nc output: rows r0 = 16 (w mod M / 16)
+// and columns c0 = 8 NB (w div M / 16) (16 warps cover it); a fragment
+// element i of column block nb sits at (r0 + g + 8 (i / 2), c0 + 8 nb + 2 t
+// + i mod 2), g = lane / 4, t = lane mod 4.
+template <int NB>
+struct Frag {
+  int r0, c0, g, t;
+  float c[NB][4];
+  __device__ __forceinline__ Frag(int M) {
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, rt = M / 16;
+    r0 = 16 * (w % rt);
+    c0 = 8 * NB * (w / rt);
+    g = lane >> 2;
+    t = lane & 3;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[nb][i] = 0.f;
+  }
+  __device__ __forceinline__ int row(int i) const { return r0 + g + 8 * (i >> 1); }
+  __device__ __forceinline__ int col(int nb, int i) const { return c0 + 8 * nb + 2 * t + (i & 1); }
+};
+
+// f.c += sum over k < K (a multiple of 8) of a(row, k) b(k, col) on TF32
+// tensor cores; ALO / BLO: the operand is an f32 value carried as hi + lo
+// (without, it must be exact in TF32, as a bf16 value is)
+template <bool ALO, bool BLO, int NB, typename A, typename B>
+__device__ __forceinline__ void mma(Frag<NB>& f, int K, A a, B b) {
+  const int r = f.r0 + f.g, t = f.t;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8) {
+    const float av[4] = {a(r, k + t), a(r + 8, k + t), a(r, k + t + 4), a(r + 8, k + t + 4)};
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = tf32(av[i]);
+      al[i] = ALO ? tf32(av[i] - __uint_as_float(ah[i])) : 0u;
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int col = f.c0 + 8 * nb + f.g;
+      const float b0 = b(k + t, col), b1 = b(k + t + 4, col);
+      const uint32_t bh0 = tf32(b0), bh1 = tf32(b1);
+      if (ALO) mma_tf32(f.c[nb], al, bh0, bh1);
+      if (BLO) mma_tf32(f.c[nb], ah, tf32(b0 - __uint_as_float(bh0)), tf32(b1 - __uint_as_float(bh1)));
+      mma_tf32(f.c[nb], ah, bh0, bh1);
+    }
+  }
+}
+
+// ---- shared by both builds -------------------------------------------------
+
+// four consecutive elements from global memory in f32: one 16-byte (f32)
+// or 8-byte (bf16) load where `vec`, else four
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, bool vec, float (&v)[4]) {
+  if (vec) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+      const uint2 q = *reinterpret_cast<const uint2*>(p);
+      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+      v[0] = __low2float(lo), v[1] = __high2float(lo), v[2] = __low2float(hi), v[3] = __high2float(hi);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = to_f32(p[j]);
+  }
+}
+
+// A thread's share of a rows x width block (width a multiple of 4, rows x
+// width <= 4 U THREADS) in f32, U groups of four elements: load() issues
+// every load (zeros in rows >= nv) before store() writes shared memory at
+// row stride ld, so that a kernel's loads of several blocks are all in
+// flight at once (one block an SM: the staging is latency-bound otherwise)
+template <int U, typename T>
+struct Rows {
+  float v[U][4];
+  int total, w4;
+  __device__ __forceinline__ void load(const T* src, long long st, int rows, int width, int nv) {
+    const bool vec = reinterpret_cast<uintptr_t>(src) % (4 * sizeof(T)) == 0 && st % 4 == 0;
+    w4 = width / 4;
+    total = rows * w4;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = threadIdx.x + u * THREADS, i = e / w4, k = 4 * (e - i * w4);
+      if (e < total && i < nv) {
+        load4(src + (long long)i * st + k, vec, v[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[u][j] = 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* dst, int ld) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = threadIdx.x + u * THREADS, i = e / w4, k = 4 * (e - i * w4);
+      if (e < total)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst[i * ld + k + j] = v[u][j];
+    }
+  }
+};
+
+// two adjacent outputs (an mma fragment's pair of columns) in one store
+__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// dt of the chunk's rows (0 past nv) and, on thread 0, cum in f64 in order
+__device__ __forceinline__ void stage_cum(double* cum, float* sdt, const float* dt, long long row, int H, float a,
+                                          int nv) {
+  if (threadIdx.x < Q) sdt[threadIdx.x] = threadIdx.x < nv ? dt[row + (long long)threadIdx.x * H] : 0.f;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double c = 0.0;
+    for (int i = 0; i < Q; ++i) {
+      c += (double)sdt[i] * (double)a;  // 0 past nv: the last cum repeats
+      cum[i] = c;
+    }
+  }
+  __syncthreads();
+}
+
+__host__ __device__ inline size_t terms_smem_floats(int N, int P, int pad) {
+  return 2 * Q + 2 * (size_t)Q * (N + pad) + 2 * (size_t)Q * (P + pad) + 3 * Q;
+}
+
+// (1) s_c and r_c into the scratch, and the chunk's decay
+template <typename T, bool TC>
+__global__ void __launch_bounds__(THREADS, TC ? 2 : 1) state_terms_kernel(
+    const T* __restrict__ x, long long x_sb, long long x_st, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm, long long b_sb, long long b_st, const T* __restrict__ cm,
+    long long c_sb, long long c_st, const float* __restrict__ dy, float* __restrict__ s_out,
+    float* __restrict__ r_out, float* __restrict__ dec, int Tn, int H, int N, int P, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  const int c = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
+  const int ldn = N + Pad<TC>::V, ldp = P + Pad<TC>::V;
+  double* cum = reinterpret_cast<double*>(smem);  // [Q]
+  float* sB = smem + 2 * Q;                       // [Q][ldn]
+  float* sC = sB + Q * ldn;                       // [Q][ldn]
+  float* sX = sC + Q * ldn;                       // [Q][ldp]
+  float* sDY = sX + Q * ldp;                      // [Q][ldp]
+  float* sDt = sDY + Q * ldp;                     // [Q]
+  float* sW = sDt + Q;                            // w_j
+  float* sE = sW + Q;                             // exp(cum_i)
+  const int t0 = c * Q, nv = min(Q, Tn - t0);
+  {
+    Rows<4, T> lb, lc;
+    Rows<2, T> lx;
+    Rows<2, float> ldy;
+    lb.load(bm + b * b_sb + (long long)t0 * b_st, b_st, Q, N, nv);
+    lc.load(cm + b * c_sb + (long long)t0 * c_st, c_st, Q, N, nv);
+    lx.load(x + b * x_sb + (long long)t0 * x_st + (long long)hh * P, x_st, Q, P, nv);
+    ldy.load(dy + (((long long)b * Tn + t0) * H + hh) * P, (long long)H * P, Q, P, nv);
+    lb.store(sB, ldn);
+    lc.store(sC, ldn);
+    lx.store(sX, ldp);
+    ldy.store(sDY, ldp);
+  }
+  stage_cum(cum, sDt, dt, ((long long)b * Tn + t0) * H + hh, H, a[hh], nv);
+  if (threadIdx.x < Q) {
+    const int i = threadIdx.x;
+    sW[i] = expf((float)(cum[Q - 1] - cum[i])) * sDt[i];
+    sE[i] = expf((float)cum[i]);
+  }
+  __syncthreads();
+  const long long base = (((long long)b * nc + c) * H + hh) * N * P;
+  if (threadIdx.x == 0) dec[((long long)b * nc + c) * H + hh] = expf((float)cum[Q - 1]);
+  const auto sa = [&](int n, int j) { return sW[j] * sB[j * ldn + n]; };
+  const auto sb = [&](int j, int p) { return sX[j * ldp + p]; };
+  const auto ra = [&](int n, int i) { return sE[i] * sC[i * ldn + n]; };
+  const auto rb = [&](int i, int p) { return sDY[i * ldp + p]; };
+  if constexpr (TC) {
+    Frag<4> fs(TC_N), fr(TC_N);
+    mma<true, false>(fs, Q, sa, sb);
+    mma<true, true>(fr, Q, ra, rb);
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; i += 2) {
+        const long long e = base + (long long)fs.row(i) * P + fs.col(nb, i);
+        store2(s_out + e, fs.c[nb][i], fs.c[nb][i + 1]);
+        store2(r_out + e, fr.c[nb][i], fr.c[nb][i + 1]);
+      }
+  } else {
+    for_tiles<4, 4>(N, P, [&](Tile<4, 4>& t) {
+      mac(t, nv, sa, sb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s_out[base + (long long)t.r[i] * P + t.c[j]] = t.v[i][j];
+    });
+    for_tiles<4, 4>(N, P, [&](Tile<4, 4>& t) {
+      mac(t, nv, ra, rb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) r_out[base + (long long)t.r[i] * P + t.c[j]] = t.v[i][j];
+    });
+  }
+}
+
+// (2) entering states over s, gradients of the leaving states over r, dh0;
+// four elements a thread (N P is a multiple of 16), the next chunk's loads
+// issued before this chunk's store
+__global__ void __launch_bounds__(256) state_pass_kernel(float4* __restrict__ s, float4* __restrict__ r,
+                                                         const float* __restrict__ dec, const float4* __restrict__ h0,
+                                                         const float4* __restrict__ dh_final, float4* __restrict__ dh0,
+                                                         int H, int NP4, int nc) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x, hh = blockIdx.y, b = blockIdx.z;
+  if (e >= NP4) return;
+  const long long bh = (long long)b * H + hh;
+  const auto at = [&](int c) { return (((long long)b * nc + c) * H + hh) * NP4 + e; };
+  const auto decay = [&](int c) { return dec[((long long)b * nc + c) * H + hh]; };
+  float4 h = h0 ? h0[bh * NP4 + e] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 nxt = s[at(0)];
+  float dn = decay(0);
+  for (int c = 0; c < nc; ++c) {
+    const float4 sc = nxt;
+    const float d = dn;
+    if (c + 1 < nc) {
+      nxt = s[at(c + 1)];
+      dn = decay(c + 1);
+    }
+    s[at(c)] = h;
+    h = make_float4(d * h.x + sc.x, d * h.y + sc.y, d * h.z + sc.z, d * h.w + sc.w);
+  }
+  float4 g = dh_final ? dh_final[bh * NP4 + e] : make_float4(0.f, 0.f, 0.f, 0.f);
+  nxt = r[at(nc - 1)];
+  dn = decay(nc - 1);
+  for (int c = nc - 1; c >= 0; --c) {
+    const float4 rc = nxt;
+    const float d = dn;
+    if (c > 0) {
+      nxt = r[at(c - 1)];
+      dn = decay(c - 1);
+    }
+    r[at(c)] = g;
+    g = make_float4(d * g.x + rc.x, d * g.y + rc.y, d * g.z + rc.z, d * g.w + rc.w);
+  }
+  if (dh0) dh0[bh * NP4 + e] = g;
+}
+
+__host__ __device__ inline size_t grad_smem_floats(int N, int P, int pad) {
+  return 2 * Q + 2 * (size_t)Q * (N + pad) + 2 * (size_t)Q * (P + pad) + 2 * (size_t)N * (P + pad) +
+         3 * (size_t)Q * (Q + pad) + 10 * Q;
+}
+
+// (3) dx, ddt, this head's shares of dB, dC and da
+template <typename T, bool TC>
+__global__ void __launch_bounds__(THREADS, 1) grad_kernel(
+    const T* __restrict__ x, long long x_sb, long long x_st, const float* __restrict__ dt,
+    const float* __restrict__ a, const T* __restrict__ bm, long long b_sb, long long b_st, const T* __restrict__ cm,
+    long long c_sb, long long c_st, const float* __restrict__ dy, const float* __restrict__ hps,
+    const float* __restrict__ gs, T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
+    float* __restrict__ dcp, float* __restrict__ dap, int Tn, int H, int N, int P, int nc) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LDQ = Pad<TC>::LDQ;
+  const int c = blockIdx.x, hh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int ldn = N + Pad<TC>::V, ldp = P + Pad<TC>::V;
+  double* cum = reinterpret_cast<double*>(smem);  // [Q]
+  float* sC = smem + 2 * Q;                       // [Q][ldn]
+  float* sB = sC + Q * ldn;                       // [Q][ldn]
+  float* sX = sB + Q * ldn;                       // [Q][ldp]
+  float* sDY = sX + Q * ldp;                      // [Q][ldp]
+  float* sHp = sDY + Q * ldp;                     // [N][ldp] the entering state
+  float* sG = sHp + N * ldp;                      // [N][ldp] the leaving state's gradient
+  float* sT1 = sG + N * ldp;                      // [Q][LDQ] C B^T, then S
+  float* sT2 = sT1 + Q * LDQ;                     // [Q][LDQ] dS, then dCB
+  float* sT3 = sT2 + Q * LDQ;                     // [Q][LDQ] M, then row-sum partials
+  float* sDt = sT3 + Q * LDQ;                     // [Q]
+  float* sEi = sDt + Q;                           // exp(cum_i)
+  float* sW = sEi + Q;                            // w_j
+  float* sWx = sW + Q;                            // exp(cum_last - cum_j)
+  float* sRs = sWx + Q;                           // sum_j M_ij dt_j
+  float* sCs = sRs + Q;                           // sum_i M_ij
+  float* sDw = sCs + Q;                           // dL/dw_j
+  float* sIn = sDw + Q;                           // exp(cum_i) C_i . (hp dy_i)
+  float* sRed = sIn + Q;                          // [2 Q]: block sums
+  const int t0 = c * Q, nv = min(Q, Tn - t0);
+  const long long row0 = ((long long)b * Tn + t0) * H + hh;  // (b, t0, hh) in (B, T, H)
+  const long long st = (((long long)b * nc + c) * H + hh) * N * P;
+  {
+    Rows<4, T> lc, lb;
+    Rows<2, T> lx;
+    Rows<2, float> ldy;
+    lc.load(cm + b * c_sb + (long long)t0 * c_st, c_st, Q, N, nv);
+    lb.load(bm + b * b_sb + (long long)t0 * b_st, b_st, Q, N, nv);
+    lx.load(x + b * x_sb + (long long)t0 * x_st + (long long)hh * P, x_st, Q, P, nv);
+    ldy.load(dy + row0 * P, (long long)H * P, Q, P, nv);
+    lc.store(sC, ldn);
+    lb.store(sB, ldn);
+    lx.store(sX, ldp);
+    ldy.store(sDY, ldp);
+  }
+  {
+    Rows<4, float> lh, lg;
+    lh.load(hps + st, P, N, P, N);
+    lg.load(gs + st, P, N, P, N);
+    lh.store(sHp, ldp);
+    lg.store(sG, ldp);
+  }
+  const float ah = a[hh];
+  stage_cum(cum, sDt, dt, row0, H, ah, nv);
+  if (tid < Q) {
+    const int i = tid;
+    sEi[i] = expf((float)cum[i]);
+    sWx[i] = expf((float)(cum[Q - 1] - cum[i]));
+    sW[i] = sWx[i] * sDt[i];
+  }
+  // the products' operands
+  const auto c_in = [&](int i, int n) { return sC[i * ldn + n]; };     // C_i[n], k = n
+  const auto b_jn = [&](int n, int j) { return sB[j * ldn + n]; };     // B_j[n], k = n
+  const auto dy_ip = [&](int i, int p) { return sDY[i * ldp + p]; };   // dy_i[p], k = p
+  const auto x_jp = [&](int p, int j) { return sX[j * ldp + p]; };     // x_j[p], k = p
+  const auto hp_np = [&](int p, int n) { return sHp[n * ldp + p]; };   // hp[n][p], k = p
+  const auto g_np = [&](int p, int n) { return sG[n * ldp + p]; };     // g[n][p], k = p
+  const auto x_row = [&](int j, int p) { return sX[j * ldp + p]; };    // x_j[p], row j
+  const auto dcb = [&](int i, int j) { return sT2[i * LDQ + j]; };     // dCB_ij, row i
+  const auto dcb_t = [&](int j, int i) { return sT2[i * LDQ + j]; };   // dCB_ij, row j
+  const auto s_t = [&](int j, int i) { return sT1[i * LDQ + j]; };     // S_ij, row j
+  const auto b_kn = [&](int j, int n) { return sB[j * ldn + n]; };     // B_j[n], k = j
+  const auto c_kn = [&](int i, int n) { return sC[i * ldn + n]; };     // C_i[n], k = i
+  const auto g_kp = [&](int n, int p) { return sG[n * ldp + p]; };     // g[n][p], k = n
+  const auto dy_kp = [&](int i, int p) { return sDY[i * ldp + p]; };   // dy_i[p], k = i
+  const auto b_row = [&](int j, int n) { return sB[j * ldn + n]; };    // B_j[n], row j
+  // C B^T and dS = dy x^T
+  if constexpr (TC) {
+    Frag<2> f1(Q), f2(Q);
+    mma<false, false>(f1, N, c_in, b_jn);
+    mma<true, false>(f2, P, dy_ip, x_jp);
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sT1[f1.row(i) * LDQ + f1.col(nb, i)] = f1.c[nb][i];
+        sT2[f2.row(i) * LDQ + f2.col(nb, i)] = f2.c[nb][i];
+      }
+  } else {
+    for_tiles<2, 4>(Q, Q, [&](Tile<2, 4>& t) {
+      mac(t, N, c_in, b_jn);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sT1[t.r[i] * LDQ + t.c[j]] = t.v[i][j];
+    });
+    for_tiles<2, 4>(Q, Q, [&](Tile<2, 4>& t) {
+      mac(t, P, dy_ip, x_jp);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sT2[t.r[i] * LDQ + t.c[j]] = t.v[i][j];
+    });
+  }
+  __syncthreads();
+  // S, dCB and M; the causal mask before the exponential
+  for (int e = tid; e < Q * Q; e += THREADS) {
+    const int i = e / Q, j = e - i * Q;
+    const float E = (j <= i && i < nv) ? expf((float)(cum[i] - cum[j])) : 0.f;
+    const float cb = sT1[i * LDQ + j], ds = sT2[i * LDQ + j];
+    sT1[i * LDQ + j] = cb * E * sDt[j];
+    sT2[i * LDQ + j] = ds * E * sDt[j];
+    sT3[i * LDQ + j] = ds * cb * E;
+  }
+  __syncthreads();
+  if (tid < Q) {
+    float rs = 0.f;
+    for (int j = 0; j < Q; ++j) rs = fmaf(sT3[tid * LDQ + j], sDt[j], rs);
+    sRs[tid] = rs;
+  } else if (tid < 2 * Q) {
+    const int j = tid - Q;
+    float cs = 0.f;
+    for (int i = 0; i < Q; ++i) cs += sT3[i * LDQ + j];
+    sCs[j] = cs;
+  }
+  __syncthreads();  // M is spent: sT3 holds the row-sum partials from here
+  float* red_in = sT3;           // [Q][32]: C_i . (exp(cum_i) hp dy_i) by column group
+  float* red_dw = sT3 + Q * 32;  // [Q][32]: B_j . (g x_j) by column group
+  const int nred = TC ? TC_N / 32 : N / 4;  // column groups a row: a warp's 32 columns, or a thread's 4
+  if constexpr (TC) {
+    // dC_i = exp(cum_i) hp dy_i + sum_j dCB_ij B_j
+    {
+      Frag<4> f(Q);
+      mma<true, true>(f, P, dy_ip, hp_np);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          f.c[nb][i] *= sEi[f.row(i)];
+          part[i >> 1] = fmaf(sC[f.row(i) * ldn + f.col(nb, i)], f.c[nb][i], part[i >> 1]);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+        if (f.t == 0) red_in[(f.r0 + f.g + 8 * h) * 32 + f.c0 / 32] = part[h];
+      }
+      mma<true, false>(f, Q, dcb, b_kn);
+#pragma unroll
+      for (int i = 0; i < 4; i += 2)
+        if (f.row(i) < nv)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+            store2(dcp + (row0 + (long long)f.row(i) * H) * N + f.col(nb, i), f.c[nb][i], f.c[nb][i + 1]);
+    }
+    // dB_j = w_j g x_j + sum_i dCB_ij C_i; and dL/dw_j = B_j . (g x_j)
+    {
+      Frag<4> f(Q);
+      mma<false, true>(f, P, x_row, g_np);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          part[i >> 1] = fmaf(sB[f.row(i) * ldn + f.col(nb, i)], f.c[nb][i], part[i >> 1]);
+          f.c[nb][i] *= sW[f.row(i)];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+        if (f.t == 0) red_dw[(f.r0 + f.g + 8 * h) * 32 + f.c0 / 32] = part[h];
+      }
+      mma<true, false>(f, Q, dcb_t, c_kn);
+#pragma unroll
+      for (int i = 0; i < 4; i += 2)
+        if (f.row(i) < nv)
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb)
+            store2(dbp + (row0 + (long long)f.row(i) * H) * N + f.col(nb, i), f.c[nb][i], f.c[nb][i + 1]);
+    }
+    // dx_j = w_j g^T B_j + sum_i S_ij dy_i
+    {
+      Frag<2> f(Q);
+      mma<false, true>(f, N, b_row, g_kp);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f.c[nb][i] *= sW[f.row(i)];
+      mma<true, true>(f, Q, s_t, dy_kp);
+#pragma unroll
+      for (int i = 0; i < 4; i += 2)
+        if (f.row(i) < nv)
+#pragma unroll
+          for (int nb = 0; nb < 2; ++nb)
+            store2(dx + (row0 + (long long)f.row(i) * H) * P + f.col(nb, i), f.c[nb][i], f.c[nb][i + 1]);
+    }
+  } else {
+    // dC_i = exp(cum_i) hp dy_i + sum_j dCB_ij B_j
+    for_tiles<4, 4>(Q, N, [&](Tile<4, 4>& t) {
+      mac(t, P, dy_ip, hp_np);
+      const int tc = t.c[0];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = t.r[i];
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          t.v[i][j] *= sEi[r];
+          part = fmaf(sC[r * ldn + t.c[j]], t.v[i][j], part);
+        }
+        red_in[r * 32 + tc] = part;
+      }
+      mac(t, Q, dcb, b_kn);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (t.r[i] < nv)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dcp[(row0 + (long long)t.r[i] * H) * N + t.c[j]] = t.v[i][j];
+    });
+    // dB_j = w_j g x_j + sum_i dCB_ij C_i; and dL/dw_j = B_j . (g x_j)
+    for_tiles<4, 4>(Q, N, [&](Tile<4, 4>& t) {
+      mac(t, P, x_row, g_np);
+      const int tc = t.c[0];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = t.r[i];
+        float part = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          part = fmaf(sB[r * ldn + t.c[j]], t.v[i][j], part);
+          t.v[i][j] *= sW[r];
+        }
+        red_dw[r * 32 + tc] = part;
+      }
+      mac(t, Q, dcb_t, c_kn);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (t.r[i] < nv)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dbp[(row0 + (long long)t.r[i] * H) * N + t.c[j]] = t.v[i][j];
+    });
+    // dx_j = w_j g^T B_j + sum_i S_ij dy_i
+    for_tiles<2, 4>(Q, P, [&](Tile<2, 4>& t) {
+      mac(t, N, b_row, g_kp);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t.v[i][j] *= sW[t.r[i]];
+      mac(t, Q, s_t, dy_kp);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (t.r[i] < nv)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            dx[(row0 + (long long)t.r[i] * H) * P + t.c[j]] = from_f32<T>(t.v[i][j]);
+    });
+  }
+  // exp(cum_last) sum g o hp: per-thread partials in element order, then a
+  // fixed tree (warp butterflies, the warps' sums in order)
+  float gh = 0.f;
+  for (int e = tid; e < N * P; e += THREADS) {
+    const int n = e / P, p = e - n * P;
+    gh = fmaf(sG[n * ldp + p], sHp[n * ldp + p], gh);
+  }
+  gh = warp_sum(gh);
+  if ((tid & 31) == 0) sRed[tid >> 5] = gh;
+  __syncthreads();
+  if (tid < Q) {
+    float in = 0.f, dw = 0.f;
+    for (int k = 0; k < nred; ++k) {
+      in += red_in[tid * 32 + k];
+      dw += red_dw[tid * 32 + k];
+    }
+    sIn[tid] = in;
+    sDw[tid] = dw;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float ghs = 0.f;
+    for (int w = 0; w < THREADS / 32; ++w) ghs += sRed[w];
+    float dlast = 0.f;
+    for (int j = 0; j < nv; ++j) dlast = fmaf(sW[j], sDw[j], dlast);
+    dlast = fmaf(expf((float)cum[Q - 1]), ghs, dlast);
+    // the reverse cumsum of dcum over the chunk's rows, in order
+    float dl = 0.f, da = 0.f;
+    for (int i = nv - 1; i >= 0; --i) {
+      float dcum = sRs[i] - sDt[i] * sCs[i] + sIn[i] - sW[i] * sDw[i];
+      if (i == nv - 1) dcum += dlast;
+      dl += dcum;
+      ddt[row0 + (long long)i * H] = sCs[i] + sWx[i] * sDw[i] + dl * ah;
+      da = fmaf(dl, sDt[i], da);
+    }
+    dap[((long long)b * nc + c) * H + hh] = da;
+  }
+}
+
+// (4) dB, dC over heads in ascending order; da (the last block) over
+// (batch, chunk) in order
+template <typename T>
+__global__ void sum_kernel(const float* __restrict__ dbp, const float* __restrict__ dcp,
+                           const float* __restrict__ dap, T* __restrict__ db, T* __restrict__ dc,
+                           float* __restrict__ da, long long rows, int H, int N, int nbc) {
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
+      float s = 0.f;
+      for (int k = 0; k < nbc; ++k) s += dap[(long long)k * H + hh];
+      da[hh] = s;
+    }
+    return;
+  }
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= rows * N) return;
+  const long long r = e / N;
+  const int n = (int)(e - r * N);
+  float sb = 0.f, sc = 0.f;
+  for (int hh = 0; hh < H; ++hh) {
+    sb += dbp[(r * H + hh) * N + n];
+    sc += dcp[(r * H + hh) * N + n];
+  }
+  db[e] = from_f32<T>(sb);
+  dc[e] = from_f32<T>(sc);
+}
+
+template <typename T, bool TC>
+int launch(const void* x, long long x_sb, long long x_st, const void* dt, const void* a, const void* bm,
+           long long b_sb, long long b_st, const void* cm, long long c_sb, long long c_st, const void* dy,
+           const void* dh_final, const void* h0, void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
+           void* scratch, int B, int Tn, int H, int N, int P, cudaStream_t stream) {
+  const int nc = (Tn + Q - 1) / Q;
+  const long long NP = (long long)N * P, bch = (long long)B * nc * H;
+  float* s_buf = (float*)scratch;
+  float* r_buf = s_buf + bch * NP;
+  float* dec = r_buf + bch * NP;
+  float* dap = dec + bch;
+  float* dbp = dap + bch;
+  float* dcp = dbp + (long long)B * Tn * H * N;
+  const size_t smem1 = terms_smem_floats(N, P, Pad<TC>::V) * sizeof(float);
+  const size_t smem3 = grad_smem_floats(N, P, Pad<TC>::V) * sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(state_terms_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(grad_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nc, H, B);
+  state_terms_kernel<T, TC><<<grid, THREADS, smem1, stream>>>(
+      (const T*)x, x_sb, x_st, (const float*)dt, (const float*)a, (const T*)bm, b_sb, b_st, (const T*)cm, c_sb, c_st,
+      (const float*)dy, s_buf, r_buf, dec, Tn, H, N, P, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int NP4 = (int)(NP / 4);
+  state_pass_kernel<<<dim3((unsigned)((NP4 + 255) / 256), H, B), 256, 0, stream>>>(
+      (float4*)s_buf, (float4*)r_buf, dec, (const float4*)h0, (const float4*)dh_final, (float4*)dh0, H, NP4, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  grad_kernel<T, TC><<<grid, THREADS, smem3, stream>>>(
+      (const T*)x, x_sb, x_st, (const float*)dt, (const float*)a, (const T*)bm, b_sb, b_st, (const T*)cm, c_sb, c_st,
+      (const float*)dy, s_buf, r_buf, (T*)dx, (float*)ddt, dbp, dcp, dap, Tn, H, N, P, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * Tn;
+  sum_kernel<T><<<(unsigned)((rows * N + 255) / 256 + 1), 256, 0, stream>>>(
+      dbp, dcp, dap, (T*)db, (T*)dc, (float*)da, rows, H, N, B * nc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 extern "C" int repro_ssd_scan(int dtype, const void* x, long long x_sb, long long x_st, const void* dt,
@@ -852,4 +1615,42 @@ extern "C" int repro_ssd_scan_tc(const void* x, long long x_sb, long long x_st, 
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
   return tc::launch(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, h0, y, h_out, scratch, B, Tn, H,
                     (cudaStream_t)stream);
+}
+
+// The backward (11_bwd): x (B, T, H, P) with head stride P and unit inner
+// stride, B and C (B, T, N) with unit inner strides, all read through their
+// batch and time strides, in f32 or bf16 (`dtype`); dt (B, T, H), a (H,), dy
+// (B, T, H, P) f32 contiguous; dh_final and h0 (B, H, N, P) f32 or null.
+// Writes dx (B, T, H, P) and dB, dC (B, T, N) in x's type, ddt (B, T, H) and
+// da (H,) f32, and dh0 (B, H, N, P) f32 where it is not null; h0,
+// dh_final and dh0 16-byte aligned.  scratch: f32, B nc H (2 N P + 2) + 2 B
+// T H N elements at nc = ceil(T / 64), its contents on entry unused.  Four
+// launches.
+extern "C" int repro_ssd_scan_bwd(int dtype, const void* x, long long x_sb, long long x_st, const void* dt,
+                                  const void* a, const void* bm, long long b_sb, long long b_st, const void* cm,
+                                  long long c_sb, long long c_st, const void* dy, const void* dh_final,
+                                  const void* h0, void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
+                                  void* scratch, int B, int Tn, int H, int N, int P, void* stream) {
+  if (B <= 0 || B > 65535 || Tn <= 0 || H <= 0 || H > 65535 || N <= 0 || N > NMAX || N % 4 || P <= 0 ||
+      P > PMAX || P % 4)
+    return (int)cudaErrorInvalidValue;
+  REPRO_DISPATCH(dtype, T, {
+    return bwd::launch<T, false>(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, dy, dh_final, h0, dx, ddt,
+                                 da, db, dc, dh0, scratch, B, Tn, H, N, P, (cudaStream_t)stream);
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's tensor-core build: bf16 x, B and C at N 128, P 64, the
+// rest as repro_ssd_scan_bwd takes it (h0, dh_final and dh0 16-byte
+// aligned, as there).  Four launches.
+extern "C" int repro_ssd_scan_bwd_tc(const void* x, long long x_sb, long long x_st, const void* dt, const void* a,
+                                     const void* bm, long long b_sb, long long b_st, const void* cm, long long c_sb,
+                                     long long c_st, const void* dy, const void* dh_final, const void* h0, void* dx,
+                                     void* ddt, void* da, void* db, void* dc, void* dh0, void* scratch, int B, int Tn,
+                                     int H, int N, int P, void* stream) {
+  if (B <= 0 || B > 65535 || Tn <= 0 || H <= 0 || H > 65535 || N != bwd::TC_N || P != bwd::TC_P)
+    return (int)cudaErrorInvalidValue;
+  return bwd::launch<__nv_bfloat16, true>(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, dy, dh_final, h0,
+                                          dx, ddt, da, db, dc, dh0, scratch, B, Tn, H, N, P, (cudaStream_t)stream);
 }

@@ -27,7 +27,8 @@ hosts without ``nvcc`` import these modules and run the plain versions.
                    gradients, and the plan's slot weights' (training)
   rglru_scan       the RG-LRU's diagonal linear recurrence (prefill), and
                    its reversed instantiation, the backward (training)
-  ssd_scan         Mamba-2's chunked state-space-dual scan (prefill)
+  ssd_scan         Mamba-2's chunked state-space-dual scan (prefill), and
+                   its backward (training)
 
 Every wrapper in ``kernels/<name>/ops.py`` takes its plain version (the
 sibling ``ref.py``) only for CPU tensors; on ``cuda`` it launches its kernel
@@ -238,7 +239,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.moe_dispatch.ops import combine, dispatch
     from repro_torch.kernels.moe_fused.ops import down_combine, down_combine_bwd, gather_swiglu, gather_swiglu_bwd
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_bwd
 
     return {
         "flash_decode": flash_decode_kernel,
@@ -257,4 +258,5 @@ def kernel_wrappers() -> dict:
         "gather_swiglu_bwd": gather_swiglu_bwd,
         "down_combine_bwd": down_combine_bwd,
         "rglru_scan_bwd": rglru_scan_bwd,
+        "ssd_scan_bwd": ssd_scan_bwd,
     }

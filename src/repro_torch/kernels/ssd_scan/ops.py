@@ -16,6 +16,12 @@ Either way the function is the plain version's at ``chunk``, summed in
 another order; x, B and C are read in place through their batch and time
 strides (views of the model's projection need no copy), and a ragged tail
 is masked in the kernel: nothing is padded.
+
+For training, :func:`ssd_scan_train` is the scan under an autograd
+Function whose backward is :func:`ssd_scan_bwd` (11_bwd: four launches
+over chunks of ``BWD_CHUNK`` steps, no atomics, in one of two builds named
+by :func:`ssd_scan_bwd_path`; its plain version
+:func:`.ref.ssd_chunked_bwd` on the CPU).
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ PMAX = 64   # the CUDA-core build's largest head dim
 TC_CHUNK = 256  # the tensor-core build's chunk (Mamba-2's own)
 TC_STATE = 128  # the tensor-core build's state size N
 TC_HEAD_DIM = 64  # and head dim P
+BWD_CHUNK = 64  # the backward's chunk (csrc/ssd_scan.cu bwd::Q): its q x q tiles and the chunk's rows in shared memory
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -138,3 +145,156 @@ def ssd_scan(
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd_path(dtype: torch.dtype, N: int, P: int) -> str:
+    """Which build of 11_bwd a launch takes: ``"tensor_cores"`` (bf16 x, B
+    and C at N 128, P 64: TF32 ``mma.sync``, the f32 operands as hi + lo)
+    or ``"cuda_cores"`` (f32, and bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and N == TC_STATE and P == TC_HEAD_DIM
+    return "tensor_cores" if ok else "cuda_cores"
+
+
+def bwd_scratch_floats(B: int, T: int, H: int, N: int, P: int) -> int:
+    """f32 elements of 11_bwd's scratch: per (batch, chunk, head) of
+    ``BWD_CHUNK`` steps the chunk's state and its gradient's input term (2 N
+    P, then the entering states and the gradients of the states leaving),
+    the chunk's decay and its share of da (2); per (batch, step, head) the
+    head's share of dB and of dC (2 N)."""
+    nc = -(-T // BWD_CHUNK)
+    return B * nc * H * (2 * N * P + 2) + 2 * B * T * H * N
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,    # (B, T, H, P)
+    dt: torch.Tensor,   # (B, T, H) post-softplus
+    a: torch.Tensor,    # (H,) negative
+    bm: torch.Tensor,   # (B, T, N)
+    cm: torch.Tensor,   # (B, T, N)
+    chunk: int,
+    dy: torch.Tensor,   # (B, T, H, P) f32: dL/dy
+    dh_final: Optional[torch.Tensor] = None,  # (B, H, N, P): dL/d(final state); None = zeros
+    h0: Optional[torch.Tensor] = None,        # (B, H, N, P) or None (zeros)
+):
+    """Kernel 11's backward (11_bwd): ``(dx, ddt, da, dB, dC, dh0)`` of
+    :func:`ssd_scan`, each in its input's type (dh0 f32, None without
+    ``h0``).  On the card four launches of the build
+    :func:`ssd_scan_bwd_path` names over one f32 scratch
+    (:func:`bwd_scratch_floats`), counted once: the chunk states and the
+    gradient's input terms, one block per (batch, chunk, head); both state
+    passes (forward for the entering states, then over chunks in
+    descending order for the gradient), one thread per state element of a
+    (batch, head); a block per (batch, chunk, head) for dx, ddt, the
+    gradient of the chunk's cumsum and the head's shares of dB and dC; then
+    those shares summed over heads and da over (batch, chunk) in a fixed
+    order.  The chunking is ``BWD_CHUNK``'s whatever ``chunk`` is (the same
+    function, summed in another order).  x, B and C are read in place
+    through their batch and time strides; a ragged tail is masked."""
+    _check(x.ndim == 4, f"x {tuple(x.shape)} must be (B, T, H, P)")
+    B, T, H, P = x.shape
+    _check(T > 0 and chunk > 0, f"T {T} and chunk {chunk} must be positive")
+    _check(dt.shape == (B, T, H) and a.shape == (H,), f"dt {tuple(dt.shape)}, a {tuple(a.shape)}")
+    _check(bm.ndim == 3 and bm.shape[:2] == (B, T) and cm.shape == bm.shape,
+           f"bm {tuple(bm.shape)} and cm {tuple(cm.shape)} must be (B, T, N)")
+    _check(dy.shape == x.shape, f"dy {tuple(dy.shape)} must be x's {tuple(x.shape)}")
+    N = bm.shape[-1]
+    for name, t in (("dh_final", dh_final), ("h0", h0)):
+        _check(t is None or t.shape == (B, H, N, P), f"{name} shape {None if t is None else tuple(t.shape)}")
+    dev = x.device
+    _check(all(t.device == dev for t in (dt, a, bm, cm, dy) + tuple(t for t in (dh_final, h0) if t is not None)),
+           "tensors on different devices")
+    if dev.type == "cpu":
+        return ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dh_final, h0)
+    _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check(x.dtype == bm.dtype == cm.dtype, f"x, bm, cm dtypes {x.dtype}, {bm.dtype}, {cm.dtype} differ")
+    _check(P % 4 == 0 and P <= PMAX and N % 4 == 0 and N <= NMAX,
+           f"head dim {P} and state {N} must be multiples of 4 up to {PMAX} and {NMAX}")
+    out = _launch_bwd(x, dt, a, bm, cm, dy, dh_final, h0)
+    ssd_scan_bwd.launches += 1
+    return out
+
+
+def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` in f32, contiguous and 16-byte aligned (the state pass reads
+    and writes four floats at a time), copied only where it is not."""
+    if t is None:
+        return None
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_bwd(x, dt, a, bm, cm, dy, dh_final, h0):
+    """11_bwd's C entry on the wrapper's checked tensors, the build as
+    :func:`ssd_scan_bwd_path` names it: outputs and scratch allocated here,
+    x, B and C passed through their strides (a copy only where the inner
+    strides are not unit, as the forward's CUDA-core build); a refused
+    launch raises."""
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    B, T, H, P = x.shape
+    N = bm.shape[-1]
+    dev = x.device
+    f32 = torch.float32
+    x = _inner_contiguous(x, (P, 1))
+    bm, cm = _inner_contiguous(bm, (1,)), _inner_contiguous(cm, (1,))
+    dt, a = dt.to(f32).contiguous(), a.to(f32).contiguous()
+    dy = dy.to(f32).contiguous()
+    dh_final, h0 = _aligned16(dh_final), _aligned16(h0)
+    dx = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, T, H), dtype=f32, device=dev)
+    da = torch.empty((H,), dtype=f32, device=dev)
+    dB = torch.empty((B, T, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((B, T, N), dtype=x.dtype, device=dev)
+    dh0 = None if h0 is None else torch.empty((B, H, N, P), dtype=f32, device=dev)
+    scratch = torch.empty((bwd_scratch_floats(B, T, H, N, P),), dtype=f32, device=dev)
+    opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    args = [ptr(x), x.stride(0), x.stride(1), ptr(dt), ptr(a), ptr(bm), bm.stride(0), bm.stride(1), ptr(cm),
+            cm.stride(0), cm.stride(1), ptr(dy), opt(dh_final), opt(h0), ptr(dx), ptr(ddt), ptr(da), ptr(dB),
+            ptr(dC), opt(dh0), ptr(scratch), B, T, H, N, P, stream_of(x)]
+    argtypes = [vp, i64, i64, vp, vp, vp, i64, i64, vp, i64, i64, vp, vp, vp] + [vp] * 7 + [ctypes.c_int] * 5 + [vp]
+    if ssd_scan_bwd_path(x.dtype, N, P) == "tensor_cores":
+        rc = function("ssd_scan", "repro_ssd_scan_bwd_tc", argtypes)(*args)
+    else:
+        rc = function("ssd_scan", "repro_ssd_scan_bwd", [ctypes.c_int] + argtypes)(dtype_code(x.dtype), *args)
+    check_launch(rc, "ssd_scan_bwd")
+    return dx, ddt, da.to(a.dtype), dB, dC, dh0
+
+
+ssd_scan_bwd.launches = 0
+
+
+class _SsdScanTrain(torch.autograd.Function):
+    """Kernel 11 with its gradient: the forward launches :func:`ssd_scan`
+    and saves its inputs, the backward launches :func:`ssd_scan_bwd` (on the
+    CPU both are the plain versions; on the card neither ever is).  x, B
+    and C may be views of one projection: their gradients come back in
+    their own shapes and types, and autograd routes them through the
+    split."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, h0, chunk):
+        y, h = ssd_scan(x, dt, a, bm, cm, chunk, h0=h0)
+        ctx.save_for_backward(x, dt, a, bm, cm, h0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused final state's gradient stays None: no zeros read
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, a, bm, cm, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dx, ddt, da, dB, dC, dh0 = ssd_scan_bwd(x, dt, a, bm, cm, ctx.chunk, dy, dh, h0)
+        return (dx, ddt.to(dt.dtype), da.to(a.dtype), dB, dC, None if dh0 is None else dh0.to(h0.dtype), None)
+
+
+def ssd_scan_train(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+    chunk: int = 128, h0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable :func:`ssd_scan` (the training forward): (y, final
+    state), with the gradients of x, dt, a, B, C and h0 from kernel 11's
+    backward; a None gradient of the final state is zeros.  Under
+    ``torch.no_grad`` it records nothing: the serving launch alone."""
+    return _SsdScanTrain.apply(x, dt, a, bm, cm, h0, chunk)

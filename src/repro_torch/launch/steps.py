@@ -1,6 +1,6 @@
 """The train step and the serve launches (the port's counterpart of
 ``repro/launch/steps.py``): :func:`build_train_step` (one device: the
-gradient by autograd through kernels 7, 3/4 and 12 and their backwards, the global-norm
+gradient by autograd through kernels 7, 3/4, 11 and 12 and their backwards, the global-norm
 clip and the optimizer update in place), :func:`build_spec_serve_step`, the decode launch captured once in a CUDA
 graph and replayed (the counterpart of the reference's jitted
 ``build_spec_serve_step``), :class:`TreeCommit`, the contiguous tree commit
@@ -38,7 +38,7 @@ from repro_torch.core.plans import TreePlan
 from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import check_trainable, decode_constants, max_pages_for
+from repro_torch.models.transformer import decode_constants, max_pages_for
 from repro_torch.optim import (clip_by_global_norm, cosine_schedule, make_optimizer, scan_of, tree_leaves,
                                 tree_unflatten)
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
@@ -86,17 +86,14 @@ def build_train_step(cfg: ModelConfig, device, cell: ShapeCell, *, lr: float = 3
     """``(params, opt_state, step, tokens, frontend=None) -> (params,
     opt_state, step + 1, metrics)``: the reference's jitted train step on
     one device.  The loss and its gradient come from
-    :meth:`Model.forward_train` under autograd (kernels 7, 3/4 and 12
+    :meth:`Model.forward_train` under autograd (kernels 7, 3/4, 11 and 12
     forward, their hand-written backwards), the gradients are clipped to ``grad_clip``
     global norm and the optimizer (``cfg.optimizer`` on the reference's
     cosine schedule: 100 warm-up steps, ``total_steps``) updates ``params``
     and ``opt_state`` in place.  ``metrics``: the model's ``loss``, ``ce``,
     ``lb_loss``, ``z_loss`` and ``grad_norm``, 0-d f32 tensors on the
     device (nothing is read back).  ``cell`` is unused: it keeps the
-    reference's signature, whose cell only chose mesh shardings.  Raises
-    ``NotImplementedError`` for a stack whose layers training cannot
-    differentiate yet (:func:`repro_torch.models.transformer.check_trainable`)."""
-    check_trainable(cfg)
+    reference's signature, whose cell only chose mesh shardings."""
     return _TrainStep(cfg, device, lr=lr, total_steps=total_steps, grad_clip=grad_clip)
 
 

@@ -5,10 +5,12 @@ fault-tolerant :class:`repro_torch.runtime.Trainer`, on one device.
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
         --smoke --steps 50 --device cpu
 
-Without ``--device`` it runs on the card.  This slice trains one device
-(``--data`` and ``--model`` stay 1) and the ``attn``, ``local``, ``moe``
-and ``rec`` stacks (every arch but Mamba-2): an arch with ``ssm`` layers
-exits 2, naming the slice that brings kernel 11's backward.
+Without ``--device`` it runs on the card.  Every registered arch trains
+(``attn``, ``local``, ``moe``, ``rec`` and ``ssm`` stacks, each kernel of
+them with its hand-written backward), on one device: ``--data`` and
+``--model`` stay 1.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b --smoke --steps 20
 """
 from __future__ import annotations
 
@@ -33,17 +35,12 @@ def main(argv=None) -> int:
 
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.configs.base import ShapeCell
-    from repro_torch.models.transformer import check_trainable
     from repro_torch.runtime import Trainer, TrainerConfig
 
     if args.data != 1 or args.model != 1:
         ap.error("--data/--model > 1 (sharded training over a mesh) comes with the distribution slice; "
                  "train with --data 1 --model 1 on one device")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    try:
-        check_trainable(cfg)
-    except NotImplementedError as err:
-        ap.error(str(err))
     cell = ShapeCell("cli", seq_len=args.seq_len, global_batch=args.batch, step="train")
 
     def log(step, m):

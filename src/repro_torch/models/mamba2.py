@@ -6,11 +6,13 @@ Per head h with state size N and head dim P:
     h_t = exp(dt_t * a_h) * h_{t-1} + dt_t * B_t (x) x_t      (N x P state)
     y_t = C_t^T h_t + D_h * x_t
 
-Prefill runs the chunked SSD algorithm through the ``ssd_scan`` kernel
-(:mod:`repro_torch.kernels.ssd_scan`; its plain version, the reference's
-``ssd_chunked``, on the CPU).  The reference model calls the jnp
-``ssd_chunked`` here; the port calls the kernel, as it wires the prefill
-attention and RG-LRU kernels into their blocks.  Decode is one recurrent
+Prefill and training run the chunked SSD algorithm through the ``ssd_scan``
+kernel (:mod:`repro_torch.kernels.ssd_scan`; its plain version, the
+reference's ``ssd_chunked``, on the CPU) under autograd, with kernel 11's
+backward when training (:func:`ssm_block` is also the training pass).  The
+reference model calls the jnp ``ssd_chunked`` here and differentiates it;
+the port calls the kernel, as it wires the prefill attention and RG-LRU
+kernels into their blocks.  Decode is one recurrent
 step in plain tensor ops carrying ``(h, conv tail)``; the reference has no
 decode kernel either.  ``A_log``, ``D``, ``dt_bias``, ``norm_scale``, the
 step sizes and the state are f32 whatever the model's type.
@@ -68,7 +70,7 @@ def _xbc(zxbcdt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Params) -> torch.Tensor:
-    return rms_norm(y * F.silu(z), p["norm_scale"]) @ p["w_out"]
+    return rms_norm(y * F.silu(z), p["norm_scale"]) @ p["w_out"].to(y.dtype)
 
 
 def ssm_block(
@@ -79,13 +81,16 @@ def ssm_block(
     return_state: bool = False,
 ):
     """The prompt's pass (B, T, d) -> y (B, T, d), and with ``return_state``
-    the final state ``{"h": (B, H, N, P) f32, "conv": (B, K-1, ch)}``.  The
-    conv tail holds the last K-1 pre-activation conv inputs, zeros before the
+    the final state ``{"h": (B, H, N, P) f32, "conv": (B, K-1, ch)}``; also
+    the training pass (reference ``ssm_block`` without state): every weight
+    cast to x's type at use (a no-op when serving), the scan differentiable
+    (:func:`~repro_torch.kernels.ssd_scan.ops.ssd_scan_train`).  The conv
+    tail holds the last K-1 pre-activation conv inputs, zeros before the
     prompt's start (the causal pad), so a prompt shorter than K-1 also
     continues exactly (the reference keeps fewer rows)."""
     d_in, H, P, N = dims(cfg)
     Bsz, T, _ = x.shape
-    zxbcdt = x @ p["w_in"]
+    zxbcdt = x @ p["w_in"].to(x.dtype)
     z, _, _, _, dt_raw = _split_proj(zxbcdt, cfg)
     raw = _xbc(zxbcdt, cfg)
     xbc = F.silu(causal_conv1d(raw, p["conv_w"], p["conv_b"]))
@@ -93,7 +98,7 @@ def ssm_block(
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])  # (B, T, H)
     a = -torch.exp(p["A_log"])
     xh = xs.reshape(Bsz, T, H, P)
-    y, h_final = ssd_ops.ssd_scan(xh, dt, a, bm, cm, cfg.ssm_chunk, h0=h0)
+    y, h_final = ssd_ops.ssd_scan_train(xh, dt, a, bm, cm, cfg.ssm_chunk, h0=h0)
     y = y + p["D"][None, None, :, None] * xh.to(torch.float32)
     out = _gated_out(y.reshape(Bsz, T, d_in).to(x.dtype), z, p)
     if not return_state:

@@ -372,24 +372,6 @@ def apply_layer_prefill(
     return h + y, route_src
 
 
-# the layer kinds training differentiates: each kernel they run has a
-# hand-written backward (7 for attention, 3/4 for moe, 12 for rec); the SSD
-# scan's (kernel 11) does not yet
-TRAIN_KINDS = ("attn", "local", "moe", "rec")
-
-
-def check_trainable(cfg: ModelConfig, kinds=None) -> None:
-    """Raise ``NotImplementedError`` for a stack (or the layer ``kinds``
-    given) with a layer training cannot differentiate yet, naming the slice
-    that brings it."""
-    kinds = sorted({k for k in (kinds or cfg.layer_kinds) if k not in TRAIN_KINDS})
-    if kinds:
-        raise NotImplementedError(
-            f"training {cfg.name} needs the backward of its {'/'.join(kinds)} layers' kernels "
-            "(11, the SSD scan, for ssm), which the next training slice brings "
-            "(ROADMAP.md, Queue A); this slice trains attn, local, moe and rec stacks")
-
-
 def apply_layer_train(
     x: torch.Tensor,                    # (B, S, d)
     route_src: Optional[torch.Tensor],
@@ -407,11 +389,13 @@ def apply_layer_train(
     (:func:`moe.moe_layer`; ``aux`` its [load-balance, z] losses, and
     ``h`` the next layer's ``route_src``).  ``rec``: the RG-LRU block
     through kernel 12 and its backward (:func:`rglru.rec_block_prefill`'s
-    output), then the SwiGLU FFN.  Returns ``(x, route_src, aux)``,
-    ``aux`` (2,) f32 (zeros without a router)."""
-    if kind not in TRAIN_KINDS:
-        check_trainable(cfg, (kind,))
+    output), then the SwiGLU FFN.  ``ssm``: the Mamba-2 block through
+    kernel 11 and its backward (:func:`mamba2.ssm_block`), with no FFN.
+    Returns ``(x, route_src, aux)``, ``aux`` (2,) f32 (zeros without a
+    router)."""
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+    if kind == "ssm":
+        return x + mamba2.ssm_block(L.rms_norm(x, p["ln1"]), p["ssm"], cfg), route_src, aux
     if kind == "rec":
         h = x + rglru.rec_block_prefill(L.rms_norm(x, p["ln1"]), p["rec"], cfg)[0]
         return h + L.swiglu(L.rms_norm(h, p["ln2"]), p["ffn"]), route_src, aux

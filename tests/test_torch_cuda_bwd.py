@@ -1,9 +1,12 @@
 """PyTorch port, on the card: the training backward kernels 3_bwd, 4_bwd
-(``csrc/moe_fused_bwd.cu``) and 12_bwd (the reversed instantiation in
-``csrc/rglru_scan.cu``) against their plain versions, at ragged shapes
+(``csrc/moe_fused_bwd.cu``), 12_bwd (the reversed instantiation in
+``csrc/rglru_scan.cu``) and 11_bwd (``repro_ssd_scan_bwd`` in
+``csrc/ssd_scan.cu``) against their plain versions, at ragged shapes
 (empty slots, dropped assignments, T off the scan's chunk, W off its
-4-channel lanes, h0), f32 and bf16, each bitwise on a repeat; and the
-autograd Functions on the card counting one launch each way.  3_bwd and
+4-channel lanes, h0; for 11_bwd also dh_final, N and P off 128 and 64, and
+bf16 x, B and C as strided views of one projection), f32 and bf16, each
+bitwise on a repeat; and the autograd Functions on the card counting one
+launch each way.  3_bwd and
 4_bwd take their tensor-core builds for bf16 with d and f multiples of 8
 (each case asserts the build it takes): C off the 64-slot units, an expert
 with no occupied slot, several 256-column tiles with a ragged last one;
@@ -26,6 +29,8 @@ from repro_torch.kernels.moe_fused import ops as mf_ops
 from repro_torch.kernels.moe_fused import ref as mf_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
 from repro_torch.kernels.rglru_scan import ref as rg_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 
 @pytest.fixture
@@ -161,3 +166,78 @@ def test_training_functions_launch_each_backward_once_on_card(cuda):
     assert counts == {"gather_swiglu": 1, "down_combine": 1, "gather_swiglu_bwd": 1, "down_combine_bwd": 1,
                       "rglru_scan": 1, "rglru_scan_bwd": 1}
     assert float(router.grad.abs().max()) > 0 and all(t.grad is not None for t in (x, a, b, *p.values()))
+
+
+# B, T, H, P, N, dtype of x / B / C, h0 and dh_final, chunk
+SSD_CASES = {"ragged_h0": (2, 133, 3, 16, 16, torch.float32, True, 16),
+             "small_dims": (2, 70, 5, 8, 12, torch.float32, True, 64),
+             "small_dims_bf16": (2, 70, 5, 8, 12, torch.bfloat16, True, 64),
+             "mamba2_f32": (1, 1000, 8, 64, 128, torch.float32, True, 256),
+             "mamba2_views_bf16": (2, 300, 4, 64, 128, torch.bfloat16, False, 256),
+             "mamba2_ragged_h0_bf16": (1, 1000, 6, 64, 128, torch.bfloat16, True, 256),
+             "one_step": (1, 1, 2, 4, 4, torch.bfloat16, True, 256),
+             "one_step_tc": (1, 1, 2, 64, 128, torch.bfloat16, True, 256)}
+
+
+def _ssd_inputs(cuda, B, T, H, P, N, dtype, with_state):
+    """x, B and C as views of one (B, T, H P + 2 N) projection, as the
+    model passes them; dt and a in the model's ranges; dy f32."""
+    gen = torch.Generator(device=cuda).manual_seed(T * H + N)
+    proj = (torch.randn((B, T, H * P + 2 * N), generator=gen, device=cuda) * 0.5).to(dtype)
+    x = proj[..., :H * P].reshape(B, T, H, P)
+    bm, cm = proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=gen, device=cuda) - 1.0)
+    a = -torch.linspace(1.0, 16.0, H, device=cuda)
+    dy = torch.randn((B, T, H, P), generator=gen, device=cuda)
+    h0 = torch.randn((B, H, N, P), generator=gen, device=cuda) if with_state else None
+    dhf = torch.randn((B, H, N, P), generator=gen, device=cuda) if with_state else None
+    return x, dt, a, bm, cm, dy, dhf, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_backward_kernel_matches_plain_on_card(cuda, case, monkeypatch):
+    """Each case on the build ``ssd_scan_bwd_path`` names: bf16 at N 128,
+    P 64 on the tensor cores, the rest on CUDA cores (the C entry asserted)."""
+    B, T, H, P, N, dtype, with_state, chunk = SSD_CASES[case]
+    x, dt, a, bm, cm, dy, dhf, h0 = _ssd_inputs(cuda, B, T, H, P, N, dtype, with_state)
+    entries, function = [], kernels.function
+
+    def spy(name, symbol, argtypes):
+        entries.append(symbol)
+        return function(name, symbol, argtypes)
+
+    monkeypatch.setattr(kernels, "function", spy)
+
+    def kernel():
+        return ssd_ops.ssd_scan_bwd(x, dt, a, bm, cm, chunk, dy, dhf, h0)
+
+    got, want = kernel(), ssd_ref.ssd_chunked_bwd(x, dt, a, bm, cm, chunk, dy, dhf, h0)
+    tc = dtype == torch.bfloat16 and (N, P) == (128, 64)
+    assert entries[0] == ("repro_ssd_scan_bwd_tc" if tc else "repro_ssd_scan_bwd")
+    for name, g, w in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), got, want):
+        if w is None:
+            assert g is None
+        else:
+            _hold(f"11_bwd {name}", g, w)
+    again = kernel()
+    assert all(g is None or torch.equal(g, h) for g, h in zip(got, again)), "a repeated launch is not bitwise equal"
+
+
+@pytest.mark.cuda
+def test_ssd_training_function_launches_each_way_once_on_card(cuda):
+    """Gradients through views of one projection, routed by autograd
+    through the split, equal the plain backward's; one launch each way."""
+    B, T, H, P, N = 2, 150, 3, 16, 16
+    x, dt, a, bm, cm, dy, dhf, h0 = _ssd_inputs(cuda, B, T, H, P, N, torch.float32, True)
+    proj = torch.cat([x.reshape(B, T, H * P), bm, cm], dim=-1).requires_grad_(True)
+    dt, a, h0 = dt.requires_grad_(True), a.requires_grad_(True), h0.requires_grad_(True)
+    kernels.reset_launch_counts()
+    y, h = ssd_ops.ssd_scan_train(proj[..., :H * P].reshape(B, T, H, P), dt, a, proj[..., H * P:H * P + N],
+                                  proj[..., H * P + N:], 32, h0=h0)
+    torch.autograd.backward([y, h], [dy, dhf])
+    assert {n: c for n, c in kernels.launch_counts().items() if c} == {"ssd_scan": 1, "ssd_scan_bwd": 1}
+    want = ssd_ref.ssd_chunked_bwd(x, dt.detach(), a.detach(), bm, cm, 32, dy, dhf, h0.detach())
+    _hold("proj.grad", proj.grad, torch.cat([want[0].reshape(B, T, H * P), want[3], want[4]], dim=-1))
+    for name, g, w in (("dt", dt.grad, want[1]), ("a", a.grad, want[2]), ("h0", h0.grad, want[5])):
+        _hold(name, g, w)

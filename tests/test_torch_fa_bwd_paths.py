@@ -21,10 +21,11 @@ import pytest
 import torch
 
 from repro.models.layers import blockwise_attention
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import ShapeCell, get_config, list_archs
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
-from repro_torch.models.transformer import check_trainable
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.launch.steps import build_train_step
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 256)
 TC_HEAD_DIMS = (64, 96, 128, 160, 256)
@@ -45,18 +46,19 @@ def test_flash_attention_bwd_path_at_every_dtype_and_head_dim(dtype, hd):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_every_trainable_arch_takes_the_tensor_cores_in_bf16(arch):
-    """Every arch that trains (all stacks but ``ssm``) trains in bf16, and
-    its head dim takes the tensor-core backward, except the archs named in
-    ``CUDA_CORE_TRAINING``, which take the CUDA-core build at the head dim
-    named there; the ``ssm`` archs are refused before their backward could
-    run."""
+    """Every arch trains, in bf16, and its head dim takes the tensor-core
+    backward, except the archs named in ``CUDA_CORE_TRAINING``, which take
+    the CUDA-core build at the head dim named there; the ``ssm`` archs
+    (Mamba-2) have no attention layer and train through kernel 11's
+    backward, whose coverage holds their state size and head dim."""
     cfg = get_config(arch)
-    try:
-        check_trainable(cfg)
-    except NotImplementedError:
-        assert "ssm" in cfg.layer_kinds
-        return
     assert cfg.dtype == "bfloat16"
+    build_train_step(cfg, "cpu", ShapeCell("t", 8, 1, "train"))  # no refusal
+    if "ssm" in cfg.layer_kinds:
+        assert set(cfg.layer_kinds) == {"ssm"}
+        assert cfg.ssm_state <= ssd_ops.NMAX and cfg.ssm_head_dim <= ssd_ops.PMAX
+        assert cfg.ssm_state % 4 == 0 and cfg.ssm_head_dim % 4 == 0
+        return
     hd = cfg.resolved_head_dim
     want = "cuda_cores" if CUDA_CORE_TRAINING.get(arch) == hd else "tensor_cores"
     assert fa_ops.flash_attention_bwd_path(torch.bfloat16, hd) == want

@@ -2,8 +2,8 @@
 re-shard rebuild (``make_replica_factory(shrink_to=...)``) and fabric
 checkpoints at ``--model > 1`` both name the distribution slice that brings
 them (the cross-process fabric they used to wait for has shipped); the
-train CLI refuses ``ssm`` archs (Mamba-2), naming the next training slice,
-and ``--data`` / ``--model`` > 1.  CPU only.
+train CLI refuses ``--data`` / ``--model`` > 1 (every arch trains on one
+device).  CPU only.
 """
 from __future__ import annotations
 
@@ -32,16 +32,6 @@ def test_cli_refuses_fabric_checkpoints_of_an_expert_slice_naming_the_distributi
     err = capsys.readouterr().err
     assert "sharded fabric save in the distribution slice" in err
     assert "cross-process fabric" not in err
-
-
-@pytest.mark.parametrize("arch,kind", [("mamba2-2.7b", "ssm")])
-def test_train_cli_refuses_archs_without_backward_kernels_naming_the_next_slice(capsys, tmp_path, arch, kind):
-    with pytest.raises(SystemExit) as exit_:
-        train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "1", "--ckpt", str(tmp_path)])
-    assert exit_.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{kind} layers" in err and "next training slice" in err and "Queue A" in err
-    assert not any(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("flag", ["--data", "--model"])

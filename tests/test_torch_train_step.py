@@ -1,8 +1,8 @@
 """PyTorch port, training: the loss and its gradient against the JAX
 reference's ``jax.value_and_grad(Model.forward_train)``, three steps of
 ``build_train_step`` against the reference's jitted one, kernel 7's plain
-backward against autograd through its plain forward, and what training
-refuses.  CPU only (every kernel wrapper runs its plain version).
+backward against autograd through its plain forward, and the f32 master
+weights.  CPU only (every kernel wrapper runs its plain version).
 
 Gates: the loss within 1e-5 relative, every gradient leaf within 1e-4 of
 that leaf's largest magnitude (f32 both sides, sums in other orders), and
@@ -10,9 +10,9 @@ after three AdamW steps the losses within 1e-5 relative and the params
 within 1e-6.  Stacks: StarCoder2-3B (smoke; QKV bias; also under remat), a
 mixed ("attn", "local") Qwen1.5-4B stack, every layer local (Qwen3-32B's
 smoke config under ``attention_kind="local"``) and Phi-3-Vision with its
-frontend positions masked from the loss (S >= F, caveat R7).  MoE and
-RG-LRU stacks train too (``test_torch_train_moe.py``,
-``test_torch_train_rec.py``); of the layer kinds only ``ssm`` is refused.
+frontend positions masked from the loss (S >= F, caveat R7).  MoE,
+RG-LRU and Mamba-2 stacks train too (``test_torch_train_moe.py``,
+``test_torch_train_rec.py``, ``test_torch_train_ssm.py``).
 """
 from __future__ import annotations
 
@@ -161,13 +161,3 @@ def test_training_init_keeps_f32_master_weights_and_no_tied_copy():
     assert "unembed" not in tied.init(0, train=True) and "unembed" in tied.init(0)
     params = tm.init(0, train=True)
     assert tree_leaves(tree_unflatten(params, tree_leaves(params)))[3] is tree_leaves(params)[3]
-
-
-@pytest.mark.parametrize("arch,kind", [("mamba2-2.7b", "ssm")])
-def test_training_refuses_moe_rec_and_ssm_naming_the_next_slice(arch, kind):
-    cfg = t_smoke(arch)
-    with pytest.raises(NotImplementedError, match=f"{kind} layers.*next training slice"):
-        build_train_step(cfg, "cpu", ShapeCell("t", 8, 1, "train"))
-    tm = TModel(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue A"):
-        tm.forward_train(tm.init(0, train=True), torch.zeros((1, 8), dtype=torch.int64))

@@ -3,8 +3,9 @@
 turns: A, B, B, A.  ``--cell`` names the cell: ``train_full_width``
 (StarCoder2-3B at published widths cut to 20 layers, AdamW, 4 x 2,048
 tokens a step), ``train_moe_full_width`` (Qwen3-MoE-235B-A22B cut to 2
-layers, Adafactor, 2 x 2,048) or ``train_rec_full_width``
-(RecurrentGemma-2B uncut, AdamW, 2 x 2,048).
+layers, Adafactor, 2 x 2,048), ``train_rec_full_width``
+(RecurrentGemma-2B uncut, AdamW, 2 x 2,048) or ``train_ssm_full_width``
+(Mamba-2-2.7B uncut, AdamW, 2 x 2,048).
 
     python3 tools/train_ab.py --cell train_rec_full_width --a build/parent --b . [--tags parent,change]
 
@@ -46,7 +47,8 @@ def main() -> int:
     ap.add_argument("--b", type=Path, required=True, help="root of checkout B (run second and third)")
     ap.add_argument("--tags", default="a,b", help="names of A and B in the output")
     ap.add_argument("--cell", required=True, choices=("train_full_width", "train_moe_full_width",
-                                                      "train_rec_full_width"), help="chip_smoke.py's training cell")
+                                                      "train_rec_full_width", "train_ssm_full_width"),
+                    help="chip_smoke.py's training cell")
     args = ap.parse_args()
     tags = dict(zip(("a", "b"), args.tags.split(",")))
     runs, rc = [], 0
