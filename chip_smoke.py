@@ -108,7 +108,7 @@ Qwen3-MoE's and RecurrentGemma-2B's training shapes (and ragged ones, f32
 and bf16, bitwise repeats; 3 and 4 on their tensor-core builds at bf16,
 with an ``HGMMA`` census, device ms by launch and the parent build's
 time), kernel 11's backward at Mamba-2-2.7B's training shape (bf16 x, B
-and C as views of one projection on its TF32 tensor-core build, f32 and a
+and C as views of one projection on its tensor-core build, f32 and a
 ragged T from h0 with a gradient of the final state on CUDA cores; device
 ms by launch), the f32 smoke configs
 of StarCoder2, Qwen3-MoE, RecurrentGemma and Mamba-2 trained 3 steps on
@@ -4592,7 +4592,8 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None):
         P_, N_ = cfg.ssm_head_dim, cfg.ssm_state
         model_flops += 3 * batch * n_ssm * ssd_work(S, cfg.ssm_expand * d // P_, P_, N_, cfg.ssm_chunk, 2)[1]
     ours = ("gate_up_", "down_", "rglru_chunk_kernel", "flash_attention", "dkv", "dq", "bwd_prep", "row_dot",
-            "gather_swiglu", "combine_rows", "ssd_scan_kernel", "chunk_state", "state_pass", "chunk_scan", "bwd::")
+            "gather_swiglu", "combine_rows", "ssd_scan_kernel", "chunk_state", "state_pass", "chunk_scan", "bwd::",
+            "bwd_tc::")
     out = dict(
         arch=cfg.name, layers=L, batch=batch, seq_len=S, steps=steps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
         optimizer=cfg.optimizer, remat=cfg.remat, route_mode=cfg.route_mode if cfg.is_moe else None,
@@ -4677,8 +4678,12 @@ def train_ssm_full_width(dev):
     return train_cell(dev, "train_ssm_full_width", cfg, REC_TRAIN_BATCH, CELL_TRAIN_STEPS)
 
 
-SSD_RAGGED_T = 2100  # 11_bwd off its 64-step chunks and the model's 256
-SSD_BWD_LAUNCHES = ("bwd::state_terms_kernel", "bwd::state_pass_kernel", "bwd::grad_kernel", "bwd::sum_kernel")
+SSD_RAGGED_T = 2100  # 11_bwd off both builds' chunks (64 and 256)
+# 11_bwd's launches by build, as the profiler names them
+SSD_BWD_LAUNCHES = {
+    "tensor_cores": ("tc::chunk_state_kernel", "bwd_tc::rterm_kernel", "bwd_tc::pass_kernel", "bwd_tc::row_kernel",
+                     "bwd_tc::col_kernel", "bwd_tc::ddt_kernel", "bwd_tc::dcb_sum_kernel", "bwd_tc::out_kernel"),
+    "cuda_cores": ("bwd::state_terms_kernel", "bwd::state_pass_kernel", "bwd::grad_kernel", "bwd::sum_kernel")}
 
 
 def ssd_bwd_work(B, T, H, P, N, q, in_bytes, with_state=False):
@@ -4705,15 +4710,17 @@ def ssd_bwd_row(dev, gen, tol):
     (``ssd_chunked_bwd`` at the model's chunk of 256) at Mamba-2-2.7B's
     training shape (``REC_TRAIN_BATCH`` x ``TRAIN_SEQ``, 80 heads of 64,
     state 128): bf16 x, B and C as views of one projection (the training
-    path's layout, on the tensor-core build; the row's headline), the same
-    in f32 (CUDA cores), and a ragged
-    ``SSD_RAGGED_T``-step f32 case from a random h0 with a gradient of the
-    final state.  Gate: row 11's f32 gate (1e-4 of the scale) on every f32
-    output; dx, dB and dC of the bf16 case are bf16 (the inputs' type, as
+    path's layout, on the tensor-core build: chunks of 256 on ``wgmma`` fed
+    by TMA; the row's headline), the same in f32 (CUDA cores, chunks of
+    64), and a ragged ``SSD_RAGGED_T``-step f32 case from a random h0 with
+    a gradient of the final state.  Gate: row 11's f32 gate (1e-4 of the
+    scale) on every f32 output; dx, dB and dC of the bf16 case are bf16 (the inputs' type, as
     autograd routes them) and take the bf16 gate of :func:`check_bf16`.
     Each case: a bitwise repeat, CUDA-event ms, device ms and device ms by
-    launch; the plain version's ms; the bound by :func:`ssd_bwd_work` at the
-    bf16 tensor rate for bf16 inputs (and at the f32 rate beside it)."""
+    launch (``SSD_BWD_LAUNCHES`` of its build); the plain version's ms; the
+    bound by :func:`ssd_bwd_work` at the bf16 tensor rate for bf16 inputs
+    (and at the f32 rate beside it); registers, spills and a SASS census
+    (``HGMMA``) of the tensor-core build's kernels."""
     import torch
 
     from repro_torch.configs import get_config
@@ -4743,7 +4750,7 @@ def ssd_bwd_row(dev, gen, tol):
         def plain(x=x, dt=dt, bm=bm, cm=cm, dy=dy, dhf=dhf, h0=h0):
             return ssd_ref.ssd_chunked_bwd(x, dt, a, bm, cm, Q, dy, dhf, h0)
 
-        path = ssd_ops.ssd_scan_bwd_path(dtype, N, P)
+        path = ssd_ops.ssd_scan_bwd_path(dtype, N, P, ssd_ops.tma_ready(x, bm, cm))
         if path != ("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"):
             raise AssertionError(f"11_bwd {tag} takes the {path} build")
         got, want = kernel(), plain()
@@ -4759,7 +4766,7 @@ def ssd_bwd_row(dev, gen, tol):
         rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         case = dict(
             ms=time_ms(kernel, iters=3, reps=3), device_ms=device_ms(kernel, "", n=3),
-            device_ms_by_launch={sym.split("::")[1]: device_ms(kernel, sym, n=3) for sym in SSD_BWD_LAUNCHES},
+            device_ms_by_launch={sym.split("::")[1]: device_ms(kernel, sym, n=3) for sym in SSD_BWD_LAUNCHES[path]},
             bitwise_repeat=bitwise_repeat(f"11_bwd {tag}", lambda: torch.cat([t.reshape(-1).float() for t in kernel()
                                                                               if t is not None])),
             shapes=f"x ({B}, {T}, {H}, {P}) {tag.split()[0]} (a view of the ({B}, {T}, {H * P + 2 * N}) projection), "
@@ -4773,7 +4780,9 @@ def ssd_bwd_row(dev, gen, tol):
         del proj, x, bm, cm, dt, dy, h0, dhf
         torch.cuda.empty_cache()
     head = by_case["bf16"]
-    nc = -(-TRAIN_SEQ // ssd_ops.BWD_CHUNK)
+    q = ssd_ops.BWD_CHUNK["tensor_cores"]
+    tc_names = ("chunk_state", "rterm_kernel", "pass_kernel", "row_kernel", "col_kernel", "ddt_kernel",
+                "dcb_sum_kernel", "out_kernel")
     return dict(
         route="cuda", source="src/repro_torch/csrc/ssd_scan.cu", max_abs_err=max(errs["bf16"].values()),
         max_abs_err_by_case=errs, by_case=by_case, ms=head["ms"], device_ms=head["device_ms"],
@@ -4781,12 +4790,17 @@ def ssd_bwd_row(dev, gen, tol):
         library_call="none: no PyTorch call computes a selective scan's backward",
         bitwise_repeat=all(c["bitwise_repeat"] for c in by_case.values()),
         path=head["path"],
-        design=f"chunks of {ssd_ops.BWD_CHUNK} steps: chunk states and the state gradient's input terms, both "
-               f"state passes, a block per (batch, chunk, head) for dx, ddt, dcum and the head's dB / dC shares, the "
-               f"fixed-order sums over heads; no atomics; bf16 at N 128, P 64 on TF32 mma.sync (f32 operands as hi + "
-               f"lo), f32 on CUDA cores",
-        scratch_bytes=ssd_ops.bwd_scratch_floats(B, TRAIN_SEQ, H, N, P) * 4, chunks=nc,
-        ptxas=ptxas("ssd_scan", "state_terms_kernel", "grad_kernel", "bwd17state_pass", "sum_kernel"),
+        design=f"tensor cores (bf16 at N 128, P 64): chunks of {q} in row tiles of 64 on wgmma fed by TMA, eight "
+               f"launches: the forward's chunk states, the gradient's input terms, both state passes (states and "
+               f"gradients as hi + lo planes), row blocks over {ssd_ops.BWD_ROW_HEADS} heads (dB / dC state terms "
+               f"summed on chip, dx's state term), column blocks over {ssd_ops.BWD_COL_HEADS} heads (C B^T once, "
+               f"dy's tiles split into hi + lo bf16 in place, dS, S, dCB summed on chip, dx), ddt by f64 block "
+               f"scans, the dCB tiles and dB / dC summed in a fixed order; no atomics; f32 and other shapes on CUDA "
+               f"cores over chunks of {ssd_ops.BWD_CHUNK['cuda_cores']}",
+        scratch_bytes={p: ssd_ops.bwd_scratch_floats(B, TRAIN_SEQ, H, N, P, p) * 4 for p in ssd_ops.BWD_CHUNK},
+        chunks={p: -(-TRAIN_SEQ // c) for p, c in ssd_ops.BWD_CHUNK.items()},
+        ptxas=ptxas("ssd_scan", *tc_names, "state_terms_kernel", "grad_kernel", "bwd17state_pass", "sum_kernel"),
+        sass=sass_census("ssd_scan", *tc_names),
         shapes=head["shapes"], bytes=head["bytes"], flops=head["flops"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], bound_ms_f32_rate=head["bound_ms_f32_rate"])
 

@@ -819,7 +819,7 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
 
 
 // ---------------------------------------------------------------------------
-// backward (11_bwd): chunks of Q = 64 steps, no atomics
+// backward (11_bwd): two builds, no atomics
 // ---------------------------------------------------------------------------
 //
 // With g the gradient of the state a chunk leaves, hp the state it enters,
@@ -834,70 +834,46 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
 // and the gradient of cum (through E, w, exp(cum_i) and exp(cum_last))
 // becomes ddt and da by a reverse cumsum within the chunk (cum = cumsum(dt
 // a)).  What bounds it: bytes on paper (0.052 ms at Mamba-2-2.7B's training
-// shape: dy in f32 and x, dx in bf16 dominate), operations as built: per
-// (chunk, head) eight products of 64 x 64 x N, 64 x 64 x P or 64 x N x P
-// (3.7 M multiply-adds at N 128, P 64) against ~100 KB of inputs.  Four
-// launches:
+// shape: dy in f32 and x, dx in bf16 dominate); operations as built.  Every
+// sum runs in a fixed order: a repeated launch is bitwise equal.  Rows past
+// T are staged as zeros with dt = 0 and the last cum, add nothing, and are
+// not written.  The wrapper picks the build (ops.ssd_scan_bwd_path): the
+// tensor-core one (namespace bwd_tc below) for bf16 x, B and C at N 128, P
+// 64 that TMA reads in place (every Mamba-2 layer), this one otherwise.
+//
+// CUDA cores (f32, and bf16 at any N <= 128, P <= 64 in multiples of 4):
+// chunks of Q = 64 steps, four launches:
 //  (1) per (chunk, head, batch): the chunk's cumsum of dt a (in f64, in
 //      order, as the tensor-core forward computes it), its decay
 //      exp(cum_last), s_c = sum_j w_j B_j x_j^T and r_c = sum_i exp(cum_i)
 //      C_i dy_i^T (N x P each) into the scratch.  The chunk-start states
-//      are recomputed here and in (2), not saved by the forward: the
-//      forward stays the serving launch (its builds keep no per-chunk
-//      states, and under remat a saved copy would be dropped anyway), and
-//      this costs one pass over x and B.
+//      are recomputed here and in (2), not saved by the forward.
 //  (2) per (batch, head), one thread per 4 state elements: the states
 //      entering the chunks (h0 folded with s_c in chunk order) written over
 //      s_c, then the gradients of the states leaving them (dh_final folded
 //      with r_c in descending order) written over r_c, each chunk's loads
 //      issued a chunk ahead; dh0 is the last.
-//  (3) per (chunk, head, batch), 512 threads and ~214-227 KB of shared
-//      memory (one block an SM): C, B, x, dy, hp and g in f32 (each thread's
-//      loads all issued before its stores), C B^T and dS,
-//      then S, dCB and M_ij = dS_ij (C_i . B_j) E_ij as 64 x 64 tiles; dx,
-//      ddt, this head's share of dB and dC (B, T, H, N), and of da (a value
-//      per (batch, chunk, head)).  Row sums (the chunk's dcum terms) go
-//      through a shared buffer summed in column order; the reverse cumsum
-//      runs in order on one thread.
+//  (3) per (chunk, head, batch), 512 threads and ~214 KB of shared memory
+//      (one block an SM): C, B, x, dy, hp and g in f32 (each thread's loads
+//      all issued before its stores), C B^T and dS, then S, dCB and M_ij =
+//      dS_ij (C_i . B_j) E_ij as 64 x 64 tiles; dx, ddt, this head's share
+//      of dB and dC (B, T, H, N), and of da (a value per (batch, chunk,
+//      head)).  Row sums (the chunk's dcum terms) go through a shared
+//      buffer summed in column order; the reverse cumsum runs in order on
+//      one thread.
 //  (4) dB and dC summed over heads in ascending order, and da over (batch,
 //      chunk) in order, by the last block.
-// Every sum runs in a fixed order: a repeated launch is bitwise equal.
-// Rows past T are staged as zeros with dt = 0 and the last cum, add
-// nothing, and are not written.
-//
-// Two builds of (1) and (3), chosen by the wrapper (ops.ssd_scan_bwd_path):
-//  * CUDA cores (f32, and bf16 at any N <= 128, P <= 64 in multiples of 4):
-//    each product a loop of rank-1 updates into a 4 x 4 (or 2 x 4)
-//    register tile a thread, rows and columns strided so that a warp's
-//    reads fall on distinct banks (tile rows padded to an odd length).
-//    Each f32 read from shared memory feeds 1-2 FMAs: shared-memory
-//    bandwidth bounds its products.
-//  * Tensor cores (bf16 x, B and C at N 128, P 64: every Mamba-2 layer):
-//    the same products on mma.sync m16n8k8 in TF32, one 16 x 8 NB tile a
-//    warp, fragments read from the same f32 tiles (rows padded to 4 mod 32
-//    words).  x, B and C are bf16 values, exact in TF32; every other
-//    operand (dy, the states, S, dCB, the scaled rows) is carried as hi +
-//    lo TF32 (v - hi rounded again), and each product with such an operand
-//    issues the hi x hi, hi x lo and lo x hi terms: f32 operands to ~2^-21
-//    of themselves, sums in f32.  (1) runs two blocks an SM (64 registers).
-//    What still bounds it is latency: each block stages, scans, multiplies
-//    and reduces in turn, one block an SM in (3), with serial steps (the
-//    f64 cumsum, the reverse cumsum) on one thread.
+// Each product is a loop of rank-1 updates into a 4 x 4 (or 2 x 4)
+// register tile a thread, rows and columns strided so that a warp's reads
+// fall on distinct banks (tile rows padded to an odd length).  Each f32
+// read from shared memory feeds 1-2 FMAs: shared-memory bandwidth bounds
+// its products.
 namespace bwd {
 
 constexpr int Q = 64;          // rows of a chunk
 constexpr int THREADS = 512;   // threads of (1) and (3)
-constexpr int TC_N = 128, TC_P = 64;  // the tensor-core build's state size and head dim
-
-// row padding of the f32 tiles: odd on CUDA cores (a warp walks rows or
-// columns), 4 words on tensor cores (an mma fragment reads 8 rows x 4 words)
-template <bool TC>
-struct Pad {
-  static constexpr int V = TC ? 4 : 1;
-  static constexpr int LDQ = Q + V;
-};
-
-// ---- CUDA cores: register tiles ------------------------------------------
+constexpr int PAD = 1;         // row padding of the f32 tiles: odd, a warp walks rows or columns
+constexpr int LDQ = Q + PAD;
 
 template <int R, int C>
 struct Tile {
@@ -942,74 +918,6 @@ __device__ __forceinline__ void for_tiles(int M, int Nc, F f) {
     f(t);
   }
 }
-
-// ---- tensor cores: TF32 mma.sync, one tile a warp --------------------------
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The warp's 16 x 8 NB tile of an M x Nc output: rows r0 = 16 (w mod M / 16)
-// and columns c0 = 8 NB (w div M / 16) (16 warps cover it); a fragment
-// element i of column block nb sits at (r0 + g + 8 (i / 2), c0 + 8 nb + 2 t
-// + i mod 2), g = lane / 4, t = lane mod 4.
-template <int NB>
-struct Frag {
-  int r0, c0, g, t;
-  float c[NB][4];
-  __device__ __forceinline__ Frag(int M) {
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, rt = M / 16;
-    r0 = 16 * (w % rt);
-    c0 = 8 * NB * (w / rt);
-    g = lane >> 2;
-    t = lane & 3;
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[nb][i] = 0.f;
-  }
-  __device__ __forceinline__ int row(int i) const { return r0 + g + 8 * (i >> 1); }
-  __device__ __forceinline__ int col(int nb, int i) const { return c0 + 8 * nb + 2 * t + (i & 1); }
-};
-
-// f.c += sum over k < K (a multiple of 8) of a(row, k) b(k, col) on TF32
-// tensor cores; ALO / BLO: the operand is an f32 value carried as hi + lo
-// (without, it must be exact in TF32, as a bf16 value is)
-template <bool ALO, bool BLO, int NB, typename A, typename B>
-__device__ __forceinline__ void mma(Frag<NB>& f, int K, A a, B b) {
-  const int r = f.r0 + f.g, t = f.t;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 8) {
-    const float av[4] = {a(r, k + t), a(r + 8, k + t), a(r, k + t + 4), a(r + 8, k + t + 4)};
-    uint32_t ah[4], al[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      ah[i] = tf32(av[i]);
-      al[i] = ALO ? tf32(av[i] - __uint_as_float(ah[i])) : 0u;
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-      const int col = f.c0 + 8 * nb + f.g;
-      const float b0 = b(k + t, col), b1 = b(k + t + 4, col);
-      const uint32_t bh0 = tf32(b0), bh1 = tf32(b1);
-      if (ALO) mma_tf32(f.c[nb], al, bh0, bh1);
-      if (BLO) mma_tf32(f.c[nb], ah, tf32(b0 - __uint_as_float(bh0)), tf32(b1 - __uint_as_float(bh1)));
-      mma_tf32(f.c[nb], ah, bh0, bh1);
-    }
-  }
-}
-
-// ---- shared by both builds -------------------------------------------------
 
 // four consecutive elements from global memory in f32: one 16-byte (f32)
 // or 8-byte (bf16) load where `vec`, else four
@@ -1066,12 +974,6 @@ struct Rows {
   }
 };
 
-// two adjacent outputs (an mma fragment's pair of columns) in one store
-__device__ __forceinline__ void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // dt of the chunk's rows (0 past nv) and, on thread 0, cum in f64 in order
 __device__ __forceinline__ void stage_cum(double* cum, float* sdt, const float* dt, long long row, int H, float a,
                                           int nv) {
@@ -1087,20 +989,20 @@ __device__ __forceinline__ void stage_cum(double* cum, float* sdt, const float* 
   __syncthreads();
 }
 
-__host__ __device__ inline size_t terms_smem_floats(int N, int P, int pad) {
-  return 2 * Q + 2 * (size_t)Q * (N + pad) + 2 * (size_t)Q * (P + pad) + 3 * Q;
+__host__ __device__ inline size_t terms_smem_floats(int N, int P) {
+  return 2 * Q + 2 * (size_t)Q * (N + PAD) + 2 * (size_t)Q * (P + PAD) + 3 * Q;
 }
 
 // (1) s_c and r_c into the scratch, and the chunk's decay
-template <typename T, bool TC>
-__global__ void __launch_bounds__(THREADS, TC ? 2 : 1) state_terms_kernel(
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) state_terms_kernel(
     const T* __restrict__ x, long long x_sb, long long x_st, const float* __restrict__ dt,
     const float* __restrict__ a, const T* __restrict__ bm, long long b_sb, long long b_st, const T* __restrict__ cm,
     long long c_sb, long long c_st, const float* __restrict__ dy, float* __restrict__ s_out,
     float* __restrict__ r_out, float* __restrict__ dec, int Tn, int H, int N, int P, int nc) {
   extern __shared__ __align__(16) float smem[];
   const int c = blockIdx.x, hh = blockIdx.y, b = blockIdx.z;
-  const int ldn = N + Pad<TC>::V, ldp = P + Pad<TC>::V;
+  const int ldn = N + PAD, ldp = P + PAD;
   double* cum = reinterpret_cast<double*>(smem);  // [Q]
   float* sB = smem + 2 * Q;                       // [Q][ldn]
   float* sC = sB + Q * ldn;                       // [Q][ldn]
@@ -1136,34 +1038,20 @@ __global__ void __launch_bounds__(THREADS, TC ? 2 : 1) state_terms_kernel(
   const auto sb = [&](int j, int p) { return sX[j * ldp + p]; };
   const auto ra = [&](int n, int i) { return sE[i] * sC[i * ldn + n]; };
   const auto rb = [&](int i, int p) { return sDY[i * ldp + p]; };
-  if constexpr (TC) {
-    Frag<4> fs(TC_N), fr(TC_N);
-    mma<true, false>(fs, Q, sa, sb);
-    mma<true, true>(fr, Q, ra, rb);
+  for_tiles<4, 4>(N, P, [&](Tile<4, 4>& t) {
+    mac(t, nv, sa, sb);
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; i += 2) {
-        const long long e = base + (long long)fs.row(i) * P + fs.col(nb, i);
-        store2(s_out + e, fs.c[nb][i], fs.c[nb][i + 1]);
-        store2(r_out + e, fr.c[nb][i], fr.c[nb][i + 1]);
-      }
-  } else {
-    for_tiles<4, 4>(N, P, [&](Tile<4, 4>& t) {
-      mac(t, nv, sa, sb);
+      for (int j = 0; j < 4; ++j) s_out[base + (long long)t.r[i] * P + t.c[j]] = t.v[i][j];
+  });
+  for_tiles<4, 4>(N, P, [&](Tile<4, 4>& t) {
+    mac(t, nv, ra, rb);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s_out[base + (long long)t.r[i] * P + t.c[j]] = t.v[i][j];
-    });
-    for_tiles<4, 4>(N, P, [&](Tile<4, 4>& t) {
-      mac(t, nv, ra, rb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) r_out[base + (long long)t.r[i] * P + t.c[j]] = t.v[i][j];
-    });
-  }
+      for (int j = 0; j < 4; ++j) r_out[base + (long long)t.r[i] * P + t.c[j]] = t.v[i][j];
+  });
 }
 
 // (2) entering states over s, gradients of the leaving states over r, dh0;
@@ -1207,13 +1095,13 @@ __global__ void __launch_bounds__(256) state_pass_kernel(float4* __restrict__ s,
   if (dh0) dh0[bh * NP4 + e] = g;
 }
 
-__host__ __device__ inline size_t grad_smem_floats(int N, int P, int pad) {
-  return 2 * Q + 2 * (size_t)Q * (N + pad) + 2 * (size_t)Q * (P + pad) + 2 * (size_t)N * (P + pad) +
-         3 * (size_t)Q * (Q + pad) + 10 * Q;
+__host__ __device__ inline size_t grad_smem_floats(int N, int P) {
+  return 2 * Q + 2 * (size_t)Q * (N + PAD) + 2 * (size_t)Q * (P + PAD) + 2 * (size_t)N * (P + PAD) +
+         3 * (size_t)Q * LDQ + 10 * Q;
 }
 
 // (3) dx, ddt, this head's shares of dB, dC and da
-template <typename T, bool TC>
+template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) grad_kernel(
     const T* __restrict__ x, long long x_sb, long long x_st, const float* __restrict__ dt,
     const float* __restrict__ a, const T* __restrict__ bm, long long b_sb, long long b_st, const T* __restrict__ cm,
@@ -1221,9 +1109,8 @@ __global__ void __launch_bounds__(THREADS, 1) grad_kernel(
     const float* __restrict__ gs, T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dbp,
     float* __restrict__ dcp, float* __restrict__ dap, int Tn, int H, int N, int P, int nc) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int LDQ = Pad<TC>::LDQ;
   const int c = blockIdx.x, hh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int ldn = N + Pad<TC>::V, ldp = P + Pad<TC>::V;
+  const int ldn = N + PAD, ldp = P + PAD;
   double* cum = reinterpret_cast<double*>(smem);  // [Q]
   float* sC = smem + 2 * Q;                       // [Q][ldn]
   float* sB = sC + Q * ldn;                       // [Q][ldn]
@@ -1291,33 +1178,20 @@ __global__ void __launch_bounds__(THREADS, 1) grad_kernel(
   const auto dy_kp = [&](int i, int p) { return sDY[i * ldp + p]; };   // dy_i[p], k = i
   const auto b_row = [&](int j, int n) { return sB[j * ldn + n]; };    // B_j[n], row j
   // C B^T and dS = dy x^T
-  if constexpr (TC) {
-    Frag<2> f1(Q), f2(Q);
-    mma<false, false>(f1, N, c_in, b_jn);
-    mma<true, false>(f2, P, dy_ip, x_jp);
+  for_tiles<2, 4>(Q, Q, [&](Tile<2, 4>& t) {
+    mac(t, N, c_in, b_jn);
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sT1[f1.row(i) * LDQ + f1.col(nb, i)] = f1.c[nb][i];
-        sT2[f2.row(i) * LDQ + f2.col(nb, i)] = f2.c[nb][i];
-      }
-  } else {
-    for_tiles<2, 4>(Q, Q, [&](Tile<2, 4>& t) {
-      mac(t, N, c_in, b_jn);
+      for (int j = 0; j < 4; ++j) sT1[t.r[i] * LDQ + t.c[j]] = t.v[i][j];
+  });
+  for_tiles<2, 4>(Q, Q, [&](Tile<2, 4>& t) {
+    mac(t, P, dy_ip, x_jp);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sT1[t.r[i] * LDQ + t.c[j]] = t.v[i][j];
-    });
-    for_tiles<2, 4>(Q, Q, [&](Tile<2, 4>& t) {
-      mac(t, P, dy_ip, x_jp);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sT2[t.r[i] * LDQ + t.c[j]] = t.v[i][j];
-    });
-  }
+      for (int j = 0; j < 4; ++j) sT2[t.r[i] * LDQ + t.c[j]] = t.v[i][j];
+  });
   __syncthreads();
   // S, dCB and M; the causal mask before the exponential
   for (int e = tid; e < Q * Q; e += THREADS) {
@@ -1342,137 +1216,66 @@ __global__ void __launch_bounds__(THREADS, 1) grad_kernel(
   __syncthreads();  // M is spent: sT3 holds the row-sum partials from here
   float* red_in = sT3;           // [Q][32]: C_i . (exp(cum_i) hp dy_i) by column group
   float* red_dw = sT3 + Q * 32;  // [Q][32]: B_j . (g x_j) by column group
-  const int nred = TC ? TC_N / 32 : N / 4;  // column groups a row: a warp's 32 columns, or a thread's 4
-  if constexpr (TC) {
-    // dC_i = exp(cum_i) hp dy_i + sum_j dCB_ij B_j
-    {
-      Frag<4> f(Q);
-      mma<true, true>(f, P, dy_ip, hp_np);
-      float part[2] = {0.f, 0.f};
+  const int nred = N / 4;        // column groups a row: a thread's 4
+  // dC_i = exp(cum_i) hp dy_i + sum_j dCB_ij B_j
+  for_tiles<4, 4>(Q, N, [&](Tile<4, 4>& t) {
+    mac(t, P, dy_ip, hp_np);
+    const int tc = t.c[0];
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
+    for (int i = 0; i < 4; ++i) {
+      const int r = t.r[i];
+      float part = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          f.c[nb][i] *= sEi[f.row(i)];
-          part[i >> 1] = fmaf(sC[f.row(i) * ldn + f.col(nb, i)], f.c[nb][i], part[i >> 1]);
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
-        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
-        if (f.t == 0) red_in[(f.r0 + f.g + 8 * h) * 32 + f.c0 / 32] = part[h];
+      for (int j = 0; j < 4; ++j) {
+        t.v[i][j] *= sEi[r];
+        part = fmaf(sC[r * ldn + t.c[j]], t.v[i][j], part);
       }
-      mma<true, false>(f, Q, dcb, b_kn);
-#pragma unroll
-      for (int i = 0; i < 4; i += 2)
-        if (f.row(i) < nv)
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
-            store2(dcp + (row0 + (long long)f.row(i) * H) * N + f.col(nb, i), f.c[nb][i], f.c[nb][i + 1]);
+      red_in[r * 32 + tc] = part;
     }
-    // dB_j = w_j g x_j + sum_i dCB_ij C_i; and dL/dw_j = B_j . (g x_j)
-    {
-      Frag<4> f(Q);
-      mma<false, true>(f, P, x_row, g_np);
-      float part[2] = {0.f, 0.f};
+    mac(t, Q, dcb, b_kn);
 #pragma unroll
-      for (int nb = 0; nb < 4; ++nb)
+    for (int i = 0; i < 4; ++i)
+      if (t.r[i] < nv)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          part[i >> 1] = fmaf(sB[f.row(i) * ldn + f.col(nb, i)], f.c[nb][i], part[i >> 1]);
-          f.c[nb][i] *= sW[f.row(i)];
-        }
+        for (int j = 0; j < 4; ++j) dcp[(row0 + (long long)t.r[i] * H) * N + t.c[j]] = t.v[i][j];
+  });
+  // dB_j = w_j g x_j + sum_i dCB_ij C_i; and dL/dw_j = B_j . (g x_j)
+  for_tiles<4, 4>(Q, N, [&](Tile<4, 4>& t) {
+    mac(t, P, x_row, g_np);
+    const int tc = t.c[0];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
-        part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
-        if (f.t == 0) red_dw[(f.r0 + f.g + 8 * h) * 32 + f.c0 / 32] = part[h];
+    for (int i = 0; i < 4; ++i) {
+      const int r = t.r[i];
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        part = fmaf(sB[r * ldn + t.c[j]], t.v[i][j], part);
+        t.v[i][j] *= sW[r];
       }
-      mma<true, false>(f, Q, dcb_t, c_kn);
-#pragma unroll
-      for (int i = 0; i < 4; i += 2)
-        if (f.row(i) < nv)
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb)
-            store2(dbp + (row0 + (long long)f.row(i) * H) * N + f.col(nb, i), f.c[nb][i], f.c[nb][i + 1]);
+      red_dw[r * 32 + tc] = part;
     }
-    // dx_j = w_j g^T B_j + sum_i S_ij dy_i
-    {
-      Frag<2> f(Q);
-      mma<false, true>(f, N, b_row, g_kp);
+    mac(t, Q, dcb_t, c_kn);
 #pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
+    for (int i = 0; i < 4; ++i)
+      if (t.r[i] < nv)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) f.c[nb][i] *= sW[f.row(i)];
-      mma<true, true>(f, Q, s_t, dy_kp);
+        for (int j = 0; j < 4; ++j) dbp[(row0 + (long long)t.r[i] * H) * N + t.c[j]] = t.v[i][j];
+  });
+  // dx_j = w_j g^T B_j + sum_i S_ij dy_i
+  for_tiles<2, 4>(Q, P, [&](Tile<2, 4>& t) {
+    mac(t, N, b_row, g_kp);
 #pragma unroll
-      for (int i = 0; i < 4; i += 2)
-        if (f.row(i) < nv)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int nb = 0; nb < 2; ++nb)
-            store2(dx + (row0 + (long long)f.row(i) * H) * P + f.col(nb, i), f.c[nb][i], f.c[nb][i + 1]);
-    }
-  } else {
-    // dC_i = exp(cum_i) hp dy_i + sum_j dCB_ij B_j
-    for_tiles<4, 4>(Q, N, [&](Tile<4, 4>& t) {
-      mac(t, P, dy_ip, hp_np);
-      const int tc = t.c[0];
+      for (int j = 0; j < 4; ++j) t.v[i][j] *= sW[t.r[i]];
+    mac(t, Q, s_t, dy_kp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = t.r[i];
-        float part = 0.f;
+    for (int i = 0; i < 2; ++i)
+      if (t.r[i] < nv)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t.v[i][j] *= sEi[r];
-          part = fmaf(sC[r * ldn + t.c[j]], t.v[i][j], part);
-        }
-        red_in[r * 32 + tc] = part;
-      }
-      mac(t, Q, dcb, b_kn);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (t.r[i] < nv)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dcp[(row0 + (long long)t.r[i] * H) * N + t.c[j]] = t.v[i][j];
-    });
-    // dB_j = w_j g x_j + sum_i dCB_ij C_i; and dL/dw_j = B_j . (g x_j)
-    for_tiles<4, 4>(Q, N, [&](Tile<4, 4>& t) {
-      mac(t, P, x_row, g_np);
-      const int tc = t.c[0];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = t.r[i];
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          part = fmaf(sB[r * ldn + t.c[j]], t.v[i][j], part);
-          t.v[i][j] *= sW[r];
-        }
-        red_dw[r * 32 + tc] = part;
-      }
-      mac(t, Q, dcb_t, c_kn);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (t.r[i] < nv)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dbp[(row0 + (long long)t.r[i] * H) * N + t.c[j]] = t.v[i][j];
-    });
-    // dx_j = w_j g^T B_j + sum_i S_ij dy_i
-    for_tiles<2, 4>(Q, P, [&](Tile<2, 4>& t) {
-      mac(t, N, b_row, g_kp);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) t.v[i][j] *= sW[t.r[i]];
-      mac(t, Q, s_t, dy_kp);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (t.r[i] < nv)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            dx[(row0 + (long long)t.r[i] * H) * P + t.c[j]] = from_f32<T>(t.v[i][j]);
-    });
-  }
+        for (int j = 0; j < 4; ++j)
+          dx[(row0 + (long long)t.r[i] * H) * P + t.c[j]] = from_f32<T>(t.v[i][j]);
+  });
   // exp(cum_last) sum g o hp: per-thread partials in element order, then a
   // fixed tree (warp butterflies, the warps' sums in order)
   float gh = 0.f;
@@ -1539,7 +1342,7 @@ __global__ void sum_kernel(const float* __restrict__ dbp, const float* __restric
   dc[e] = from_f32<T>(sc);
 }
 
-template <typename T, bool TC>
+template <typename T>
 int launch(const void* x, long long x_sb, long long x_st, const void* dt, const void* a, const void* bm,
            long long b_sb, long long b_st, const void* cm, long long c_sb, long long c_st, const void* dy,
            const void* dh_final, const void* h0, void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
@@ -1552,15 +1355,15 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
   float* dap = dec + bch;
   float* dbp = dap + bch;
   float* dcp = dbp + (long long)B * Tn * H * N;
-  const size_t smem1 = terms_smem_floats(N, P, Pad<TC>::V) * sizeof(float);
-  const size_t smem3 = grad_smem_floats(N, P, Pad<TC>::V) * sizeof(float);
+  const size_t smem1 = terms_smem_floats(N, P) * sizeof(float);
+  const size_t smem3 = grad_smem_floats(N, P) * sizeof(float);
   cudaError_t err =
-      cudaFuncSetAttribute(state_terms_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
+      cudaFuncSetAttribute(state_terms_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(grad_kernel<T, TC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
+  err = cudaFuncSetAttribute(grad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem3);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nc, H, B);
-  state_terms_kernel<T, TC><<<grid, THREADS, smem1, stream>>>(
+  state_terms_kernel<T><<<grid, THREADS, smem1, stream>>>(
       (const T*)x, x_sb, x_st, (const float*)dt, (const float*)a, (const T*)bm, b_sb, b_st, (const T*)cm, c_sb, c_st,
       (const float*)dy, s_buf, r_buf, dec, Tn, H, N, P, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1568,7 +1371,7 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
   state_pass_kernel<<<dim3((unsigned)((NP4 + 255) / 256), H, B), 256, 0, stream>>>(
       (float4*)s_buf, (float4*)r_buf, dec, (const float4*)h0, (const float4*)dh_final, (float4*)dh0, H, NP4, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  grad_kernel<T, TC><<<grid, THREADS, smem3, stream>>>(
+  grad_kernel<T><<<grid, THREADS, smem3, stream>>>(
       (const T*)x, x_sb, x_st, (const float*)dt, (const float*)a, (const T*)bm, b_sb, b_st, (const T*)cm, c_sb, c_st,
       (const float*)dy, s_buf, r_buf, (T*)dx, (float*)ddt, dbp, dcp, dap, Tn, H, N, P, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1579,6 +1382,1271 @@ int launch(const void* x, long long x_sb, long long x_st, const void* dt, const 
 }
 
 }  // namespace bwd
+
+// Tensor cores (bf16 x, B and C at N 128, P 64 that TMA reads in place:
+// every Mamba-2 layer): chunks of tc::Q = 256 in row tiles of 64, so the
+// chunk states and their gradients are a quarter of the CUDA-core build's
+// and the state passes walk a quarter of the chunks.  What bounds it as
+// built: latency inside the blocks (each head's tile runs product,
+// elementwise, product in turn) and the scratch that passes between the
+// launches (~1 GB at Mamba-2-2.7B's training shape), not the 0.052 ms of
+// the bound's bytes.  Eight launches:
+//  (1) the forward's chunk-state launch (tc::chunk_state_kernel, as it is):
+//      s_c, the chunk's decay, and its cum (f32) and dt rows.
+//  (2) r_c = sum_i exp(cum_i) C_i dy_i^T, one block per (chunk, 10 heads)
+//      shaped as (1) (a producer warp's TMA loads of C and each head's dy
+//      in f32, two consumer warpgroups on alternate heads, wgmma with
+//      (exp(cum) o dy)^T as the register A operand and C's rows as B); the
+//      chunk's cumsum of dt a in f64 as (1) takes it, kept per row in f64.
+//  (3) both state passes, one thread per 4 state elements of a (batch,
+//      head): the entering states hp and the leaving states' gradients g,
+//      each stored as hi and lo bf16 planes that TMA brings to (4), and
+//      each chunk's sum of g o hp (a value a block); dh0.
+//  (4) row blocks, one per (row tile T, chunk, 8 heads x batch): per head,
+//      the two state terms that share a head's state across all 128
+//      columns of B and C, summed over the block's heads in ascending order
+//      in registers, each warpgroup owning 64 of the N columns:
+//      dC_T += (exp(cum) o dy_T) hp^T and dB_T += (w o x_T) g^T; the
+//      carried-in state's share of dcum, exp(cum_i) dy_i . (C_i hp) (each
+//      warpgroup its half of N); and, by the warpgroups in turn, u = B_T g,
+//      whence dL/dw_j = x_j . u_j and dx's state term w_j u_j (f32, read by
+//      (5)).  Each head's products in four wgmma groups, the ALU work
+//      between them while they run.  Only H / 8 partials of dB and dC reach
+//      HBM.
+//  (5) column blocks, one per (column tile T, chunk, 8 heads x batch), the
+//      longest first: C B^T_TI once for the block's heads (over C's tiles I
+//      >= T, then in f32 over them), and per head (in pairs, one a
+//      warpgroup; x, dy and the next pair's tiles by TMA from one producer
+//      warp) and row tile I >= T: dy_I's f32 tile split into hi and lo bf16
+//      tiles in place, dS^T = x_T dy_I^T, S^T, dCB^T and M^T (the causal
+//      mask before the exponential on the diagonal tile; off it a decay
+//      factor per row times one per column, each column's computed once),
+//      dx_T += S^T dy_I from the state term, M's row sums and its
+//      dt-weighted column sums (a partial per (T, I)); dCB^T summed over the
+//      block's heads on chip (each pair's two, then the pairs in order),
+//      one tile to HBM.
+//  (6) ddt and da's share per (batch, chunk, head): dcum from those terms,
+//      its reverse cumsum by a block scan in f64.
+//  (7) the dCB tiles summed over the column blocks' head groups in order.
+//  (8) dC_T = the row blocks' partials + sum_{J <= T} dCB_TJ B_J and dB_T =
+//      theirs + sum_{I >= T} dCB_IT^T C_I (f32 on CUDA cores: 0.3 GFLOP),
+//      and da over (batch, chunk) by the last block.
+//  * Products on wgmma (bf16 in, f32 accumulators).  x, B and C are exact
+//    in bf16.  The f32 operands (dy, S, the states and their gradients, the
+//    scaled rows exp(cum) o dy and w o x) are carried as hi + lo bf16
+//    pairs, and a product of two of them takes hi x hi + hi x lo + lo x hi:
+//    f32 operands to ~2^-17 of themselves, sums in f32.  Each set of lo
+//    halves is needed at the training shape (tests/test_torch_cuda_builds.py
+//    builds this file with each set zeroed and counts the misses).
+//  * Every sum runs in a fixed order, without atomics: a repeated launch is
+//    bitwise equal.  Rows past T are TMA zeros with dt = 0 and the last
+//    cum: they add nothing and are not written.
+namespace bwd_tc {
+
+using tc::BOX;
+using tc::CONSUMERS;
+using tc::HALF;
+using tc::NP;
+using tc::NRB;
+using tc::NS;
+using tc::PD;
+using tc::Q;
+using tc::RB;
+using tc::RBLK;
+using tc::THREADS;
+using tc::WG;
+using tc::consumers_sync;
+using tc::swz;
+using tc::wg_sync;
+
+constexpr int HG3 = 10;                      // heads a state-term block (2)
+constexpr int HGR = 8;                       // heads a row block (4)
+constexpr int HGC = 8;                       // heads a column block (5): in pairs, one a warpgroup
+constexpr int NPAIR = NRB * (NRB + 1) / 2;   // causal (column tile, row tile) pairs of a chunk
+constexpr int NBLK = NP / 4 / 256;           // blocks of (3) a (batch, head)
+constexpr int TILE = RB * RB;                // elements of a 64 x 64 tile
+
+// the pair of column tile J and row tile I >= J
+__host__ __device__ inline int pair_of(int J, int I) { return I * (I + 1) / 2 + J; }
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+
+// two adjacent bf16 elements of a tile in shared memory (4-byte aligned) in f32
+__device__ __forceinline__ float2 bf2_at(const unsigned char* p) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(p);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+__device__ __forceinline__ float2 bf2(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+// S^T's pairs as register A operands: hi = bf16(v), lo = bf16(v - hi)
+__device__ __forceinline__ void split_s(float s0, float s1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(s0, s1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(s0 - __low2float(h), s1 - __high2float(h)));
+}
+
+// the scaled rows' pairs (exp(cum) o dy, w o x) as register A operands
+__device__ __forceinline__ void split_rows(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h)));
+}
+
+// four state elements as entries of a hi and a lo bf16 plane
+__device__ __forceinline__ void split_state(const float4& v, uint2& hi, uint2& lo) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+  uint32_t h[2], l[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const __nv_bfloat162 hk = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+    h[k] = bits(hk);
+    l[k] = bits(__floats2bfloat162_rn(x[2 * k] - __low2float(hk), x[2 * k + 1] - __high2float(hk)));
+  }
+  hi = make_uint2(h[0], h[1]);
+  lo = make_uint2(l[0], l[1]);
+}
+
+// D (64 x 64) += A (64 x 16, registers) . B (64 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// the k-step ks slice of a 16-register A operand
+__device__ __forceinline__ void a_of(const uint32_t (&r)[16], int ks, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) a[m] = r[4 * ks + m];
+}
+
+// the sum over the four lanes of a quad (the four threads of a row of an
+// accumulator), in a fixed order
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// byte offset of f32 element (row, col < 64) in a tile of two boxes of 32
+// columns (BOX bytes apart) that TMA wrote with the 128-byte swizzle
+__device__ __forceinline__ int swz32(int row, int col) {
+  return (col >> 5) * BOX + row * 128 + (((((col & 31) >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+}
+
+// eight f32 values as a 16-byte chunk of a hi and of a lo bf16 tile
+__device__ __forceinline__ void split8(const float4& a, const float4& c, uint4& hi, uint4& lo) {
+  const float v[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 hk = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    h[k] = bits(hk);
+    l[k] = bits(__floats2bfloat162_rn(v[2 * k] - __low2float(hk), v[2 * k + 1] - __high2float(hk)));
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// (2) shared memory: C's rows of the chunk (4 row tiles), two dy stages (a
+// head's 4 row tiles in f32, two boxes of 32 columns each; warpgroup w
+// takes stage w), exp(cum) of each head, the warps' scan totals and the
+// heads' last cums, the barriers (C, full[2], empty[2])
+struct TermSmem {
+  static constexpr int C_OFF = 0;
+  static constexpr int D_OFF = NRB * RBLK;
+  static constexpr int D_STAGE = 2 * NRB * BOX;
+  static constexpr int E_OFF = D_OFF + 2 * D_STAGE;
+  static constexpr int TOT_OFF = E_OFF + HG3 * Q * 4;
+  static constexpr int BAR_OFF = (TOT_OFF + (CONSUMERS / 32 + 1) * HG3 * 8 + 15) / 16 * 16;
+  static constexpr int BYTES = BAR_OFF + 5 * 8 + 1024;
+};
+
+// (2) r_c and the rows' cum in f64: one block per (chunk, HG3 heads, batch)
+__global__ void __launch_bounds__(THREADS, 1) rterm_kernel(
+    const __grid_constant__ CUtensorMap tdy,  // dy (f32) as (P, H, T, B): boxes of (32, 1, 64, 1)
+    const __grid_constant__ CUtensorMap tcm,  // C as (N, T, B): boxes of (64, 64, 1)
+    const float* __restrict__ dt,             // (B, T, H)
+    const float* __restrict__ a,              // (H,)
+    float* __restrict__ r_out,                // (B, nc, H, N, P)
+    double* __restrict__ cum_out,             // (B, nc, H, Q): rows past T repeat the last
+    int Tn, int H, int nc) {
+  using L = TermSmem;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gb = smem_raw + (base - sm90::smem_u32(smem_raw));
+  const uint32_t bar_c = base + L::BAR_OFF, full = bar_c + 8, empty = full + 16;
+  const int c = blockIdx.x, h_first = blockIdx.y * HG3, b = blockIdx.z;
+  const int nh = min(HG3, H - h_first);
+  const int t0 = c * Q, nv = min(Q, Tn - t0);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(bar_c, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, WG / 32);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane starts every load
+    if (tid == CONSUMERS) {
+      sm90::mbar_expect_tx(bar_c, NRB * RBLK);
+      for (int r = 0; r < NRB; ++r)
+        for (int cb = 0; cb < 2; ++cb)
+          sm90::tma_load_3d(base + L::C_OFF + r * RBLK + cb * BOX, &tcm, bar_c, 64 * cb, t0 + RB * r, b);
+      for (int k = 0; k < nh; ++k) {
+        const int s = k & 1;
+        if (k >= 2) sm90::mbar_wait(empty + 8 * s, ((k >> 1) - 1) & 1);
+        const uint32_t st = base + L::D_OFF + s * L::D_STAGE;
+        sm90::mbar_expect_tx(full + 8 * s, L::D_STAGE);
+        for (int r = 0; r < NRB; ++r)
+          for (int hb = 0; hb < 2; ++hb)
+            sm90::tma_load_4d(st + (2 * r + hb) * BOX, &tdy, full + 8 * s, 32 * hb, h_first + k, t0 + RB * r, b);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  float* se = reinterpret_cast<float*>(gb + L::E_OFF);        // [HG3][Q]: exp(cum) of each head
+  double* tot = reinterpret_cast<double*>(gb + L::TOT_OFF);  // [8][HG3] warp totals, then [HG3] last cums
+  // every head's inclusive cumsum of dt * a over the chunk, row tid here,
+  // in f64, as the forward's chunk-state launch takes it
+  constexpr int NW = CONSUMERS / 32;
+  double cum[HG3];
+#pragma unroll
+  for (int k = 0; k < HG3; ++k) {
+    const int hh = min(h_first + k, H - 1);
+    const float dv = tid < nv ? dt[((long)b * Tn + t0 + tid) * H + hh] : 0.f;
+    double inc = (double)dv * (double)a[hh];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double n = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += n;
+    }
+    if (lane == 31) tot[warp * HG3 + k] = inc;
+    cum[k] = inc;
+  }
+  consumers_sync();
+#pragma unroll
+  for (int k = 0; k < HG3; ++k) {
+    double pre = 0.0;
+    for (int w = 0; w < warp; ++w) pre += tot[w * HG3 + k];
+    cum[k] = pre + cum[k];
+    if (tid == nv - 1) tot[NW * HG3 + k] = cum[k];
+  }
+  consumers_sync();
+#pragma unroll
+  for (int k = 0; k < HG3; ++k) {
+    if (k >= nh) break;
+    const long u = ((long)b * nc + c) * H + h_first + k;
+    if (tid >= nv) cum[k] = tot[NW * HG3 + k];  // rows past T repeat the last cum
+    se[k * Q + tid] = expf((float)cum[k]);
+    cum_out[u * Q + tid] = cum[k];
+  }
+  consumers_sync();  // every head's exp(cum) is written
+  sm90::mbar_wait(bar_c, 0);
+
+  // warpgroup w takes heads w, w + 2, ... from stage w
+  const int w = tid / WG, wt = tid % WG;
+  const int prow = 16 * (wt >> 5) + (lane >> 2), jq = 2 * (lane & 3);
+  for (int k = w; k < nh; k += 2) {
+    const long u = ((long)b * nc + c) * H + h_first + k;
+    const float* ek = se + k * Q;
+    // r_c^T (P x N) = (exp(cum) o dy)^T (P x Q) . C (Q x N): A's element (p,
+    // i) of k-step kq is register 4 kq + q, p = prow + 8 (q & 1), i = 16 kq +
+    // 8 (q >> 1) + jq (+1 in the high half)
+    sm90::mbar_wait(full + 8 * w, (k >> 1) & 1);
+    const unsigned char* ds = gb + L::D_OFF + w * L::D_STAGE;
+    float acc[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < NRB; ++r) {  // 64 rows of the chunk a round: 4 k-steps
+      uint32_t ah4[16], al4[16];
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int p = prow + 8 * (q & 1), il = 16 * kq + 8 * (q >> 1) + jq;
+          const unsigned char* tile = ds + 2 * r * BOX;
+          const float d0 = *reinterpret_cast<const float*>(tile + swz32(il, p));
+          const float d1 = *reinterpret_cast<const float*>(tile + swz32(il + 1, p));
+          split_rows(ek[RB * r + il] * d0, ek[RB * r + il + 1] * d1, ah4[4 * kq + q], al4[4 * kq + q]);
+        }
+      sm90::fence_operands(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const uint64_t db = sm90::desc_mnmajor(base + L::C_OFF + r * RBLK + kq * 16 * 128, BOX);
+        uint32_t hi[4], lo[4];
+        a_of(ah4, kq, hi);
+        a_of(al4, kq, lo);
+        sm90::wgmma_rs_m64n128k16(acc, hi, db);
+        sm90::wgmma_rs_m64n128k16(acc, lo, db);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc);
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + 8 * w);
+    // acc[4 jj + 2 i + e] is row p = prow + 8 i, column n = 8 jj + jq + e of r_c^T
+    float* ro = r_out + u * NP;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) ro[(8 * jj + jq + e) * PD + prow + 8 * i] = acc[4 * jj + 2 * i + e];
+  }
+}
+
+// (3) the states entering the chunks (h0 folded with s_c in chunk order)
+// and the gradients of the states leaving them (dh_final folded with r_c in
+// descending order), each as its chunk's hi and lo bf16 planes, and each
+// chunk's sum of g o hp over the block's 1,024 elements; four elements a
+// thread
+__global__ void __launch_bounds__(256) pass_kernel(
+    const float4* __restrict__ s, const float4* __restrict__ r, const float* __restrict__ dec,
+    const float4* __restrict__ h0, const float4* __restrict__ dh_final,
+    uint2* __restrict__ hp,    // (B, nc, H, 2, N, P) bf16: a chunk's hi plane, then its lo plane
+    uint2* __restrict__ gp,    // the same for the gradients
+    float* __restrict__ ghp,   // (B, nc, H, NBLK)
+    float4* __restrict__ dh0, int H, int nc) {
+  constexpr int NP4 = NP / 4, PL = NP / 4;  // float4s of a state; uint2s of a plane
+  __shared__ float red[2][8];
+  const int e4 = blockIdx.x * 256 + threadIdx.x, hh = blockIdx.y, b = blockIdx.z;
+  const long bh = (long)b * H + hh;
+  const auto at = [&](int c) { return ((long)b * nc + c) * H + hh; };
+  float4 h = h0 ? h0[bh * NP4 + e4] : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nc; ++c) {
+    const long u = at(c);
+    uint2 hi, lo;
+    split_state(h, hi, lo);
+    hp[u * 2 * PL + e4] = hi;
+    hp[u * 2 * PL + PL + e4] = lo;
+    const float4 sv = s[u * NP4 + e4];
+    const float d = dec[u];
+    h = make_float4(d * h.x + sv.x, d * h.y + sv.y, d * h.z + sv.z, d * h.w + sv.w);
+  }
+  float4 g = dh_final ? dh_final[bh * NP4 + e4] : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = nc - 1; c >= 0; --c) {
+    const long u = at(c);
+    uint2 hi, lo;
+    split_state(g, hi, lo);
+    gp[u * 2 * PL + e4] = hi;
+    gp[u * 2 * PL + PL + e4] = lo;
+    const uint2 ph = hp[u * 2 * PL + e4], pl = hp[u * 2 * PL + PL + e4];
+    const float2 h01 = bf2(ph.x), h23 = bf2(ph.y), l01 = bf2(pl.x), l23 = bf2(pl.y);
+    float part = g.x * (h01.x + l01.x);
+    part = fmaf(g.y, h01.y + l01.y, part);
+    part = fmaf(g.z, h23.x + l23.x, part);
+    part = fmaf(g.w, h23.y + l23.y, part);
+    part = warp_sum(part);
+    if ((threadIdx.x & 31) == 0) red[c & 1][threadIdx.x >> 5] = part;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+      for (int k = 0; k < 8; ++k) t += red[c & 1][k];
+      ghp[u * NBLK + blockIdx.x] = t;
+    }
+    const float4 rv = r[u * NP4 + e4];
+    const float d = dec[u];
+    g = make_float4(d * g.x + rv.x, d * g.y + rv.y, d * g.z + rv.z, d * g.w + rv.w);
+  }
+  if (dh0) dh0[bh * NP4 + e4] = g;
+}
+
+// (4) shared memory: C's and B's row tile T, two head stages (dy's tile in
+// f32, x's tile, hp's and g's hi and lo planes), each stage's cum
+// (f64) and dt rows, the barriers (C and B, full[2], empty[2])
+struct RowSmem {
+  static constexpr int C_OFF = 0;
+  static constexpr int B_OFF = RBLK;
+  static constexpr int ST_OFF = 2 * RBLK;
+  static constexpr int DY = 0, X = 2 * BOX, HP = 3 * BOX, G = 3 * BOX + 2 * HALF;
+  static constexpr int STAGE = G + 2 * HALF;
+  static constexpr int CD_OFF = ST_OFF + 2 * STAGE;
+  static constexpr int CD_STAGE = Q * 8 + Q * 4;
+  static constexpr int BAR_OFF = CD_OFF + 2 * CD_STAGE;
+  static constexpr int BYTES = BAR_OFF + 5 * 8 + 1024;
+};
+
+// (4) row blocks: one per (row tile T, chunk, HGR heads x batch); warpgroup
+// w owns columns 64 w .. 64 w + 63 of dB and dC
+__global__ void __launch_bounds__(THREADS, 1) row_kernel(
+    const __grid_constant__ CUtensorMap tdy,  // dy (f32) as (P, H, T, B): boxes of (32, 1, 64, 1)
+    const __grid_constant__ CUtensorMap tx,   // x as (P, H, T, B): boxes of (64, 1, 64, 1)
+    const __grid_constant__ CUtensorMap tb,   // B as (N, T, B): boxes of (64, 64, 1)
+    const __grid_constant__ CUtensorMap tcm,  // C as (N, T, B)
+    const __grid_constant__ CUtensorMap ts,   // hp's planes as (P, N, 2 B nc H): boxes of (64, 128, 1)
+    const __grid_constant__ CUtensorMap tg,   // g's planes, the same
+    const double* __restrict__ cum64,         // (B, nc, H, Q)
+    const float* __restrict__ cd,             // (B, nc, H, 2, Q): cum (f32), then dt (0 past T)
+    float* __restrict__ dxi,                  // (B, T, H, P): dx's state term w_j u_j
+    float* __restrict__ dw,                   // (B, nc, H, Q): dL/dw_j
+    float* __restrict__ inp,                  // (B, nc, H, 2, Q): each warpgroup's share of the carried-in term
+    float* __restrict__ dbi, float* __restrict__ dci,  // (B, T, ngr, N): the heads' dB and dC state terms
+    int Tn, int H, int nc) {
+  using L = RowSmem;
+  const int T = blockIdx.x, c = blockIdx.y;
+  const int ngr = (H + HGR - 1) / HGR;
+  const int gr = blockIdx.z % ngr, b = blockIdx.z / ngr;
+  const int t0 = c * Q, row0 = t0 + RB * T;
+  if (row0 >= Tn) return;  // a row tile past the ragged end
+  const int h_first = gr * HGR, nh = min(HGR, H - h_first);
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gb = smem_raw + (base - sm90::smem_u32(smem_raw));
+  const uint32_t bar_cb = base + L::BAR_OFF, full = bar_cb + 8, empty = full + 16;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(bar_cb, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);
+      sm90::mbar_init(empty + 8 * s, CONSUMERS / 32);  // both warpgroups read every stage
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      sm90::mbar_expect_tx(bar_cb, 2 * RBLK);
+      for (int cb = 0; cb < 2; ++cb) {
+        sm90::tma_load_3d(base + L::C_OFF + cb * BOX, &tcm, bar_cb, 64 * cb, row0, b);
+        sm90::tma_load_3d(base + L::B_OFF + cb * BOX, &tb, bar_cb, 64 * cb, row0, b);
+      }
+      for (int k = 0; k < nh; ++k) {
+        const int s = k & 1, hh = h_first + k;
+        if (k >= 2) sm90::mbar_wait(empty + 8 * s, ((k >> 1) - 1) & 1);
+        const long u = ((long)b * nc + c) * H + hh;
+        const uint32_t st = base + L::ST_OFF + s * L::STAGE, cds = base + L::CD_OFF + s * L::CD_STAGE;
+        const uint32_t bar = full + 8 * s;
+        sm90::mbar_expect_tx(bar, L::STAGE + L::CD_STAGE);
+        sm90::tma_load_4d(st + L::DY, &tdy, bar, 0, hh, row0, b);
+        sm90::tma_load_4d(st + L::DY + BOX, &tdy, bar, 32, hh, row0, b);
+        sm90::tma_load_4d(st + L::X, &tx, bar, 0, hh, row0, b);
+        sm90::tma_load_3d(st + L::HP, &ts, bar, 0, 0, (int)(2 * u));
+        sm90::tma_load_3d(st + L::HP + HALF, &ts, bar, 0, 0, (int)(2 * u + 1));
+        sm90::tma_load_3d(st + L::G, &tg, bar, 0, 0, (int)(2 * u));
+        sm90::tma_load_3d(st + L::G + HALF, &tg, bar, 0, 0, (int)(2 * u + 1));
+        sm90::bulk_load(cds, cum64 + u * Q, Q * 8, bar);
+        sm90::bulk_load(cds + Q * 8, cd + u * 2 * Q + Q, Q * 4, bar);
+      }
+    }
+    return;
+  }
+
+  // warpgroup w; accumulator element e of a 64 x 64 tile: row r0 + 8 ((e
+  // >> 1) & 1), column 8 (e >> 2) + q2 + (e & 1)
+  const int w = tid / WG, wt = tid % WG, lane = tid & 31;
+  const int r0 = 16 * (wt >> 5) + (lane >> 2), q2 = 2 * (lane & 3);
+  sm90::mbar_wait(bar_cb, 0);
+  float acc_c[32], acc_b[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc_c[e] = acc_b[e] = 0.f;
+  for (int k = 0; k < nh; ++k) {
+    const int s = k & 1, hh = h_first + k;
+    const long u = ((long)b * nc + c) * H + hh;
+    sm90::mbar_wait(full + 8 * s, (k >> 1) & 1);
+    const uint32_t st = base + L::ST_OFF + s * L::STAGE;
+    const unsigned char* sp = gb + L::ST_OFF + s * L::STAGE;
+    const double* cum = reinterpret_cast<const double*>(gb + L::CD_OFF + s * L::CD_STAGE);
+    const float* dtv = reinterpret_cast<const float*>(cum + Q);
+    const double last = cum[Q - 1];
+    float ein[2], wv[2];
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int i = RB * T + r0 + 8 * ii;
+      ein[ii] = expf((float)cum[i]);
+      wv[ii] = expf((float)(last - cum[i])) * dtv[i];
+    }
+    // dy's and x's elements (row, p) and (row, p + 1), p even: one read
+    const auto dy2 = [&](int row, int p) { return *reinterpret_cast<const float2*>(sp + L::DY + swz32(row, p)); };
+    const auto x2 = [&](int row, int p) { return bf2_at(sp + L::X + swz(row, p)); };
+    // Each head in four wgmma groups, the ALU work between them while they
+    // run: (a) C_T[:, half w] hp[half w, :] (hi and lo), the carried-in
+    // state's share of dcum; (b) dC_T += (exp(cum) o dy_T) hp^T over this
+    // warpgroup's 64 columns; (c) dB_T += (w o x_T) g^T; (d) by the
+    // warpgroups in turn, u = B_T g, whence dL/dw_j = x_j . u_j and dx's
+    // state term w_j u_j.  A's element (row, p) of k-step ks is register
+    // 4 ks + m, row r0 + 8 (m & 1), p = 16 ks + 8 (m >> 1) + q2 (+1 high).
+    float acc3[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc3[e] = 0.f;
+    sm90::fence_operands(acc3);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = sm90::desc_kmajor(base + L::C_OFF + w * BOX + ks * 32);
+      const uint32_t rows = (64 * w + 16 * ks) * 128;
+      sm90::wgmma_ss_m64n64k16_bmn(acc3, da, sm90::desc_mnmajor(st + L::HP + rows, BOX));
+      sm90::wgmma_ss_m64n64k16_bmn(acc3, da, sm90::desc_mnmajor(st + L::HP + HALF + rows, BOX));
+    }
+    sm90::wgmma_commit();  // (a)
+    uint32_t fh[16], fl[16];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float2 v = dy2(r0 + 8 * (m & 1), 16 * ks + 8 * (m >> 1) + q2);
+        split_rows(ein[m & 1] * v.x, ein[m & 1] * v.y, fh[4 * ks + m], fl[4 * ks + m]);
+      }
+    sm90::fence_operands(acc_c);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t off = w * BOX + ks * 32;  // rows 64 w .. of the planes, K = p
+      const uint64_t hph = sm90::desc_kmajor(st + L::HP + off), hpl = sm90::desc_kmajor(st + L::HP + HALF + off);
+      uint32_t ah[4], al[4];
+      a_of(fh, ks, ah);
+      a_of(fl, ks, al);
+      wgmma_rs_kb(acc_c, ah, hph);
+      wgmma_rs_kb(acc_c, ah, hpl);
+      wgmma_rs_kb(acc_c, al, hph);
+    }
+    sm90::wgmma_commit();  // (b)
+    sm90::wgmma_wait<1>();
+    sm90::fence_operands(acc3);
+    {
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const float2 v = dy2(r0 + 8 * ii, 8 * jj + q2);
+          part[ii] = fmaf(v.x, acc3[4 * jj + 2 * ii], part[ii]);
+          part[ii] = fmaf(v.y, acc3[4 * jj + 2 * ii + 1], part[ii]);
+        }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const float v = quad_sum(part[ii]);
+        if ((lane & 3) == 0) inp[(u * 2 + w) * Q + RB * T + r0 + 8 * ii] = ein[ii] * v;
+      }
+    }
+    uint32_t gh[16], gl[16];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float2 v = x2(r0 + 8 * (m & 1), 16 * ks + 8 * (m >> 1) + q2);
+        split_rows(wv[m & 1] * v.x, wv[m & 1] * v.y, gh[4 * ks + m], gl[4 * ks + m]);
+      }
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(acc_c);
+    sm90::fence_operands(fh);
+    sm90::fence_operands(fl);
+    sm90::fence_operands(acc_b);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t off = w * BOX + ks * 32;
+      const uint64_t gph = sm90::desc_kmajor(st + L::G + off), gpl = sm90::desc_kmajor(st + L::G + HALF + off);
+      uint32_t bh[4], bl[4];
+      a_of(gh, ks, bh);
+      a_of(gl, ks, bl);
+      wgmma_rs_kb(acc_b, bh, gph);
+      wgmma_rs_kb(acc_b, bh, gpl);
+      wgmma_rs_kb(acc_b, bl, gph);
+    }
+    sm90::wgmma_commit();  // (c)
+    if ((k & 1) == w) {
+      float acc4[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc4[e] = 0.f;
+      sm90::fence_operands(acc4);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < NS / 16; ++ks) {
+        const uint64_t da = sm90::desc_kmajor(base + L::B_OFF + (ks >> 2) * BOX + (ks & 3) * 32);
+        sm90::wgmma_ss_m64n64k16_bmn(acc4, da, sm90::desc_mnmajor(st + L::G + ks * 16 * 128, BOX));
+        sm90::wgmma_ss_m64n64k16_bmn(acc4, da, sm90::desc_mnmajor(st + L::G + HALF + ks * 16 * 128, BOX));
+      }
+      sm90::wgmma_commit();  // (d)
+      sm90::wgmma_wait<0>();
+      sm90::fence_operands(acc4);
+      float part[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const float2 v = x2(r0 + 8 * ii, 8 * jj + q2);
+          part[ii] = fmaf(v.x, acc4[4 * jj + 2 * ii], part[ii]);
+          part[ii] = fmaf(v.y, acc4[4 * jj + 2 * ii + 1], part[ii]);
+        }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const float v = quad_sum(part[ii]);
+        if ((lane & 3) == 0) dw[u * Q + RB * T + r0 + 8 * ii] = v;
+        const int t = row0 + r0 + 8 * ii;
+        if (t >= Tn) continue;
+        float* o = dxi + (((long)b * Tn + t) * H + hh) * PD;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+          *reinterpret_cast<float2*>(o + 8 * jj + q2) =
+              make_float2(wv[ii] * acc4[4 * jj + 2 * ii], wv[ii] * acc4[4 * jj + 2 * ii + 1]);
+      }
+    } else {
+      sm90::wgmma_wait<0>();
+    }
+    sm90::fence_operands(acc_b);
+    sm90::fence_operands(gh);
+    sm90::fence_operands(gl);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty + 8 * s);
+  }
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int t = row0 + r0 + 8 * ii;
+    if (t >= Tn) continue;
+    const long o = (((long)b * Tn + t) * ngr + gr) * NS + 64 * w;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int e = 4 * jj + 2 * ii;
+      *reinterpret_cast<float2*>(dci + o + 8 * jj + q2) = make_float2(acc_c[e], acc_c[e + 1]);
+      *reinterpret_cast<float2*>(dbi + o + 8 * jj + q2) = make_float2(acc_b[e], acc_b[e + 1]);
+    }
+  }
+}
+
+// (5) a thread's share of tile (T, I): S^T = C B^T o E o dt_j, dCB^T = dS^T
+// o E o dt_j and M^T = dS^T o C B^T o E from dS^T (`ds`, replaced by dCB^T)
+// and C B^T (`cbt`, the register order of a warpgroup's thread); S^T as hi
+// and lo A operands, M's row sums into csum and its dt-weighted column sums
+// over the thread's two rows into colp.  Off the diagonal tile E = cfh[i]
+// rh[j] (a factor per column and one per row); on it E = exp((cfh[i] -
+// rh[j]) + (cfl[i] - rl[j])), cum less the tile's first row's carried as hi
+// + lo f32 so that the difference is exact to f32 rounding of itself, and
+// the mask applied before the exponential.
+template <bool DIAG>
+__device__ __forceinline__ void col_tile(float (&ds)[32], const float4* cbt, const float* cfh, const float* cfl,
+                                         const float (&rh)[2], const float (&rl)[2], const float (&dtj)[2], int wt,
+                                         int r0, int q2, uint32_t (&sh)[16], uint32_t (&sl)[16], float (&csum)[2],
+                                         float (&colp)[16]) {
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const float4 c4 = cbt[v * WG + wt];
+    const float cbv[4] = {c4.x, c4.y, c4.z, c4.w};
+    float sv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // element 4 v + q: row r0 + 8 ii, column il
+      const int ii = q >> 1, il = 8 * v + q2 + (q & 1), k2 = 2 * v + (q & 1);
+      float E;
+      if constexpr (DIAG)
+        E = il >= r0 + 8 * ii ? __expf((cfh[il] - rh[ii]) + (cfl[il] - rl[ii])) : 0.f;
+      else
+        E = cfh[il] * rh[ii];
+      const float dsv = ds[4 * v + q], ed = E * dtj[ii], mv = dsv * cbv[q] * E;
+      sv[q] = cbv[q] * ed;
+      ds[4 * v + q] = dsv * ed;
+      csum[ii] += mv;
+      colp[k2] = ii == 0 ? mv * dtj[0] : fmaf(mv, dtj[1], colp[k2]);
+    }
+    split_s(sv[0], sv[1], sh[2 * v], sl[2 * v]);
+    split_s(sv[2], sv[3], sh[2 * v + 1], sl[2 * v + 1]);
+  }
+}
+
+// (5) shared memory: B's row tile T, C's row tiles I >= T (then C B^T_TI in
+// f32 over them, in the register order of a warpgroup's thread), per
+// warpgroup two x tiles (its heads of two pairs in turn) and two dy slots
+// (a tile in f32 from TMA, then its hi and lo bf16 tiles in place),
+// warpgroup 1's dCB^T (in its threads' order), per warpgroup and x tile its
+// head's cum (f64) and dt rows, per warpgroup its warps' column sums and
+// the tile's column factors (hi, lo), the barriers (B and C; per
+// warpgroup x full[2] and empty[2], dy full[2] and empty[2])
+struct ColSmem {
+  static constexpr int B_OFF = 0;
+  static constexpr int CB_OFF = RBLK;
+  static constexpr int W_OFF = CB_OFF + NRB * RBLK;
+  static constexpr int X = 0, DYS = 2 * BOX, W_BYTES = 2 * BOX + 2 * 2 * BOX;
+  static constexpr int XCH_OFF = W_OFF + 2 * W_BYTES;
+  static constexpr int CD_OFF = XCH_OFF + TILE * 4;
+  static constexpr int CD_BYTES = Q * 8 + Q * 4;
+  static constexpr int RED_OFF = CD_OFF + 4 * CD_BYTES;
+  static constexpr int COLF_OFF = RED_OFF + 2 * 4 * RB * 4;
+  static constexpr int BAR_OFF = COLF_OFF + 2 * 2 * RB * 4;
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * 8) * 8 + 1024;
+};
+
+// (5) column blocks: one per (column tile T, chunk, HGC heads x batch); the
+// heads in pairs, warpgroup w taking head 2 k + w of pair k
+__global__ void __launch_bounds__(THREADS, 1) col_kernel(
+    const __grid_constant__ CUtensorMap tdy,  // dy (f32) as (P, H, T, B): boxes of (32, 1, 64, 1)
+    const __grid_constant__ CUtensorMap tx,   // x as (P, H, T, B)
+    const __grid_constant__ CUtensorMap tb,   // B as (N, T, B): boxes of (64, 64, 1)
+    const __grid_constant__ CUtensorMap tcm,  // C as (N, T, B)
+    const double* __restrict__ cum64,         // (B, nc, H, Q)
+    const float* __restrict__ cd,             // (B, nc, H, 2, Q)
+    const float* __restrict__ dxi,            // (B, T, H, P): dx's state term
+    __nv_bfloat16* __restrict__ dx,           // (B, T, H, P)
+    float* __restrict__ cs,                   // (B, nc, H, Q): sum_i M_ij
+    float* __restrict__ rsp,                  // (B, nc, H, NRB, Q): sum_{j in T} M_ij dt_j
+    float* __restrict__ dcbg,                 // (B, nc, ngc, NPAIR, 64, 64): dCB^T over the block's heads
+    int Tn, int H, int nc) {
+  using L = ColSmem;
+  const int T = blockIdx.x, c = blockIdx.y;  // T = 0 (four row tiles) first
+  const int ngc = (H + HGC - 1) / HGC;
+  const int gc = blockIdx.z % ngc, b = blockIdx.z / ngc;
+  const int t0 = c * Q, row0 = t0 + RB * T;
+  if (row0 >= Tn) return;  // a column tile past the ragged end
+  const int h_first = gc * HGC, nh = min(HGC, H - h_first), npair = (nh + 1) / 2, ntile = NRB - T;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gb = smem_raw + (base - sm90::smem_u32(smem_raw));
+  const uint32_t bar_cb = base + L::BAR_OFF;
+  // per warpgroup w: x full[2], x empty[2], dy full[2], dy empty[2]
+  const auto xfull = [&](int w, int s) { return bar_cb + 8 + 64 * w + 8 * s; };
+  const auto xempty = [&](int w, int s) { return bar_cb + 24 + 64 * w + 8 * s; };
+  const auto full = [&](int w, int s) { return bar_cb + 40 + 64 * w + 8 * s; };
+  const auto empty = [&](int w, int s) { return bar_cb + 56 + 64 * w + 8 * s; };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    sm90::mbar_init(bar_cb, 1);
+    for (int w = 0; w < 2; ++w)
+      for (int s = 0; s < 2; ++s) {
+        sm90::mbar_init(xfull(w, s), 1);
+        sm90::mbar_init(xempty(w, s), WG / 32);
+        sm90::mbar_init(full(w, s), 1);
+        sm90::mbar_init(empty(w, s), WG / 32);
+      }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one lane starts every load
+    if (tid == CONSUMERS) {
+      sm90::mbar_expect_tx(bar_cb, (1 + ntile) * RBLK);
+      for (int cb = 0; cb < 2; ++cb) sm90::tma_load_3d(base + L::B_OFF + cb * BOX, &tb, bar_cb, 64 * cb, row0, b);
+      for (int I = T; I < NRB; ++I)
+        for (int cb = 0; cb < 2; ++cb)
+          sm90::tma_load_3d(base + L::CB_OFF + I * RBLK + cb * BOX, &tcm, bar_cb, 64 * cb, t0 + RB * I, b);
+      for (int k = 0; k < npair; ++k) {
+        const int xs = k & 1;
+        for (int w = 0; w < 2 && 2 * k + w < nh; ++w) {
+          const int hh = h_first + 2 * k + w;
+          const long u = ((long)b * nc + c) * H + hh;
+          const uint32_t cds = base + L::CD_OFF + (2 * w + xs) * L::CD_BYTES;
+          if (k >= 2) sm90::mbar_wait(xempty(w, xs), ((k >> 1) - 1) & 1);
+          sm90::mbar_expect_tx(xfull(w, xs), BOX + L::CD_BYTES);
+          sm90::tma_load_4d(base + L::W_OFF + w * L::W_BYTES + L::X + xs * BOX, &tx, xfull(w, xs), 0, hh, row0, b);
+          sm90::bulk_load(cds, cum64 + u * Q, Q * 8, xfull(w, xs));
+          sm90::bulk_load(cds + Q * 8, cd + u * 2 * Q + Q, Q * 4, xfull(w, xs));
+        }
+        for (int n = 0; n < ntile; ++n) {
+          const int m = k * ntile + n, s = m & 1, I = T + n;
+          for (int w = 0; w < 2 && 2 * k + w < nh; ++w) {
+            if (m >= 2) sm90::mbar_wait(empty(w, s), ((m >> 1) - 1) & 1);
+            const uint32_t dst = base + L::W_OFF + w * L::W_BYTES + L::DYS + s * 2 * BOX;
+            sm90::mbar_expect_tx(full(w, s), 2 * BOX);
+            sm90::tma_load_4d(dst, &tdy, full(w, s), 0, h_first + 2 * k + w, t0 + RB * I, b);
+            sm90::tma_load_4d(dst + BOX, &tdy, full(w, s), 32, h_first + 2 * k + w, t0 + RB * I, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int w = tid / WG, wt = tid % WG, lane = tid & 31;
+  const int r0 = 16 * (wt >> 5) + (lane >> 2), q2 = 2 * (lane & 3);
+  sm90::mbar_wait(bar_cb, 0);
+  // C B^T_TI = B_T C_I^T, once for the block's heads (warpgroup w takes I =
+  // T + w, T + w + 2, ...): f32 over C_I, in the register order of a
+  // warpgroup's thread (a thread of either warpgroup reads back the
+  // elements its own index holds)
+  for (int I = T + w; I < NRB; I += 2) {
+    float sacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = 0.f;
+    sm90::fence_operands(sacc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NS / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+      sm90::wgmma_ss_m64n64k16(sacc, sm90::desc_kmajor(base + L::B_OFF + off),
+                               sm90::desc_kmajor(base + L::CB_OFF + I * RBLK + off), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operands(sacc);
+    wg_sync(w);  // every warp of this warpgroup is done reading C_I
+    float4* sj = reinterpret_cast<float4*>(gb + L::CB_OFF + I * RBLK);
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      sj[v * WG + wt] = make_float4(sacc[4 * v], sacc[4 * v + 1], sacc[4 * v + 2], sacc[4 * v + 3]);
+  }
+  consumers_sync();  // every C B^T_TI is written
+
+  float* red = reinterpret_cast<float*>(gb + L::RED_OFF) + w * 4 * RB;  // [4 warps][64 columns]
+  float* cfh = reinterpret_cast<float*>(gb + L::COLF_OFF) + w * 2 * RB;  // [64] the tile's column factors
+  float* cfl = cfh + RB;                                                 // [64] and their lo halves
+  float4* xch = reinterpret_cast<float4*>(gb + L::XCH_OFF);
+  for (int k = 0; k < npair; ++k) {
+    const int xs = k & 1, hh = h_first + 2 * k + w;
+    const bool mine = 2 * k + w < nh, pair = 2 * k + 1 < nh;
+    const long u = ((long)b * nc + c) * H + hh;
+    const uint32_t xa = base + L::W_OFF + w * L::W_BYTES + L::X + xs * BOX;
+    const double* cum = reinterpret_cast<const double*>(gb + L::CD_OFF + (2 * w + xs) * L::CD_BYTES);
+    const float* dtv = reinterpret_cast<const float*>(cum + Q);
+    double cj[2] = {0.0, 0.0};
+    float dtj[2] = {0.f, 0.f}, csum[2] = {0.f, 0.f};
+    float acc[32];  // dx_T: the state term from the row blocks, then S^T dy_I for each I
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    if (mine) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int t = row0 + r0 + 8 * ii;
+        if (t >= Tn) continue;
+        const float* o = dxi + (((long)b * Tn + t) * H + hh) * PD;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 v = *reinterpret_cast<const float2*>(o + 8 * jj + q2);
+          acc[4 * jj + 2 * ii] = v.x;
+          acc[4 * jj + 2 * ii + 1] = v.y;
+        }
+      }
+      sm90::mbar_wait(xfull(w, xs), (k >> 1) & 1);
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        cj[ii] = cum[RB * T + r0 + 8 * ii];
+        dtj[ii] = dtv[RB * T + r0 + 8 * ii];
+      }
+    }
+    for (int n = 0; n < ntile; ++n) {
+      const int m = k * ntile + n, s = m & 1, I = T + n;
+      float ds[32];  // dS^T_TI (rows j of T, columns i of I), then dCB^T_TI
+      uint32_t sh[16], sl[16];
+      if (mine) {
+        sm90::mbar_wait(full(w, s), (m >> 1) & 1);
+        const uint32_t dya = base + L::W_OFF + w * L::W_BYTES + L::DYS + s * 2 * BOX;
+        {  // dy_I's tile as hi and lo bf16 tiles over its f32 boxes: each thread
+           // reads its half row (a box's row), then writes its 4 chunks of each
+          unsigned char* tile = gb + L::W_OFF + w * L::W_BYTES + L::DYS + s * 2 * BOX;
+          const int r = wt >> 1, hb = wt & 1;
+          float4 v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = *reinterpret_cast<const float4*>(tile + hb * BOX + r * 128 + ((j ^ (r & 7)) << 4));
+          wg_sync(w);
+          if (wt < RB) {  // the tile's column factors, once a column
+            const double d = cum[RB * I + wt] - cum[RB * I];
+            cfh[wt] = I == T ? (float)d : __expf((float)d);
+            cfl[wt] = I == T ? (float)(d - (double)cfh[wt]) : 0.f;
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            uint4 hi4, lo4;
+            split8(v[2 * jj], v[2 * jj + 1], hi4, lo4);
+            const int off = r * 128 + (((4 * hb + jj) ^ (r & 7)) << 4);
+            *reinterpret_cast<uint4*>(tile + off) = hi4;
+            *reinterpret_cast<uint4*>(tile + BOX + off) = lo4;
+          }
+          sm90::fence_proxy_async();  // the tiles are read by wgmma next
+          wg_sync(w);
+        }
+        // dS^T_TI = x_T dy_I^T, dy's hi and lo tiles
+#pragma unroll
+        for (int e = 0; e < 32; ++e) ds[e] = 0.f;
+        sm90::fence_operands(ds);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t da = sm90::desc_kmajor(xa + ks * 32);
+          sm90::wgmma_ss_m64n64k16(ds, da, sm90::desc_kmajor(dya + ks * 32), 1);
+          sm90::wgmma_ss_m64n64k16(ds, da, sm90::desc_kmajor(dya + BOX + ks * 32), 1);
+        }
+        sm90::wgmma_commit();
+        // while it runs: the rows' factors.  Off the diagonal tile
+        // exp(cum_i - cum_j) = exp(cum_i - cum_r) exp(cum_r - cum_j) at I's
+        // first row r (both exponents <= 0): a factor per column (cfh) and
+        // one per row (rh); on it cum_j - cum_r as hi + lo
+        float rh[2], rl[2];
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const double d = cj[ii] - cum[RB * I];
+          rh[ii] = I == T ? (float)d : __expf((float)-d);
+          rl[ii] = I == T ? (float)(d - (double)rh[ii]) : 0.f;
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands(ds);
+        const float4* cbt = reinterpret_cast<const float4*>(gb + L::CB_OFF + I * RBLK);
+        float colp[16];
+        if (I == T)
+          col_tile<true>(ds, cbt, cfh, cfl, rh, rl, dtj, wt, r0, q2, sh, sl, csum, colp);
+        else
+          col_tile<false>(ds, cbt, cfh, cfl, rh, rl, dtj, wt, r0, q2, sh, sl, csum, colp);
+        // dx_T += S^T_TI dy_I: hi x hi, hi x lo, lo x hi
+        sm90::fence_operands(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t dbh = sm90::desc_mnmajor(dya + ks * 16 * 128, BOX);
+          const uint64_t dbl = sm90::desc_mnmajor(dya + BOX + ks * 16 * 128, BOX);
+          uint32_t hi[4], lo[4];
+          a_of(sh, ks, hi);
+          a_of(sl, ks, lo);
+          sm90::wgmma_rs_m64n64k16(acc, hi, dbh);
+          sm90::wgmma_rs_m64n64k16(acc, hi, dbl);
+          sm90::wgmma_rs_m64n64k16(acc, lo, dbh);
+        }
+        sm90::wgmma_commit();
+        // while it runs: the column sums of M^T dt_j over the warp's 16 rows
+        // (the lanes of equal lane & 3), then over the warpgroup's 4 warps
+#pragma unroll
+        for (int k2 = 0; k2 < 16; ++k2) {
+          float v = colp[k2];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          colp[k2] = v;
+        }
+        if (lane < 4)
+#pragma unroll
+          for (int k2 = 0; k2 < 16; ++k2) red[(wt >> 5) * RB + 8 * (k2 >> 1) + 2 * lane + (k2 & 1)] = colp[k2];
+        if (w == 1)
+#pragma unroll
+          for (int v = 0; v < 8; ++v)
+            xch[v * WG + wt] = make_float4(ds[4 * v], ds[4 * v + 1], ds[4 * v + 2], ds[4 * v + 3]);
+      }
+      consumers_sync();  // red and warpgroup 1's dCB^T are written
+      if (mine) {
+        if (wt < RB)
+          rsp[(u * NRB + T) * Q + RB * I + wt] = red[wt] + red[RB + wt] + red[2 * RB + wt] + red[3 * RB + wt];
+        if (w == 0) {  // dCB^T over the block's heads: the pairs' sums in order, each pair's heads in order
+          float* o = dcbg + ((((long)b * nc + c) * ngc + gc) * NPAIR + pair_of(T, I)) * TILE;
+#pragma unroll
+          for (int v = 0; v < 8; ++v) {
+            const float4 x4 = pair ? xch[v * WG + wt] : make_float4(0.f, 0.f, 0.f, 0.f);
+            const float other[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+            for (int q = 0; q < 4; q += 2) {
+              const int e = 4 * v + q, ii = (e >> 1) & 1, il = 8 * (e >> 2) + q2;
+              float2* p = reinterpret_cast<float2*>(o + (r0 + 8 * ii) * RB + il);
+              float2 sum = make_float2(ds[e] + other[q], ds[e + 1] + other[q + 1]);
+              if (k > 0) {  // this thread wrote these elements for the pairs before
+                const float2 prev = *p;
+                sum = make_float2(prev.x + sum.x, prev.y + sum.y);
+              }
+              *p = sum;
+            }
+          }
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands(acc);
+        sm90::fence_operands(sh);
+        sm90::fence_operands(sl);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(empty(w, s));  // the dy slot is read
+      }
+      consumers_sync();  // red and the exchange are free
+    }
+    if (!mine) continue;
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(xempty(w, xs));  // x and the rows are read
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const float v = quad_sum(csum[ii]);
+      if ((lane & 3) == 0) cs[u * Q + RB * T + r0 + 8 * ii] = v;
+      const int t = row0 + r0 + 8 * ii;
+      if (t >= Tn) continue;
+      __nv_bfloat16* o = dx + (((long)b * Tn + t) * H + hh) * PD;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * jj + q2) =
+            __floats2bfloat162_rn(acc[4 * jj + 2 * ii], acc[4 * jj + 2 * ii + 1]);
+    }
+  }
+}
+
+// a block's sum of one value a thread, in a fixed tree (warp butterflies,
+// then the warps' sums in order); every thread gets it
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double t = 0.0;
+  for (int k = 0; k < Q / 32; ++k) t += red[k];
+  __syncthreads();
+  return t;
+}
+
+// (6) ddt and da's share of a (batch, chunk, head): a thread a row
+__global__ void __launch_bounds__(Q) ddt_kernel(
+    const double* __restrict__ cum64, const float* __restrict__ cd, const float* __restrict__ cs,
+    const float* __restrict__ rsp, const float* __restrict__ inp, const float* __restrict__ dw,
+    const float* __restrict__ ghp, const float* __restrict__ a, float* __restrict__ ddt, float* __restrict__ dap,
+    int Tn, int H, int nc) {
+  __shared__ double red[Q / 32];
+  const int c = blockIdx.x, hh = blockIdx.y, b = blockIdx.z, i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  const long u = ((long)b * nc + c) * H + hh;
+  const int nv = min(Q, Tn - c * Q);
+  const double cm = cum64[u * Q + i], last = cum64[u * Q + Q - 1];
+  const float dti = cd[u * 2 * Q + Q + i];
+  const float wx = expf((float)(last - cm)), wi = wx * dti;
+  float csv = 0.f, rs = 0.f, in = 0.f, dwv = 0.f;
+  if (i < nv) {
+    csv = cs[u * Q + i];
+    for (int T = 0; T <= i / RB; ++T) rs += rsp[(u * NRB + T) * Q + i];
+    in = inp[(u * 2) * Q + i] + inp[(u * 2 + 1) * Q + i];
+    dwv = dw[u * Q + i];
+  }
+  float dcum = rs - dti * csv + in - wi * dwv;
+  float gh = 0.f;
+  for (int k = 0; k < NBLK; ++k) gh += ghp[u * NBLK + k];
+  const float dlast = (float)block_sum((double)(wi * dwv), red) + expf((float)last) * gh;
+  if (i == nv - 1) dcum += dlast;
+  // the reverse cumsum of dcum over the chunk's rows: within each warp from
+  // its last lane, then the later warps' totals in order
+  double v = dcum;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double n = __shfl_down_sync(0xffffffffu, v, o);
+    if (lane + o < 32) v += n;
+  }
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  for (int k = warp + 1; k < Q / 32; ++k) v += red[k];
+  __syncthreads();
+  const float dl = (float)v;
+  if (i < nv) ddt[((long)b * Tn + c * Q + i) * H + hh] = csv + wx * dwv + dl * a[hh];
+  const double da = block_sum((double)dl * (double)dti, red);
+  if (i == 0) dap[u] = (float)da;
+}
+
+// (7) the dCB tiles over the column blocks' head groups in order, four
+// elements a thread; a pair whose column tile is past the ragged end was
+// never written
+__global__ void __launch_bounds__(256) dcb_sum_kernel(const float4* __restrict__ dcbg, float4* __restrict__ dcb,
+                                                      long long n4, int ngc, int nc, int Tn) {
+  constexpr int T4 = TILE / 4;
+  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (e >= n4) return;
+  const long long bc = e / (NPAIR * T4);
+  const int pr = (int)(e / T4 % NPAIR), k = (int)(e % T4);
+  int I = 0;
+  while (pair_of(0, I + 1) <= pr) ++I;
+  if ((int)(bc % nc) * Q + RB * (pr - pair_of(0, I)) >= Tn) return;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int g = 0; g < ngc; ++g) {
+    const float4 v = dcbg[((bc * ngc + g) * NPAIR + pr) * T4 + k];
+    s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+  }
+  dcb[(bc * NPAIR + pr) * T4 + k] = s;
+}
+
+// (8) dB and dC of row tile T, 32 of N's columns a block (a thread: one
+// column, every eighth row), in f32 on CUDA cores; da over (batch, chunk)
+// in order by the last block
+__global__ void __launch_bounds__(256) out_kernel(
+    const float* __restrict__ dcb, const float* __restrict__ dbi, const float* __restrict__ dci,
+    const __nv_bfloat16* __restrict__ bm, long long b_sb, long long b_st, const __nv_bfloat16* __restrict__ cm,
+    long long c_sb, long long c_st, const float* __restrict__ dap, __nv_bfloat16* __restrict__ db,
+    __nv_bfloat16* __restrict__ dc, float* __restrict__ da, int Tn, int H, int nc, int ngr, int nbc) {
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int hh = threadIdx.x; hh < H; hh += blockDim.x) {
+      float s = 0.f;
+      for (int k = 0; k < nbc; ++k) s += dap[(long long)k * H + hh];
+      da[hh] = s;
+    }
+    return;
+  }
+  __shared__ float sd[RB][RB + 1];  // a dCB tile: [j][i]
+  __shared__ float sv[RB][32];      // 64 rows of B or C, this block's 32 columns
+  const int nq = blockIdx.x % 4, T = blockIdx.x / 4 % NRB, c = blockIdx.x / (4 * NRB) % nc;
+  const int b = blockIdx.x / (4 * NRB * nc);
+  const int t0 = c * Q, row0 = t0 + RB * T;
+  if (row0 >= Tn) return;
+  const int col = threadIdx.x % 32, rg = threadIdx.x / 32, n = 32 * nq + col;
+  float oc[8], ob[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) oc[k] = ob[k] = 0.f;
+  for (int g = 0; g < ngr; ++g)  // the row blocks' state terms, over their head groups in order
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int t = row0 + rg + 8 * k;
+      if (t >= Tn) continue;
+      const long o = (((long)b * Tn + t) * ngr + g) * NS + n;
+      oc[k] += dci[o];
+      ob[k] += dbi[o];
+    }
+  const float* dcb_c = dcb + (long)(b * nc + c) * NPAIR * TILE;
+  // stage tile (J, I) of dCB and 64 rows of `src` from row `rows` on
+  const auto stage = [&](int J, int I, const __nv_bfloat16* src, long long sb, long long st, int rows) {
+    __syncthreads();
+    const float* tl = dcb_c + pair_of(J, I) * TILE;
+    for (int e = threadIdx.x; e < TILE; e += 256) sd[e / RB][e % RB] = tl[e];
+    for (int e = threadIdx.x; e < RB * 32; e += 256) {
+      const int rr = e / 32, k = e % 32, tt = rows + rr;
+      sv[rr][k] = tt < Tn ? __bfloat162float(src[b * sb + (long long)tt * st + 32 * nq + k]) : 0.f;
+    }
+    __syncthreads();
+  };
+  // dC_T += sum_{J <= T} dCB_TJ B_J: tile (J, T) holds [j][i], i in T
+  for (int J = 0; J <= T; ++J) {
+    stage(J, T, bm, b_sb, b_st, t0 + RB * J);
+    for (int j = 0; j < RB; ++j) {
+      const float bv = sv[j][col];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) oc[k] = fmaf(sd[j][rg + 8 * k], bv, oc[k]);
+    }
+  }
+  // dB_T += sum_{I >= T} dCB_IT^T C_I: tile (T, I) holds [j][i], j in T
+  for (int I = T; I < NRB && t0 + RB * I < Tn; ++I) {
+    stage(T, I, cm, c_sb, c_st, t0 + RB * I);
+    for (int i = 0; i < RB; ++i) {
+      const float cv = sv[i][col];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) ob[k] = fmaf(sd[rg + 8 * k][i], cv, ob[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int t = row0 + rg + 8 * k;
+    if (t >= Tn) continue;
+    const long o = ((long)b * Tn + t) * NS + n;
+    dc[o] = __float2bfloat16(oc[k]);
+    db[o] = __float2bfloat16(ob[k]);
+  }
+}
+
+// An f32 tensor map of `rank` dims (innermost first; strides in bytes of
+// dims 1..rank-1) with boxes of `box` elements, 128-byte swizzle (a box's
+// inner dim 32 floats), and zeros outside the tensor.  False if it cannot
+// be made.
+inline bool f32_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                           const cuuint64_t* strides, const cuuint32_t* box) {
+  sm90::EncodeTiledFn fn = sm90::encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32 elements of each scratch region, in order (ops.bwd_scratch_floats
+// mirrors it); every region starts 256-byte aligned
+struct Scratch {
+  static constexpr int NREG = 18;
+  long long n[NREG];
+  Scratch(int B, int Tn, int H) {
+    const long long nc = (Tn + Q - 1) / Q, u = B * nc * H, bthp = (long long)B * Tn * H * PD;
+    const long long ngr = (H + HGR - 1) / HGR, ngc = (H + HGC - 1) / HGC;
+    const long long sizes[NREG] = {u * NP,     u * 2 * Q,   u,           u * NP,      2 * u * Q,
+                                   u * NP,     u * NP,      u * NBLK,    bthp,        u * Q,
+                                   2 * u * Q,  u * Q,       NRB * u * Q, B * nc * ngc * NPAIR * TILE,
+                                   B * nc * NPAIR * TILE,   (long long)B * Tn * ngr * NS, (long long)B * Tn * ngr * NS,
+                                   B * nc * H};
+    for (int k = 0; k < NREG; ++k) n[k] = (sizes[k] + 63) / 64 * 64;
+  }
+  float* at(void* scratch, int k) const {
+    long long off = 0;
+    for (int j = 0; j < k; ++j) off += n[j];
+    return reinterpret_cast<float*>(scratch) + off;
+  }
+};
+enum { S_S, S_CD, S_DEC, S_R, S_CUM, S_HP, S_G, S_GHP, S_DXI, S_DW, S_IN, S_CS, S_RS, S_DCBG, S_DCB, S_DBI, S_DCI,
+       S_DAP };
+
+int launch(const void* x, long long x_sb, long long x_st, const void* dt, const void* a, const void* bm,
+           long long b_sb, long long b_st, const void* cm, long long c_sb, long long c_st, const void* dy,
+           const void* dh_final, const void* h0, void* dx, void* ddt, void* da, void* db, void* dc, void* dh0,
+           void* scratch, int B, int Tn, int H, cudaStream_t stream) {
+  const int nc = (Tn + Q - 1) / Q;
+  const int ngr = (H + HGR - 1) / HGR, ngc = (H + HGC - 1) / HGC;
+  const long long u = (long long)B * nc * H;
+  const Scratch sc(B, Tn, H);
+  float* s_buf = sc.at(scratch, S_S);
+  float* cdv = sc.at(scratch, S_CD);
+  float* dec = sc.at(scratch, S_DEC);
+  float* r_buf = sc.at(scratch, S_R);
+  double* cum64 = reinterpret_cast<double*>(sc.at(scratch, S_CUM));
+  __nv_bfloat16* hps = reinterpret_cast<__nv_bfloat16*>(sc.at(scratch, S_HP));
+  __nv_bfloat16* gps = reinterpret_cast<__nv_bfloat16*>(sc.at(scratch, S_G));
+  float* ghp = sc.at(scratch, S_GHP);
+  float* dxi = sc.at(scratch, S_DXI);
+  float* dwv = sc.at(scratch, S_DW);
+  float* inp = sc.at(scratch, S_IN);
+  float* csv = sc.at(scratch, S_CS);
+  float* rsp = sc.at(scratch, S_RS);
+  float* dcbg = sc.at(scratch, S_DCBG);
+  float* dcb = sc.at(scratch, S_DCB);
+  float* dbi = sc.at(scratch, S_DBI);
+  float* dci = sc.at(scratch, S_DCI);
+  float* dap = sc.at(scratch, S_DAP);
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  const cuuint64_t xdims[4] = {(cuuint64_t)PD, (cuuint64_t)H, (cuuint64_t)Tn, (cuuint64_t)B};
+  const cuuint64_t xstr[3] = {PD * e, (cuuint64_t)x_st * e, (cuuint64_t)x_sb * e};
+  const cuuint64_t f = sizeof(float);
+  const cuuint64_t dstr[3] = {PD * f, (cuuint64_t)H * PD * f, (cuuint64_t)Tn * H * PD * f};
+  const cuuint32_t dbox[4] = {32, 1, RB, 1};
+  const cuuint32_t xbox[4] = {64, 1, RB, 1};
+  const cuuint64_t ndims[3] = {(cuuint64_t)NS, (cuuint64_t)Tn, (cuuint64_t)B};
+  const cuuint64_t bstr[2] = {(cuuint64_t)b_st * e, (cuuint64_t)b_sb * e};
+  const cuuint64_t cstr[2] = {(cuuint64_t)c_st * e, (cuuint64_t)c_sb * e};
+  const cuuint32_t nbox[3] = {64, RB, 1};
+  const cuuint64_t sdims[3] = {(cuuint64_t)PD, (cuuint64_t)NS, (cuuint64_t)(2 * u)};
+  const cuuint64_t sstr[2] = {PD * e, (cuuint64_t)NP * e};
+  const cuuint32_t sbox[3] = {64, NS, 1};
+  CUtensorMap tx, tb, tcm, tdy, ts, tg;
+  if (!sm90::bf16_tensor_map(&tx, x, 4, xdims, xstr, xbox) || !sm90::bf16_tensor_map(&tb, bm, 3, ndims, bstr, nbox) ||
+      !sm90::bf16_tensor_map(&tcm, cm, 3, ndims, cstr, nbox) ||
+      !f32_tensor_map(&tdy, dy, 4, xdims, dstr, dbox) ||
+      !sm90::bf16_tensor_map(&ts, hps, 3, sdims, sstr, sbox) || !sm90::bf16_tensor_map(&tg, gps, 3, sdims, sstr, sbox))
+    return (int)cudaErrorInvalidValue;
+  // the opt-ins above 48 KB, once a process (the port drives one card a process)
+  static const cudaError_t opted[4] = {
+      cudaFuncSetAttribute(tc::chunk_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::StateSmem::BYTES),
+      cudaFuncSetAttribute(rterm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TermSmem::BYTES),
+      cudaFuncSetAttribute(row_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RowSmem::BYTES),
+      cudaFuncSetAttribute(col_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ColSmem::BYTES)};
+  for (cudaError_t o : opted)
+    if (o != cudaSuccess) return (int)o;
+  cudaError_t err;
+  tc::chunk_state_kernel<<<dim3(nc, (H + tc::HG1 - 1) / tc::HG1, B), THREADS, tc::StateSmem::BYTES, stream>>>(
+      tx, tb, (const float*)dt, (const float*)a, s_buf, cdv, dec, Tn, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  rterm_kernel<<<dim3(nc, (H + HG3 - 1) / HG3, B), THREADS, TermSmem::BYTES, stream>>>(
+      tdy, tcm, (const float*)dt, (const float*)a, r_buf, cum64, Tn, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  pass_kernel<<<dim3(NBLK, H, B), 256, 0, stream>>>((const float4*)s_buf, (const float4*)r_buf, dec,
+                                                    (const float4*)h0, (const float4*)dh_final, (uint2*)hps,
+                                                    (uint2*)gps, ghp, (float4*)dh0, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  row_kernel<<<dim3(NRB, nc, ngr * B), THREADS, RowSmem::BYTES, stream>>>(
+      tdy, tx, tb, tcm, ts, tg, cum64, cdv, dxi, dwv, inp, dbi, dci, Tn, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  col_kernel<<<dim3(NRB, nc, ngc * B), THREADS, ColSmem::BYTES, stream>>>(
+      tdy, tx, tb, tcm, cum64, cdv, dxi, (__nv_bfloat16*)dx, csv, rsp, dcbg, Tn, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ddt_kernel<<<dim3(nc, H, B), Q, 0, stream>>>(cum64, cdv, csv, rsp, inp, dwv, ghp, (const float*)a, (float*)ddt,
+                                               dap, Tn, H, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long m4 = (long long)B * nc * NPAIR * TILE / 4;
+  dcb_sum_kernel<<<(unsigned)((m4 + 255) / 256), 256, 0, stream>>>((const float4*)dcbg, (float4*)dcb, m4, ngc, nc,
+                                                                  Tn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  out_kernel<<<(unsigned)(4 * NRB * nc * B + 1), 256, 0, stream>>>(
+      dcb, dbi, dci, (const __nv_bfloat16*)bm, b_sb, b_st, (const __nv_bfloat16*)cm, c_sb, c_st, dap,
+      (__nv_bfloat16*)db, (__nv_bfloat16*)dc, (float*)da, Tn, H, nc, ngr, B * nc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd_tc
 
 }  // namespace
 
@@ -1635,22 +2703,34 @@ extern "C" int repro_ssd_scan_bwd(int dtype, const void* x, long long x_sb, long
       P > PMAX || P % 4)
     return (int)cudaErrorInvalidValue;
   REPRO_DISPATCH(dtype, T, {
-    return bwd::launch<T, false>(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, dy, dh_final, h0, dx, ddt,
-                                 da, db, dc, dh0, scratch, B, Tn, H, N, P, (cudaStream_t)stream);
+    return bwd::launch<T>(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, dy, dh_final, h0, dx, ddt, da, db,
+                          dc, dh0, scratch, B, Tn, H, N, P, (cudaStream_t)stream);
   });
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward's tensor-core build: bf16 x, B and C at N 128, P 64, the
-// rest as repro_ssd_scan_bwd takes it (h0, dh_final and dh0 16-byte
-// aligned, as there).  Four launches.
+// The backward's tensor-core build: bf16 x, B and C at N 128, P 64 as
+// repro_ssd_scan_tc takes them (TMA reads them in place: unit inner strides,
+// x's head stride 64, batch and time strides multiples of 8 elements,
+// 16-byte-aligned bases), the rest as repro_ssd_scan_bwd takes it (dy, h0,
+// dh_final and dh0 16-byte aligned).  scratch: f32, 256-byte aligned, as
+// ops.bwd_scratch_floats counts it (bwd_tc::Scratch) at nc = ceil(T / 256),
+// its contents on entry unused.  Eight launches.
 extern "C" int repro_ssd_scan_bwd_tc(const void* x, long long x_sb, long long x_st, const void* dt, const void* a,
                                      const void* bm, long long b_sb, long long b_st, const void* cm, long long c_sb,
                                      long long c_st, const void* dy, const void* dh_final, const void* h0, void* dx,
                                      void* ddt, void* da, void* db, void* dc, void* dh0, void* scratch, int B, int Tn,
                                      int H, int N, int P, void* stream) {
-  if (B <= 0 || B > 65535 || Tn <= 0 || H <= 0 || H > 65535 || N != bwd::TC_N || P != bwd::TC_P)
+  const long long strides[6] = {x_sb, x_st, b_sb, b_st, c_sb, c_st};
+  const void* bases[5] = {x, bm, cm, dy, scratch};
+  if (B <= 0 || Tn <= 0 || H <= 0 || H > 65535 || N != tc::NS || P != tc::PD ||
+      (long long)B * ((H + bwd_tc::HGC - 1) / bwd_tc::HGC) > 65535)
     return (int)cudaErrorInvalidValue;
-  return bwd::launch<__nv_bfloat16, true>(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, dy, dh_final, h0,
-                                          dx, ddt, da, db, dc, dh0, scratch, B, Tn, H, N, P, (cudaStream_t)stream);
+  for (long long st : strides)
+    if (st <= 0 || st % 8 != 0) return (int)cudaErrorInvalidValue;
+  for (const void* p : bases)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(scratch) % 256 != 0) return (int)cudaErrorInvalidValue;
+  return bwd_tc::launch(x, x_sb, x_st, dt, a, bm, b_sb, b_st, cm, c_sb, c_st, dy, dh_final, h0, dx, ddt, da, db, dc,
+                        dh0, scratch, B, Tn, H, (cudaStream_t)stream);
 }

@@ -18,10 +18,10 @@ strides (views of the model's projection need no copy), and a ragged tail
 is masked in the kernel: nothing is padded.
 
 For training, :func:`ssd_scan_train` is the scan under an autograd
-Function whose backward is :func:`ssd_scan_bwd` (11_bwd: four launches
-over chunks of ``BWD_CHUNK`` steps, no atomics, in one of two builds named
-by :func:`ssd_scan_bwd_path`; its plain version
-:func:`.ref.ssd_chunked_bwd` on the CPU).
+Function whose backward is :func:`ssd_scan_bwd` (11_bwd: no atomics, in
+one of two builds named by :func:`ssd_scan_bwd_path`, each over chunks of
+its own ``BWD_CHUNK`` steps; its plain version :func:`.ref.ssd_chunked_bwd`
+on the CPU).
 """
 from __future__ import annotations
 
@@ -39,7 +39,12 @@ PMAX = 64   # the CUDA-core build's largest head dim
 TC_CHUNK = 256  # the tensor-core build's chunk (Mamba-2's own)
 TC_STATE = 128  # the tensor-core build's state size N
 TC_HEAD_DIM = 64  # and head dim P
-BWD_CHUNK = 64  # the backward's chunk (csrc/ssd_scan.cu bwd::Q): its q x q tiles and the chunk's rows in shared memory
+# the backward's chunk a build: the CUDA-core build's q x q tiles and a
+# chunk's rows sit in shared memory (csrc/ssd_scan.cu bwd::Q); the
+# tensor-core build takes the forward's chunk in row tiles of 64 (bwd_tc)
+BWD_CHUNK = {"cuda_cores": 64, "tensor_cores": TC_CHUNK}
+BWD_ROW_HEADS = 8  # heads a row block of the tensor-core backward: dB / dC's state terms summed over them
+BWD_COL_HEADS = 8  # heads a column block: dCB summed over them
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -147,22 +152,49 @@ def ssd_scan(
 ssd_scan.launches = 0
 
 
-def ssd_scan_bwd_path(dtype: torch.dtype, N: int, P: int) -> str:
+def ssd_scan_bwd_path(dtype: torch.dtype, N: int, P: int, aligned: bool) -> str:
     """Which build of 11_bwd a launch takes: ``"tensor_cores"`` (bf16 x, B
-    and C at N 128, P 64: TF32 ``mma.sync``, the f32 operands as hi + lo)
-    or ``"cuda_cores"`` (f32, and bf16 at any other shape)."""
-    ok = dtype == torch.bfloat16 and N == TC_STATE and P == TC_HEAD_DIM
+    and C at N 128, P 64 that TMA reads in place, ``aligned`` as
+    :func:`tma_ready` says: ``wgmma`` over chunks of 256, the f32 operands
+    as hi + lo bf16) or ``"cuda_cores"`` (f32, and bf16 at any other shape
+    or alignment)."""
+    ok = dtype == torch.bfloat16 and N == TC_STATE and P == TC_HEAD_DIM and aligned
     return "tensor_cores" if ok else "cuda_cores"
 
 
-def bwd_scratch_floats(B: int, T: int, H: int, N: int, P: int) -> int:
-    """f32 elements of 11_bwd's scratch: per (batch, chunk, head) of
-    ``BWD_CHUNK`` steps the chunk's state and its gradient's input term (2 N
-    P, then the entering states and the gradients of the states leaving),
-    the chunk's decay and its share of da (2); per (batch, step, head) the
-    head's share of dB and of dC (2 N)."""
-    nc = -(-T // BWD_CHUNK)
-    return B * nc * H * (2 * N * P + 2) + 2 * B * T * H * N
+def _r64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
+def bwd_scratch_floats(B: int, T: int, H: int, N: int, P: int, path: str) -> int:
+    """f32 elements of 11_bwd's scratch on the build ``path`` names, at
+    chunks of ``BWD_CHUNK[path]`` steps.
+
+    CUDA cores: per (batch, chunk, head) the chunk's state and its
+    gradient's input term (2 N P, then the entering states and the
+    gradients of the states leaving), the chunk's decay and its share of da
+    (2); per (batch, step, head) the head's share of dB and of dC (2 N).
+
+    Tensor cores (``csrc/ssd_scan.cu`` ``bwd_tc::Scratch``, each region
+    rounded up to 64 elements): per (batch, chunk, head) u the chunk state
+    s, its cum and dt rows, its decay, r, the rows' cum in f64, the
+    entering states and the leaving states' gradients as hi and lo bf16
+    planes, the sums of g o hp; dx's state term (B T H P); dL/dw, the
+    carried-in term's two shares, the column and row sums of M (u Q, 2 u
+    Q, u Q, 4 u Q); the dCB tiles per 8 heads and summed (10 causal 64 x
+    64 tile pairs a chunk); the dB and dC state terms per 8 heads (B T N
+    each); da's share per (batch, chunk, head)."""
+    Q = BWD_CHUNK[path]
+    nc = -(-T // Q)
+    u = B * nc * H
+    if path == "cuda_cores":
+        return u * (2 * N * P + 2) + 2 * B * T * H * N
+    ngr, ngc = -(-H // BWD_ROW_HEADS), -(-H // BWD_COL_HEADS)
+    tile, pairs = 64 * 64, 10
+    regions = (u * N * P, 2 * u * Q, u, u * N * P, 2 * u * Q, u * N * P, u * N * P, u * (N * P // 1024),
+               B * T * H * P, u * Q, 2 * u * Q, u * Q, 4 * u * Q, B * nc * ngc * pairs * tile,
+               B * nc * pairs * tile, B * T * ngr * N, B * T * ngr * N, B * nc * H)
+    return sum(_r64(n) for n in regions)
 
 
 def ssd_scan_bwd(
@@ -178,18 +210,21 @@ def ssd_scan_bwd(
 ):
     """Kernel 11's backward (11_bwd): ``(dx, ddt, da, dB, dC, dh0)`` of
     :func:`ssd_scan`, each in its input's type (dh0 f32, None without
-    ``h0``).  On the card four launches of the build
-    :func:`ssd_scan_bwd_path` names over one f32 scratch
-    (:func:`bwd_scratch_floats`), counted once: the chunk states and the
-    gradient's input terms, one block per (batch, chunk, head); both state
-    passes (forward for the entering states, then over chunks in
-    descending order for the gradient), one thread per state element of a
-    (batch, head); a block per (batch, chunk, head) for dx, ddt, the
-    gradient of the chunk's cumsum and the head's shares of dB and dC; then
-    those shares summed over heads and da over (batch, chunk) in a fixed
-    order.  The chunking is ``BWD_CHUNK``'s whatever ``chunk`` is (the same
-    function, summed in another order).  x, B and C are read in place
-    through their batch and time strides; a ragged tail is masked."""
+    ``h0``).  On the card the build :func:`ssd_scan_bwd_path` names runs
+    over one f32 scratch (:func:`bwd_scratch_floats`), counted once.  CUDA
+    cores, four launches: the chunk states and the gradient's input terms,
+    one block per (batch, chunk, head); both state passes, one thread per
+    state element of a (batch, head); a block per (batch, chunk, head) for
+    dx, ddt, the gradient of the chunk's cumsum and the head's shares of dB
+    and dC; those shares summed over heads and da over (batch, chunk).
+    Tensor cores, eight launches (``csrc/ssd_scan.cu`` namespace
+    ``bwd_tc``): the forward's chunk states; the gradient's input terms;
+    both state passes; row blocks (dB and dC's state terms summed over 8
+    heads, dx's state term); column blocks (dS, S, dCB over 8 heads, dx);
+    ddt; the dCB tiles and dB / dC summed in a fixed order.  The chunking is ``BWD_CHUNK``'s for the
+    build whatever ``chunk`` is (the same function, summed in another
+    order).  x, B and C are read in place through their batch and time
+    strides; a ragged tail is masked."""
     _check(x.ndim == 4, f"x {tuple(x.shape)} must be (B, T, H, P)")
     B, T, H, P = x.shape
     _check(T > 0 and chunk > 0, f"T {T} and chunk {chunk} must be positive")
@@ -215,8 +250,9 @@ def ssd_scan_bwd(
 
 
 def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t`` in f32, contiguous and 16-byte aligned (the state pass reads
-    and writes four floats at a time), copied only where it is not."""
+    """``t`` in f32, contiguous and 16-byte aligned (the state passes read
+    and write four floats at a time; TMA reads dy), copied only where it is
+    not."""
     if t is None:
         return None
     t = t.to(torch.float32).contiguous()
@@ -226,34 +262,34 @@ def _aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 def _launch_bwd(x, dt, a, bm, cm, dy, dh_final, h0):
     """11_bwd's C entry on the wrapper's checked tensors, the build as
     :func:`ssd_scan_bwd_path` names it: outputs and scratch allocated here,
-    x, B and C passed through their strides (a copy only where the inner
-    strides are not unit, as the forward's CUDA-core build); a refused
-    launch raises."""
+    x, B and C passed through their strides (on CUDA cores a copy only
+    where the inner strides are not unit, as the forward's CUDA-core
+    build); a refused launch raises."""
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
     B, T, H, P = x.shape
     N = bm.shape[-1]
     dev = x.device
     f32 = torch.float32
+    path = ssd_scan_bwd_path(x.dtype, N, P, tma_ready(x, bm, cm))
     x = _inner_contiguous(x, (P, 1))
     bm, cm = _inner_contiguous(bm, (1,)), _inner_contiguous(cm, (1,))
     dt, a = dt.to(f32).contiguous(), a.to(f32).contiguous()
-    dy = dy.to(f32).contiguous()
-    dh_final, h0 = _aligned16(dh_final), _aligned16(h0)
+    dy, dh_final, h0 = _aligned16(dy), _aligned16(dh_final), _aligned16(h0)
     dx = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
     ddt = torch.empty((B, T, H), dtype=f32, device=dev)
     da = torch.empty((H,), dtype=f32, device=dev)
     dB = torch.empty((B, T, N), dtype=x.dtype, device=dev)
     dC = torch.empty((B, T, N), dtype=x.dtype, device=dev)
     dh0 = None if h0 is None else torch.empty((B, H, N, P), dtype=f32, device=dev)
-    scratch = torch.empty((bwd_scratch_floats(B, T, H, N, P),), dtype=f32, device=dev)
+    scratch = torch.empty((bwd_scratch_floats(B, T, H, N, P, path),), dtype=f32, device=dev)
     opt = lambda t: ptr(t) if t is not None else ctypes.c_void_p(None)
     i64, vp = ctypes.c_int64, ctypes.c_void_p
     args = [ptr(x), x.stride(0), x.stride(1), ptr(dt), ptr(a), ptr(bm), bm.stride(0), bm.stride(1), ptr(cm),
             cm.stride(0), cm.stride(1), ptr(dy), opt(dh_final), opt(h0), ptr(dx), ptr(ddt), ptr(da), ptr(dB),
             ptr(dC), opt(dh0), ptr(scratch), B, T, H, N, P, stream_of(x)]
     argtypes = [vp, i64, i64, vp, vp, vp, i64, i64, vp, i64, i64, vp, vp, vp] + [vp] * 7 + [ctypes.c_int] * 5 + [vp]
-    if ssd_scan_bwd_path(x.dtype, N, P) == "tensor_cores":
+    if path == "tensor_cores":
         rc = function("ssd_scan", "repro_ssd_scan_bwd_tc", argtypes)(*args)
     else:
         rc = function("ssd_scan", "repro_ssd_scan_bwd", [ctypes.c_int] + argtypes)(dtype_code(x.dtype), *args)

@@ -12,8 +12,12 @@ sources, its library swapped in under the same wrappers.
   builds hd 64 in a branch of its own), both builds of kernel 8 (CUDA cores: f32, and bf16
   at a ragged shape; tensor cores: bf16 at M tiles of 16, 64 and 256, its
   main loop now shared with kernel 4 through ``csrc/grouped_tc.cuh``),
-  kernel 11's CUDA-core build (f32, also at Mamba-2-2.7B's widths, and bf16
-  at a shape the tensor cores do not take), both builds of kernel 3 (CUDA
+  both builds of kernel 11 (CUDA cores: f32, also at Mamba-2-2.7B's
+  widths, and bf16 at a shape the tensor cores do not take; tensor cores:
+  bf16 at Mamba-2-2.7B's admission and at a ragged T from h0 over 3
+  heads), kernel 11's backward's CUDA-core build (f32, also at Mamba-2-2.7B's
+  widths, and bf16 at a shape the tensor cores do not take; its
+  tensor-core build is new), both builds of kernel 3 (CUDA
   cores: f32, and bf16 at f 84; tensor cores: bf16 at slot tiles of 16 and
   64) and kernel 4's CUDA-core build (f32, and bf16 at f 84; its bf16
   tensor-core build is new).  The C entry points
@@ -46,6 +50,10 @@ sources, its library swapped in under the same wrappers.
   StableLM-12B's and RecurrentGemma-2B's training heads.  Kernels 3 and 4's backwards' tensor-core
   builds carry dy, the weighted slot rows and dg/du the same way; with
   either set of lo halves zeroed the outputs they feed miss their gates.
+  Kernel 11's backward's tensor-core build carries dy, the states and
+  their gradients, S and the scaled rows (exp(cum) o dy, w o x) the same
+  way; with each set of lo halves zeroed some gradient misses its gate at
+  Mamba-2-2.7B's training shape.
   Those backwards' CUDA-core builds (``repro_down_combine_bwd``,
   ``repro_gather_swiglu_bwd`` in the library ``moe_fused_bwd``: f32, and
   bf16 at a d or f not a multiple of 8) are held against the other
@@ -121,10 +129,17 @@ GEMM_CASES = [f"grouped_gemm {tag} {shape}" for tag, shape in
               (("float32", "3,37,100,130"), ("float32", "4,20,1536,4096"), ("bfloat16", "3,37,100,130"),
                ("bfloat16", "128,16,1536,4096 tc"), ("bfloat16", "4,8,200,328 tc"), ("bfloat16", "3,37,200,328 tc"),
                ("bfloat16", "2,300,200,328 tc"))]
-# B,T,H,P,N and whether from a random h0
+# B,T,H,P,N and whether from a random h0; "tc" names a case of the
+# forward's tensor-core build
 SSD_CASES = [f"ssd_scan {tag} {shape}" for tag, shape in
              (("float32", "2,37,3,16,16,1"), ("float32", "1,2100,80,64,128,1"), ("float32", "1,4096,80,64,128,0"),
-              ("bfloat16", "2,300,2,32,64,1"))]
+              ("bfloat16", "2,300,2,32,64,1"), ("bfloat16", "1,4096,80,64,128,0 tc"),
+              ("bfloat16", "2,700,3,64,128,1 tc"))]
+# kernel 11's backward on its CUDA-core build (B,T,H,P,N, with h0 and
+# dh_final or not): f32, also at Mamba-2-2.7B's widths, and bf16 at a shape
+# the tensor cores do not take
+SSD_BWD_CASES = [f"ssd_scan_bwd {tag} {shape}" for tag, shape in
+                 (("float32", "2,133,3,16,16,1"), ("float32", "1,2100,80,64,128,1"), ("bfloat16", "2,70,5,8,12,1"))]
 # T,E,C,d,f
 MOE_CASES = [f"{name} {tag} {shape}" for name in ("gather_swiglu", "down_combine") for tag, shape in
              (("float32", "40,8,7,96,80"), ("float32", "128,128,16,4096,1536"), ("bfloat16", "40,8,16,96,84"))] + \
@@ -142,7 +157,7 @@ MOE_BWD_CASES = [f"moe_fused_bwd {tag} {shape}" for tag, shape in
                   ("bfloat16", "300,6,104,72,84"))]
 SOURCE = {"flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
           "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused",
-          "flash_attention_bwd": "flash_attention_bwd", "moe_fused_bwd": "moe_fused_bwd"}
+          "flash_attention_bwd": "flash_attention_bwd", "moe_fused_bwd": "moe_fused_bwd", "ssd_scan_bwd": "ssd_scan"}
 
 
 def _run(case: str, dev) -> torch.Tensor:
@@ -199,8 +214,22 @@ def _run(case: str, dev) -> torch.Tensor:
         dts = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g, device=dev) - 1.0)
         a = -torch.linspace(1.0, 16.0, H, device=dev)
         h0 = torch.randn((B, H, N, P), generator=g, device=dev) if with_h0 else None
-        assert ssd_ops.ssd_scan_path(dt, N, P, ssd_ops.tma_ready(x, bm, cm)) == "cuda_cores"
+        want = "tensor_cores" if "tc" in words else "cuda_cores"
+        assert ssd_ops.ssd_scan_path(dt, N, P, ssd_ops.tma_ready(x, bm, cm)) == want
         return torch.cat([t.reshape(-1) for t in ssd_ops.ssd_scan(x, dts, a, bm, cm, 256, h0=h0)])
+    if words[0] == "ssd_scan_bwd":
+        B, T, H, P, N, with_state = (int(n) for n in words[2].split(","))
+        proj = (torch.randn((B, T, H * P + 2 * N), generator=g, device=dev) * 0.5).to(dt)
+        x, bm, cm = proj[..., :H * P].reshape(B, T, H, P), proj[..., H * P:H * P + N], proj[..., H * P + N:]
+        dts = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g, device=dev) - 1.0)
+        a = -torch.linspace(1.0, 16.0, H, device=dev)
+        dy = torch.randn((B, T, H, P), generator=g, device=dev)
+        h0, dhf = ((torch.randn((B, H, N, P), generator=g, device=dev), torch.randn((B, H, N, P), generator=g,
+                                                                                     device=dev))
+                   if with_state else (None, None))
+        assert ssd_ops.ssd_scan_bwd_path(dt, N, P, ssd_ops.tma_ready(x, bm, cm)) == "cuda_cores"
+        grads = ssd_ops.ssd_scan_bwd(x, dts, a, bm, cm, 256, dy, dhf, h0)
+        return torch.cat([t.reshape(-1).float() for t in grads if t is not None])
     if words[0] in ("gather_swiglu", "down_combine"):
         T, E, C, d, f = (int(n) for n in words[2].split(","))
         x = torch.randn((T, d), generator=g, device=dev)
@@ -258,7 +287,7 @@ def other_libs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES
-                         + BWD_CASES + MOE_BWD_CASES)
+                         + BWD_CASES + MOE_BWD_CASES + SSD_BWD_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)
@@ -483,6 +512,68 @@ def test_ssd_scan_needs_its_lo_halves_on_card(cuda, tmp_path):
           f"hi only {miss(y_hi, want_y):.3f} / {miss(h_hi, want_h):.3f}")
     assert miss(y, want_y) <= 1.0 and miss(h, want_h) <= 1.0
     assert miss(y_hi, want_y) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# kernel 11's backward: each set of lo halves its tensor-core build keeps
+# is needed
+# ---------------------------------------------------------------------------
+
+# the line that makes each set of lo halves, and the same line without them
+SSD_BWD_LO_LINES = {
+    "dy": ("l[k] = bits(__floats2bfloat162_rn(v[2 * k] - __low2float(hk), v[2 * k + 1] - __high2float(hk)));",
+           "l[k] = 0u;"),
+    "states": ("l[k] = bits(__floats2bfloat162_rn(x[2 * k] - __low2float(hk), x[2 * k + 1] - __high2float(hk)));",
+               "l[k] = 0u;"),
+    "S": ("lo = bits(__floats2bfloat162_rn(s0 - __low2float(h), s1 - __high2float(h)));", "lo = 0u;"),
+    "rows": ("lo = bits(__floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h)));", "lo = 0u;"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zeroed", sorted(SSD_BWD_LO_LINES))
+def test_ssd_backward_needs_its_lo_halves_on_card(cuda, tmp_path, zeroed):
+    """Mamba-2-2.7B's training shape (2 x 2,048 steps, 80 heads of 64, N
+    128), bf16 x, B and C as views of one projection, dy f32: the shipped
+    tensor-core build holds every gate against the plain backward at chunk
+    256 (1e-4 of the scale on ddt and da, the bf16 gate on dx, dB and dC);
+    built with one set of lo halves zeroed (dy's tiles in the column
+    blocks; the states' and their gradients' planes; S^T; the scaled rows
+    exp(cum) o dy and w o x), some gradient misses.  The misses are counted (printed)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    src = (csrc / "ssd_scan.cu").read_text()
+    line, hi_only_line = SSD_BWD_LO_LINES[zeroed]
+    assert src.count(line) == 1, f"the {zeroed} lo halves' line moved: update SSD_BWD_LO_LINES"
+    (csrc / "ssd_scan.cu").write_text(src.replace(line, hi_only_line))
+    hi_only = _build(csrc, "ssd_scan", tmp_path / "build")
+
+    g = torch.Generator(device=cuda).manual_seed(34)
+    B, T, H, P, N = 2, 2048, 80, 64, 128
+    proj = (torch.randn((B, T, H * P + 2 * N), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    x, bm, cm = proj[..., :H * P].reshape(B, T, H, P), proj[..., H * P:H * P + N], proj[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, T, H), generator=g, device=cuda) - 1.0)
+    a = -torch.linspace(1.0, 16.0, H, device=cuda)
+    dy = torch.randn((B, T, H, P), generator=g, device=cuda)
+    assert ssd_ops.ssd_scan_bwd_path(x.dtype, N, P, ssd_ops.tma_ready(x, bm, cm)) == "tensor_cores"
+    want = ssd_ref.ssd_chunked_bwd(x, dt, a, bm, cm, 256, dy)
+
+    def misses():  # bf16 outputs: elements off the gate; f32: max |got - want| over the gate's allowance
+        got = ssd_ops.ssd_scan_bwd(x, dt, a, bm, cm, 256, dy)
+        out = {}
+        for name, gv, wv in zip(("dx", "ddt", "da", "dB", "dC"), got, want):
+            if gv.dtype == torch.float32:
+                out[name] = float((gv - wv).abs().max()) / (1e-4 * max(1.0, float(wv.abs().max())))
+            else:
+                out[name] = _misses(gv, wv)
+        return out
+
+    shipped = misses()
+    with _swapped("ssd_scan", hi_only):
+        dropped = misses()
+    print(f"11_bwd {zeroed} lo halves: shipped {shipped}, zeroed {dropped}")
+    assert shipped["ddt"] <= 1.0 and shipped["da"] <= 1.0 and all(shipped[n] == 0 for n in ("dx", "dB", "dC"))
+    assert dropped["ddt"] > 1.0 or dropped["da"] > 1.0 or any(dropped[n] > 0 for n in ("dx", "dB", "dC"))
 
 
 # ---------------------------------------------------------------------------

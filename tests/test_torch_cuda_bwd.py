@@ -5,8 +5,10 @@
 (empty slots, dropped assignments, T off the scan's chunk, W off its
 4-channel lanes, h0; for 11_bwd also dh_final, N and P off 128 and 64, and
 bf16 x, B and C as strided views of one projection), f32 and bf16, each
-bitwise on a repeat; and the autograd Functions on the card counting one
-launch each way.  3_bwd and
+bitwise on a repeat (11_bwd's tensor-core build also at T off its chunk of
+256 with h0 and dh_final, under one row tile, and at head counts off its
+head groups); and the autograd Functions on the card counting one launch
+each way.  3_bwd and
 4_bwd take their tensor-core builds for bf16 with d and f multiples of 8
 (each case asserts the build it takes): C off the 64-slot units, an expert
 with no occupied slot, several 256-column tiles with a ragged last one;
@@ -176,7 +178,10 @@ SSD_CASES = {"ragged_h0": (2, 133, 3, 16, 16, torch.float32, True, 16),
              "mamba2_views_bf16": (2, 300, 4, 64, 128, torch.bfloat16, False, 256),
              "mamba2_ragged_h0_bf16": (1, 1000, 6, 64, 128, torch.bfloat16, True, 256),
              "one_step": (1, 1, 2, 4, 4, torch.bfloat16, True, 256),
-             "one_step_tc": (1, 1, 2, 64, 128, torch.bfloat16, True, 256)}
+             "one_step_tc": (1, 1, 2, 64, 128, torch.bfloat16, True, 256),
+             "tc_ragged_odd_heads": (1, 700, 3, 64, 128, torch.bfloat16, True, 256),
+             "tc_under_a_row_tile": (2, 40, 4, 64, 128, torch.bfloat16, True, 256),
+             "tc_heads_past_a_group": (2, 520, 10, 64, 128, torch.bfloat16, True, 256)}
 
 
 def _ssd_inputs(cuda, B, T, H, P, N, dtype, with_state):
@@ -198,7 +203,10 @@ def _ssd_inputs(cuda, B, T, H, P, N, dtype, with_state):
 @pytest.mark.parametrize("case", sorted(SSD_CASES))
 def test_ssd_backward_kernel_matches_plain_on_card(cuda, case, monkeypatch):
     """Each case on the build ``ssd_scan_bwd_path`` names: bf16 at N 128,
-    P 64 on the tensor cores, the rest on CUDA cores (the C entry asserted)."""
+    P 64 on the tensor cores (chunks of 256 in row tiles of 64; T off the
+    chunk with h0 and dh_final, T under one row tile, H off the column
+    blocks' pairs and the row blocks' groups of 8), the rest on CUDA cores
+    (the C entry asserted)."""
     B, T, H, P, N, dtype, with_state, chunk = SSD_CASES[case]
     x, dt, a, bm, cm, dy, dhf, h0 = _ssd_inputs(cuda, B, T, H, P, N, dtype, with_state)
     entries, function = [], kernels.function

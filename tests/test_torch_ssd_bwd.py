@@ -1,11 +1,13 @@
 """PyTorch port, kernel 11's backward (11_bwd) on the CPU: the plain
 version ``ssd_chunked_bwd`` against ``jax.vjp`` of the reference's
 ``ssd_chunked`` and against ``torch.autograd`` of the port's plain forward
-(a zero state; h0 with dh_final; a ragged T; chunks of 16 and 64; N 16 and
-128; P 16 and 64), ``ssd_scan_train``'s gradients on the CPU (x, B and C as
+(a zero state; h0 with dh_final; a ragged T, also past 256 steps; chunks
+of 16 and 64; N 16 and 128; P 16 and 64), ``ssd_scan_train``'s gradients on the CPU (x, B and C as
 views of one projection, routed through the split) equal to
-``ssd_chunked_bwd``'s, the wrapper's refusals, and the C entry's arguments
-and scratch through a fake ``function`` (no card here).
+``ssd_chunked_bwd``'s, the plain backward at the CUDA-core build's chunk
+(64) equal to it at the tensor-core build's (256), the wrapper's refusals,
+and the C entries' arguments and scratch through a fake ``function`` (no
+card here).
 
 Gate: f32, every gradient within 1e-4 of that gradient's largest
 magnitude (sums in other orders).  Inputs come from a numpy seed with dt
@@ -36,7 +38,7 @@ NAMES = ("dx", "ddt", "da", "dB", "dC", "dh0")
 CASES = {"zero_state": (2, 64, 3, 16, 16, 16, False), "h0_dh_final": (2, 48, 3, 16, 16, 16, True),
          "ragged": (2, 37, 2, 16, 16, 16, True), "chunk64_ragged": (1, 150, 2, 16, 16, 64, True),
          "n128": (1, 40, 2, 16, 128, 16, True), "p64": (1, 70, 2, 64, 16, 64, False),
-         "mamba2_dims": (1, 70, 2, 64, 128, 64, True)}
+         "mamba2_dims": (1, 70, 2, 64, 128, 64, True), "ragged_300": (1, 300, 2, 16, 16, 64, True)}
 
 
 def _inputs(case, dt_max=None, seed=0):
@@ -172,13 +174,33 @@ def test_wrapper_refusals():
 
 
 def test_backward_build_choice():
-    """bf16 at Mamba-2's state size and head dim (every Mamba-2 layer) takes
-    the tensor cores; f32 anywhere, and bf16 at any other shape, the CUDA
-    cores."""
-    assert ops.ssd_scan_bwd_path(torch.bfloat16, 128, 64) == "tensor_cores"
+    """bf16 at Mamba-2's state size and head dim (every Mamba-2 layer) that
+    TMA reads in place takes the tensor cores; f32 anywhere, bf16 at any
+    other shape, and bf16 TMA cannot read in place, the CUDA cores; each
+    build at its own chunk."""
+    assert ops.ssd_scan_bwd_path(torch.bfloat16, 128, 64, True) == "tensor_cores"
     for dtype, N, P in ((torch.float32, 128, 64), (torch.bfloat16, 16, 16), (torch.bfloat16, 128, 32),
                         (torch.bfloat16, 64, 64)):
-        assert ops.ssd_scan_bwd_path(dtype, N, P) == "cuda_cores"
+        assert ops.ssd_scan_bwd_path(dtype, N, P, True) == "cuda_cores"
+    assert ops.ssd_scan_bwd_path(torch.bfloat16, 128, 64, False) == "cuda_cores"
+    assert ops.BWD_CHUNK == {"cuda_cores": 64, "tensor_cores": ops.TC_CHUNK} and ops.TC_CHUNK == 256
+
+
+@pytest.mark.parametrize("case", ["chunk64_ragged", "mamba2_dims", "p64", "ragged_300"])
+def test_plain_backward_is_the_same_at_either_builds_chunk(case):
+    """The two builds chunk the backward differently (64 and 256 steps):
+    the plain version at each, the same function summed in another order,
+    agree within the f32 gate (dt kept so that the decay over 256 steps
+    stays finite, as the reference's VJP needs at its chunk)."""
+    B, T, H, P, N, _, with_state = CASES[case]
+    chunk, args, dy, dhf, h0 = _inputs(case, dt_max=80.0 / (16.0 * 256))
+    at = {q: ref.ssd_chunked_bwd(*map(_t, args), q, _t(dy), _t(dhf), _t(h0))
+          for q in (ops.BWD_CHUNK["cuda_cores"], ops.BWD_CHUNK["tensor_cores"])}
+    for name, g, w in zip(NAMES, at[64], at[256]):
+        if w is None:
+            assert g is None, name
+        else:
+            _hold(name, g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -187,8 +209,10 @@ def test_c_entry_takes_its_arguments_and_scratch(case, dtype, monkeypatch):
     """The wrapper's launch: the tensor-core entry for bf16 at N 128, P 64
     and the CUDA-core one otherwise, x, B and C in place through their
     strides (views of one projection), outputs in x's type (ddt, da, dh0
-    f32), the scratch :func:`ops.bwd_scratch_floats` long, dh_final / h0 /
-    dh0 null together and 16-byte aligned otherwise."""
+    f32), the scratch :func:`ops.bwd_scratch_floats` long for the build
+    (the CUDA cores' per chunk of 64, the tensor cores' regions per chunk of
+    256, each rounded to 64 elements), dh_final / h0 / dh0 null together
+    and 16-byte aligned otherwise, dy 16-byte aligned."""
     chunk, (x, dt, a, bm, cm), dy, dhf, h0 = _inputs(case)
     B, T, H, P = x.shape
     N = bm.shape[-1]
@@ -200,8 +224,17 @@ def test_c_entry_takes_its_arguments_and_scratch(case, dtype, monkeypatch):
             return 0
         return launch
 
+    allocated = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):  # the wrapper's allocations, the scratch last
+        t = empty(*shape, **kw)
+        allocated.append(t)
+        return t
+
     monkeypatch.setattr(kernels, "function", fake)
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch, "empty", recording_empty)
     proj = torch.from_numpy(np.concatenate([x.reshape(B, T, H * P), bm, cm], -1)).to(dtype)
     tx, tb, tc = proj[..., :H * P].reshape(B, T, H, P), proj[..., H * P:H * P + N], proj[..., H * P + N:]
     dx, ddt, da, dB, dC, dh0 = ops._launch_bwd(tx, _t(dt), _t(a), tb, tc, _t(dy), _t(dhf), _t(h0))
@@ -210,7 +243,7 @@ def test_c_entry_takes_its_arguments_and_scratch(case, dtype, monkeypatch):
     assert (dh0 is None) == (h0 is None)
     [(name, symbol, nargs, args)] = calls
     on_tc = dtype == torch.bfloat16 and (N, P) == (128, 64)
-    assert ops.ssd_scan_bwd_path(dtype, N, P) == ("tensor_cores" if on_tc else "cuda_cores")
+    assert ops.ssd_scan_bwd_path(dtype, N, P, ops.tma_ready(tx, tb, tc)) == ("tensor_cores" if on_tc else "cuda_cores")
     if on_tc:
         assert (name, symbol) == ("ssd_scan", "repro_ssd_scan_bwd_tc") and nargs == len(args) == 27
         args = (None,) + args  # the CUDA-core entry's dtype code goes first
@@ -225,6 +258,17 @@ def test_c_entry_takes_its_arguments_and_scratch(case, dtype, monkeypatch):
     for i in (13, 14, 20):  # dh_final, h0, dh0
         assert isinstance(args[i], ctypes.c_void_p) and (args[i].value is None) == (h0 is None)
         assert args[i].value is None or args[i].value % 16 == 0
-    scratch = args[21].value
-    assert scratch is not None and ops.bwd_scratch_floats(B, T, H, N, P) == (
-        B * -(-T // ops.BWD_CHUNK) * H * (2 * N * P + 2) + 2 * B * T * H * N)
+    assert args[12].value % 16 == 0  # dy
+    scratch = allocated[-1]
+    assert args[21].value == scratch.data_ptr() and scratch.dtype == torch.float32
+    path = "tensor_cores" if on_tc else "cuda_cores"
+    assert scratch.numel() == ops.bwd_scratch_floats(B, T, H, N, P, path)
+    if on_tc:
+        nc = -(-T // 256)
+        u, r64 = B * nc * H, lambda n: -(-n // 64) * 64
+        regions = (u * N * P, 2 * u * 256, u, u * N * P, 2 * u * 256, u * N * P, u * N * P, u * 8, B * T * H * P,
+                   u * 256, 2 * u * 256, u * 256, 4 * u * 256, B * nc * -(-H // 8) * 10 * 4096,
+                   B * nc * 10 * 4096, B * T * -(-H // 8) * N, B * T * -(-H // 8) * N, B * nc * H)
+        assert scratch.numel() == sum(map(r64, regions))
+    else:
+        assert scratch.numel() == B * -(-T // 64) * H * (2 * N * P + 2) + 2 * B * T * H * N

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Kernel 11's backward (``11_bwd``, ``csrc/ssd_scan.cu`` namespace
-``bwd``) on the card: its tensor-core build beside its CUDA-core build and
-other checkouts' builds, at Mamba-2-2.7B's training shape.
+"""Kernel 11's backward (``11_bwd``, ``csrc/ssd_scan.cu`` namespaces
+``bwd_tc`` and ``bwd``) on the card: its tensor-core build beside its
+CUDA-core build and other checkouts' builds, at Mamba-2-2.7B's training
+shape.
 
     python3 tools/ssd_bwd_variants.py [--csrc TAG=DIR ...] [--rounds 2]
 
@@ -10,14 +11,17 @@ takes ``repro_ssd_scan_bwd_tc``), ``cuda cores`` (the same library with
 ``ssd_scan_bwd_path`` forced to the CUDA-core entry) and each ``--csrc
 TAG=DIR``, another checkout's ``ssd_scan.cu`` built with the package's
 flags under ``build/ssd_bwd_variants/`` (through its tensor-core entry
-where it has one).  Case: ``REC_TRAIN_BATCH`` x ``TRAIN_SEQ`` of
-``chip_smoke.py`` at 80 heads of 64, state 128, bf16 x, B and C as views of
-one projection, dy f32, from a seed.  Each build: every gradient against
+where it has one, over a scratch as large as either of this tree's builds
+asks for: another checkout's layout may differ).  Case:
+``REC_TRAIN_BATCH`` x ``TRAIN_SEQ`` of ``chip_smoke.py`` at 80 heads of 64,
+state 128, bf16 x, B and C as views of one projection, dy f32, from a
+seed.  Each build: every gradient against
 the plain version (``ssd_chunked_bwd`` at chunk 256) by ``chip_smoke``'s
 gates (1e-4 of the scale on the f32 outputs, ``check_bf16`` on the bf16
 ones), bitwise on a repeat; CUDA-event ms in rounds (the order reversed
-every other round), device ms and device ms by launch.  Registers and
-spills.  One JSON line a measurement; all also go to
+every other round), device ms and device ms by launch (under whichever
+build's launch names the library answers to).  Registers and spills of
+both builds' kernels.  One JSON line a measurement; all also go to
 ``chiprun_out/ssd_bwd_variants.json``.  Needs the card.
 """
 from __future__ import annotations
@@ -57,7 +61,7 @@ def main() -> int:
     emit(card=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     shipped = kernels.library("ssd_scan")
-    emit(build="shipped", ptxas=cs.ptxas("ssd_scan", "3bwd"))
+    emit(build="shipped", ptxas=cs.ptxas("ssd_scan", "3bwd", "6bwd_tc", "chunk_state"))
     libs = {"shipped": (shipped, None), "cuda cores": (shipped, "cuda_cores")}
     out_dir = vb.ROOT / "build" / "ssd_bwd_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -67,7 +71,9 @@ def main() -> int:
         jobs[tag] = vb.start(out_dir, tag, Path(csrc).resolve(), "ssd_scan.cu")
     for tag, (_, lib, log) in vb.finish(jobs).items():
         libs[tag] = (lib, None if hasattr(lib, "repro_ssd_scan_bwd_tc") else "cuda_cores")
-        emit(build=tag, ptxas=vb.ptxas(log, "3bwd"))
+        emit(build=tag, ptxas=vb.ptxas(log, "3bwd", "6bwd_tc", "chunk_state"))
+
+    scratch_floats = ssd_ops.bwd_scratch_floats
 
     @contextlib.contextmanager
     def using(tag):
@@ -77,11 +83,14 @@ def main() -> int:
         saved = ssd_ops.ssd_scan_bwd_path
         if force:
             ssd_ops.ssd_scan_bwd_path = lambda *a: force
+        if lib is not shipped:
+            ssd_ops.bwd_scratch_floats = lambda *a: max(scratch_floats(*a[:5], p) for p in ssd_ops.BWD_CHUNK)
         try:
             yield
         finally:
             kernels._LIBS["ssd_scan"] = ours
             ssd_ops.ssd_scan_bwd_path = saved
+            ssd_ops.bwd_scratch_floats = scratch_floats
 
     cfg = get_config(cs.SSM)
     P, N, Q = cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
@@ -124,8 +133,11 @@ def main() -> int:
         emit(case="mamba2_train", round=r, order=order, ms=ms)
     for tag in libs:
         with using(tag):
+            # by launch: whichever build's launch names this library's kernels answer to
+            by_launch = {s.split("::")[1]: cs.device_ms(kernel, s, n=3)
+                         for names in cs.SSD_BWD_LAUNCHES.values() for s in names}
             emit(case="mamba2_train", build=tag, device_ms=cs.device_ms(kernel, "", n=3),
-                 device_ms_by_launch={s.split("::")[1]: cs.device_ms(kernel, s, n=3) for s in cs.SSD_BWD_LAUNCHES})
+                 device_ms_by_launch={k: v for k, v in by_launch.items() if v is not None})
     REC.save()
     return 0
 
