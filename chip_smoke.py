@@ -121,6 +121,17 @@ profiled one,
 the same cut to 2 layers through the fault-tolerant ``Trainer`` with a
 failure injected and replayed, and one step of MusicGen, Phi-3-Vision and
 StableLM-12B cut to 2 layers.
+Training across ranks (phase ``train_mesh``; ``kernels_vs_plain`` rows
+``grouped_gemm_bwd``, ``moe_combine_bwd``, ``moe_dispatch_bwd``): the
+a2a body's backwards (8_bwd on the tensor cores with an ``HGMMA`` census,
+10_bwd, and kernel 10 with unit weights as 9's) against their plain
+versions at Qwen3-MoE's training shapes, beside two ``torch.bmm`` calls
+and ``index_add_``; then the sharded train step on a one-rank NCCL mesh
+made in-process: Qwen3-MoE cut to 2 layers, ``tp``, through the a2a body
+(every step's launches of 9, 3, 8, 10 and their backwards; the first loss
+and grad norm within 2e-2 of ``train_moe_full_width``'s; every router
+moves), StarCoder2-3B cut to 2 layers, ``fsdp``, bitwise the one-device
+step, and the f32 smoke twins of both through the mesh step, card = CPU.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -727,6 +738,7 @@ def kernel_phase(cfg, dev):
     rows["flash_attention_bwd_hd256"] = bwd_hd256_row(dev, gen)
     rows.update(train_bwd_rows(dev, gen))
     rows["ssd_scan_bwd"] = ssd_bwd_row(dev, gen, tol)
+    rows.update(a2a_bwd_rows(dev, gen))
     return rows
 
 
@@ -4519,7 +4531,7 @@ def train_launches(cfg) -> dict:
     return out
 
 
-def train_cell(dev, tag, cfg, batch, steps, probe=None):
+def train_cell(dev, tag, cfg, batch, steps, probe=None, mesh=None, strategy="tp", launches=None):
     """``steps`` steps of ``build_train_step`` on ``batch`` x ``TRAIN_SEQ``
     tokens of ``MarkovLMDataset`` a step through the loader (bf16 over f32
     master weights, the config's optimizer, remat), then one more under the
@@ -4529,7 +4541,9 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None):
     ``probe`` (before, after).  Reports ms a step, tokens/s, model FLOPs (6
     a matmul parameter a token for the active parameters, and the causal
     attention products) over the bf16 peak, peak memory, device time by
-    kernel and the idle share of the profiled step."""
+    kernel and the idle share of the profiled step.  With ``mesh`` the
+    sharded step of that mesh and ``strategy`` (the weights cut to the
+    rank's shards), gated on ``launches`` a step instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4541,9 +4555,12 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None):
     assert cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
     S = TRAIN_SEQ
     torch.cuda.reset_peak_memory_stats()
-    step_fn = build_train_step(cfg, dev, ShapeCell(tag, S, batch, "train"), lr=TRAIN_LR, total_steps=steps)
+    step_fn = build_train_step(cfg, mesh or dev, ShapeCell(tag, S, batch, "train"), lr=TRAIN_LR, total_steps=steps,
+                               strategy=strategy)
     t0 = time.perf_counter()
     params = step_fn.model.init(0, train=True)
+    if mesh is not None:
+        params = step_fn.shard(params)
     opt = step_fn.optimizer.init(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -4567,7 +4584,7 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None):
     after = probe(params) if probe else None
     _finite(f"{tag} loss", losses)
     _finite(f"{tag} grad_norm", gnorms)
-    want = {n: steps * c for n, c in train_launches(cfg).items()}
+    want = {n: steps * c for n, c in (launches or train_launches(cfg)).items()}
     if counts != want:
         raise AssertionError(f"{tag}: launches {counts}, expected {want}")
     step, data = next(loader)
@@ -4593,10 +4610,11 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None):
         model_flops += 3 * batch * n_ssm * ssd_work(S, cfg.ssm_expand * d // P_, P_, N_, cfg.ssm_chunk, 2)[1]
     ours = ("gate_up_", "down_", "rglru_chunk_kernel", "flash_attention", "dkv", "dq", "bwd_prep", "row_dot",
             "gather_swiglu", "combine_rows", "ssd_scan_kernel", "chunk_state", "state_pass", "chunk_scan", "bwd::",
-            "bwd_tc::")
+            "bwd_tc::", "dispatch_kernel", "combine_kernel", "combine_bwd_kernel", "grouped_gemm", "tcb::")
     out = dict(
         arch=cfg.name, layers=L, batch=batch, seq_len=S, steps=steps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
         optimizer=cfg.optimizer, remat=cfg.remat, route_mode=cfg.route_mode if cfg.is_moe else None,
+        mesh=None if mesh is None else dict(mesh.shape), strategy=None if mesh is None else strategy,
         ms_per_step=ms, ms_per_step_range=(min(times[1:]) * 1e3, max(times[1:]) * 1e3),
         step_ms_each=[x * 1e3 for x in times], tokens_per_s=batch * S / (ms / 1e3),
         model_flops_per_step=model_flops, model_flops_share_of_bf16_peak=model_flops / (ms / 1e3) / BF16_FLOPS,
@@ -4676,6 +4694,270 @@ def train_ssm_full_width(dev):
     cfg = get_config(SSM)
     assert cfg.optimizer == "adamw" and set(cfg.layer_kinds) == {"ssm"}
     return train_cell(dev, "train_ssm_full_width", cfg, REC_TRAIN_BATCH, CELL_TRAIN_STEPS)
+
+
+MESH_TRAIN_STEPS = 4         # the tp mesh cell's steps (and a profiled one)
+MESH_FSDP_LAYERS, MESH_FSDP_BATCH, MESH_FSDP_STEPS = 2, 2, 3
+MESH_TOL = 2e-2              # the a2a body (bf16 expert outputs) vs the fused pair 3/4: loss and grad norm
+
+
+def mesh_train_launches(cfg) -> dict:
+    """Kernel launches a ``tp`` mesh step makes on Qwen3-MoE: each MoE
+    layer through the a2a body (kernels 9, 3 over the identity index, 8,
+    10) and kernel 7, twice under remat (forward and recompute); the
+    backwards once: kernel 10 with unit weights as 9's, 8_bwd, 3_bwd,
+    10_bwd, and 7's."""
+    assert set(cfg.layer_kinds) == {"moe"} and cfg.remat
+    n = cfg.num_layers
+    fwd = ("flash_attention", "moe_dispatch", "gather_swiglu", "grouped_gemm", "moe_combine")
+    bwd = ("flash_attention_bwd", "moe_dispatch_bwd", "gather_swiglu_bwd", "grouped_gemm_bwd", "moe_combine_bwd")
+    return {**{k: 2 * n for k in fwd}, **{k: n for k in bwd}}
+
+
+def train_mesh(dev, train_moe):
+    """Training through the sharded step on a one-rank (data 1, model 1)
+    mesh over NCCL (a process group made in-process, destroyed at the end;
+    multi-rank meshes are held on gloo ranks on the CPU,
+    ``tests/test_torch_train_mesh.py``):
+
+    (a) ``tp``: Qwen3-MoE at published widths cut to ``MOE_TRAIN_LAYERS``,
+        Adafactor, ``MOE_TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, the MoE layers
+        through the a2a body (:func:`mesh_train_launches` each step), from
+        ``train_moe_full_width``'s weights (seed 0) and batches: its first
+        loss and grad norm within ``MESH_TOL`` relative of that cell's (the
+        fused pair 3/4 adds each token's expert outputs in f32, the a2a body
+        rounds them to bf16 first); every router moves; ms a step, tokens/s,
+        peak memory and the idle share of a profiled step (:func:`train_cell`).
+    (b) ``fsdp``: StarCoder2-3B at published widths cut to
+        ``MESH_FSDP_LAYERS``, ``MESH_FSDP_STEPS`` steps of ``MESH_FSDP_BATCH``
+        x ``TRAIN_SEQ`` tokens against the one-device step from the same
+        weights and batches: losses, grad norms and params bitwise (a gather
+        and a reduce-scatter over one rank are copies).
+    (c) the f32 smoke twins of Qwen3-MoE (``tp``) and StarCoder2 (``fsdp``)
+        through the mesh step on the card and on a one-rank CPU mesh (gloo,
+        the same group): losses within 1e-5 relative and params within 1e-5
+        after 3 steps (``train_twin``'s gates)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeCell, get_config, get_smoke_config
+    from repro_torch.data import MarkovLMDataset
+    from repro_torch.launch.mesh import init_single_rank, make_host_mesh
+    from repro_torch.launch.steps import build_train_step
+
+    init_single_rank(dev)
+    try:
+        mesh = make_host_mesh(1, 1, dev)
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=MOE_TRAIN_LAYERS)
+
+        def routers(params):
+            return [layer["moe"]["router"].detach().clone() for layer in params["layers"]]
+
+        tp = train_cell(dev, "train_mesh_tp", cfg, MOE_TRAIN_BATCH, MESH_TRAIN_STEPS, probe=routers, mesh=mesh,
+                        strategy="tp", launches=mesh_train_launches(cfg))
+        before, after = tp.pop("probe")
+        moved = [float((a - b).abs().max()) for a, b in zip(after, before)]
+        if not all(m > 0 for m in moved):
+            raise AssertionError(f"train_mesh tp: a router did not move (max |change| {moved})")
+        del before, after
+        vs = {}
+        for key in ("loss", "grad_norm"):
+            a, b = tp[key][0], train_moe[key][0]
+            vs[key] = dict(mesh=a, fused_pair=b, rel=abs(a - b) / abs(b))
+            if not abs(a - b) <= MESH_TOL * abs(b):
+                raise AssertionError(f"train_mesh tp: first {key} {a} vs train_moe_full_width's {b}")
+        tp.update(router_max_abs_change=moved, first_step_vs_train_moe_full_width=vs,
+                  ms_per_step_train_moe_full_width=train_moe["ms_per_step"])
+        torch.cuda.empty_cache()
+
+        # (b) fsdp on one rank against the one-device step, bitwise
+        scfg = dataclasses.replace(get_config(TRAIN), num_layers=MESH_FSDP_LAYERS)
+        cell = ShapeCell("train_mesh_fsdp", TRAIN_SEQ, MESH_FSDP_BATCH, "train")
+        ds = MarkovLMDataset(scfg.vocab_size, TRAIN_SEQ, seed=0)
+        runs = {}
+        for name, target in (("device", dev), ("mesh", mesh)):
+            step_fn = build_train_step(scfg, target, cell, lr=TRAIN_LR, total_steps=10, strategy="fsdp")
+            params = step_fn.model.init(0, train=True)
+            if target is mesh:
+                params = step_fn.shard(params)
+            opt = step_fn.optimizer.init(params)
+            ms, metrics = [], []
+            for i in range(MESH_FSDP_STEPS):
+                tokens = torch.from_numpy(ds.batch(i, MESH_FSDP_BATCH)["tokens"]).to(dev)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, _, m = step_fn(params, opt, i, tokens)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            runs[name] = (params, metrics, ms)
+            del opt, step_fn
+        pd, md, msd = runs["device"]
+        pm, mm, msm = runs["mesh"]
+        same = md == mm and all(torch.equal(a, b) for a, b in zip(_leaves(pd), _leaves(pm)))
+        if not same:
+            err = max(float((a - b).abs().max()) for a, b in zip(_leaves(pd), _leaves(pm)))
+            raise AssertionError(f"train_mesh fsdp: the one-rank mesh step is not bitwise the one-device step "
+                                 f"(metrics {mm} vs {md}, params max |diff| {err:.3e})")
+        fsdp = dict(arch=TRAIN, layers=MESH_FSDP_LAYERS, batch=MESH_FSDP_BATCH, seq_len=TRAIN_SEQ,
+                    steps=MESH_FSDP_STEPS, loss_grad_norm=mm, bitwise=same, step_ms_mesh=msm, step_ms_device=msd)
+        del runs, pd, pm
+        torch.cuda.empty_cache()
+
+        # (c) the f32 smoke twins: the card's mesh step against a one-rank CPU mesh's
+        cpu_mesh = make_host_mesh(1, 1, "cpu")
+        twins = {}
+        for arch, strategy in ((ARCH, "tp"), (TRAIN, "fsdp")):
+            tcfg = get_smoke_config(arch)
+            B, S, steps = 2, 64, 3
+            tcell = ShapeCell("train_mesh_twin", S, B, "train")
+            card, cpu = (build_train_step(tcfg, m_, tcell, lr=1e-3, total_steps=10, strategy=strategy)
+                         for m_ in (mesh, cpu_mesh))
+            p_cpu = cpu.shard(cpu.model.init(0, train=True))
+            p_card = card.shard(_to(cpu.model.init(0, train=True), dev))
+            o_cpu, o_card = cpu.optimizer.init(p_cpu), card.optimizer.init(p_card)
+            tds = MarkovLMDataset(tcfg.vocab_size, S, seed=0)
+            losses = []
+            for i in range(steps):
+                tokens = torch.from_numpy(tds.batch(i, B)["tokens"])
+                p_card, o_card, _, m_card = card(p_card, o_card, i, tokens.to(dev))
+                p_cpu, o_cpu, _, m_cpu = cpu(p_cpu, o_cpu, i, tokens)
+                a, b = float(m_card["loss"]), float(m_cpu["loss"])
+                losses.append((a, b))
+                if not abs(a - b) <= 1e-5 * abs(b):
+                    raise AssertionError(f"train_mesh twin {arch} step {i}: card loss {a} vs CPU {b}")
+            err = max(float((a.cpu() - b).abs().max()) for a, b in zip(_leaves(p_card), _leaves(p_cpu)))
+            if not err <= 1e-5:
+                raise AssertionError(f"train_mesh twin {arch}: params differ by {err:.3e} after {steps} steps")
+            twins[arch] = dict(strategy=strategy, steps=steps, batch=B, seq_len=S, losses_card_cpu=losses,
+                               params_max_abs_err=err)
+        return dict(tp=tp, fsdp=fsdp, twins=twins)
+    finally:
+        dist.destroy_process_group()
+
+
+def a2a_bwd_rows(dev, gen):
+    """The a2a body's backward kernels against their plain versions at
+    Qwen3-MoE's training shapes through it (T = ``MOE_TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` tokens on one rank, 128 experts top-8 at the config's
+    capacity, d 4096, f 1536, bf16): ``grouped_gemm_bwd`` (8_bwd, on its
+    tensor-core build: registers, spills and a SASS census with ``HGMMA``;
+    two ``torch.bmm`` calls timed in turns as the library yardstick),
+    ``moe_combine_bwd`` (10_bwd: dslots bitwise the plain version's, dw at
+    1e-4 of its scale; no one PyTorch call computes it, the composition of
+    index_select, multiply and row dot timed beside it) and
+    ``moe_dispatch_bwd`` (kernel 10 with unit weights; ``index_add_`` of the
+    slot rows into their tokens as the library call).  Each: a bitwise
+    repeat, CUDA-event ms, device ms, the plain version's ms, and the bound
+    from the bytes this run's plan needs (occupied slots only) and the
+    products at the bf16 rate."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.control_plane import capacity_for, route_topk
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.kernels.grouped_gemm import ref as gg_ref
+    from repro_torch.kernels.moe_dispatch import ops as md_ops
+    from repro_torch.kernels.moe_dispatch import ref as md_ref
+
+    bf16 = torch.bfloat16
+    cfg = get_config(ARCH)
+    T, d, f, E, k = MOE_TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff_expert, cfg.num_experts, cfg.top_k
+    C = capacity_for(T, E, k, cfg.capacity_factor)
+    x32 = torch.randn((T, d), generator=gen, device=dev)
+    plan, _ = route_topk(x32, torch.randn((d, E), generator=gen, device=dev) * 0.02, k, C)
+    del x32
+    cidx, w = plan.flat_combine_words()
+    idx = plan.flat_dispatch_idx()
+    n_kept = int((idx < T).sum())
+    shapes = f"T {T} (= {MOE_TRAIN_BATCH} x {TRAIN_SEQ}), E {E}, C {C} ({n_kept} slots occupied), d {d}, f {f}, top-{k}"
+    rows = {}
+
+    # 8_bwd: the a2a body's down projection h (E, C, f) @ w_down (E, f, d)
+    h = (torch.randn((E, C, f), generator=gen, device=dev) * 0.5).to(bf16)
+    wd = (torch.randn((E, f, d), generator=gen, device=dev) * f ** -0.5).to(bf16)
+    dy = torch.randn((E, C, d), generator=gen, device=dev).to(bf16)
+    path = gg_ops.grouped_gemm_bwd_path(bf16, f, d, True)
+    if path != "tensor_cores":
+        raise AssertionError(f"8_bwd at the a2a body's shapes takes {path}, not the tensor cores")
+    kernel = lambda: gg_ops.grouped_gemm_bwd(h, wd, dy)  # noqa: E731
+    plain = lambda: gg_ref.grouped_gemm_bwd(h, wd, dy)  # noqa: E731
+    library = lambda: (torch.bmm(dy, wd.transpose(1, 2)), torch.bmm(h.transpose(1, 2), dy))  # noqa: E731
+    err = max(check_bf16(f"8_bwd {n}", g, wt) for n, g, wt in zip(("dx", "dw"), kernel(), plain()))
+    cat = lambda fn: lambda: torch.cat([t.reshape(-1).float() for t in fn()])  # noqa: E731
+    sass = sass_census("grouped_gemm", "dx_tc_kernel", "dw_tc_kernel")
+    if len(sass) != 2 or not all(c.get("HGMMA") for c in sass.values()):
+        raise AssertionError(f"grouped_gemm_bwd: no HGMMA in the SASS of the tensor-core build: {sass}")
+    ms, lib_ms, turns = in_turns(kernel, library, iters=3, reps=3)
+    nbytes = 2 * (E * C * f * 2 + E * f * d * 2) + E * C * d * 2
+    flops = 4.0 * E * C * f * d
+    rows["grouped_gemm_bwd"] = dict(
+        route="cuda", source="src/repro_torch/csrc/grouped_gemm.cu", shapes=f"h (E, C, f), w_down (E, f, d), dy "
+        f"(E, C, d) bf16; {shapes}", max_abs_err=err, ms=ms, ms_in_turns=turns, library_ms=lib_ms,
+        library_call="torch.bmm(dy, w^T) and torch.bmm(x^T, dy), bf16 (in turns)",
+        device_ms=device_ms(kernel, "", n=3), device_ms_by_launch={n_: device_ms(kernel, n_, n=3)
+                                                                   for n_ in ("dx_tc_kernel", "dw_tc_kernel")},
+        plain_ms=time_ms(plain, iters=1, reps=2), bitwise_repeat=bitwise_repeat("8_bwd", cat(kernel)), path=path,
+        ptxas=ptxas("grouped_gemm", "dx_tc_kernel", "dw_tc_kernel"), sass=sass, bytes=nbytes, flops=flops,
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
+    del h, wd, dy
+    torch.cuda.empty_cache()
+
+    # 10_bwd and 9's backward on the plan's words
+    ys = torch.randn((E, C, d), generator=gen, device=dev).to(bf16)
+    dy = torch.randn((T, d), generator=gen, device=dev).to(bf16)
+    kernel = lambda: md_ops.combine_bwd(dy, ys, cidx, w, idx)  # noqa: E731
+    plain = lambda: md_ref.combine_bwd(dy, ys.reshape(E * C, d), cidx, w, idx)  # noqa: E731
+    got, want = kernel(), plain()
+    if not torch.equal(got[0].reshape(E * C, d), want[0]):
+        raise AssertionError("10_bwd: dslots is not bitwise the plain version's")
+    err = check_close("10_bwd dw", got[1], want[1], 1e-4)
+    del got, want
+    tok = torch.arange(T, device=dev).repeat_interleave(k)
+    keep = cidx < E * C
+
+    def composite():
+        c = cidx.long()[keep]
+        rows_ = torch.zeros((E * C, d), dtype=bf16, device=dev)
+        rows_.index_copy_(0, c, (w[keep, None] * dy.index_select(0, tok[keep]).float()).to(bf16))
+        dot = (dy.index_select(0, tok[keep]).float() * ys.reshape(E * C, d).index_select(0, c).float()).sum(-1)
+        return rows_, dot
+
+    ms, comp_ms, turns = in_turns(kernel, composite, iters=3, reps=3)
+    nbytes = T * d * 2 + n_kept * d * 2 + E * C * d * 2 + T * k * (4 + 4 + 4) + E * C * 4
+    flops = 3.0 * n_kept * d
+    rows["moe_combine_bwd"] = dict(
+        route="cuda", source="src/repro_torch/csrc/moe_dispatch.cu", shapes=f"dy (T, d), slots (E, C, d) bf16; "
+        f"{shapes}", max_abs_err=err, ms=ms, ms_in_turns=turns, composite_ms=comp_ms,
+        composite_call="index_select + multiply + index_copy_ for dslots, index_select + row dot for dw (in turns)",
+        library_ms=None, library_call="none: no one PyTorch call computes both the slots' and the weights' gradient",
+        device_ms=device_ms(kernel, "combine_bwd_kernel", n=5), plain_ms=time_ms(plain, iters=1, reps=2),
+        bitwise_repeat=bitwise_repeat("10_bwd", lambda: torch.cat([kernel()[0].reshape(-1).float(), kernel()[1]])),
+        bytes=nbytes, flops=flops, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
+    kernel = lambda: md_ops.dispatch_bwd(ys, cidx, T)  # noqa: E731
+    plain = lambda: md_ref.dispatch_bwd(ys.reshape(E * C, d), cidx, T)  # noqa: E731
+    err = check_bf16("9's backward", kernel(), plain())
+    occupied = idx < T
+
+    def library():
+        out = torch.zeros((T, d), dtype=bf16, device=dev)
+        return out.index_add_(0, idx.long()[occupied], ys.reshape(E * C, d)[occupied])
+
+    ms, lib_ms, turns = in_turns(kernel, library, iters=5, reps=3)
+    nbytes = n_kept * d * 2 + T * k * 4 + T * d * 2
+    flops = 1.0 * n_kept * d
+    rows["moe_dispatch_bwd"] = dict(
+        route="cuda", source="src/repro_torch/csrc/moe_dispatch.cu", shapes=f"dslots (E, C, d) bf16; {shapes}",
+        max_abs_err=err, ms=ms, ms_in_turns=turns, library_ms=lib_ms,
+        library_call="index_add_ of the occupied slots' rows into their tokens, bf16 (in turns; the occupied rows' "
+                     "selection outside the call)",
+        design="kernel 10 (repro_moe_combine) over the plan's combine words with unit weights: no kernel of its own",
+        device_ms=device_ms(kernel, "combine_kernel", n=5), plain_ms=time_ms(plain, iters=1, reps=2),
+        bitwise_repeat=bitwise_repeat("9's backward", kernel), bytes=nbytes, flops=flops,
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
+    del ys, dy, plan
+    torch.cuda.empty_cache()
+    return rows
 
 
 SSD_RAGGED_T = 2100  # 11_bwd off both builds' chunks (64 and 256)
@@ -4976,6 +5258,8 @@ def main() -> int:
     emit("train_restart", **train_restart(dev))
     tsweep = train_sweep(dev)
     emit("train_sweep", **tsweep)
+    tmesh = train_mesh(dev, train_moe)
+    emit("train_mesh", **tmesh)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -5042,6 +5326,16 @@ def main() -> int:
             name=name, route="cuda", source=r["source"], replaces=replaces, launches=counts[wrapper],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+        ))
+    # the a2a body's backwards (launches: train_mesh's tp cell, the mesh step's a2a body)
+    for name, replaces in (("grouped_gemm_bwd", KERNELS["grouped_gemm"][1]),
+                           ("moe_combine_bwd", KERNELS["moe_combine"][1]),
+                           ("moe_dispatch_bwd", KERNELS["moe_dispatch"][1])):
+        r = rows[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=r["source"], replaces=replaces,
+            launches=tmesh["tp"]["kernel_launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
     (ROOT / "chiprun_out" / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

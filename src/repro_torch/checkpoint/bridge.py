@@ -15,10 +15,11 @@ the type its use computes in (:func:`layers.storage_dtype`); the int8 expert
 twins ``*_q`` stay int8 and their scales ``*_s`` f32, bit for bit.  Tied
 embeddings have no ``unembed`` leaf: the f32 table the logits read is made
 from ``embed`` here (:func:`transformer.place_tied_unembed`).  Given a
-mesh, each rank places only its slice of the expert stacks, their int8
-twins and scales (the layout of
-:func:`repro_torch.parallel.sharding.shard_params`), cut from the arrays
-before they are copied.
+mesh, each rank places only its shard of each leaf, cut from the arrays
+before they are copied: by the serving rule
+(:func:`repro_torch.parallel.sharding.serve_leaf_spec`, the layout of
+``shard_params``: the rank's slice of the expert stacks, their int8 twins
+and scales) or, with a training ``strategy``, by ``leaf_spec``.
 
 :func:`leaves_from_params` is the inverse: the port's params as the
 reference's named leaves, re-stacked on the super-block axis, in the order
@@ -40,18 +41,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Params, storage_dtype
 from repro_torch.models.transformer import place_tied_unembed
-from repro_torch.parallel.sharding import expert_slice, is_expert_stack
+from repro_torch.parallel.sharding import cut, is_expert_stack, leaf_spec, serve_leaf_spec
 
 Leaf = Union[np.ndarray, torch.Tensor]  # a bf16 leaf is a CPU bf16 tensor
 
 
-def _put(tree: dict, path, arr: Leaf, cfg: ModelConfig, device, mesh, train: bool = False) -> None:
+def _put(tree: dict, path, arr: Leaf, cfg: ModelConfig, device, mesh, train: bool = False,
+         strategy: str = None) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     dt = getattr(torch, cfg.param_dtype) if train else storage_dtype(cfg, path[-1])
-    sl = expert_slice(cfg, mesh)
-    if sl is not None and is_expert_stack(path, arr.shape):
-        arr = arr[sl]  # the rank's expert slice, cut before the copy
+    if mesh is not None:  # the rank's shard, cut before the copy
+        shape = tuple(arr.shape)
+        spec = serve_leaf_spec(tuple(path), shape, mesh) if strategy is None else \
+            leaf_spec(tuple(path), shape, mesh, strategy, cfg.tie_embeddings)
+        arr = cut(arr, spec, mesh)
     if isinstance(arr, torch.Tensor):  # bf16 bits (read_leaf), never widened on the host
         tree[path[-1]] = arr.to(device=device, dtype=dt, copy=True)
     elif arr.dtype.kind == "V":
@@ -63,10 +67,12 @@ def _put(tree: dict, path, arr: Leaf, cfg: ModelConfig, device, mesh, train: boo
         tree[path[-1]] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dt)
 
 
-def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=None, *, train: bool = False) -> Params:
+def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=None, *, train: bool = False,
+                      strategy: str = None) -> Params:
     """{leaf name: array} as the reference writes them -> port params (this
     rank's expert slice when ``mesh`` has a ``model`` axis of more than one
-    rank).  A bf16 leaf may come as a CPU bf16 tensor (:func:`read_leaf`).
+    rank; with ``strategy`` this rank's shard of every leaf, the training
+    placement).  A bf16 leaf may come as a CPU bf16 tensor (:func:`read_leaf`).
     With ``train`` every leaf is placed in ``cfg.param_dtype`` (the f32
     master weights of :meth:`Model.init(train=True)
     <repro_torch.models.model.Model.init>`) and tied embeddings get no
@@ -82,18 +88,18 @@ def params_from_numpy(cfg: ModelConfig, arrays: Dict[str, Leaf], device, mesh=No
     for name, arr in arrays.items():
         parts = name.split("/")
         if parts[0] != "blocks":
-            _put(params, parts, arr, cfg, device, mesh, train)
+            _put(params, parts, arr, cfg, device, mesh, train, strategy)
         elif parts[1] == "scan":
             j = int(parts[2][1:])
             if parts[-1] == "vc" and arr.ndim == 1:  # Adafactor's column mean of a stacked 1-D leaf
-                _put(layers[j], parts[3:], arr, cfg, device, mesh, train)
+                _put(layers[j], parts[3:], arr, cfg, device, mesh, train, strategy)
                 continue
             if arr.shape[0] != n_sb:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != {n_sb} super-blocks")
             for s in range(n_sb):
-                _put(layers[s * len(pat) + j], parts[3:], arr[s], cfg, device, mesh, train)
+                _put(layers[s * len(pat) + j], parts[3:], arr[s], cfg, device, mesh, train, strategy)
         elif parts[1] == "rest":
-            _put(layers[n_sb * len(pat) + int(parts[2])], parts[3:], arr, cfg, device, mesh, train)
+            _put(layers[n_sb * len(pat) + int(parts[2])], parts[3:], arr, cfg, device, mesh, train, strategy)
         else:
             raise ValueError(f"unknown parameter leaf {name!r}")
     if any(not layer for layer in layers):

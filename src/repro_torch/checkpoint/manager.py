@@ -32,6 +32,12 @@ version counter, which torch bumps on every in-place write), the new step
 hard-links the previous step's leaf files instead of writing them again.
 A step directory stays complete on its own; GC of the older step leaves
 the newer one's links intact.
+
+On a mesh (the sharded train step's ranks: ``save(..., mesh=, strategy=)``)
+every leaf of params and optimizer state is gathered whole, leaf by leaf,
+rank 0 writes the step as above while the other ranks wait at a barrier,
+and ``restore(mesh=, strategy=)`` cuts each rank's shards of the new mesh
+from the whole leaves: the files are the same at any mesh shape.
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from repro_torch.checkpoint.bridge import (
     read_leaf,
     tree_from_numpy,
 )
+from repro_torch.parallel.sharding import gather_leaf, map_specs, opt_state_pspecs, param_pspecs, shard_tree
 
 
 class TornCheckpointError(Exception):
@@ -170,7 +177,37 @@ class CheckpointManager:
             total += nbytes
         return files, total
 
-    def save(self, step: int, params: Any, opt_state: Any = None, extra: Optional[Dict] = None) -> Path:
+    def _specs(self, opt_state: Any, mesh, strategy: str):
+        from repro_torch.models.transformer import init_params
+
+        shapes = init_params(self.cfg, None, "meta", train=True)  # the whole leaves' shapes
+        specs = param_pspecs(shapes, mesh, strategy=strategy)
+        return specs, (opt_state_pspecs(opt_state, shapes, mesh, strategy=strategy) if opt_state else None)
+
+    def _save_sharded(self, step: int, params: Any, opt_state: Any, extra: Optional[Dict], mesh,
+                      strategy: str) -> Path:
+        import torch.distributed as dist
+
+        p_specs, o_specs = self._specs(opt_state, mesh, strategy)
+        lead = dist.get_rank() == 0
+
+        def whole(shard, spec):  # every rank gathers; rank 0 keeps a host copy
+            leaf = gather_leaf(shard, spec, mesh)
+            return leaf.cpu() if lead else None
+
+        full_p = map_specs(whole, params, p_specs)
+        full_o = map_specs(whole, opt_state, o_specs) if opt_state else opt_state
+        final = self.save(step, full_p, full_o, extra) if lead else self.dir / f"step_{step:08d}"
+        dist.barrier()
+        return final
+
+    def save(self, step: int, params: Any, opt_state: Any = None, extra: Optional[Dict] = None, *, mesh=None,
+             strategy: Optional[str] = None) -> Path:
+        """Write ``step`` atomically (module docstring).  With ``mesh`` and a
+        training ``strategy`` ``params`` and ``opt_state`` are this rank's
+        shards: every rank calls this, rank 0 writes the whole leaves."""
+        if mesh is not None and strategy is not None:
+            return self._save_sharded(step, params, opt_state, extra, mesh, strategy)
         t0 = time.perf_counter()
         self._gc_tmp()
         tmp = self.dir / f"tmp.step_{step:08d}"
@@ -269,7 +306,7 @@ class CheckpointManager:
             for fh in handles:
                 fh.close()
 
-    def _restore_step(self, step: int, device, mesh) -> Tuple[Any, Dict[str, Any], int, Dict]:
+    def _restore_step(self, step: int, device, mesh, strategy=None) -> Tuple[Any, Dict[str, Any], int, Dict]:
         t0 = time.perf_counter()
         d = self.dir / f"step_{step:08d}"
         try:
@@ -281,31 +318,36 @@ class CheckpointManager:
         opt = self._read(d, files_o)
         nbytes = sum(a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
                      for a in list(arrays.values()) + list(opt.values()))
-        params = params_from_numpy(self.cfg, arrays, device, mesh, train=self.train) \
+        params = params_from_numpy(self.cfg, arrays, device, mesh, train=self.train, strategy=strategy) \
             if self.cfg is not None and arrays else arrays
         if self.train and opt:
             opt = tree_from_numpy(self.cfg, opt, device)
+            if strategy is not None:
+                opt = shard_tree(opt, self._specs(opt, mesh, strategy)[1], mesh)
         if isinstance(device, torch.device) and device.type == "cuda":
             torch.cuda.synchronize(device)
         self.restores.append((manifest["step"], time.perf_counter() - t0, nbytes))
         return params, opt, manifest["step"], manifest.get("extra", {})
 
-    def restore(self, device=None, *, step: Optional[int] = None, mesh=None) -> Tuple[Any, Dict[str, Any], int, Dict]:
+    def restore(self, device=None, *, step: Optional[int] = None, mesh=None,
+                strategy: Optional[str] = None) -> Tuple[Any, Dict[str, Any], int, Dict]:
         """(params, opt_state leaves by name, step, extra) of ``step``, or of
         the newest committed step that loads.  With ``cfg`` the params are
         placed on ``device`` (this rank's expert slice under ``mesh``;
-        ``None`` means the card, :func:`repro_torch.resolve_device`)."""
+        ``None`` means the card, :func:`repro_torch.resolve_device`); with
+        ``mesh`` and a training ``strategy`` this rank's shards of the params
+        and (a ``train`` manager's) optimizer state."""
         device = resolve_device(device) if self.cfg is not None else device
         if step is not None:
             # an explicit step stays strict: the caller asked for THIS snapshot
-            return self._restore_step(step, device, mesh)
+            return self._restore_step(step, device, mesh, strategy)
         steps = self.all_steps()
         if not steps:
             raise FileNotFoundError(f"no committed checkpoints in {self.dir}")
         torn: List[Tuple[int, str]] = []
         for s in reversed(steps):
             try:
-                return self._restore_step(s, device, mesh)
+                return self._restore_step(s, device, mesh, strategy)
             except TornCheckpointError as err:
                 # crash-damaged snapshot: remember why and fall back to the
                 # next-newest complete step

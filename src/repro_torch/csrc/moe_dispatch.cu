@@ -36,6 +36,26 @@
 //    written once, with the same sums in the same order on every run (the
 //    TPU kernel's serial accumulation over its j grid axis becomes the loop
 //    inside the thread).
+//
+// combine's backward (10_bwd), for the a2a body's gradient (the TPU kernel
+// has no VJP; the reference trains through jax's transpose of its jnp
+// combine), with dy (T, d) the gradient of combine's output:
+//   dslots[cidx[t, j]] = w[t, j] dy[t] for every kept assignment, zero rows
+//   in the slots no word points to (flat_idx[s] outside [0, T)), in the
+//   slots' type; dw[t, j] = <dy[t], slots[cidx[t, j]]> in f32 (0 for a
+//   dropped assignment), which reaches the router through the plan's weights.
+//   One launch, two kinds of block: one a token (its dy row read once, its k
+//   slot rows written and dotted, the k dots summed across the block by a
+//   fixed tree) and one a slot (a zero row for an empty slot, nothing
+//   otherwise).  Every output is written by one owner: a kept slot by its
+//   one (t, j), an empty one by its slot block; no atomics, a repeated
+//   launch is bitwise equal.
+// dispatch's backward is combine itself with unit weights (every kept slot
+// belongs to one (t, j), a dropped assignment adds nothing): dx[t] = the
+// sum of its slot rows in ascending j, no kernel of its own.
+// What bounds 10_bwd: bytes.  At the a2a body's training shapes (T 4,096,
+// top-8 of E 128, C 320, d 4,096, bf16) it reads dy (34 MB) and the slots
+// (336 MB) and writes dslots (336 MB): ~0.71 GB, 0.21 ms at 3.35 TB/s.
 #include "common.cuh"
 
 namespace {
@@ -125,6 +145,89 @@ __global__ void __launch_bounds__(THREADS) combine_kernel(
   reinterpret_cast<U*>(out)[t * units + u] = o;
 }
 
+// 10_bwd.  Blocks [0, T): token t; blocks [T, T + n_slots): slot s = b - T.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS) combine_bwd_kernel(
+    const T* __restrict__ dy,           // (T, d)
+    const T* __restrict__ y,            // (n_slots, d)
+    const int* __restrict__ cidx,       // (T*k,)
+    const float* __restrict__ w,        // (T*k,)
+    const int* __restrict__ flat_idx,   // (n_slots,) token of each slot
+    T* __restrict__ dslots,             // (n_slots, d)
+    float* __restrict__ dw,             // (T*k,)
+    int Tn, int n_slots, int k, int units) {
+  using U = typename Unit<T, VEC>::type;
+  constexpr int N = Unit<T, VEC>::N;
+  __shared__ int c_s[KMAX];
+  __shared__ float w_s[KMAX];
+  __shared__ float red[THREADS / 32][JBATCH];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if ((int)blockIdx.x >= Tn) {  // a slot block: a zero row for a slot no word points to
+    const long s = blockIdx.x - Tn;
+    const int tok = flat_idx[s];
+    if (tok >= 0 && tok < Tn) return;
+    U z;
+    memset(&z, 0, sizeof(U));
+    for (int u = tid; u < units; u += THREADS) reinterpret_cast<U*>(dslots)[s * units + u] = z;
+    return;
+  }
+  const long t = blockIdx.x;
+  if (tid < k) {
+    const int c = cidx[t * k + tid];
+    c_s[tid] = (c >= 0 && c < n_slots) ? c : -1;
+    w_s[tid] = w[t * k + tid];
+  }
+  __syncthreads();
+  const U* rows = reinterpret_cast<const U*>(y);
+  const U* dyr = reinterpret_cast<const U*>(dy) + t * units;
+  U* out = reinterpret_cast<U*>(dslots);
+  for (int j0 = 0; j0 < k; j0 += JBATCH) {
+    float acc[JBATCH];
+#pragma unroll
+    for (int jj = 0; jj < JBATCH; ++jj) acc[jj] = 0.f;
+    for (int u = tid; u < units; u += THREADS) {
+      const U gv = dyr[u];
+      const T* ge = reinterpret_cast<const T*>(&gv);
+      float g[N];
+#pragma unroll
+      for (int q = 0; q < N; ++q) g[q] = to_f32(ge[q]);
+#pragma unroll
+      for (int jj = 0; jj < JBATCH; ++jj) {
+        const int j = j0 + jj;
+        const int c = j < k ? c_s[j] : -1;
+        if (c < 0) continue;
+        const U r = rows[(long)c * units + u];
+        const T* re = reinterpret_cast<const T*>(&r);
+        const float wj = w_s[j];
+        U o;
+        T* oe = reinterpret_cast<T*>(&o);
+#pragma unroll
+        for (int q = 0; q < N; ++q) {
+          acc[jj] = fmaf(g[q], to_f32(re[q]), acc[jj]);
+          oe[q] = from_f32<T>(wj * g[q]);
+        }
+        out[(long)c * units + u] = o;
+      }
+    }
+    // each dot across the block: the warp's by a fixed butterfly, then the warps in order
+#pragma unroll
+    for (int jj = 0; jj < JBATCH; ++jj) {
+      float v = acc[jj];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) red[warp][jj] = v;
+    }
+    __syncthreads();
+    if (tid < JBATCH && j0 + tid < k) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < THREADS / 32; ++q) v += red[q][tid];
+      dw[t * k + j0 + tid] = c_s[j0 + tid] >= 0 ? v : 0.f;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" int repro_moe_dispatch(int dtype, const void* x, const void* flat_idx, void* slots, int Tn,
@@ -157,6 +260,30 @@ extern "C" int repro_moe_combine(int dtype, const void* y, const void* cidx, con
     } else {
       combine_kernel<Tp, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
           (const Tp*)y, (const int*)cidx, (const float*)w, (Tp*)out, n_slots, k, units);
+    }
+  });
+  return (int)cudaGetLastError();
+}
+
+// 10_bwd: dy (T, d) and y (n_slots, d) in the dtype code's type, cidx and w
+// (T*k,), flat_idx (n_slots,); outputs dslots (n_slots, d) in that type and
+// dw (T*k,) f32.  One launch.
+extern "C" int repro_moe_combine_bwd(int dtype, const void* dy, const void* y, const void* cidx, const void* w,
+                                     const void* flat_idx, void* dslots, void* dw, int Tn, int n_slots, int k, int d,
+                                     int vec, void* stream) {
+  if (d <= 0 || Tn + (long)n_slots <= 0) return 0;
+  if (k < 1 || k > KMAX || Tn < 0 || n_slots < 0 || Tn + (long)n_slots > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  REPRO_DISPATCH(dtype, Tp, {
+    const int units = vec ? d / Unit<Tp, true>::N : d;
+    const unsigned grid = (unsigned)(Tn + n_slots);
+    if (vec) {
+      combine_bwd_kernel<Tp, true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          (const Tp*)dy, (const Tp*)y, (const int*)cidx, (const float*)w, (const int*)flat_idx, (Tp*)dslots,
+          (float*)dw, Tn, n_slots, k, units);
+    } else {
+      combine_bwd_kernel<Tp, false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          (const Tp*)dy, (const Tp*)y, (const int*)cidx, (const float*)w, (const int*)flat_idx, (Tp*)dslots,
+          (float*)dw, Tn, n_slots, k, units);
     }
   });
   return (int)cudaGetLastError();

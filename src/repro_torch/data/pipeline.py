@@ -5,8 +5,11 @@ one device with background host prefetch.
 Determinism contract: batch contents are a pure function of (seed, step),
 the same numpy arrays the reference's datasets make, so a restart replays
 the exact stream from any step.  The loader takes a device instead of a
-mesh (one card, no batch sharding): on the card each batch is pinned on the
-prefetch thread and copied with ``non_blocking`` on the caller's stream.
+mesh: on the card each batch is pinned on the prefetch thread and copied
+with ``non_blocking`` on the caller's stream.  On a mesh each data rank
+passes ``rows``, its rows of the deterministic global batch in
+``batch_spec``'s row order (:func:`repro_torch.launch.steps.batch_rows`),
+and places only those.
 """
 from __future__ import annotations
 
@@ -81,11 +84,13 @@ class ShardedLoader:
         start_step: int = 0,
         prefetch: int = 2,
         frontend_spec: Optional[Tuple[int, int]] = None,  # (tokens, dim) stub
+        rows: Optional[slice] = None,  # this rank's rows of the global batch
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
         self.frontend_spec = frontend_spec
+        self.rows = rows
         self._prefetch = max(prefetch, 1)
         self._start(start_step)
 
@@ -102,6 +107,8 @@ class ShardedLoader:
             ft, fd = self.frontend_spec
             rng = np.random.default_rng((123, step))
             b["frontend"] = rng.standard_normal((self.batch_size, ft, fd)).astype(np.float32)
+        if self.rows is not None:
+            b = {k: np.ascontiguousarray(v[self.rows]) for k, v in b.items()}
         return b
 
     def _worker(self, stop: threading.Event, q: queue.Queue) -> None:

@@ -234,9 +234,9 @@ def kernel_wrappers() -> dict:
         flash_decode_paged_kernel,
         flash_decode_window_kernel,
     )
-    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+    from repro_torch.kernels.grouped_gemm.ops import grouped_gemm, grouped_gemm_bwd
     from repro_torch.kernels.moe_decode.ops import decode_moe_kernel
-    from repro_torch.kernels.moe_dispatch.ops import combine, dispatch
+    from repro_torch.kernels.moe_dispatch.ops import combine, combine_bwd, dispatch, dispatch_bwd
     from repro_torch.kernels.moe_fused.ops import down_combine, down_combine_bwd, gather_swiglu, gather_swiglu_bwd
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_bwd
@@ -259,4 +259,7 @@ def kernel_wrappers() -> dict:
         "down_combine_bwd": down_combine_bwd,
         "rglru_scan_bwd": rglru_scan_bwd,
         "ssd_scan_bwd": ssd_scan_bwd,
+        "grouped_gemm_bwd": grouped_gemm_bwd,
+        "moe_combine_bwd": combine_bwd,
+        "moe_dispatch_bwd": dispatch_bwd,
     }

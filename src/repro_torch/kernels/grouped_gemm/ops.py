@@ -8,6 +8,9 @@ cores (wgmma fed by TMA, which zero-fills the ragged edges), everything
 else on CUDA cores (ragged M, K and N masked inside the kernel); neither
 makes padded copies.  :func:`grouped_swiglu` and :func:`experts_fn` (the
 reference's ``pallas_experts_fn``) build the per-expert SwiGLU on it.
+:func:`grouped_gemm_bwd` is its backward (8_bwd: dx and dw in one call,
+the build :func:`grouped_gemm_bwd_path` names), which
+``moe_fused.ops.fused_experts_fn`` runs under autograd.
 """
 from __future__ import annotations
 
@@ -67,6 +70,54 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 grouped_gemm.launches = 0
+
+
+def grouped_gemm_bwd_path(dtype: torch.dtype, K: int, N: int, aligned: bool) -> str:
+    """Which build of kernel 8's backward a launch takes, from its dtype, K,
+    N and whether x, w, dy and the outputs start on 16-byte boundaries:
+    ``"tensor_cores"`` (bf16 wgmma tiles fed by TMA, every row stride a
+    multiple of 16 bytes: K and N multiples of 8) or ``"cuda_cores"`` (f32
+    products; f32, and bf16 at any other shape)."""
+    ok = dtype == torch.bfloat16 and K > 0 and N > 0 and K % 8 == 0 and N % 8 == 0 and aligned
+    return "tensor_cores" if ok else "cuda_cores"
+
+
+def grouped_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """Kernel 8's backward (8_bwd) for the gradient dy (E, M, N) of
+    ``grouped_gemm(x, w)``: ``(dx, dw)`` = (dy[e] @ w[e]^T, x[e]^T @ dy[e]),
+    f32 sums in a fixed order, in x's type.  On the card the build
+    :func:`grouped_gemm_bwd_path` names, counted once: two launches on CUDA
+    cores, three on tensor cores (a touch that makes the context current
+    on autograd's thread, then dx, then dw)."""
+    _check(x.ndim == 3 and w.ndim == 3 and dy.ndim == 3, "x, w and dy must be 3-D")
+    E, M, K = x.shape
+    N = w.shape[2]
+    _check(w.shape == (E, K, N) and dy.shape == (E, M, N), f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, "
+           f"dy {tuple(dy.shape)}")
+    _check(x.dtype == w.dtype == dy.dtype, f"x, w and dy must share a dtype ({x.dtype}, {w.dtype}, {dy.dtype})")
+    if x.device.type == "cpu":
+        _check(w.device.type == "cpu" and dy.device.type == "cpu", "tensors on different devices")
+        return ref.grouped_gemm_bwd(x, w, dy)
+    _check(x.device == w.device == dy.device, "tensors on different devices")
+    _check(x.device.type == "cuda", f"unsupported device {x.device}")
+    x, w, dy = x.contiguous(), w.contiguous(), dy.contiguous()
+    from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
+
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx, dw))
+    if grouped_gemm_bwd_path(x.dtype, K, N, aligned) == "tensor_cores":
+        rc = function("grouped_gemm", "repro_grouped_gemm_bwd_tc", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])(ptr(x), ptr(w), ptr(dy), ptr(dx), ptr(dw), E, M, K, N, stream_of(x))
+    else:
+        rc = function("grouped_gemm", "repro_grouped_gemm_bwd", [ctypes.c_int] + [ctypes.c_void_p] * 5
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+            dtype_code(x.dtype), ptr(x), ptr(w), ptr(dy), ptr(dx), ptr(dw), E, M, K, N, stream_of(x))
+    check_launch(rc, "grouped_gemm_bwd")
+    grouped_gemm_bwd.launches += 1
+    return dx, dw
+
+
+grouped_gemm_bwd.launches = 0
 
 
 def grouped_swiglu(

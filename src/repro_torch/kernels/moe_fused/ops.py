@@ -341,6 +341,20 @@ class _FusedMoeTrain(torch.autograd.Function):
         return dx, None, dsw, dwg, dwu, dwd, None
 
 
+def fused_moe_train(x: torch.Tensor, flat_idx: torch.Tensor, slot_w: torch.Tensor, p, flat_cidx: torch.Tensor):
+    """The two launches on flat words under :class:`_FusedMoeTrain`, (T, d)
+    -> (T, d) f32, serving and training alike (with no gradient asked for
+    no graph is kept): ``flat_idx`` / ``slot_w`` the slots' words and
+    ``flat_cidx`` each assignment's slot, the slots' count for a dropped
+    one (or, in the expert-parallel psum body, for another rank's).  Under
+    autograd x, ``slot_w`` and the three stacks get their gradient from
+    4_bwd and 3_bwd.  The stacks are cast to x's type first (the f32
+    master weights' bf16 use; a no-op when serving)."""
+    w = [p[n].to(x.dtype).contiguous() for n in ("w_gate", "w_up", "w_down")]
+    return _FusedMoeTrain.apply(x.contiguous(), flat_idx.contiguous(), slot_w.contiguous(), *w,
+                                flat_cidx.contiguous())
+
+
 def fused_moe_apply(x, flat_idx, slot_w, w_gate, w_up, w_down) -> torch.Tensor:
     """Full plan-steered expert pipeline, (T, d) -> (T, d), two launches."""
     h = gather_swiglu(x, flat_idx, w_gate, w_up)
@@ -349,16 +363,37 @@ def fused_moe_apply(x, flat_idx, slot_w, w_gate, w_up, w_down) -> torch.Tensor:
 
 def fused_moe_fn(x: torch.Tensor, plan: DispatchPlan, p) -> torch.Tensor:
     """Plan-level entry point used by :func:`repro_torch.models.moe.moe_ffn`,
-    (T, d) -> (T, d) f32: the two launches under :class:`_FusedMoeTrain`,
-    so that under autograd x, the plan's slot weights and the three stacks
-    get their gradient from the two backward kernels (with no gradient
-    asked for, as when serving, no graph is kept).  The stacks are cast to
-    x's type first (the f32 master weights' bf16 use; a no-op when
-    serving)."""
+    (T, d) -> (T, d) f32: :func:`fused_moe_train` on the plan's flat
+    words."""
     cidx, _ = plan.flat_combine_words()
-    w = [p[n].to(x.dtype).contiguous() for n in ("w_gate", "w_up", "w_down")]
-    return _FusedMoeTrain.apply(x.contiguous(), plan.flat_dispatch_idx().contiguous(),
-                                plan.flat_slot_w().contiguous(), *w, cidx.contiguous())
+    return fused_moe_train(x, plan.flat_dispatch_idx(), plan.flat_slot_w(), p, cidx)
+
+
+class _FusedExperts(torch.autograd.Function):
+    """Kernel 3 over the identity index, then kernel 8, with their gradient:
+    the backward launches :func:`~repro_torch.kernels.grouped_gemm.ops.
+    grouped_gemm_bwd` (8_bwd: dh and dWd) then :func:`gather_swiglu_bwd`
+    with the identity as both its slot and its combine words (k = 1, T =
+    E*C: every slot its own token), so 3_bwd gives dx, dWg and dWu."""
+
+    @staticmethod
+    def forward(ctx, xf, ident, w_gate, w_up, w_down):
+        from repro_torch.kernels.grouped_gemm import grouped_gemm
+
+        E = w_gate.shape[0]
+        h = gather_swiglu(xf, ident, w_gate, w_up)
+        y = grouped_gemm(h, w_down)
+        ctx.save_for_backward(xf, ident, w_gate, w_up, w_down, h)
+        return y.reshape(E, -1, y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels.grouped_gemm.ops import grouped_gemm_bwd
+
+        xf, ident, w_gate, w_up, w_down, h = ctx.saved_tensors
+        dh, dwd = grouped_gemm_bwd(h, w_down, dy.contiguous())
+        dx, dwg, dwu = gather_swiglu_bwd(dh, xf, ident, ident, w_gate, w_up)
+        return dx, None, dwg, dwu, dwd
 
 
 def fused_experts_fn(x_slots: torch.Tensor, p) -> torch.Tensor:
@@ -366,10 +401,11 @@ def fused_experts_fn(x_slots: torch.Tensor, p) -> torch.Tensor:
     ``gather_swiglu`` launch over the identity index (every slot occupied, so
     every expert's gate/up weights are read) and one grouped down projection;
     the output stays slot-major, no scatter (reference
-    ``moe_fused/ops.fused_experts_fn``)."""
-    from repro_torch.kernels.grouped_gemm import grouped_gemm
-
+    ``moe_fused/ops.fused_experts_fn``).  Under autograd the slots and the
+    three stacks get their gradient from 8_bwd and 3_bwd
+    (:class:`_FusedExperts`); the stacks are cast to the slots' type first
+    (the f32 master weights' bf16 use; a no-op when serving)."""
     E, C, d = x_slots.shape
     flat_idx = torch.arange(E * C, dtype=torch.int32, device=x_slots.device)
-    h = gather_swiglu(x_slots.reshape(E * C, d).contiguous(), flat_idx, p["w_gate"], p["w_up"])
-    return grouped_gemm(h, p["w_down"].to(h.dtype)).to(x_slots.dtype)
+    w = [p[n].to(x_slots.dtype).contiguous() for n in ("w_gate", "w_up", "w_down")]
+    return _FusedExperts.apply(x_slots.reshape(E * C, d).contiguous(), flat_idx, *w)

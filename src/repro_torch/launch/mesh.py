@@ -12,7 +12,11 @@ The caller initialises the default group (``torchrun``'s environment, or
 :func:`init_single_rank` for a one-rank group in-process) and passes each
 rank's device; collectives then run on the tensors' own devices: NCCL for
 ``cuda`` tensors, gloo for CPU tensors (:func:`backend_for`).
-``make_production_mesh`` and ``elastic_mesh`` come with the runtime slice.
+:func:`make_production_mesh` lays the launcher's world out as ``(data,
+model)`` or ``(pod, data, model)``; :func:`elastic_mesh` rebuilds the
+largest ``(data, model)`` mesh of a failure's survivors, ``model`` kept.
+Multi-rank meshes are held on gloo ranks on the CPU; on the card a mesh
+has one rank (one H100 a machine).
 """
 from __future__ import annotations
 
@@ -106,4 +110,44 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None) -> Mes
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     """A ``(data, model)`` mesh over the default group's ranks."""
+    return make_mesh((data, model), ("data", "model"), device)
+
+
+def make_production_mesh(*, model: int = 1, multi_pod: bool = False, device=None) -> Mesh:
+    """The deployment mesh over the default group's ranks (the launcher's
+    ``WORLD_SIZE``): ``(data, model)``, or with ``multi_pod`` ``(pod=2, data,
+    model)``; ``data`` takes what ``model`` (and the pods) leave.  ``pod``
+    composes with ``data`` for batch and gradient parallelism; its
+    reduction hop is the one the trainer's hierarchical reduction treats
+    apart (``parallel.collectives.hierarchical_grad_sync``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs an initialised default process group")
+    world, pods = dist.get_world_size(), 2 if multi_pod else 1
+    if model < 1 or world % (pods * model):
+        raise ValueError(f"{world} ranks do not split into {pods} pod(s) of model={model}")
+    data = world // (pods * model)
+    if multi_pod:
+        return make_mesh((pods, data, model), ("pod", "data", "model"), device)
+    return make_mesh((data, model), ("data", "model"), device)
+
+
+def elastic_mesh(n_healthy: int, *, model: int = 16, device=None, init_method=None, rank=None) -> Mesh:
+    """Elastic re-shape after losing ranks: the largest ``(data, model)``
+    mesh that ``n_healthy`` survivors hold, ``model`` kept (the parameter
+    placement stays valid) and ``data`` shrunk.  With ``init_method`` (a
+    rendezvous URL) the survivors first make a fresh default group of
+    ``data * model`` ranks, this one ``rank`` (the old group, whose other
+    members are gone, is destroyed); without it the default group must
+    already be the survivors'."""
+    if n_healthy < model or model < 1:
+        raise ValueError(f"cannot keep model={model} with {n_healthy} ranks")
+    data = n_healthy // model
+    world = data * model
+    if init_method is not None:
+        if rank is None or not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not one of the {world} ranks the new mesh holds")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        dist.init_process_group(backend_for(rank_device(device)), init_method=init_method, rank=rank,
+                                world_size=world)
     return make_mesh((data, model), ("data", "model"), device)

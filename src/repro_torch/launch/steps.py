@@ -1,7 +1,9 @@
 """The train step and the serve launches (the port's counterpart of
-``repro/launch/steps.py``): :func:`build_train_step` (one device: the
+``repro/launch/steps.py``): :func:`build_train_step` (on one device: the
 gradient by autograd through kernels 7, 3/4, 11 and 12 and their backwards, the global-norm
-clip and the optimizer update in place), :func:`build_spec_serve_step`, the decode launch captured once in a CUDA
+clip and the optimizer update in place; on a mesh the same step over each
+rank's shards of the parameters and the optimizer state, ``tp`` or
+``fsdp``), :func:`build_spec_serve_step`, the decode launch captured once in a CUDA
 graph and replayed (the counterpart of the reference's jitted
 ``build_spec_serve_step``), :class:`TreeCommit`, the contiguous tree commit
 compiled the same way (the reference's jitted ``_commit``),
@@ -38,11 +40,15 @@ from repro_torch.core.plans import TreePlan
 from repro_torch.kernels import add_launch_counts, recorded_launches
 from repro_torch.models.layers import Params
 from repro_torch.models.model import Model
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import decode_constants, max_pages_for
 from repro_torch.optim import (clip_by_global_norm, cosine_schedule, make_optimizer, scan_of, tree_leaves,
                                 tree_unflatten)
+from repro_torch.optim.optimizers import Shard
+from repro_torch.parallel.collectives import gather, hierarchical_grad_sync
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
-from repro_torch.parallel.sharding import batch_spec, expert_slice
+from repro_torch.parallel.sharding import (STRATEGIES, batch_spec, expert_slice, is_expert_stack, map_specs,
+                                           map_with_path, param_pspecs, placement, shard_tree)
 
 
 
@@ -81,23 +87,192 @@ class _TrainStep:
         return params, opt_state, int(step) + 1, metrics
 
 
-def build_train_step(cfg: ModelConfig, device, cell: ShapeCell, *, lr: float = 3e-4, total_steps: int = 10_000,
-                     grad_clip: float = 1.0) -> _TrainStep:
+def train_batch_axes(batch: int, mesh, strategy: str = "tp") -> Tuple[str, ...]:
+    """The mesh axes a train step's batch is split over, in the mesh's
+    order: under ``fsdp`` every axis when their product divides the batch
+    (pure data parallelism over the whole mesh), else (and under ``tp``) the
+    data axes that divide it (:func:`~repro_torch.parallel.sharding.batch_spec`)."""
+    if strategy == "fsdp":
+        axes = tuple(a for a in mesh.axis_names if a in ("pod", "data", "model"))
+        if batch % int(np.prod([mesh.shape[a] for a in axes])) == 0:
+            return axes
+    first = batch_spec(batch, mesh)[0]
+    return () if first is None else (first,) if isinstance(first, str) else tuple(first)
+
+
+def batch_rows(batch: int, mesh, axes: Tuple[str, ...]) -> slice:
+    """This rank's rows of the global batch split over ``axes``: block
+    ``i`` of ``prod(sizes)``, ``i`` the rank's row-major position over the
+    axes (the reference's ``batch_spec`` row order)."""
+    n, i = 1, 0
+    for a in axes:
+        n *= mesh.shape[a]
+        i = i * mesh.shape[a] + mesh.coords[a]
+    b = batch // n
+    return slice(i * b, (i + 1) * b)
+
+
+class _MeshTrainStep:
+    """The train step over a mesh (:func:`build_train_step` with a mesh):
+    every rank holds its shards of the parameters (:attr:`specs`, by
+    :func:`~repro_torch.parallel.sharding.param_pspecs`) and of the
+    optimizer state, and takes its rows of the global batch.
+
+    * ``tp``: a dense leaf split over ``model`` is all-gathered over the
+      ``model`` group just before its use (:meth:`Model.forward_train`'s
+      ``gather``) and its gradient is that rank's slice of the whole
+      gradient every ``model`` rank computes; the expert stacks stay split
+      and train expert-parallel through the mesh's MoE apply (the ``a2a``
+      body, or ``psum`` when the sequence does not split).  This places
+      weights as the reference does and computes the same numbers; it does
+      not split a dense layer's computation across the ``model`` ranks,
+      which GSPMD does for the reference.  The gradients' mean over the
+      data axes is :func:`~repro_torch.parallel.collectives.hierarchical_grad_sync`
+      (exact: no compression).
+    * ``fsdp``: every leaf split over all mesh axes, gathered on use and
+      reduce-scattered on the way back (the batch over every axis when it
+      divides); the MoE layers run on each rank's rows over the gathered
+      stacks (routing and capacity per rank's rows: as many tokens as the
+      reference routes together, a data group's sequence chunk, so the
+      same capacity, and held against its step in
+      ``tests/test_torch_train_mesh.py``; which tokens share a group
+      differs, so where capacity drops tokens the drops can differ).  The gradients are
+      summed over the axes a leaf is not split over and divided by the
+      mesh's size.
+
+    Then the global-norm clip and the optimizer update on the shards
+    (every element counted once, Adafactor's statistics the whole leaf's),
+    and the metrics' mean over the ranks."""
+
+    def __init__(self, cfg: ModelConfig, mesh, cell: ShapeCell, *, lr: float, total_steps: int, grad_clip: float,
+                 strategy: str):
+        if strategy not in STRATEGIES:
+            raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+        self.cfg, self.mesh, self.grad_clip, self.strategy = cfg, mesh, grad_clip, strategy
+        self.device = mesh.device
+        self.batch = cell.global_batch
+        self.batch_axes = train_batch_axes(self.batch, mesh, strategy)
+        self.rows = batch_rows(self.batch, mesh, self.batch_axes)
+        shapes = T.init_params(cfg, None, "meta", train=True)  # the whole leaves' shapes, nothing allocated
+        self.specs = param_pspecs(shapes, mesh, strategy=strategy)
+        tp = strategy == "tp"
+
+        def use(path, leaf, spec):
+            pl = placement(spec, mesh)
+            if pl is None or (tp and is_expert_stack(path, tuple(leaf.shape))):
+                return None
+            return mesh.group(pl.axes), pl.dim
+
+        self._use = map_with_path(use, shapes, self.specs)
+        self.shards = map_specs(lambda leaf, spec: _shard_of(spec, mesh), shapes, self.specs)
+        self.model = build_model(cfg, mesh, self.batch, strategy=strategy, train=True, gather=self._gather)
+        self.optimizer = make_optimizer(cfg.optimizer, cosine_schedule(lr, 100, total_steps), scan=scan_of(cfg))
+        all_axes = mesh.axis_names
+        self._metric_axes = tuple(a for a in all_axes if a != "model") if tp else all_axes
+        self._n_metric = int(np.prod([mesh.shape[a] for a in self._metric_axes]))
+        self._n_total = int(np.prod([mesh.shape[a] for a in all_axes]))
+
+        def rest(path, leaf, spec):  # the axes a leaf is not split over (fsdp sums its gradient over them)
+            pl = placement(spec, mesh)
+            return tuple(a for a in all_axes if pl is None or a not in pl.axes)
+
+        self._rest = map_with_path(rest, shapes, self.specs)
+
+    def shard(self, params: Params) -> Params:
+        """This rank's shards of whole params (e.g. ``Model.init``'s)."""
+        return shard_tree(params, self.specs, self.mesh)
+
+    def _gather(self, path, tree):
+        use = self._use
+        for key in path:
+            use = use[key]
+        reduce = self.strategy == "fsdp"
+        return map_specs(lambda leaf, u: leaf if u is None else gather(leaf, u[0], u[1], reduce=reduce), tree, use)
+
+    def _sync(self, grads: Params) -> None:
+        """The gradients' mean over the ranks, in place (class docstring)."""
+        mesh = self.mesh
+        if self.strategy == "tp":
+            inter = "pod" if "pod" in mesh.shape else None
+            hierarchical_grad_sync(grads, mesh, intra_axes=("data",), inter_axis=inter, compress_inter=False,
+                                   inplace=True)
+            return
+
+        def one(g, rest):
+            hierarchical_grad_sync(g, mesh, intra_axes=rest, inter_axis=None, compress_inter=False, mean=False,
+                                   inplace=True)
+            if self._n_total != 1:
+                g.div_(self._n_total)
+
+        map_specs(one, grads, self._rest)
+
+    def __call__(self, params, opt_state, step, tokens, frontend=None):
+        tokens = torch.as_tensor(tokens)
+        if tokens.shape[0] == self.batch and self.batch != self.rows.stop - self.rows.start:
+            tokens = tokens[self.rows]
+            frontend = None if frontend is None else frontend[self.rows]
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            for t in leaves:
+                t.requires_grad_(True)
+            try:
+                loss, metrics = self.model.forward_train(params, tokens, frontend)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            finally:
+                for t in leaves:
+                    t.requires_grad_(False)
+        grads = tree_unflatten(params, [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)])
+        self._sync(grads)
+        grads, gnorm = clip_by_global_norm(grads, self.grad_clip, shards=self.shards)
+        params, opt_state = self.optimizer.update(grads, opt_state, params, step, shards=self.shards)
+        names = sorted(metrics)
+        vec = torch.stack([metrics[k].detach().to(torch.float32) for k in names])
+        if self._n_metric != 1:
+            hierarchical_grad_sync(vec, self.mesh, intra_axes=self._metric_axes, inter_axis=None,
+                                   compress_inter=False, inplace=True)
+        metrics = {k: vec[i] for i, k in enumerate(names)}
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, int(step) + 1, metrics
+
+
+def _shard_of(spec, mesh):
+    pl = placement(spec, mesh)
+    if pl is None or pl.size == 1:
+        return None
+    return Shard(pl.dim, mesh.group(pl.axes), pl.size)
+
+
+def build_train_step(cfg: ModelConfig, device_or_mesh, cell: ShapeCell, *, lr: float = 3e-4,
+                     total_steps: int = 10_000, grad_clip: float = 1.0, strategy: str = "tp"):
     """``(params, opt_state, step, tokens, frontend=None) -> (params,
-    opt_state, step + 1, metrics)``: the reference's jitted train step on
-    one device.  The loss and its gradient come from
-    :meth:`Model.forward_train` under autograd (kernels 7, 3/4, 11 and 12
-    forward, their hand-written backwards), the gradients are clipped to ``grad_clip``
-    global norm and the optimizer (``cfg.optimizer`` on the reference's
-    cosine schedule: 100 warm-up steps, ``total_steps``) updates ``params``
-    and ``opt_state`` in place.  ``metrics``: the model's ``loss``, ``ce``,
-    ``lb_loss``, ``z_loss`` and ``grad_norm``, 0-d f32 tensors on the
-    device (nothing is read back).  ``cell`` is unused: it keeps the
-    reference's signature, whose cell only chose mesh shardings."""
-    return _TrainStep(cfg, device, lr=lr, total_steps=total_steps, grad_clip=grad_clip)
+    opt_state, step + 1, metrics)``: the reference's jitted train step.
+
+    On one device (a device, or ``None`` for the card) the loss and its
+    gradient come from :meth:`Model.forward_train` under autograd (kernels
+    7, 3/4, 11 and 12 forward, their hand-written backwards), the gradients
+    are clipped to ``grad_clip`` global norm and the optimizer
+    (``cfg.optimizer`` on the reference's cosine schedule: 100 warm-up
+    steps, ``total_steps``) updates ``params`` and ``opt_state`` in place.
+    ``metrics``: the model's ``loss``, ``ce``, ``lb_loss``, ``z_loss`` and
+    ``grad_norm``, 0-d f32 tensors on the device (nothing is read back).
+    ``cell`` and ``strategy`` are unused there.
+
+    On a :class:`~repro_torch.launch.mesh.Mesh` the step of
+    :class:`_MeshTrainStep` (``strategy`` ``"tp"`` or ``"fsdp"``): every
+    rank calls it with its shards (``step.shard(params)`` cuts them from
+    whole params, ``step.optimizer.init`` makes the state's) and either the
+    global batch (``cell.global_batch`` rows: it takes its own) or its own
+    rows; the MoE layers train through the mesh's expert-parallel apply
+    (kernels 9, 3 over the identity index, 8 and 10 in the ``a2a`` body,
+    their backwards 10 with unit weights, 3_bwd, 8_bwd and 10_bwd)."""
+    if hasattr(device_or_mesh, "axis_names"):
+        return _MeshTrainStep(cfg, device_or_mesh, cell, lr=lr, total_steps=total_steps, grad_clip=grad_clip,
+                              strategy=strategy)
+    return _TrainStep(cfg, device_or_mesh, lr=lr, total_steps=total_steps, grad_clip=grad_clip)
 
 
-def build_model(cfg: ModelConfig, mesh, batch: int, device=None) -> Model:
+def build_model(cfg: ModelConfig, mesh, batch: int, device=None, *, strategy: str = "tp", train: bool = False,
+                gather=None) -> Model:
     """A model whose MoE layers run on ``mesh``: the expert-parallel prefill
     apply, and on the decode plane the shard-sliced decode apply (which
     raises, not falls back, when the experts do not divide the ``model``
@@ -105,13 +280,22 @@ def build_model(cfg: ModelConfig, mesh, batch: int, device=None) -> Model:
     are the data axes that divide ``batch``.  No dense layer is sharded, so
     the reference's residual constraint is the identity here.  ``mesh=None``
     is the single-host model on ``device``; with a mesh the model lives on
-    the mesh's device and its ``init`` draws this rank's expert slice."""
+    the mesh's device and its ``init`` draws this rank's expert slice.
+
+    ``train=True`` binds the training side instead (the sharded train step's
+    model): under ``tp`` the MoE layers train through the same
+    expert-parallel apply (``train_moe_apply``), under ``fsdp`` on each
+    rank's rows over whole stacks; ``gather`` makes a layer's shards whole
+    before its use; ``init`` draws whole params (the step cuts its shards)."""
     if mesh is None:
         return Model(cfg, device)
     if device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
     baxes = batch_spec(batch, mesh)[0] or ()
     baxes = (baxes,) if isinstance(baxes, str) else tuple(baxes)
+    if train:
+        moe_apply = make_sharded_moe_apply(cfg, mesh, baxes) if cfg.is_moe and strategy == "tp" else None
+        return Model(cfg, mesh.device, train_moe_apply=moe_apply, gather=gather)
     moe_apply = decode_apply = None
     if cfg.is_moe:
         moe_apply = make_sharded_moe_apply(cfg, mesh, baxes)

@@ -36,15 +36,31 @@ class Model:
     the expert-parallel ones, :func:`repro_torch.launch.steps.build_model`);
     the defaults are the single-host :func:`transformer.default_moe_apply`
     and :func:`repro_torch.models.moe.moe_decode_ffn`.  ``experts`` is the
-    slice of every expert stack that :meth:`init` keeps (a rank's share)."""
+    slice of every expert stack that :meth:`init` keeps (a rank's share).
+
+    Training on a mesh (:func:`repro_torch.launch.steps.build_model` with
+    ``train=True``) binds two more: ``train_moe_apply`` ``(x_ffn,
+    route_src, p) -> (y, aux (2,))``, the MoE layers' differentiable
+    expert-parallel apply (default: :func:`repro_torch.models.moe.moe_layer`
+    on the layer's whole stacks), and ``gather(path, tree) -> tree``, which
+    makes a rank's shards of the leaves under ``path`` (``()`` for the
+    leaves outside ``layers``, ``("layers", i)`` for a layer) whole just
+    before they are used, under autograd: once a forward for the former,
+    once a layer call for the latter (again in the backward under remat)."""
 
     def __init__(self, cfg: ModelConfig, device=None, moe_apply: Optional[T.MoeApply] = None,
-                 decode_moe_apply: Optional[T.DecodeApply] = None, experts: Optional[slice] = None):
+                 decode_moe_apply: Optional[T.DecodeApply] = None, experts: Optional[slice] = None,
+                 train_moe_apply=None, gather=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.moe_apply = moe_apply or T.default_moe_apply(cfg)
         self.decode_moe_apply = decode_moe_apply or moe.moe_decode_ffn
         self.experts = experts
+        self.train_moe_apply = train_moe_apply
+        self.gather = gather
+
+    def _use(self, path, tree):
+        return tree if self.gather is None else self.gather(path, tree)
 
     # ------------------------------------------------------------------
     def init(self, seed: Union[int, torch.Generator] = 0, *, train: bool = False) -> Params:
@@ -107,10 +123,14 @@ class Model:
         layers = params["layers"]
         route_src = x  # layer-0 control-plane source = embeddings
 
+        def layer(i, h, rs, kind):
+            return T.apply_layer_train(h, rs, self._use(("layers", i), layers[i]), kind, cfg, positions,
+                                       moe_apply=self.train_moe_apply)
+
         def sb_fn(h, rs, s):
             aux = torch.zeros((2,), dtype=torch.float32, device=h.device)
             for j, kind in enumerate(pat):
-                h, rs, a = T.apply_layer_train(h, rs, layers[s * len(pat) + j], kind, cfg, positions)
+                h, rs, a = layer(s * len(pat) + j, h, rs, kind)
                 aux = aux + a
             return h, rs, aux
 
@@ -123,7 +143,7 @@ class Model:
             aux_total = aux_total + a
         kinds = cfg.layer_kinds
         for i in range(n_sb * len(pat), cfg.num_layers):
-            x, route_src, a = T.apply_layer_train(x, route_src, layers[i], kinds[i], cfg, positions)
+            x, route_src, a = layer(i, x, route_src, kinds[i])
             aux_total = aux_total + a
         return x, aux_total
 
@@ -135,6 +155,8 @@ class Model:
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).to(torch.int64)
         B, S = tokens.shape
+        if self.gather is not None:  # the leaves outside the layers, whole, once a forward
+            params = dict(self._use((), {k: v for k, v in params.items() if k != "layers"}), layers=params["layers"])
         positions = torch.arange(S, device=self.device).expand(B, S)
         x = self._embed(params, tokens, None if frontend is None else frontend.to(self.device))
         x, aux = self.stack_train(params, x, positions)

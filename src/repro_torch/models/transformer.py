@@ -379,6 +379,7 @@ def apply_layer_train(
     kind: str,
     cfg: ModelConfig,
     positions: torch.Tensor,            # (B, S)
+    moe_apply=None,
 ):
     """One layer, training-style full-sequence pass (no cache), each
     weight cast to the activations' type at use; the reference's ``_res``
@@ -391,8 +392,9 @@ def apply_layer_train(
     through kernel 12 and its backward (:func:`rglru.rec_block_prefill`'s
     output), then the SwiGLU FFN.  ``ssm``: the Mamba-2 block through
     kernel 11 and its backward (:func:`mamba2.ssm_block`), with no FFN.
-    Returns ``(x, route_src, aux)``, ``aux`` (2,) f32 (zeros without a
-    router)."""
+    ``moe_apply`` ``(x_ffn, route_src, p) -> (y, aux (2,))`` replaces
+    ``moe_layer`` (a mesh's expert-parallel apply).  Returns ``(x,
+    route_src, aux)``, ``aux`` (2,) f32 (zeros without a router)."""
     aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     if kind == "ssm":
         return x + mamba2.ssm_block(L.rms_norm(x, p["ln1"]), p["ssm"], cfg), route_src, aux
@@ -404,6 +406,9 @@ def apply_layer_train(
     h = x + a
     ffn_in = L.rms_norm(h, p["ln2"])
     if kind == "moe":
+        if moe_apply is not None:
+            y, a = moe_apply(ffn_in, route_src, p["moe"])
+            return h + y, h, a
         y, r = moe.moe_layer(ffn_in, route_src, p["moe"], cfg)
         return h + y, h, torch.stack([r.load_balance_loss, r.router_z_loss])
     return h + L.swiglu(ffn_in, p["ffn"]), route_src, aux

@@ -32,9 +32,11 @@ the super-block axis) held by the stack's first layer ``layers[j]`` alone.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Params = Any
 Schedule = Callable[[Any], float]
@@ -42,7 +44,34 @@ Schedule = Callable[[Any], float]
 
 class Optimizer(NamedTuple):
     init: Callable[[Params], Any]
-    update: Callable[..., Tuple[Params, Any]]  # (grads, state, params, step) -> (params, state), in place
+    update: Callable[..., Tuple[Params, Any]]  # (grads, state, params, step[, shards]) -> (params, state), in place
+
+
+@dataclass(frozen=True)
+class Shard:
+    """A rank's shard of a leaf: the leaf split on tensor axis ``dim`` over
+    the process ``group`` of ``size`` (> 1) ranks."""
+
+    dim: int
+    group: Any
+    size: int
+
+
+def _allsum(x: torch.Tensor, sh: Shard) -> torch.Tensor:
+    x = x.contiguous()
+    dist.all_reduce(x, group=sh.group)
+    return x
+
+
+def _mean(x: torch.Tensor, dim: Optional[int], split: Optional[int], sh: Optional[Shard]) -> torch.Tensor:
+    """The mean of x over ``dim`` (None: every element) for a shard of a
+    tensor split on its axis ``split`` (None: whole): the sum all-reduced
+    over the shard's group where ``dim`` runs over the split axis, else
+    torch's own mean."""
+    if sh is None or split is None or (dim is not None and dim % x.ndim != split):
+        return x.mean() if dim is None else x.mean(dim=dim)
+    total = _allsum(x.sum() if dim is None else x.sum(dim=dim), sh)
+    return total / ((x.numel() if dim is None else x.shape[dim]) * sh.size)
 
 
 def _walk(structure, *trees, path: Tuple = ()) -> Iterator[Tuple]:
@@ -110,18 +139,29 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's sum of squares in f32 (a 0-d tensor
-    on the leaves' device; nothing is read back)."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    on the leaves' device; nothing is read back).  With ``shards`` a split
+    leaf's sum is all-reduced over its group (one all-reduce a group, of
+    the leaves' sums masked to its own), so each element counts once."""
+    ss = torch.stack([torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)])
+    if shards is not None:
+        groups = {}
+        for i, (_, _, sh) in enumerate(_walk(tree, shards)):
+            if sh is not None:
+                groups.setdefault(id(sh.group), (sh, []))[1].append(i)
+        for sh, idx in groups.values():
+            mask = torch.zeros(ss.shape, dtype=torch.bool, device=ss.device)
+            mask[idx] = True
+            ss = torch.where(mask, _allsum(torch.where(mask, ss, torch.zeros_like(ss)), sh), ss)
+    return torch.sqrt(torch.sum(ss))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Params, max_norm: float) -> Tuple[Params, torch.Tensor]:
+def clip_by_global_norm(grads: Params, max_norm: float, shards=None) -> Tuple[Params, torch.Tensor]:
     """Scale ``grads`` in place by min(1, max_norm / norm); returns (grads,
-    norm)."""
-    norm = global_norm(grads)
+    norm).  ``shards``: as :func:`global_norm`'s."""
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -161,7 +201,7 @@ def adamw(
         return {"m": _tree_map(zeros, params), "v": _tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         step_f = _f32(int(step)) + 1.0
         bc1 = float(1.0 - _f32(b1) ** step_f)
         bc2 = float(1.0 - _f32(b2) ** step_f)
@@ -220,52 +260,58 @@ def adafactor(
                     _set(state, path, s)
         return state
 
-    def _u(g, s):
+    def _u(g, s, sh=None):
         """The unclipped update of one leaf (a layer of a stack) from its updated state."""
         g32 = g.to(torch.float32)
         if "v" in s:
             return g32 * torch.rsqrt(torch.clamp(s["v"], min=eps))
-        r = (s["vr"] / torch.clamp(s["vr"].mean(dim=-1, keepdim=True), min=eps))[..., None]
+        vr_split = None if sh is None or sh.dim == g.ndim - 1 else sh.dim  # vr drops the last axis
+        r = (s["vr"] / torch.clamp(_mean(s["vr"], -1, vr_split, sh).unsqueeze(-1), min=eps))[..., None]
         return g32 * torch.rsqrt(torch.clamp(r * s["vc"][..., None, :], min=eps))
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         beta2_t = 1.0 - (_f32(int(step)) + 1.0) ** (-decay_rate)
         beta2, one_minus = float(beta2_t), float(1.0 - beta2_t)
         lr_t = _lr(lr, step)
         lr_wd = float(_f32(lr_t) * _f32(weight_decay))
-        for stacked, items in _groups(scan, params, grads, state):
-            p0 = items[0][1]
+        if shards is None:
+            shards = _tree_map(lambda _: None, params)
+        for stacked, items in _groups(scan, params, grads, state, shards):
+            p0, sh = items[0][1], items[0][4]
             layer_u = _u
             if stacked and p0.ndim == 1:
                 vc = items[0][3]["vc"]
                 col = torch.zeros_like(vc)
-                for _, _, g, s in items:
+                for _, _, g, s, _ in items:
                     g2 = g.to(torch.float32) ** 2 + eps
-                    s["vr"].mul_(beta2).add_(one_minus * g2.mean())
+                    s["vr"].mul_(beta2).add_(one_minus * _mean(g2, None, 0, sh))
                     col.add_(g2)
                 vc.mul_(beta2).add_(one_minus * (col / len(items)))
-                denom = torch.clamp(torch.stack([s["vr"] for *_, s in items]).mean(), min=eps)
+                denom = torch.clamp(torch.stack([s["vr"] for *_, s, _ in items]).mean(), min=eps)
 
-                def layer_u(g, s):
+                def layer_u(g, s, sh=None):
                     return g.to(torch.float32) * torch.rsqrt(torch.clamp((s["vr"] / denom) * vc, min=eps))
             else:
-                for _, p, g, s in items:
+                for _, p, g, s, sh in items:
                     g2 = g.to(torch.float32) ** 2 + eps
                     if p.ndim >= 2:
-                        s["vr"].mul_(beta2).add_(one_minus * g2.mean(dim=-1))
-                        s["vc"].mul_(beta2).add_(one_minus * g2.mean(dim=-2))
+                        split = None if sh is None else sh.dim
+                        s["vr"].mul_(beta2).add_(one_minus * _mean(g2, -1, split, sh))
+                        s["vc"].mul_(beta2).add_(one_minus * _mean(g2, -2, split, sh))
                     else:
                         s["v"].mul_(beta2).add_(one_minus * g2)
                     del g2
             # the RMS of the (stacked) leaf's update, then each layer's update again, clipped by it
             if len(items) > 1:
-                ss = sum(torch.sum(layer_u(g, s) ** 2) for _, _, g, s in items)
-                rms = torch.sqrt(ss / (len(items) * p0.numel()) + 1e-30)
-            for _, p, g, s in items:
-                u = layer_u(g, s)
+                ss = sum(torch.sum(layer_u(g, s, sh) ** 2) for _, _, g, s, sh in items)
+                if sh is not None:
+                    ss = _allsum(ss, sh)
+                rms = torch.sqrt(ss / (len(items) * p0.numel() * (sh.size if sh is not None else 1)) + 1e-30)
+            for _, p, g, s, sh in items:
+                u = layer_u(g, s, sh)
                 if len(items) == 1:
-                    rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+                    rms = torch.sqrt(_mean(u * u, None, None if sh is None else sh.dim, sh) + 1e-30)
                 u.div_(torch.clamp(rms / clip_threshold, min=1.0)).mul_(-lr_t)
                 if weight_decay and p.ndim + stacked >= 2:
                     u.sub_(lr_wd * p.to(torch.float32))

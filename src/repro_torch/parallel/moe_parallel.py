@@ -30,6 +30,24 @@ the partial outputs with one ``all_reduce``.
 
 The port always takes the reference's fused branch (its ``use_pallas=True``
 data plane).  On CPU tensors every kernel takes its plain version.
+
+Both bodies train: every kernel is called through its autograd Function
+(kernel 9's backward is kernel 10 with unit weights, kernel 10's is 10_bwd,
+kernels 3 and 8 over the identity index have 3_bwd and 8_bwd, the ``psum``
+body's pair 3 and 4 has 3_bwd and 4_bwd) and every collective through
+:mod:`repro_torch.parallel.collectives`' differentiable ones, whose
+backward is right for each tensor's replication across the ``model`` ranks
+(every rank holds the layer's input and output whole; the loss is on every
+rank): the ``a2a`` body's sequence split gathers the chunks' gradients, its
+final all-gather keeps the rank's own slice of the (whole) gradient, the
+router and the shared experts, used by each rank on its own chunk, have
+their gradients summed over ``model``, the all_to_alls exchange the
+gradient's blocks back, and the aux losses' mean over ranks passes 1 / ep
+of its gradient to each rank's share (their mean over the data axes comes
+with the train step's gradient mean).  In the ``psum`` body every rank
+routes the whole sequence, so the router's gradient is whole on each; its
+slot-weight range is split (its gradient gathered) and the input's
+gradient, a part from each rank's experts, is summed.
 """
 from __future__ import annotations
 
@@ -42,9 +60,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.control_plane import capacity_for, route_topk
 from repro_torch.core.plans import DecodePlan
 from repro_torch.kernels.moe_decode import decode_moe
-from repro_torch.kernels.moe_dispatch import combine, dispatch
-from repro_torch.kernels.moe_fused import fused_experts_fn, fused_moe_apply
+from repro_torch.kernels.moe_dispatch import combine_fn, dispatch_fn
+from repro_torch.kernels.moe_fused.ops import fused_experts_fn, fused_moe_train
 from repro_torch.models.moe import _shared_experts
+from repro_torch.parallel.collectives import all_to_all, gather, pmean, psum, split, sum_grad
 
 Params = Dict[str, Any]
 
@@ -75,14 +94,9 @@ def _check_local(p: Params, e_loc: int, ep: int) -> None:
                          f"{e_loc}: place the weights with repro_torch.parallel.sharding.shard_params")
 
 
-def _pmean(v: torch.Tensor, group, n: int) -> torch.Tensor:
-    dist.all_reduce(v, group=group)
-    return v / n
-
-
 def make_sharded_moe_apply(cfg: ModelConfig, mesh, batch_axes: Tuple[str, ...]):
     """The distributed MoE apply ``(x_ffn, route_src, p) -> (y, aux (2,))``
-    over the mesh's ``model`` axis.
+    over the mesh's ``model`` axis, differentiable (module docstring).
 
     ``x_ffn`` is this rank's (B, S, d) share of the batch (``batch_axes``
     name the mesh axes the batch is split over; the aux losses are averaged
@@ -105,28 +119,24 @@ def make_sharded_moe_apply(cfg: ModelConfig, mesh, batch_axes: Tuple[str, ...]):
     def _a2a_body(x, rs, p):
         B, S, d = x.shape
         Sc = S // ep
-        xs = x[:, midx * Sc:(midx + 1) * Sc].reshape(B * Sc, d)
-        rss = rs[:, midx * Sc:(midx + 1) * Sc].reshape(B * Sc, d)
+        xs = split(x, g_ep, 1).reshape(B * Sc, d)  # this rank's sequence chunk
+        rss = split(rs, g_ep, 1).reshape(B * Sc, d)
         T_loc = B * Sc
         C = capacity_for(T_loc, E, k, cf)
         # control plane: this rank's chunk's plan (tiny tensors)
-        plan, aux = route_topk(rss, p["router"], k, C)
+        plan, aux = route_topk(rss, sum_grad(p["router"], g_ep), k, C)
         # data plane: dispatch -> a2a -> experts -> a2a -> combine
-        slots = dispatch(xs, plan)  # (E, C, d), expert-major, experts of rank j in block j
-        recv = torch.empty_like(slots)
-        dist.all_to_all_single(recv, slots, group=g_ep)  # (ep sources, E_loc, C, d)
+        slots = dispatch_fn(xs, plan)  # (E, C, d), expert-major, experts of rank j in block j
+        recv = all_to_all(slots, g_ep)  # (ep sources, E_loc, C, d)
         local = recv.view(ep, E_loc, C, d).transpose(0, 1).reshape(E_loc, ep * C, d)  # slot src*C + c
         y_loc = fused_experts_fn(local, p)  # (E_loc, ep*C, d)
         send = y_loc.view(E_loc, ep, C, d).transpose(0, 1).contiguous()  # block j: rank j's tokens
-        back = torch.empty_like(send)
-        dist.all_to_all_single(back, send, group=g_ep)  # (ep owners, E_loc, C, d) = (E, C, d)
-        y = combine(back.view(E, C, d), plan).to(x.dtype)  # (T_loc, d)
+        back = all_to_all(send, g_ep)  # (ep owners, E_loc, C, d) = (E, C, d)
+        y = combine_fn(back.view(E, C, d), plan).to(x.dtype)  # (T_loc, d)
         if "shared" in p:  # shared experts: replicated weights, local tokens
-            y = y + _shared_experts(xs, p)
-        full = torch.empty((ep * B, Sc, d), dtype=y.dtype, device=y.device)  # stacked by rank
-        dist.all_gather_into_tensor(full, y.reshape(B, Sc, d).contiguous(), group=g_ep)
-        y = full.view(ep, B, Sc, d).transpose(0, 1).reshape(B, S, d)
-        aux_v = _pmean(torch.stack([aux.load_balance_loss, aux.router_z_loss]), g_all, n_all)
+            y = y + _shared_experts(xs, {"shared": {n: sum_grad(w, g_ep) for n, w in p["shared"].items()}})
+        y = gather(y.reshape(B, Sc, d), g_ep, 1)  # (B, S, d)
+        aux_v = pmean(torch.stack([aux.load_balance_loss, aux.router_z_loss]), g_all, n_all, 1.0 / ep)
         return y, aux_v
 
     def _psum_body(x, rs, p):
@@ -139,16 +149,22 @@ def make_sharded_moe_apply(cfg: ModelConfig, mesh, batch_axes: Tuple[str, ...]):
         # flat slot words: no (E, C, d) tensor is formed
         base = midx * E_loc * C
         loc_idx = plan.flat_dispatch_idx()[base:base + E_loc * C]
-        loc_w = plan.flat_slot_w()[base:base + E_loc * C]
-        y = fused_moe_apply(xf.contiguous(), loc_idx.contiguous(), loc_w.contiguous(),
-                            p["w_gate"], p["w_up"], p["w_down"])
-        dist.all_reduce(y, group=g_ep)
-        y = y.to(x.dtype)
+        # the range's slot weights (their gradient gathered over model), the
+        # input (its gradient a part from each rank's experts) and the
+        # assignments' local slots (E_loc*C: another rank's or dropped)
+        cidx, _ = plan.flat_combine_words()
+        loc = cidx - base
+        loc_cidx = torch.where((loc >= 0) & (loc < E_loc * C), loc, torch.full_like(loc, E_loc * C))
+        y = fused_moe_train(sum_grad(xf, g_ep), loc_idx, split(plan.flat_slot_w(), g_ep, 0), p, loc_cidx)
+        # each rank's part in x's type before the sum, as the reference's
+        # psum body sums them (its fused_moe_apply, and its plain combine,
+        # return x's type)
+        y = psum(y.to(x.dtype), g_ep)
         if "shared" in p:
             y = y + _shared_experts(xf, p)
         aux_v = torch.stack([aux.load_balance_loss, aux.router_z_loss])
         if g_batch is not None:
-            aux_v = _pmean(aux_v, g_batch, n_batch)
+            aux_v = pmean(aux_v, g_batch, n_batch)
         return y.reshape(B, S, d), aux_v
 
     def moe_apply(x_ffn: torch.Tensor, route_src: Optional[torch.Tensor], p: Params):

@@ -17,14 +17,32 @@ parameter kind the preferred tensor axes are tried in order and the first
 whose size divides the ``model`` axis is sharded; otherwise the tensor is
 replicated.
 
-The port places only the expert stacks (:func:`shard_params`): each rank
-keeps its ``[r*E/ep, (r+1)*E/ep)`` slice of every expert-stacked leaf.  The
-dense leaves the specs put on ``model`` (attention, unembedding) stay
-replicated in this slice; tensor-parallel dense layers come later.
+Training places every leaf by :func:`param_pspecs` under either strategy
+(:func:`shard_tree` cuts a rank's shards from whole leaves, :func:`gather_leaf`
+undoes it): ``tp`` puts each leaf on ``model`` by :func:`spec_for_param`
+(experts on their E axis, attention on heads, ...), ``fsdp`` splits each
+leaf over every mesh axis (:func:`fsdp_spec_for_param`).  The port's ``tp``
+places weights as the reference does but gathers a dense leaf whole before
+it is used (the train step's ``gather``): it does not split a dense layer's
+computation across the ``model`` ranks, as GSPMD does for the reference.
+Serving places the ``tp`` rule's expert stacks only (:func:`shard_params`:
+each rank keeps its ``[r*E/ep, (r+1)*E/ep)`` slice of every expert-stacked
+leaf) and keeps its dense leaves whole.
+
+A shard's index along a spec entry of several axes is its row-major
+position over those axes in the mesh's order, which is its rank in the
+entry's process group (``mesh.group(axes)``), so gathers concatenate in
+group-rank order.  The port keeps one dict per layer where the reference
+stacks layers on a super-block axis; specs are taken on the layer's own
+shape (a path without ``scan``), so under ``fsdp`` a leaf the reference
+would split on its super-block axis splits on a layer axis here.  The
+numbers do not depend on placement: a checkpoint holds whole leaves.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
 
 Spec = Tuple[Any, ...]
 
@@ -139,30 +157,178 @@ def spec_for_param(path: Sequence, shape: Tuple[int, ...], mesh) -> Spec:
     return ()
 
 
-def _map_with_path(fn: Callable, tree: Any, path: Tuple = ()) -> Any:
+def map_with_path(fn: Callable, tree: Any, *others: Any, path: Tuple = ()) -> Any:
+    """``fn(path, leaf, *others' leaves)`` over a tree of dicts and lists
+    (anything else is a leaf), each of ``others`` walked in the tree's
+    layout (its leaves may be anything, a spec's tuple or a dict)."""
     if isinstance(tree, dict):
-        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
-    return fn(path, tree)
+        return {k: map_with_path(fn, v, *(o[k] for o in others), path=path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_with_path(fn, v, *(o[i] for o in others), path=path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree, *others)
 
 
-def param_pspecs(params: Any, mesh) -> Any:
-    """Spec tree matching a params tree whose leaves have ``.shape``:
-    tensor/expert parallelism over ``model``."""
+def map_specs(fn: Callable, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a tree and its spec tree."""
+    return map_with_path(lambda _, leaf, spec: fn(leaf, spec), tree, specs)
+
+
+STRATEGIES = ("tp", "fsdp")
+
+
+def param_pspecs(params: Any, mesh, *, strategy: str = "tp") -> Any:
+    """Spec tree matching a params tree whose leaves have ``.shape``.
+
+    ``strategy="tp"`` (default): each leaf on the ``model`` axis by
+    :func:`spec_for_param` (the untied embedding on d, so its gather needs no
+    collective and the vocab-sharded unembedding keeps the logits' memory
+    win).  ``strategy="fsdp"``: every leaf split over all mesh axes
+    (:func:`fsdp_spec_for_param`), gathered on use and reduce-scattered on
+    the way back."""
     tied = "unembed" not in (params if isinstance(params, dict) else {})
+    return map_with_path(lambda path, leaf: leaf_spec(path, tuple(leaf.shape), mesh, strategy, tied), params)
 
-    def rule(path, leaf):
-        shape = tuple(leaf.shape)
-        if _leaf_name(path) == "embed" and not tied:
-            # untied: the gather rides a d-sharded table, the vocab-sharded
-            # unembed keeps the logits memory win
-            model = _axis_size(mesh, "model")
-            if len(shape) == 2 and shape[1] % model == 0:
-                return (None, "model")
-        return spec_for_param(path, shape, mesh)
 
-    return _map_with_path(rule, params)
+def leaf_spec(path: Sequence, shape: Tuple[int, ...], mesh, strategy: str = "tp", tied: bool = True) -> Spec:
+    """:func:`param_pspecs`' rule for one leaf (``tied``: the params have
+    no ``unembed`` leaf)."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"strategy must be one of {STRATEGIES}, got {strategy!r}")
+    if strategy == "fsdp":
+        return fsdp_spec_for_param(shape, mesh)
+    if _leaf_name(path) == "embed" and not tied and len(path) == 1:
+        # untied: the gather rides a d-sharded table, the vocab-sharded
+        # unembed keeps the logits memory win
+        if len(shape) == 2 and shape[1] % _axis_size(mesh, "model") == 0:
+            return (None, "model")
+    return spec_for_param(path, shape, mesh)
+
+
+def fsdp_spec_for_param(shape: Tuple[int, ...], mesh) -> Spec:
+    """Split the largest axis divisible by the whole device count over all
+    mesh axes; else the largest axis divisible by the largest single mesh
+    axis that divides any; else replicate."""
+    axes = [a for a in ("data", "model", "pod") if a in mesh.shape]
+    total = 1
+    for a in axes:
+        total *= _axis_size(mesh, a)
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    for i in order:
+        if shape[i] % total == 0 and shape[i] >= total:
+            spec = [None] * len(shape)
+            spec[i] = tuple(axes)
+            return tuple(spec)
+    for a in sorted(axes, key=lambda a: -_axis_size(mesh, a)):
+        for i in order:
+            if shape[i] % _axis_size(mesh, a) == 0 and shape[i] >= _axis_size(mesh, a):
+                spec = [None] * len(shape)
+                spec[i] = a
+                return tuple(spec)
+    return ()
+
+
+def moment_spec(name: str, spec: Spec) -> Spec:
+    """The spec of an optimizer moment of a leaf placed by ``spec``, by the
+    moment's name: AdamW's ``m``/``v`` and Adafactor's full ``v`` the
+    leaf's; Adafactor's row mean ``vr`` (the last axis reduced) and column
+    mean ``vc`` (the second-to-last reduced) keep the split axis where it
+    survives the factoring, else replicate.  For every leaf of the port
+    this is the reference's rule, which tells them apart by shape (a
+    stacked 1-D leaf's 0-d ``vr`` replicates; its ``vc`` is the leaf's
+    shape and keeps its spec)."""
+    entries = list(spec)
+    if name == "vr":
+        return tuple(entries[:-1])
+    if name == "vc":
+        return tuple(entries[:-2] + entries[-1:])
+    return tuple(spec)
+
+
+def opt_state_pspecs(opt_state: Any, params: Any, mesh, *, strategy: str = "tp") -> Any:
+    """Specs of an optimizer state from the params' whole leaves' shapes:
+    AdamW's ``{"m", "v"}`` mirror the params; Adafactor's per-leaf dicts
+    (``{"vr", "vc"}`` or ``{"v"}``) by :func:`moment_spec` (the reference's
+    ``opt_state_pspecs``).  Only the state's layout is read, so its leaves
+    may be whole or a rank's shards."""
+    pspecs = param_pspecs(params, mesh, strategy=strategy)
+    if isinstance(opt_state, dict) and set(opt_state) <= {"m", "v"}:
+        return {k: pspecs for k in opt_state}
+
+    return map_with_path(lambda _, leaf, spec, st: {k: moment_spec(k, spec) for k in st}, params, pspecs, opt_state)
+
+
+class Placement(NamedTuple):
+    """Where a leaf's shard sits: split on tensor axis ``dim`` over the mesh
+    axes ``axes`` (in the mesh's order) in ``size`` blocks, this rank's block
+    ``index``."""
+
+    dim: int
+    axes: Tuple[str, ...]
+    size: int
+    index: int
+
+
+def placement(spec: Spec, mesh) -> Optional[Placement]:
+    """The :class:`Placement` a spec gives this rank of ``mesh``, or None
+    for a replicated leaf (a spec splits at most one tensor axis)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = (entry,) if isinstance(entry, str) else tuple(entry)
+        axes = tuple(a for a in mesh.axis_names if a in names)
+        size, index = 1, 0
+        for a in axes:
+            size *= _axis_size(mesh, a)
+            index = index * _axis_size(mesh, a) + mesh.coords[a]
+        return Placement(dim, axes, size, index)
+    return None
+
+
+def cut(leaf, spec: Spec, mesh):
+    """This rank's shard of a whole leaf (a tensor or an array; a tensor
+    shard is a contiguous copy, so the whole leaf can be freed; a leaf
+    split one way is returned as it is)."""
+    pl = placement(spec, mesh)
+    if pl is None or pl.size == 1:
+        return leaf
+    n = leaf.shape[pl.dim]
+    if n % pl.size:
+        raise ValueError(f"axis {pl.dim} of a {tuple(leaf.shape)} leaf does not split over {pl.axes} ({pl.size})")
+    b = n // pl.size
+    if isinstance(leaf, torch.Tensor):
+        return leaf.narrow(pl.dim, pl.index * b, b).clone()
+    index = [slice(None)] * leaf.ndim
+    index[pl.dim] = slice(pl.index * b, (pl.index + 1) * b)
+    return leaf[tuple(index)]
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's shards of a tree of whole leaves, by a spec tree of its
+    layout (:func:`param_pspecs`, :func:`opt_state_pspecs`)."""
+    return map_specs(lambda leaf, spec: cut(leaf, spec, mesh), tree, specs)
+
+
+def gather_leaf(shard: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's shard (an all-gather over the
+    spec's group; every rank of it calls this); a replicated leaf, or one
+    split one way, is returned as it is."""
+    from repro_torch.parallel.collectives import all_gather_dim
+
+    pl = placement(spec, mesh)
+    if pl is None or pl.size == 1:
+        return shard
+    return all_gather_dim(shard, mesh.group(pl.axes), pl.dim)
+
+
+def serve_leaf_spec(path: Sequence, shape: Tuple[int, ...], mesh) -> Spec:
+    """The serving plane's rule for one leaf: the ``tp`` rule's spec of an
+    expert stack (:func:`is_expert_stack`), every other leaf whole."""
+    return spec_for_param(path, shape, mesh) if is_expert_stack(path, shape) else ()
+
+
+def serve_pspecs(params: Any, mesh) -> Any:
+    """The serving plane's placement, :func:`serve_leaf_spec` leaf by leaf."""
+    return map_with_path(lambda path, leaf: serve_leaf_spec(path, tuple(leaf.shape), mesh), params)
 
 
 # ---------------------------------------------------------------------------
@@ -239,12 +405,11 @@ def expert_slice(cfg, mesh: Optional[Any]) -> Optional[slice]:
 
 
 def shard_params(params: Any, cfg, mesh: Optional[Any]) -> Any:
-    """This rank's placement of ``params``: every expert-stacked leaf keeps
-    the rank's :func:`expert_slice`, copied so the rest of the stack can be
-    freed; every other leaf is kept whole (shared, not copied).  A one-rank
-    ``model`` axis (or no mesh) returns ``params`` itself."""
-    sl = expert_slice(cfg, mesh)
-    if sl is None:
+    """This rank's serving placement of ``params`` (:func:`serve_pspecs`):
+    every expert-stacked leaf keeps the rank's :func:`expert_slice`,
+    copied so the rest of the stack can be freed; every other leaf is kept
+    whole (shared, not copied).  A one-rank ``model`` axis (or no mesh)
+    returns ``params`` itself."""
+    if expert_slice(cfg, mesh) is None:
         return params
-    return _map_with_path(
-        lambda path, leaf: leaf[sl].clone() if is_expert_stack(path, tuple(leaf.shape)) else leaf, params)
+    return shard_tree(params, serve_pspecs(params, mesh), mesh)

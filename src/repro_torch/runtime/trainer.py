@@ -9,6 +9,13 @@ and restart from the latest committed checkpoint, straggler observation and
 metric logging.  On an injected failure the trainer restores the latest
 checkpoint (or re-initializes when there is none yet), seeks the
 deterministic data stream back to that step and replays from there.
+
+Given a :class:`~repro_torch.launch.mesh.Mesh` instead of a device (as the
+reference's Trainer takes a mesh) every rank runs the loop: the sharded
+step (``TrainerConfig.strategy``, ``tp`` or ``fsdp``), its rows of each
+global batch, checkpoints gathered to rank 0 and restored as this mesh's
+shards, and the injected failures (a deterministic schedule, so every rank
+fails and restarts at the same step).
 """
 from __future__ import annotations
 
@@ -49,13 +56,16 @@ class TrainerConfig:
     log_every: int = 10
     lr: float = 3e-4
     seed: int = 0
+    strategy: str = "tp"  # on a mesh: "tp" or "fsdp"
 
 
 class Trainer:
     """The reference's Trainer on one device (``device=None`` means the
-    card).  ``init_params`` makes the starting weights (default:
-    ``Model.init(tcfg.seed, train=True)``); it is called again on a restart
-    that finds no checkpoint, so it must make the same weights each time.
+    card) or on a mesh (every rank constructs it and calls :meth:`run`).
+    ``init_params`` makes the starting weights, whole (default:
+    ``Model.init(tcfg.seed, train=True)``; on a mesh each rank keeps its
+    shards); it is called again on a restart that finds no checkpoint, so
+    it must make the same weights each time.
     ``run`` returns ``{"final_step", "restarts", "final_loss", "metrics"}``,
     ``metrics`` one dict per executed step (replayed steps appear again)."""
 
@@ -63,7 +73,7 @@ class Trainer:
         self,
         cfg: ModelConfig,
         cell: ShapeCell,
-        device,
+        device_or_mesh,
         tcfg: TrainerConfig,
         *,
         dataset=None,
@@ -72,11 +82,14 @@ class Trainer:
         init_params: Optional[Callable[[], Params]] = None,
     ):
         self.cfg, self.cell, self.tcfg = cfg, cell, tcfg
-        self.device = resolve_device(device)
-        self.step_fn = build_train_step(cfg, self.device, cell, lr=tcfg.lr, total_steps=tcfg.num_steps)
+        self.mesh = device_or_mesh if hasattr(device_or_mesh, "axis_names") else None
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device_or_mesh)
+        self.step_fn = build_train_step(cfg, self.mesh or self.device, cell, lr=tcfg.lr, total_steps=tcfg.num_steps,
+                                        strategy=tcfg.strategy)
         self.model = self.step_fn.model
         self.init_params = init_params or (lambda: self.model.init(tcfg.seed, train=True))
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints, cfg=cfg, train=True)
+        self._placed = dict(mesh=self.mesh, strategy=tcfg.strategy) if self.mesh is not None else {}
         self.injector = failure_injector or FailureInjector()
         self.on_metrics = on_metrics
         self.detector = StragglerDetector(n_workers=1)
@@ -87,12 +100,14 @@ class Trainer:
     # ------------------------------------------------------------------
     def _init_state(self):
         params = self.init_params()
+        if self.mesh is not None:
+            params = self.step_fn.shard(params)
         return params, self.step_fn.optimizer.init(params), 0
 
     def _restore_or_init(self):
         if self.ckpt.latest_step() is None:
             return self._init_state()
-        params, opt_state, step, _ = self.ckpt.restore(self.device)
+        params, opt_state, step, _ = self.ckpt.restore(self.device, **self._placed)
         return params, opt_state, step
 
     # ------------------------------------------------------------------
@@ -105,6 +120,7 @@ class Trainer:
         loader = ShardedLoader(
             self.dataset, self.cell.global_batch, self.device,
             start_step=start, frontend_spec=frontend_spec,
+            rows=self.step_fn.rows if self.mesh is not None else None,
         )
         step = start
         try:
@@ -125,7 +141,7 @@ class Trainer:
                     if self.on_metrics and step % self.tcfg.log_every == 0:
                         self.on_metrics(step, metrics)
                     if step % self.tcfg.checkpoint_every == 0 or step == total:
-                        self.ckpt.save(step, params, opt_state, {"loss": metrics.get("loss")})
+                        self.ckpt.save(step, params, opt_state, {"loss": metrics.get("loss")}, **self._placed)
                 except RuntimeError as e:
                     if "injected node failure" not in str(e):
                         raise

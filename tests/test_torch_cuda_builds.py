@@ -20,13 +20,15 @@ sources, its library swapped in under the same wrappers.
   tensor-core build is new), both builds of kernel 3 (CUDA
   cores: f32, and bf16 at f 84; tensor cores: bf16 at slot tiles of 16 and
   64) and kernel 4's CUDA-core build (f32, and bf16 at f 84; its bf16
-  tensor-core build is new).  The C entry points
+  tensor-core build is new), kernels 9 and 10 (f32 and bf16, rows of whole
+  16-byte vectors and not; their sources now also hold 10's backward, and
+  kernel 8's its backward, whose builds are new).  The C entry points
   ``repro_flash_decode``, ``repro_flash_decode_paged``,
   ``repro_flash_decode_window``, ``repro_flash_attention``,
   ``repro_flash_attention_tc``, ``repro_grouped_gemm``,
   ``repro_grouped_gemm_tc``, ``repro_ssd_scan``, ``repro_gather_swiglu``,
-  ``repro_gather_swiglu_tc`` and ``repro_down_combine`` must keep their
-  signatures in both trees.  Kernel 7's backward's CUDA-core build
+  ``repro_gather_swiglu_tc``, ``repro_down_combine``, ``repro_moe_dispatch``
+  and ``repro_moe_combine`` must keep their signatures in both trees.  Kernel 7's backward's CUDA-core build
   (``repro_flash_attention_bwd`` in the library ``flash_attention_bwd``:
   f32 at every head dim, bf16 at 16 and 32) is held against the other
   checkout too; its tensor-core build (``repro_flash_attention_bwd_tc``,
@@ -155,7 +157,10 @@ BWD_CASES = [f"flash_attention_bwd {tag} hd {hd} window {w}"
 MOE_BWD_CASES = [f"moe_fused_bwd {tag} {shape}" for tag, shape in
                  (("float32", "300,6,104,72,136"), ("float32", "256,16,80,128,192"), ("bfloat16", "50,6,24,20,36"),
                   ("bfloat16", "300,6,104,72,84"))]
-SOURCE = {"flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
+# kernels 9 and 10 (T,d,E,k,C): a dispatch, then a combine of its slots
+DISPATCH_CASES = [f"moe_dispatch {tag} {shape}" for tag in ("float32", "bfloat16")
+                  for shape in ("37,24,8,2,8", "50,20,6,2,24", "96,1024,32,8,32")]
+SOURCE = {"moe_dispatch": "moe_dispatch", "flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
           "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused",
           "flash_attention_bwd": "flash_attention_bwd", "moe_fused_bwd": "moe_fused_bwd", "ssd_scan_bwd": "ssd_scan"}
 
@@ -201,6 +206,15 @@ def _run(case: str, dev) -> torch.Tensor:
         dh, dwd, dsw = mf_ops.down_combine_bwd(dy, h, wd, plan.flat_idx, plan.slot_w)
         grads = mf_ops.gather_swiglu_bwd(dh, x, plan.flat_idx, plan.flat_cidx, wg, wu)
         return torch.cat([t.reshape(-1).float() for t in (dh, dwd, dsw, *grads)])
+    if words[0] == "moe_dispatch":
+        from repro_torch.kernels.moe_dispatch import ops as md_ops
+
+        T, d, E, k, C = (int(n) for n in words[2].split(","))
+        x = torch.randn((T, d), generator=g, device=dev)
+        plan, _ = route_topk(x, torch.randn((d, E), generator=g, device=dev), k, C)
+        slots = md_ops.dispatch(x.to(dt), plan)
+        y = md_ops.combine((slots.float() * 1.5).to(dt), plan)
+        return torch.cat([slots.reshape(-1).float(), y.reshape(-1).float()])
     if words[0] == "grouped_gemm":
         E, M, K, N = (int(n) for n in words[2].split(","))
         x = torch.randn((E, M, K), generator=g, device=dev).to(dt)
@@ -287,7 +301,7 @@ def other_libs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES
-                         + BWD_CASES + MOE_BWD_CASES + SSD_BWD_CASES)
+                         + BWD_CASES + MOE_BWD_CASES + SSD_BWD_CASES + DISPATCH_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)

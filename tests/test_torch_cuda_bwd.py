@@ -12,7 +12,13 @@ each way.  3_bwd and
 4_bwd take their tensor-core builds for bf16 with d and f multiples of 8
 (each case asserts the build it takes): C off the 64-slot units, an expert
 with no occupied slot, several 256-column tiles with a ragged last one;
-bf16 at d 20 keeps the CUDA-core build.
+bf16 at d 20 keeps the CUDA-core build.  The a2a body's backwards: 8_bwd
+(``csrc/grouped_gemm.cu``; bf16 with K and N multiples of 8 on the tensor
+cores, M off the 64-row tile, one row, ragged K and N tiles, f32 and bf16
+at K 20 on CUDA cores), 10_bwd and kernel 9's backward (kernel 10 with unit
+weights) at k 1 and 8 with dropped assignments and empty slots, kernel 3's
+identity-index backward, and the autograd Functions of the a2a body
+counting one launch each way.
 
 Runs only where ``torch.cuda.is_available()``; elsewhere every test skips
 (a CUDA kernel has no CPU mode).  Imports no jax:
@@ -27,6 +33,10 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.control_plane import capacity_for, make_dispatch_plan, route_topk
+from repro_torch.kernels.grouped_gemm import ops as gg_ops
+from repro_torch.kernels.grouped_gemm import ref as gg_ref
+from repro_torch.kernels.moe_dispatch import ops as md_ops
+from repro_torch.kernels.moe_dispatch import ref as md_ref
 from repro_torch.kernels.moe_fused import ops as mf_ops
 from repro_torch.kernels.moe_fused import ref as mf_ref
 from repro_torch.kernels.rglru_scan import ops as rg_ops
@@ -249,3 +259,97 @@ def test_ssd_training_function_launches_each_way_once_on_card(cuda):
     _hold("proj.grad", proj.grad, torch.cat([want[0].reshape(B, T, H * P), want[3], want[4]], dim=-1))
     for name, g, w in (("dt", dt.grad, want[1]), ("a", a.grad, want[2]), ("h0", h0.grad, want[5])):
         _hold(name, g, w)
+
+
+# E, M, K, N of y[e] = x[e] @ w[e]
+GG_BWD_CASES = {"tc_aligned": (4, 320, 128, 256), "tc_ragged": (5, 70, 136, 264), "tc_one_row": (2, 1, 64, 72),
+                "tc_wide": (3, 200, 520, 1032), "k20": (3, 37, 20, 40), "odd": (2, 17, 24, 36)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(GG_BWD_CASES))
+def test_grouped_gemm_backward_matches_plain_on_card(cuda, case, dtype):
+    E, M, K, N = GG_BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(M + K)
+    x, w, dy = (torch.randn(s, generator=gen, device=cuda).to(dtype) for s in ((E, M, K), (E, K, N), (E, M, N)))
+    path = gg_ops.grouped_gemm_bwd_path(dtype, K, N, True)
+    assert path == ("tensor_cores" if dtype == torch.bfloat16 and case.startswith("tc") else "cuda_cores")
+    got = gg_ops.grouped_gemm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    for name, g, want in zip(("dx", "dw"), got, gg_ref.grouped_gemm_bwd(x, w, dy)):
+        _hold(f"{case} {name}", g, want)
+    again = gg_ops.grouped_gemm_bwd(x, w, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "a repeated launch is not bitwise equal"
+
+
+# T, d, E, k, capacity factor
+COMBINE_BWD_CASES = {"k1": (13, 16, 8, 1, 1.25), "k8_drops": (200, 72, 16, 8, 0.5), "d20": (50, 20, 6, 2, 1.0),
+                     "k8_wide": (96, 1024, 32, 8, 1.25)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(COMBINE_BWD_CASES))
+def test_combine_and_dispatch_backwards_match_plain_on_card(cuda, case, dtype):
+    T, d, E, k, cf = COMBINE_BWD_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    x = torch.randn((T, d), generator=gen, device=cuda)
+    plan, _ = route_topk(x, torch.randn((d, E), generator=gen, device=cuda), k, capacity_for(T, E, k, cf))
+    C = plan.capacity
+    cidx, w = plan.flat_combine_words()
+    idx = plan.flat_dispatch_idx()
+    if cf < 1:
+        assert int((cidx >= E * C).sum()) > 0, "the plan must drop assignments"
+    else:
+        assert int((idx >= T).sum()) > 0, "the plan must leave empty slots"
+    y = torch.randn((E, C, d), generator=gen, device=cuda).to(dtype)
+    dy = torch.randn((T, d), generator=gen, device=cuda).to(dtype)
+    dslots, dw = md_ops.combine_bwd(dy, y, cidx, w, idx)
+    dx = md_ops.dispatch_bwd(y, cidx, T)
+    torch.cuda.synchronize()
+    want_s, want_w = md_ref.combine_bwd(dy.cpu(), y.reshape(E * C, d).cpu(), cidx.cpu(), w.cpu(), idx.cpu())
+    assert torch.equal(dslots.reshape(E * C, d).cpu(), want_s), "dslots: one f32 product rounded once, bitwise"
+    _hold(f"{case} dw", dw.cpu(), want_w)
+    _hold(f"{case} dx", dx.cpu(), md_ref.dispatch_bwd(y.reshape(E * C, d).cpu(), cidx.cpu(), T))
+    again = md_ops.combine_bwd(dy, y, cidx, w, idx)
+    assert torch.equal(again[0], dslots) and torch.equal(again[1], dw), "a repeated launch is not bitwise equal"
+    assert torch.equal(md_ops.dispatch_bwd(y, cidx, T), dx)
+
+
+@pytest.mark.cuda
+def test_identity_index_gather_swiglu_backward_matches_plain_on_card(cuda):
+    """3_bwd as the a2a body's experts run it: the identity as its slot and
+    its combine words (k 1, T = E*C), bf16 on the tensor cores."""
+    E, C, d, f = 6, 72, 136, 200
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    t = lambda *s: (torch.randn(s, generator=gen, device=cuda) * 0.3).to(torch.bfloat16)  # noqa: E731
+    x, dh, wg, wu = t(E * C, d), t(E, C, f), t(E, d, f), t(E, d, f)
+    ident = torch.arange(E * C, dtype=torch.int32, device=cuda)
+    assert mf_ops.gather_swiglu_bwd_path(torch.bfloat16, d, f, True) == "tensor_cores"
+    got = mf_ops.gather_swiglu_bwd(dh, x, ident, ident, wg, wu)
+    torch.cuda.synchronize()
+    want = mf_ref.gather_swiglu_bwd(dh.cpu(), x.cpu(), ident.cpu(), ident.cpu(), wg.cpu(), wu.cpu())
+    for name, g, w in zip(("dx", "dwg", "dwu"), got, want):
+        _hold(name, g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_a2a_training_functions_launch_each_backward_once_on_card(cuda):
+    """dispatch_fn -> fused_experts_fn -> combine_fn (the a2a body at ep 1)
+    under autograd: kernels 9, 3, 8 and 10 once forward, 10 (as 9's
+    backward), 8_bwd, 3_bwd and 10_bwd once backward; the router moves."""
+    T, d, f, E, k = 64, 32, 48, 8, 2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((T, d), generator=gen, device=cuda, requires_grad=True)
+    router = torch.randn((d, E), generator=gen, device=cuda, requires_grad=True)
+    p = {n: (torch.randn(s, generator=gen, device=cuda) * 0.2).requires_grad_(True)
+         for n, s in (("w_gate", (E, d, f)), ("w_up", (E, d, f)), ("w_down", (E, f, d)))}
+    kernels.reset_launch_counts()
+    plan, _ = route_topk(x, router, k, capacity_for(T, E, k, 1.0))
+    y = md_ops.combine_fn(mf_ops.fused_experts_fn(md_ops.dispatch_fn(x, plan), p), plan)
+    y.square().sum().backward()
+    counts = {n: c for n, c in kernels.launch_counts().items() if c}
+    assert counts == {"moe_dispatch": 1, "gather_swiglu": 1, "grouped_gemm": 1, "moe_combine": 1,
+                      "moe_dispatch_bwd": 1, "grouped_gemm_bwd": 1, "gather_swiglu_bwd": 1, "moe_combine_bwd": 1}
+    assert float(router.grad.abs().max()) > 0 and all(t.grad is not None for t in (x, *p.values()))

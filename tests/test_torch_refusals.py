@@ -2,8 +2,8 @@
 re-shard rebuild (``make_replica_factory(shrink_to=...)``) and fabric
 checkpoints at ``--model > 1`` both name the distribution slice that brings
 them (the cross-process fabric they used to wait for has shipped); the
-train CLI refuses ``--data`` / ``--model`` > 1 (every arch trains on one
-device).  CPU only.
+train CLI refuses ``--data`` / ``--model`` > 1 without a launcher (a mesh
+runs one rank per process under torchrun).  CPU only.
 """
 from __future__ import annotations
 
@@ -39,4 +39,4 @@ def test_train_cli_refuses_more_than_one_rank(capsys, tmp_path, flag):
     with pytest.raises(SystemExit) as exit_:
         train.main(["--arch", "starcoder2-3b", "--smoke", "--device", "cpu", flag, "2", "--ckpt", str(tmp_path)])
     assert exit_.value.code == 2
-    assert "distribution slice" in capsys.readouterr().err
+    assert "launch it with torchrun --nproc-per-node 2" in capsys.readouterr().err
