@@ -4836,13 +4836,19 @@ def train_mesh(dev, train_moe):
         dist.destroy_process_group()
 
 
+# 8_bwd's tensor-core launches (csrc/grouped_gemm.cu namespace tcb): dx = w dy^T, dw = x^T dy
+GG_BWD_LAUNCHES = ("dx_wdy_kernel", "dw_xdy_kernel")
+
+
 def a2a_bwd_rows(dev, gen):
     """The a2a body's backward kernels against their plain versions at
     Qwen3-MoE's training shapes through it (T = ``MOE_TRAIN_BATCH`` x
     ``TRAIN_SEQ`` tokens on one rank, 128 experts top-8 at the config's
     capacity, d 4096, f 1536, bf16): ``grouped_gemm_bwd`` (8_bwd, on its
-    tensor-core build: registers, spills and a SASS census with ``HGMMA``;
-    two ``torch.bmm`` calls timed in turns as the library yardstick),
+    tensor-core build and dw's schedule, which the host names: registers,
+    spills and a SASS census with ``HGMMA`` in dx's kernel and both of dw's
+    instantiations; two ``torch.bmm`` calls timed in turns as the library
+    yardstick),
     ``moe_combine_bwd`` (10_bwd: dslots bitwise the plain version's, dw at
     1e-4 of its scale; no one PyTorch call computes it, the composition of
     index_select, multiply and row dot timed beside it) and
@@ -4885,8 +4891,9 @@ def a2a_bwd_rows(dev, gen):
     library = lambda: (torch.bmm(dy, wd.transpose(1, 2)), torch.bmm(h.transpose(1, 2), dy))  # noqa: E731
     err = max(check_bf16(f"8_bwd {n}", g, wt) for n, g, wt in zip(("dx", "dw"), kernel(), plain()))
     cat = lambda fn: lambda: torch.cat([t.reshape(-1).float() for t in fn()])  # noqa: E731
-    sass = sass_census("grouped_gemm", "dx_tc_kernel", "dw_tc_kernel")
-    if len(sass) != 2 or not all(c.get("HGMMA") for c in sass.values()):
+    # dx's kernel, dw's two instantiations (dy resident or streamed)
+    sass = sass_census("grouped_gemm", *GG_BWD_LAUNCHES)
+    if len(sass) != 3 or not all(c.get("HGMMA") for c in sass.values()):
         raise AssertionError(f"grouped_gemm_bwd: no HGMMA in the SASS of the tensor-core build: {sass}")
     ms, lib_ms, turns = in_turns(kernel, library, iters=3, reps=3)
     nbytes = 2 * (E * C * f * 2 + E * f * d * 2) + E * C * d * 2
@@ -4896,9 +4903,10 @@ def a2a_bwd_rows(dev, gen):
         f"(E, C, d) bf16; {shapes}", max_abs_err=err, ms=ms, ms_in_turns=turns, library_ms=lib_ms,
         library_call="torch.bmm(dy, w^T) and torch.bmm(x^T, dy), bf16 (in turns)",
         device_ms=device_ms(kernel, "", n=3), device_ms_by_launch={n_: device_ms(kernel, n_, n=3)
-                                                                   for n_ in ("dx_tc_kernel", "dw_tc_kernel")},
+                                                                   for n_ in GG_BWD_LAUNCHES},
         plain_ms=time_ms(plain, iters=1, reps=2), bitwise_repeat=bitwise_repeat("8_bwd", cat(kernel)), path=path,
-        ptxas=ptxas("grouped_gemm", "dx_tc_kernel", "dw_tc_kernel"), sass=sass, bytes=nbytes, flops=flops,
+        schedule=gg_ops.grouped_gemm_bwd_schedule(C), ptxas=ptxas("grouped_gemm", *GG_BWD_LAUNCHES), sass=sass,
+        bytes=nbytes, flops=flops,
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))))
     del h, wd, dy
     torch.cuda.empty_cache()

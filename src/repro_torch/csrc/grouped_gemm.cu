@@ -60,21 +60,34 @@
 // results (1.13 ms at 3.35 TB/s): the bytes, by a little, with the tensor
 // cores busy all the while.
 //
-// Tensor cores (bf16, K and N multiples of 8, 16-byte-aligned bases): one
-// persistent block an SM walks output tiles of 64 rows x 256 columns (one
-// warpgroup a 128-column half), one producer lane keeping a 4-stage TMA
-// ring full (128-byte swizzle) across tiles, as moe_fused_bwd.cu's tc::gemm
-// does for 4_bwd's same two products (there with f32 dy split into bf16 hi
-// + lo pairs; here dy is bf16, the gradient of a bf16 output, and enters as
-// it is):
-//   dx  D = dy (64 slots x N) . w^T: A dy's rows and B w's 256 K rows, both
-//       K-major as stored (the sum runs over N, their contiguous axis);
-//   dw  D = x^T (64 rows of K x M) . dy (M x 256 of N): A and B read
-//       MN-major (the sum runs over M, the rows of both).
-// A tile's M-tiles are the fastest index, so the tiles in flight share one
-// 256-wide slice of w (dx) or dy (dw) and read it from memory once.  TMA
-// zero-fills past M, K and N.  Each output element is written once with its
-// sum in a fixed order: a repeated launch is bitwise equal.
+// Tensor cores (bf16, K and N multiples of 8, 16-byte-aligned bases): two
+// persistent kernels, one block an SM, each two consumer warpgroups (232
+// registers a thread by setmaxnreg) and a producer warpgroup one lane of
+// which keeps a TMA ring full (128-byte swizzle) across the block's units:
+//   dx  D^T = w (128 rows of K x N) . dy^T (N x 320 slots), operands swapped
+//       as kernel 8's forward swaps them: w's K rows are wgmma's M (64 a
+//       warpgroup) and the slots its N, two halves of 160 at every M.
+//       A stage (64 of N) brings 16 KB of w and 40 KB of dy for 5.2 MFLOP;
+//       w is read once.  The units' K tiles are the fastest index, so the
+//       blocks in flight share each expert's dy.  Both operands K-major as
+//       stored; the epilogue writes D^T's columns as dx's rows.
+//   dw  D = x^T (64 rows of K x M) . dy (M x 256 of N), both MN-major.  A
+//       unit (256 columns of N, one expert) loads its dy slice once into
+//       shared memory (160 KB at M 320: ceil(M / 64) <= 5 chunks of 64 rows)
+//       and keeps it while x's 64-row K tiles stream past through an 8-stage
+//       ring: dy leaves L2 once a unit instead of once a 64-row tile.  The
+//       two warpgroups take the K tiles in turns (m64n256k16, 128
+//       accumulators a thread): one issues its tile's products when the
+//       other has issued its own, then stores while the other multiplies, so
+//       the tensor cores do not wait on the epilogue.  A quad's transpose by
+//       shuffles makes each lane's stores 16-byte vectors, two whole 32-byte
+//       sectors a row a warp.  Above the budget (M > 320) each stage brings
+//       dy's chunk beside x's tile (streamed).
+// dw's schedule (resident or streamed) is the host's, from M alone
+// (ops.grouped_gemm_bwd_schedule), passed to the C entry.  TMA zero-fills
+// past M, K and N (dx's slot halves past M too).  Each output element is
+// written once with its sum in a fixed order: a repeated launch is bitwise
+// equal.
 // CUDA cores (f32, and bf16 at any other shape): two tiled SIMT products,
 // 64 x 64 outputs a block of 256 threads, 4 x 4 a thread, the sum in steps
 // of 16 through shared memory, ragged edges masked.
@@ -324,166 +337,302 @@ __global__ void __launch_bounds__(THREADS) dw_kernel(const T* __restrict__ x, co
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// 8_bwd on tensor cores: one persistent wgmma template for both products
+// 8_bwd on tensor cores: dx with w's K rows as wgmma's M, dw over dy's slice kept on chip
 // ---------------------------------------------------------------------------
 
 namespace tcb {
 
-constexpr int BK = 64;                   // the sum's rows a stage
-constexpr int CONSUMERS = 256;           // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
-constexpr int BOX = 64 * 128;            // bytes of a 64 x 64 bf16 tile (128-byte swizzle)
-constexpr int BN = 256;                  // output columns a tile: 128 a warpgroup
-constexpr int HALF = BN / 2 * 128;       // bytes of a warpgroup's half of a B tile
-constexpr int STAGES = 4;
-constexpr int STAGE = BOX + BN * 128;    // A's 64 x 64 tile, B's 256 x 64
-constexpr int BYTES = STAGES * STAGE + 1024;
+constexpr int CONSUMERS = 256;            // two warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup, one lane of which issues every load
+constexpr int BOX = 64 * 128;             // bytes of a 64 x 64 bf16 TMA box (128-byte swizzle)
+// registers a thread after setmaxnreg: 128 x 40 + 256 x 232 = 384 x 168, what the launch allots
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 
-// DX: D (64 rows of M x 256 of K) = dy . w^T, A and B K-major (the sum over N);
-// DW: D (64 rows of K x 256 of N) = x^T . dy, A and B MN-major (the sum over M)
-enum Prod { DX, DW };
+// dx: D (64 rows of K a warpgroup x 160 DX_HALVES columns of M) = w . dy^T,
+// both operands K-major as stored (the sum over N, their contiguous axis)
+constexpr int DX_HALF = 160;  // M columns a wgmma
+constexpr int DX_HALVES = 2;  // wgmmas a step: M columns a unit
+constexpr int DX_STAGES = 4;
+struct Dx {
+  static constexpr int MT = DX_HALF * DX_HALVES;          // M columns a unit
+  static constexpr int DY_BOXES = (MT + 63) / 64;         // dy's 64-row boxes a stage
+  static constexpr int STAGE = (2 + DY_BOXES) * BOX;      // 64 of N: w's 128 K rows, then dy's rows
+  static constexpr int BYTES = DX_STAGES * STAGE + 1024;  // 230,400
+};
+
+// dw: D (64 rows of K a warpgroup x 256 of N) = x^T . dy, both operands
+// MN-major as stored (the sum over M, the rows of both)
+constexpr int DW_NB = 256;                     // N columns a unit
+constexpr int DW_CHUNK = DW_NB / 64 * BOX;     // dy's 64 rows of M x 256 of N: 32 KB
+constexpr int DW_RESIDENT_CHUNKS = 5;          // dy's slice stays on chip while ceil(M / 64) <= 5
+template <bool RES>
+struct Dw {
+  static constexpr int STAGES = RES ? 8 : 5;
+  static constexpr int STAGE = RES ? BOX : BOX + DW_CHUNK;  // x's 64 K x 64 M (streamed: and dy's chunk)
+  static constexpr int BYTES = (RES ? DW_RESIDENT_CHUNKS * DW_CHUNK : 0) + STAGES * STAGE + 1024;
+};
 
 struct Params {
-  __nv_bfloat16* out;  // DX: dx (E, M, K); DW: dw (E, K, N)
+  __nv_bfloat16* out;  // dx (E, M, K) or dw (E, K, N)
   int E, M, K, N;
-  int nM, nN;          // tiles: 64-row tiles of D, 256-column tiles of D
 };
 
-struct Tile {
-  int e, mu, nu;
-};
-
-// the M-tiles fastest: the tiles in flight share B's 256-wide slice
-__device__ __forceinline__ Tile decode(const Params& p, int t) {
-  Tile x;
-  x.mu = t % p.nM;
-  t /= p.nM;
-  x.nu = t % p.nN;
-  x.e = t / p.nN;
-  return x;
+// a warp's arrival on a barrier counting warps, once its lanes are done
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(bar);
 }
 
-template <int P>
-__device__ __forceinline__ int steps(const Params& p) {
-  return P == DX ? (p.N + BK - 1) / BK : (p.M + BK - 1) / BK;
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the producer (one lane): fills stage after stage of the block's tiles, a ring of STAGES
-template <int P>
-__device__ __forceinline__ void produce(const CUtensorMap* ma, const CUtensorMap* mb, const Params& p,
-                                        uint32_t base, uint32_t full, uint32_t empty, int ntiles) {
-  const int nk = steps<P>(p);
-  int n = 0;  // stages filled, across tiles
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Tile x = decode(p, t);
-    for (int it = 0; it < nk; ++it, ++n) {
-      const int s = n % STAGES;
-      if (n >= STAGES) sm90::mbar_wait(empty + 8 * s, ((n / STAGES) - 1) & 1);
-      const uint32_t sa = base + s * STAGE, sb = sa + BOX, bar = full + 8 * s;
-      sm90::mbar_expect_tx(bar, STAGE);
-      if constexpr (P == DX) {  // dy as (N, M, E), w as (N, K, E): K-major boxes
-        sm90::tma_load_3d(sa, ma, bar, it * BK, x.mu * 64, x.e);
-        for (int j = 0; j < BN / 64; ++j) sm90::tma_load_3d(sb + j * BOX, mb, bar, it * BK, x.nu * BN + 64 * j, x.e);
-      } else {  // x as (K, M, E), dy as (N, M, E): MN-major boxes
-        sm90::tma_load_3d(sa, ma, bar, x.mu * 64, it * BK, x.e);
-        for (int j = 0; j < BN / 64; ++j) sm90::tma_load_3d(sb + j * BOX, mb, bar, x.nu * BN + 64 * j, it * BK, x.e);
-      }
-    }
-  }
+// v[t] of lane q of a quad (four lanes with the same lane / 4) becomes
+// lane t's v[q]: two butterfly exchanges, over bit 0 and bit 1 of q
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+  const bool o = q & 1, t = q & 2;
+  uint32_t a = __shfl_xor_sync(0xffffffffu, o ? v[0] : v[1], 1);
+  uint32_t b = __shfl_xor_sync(0xffffffffu, o ? v[2] : v[3], 1);
+  if (o) v[0] = a, v[2] = b;
+  else v[1] = a, v[3] = b;
+  a = __shfl_xor_sync(0xffffffffu, t ? v[0] : v[2], 2);
+  b = __shfl_xor_sync(0xffffffffu, t ? v[1] : v[3], 2);
+  if (t) v[0] = a, v[1] = b;
+  else v[2] = a, v[3] = b;
 }
 
-// the consumer warpgroups: warpgroup w takes D's columns 128 w .. 128 w + 127;
-// a stage's products are issued, then the previous stage's waited for and its
-// buffers released.  acc[4 c + 2 i + h] is row 16 warp + lane / 4 + 8 i of the
-// tile and column 8 c + 2 (lane % 4) + h of the warpgroup's 128.
-template <int P>
-__device__ __forceinline__ void consume(const Params& p, uint32_t base, uint32_t full, uint32_t empty, int ntiles) {
-  constexpr int MN = P == DW;
-  const int tid = threadIdx.x, w = tid >> 7, lane = tid & 31, nk = steps<P>(p);
-  const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2), c2 = 2 * (lane & 3);
-  float acc[64];
-  int n = 0;  // stages consumed, across tiles
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Tile x = decode(p, t);
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    int prev = -1;
-    for (int it = 0; it < nk; ++it, ++n) {
-      const int s = n % STAGES;
-      sm90::mbar_wait(full + 8 * s, (n / STAGES) & 1);
-      const uint32_t sa = base + s * STAGE, sb = sa + BOX + w * HALF;
-      sm90::fence_operands(acc);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        // step kk: rows 16 kk .. of an MN-major tile (2,048 bytes on), bytes 32 kk of a K-major one's rows
-        const uint32_t o = MN ? kk * 16 * 128 : kk * 32;
-        const uint64_t da = MN ? sm90::desc_mnmajor(sa + o, BOX) : sm90::desc_kmajor(sa + o);
-        const uint64_t db = MN ? sm90::desc_mnmajor(sb + o, BOX) : sm90::desc_kmajor(sb + o);
-        sm90::wgmma_m64n128k16<MN, MN>(acc, da, db);
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<1>();
-      sm90::fence_operands(acc);
-      if (prev >= 0) {
-        __syncwarp();
-        if (lane == 0) sm90::mbar_arrive(empty + 8 * prev);
-      }
-      prev = s;
-    }
-    sm90::wgmma_wait<0>();
-    sm90::fence_operands(acc);
-    if (prev >= 0) {
-      __syncwarp();
-      if (lane == 0) sm90::mbar_arrive(empty + 8 * prev);
-    }
-    // D's row r (of M, or K) and column c (of K, or N): bf16 pairs of neighbouring columns
-    const int R = P == DX ? p.M : p.K, Cn = P == DX ? p.K : p.N;
-    const int c0 = x.nu * BN + 128 * w;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = x.mu * 64 + r0 + 8 * i;
-      if (r >= R) continue;
-      __nv_bfloat16* row = p.out + ((long)x.e * R + r) * Cn;
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = c0 + 8 * c + c2;
-        if (col < Cn)  // Cn is a multiple of 8: col + 1 < Cn too
-          *reinterpret_cast<__nv_bfloat162*>(row + col) =
-              __floats2bfloat162_rn(acc[4 * c + 2 * i], acc[4 * c + 2 * i + 1]);
-      }
-    }
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void gemm(const CUtensorMap* ma, const CUtensorMap* mb, const Params& p) {
+// dx: a unit is (128 rows of K, MT columns of M, expert), rows of K fastest
+// so the units in flight share dy's tile; warpgroup w takes K rows 64 w ..
+// 64 w + 63 of it.  One ring of stages (64 of N each) runs on across units.
+__global__ void __launch_bounds__(THREADS, 1) dx_wdy_kernel(const __grid_constant__ CUtensorMap mw,
+                                                            const __grid_constant__ CUtensorMap mdy,
+                                                            const __grid_constant__ Params p) {
+  using L = Dx;
+  constexpr int H = DX_HALVES;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 * STAGES];
+  __shared__ __align__(8) uint64_t bars[2 * DX_STAGES];
   const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t full = sm90::smem_u32(bars), empty = full + 8 * STAGES;
-  const int ntiles = p.nM * p.nN * p.E;
+  const uint32_t full = sm90::smem_u32(bars), empty = full + 8 * DX_STAGES;
+  const int nK = (p.K + 127) / 128, nM = (p.M + L::MT - 1) / L::MT, nsteps = (p.N + 63) / 64;
+  const int units = nK * nM * p.E;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < DX_STAGES; ++s) {
       sm90::mbar_init(full + 8 * s, 1);                // the producer's expect_tx
       sm90::mbar_init(empty + 8 * s, CONSUMERS / 32);  // one arrival a consumer warp
     }
     sm90::mbar_init_fence();
   }
   __syncthreads();
-  if (threadIdx.x == CONSUMERS) produce<P>(ma, mb, p, base, full, empty, ntiles);
-  else if (threadIdx.x < CONSUMERS) consume<P>(p, base, full, empty, ntiles);
+  if (threadIdx.x >= CONSUMERS) {
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      int n = 0;  // stages filled, across units
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int kt = u % nK, mt = (u / nK) % nM, e = u / (nK * nM);
+        for (int it = 0; it < nsteps; ++it, ++n) {
+          const int s = n % DX_STAGES;
+          if (n >= DX_STAGES) sm90::mbar_wait(empty + 8 * s, ((n / DX_STAGES) - 1) & 1);
+          const uint32_t st = base + s * L::STAGE, bar = full + 8 * s;
+          sm90::mbar_expect_tx(bar, L::STAGE);
+          // w as (N, K, E), dy as (N, M, E): K-major boxes, TMA zeros past K, M and N
+          for (int j = 0; j < 2; ++j) sm90::tma_load_3d(st + j * BOX, &mw, bar, it * 64, kt * 128 + 64 * j, e);
+          for (int j = 0; j < L::DY_BOXES; ++j)
+            sm90::tma_load_3d(st + (2 + j) * BOX, &mdy, bar, it * 64, mt * L::MT + 64 * j, e);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x, w = tid >> 7, lane = tid & 31;
+    const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2), q2 = 2 * (lane & 3);
+    float acc[H][80];
+    int n = 0;  // stages consumed, across units
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int kt = u % nK, mt = (u / nK) % nM, e = u / (nK * nM);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int i = 0; i < 80; ++i) acc[h][i] = 0.f;
+      int prev = -1;
+      for (int it = 0; it < nsteps; ++it, ++n) {
+        const int s = n % DX_STAGES;
+        sm90::mbar_wait(full + 8 * s, (n / DX_STAGES) & 1);
+        const uint32_t sa = base + s * L::STAGE + w * BOX, sb = base + s * L::STAGE + 2 * BOX;
+#pragma unroll
+        for (int h = 0; h < H; ++h) sm90::fence_operands(acc[h]);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {  // 16 of N a step: 32 bytes on in every row
+          const uint64_t da = sm90::desc_kmajor(sa + 32 * kk);
+#pragma unroll
+          for (int h = 0; h < H; ++h)  // half h: dy's rows 160 h .., 20 groups of 8 rows on
+            sm90::wgmma_m64n160k16<0, 0>(acc[h], da, sm90::desc_kmajor(sb + h * DX_HALF * 128 + 32 * kk));
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+#pragma unroll
+        for (int h = 0; h < H; ++h) sm90::fence_operands(acc[h]);
+        if (prev >= 0) warp_arrive(empty + 8 * prev);
+        prev = s;
+      }
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < H; ++h) sm90::fence_operands(acc[h]);
+      if (prev >= 0) warp_arrive(empty + 8 * prev);
+      // acc[h][4 c + 2 i + b] is D's row r0 + 8 i (K) and column 8 c + q2 + b of half h (M):
+      // dx[e][m][k], the 8 lanes of a column writing 8 neighbouring k
+      const int k0 = kt * 128 + 64 * w + r0;
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int c = 0; c < 20; ++c)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const int m = mt * L::MT + h * DX_HALF + 8 * c + q2 + b, k = k0 + 8 * i;
+              if (m < p.M && k < p.K) p.out[((long)e * p.M + m) * p.K + k] = __float2bfloat16(acc[h][4 * c + 2 * i + b]);
+            }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) dx_tc_kernel(const __grid_constant__ CUtensorMap ma,
-                                                           const __grid_constant__ CUtensorMap mb,
-                                                           const __grid_constant__ Params p) {
-  gemm<DX>(&ma, &mb, p);
-}
-__global__ void __launch_bounds__(THREADS, 1) dw_tc_kernel(const __grid_constant__ CUtensorMap ma,
-                                                           const __grid_constant__ CUtensorMap mb,
-                                                           const __grid_constant__ Params p) {
-  gemm<DW>(&ma, &mb, p);
+// dw: a unit is (256 columns of N, expert), columns fastest so the units in
+// flight share x[e].  RES: the unit's dy slice (ceil(M / 64) chunks of 64 rows
+// x 256 columns) is loaded once into shared memory and kept while x's 64-row
+// K tiles stream past it; otherwise each stage brings x's tile and dy's chunk.
+// Tile j of a block's sequence (its units' K tiles in order) is warpgroup
+// j % 2's, and the two take turns: a warpgroup issues a tile's products once
+// the other has issued its previous tile's, then stores while the other
+// multiplies.  The turns also keep the shared ring sound: a warpgroup never
+// waits on a stage more than a tile past the last one loaded, so a slot's
+// barrier cannot show it a phase one round old (without them a warpgroup
+// ran a whole tile ahead and read stale stages).  A chunk of dy is released
+// when both warpgroups' last products on it in the unit are done, and
+// reloaded for the next unit.
+template <bool RES>
+__global__ void __launch_bounds__(THREADS, 1) dw_xdy_kernel(const __grid_constant__ CUtensorMap mx,
+                                                            const __grid_constant__ CUtensorMap mdy,
+                                                            const __grid_constant__ Params p) {
+  using L = Dw<RES>;
+  constexpr int ST = L::STAGES, NC = DW_RESIDENT_CHUNKS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * ST + 2 * NC + 2];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = sm90::smem_u32(bars), empty = full + 8 * ST, dyfull = empty + 8 * ST,
+                 dyempty = dyfull + 8 * NC, turn = dyempty + 8 * NC;
+  const uint32_t ring = base + (RES ? NC * DW_CHUNK : 0);
+  const int R = (p.M + 63) / 64, nK = (p.K + 63) / 64, nN = (p.N + DW_NB - 1) / DW_NB;
+  const int units = nN * p.E;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      sm90::mbar_init(full + 8 * s, 1);   // the producer's expect_tx
+      sm90::mbar_init(empty + 8 * s, 4);  // the consuming warpgroup's warps
+    }
+    for (int c = 0; c < NC; ++c) {
+      sm90::mbar_init(dyfull + 8 * c, 1);
+      sm90::mbar_init(dyempty + 8 * c, CONSUMERS / 32);  // both warpgroups' warps
+    }
+    for (int w = 0; w < 2; ++w) sm90::mbar_init(turn + 8 * w, 4);  // warpgroup w's warps: its tile is issued
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x >= CONSUMERS) {
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      int g = 0, lu = 0;  // stages filled across units; units so far
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++lu) {
+        const int nu = u % nN, e = u / nN;
+        for (int kt = 0; kt < nK; ++kt)
+          for (int mc = 0; mc < R; ++mc, ++g) {
+            // x as (K, M, E), dy as (N, M, E): MN-major boxes, TMA zeros past M, K and N
+            if (RES && kt == 0) {  // the unit's dy chunk mc, just before the first stage that reads it
+              if (lu > 0) sm90::mbar_wait(dyempty + 8 * mc, (lu - 1) & 1);
+              const uint32_t c = base + mc * DW_CHUNK, bar = dyfull + 8 * mc;
+              sm90::mbar_expect_tx(bar, DW_CHUNK);
+              for (int j = 0; j < DW_NB / 64; ++j)
+                sm90::tma_load_3d(c + j * BOX, &mdy, bar, nu * DW_NB + 64 * j, mc * 64, e);
+            }
+            const int s = g % ST;
+            if (g >= ST) sm90::mbar_wait(empty + 8 * s, ((g / ST) - 1) & 1);
+            const uint32_t st = ring + s * L::STAGE, bar = full + 8 * s;
+            sm90::mbar_expect_tx(bar, L::STAGE);
+            sm90::tma_load_3d(st, &mx, bar, kt * 64, mc * 64, e);
+            if (!RES)
+              for (int j = 0; j < DW_NB / 64; ++j)
+                sm90::tma_load_3d(st + BOX + j * BOX, &mdy, bar, nu * DW_NB + 64 * j, mc * 64, e);
+          }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<CONSUMER_REGS>();
+    const int tid = threadIdx.x, w = tid >> 7, lane = tid & 31, q = lane & 3;
+    const int r0 = 16 * ((tid >> 5) & 3) + (lane >> 2);
+    float acc[128];
+    int lu = 0, waits = 0;  // units so far; waits on the other warpgroup's turn
+    for (int u = blockIdx.x; u < units; u += gridDim.x, ++lu) {
+      const int nu = u % nN, e = u / nN, j0 = lu * nK;  // the unit's first tile in the sequence
+      int kt = (j0 & 1) == w ? 0 : 1;
+      if (RES && kt >= nK)  // no tile of this unit (nK 1): pass its dy chunks on, in order
+        for (int mc = 0; mc < R; ++mc) {
+          sm90::mbar_wait(dyfull + 8 * mc, lu & 1);
+          warp_arrive(dyempty + 8 * mc);
+        }
+      for (; kt < nK; kt += 2) {
+        const int j = j0 + kt;
+        const bool last = kt + 2 >= nK;  // this warpgroup's last tile of the unit
+        if (j > 0) sm90::mbar_wait(turn + 8 * (w ^ 1), waits++ & 1);
+#pragma unroll
+        for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+        int prev = -1;
+        for (int mc = 0; mc < R; ++mc) {
+          const int g = j * R + mc, s = g % ST;
+          sm90::mbar_wait(full + 8 * s, (g / ST) & 1);
+          if (RES) sm90::mbar_wait(dyfull + 8 * mc, lu & 1);
+          const uint32_t sa = ring + s * L::STAGE, sb = RES ? base + mc * DW_CHUNK : sa + BOX;
+          sm90::fence_operands(acc);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {  // 16 rows of M a step: 2,048 bytes on
+            const uint32_t o = kk * 16 * 128;
+            sm90::wgmma_m64n256k16<1, 1>(acc, sm90::desc_mnmajor(sa + o, BOX), sm90::desc_mnmajor(sb + o, BOX));
+          }
+          sm90::wgmma_commit();
+          if (mc == R - 1) warp_arrive(turn + 8 * w);  // the tile's products are issued: the other's turn
+          sm90::wgmma_wait<1>();
+          sm90::fence_operands(acc);
+          if (prev >= 0) {
+            warp_arrive(empty + 8 * prev);
+            if (RES && last) warp_arrive(dyempty + 8 * (mc - 1));
+          }
+          prev = s;
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands(acc);
+        warp_arrive(empty + 8 * prev);
+        if (RES && last) warp_arrive(dyempty + 8 * (R - 1));
+        // acc[4 c + 2 i + b] is D's row r0 + 8 i (K) and column 8 c + 2 q + b (N).
+        // Columns c0 and c0 + 1 go out as one 16-byte vector a lane: after the
+        // quad's transpose lane q holds row r0 + 8 (q & 1), columns 8 (c0 + q / 2) ..
+        const int row = kt * 64 + r0 + 8 * (q & 1);
+        __nv_bfloat16* const out = p.out + ((long)e * p.K + row) * p.N;
+#pragma unroll
+        for (int c0 = 0; c0 < 32; c0 += 2) {
+          uint32_t v[4];
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int a = 4 * (c0 + (t >> 1)) + 2 * (t & 1);
+            v[t] = bf16x2(acc[a], acc[a + 1]);
+          }
+          quad_transpose(v, q);
+          const int col = nu * DW_NB + 8 * (c0 + (q >> 1));
+          if (row < p.K && col < p.N)  // N is a multiple of 8: a vector is all in or all out
+            *reinterpret_cast<uint4*>(out + col) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
 }
 
 // launched before the tensor maps are encoded: as a runtime launch it makes
@@ -510,17 +659,31 @@ inline bool map3(CUtensorMap* m, const void* base, long inner, long rows, long d
   return sm90::bf16_tensor_map(m, base, 3, dims, str, box);
 }
 
-template <int P>
-int run(const CUtensorMap& ma, const CUtensorMap& mb, const Params& p, cudaStream_t st) {
-  const auto kernel = P == DX ? dx_tc_kernel : dw_tc_kernel;
-  // the opt-in above 48 KB, once a process a kernel (the port drives one card a process)
-  static const cudaError_t opted = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
+// one persistent block an SM over `units`
+template <typename Kernel>
+int run(Kernel kernel, cudaError_t opted, int bytes, long units, const CUtensorMap& ma, const CUtensorMap& mb,
+        const Params& p, cudaStream_t st) {
   if (opted != cudaSuccess) return (int)opted;
-  const long ntiles = (long)p.nM * p.nN * p.E;
-  if (ntiles == 0) return 0;
-  if (ntiles > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  kernel<<<(unsigned)std::min<long>(ntiles, sm_count()), THREADS, BYTES, st>>>(ma, mb, p);
+  if (units == 0) return 0;
+  if (units > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)std::min<long>(units, sm_count()), THREADS, bytes, st>>>(ma, mb, p);
   return (int)cudaGetLastError();
+}
+
+// each kernel's shared memory opted in above 48 KB once a process (the port drives one card a process)
+inline int run_dx(const CUtensorMap& mw, const CUtensorMap& mdy, const Params& p, cudaStream_t st) {
+  static const cudaError_t opted =
+      cudaFuncSetAttribute(dx_wdy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Dx::BYTES);
+  const long units = (long)((p.K + 127) / 128) * ((p.M + Dx::MT - 1) / Dx::MT) * p.E;
+  return run(dx_wdy_kernel, opted, Dx::BYTES, units, mw, mdy, p, st);
+}
+
+template <bool RES>
+int run_dw(const CUtensorMap& mx, const CUtensorMap& mdy, const Params& p, cudaStream_t st) {
+  static const cudaError_t opted =
+      cudaFuncSetAttribute(dw_xdy_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize, Dw<RES>::BYTES);
+  const long units = (long)((p.N + DW_NB - 1) / DW_NB) * p.E;
+  return run(dw_xdy_kernel<RES>, opted, Dw<RES>::BYTES, units, mx, mdy, p, st);
 }
 
 }  // namespace tcb
@@ -570,11 +733,15 @@ extern "C" int repro_grouped_gemm_bwd(int dtype, const void* x, const void* w, c
 
 // 8_bwd's tensor-core build: bf16 x (E, M, K), w (E, K, N), dy (E, M, N),
 // contiguous with 16-byte-aligned bases, K and N multiples of 8; outputs dx
-// (E, M, K) and dw (E, K, N) bf16.  Three launches: the context's touch, dx, dw.
+// (E, M, K) and dw (E, K, N) bf16.  Three launches: the context's touch, dx,
+// dw, the last on the host's schedule: `resident` 1 keeps each unit's dy
+// slice in shared memory (refused past DW_RESIDENT_CHUNKS chunks of 64 rows
+// of M), 0 streams it beside x.
 extern "C" int repro_grouped_gemm_bwd_tc(const void* x, const void* w, const void* dy, void* dx, void* dw, int E,
-                                         int M, int K, int N, void* stream) {
+                                         int M, int K, int N, int resident, void* stream) {
   if (E <= 0 || M <= 0 || K <= 0 || N <= 0) return 0;
   if (K % 8 != 0 || N % 8 != 0 || E > 65535) return (int)cudaErrorInvalidValue;
+  if (resident && (M + 63) / 64 > tcb::DW_RESIDENT_CHUNKS) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   tcb::touch_kernel<<<1, 1, 0, st>>>();
   int err = (int)cudaGetLastError();
@@ -585,9 +752,7 @@ extern "C" int repro_grouped_gemm_bwd_tc(const void* x, const void* w, const voi
   tcb::Params p{};
   p.E = E, p.M = M, p.K = K, p.N = N;
   p.out = (__nv_bfloat16*)dx;
-  p.nM = (M + 63) / 64, p.nN = (K + tcb::BN - 1) / tcb::BN;
-  if ((err = tcb::run<tcb::DX>(mdy, mw, p, st))) return err;
+  if ((err = tcb::run_dx(mw, mdy, p, st))) return err;
   p.out = (__nv_bfloat16*)dw;
-  p.nM = (K + 63) / 64, p.nN = (N + tcb::BN - 1) / tcb::BN;
-  return tcb::run<tcb::DW>(mx, mdy, p, st);
+  return resident ? tcb::run_dw<true>(mx, mdy, p, st) : tcb::run_dw<false>(mx, mdy, p, st);
 }

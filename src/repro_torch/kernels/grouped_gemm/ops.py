@@ -9,7 +9,8 @@ else on CUDA cores (ragged M, K and N masked inside the kernel); neither
 makes padded copies.  :func:`grouped_swiglu` and :func:`experts_fn` (the
 reference's ``pallas_experts_fn``) build the per-expert SwiGLU on it.
 :func:`grouped_gemm_bwd` is its backward (8_bwd: dx and dw in one call,
-the build :func:`grouped_gemm_bwd_path` names), which
+the build :func:`grouped_gemm_bwd_path` names, the tensor-core build on the
+schedule :func:`grouped_gemm_bwd_schedule` names), which
 ``moe_fused.ops.fused_experts_fn`` runs under autograd.
 """
 from __future__ import annotations
@@ -82,13 +83,31 @@ def grouped_gemm_bwd_path(dtype: torch.dtype, K: int, N: int, aligned: bool) -> 
     return "tensor_cores" if ok else "cuda_cores"
 
 
+# dw keeps a unit's dy slice (rows of M x 256 columns, in 64-row chunks) in
+# shared memory while at most this many chunks fit beside x's ring
+# (``csrc/grouped_gemm.cu``'s DW_RESIDENT_CHUNKS; its entry refuses more)
+BWD_RESIDENT_CHUNKS = 5
+
+
+def grouped_gemm_bwd_schedule(M: int) -> str:
+    """dw's schedule on the tensor-core build of kernel 8's backward at M
+    rows, which the launch passes to its C entry: ``"dy_resident"`` while
+    a unit's dy slice, ceil(M / 64) chunks of 64 rows x 256 columns (32 KB
+    each), fits in shared memory (at most 5: M <= 320, Qwen3-MoE's a2a
+    training shape), else ``"dy_streamed"`` (each stage brings dy's chunk
+    beside x's tile).  dx has one schedule at every shape."""
+    _check(M > 0, f"no rows (M {M})")
+    return "dy_resident" if -(-M // 64) <= BWD_RESIDENT_CHUNKS else "dy_streamed"
+
+
 def grouped_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     """Kernel 8's backward (8_bwd) for the gradient dy (E, M, N) of
     ``grouped_gemm(x, w)``: ``(dx, dw)`` = (dy[e] @ w[e]^T, x[e]^T @ dy[e]),
     f32 sums in a fixed order, in x's type.  On the card the build
     :func:`grouped_gemm_bwd_path` names, counted once: two launches on CUDA
     cores, three on tensor cores (a touch that makes the context current
-    on autograd's thread, then dx, then dw)."""
+    on autograd's thread, then dx, then dw, on the schedule
+    :func:`grouped_gemm_bwd_schedule` names)."""
     _check(x.ndim == 3 and w.ndim == 3 and dy.ndim == 3, "x, w and dy must be 3-D")
     E, M, K = x.shape
     N = w.shape[2]
@@ -100,14 +119,22 @@ def grouped_gemm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
         return ref.grouped_gemm_bwd(x, w, dy)
     _check(x.device == w.device == dy.device, "tensors on different devices")
     _check(x.device.type == "cuda", f"unsupported device {x.device}")
-    x, w, dy = x.contiguous(), w.contiguous(), dy.contiguous()
+    return _launch_bwd(x.contiguous(), w.contiguous(), dy.contiguous())
+
+
+def _launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """:func:`grouped_gemm_bwd`'s launch on contiguous tensors of one card."""
     from repro_torch.kernels import check_launch, dtype_code, function, ptr, stream_of
 
+    E, M, K = x.shape
+    N = w.shape[2]
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy, dx, dw))
     if grouped_gemm_bwd_path(x.dtype, K, N, aligned) == "tensor_cores":
-        rc = function("grouped_gemm", "repro_grouped_gemm_bwd_tc", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p])(ptr(x), ptr(w), ptr(dy), ptr(dx), ptr(dw), E, M, K, N, stream_of(x))
+        resident = int(grouped_gemm_bwd_schedule(M) == "dy_resident")
+        rc = function("grouped_gemm", "repro_grouped_gemm_bwd_tc", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                      + [ctypes.c_void_p])(ptr(x), ptr(w), ptr(dy), ptr(dx), ptr(dw), E, M, K, N, resident,
+                                           stream_of(x))
     else:
         rc = function("grouped_gemm", "repro_grouped_gemm_bwd", [ctypes.c_int] + [ctypes.c_void_p] * 5
                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])(

@@ -60,6 +60,15 @@ sources, its library swapped in under the same wrappers.
   ``repro_gather_swiglu_bwd`` in the library ``moe_fused_bwd``: f32, and
   bf16 at a d or f not a multiple of 8) are held against the other
   checkout too; their tensor-core builds are new.
+* Kernel 8's backward (8_bwd) is the one build this change redesigns: its
+  tensor-core entry ``repro_grouped_gemm_bwd_tc`` (dx and dw on new kernels,
+  dw's schedule a new argument from the host) is not compared.  Everything else is held bitwise against the other
+  checkout, ``csrc/sm90.cuh``'s additions notwithstanding: besides the cases
+  above, 8_bwd's CUDA-core build (``repro_grouped_gemm_bwd``: f32, and bf16
+  at K 20), kernel 2 (f32, bf16, int8 stacks), and the tensor-core builds of
+  kernel 4, of kernel 7's backward (hd 64, 128, 256), of kernels 3 and 4's
+  backwards and of kernel 11's backward, and 10_bwd with 9's backward
+  (``LEFT_ALONE_CASES``).
 
 Imports no jax.
 """
@@ -160,7 +169,21 @@ MOE_BWD_CASES = [f"moe_fused_bwd {tag} {shape}" for tag, shape in
 # kernels 9 and 10 (T,d,E,k,C): a dispatch, then a combine of its slots
 DISPATCH_CASES = [f"moe_dispatch {tag} {shape}" for tag in ("float32", "bfloat16")
                   for shape in ("37,24,8,2,8", "50,20,6,2,24", "96,1024,32,8,32")]
-SOURCE = {"moe_dispatch": "moe_dispatch", "flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
+# the builds this change leaves alone beside the one it redesigns (8_bwd's
+# tensor cores): 8_bwd on CUDA cores (E,M,K,N: f32, and bf16 at K 20); kernel
+# 2 (T,E,k,d,f: f32, bf16, int8 stacks); the tensor-core builds of kernel 4,
+# of 7_bwd (hd 64, 128, 256), of 3_bwd / 4_bwd and of 11_bwd; 10_bwd and
+# 9's backward (T,d,E,k,C)
+LEFT_ALONE_CASES = (
+    [f"grouped_gemm_bwd {tag} {shape}" for tag, shape in
+     (("float32", "3,37,20,40"), ("float32", "2,320,136,264"), ("bfloat16", "3,37,20,40"))]
+    + [f"moe_decode {tag} 16,128,8,1024,384" for tag in ("float32", "bfloat16", "int8 bfloat16")]
+    + [f"down_combine bfloat16 {shape} tc" for shape in ("40,8,40,96,80", "128,128,16,4096,1536")]
+    + [f"flash_attention_bwd bfloat16 hd {hd} window {w} tc" for hd in (64, 128, 256) for w in (0, 45)]
+    + [f"moe_fused_bwd bfloat16 {shape} tc" for shape in ("300,6,104,72,136", "256,16,80,128,192")]
+    + ["ssd_scan_bwd bfloat16 2,300,3,64,128,1 tc"]
+    + [f"moe_combine_bwd {tag} 50,20,6,2,24" for tag in ("float32", "bfloat16")])
+SOURCE = {"grouped_gemm_bwd": "grouped_gemm", "moe_decode": "moe_decode", "moe_combine_bwd": "moe_dispatch","moe_dispatch": "moe_dispatch", "flash_decode_window": "flash_decode", "flash_decode": "flash_decode", "flash_attention": "flash_attention", "grouped_gemm": "grouped_gemm",
           "ssd_scan": "ssd_scan", "gather_swiglu": "moe_fused", "down_combine": "moe_fused",
           "flash_attention_bwd": "flash_attention_bwd", "moe_fused_bwd": "moe_fused_bwd", "ssd_scan_bwd": "ssd_scan"}
 
@@ -186,7 +209,7 @@ def _run(case: str, dev) -> torch.Tensor:
         S, nq, nkv = (300, 10, 1) if hd == 256 else (197, 16, 4)
         q, do = (torch.randn((1, S, nq, hd), generator=g, device=dev).to(dt) for _ in range(2))
         k, v = (torch.randn((1, S, nkv, hd), generator=g, device=dev).to(dt) for _ in range(2))
-        assert fa_ops.flash_attention_bwd_path(dt, hd) == "cuda_cores"
+        assert fa_ops.flash_attention_bwd_path(dt, hd) == ("tensor_cores" if "tc" in words else "cuda_cores")
         out, lse = fa_ops.flash_attention_lse_kernel(q, k, v, causal=True, window=window)
         grads = fa_ops.flash_attention_bwd_kernel(q, k, v, out, lse, do, causal=True, window=window)
         return torch.cat([t.reshape(-1) for t in grads])
@@ -201,7 +224,7 @@ def _run(case: str, dev) -> torch.Tensor:
         wd = (torch.randn((E, f, d), generator=g, device=dev) * f ** -0.5).to(dt)
         x, dy = x.to(dt), torch.randn((T, d), generator=g, device=dev)
         assert mf_ops.down_combine_bwd_path(dt, f, d, True) == mf_ops.gather_swiglu_bwd_path(dt, d, f, True) \
-            == "cuda_cores"
+            == ("tensor_cores" if "tc" in words else "cuda_cores")
         h = mf_ops.gather_swiglu(x, plan.flat_idx, wg, wu)
         dh, dwd, dsw = mf_ops.down_combine_bwd(dy, h, wd, plan.flat_idx, plan.slot_w)
         grads = mf_ops.gather_swiglu_bwd(dh, x, plan.flat_idx, plan.flat_cidx, wg, wu)
@@ -215,6 +238,40 @@ def _run(case: str, dev) -> torch.Tensor:
         slots = md_ops.dispatch(x.to(dt), plan)
         y = md_ops.combine((slots.float() * 1.5).to(dt), plan)
         return torch.cat([slots.reshape(-1).float(), y.reshape(-1).float()])
+    if words[0] == "grouped_gemm_bwd":
+        E, M, K, N = (int(n) for n in words[2].split(","))
+        x, dy = (torch.randn(s, generator=g, device=dev).to(dt) for s in ((E, M, K), (E, M, N)))
+        w = (torch.randn((E, K, N), generator=g, device=dev) / K ** 0.5).to(dt)
+        assert gg_ops.grouped_gemm_bwd_path(dt, K, N, True) == "cuda_cores"
+        return torch.cat([t.reshape(-1) for t in gg_ops.grouped_gemm_bwd(x, w, dy)])
+    if words[0] == "moe_decode":
+        from repro_torch.kernels.moe_decode import ops as dm_ops
+
+        T, E, k, d, f = (int(n) for n in words[-1].split(","))
+        ids = torch.stack([torch.randperm(E, generator=g, device=dev)[:k] for _ in range(T)]).to(torch.int32)
+        wts = torch.softmax(torch.randn((T, k), generator=g, device=dev), -1)
+        stacks = [torch.randn(sh, generator=g, device=dev) * a for sh, a in
+                  (((E, d, f), d ** -0.5), ((E, d, f), d ** -0.5), ((E, f, d), f ** -0.5))]
+        x = torch.randn((T, d), generator=g, device=dev)
+        if words[1] == "int8":
+            twins = [quantize_int8(st, axis=(1, 2)) for st in stacks]
+            stacks, scales = [q_ for q_, _ in twins], torch.stack([sc[:, 0, 0] for _, sc in twins]).contiguous()
+        else:
+            stacks, scales = [st.to(dt) for st in stacks], None
+        x = x.to(dt)
+        return dm_ops.decode_moe_kernel(x, ids, wts.contiguous(), *stacks, scales)
+    if words[0] == "moe_combine_bwd":
+        from repro_torch.kernels.moe_dispatch import ops as md_ops
+
+        T, d, E, k, C = (int(n) for n in words[2].split(","))
+        x = torch.randn((T, d), generator=g, device=dev)
+        plan, _ = route_topk(x, torch.randn((d, E), generator=g, device=dev), k, C)
+        cidx, w = plan.flat_combine_words()
+        idx = plan.flat_dispatch_idx()
+        ys, dy = torch.randn((E, C, d), generator=g, device=dev).to(dt), torch.randn((T, d), generator=g, device=dev).to(dt)
+        dslots, dw = md_ops.combine_bwd(dy, ys, cidx, w, idx)
+        return torch.cat([dslots.reshape(-1).float(), dw.reshape(-1).float(),
+                          md_ops.dispatch_bwd(ys, cidx, T).reshape(-1).float()])
     if words[0] == "grouped_gemm":
         E, M, K, N = (int(n) for n in words[2].split(","))
         x = torch.randn((E, M, K), generator=g, device=dev).to(dt)
@@ -241,7 +298,8 @@ def _run(case: str, dev) -> torch.Tensor:
         h0, dhf = ((torch.randn((B, H, N, P), generator=g, device=dev), torch.randn((B, H, N, P), generator=g,
                                                                                      device=dev))
                    if with_state else (None, None))
-        assert ssd_ops.ssd_scan_bwd_path(dt, N, P, ssd_ops.tma_ready(x, bm, cm)) == "cuda_cores"
+        assert ssd_ops.ssd_scan_bwd_path(dt, N, P, ssd_ops.tma_ready(x, bm, cm)) == \
+            ("tensor_cores" if "tc" in words else "cuda_cores")
         grads = ssd_ops.ssd_scan_bwd(x, dts, a, bm, cm, 256, dy, dhf, h0)
         return torch.cat([t.reshape(-1).float() for t in grads if t is not None])
     if words[0] in ("gather_swiglu", "down_combine"):
@@ -252,7 +310,7 @@ def _run(case: str, dev) -> torch.Tensor:
         if words[0] == "gather_swiglu":
             assert mf_ops.gather_swiglu_path(dt, d, f, True) == ("tensor_cores" if "tc" in words else "cuda_cores")
             return mf_ops.gather_swiglu(x.to(dt), plan.flat_idx, w1, w2)
-        assert mf_ops.down_combine_path(dt, f, d, True) == "cuda_cores"
+        assert mf_ops.down_combine_path(dt, f, d, True) == ("tensor_cores" if "tc" in words else "cuda_cores")
         h = torch.randn((E, C, f), generator=g, device=dev).to(dt)
         return mf_ops.down_combine(h, w1.transpose(1, 2).contiguous(), plan.flat_idx, plan.slot_w, T)
     if words[0] == "flash_decode":
@@ -301,7 +359,7 @@ def other_libs(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", WINDOW_CASES + DECODE_CASES + PREFILL_CASES + GEMM_CASES + SSD_CASES + MOE_CASES
-                         + BWD_CASES + MOE_BWD_CASES + SSD_BWD_CASES + DISPATCH_CASES)
+                         + BWD_CASES + MOE_BWD_CASES + SSD_BWD_CASES + DISPATCH_CASES + LEFT_ALONE_CASES)
 def test_unchanged_kernels_are_bitwise_the_other_checkouts_on_card(cuda, other_libs, case):
     name = SOURCE[case.split()[0]]
     ours = _run(case, cuda)

@@ -14,7 +14,10 @@ each way.  3_bwd and
 with no occupied slot, several 256-column tiles with a ragged last one;
 bf16 at d 20 keeps the CUDA-core build.  The a2a body's backwards: 8_bwd
 (``csrc/grouped_gemm.cu``; bf16 with K and N multiples of 8 on the tensor
-cores, M off the 64-row tile, one row, ragged K and N tiles, f32 and bf16
+cores, M off the 64-row tile, one row, ragged K and N tiles, the a2a
+training shape over 2 experts, dw's dy resident and streamed, dx's second
+half of 160 slots past M and ragged, the entry's refusal of a resident dy
+past its budget, f32 and bf16
 at K 20 on CUDA cores), 10_bwd and kernel 9's backward (kernel 10 with unit
 weights) at k 1 and 8 with dropped assignments and empty slots, kernel 3's
 identity-index backward, and the autograd Functions of the a2a body
@@ -26,6 +29,8 @@ Runs only where ``torch.cuda.is_available()``; elsewhere every test skips
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_bwd.py
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -261,9 +266,15 @@ def test_ssd_training_function_launches_each_way_once_on_card(cuda):
         _hold(name, g, w)
 
 
-# E, M, K, N of y[e] = x[e] @ w[e]
+# E, M, K, N of y[e] = x[e] @ w[e]; the tensor-core build's edges: tc_a2a
+# the a2a training shape over 2 experts (dy resident, dx's two halves of
+# 160 slots full); tc_m129 / tc_one_row dx's second half past M;
+# tc_ragged_halves the second half ragged; tc_streamed M past the resident
+# budget (dy streamed, dx over two 320-slot units), K and N off their tiles
 GG_BWD_CASES = {"tc_aligned": (4, 320, 128, 256), "tc_ragged": (5, 70, 136, 264), "tc_one_row": (2, 1, 64, 72),
-                "tc_wide": (3, 200, 520, 1032), "k20": (3, 37, 20, 40), "odd": (2, 17, 24, 36)}
+                "tc_wide": (3, 200, 520, 1032), "k20": (3, 37, 20, 40), "odd": (2, 17, 24, 36),
+                "tc_a2a": (2, 320, 1536, 4096), "tc_m129": (3, 129, 136, 264), "tc_streamed": (2, 330, 200, 520),
+                "tc_ragged_halves": (3, 200, 264, 272)}
 
 
 @pytest.mark.cuda
@@ -281,6 +292,20 @@ def test_grouped_gemm_backward_matches_plain_on_card(cuda, case, dtype):
         _hold(f"{case} {name}", g, want)
     again = gg_ops.grouped_gemm_bwd(x, w, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), "a repeated launch is not bitwise equal"
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_bwd_entry_refuses_a_resident_dy_past_its_budget(cuda):
+    E, M, K, N = 2, 330, 64, 256
+    assert gg_ops.grouped_gemm_bwd_schedule(M) == "dy_streamed"
+    x, w, dy = (torch.zeros(s, dtype=torch.bfloat16, device=cuda) for s in ((E, M, K), (E, K, N), (E, M, N)))
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    fn = kernels.function("grouped_gemm", "repro_grouped_gemm_bwd_tc", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                          + [ctypes.c_void_p])
+    args = [kernels.ptr(t) for t in (x, w, dy, dx, dw)] + [E, M, K, N]
+    assert fn(*args, 1, kernels.stream_of(x)) != 0, "a resident dy slice past the budget was not refused"
+    assert fn(*args, 0, kernels.stream_of(x)) == 0
+    torch.cuda.synchronize()
 
 
 # T, d, E, k, capacity factor

@@ -4,8 +4,10 @@ turns: A, B, B, A.  ``--cell`` names the cell: ``train_full_width``
 (StarCoder2-3B at published widths cut to 20 layers, AdamW, 4 x 2,048
 tokens a step), ``train_moe_full_width`` (Qwen3-MoE-235B-A22B cut to 2
 layers, Adafactor, 2 x 2,048), ``train_rec_full_width``
-(RecurrentGemma-2B uncut, AdamW, 2 x 2,048) or ``train_ssm_full_width``
-(Mamba-2-2.7B uncut, AdamW, 2 x 2,048).
+(RecurrentGemma-2B uncut, AdamW, 2 x 2,048), ``train_ssm_full_width``
+(Mamba-2-2.7B uncut, AdamW, 2 x 2,048) or ``train_mesh`` (the sharded step
+on a one-rank NCCL mesh, after ``train_moe_full_width`` in the same process,
+whose first loss and grad norm it is held to; its tp cell is reported).
 
     python3 tools/train_ab.py --cell train_rec_full_width --a build/parent --b . [--tags parent,change]
 
@@ -34,11 +36,16 @@ import torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-out = getattr(cs, sys.argv[1])(torch.device("cuda"))
+dev = torch.device("cuda")
+if sys.argv[1] == "train_mesh":  # its tp cell, beside the fused pair's step of the same process
+    out = cs.train_mesh(dev, cs.train_moe_full_width(dev))["tp"]
+else:
+    out = getattr(cs, sys.argv[1])(dev)
 print("RESULT " + json.dumps(out, default=str), flush=True)
 """
 KEEP = ("ms_per_step", "ms_per_step_range", "step_ms_each", "tokens_per_s", "model_flops_share_of_bf16_peak",
-        "peak_memory_allocated", "kernel_launches", "profiled_step")
+        "peak_memory_allocated", "kernel_launches", "profiled_step", "ms_per_step_train_moe_full_width",
+        "first_step_vs_train_moe_full_width")
 
 
 def main() -> int:
@@ -47,7 +54,7 @@ def main() -> int:
     ap.add_argument("--b", type=Path, required=True, help="root of checkout B (run second and third)")
     ap.add_argument("--tags", default="a,b", help="names of A and B in the output")
     ap.add_argument("--cell", required=True, choices=("train_full_width", "train_moe_full_width",
-                                                      "train_rec_full_width", "train_ssm_full_width"),
+                                                      "train_rec_full_width", "train_ssm_full_width", "train_mesh"),
                     help="chip_smoke.py's training cell")
     args = ap.parse_args()
     tags = dict(zip(("a", "b"), args.tags.split(",")))
