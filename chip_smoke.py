@@ -132,6 +132,13 @@ made in-process: Qwen3-MoE cut to 2 layers, ``tp``, through the a2a body
 and grad norm within 2e-2 of ``train_moe_full_width``'s; every router
 moves), StarCoder2-3B cut to 2 layers, ``fsdp``, bitwise the one-device
 step, and the f32 smoke twins of both through the mesh step, card = CPU.
+Each training cell prints its analytic roofline at (1, 1)
+(``launch/analysis.py``) beside its ms.  Phase ``dryrun`` runs the
+host-only dry run of every arch, cell and pod count (no error allowed);
+phase ``serve_mesh`` serves ``full_width``'s Qwen3-MoE on a one-rank NCCL
+mesh through the fabric, clean and with a crash that re-shards it
+(``crash@step=3:shrink=1``): streams byte-identical, the restore's
+seconds and bytes and the memory around the rejoin.
 Each phase prints one JSON line; the full record also goes to
 ``chiprun_out/chip_smoke.json``.  The last line is
 ``{"ok": true, "device": {...}}``; any failed phase exits non-zero before it.
@@ -186,9 +193,10 @@ DENSE_KERNELS = ("flash_decode", "flash_attention")
 LOCAL = dict(attention_kind="local", local_window=16)
 # a stack mixing full and rolling-window layers (the per-layer local kind)
 MIXED = dict(block_pattern=("attn", "local"), local_window=8)
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor rate, published
-F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores, published
+# the card's published peaks (H100 SXM at 700 W), kept in one place
+from repro_torch.launch.analysis import F32_FLOPS  # noqa: E402
+from repro_torch.launch.analysis import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.analysis import PEAK_FLOPS as BF16_FLOPS  # noqa: E402
 # the times of the designs the redesigned kernels 1, 1q, 5, 5q, 6, 6q, 7, 8,
 # 3, 11, 2, 2q, 4 and 12 replaced (one block per token, or per (batch, head),
 # or one thread per channel, walking its whole run; f32 products on CUDA
@@ -1883,12 +1891,10 @@ def ssd_work(T, H, P, N, q, in_bytes, with_h0=False, with_cum=True):
     state written once in f32; per chunk of n rows, C B^T over its n (n +
     1) / 2 causal pairs ONCE (it does not depend on the head), and per head
     S @ x over the same pairs plus the two N x P products (carried-in state
-    and state update)."""
-    flops = 0.0
-    for t0 in range(0, T, q):
-        n = min(q, T - t0)
-        pairs = n * (n + 1) / 2
-        flops += 2 * pairs * N + H * (2 * pairs * P + 4 * n * N * P)
+    and state update: :func:`repro_torch.launch.analysis.ssd_flops`)."""
+    from repro_torch.launch.analysis import ssd_flops
+
+    flops = ssd_flops(T, H, P, N, q)
     nbytes = ((T * H * P + 2 * T * N) * in_bytes + (2 if with_cum else 1) * T * H * 4 + T * H * P * 4
               + H * N * P * 4 * (2 if with_h0 else 1))
     return nbytes, flops
@@ -3647,6 +3653,140 @@ def fabric_crash(dev):
                 streams_byte_identical=True, **runs), clean_streams
 
 
+def dryrun_phase():
+    """The host-only dry run (:mod:`repro_torch.launch.dryrun`): ``run_cell``
+    for every arch, cell and pod count on the production meshes, records
+    written to ``chiprun_out/dryrun_torch``.  Gate: no ``error``; a cell
+    skipped only where the reference skips it (``cells_for``)."""
+    from repro_torch.configs import SHAPE_CELLS, cells_for, get_config, list_archs
+    from repro_torch.launch.dryrun import run_cell
+
+    t0 = time.perf_counter()
+    counts, bottlenecks = {"ok": 0, "skipped": 0, "error": 0}, {}
+    for arch in list_archs():
+        applies = {c.name for c in cells_for(get_config(arch))}
+        for name in SHAPE_CELLS:
+            for multi_pod in (False, True):
+                rec = run_cell(arch, name, multi_pod, ROOT / "chiprun_out" / "dryrun_torch")
+                counts[rec["status"]] = counts.get(rec["status"], 0) + 1
+                if rec["status"] == "error" or (rec["status"] == "skipped") == (name in applies):
+                    raise AssertionError(f"dryrun {arch} {name} pod{2 if multi_pod else 1}: {rec['status']} "
+                                         f"{rec.get('error', '')}")
+                if rec["status"] == "ok" and not multi_pod:
+                    bottlenecks[f"{arch}/{name}"] = rec["roofline"]["bottleneck"]
+    print(f"dryrun: {counts['ok']} ok, {counts['skipped']} skipped, {counts['error']} errors", flush=True)
+    return dict(counts, seconds=time.perf_counter() - t0, bottleneck_pod1=bottlenecks)
+
+
+SERVE_MESH_SHRINK = (1, 1)   # the survivors' (n_healthy, model) of a one-card mesh
+
+
+def serve_mesh(dev, smi):
+    """The fabric on a one-rank NCCL mesh made in-process (``(data 1, model
+    1)``; multi-rank meshes are held on gloo ranks on the CPU,
+    ``tests/test_torch_serve_data.py`` and ``test_torch_serve_elastic.py``):
+    Qwen3-MoE at ``full_width``'s widths and depth (``LAYERS``), spec
+    ``SPEC``, the crash cells' queue (``FABRIC_GENS``), served twice through
+    ``make_replica_factory(mesh=, ckpt=, shrink_to=(1, 1))``: clean, then
+    with ``crash@step=3:shrink=1`` and a checkpoint every 2 rounds (the
+    sharded serve save, ``CheckpointManager.save(..., mesh=)``, in a
+    temporary directory deleted at the end).  The crash rebuilds through
+    ``reshard_serve_after_failure``: the one-rank group made anew (a file
+    store in the checkpoint directory) and the params restored onto it.
+    The fabric restores nothing itself (``restore_params=None``): the
+    re-shard's restore is the only one, so the card holds the weights
+    twice, not three times.  Gates: streams byte-identical to the clean
+    run; crashes 1, rejoins 1, dropped 0, duplicates 0; one re-shard
+    restore; the rebuilt replica on the new mesh.  Reports the restore's
+    seconds and bytes and ``memory_allocated`` before the crash and after
+    the rejoin, each beside the card's name and power limit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import init_single_rank, make_host_mesh
+    from repro_torch.runtime.fabric import FabricConfig, ServeFabric
+    from repro_torch.runtime.faults import FaultInjector, parse_faults
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=LAYERS, decode_plane=True, spec_tokens=SPEC)
+    _, max_len, reqs = fabric_cell()
+    ladder = serve.degrade_ladder(None, SPEC)
+    init_single_rank(dev)
+    try:
+        mesh = make_host_mesh(1, 1, dev)
+        t0 = time.perf_counter()
+        params = serve.build_model(cfg, mesh, SLOTS).init(0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weight_bytes = _tree_bytes(params)
+        runs = {}
+        with tempfile.TemporaryDirectory(prefix="serve_mesh_") as tmp:
+            for tag, faults in (("clean", ""), ("crash", "crash@step=3:shrink=1")):
+                probe = CrashProbe(FaultInjector(parse_faults(faults)))
+                ckpt = CheckpointManager(tmp, keep=2, cfg=cfg) if faults else None
+                make = serve.make_replica_factory(cfg, SLOTS, max_len, params, ladder, fault_hook=probe.check,
+                                                  launch_timeout=30.0, mesh=mesh, ckpt=ckpt,
+                                                  shrink_to=SERVE_MESH_SHRINK)
+
+                def build(w, level, params_=None, shrunk=False, make=make, probe=probe):
+                    rep = make(w, level, params_, shrunk)
+                    probe.built.append(probe.weakref(rep))
+                    return rep
+
+                fabric = ServeFabric(
+                    build, list(reqs),
+                    FabricConfig(n_replicas=1, launch_timeout=30.0, checkpoint_every=2 if faults else 0,
+                                 max_degrade_level=len(ladder) - 1, synthetic_step_times=True),
+                    ckpt=ckpt, params=params)
+                probe.fabric = fabric
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                results = fabric.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                probe.fabric = None
+                st = fabric.stats
+                if any(r.error for r in results.values()) or len(results) != len(reqs):
+                    raise AssertionError(f"serve_mesh {tag}: unanswered or failed requests: {results}")
+                row = dict(wall_s=wall, generated_tokens=st["accepted"], tok_per_s=st["accepted"] / wall,
+                           launches=st["launches"], rounds=fabric.round, mesh_after=dict(fabric.mesh.shape),
+                           **{k: st[k] for k in ("crashes", "rejoins", "rewarm_prefills", "restores",
+                                                 "checkpoints", "dropped", "duplicates")},
+                           streams={rid: r.tokens for rid, r in results.items()})
+                if ckpt is not None:
+                    row.update(saves=[dict(step=s_, seconds=sec, bytes=b, bytes_written=w)
+                                      for s_, sec, b, w in ckpt.saves],
+                               reshard_restores=[dict(step=s_, seconds=sec, bytes=b) for s_, sec, b in ckpt.restores],
+                               memory_allocated_before_crash=probe.before_crash,
+                               memory_allocated_after_rejoin=probe.after_rejoin,
+                               rebuilt_on_new_mesh=fabric.mesh is not mesh, card=smi)
+                runs[tag] = row
+                del fabric, results, make, build, probe
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    clean, crash = runs["clean"], runs["crash"]
+    if crash["streams"] != clean["streams"]:
+        rid = min(r for r in clean["streams"] if clean["streams"][r] != crash["streams"].get(r))
+        raise AssertionError(f"serve_mesh: request {rid} stream {crash['streams'].get(rid)} after the re-shard != "
+                             f"{clean['streams'][rid]} without it")
+    if (crash["crashes"], crash["rejoins"], crash["dropped"], crash["duplicates"]) != (1, 1, 0, 0) \
+            or len(crash["reshard_restores"]) != 1 or not crash["rebuilt_on_new_mesh"]:
+        raise AssertionError(f"serve_mesh: stats {crash}")
+    for row in runs.values():
+        row.pop("streams")
+    restore = crash["reshard_restores"][0]
+    print(f"serve_mesh: re-shard restore {restore['seconds']:.2f} s, {restore['bytes']} bytes ({smi}); "
+          f"memory_allocated {crash['memory_allocated_before_crash']} before the crash ({smi}), "
+          f"{crash['memory_allocated_after_rejoin']} after the rejoin ({smi})", flush=True)
+    return dict(layers=LAYERS, slots=SLOTS, requests=len(reqs), spec_tokens=SPEC, shrink_to=SERVE_MESH_SHRINK,
+                weight_bytes=weight_bytes, init_s=init_s, streams_byte_identical=True, **runs)
+
+
 class WatchedWorker:
     """A worker process's handle as ``xproc_crash`` sees it: the supervisor
     talks through it unchanged, and it notes when the first ``hello`` and
@@ -4538,10 +4678,11 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None, mesh=None, strategy="tp"
     profiler.  Gates: every loss and grad norm finite, the launches of
     :func:`train_launches` each step.  ``probe(params)`` -> value, taken
     before the first step and after the last, goes to the record's
-    ``probe`` (before, after).  Reports ms a step, tokens/s, model FLOPs (6
-    a matmul parameter a token for the active parameters, and the causal
-    attention products) over the bf16 peak, peak memory, device time by
-    kernel and the idle share of the profiled step.  With ``mesh`` the
+    ``probe`` (before, after).  Reports ms a step, tokens/s, model FLOPs
+    (:func:`repro_torch.launch.analysis.step_flops`) over the bf16 peak,
+    the analytic roofline's terms and bottleneck at a (1, 1) mesh
+    (``analysis.roofline``, printed beside the ms), peak memory, device
+    time by kernel and the idle share of the profiled step.  With ``mesh`` the
     sharded step of that mesh and ``strategy`` (the weights cut to the
     rank's shards), gated on ``launches`` a step instead."""
     import torch
@@ -4550,13 +4691,14 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None, mesh=None, strategy="tp"
     from repro_torch.configs import ShapeCell
     from repro_torch.data import MarkovLMDataset, ShardedLoader
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.analysis import collective_bytes, roofline, step_flops
     from repro_torch.launch.steps import build_train_step
 
     assert cfg.remat and cfg.dtype == "bfloat16" and cfg.param_dtype == "float32"
     S = TRAIN_SEQ
+    cell = ShapeCell(tag, S, batch, "train")
     torch.cuda.reset_peak_memory_stats()
-    step_fn = build_train_step(cfg, mesh or dev, ShapeCell(tag, S, batch, "train"), lr=TRAIN_LR, total_steps=steps,
-                               strategy=strategy)
+    step_fn = build_train_step(cfg, mesh or dev, cell, lr=TRAIN_LR, total_steps=steps, strategy=strategy)
     t0 = time.perf_counter()
     params = step_fn.model.init(0, train=True)
     if mesh is not None:
@@ -4598,16 +4740,16 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None, mesh=None, strategy="tp"
     by_name = device_time_by_name(prof)
     busy = sum(by_name.values())
     ms = statistics.median(times[1:]) * 1e3
-    d, nq, hd, L = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim, cfg.num_layers
-    counts_p = cfg.param_counts()
-    matmul_params = cfg.num_active_params() - counts_p["norms"] - (0 if cfg.tie_embeddings else counts_p["embed"])
-    pairs = S * (S + 1) // 2 if not cfg.local_window or cfg.local_window >= S else S * cfg.local_window
-    n_attn = sum(1 for k_ in cfg.layer_kinds if k_ in ("attn", "local", "moe"))
-    model_flops = 6.0 * batch * S * matmul_params + 3 * 4.0 * batch * pairs * nq * hd * n_attn
-    n_ssm = sum(1 for k_ in cfg.layer_kinds if k_ == "ssm")
-    if n_ssm:  # the SSD scan's products at the model's chunk, forward and twice that backward
-        P_, N_ = cfg.ssm_head_dim, cfg.ssm_state
-        model_flops += 3 * batch * n_ssm * ssd_work(S, cfg.ssm_expand * d // P_, P_, N_, cfg.ssm_chunk, 2)[1]
+    L = cfg.num_layers
+    model_flops = step_flops(cfg, cell)
+    # the analytic roofline of this step on its one rank (its flops, the
+    # reference's traffic model, the collectives a (1, 1) mesh step issues)
+    one = {"data": 1, "model": 1}
+    roof = roofline({"flops": model_flops, "bytes accessed": 0.0}, collective_bytes(cfg, cell, one, strategy),
+                    cfg, cell, 1, mesh_shape=one)
+    print(f"{tag}: {ms:.1f} ms a step; roofline at (1, 1): compute {roof['compute_s'] * 1e3:.1f} ms, memory "
+          f"{roof['memory_s'] * 1e3:.1f} ms, collective {roof['collective_s'] * 1e3:.1f} ms, bound by "
+          f"{roof['bottleneck']}", flush=True)
     ours = ("gate_up_", "down_", "rglru_chunk_kernel", "flash_attention", "dkv", "dq", "bwd_prep", "row_dot",
             "gather_swiglu", "combine_rows", "ssd_scan_kernel", "chunk_state", "state_pass", "chunk_scan", "bwd::",
             "bwd_tc::", "dispatch_kernel", "combine_kernel", "combine_bwd_kernel", "grouped_gemm", "tcb::")
@@ -4618,6 +4760,8 @@ def train_cell(dev, tag, cfg, batch, steps, probe=None, mesh=None, strategy="tp"
         ms_per_step=ms, ms_per_step_range=(min(times[1:]) * 1e3, max(times[1:]) * 1e3),
         step_ms_each=[x * 1e3 for x in times], tokens_per_s=batch * S / (ms / 1e3),
         model_flops_per_step=model_flops, model_flops_share_of_bf16_peak=model_flops / (ms / 1e3) / BF16_FLOPS,
+        roofline_1x1={k: roof[k] for k in ("compute_s", "memory_s", "collective_s", "bottleneck",
+                                           "roofline_fraction")},
         loss=losses, grad_norm=gnorms, router_aux=aux, params=sum(t.numel() for t in _leaves(params)),
         param_bytes=_tree_bytes(params), opt_state_bytes=_tree_bytes(opt), state_bytes_allocated=state_bytes,
         peak_memory_allocated=peak, init_s=init_s, kernel_launches=counts,
@@ -5162,6 +5306,7 @@ def main() -> int:
     logs = sorted((ROOT / "build" / "repro_torch").glob("*.log"))
     ptxas = [ln.strip() for p in logs for ln in p.read_text().splitlines() if "Used" in ln or "spill" in ln]
     emit("build", seconds=seconds, ptxas=ptxas)
+    emit("dryrun", **dryrun_phase())
 
     cfg = get_config(ARCH)
     rows = kernel_phase(cfg, dev)
@@ -5218,6 +5363,8 @@ def main() -> int:
     emit("fabric_crash", **crash)
     torch.cuda.empty_cache()
     emit("xproc_crash", **xproc_crash(dev, clean_streams))
+    torch.cuda.empty_cache()
+    emit("serve_mesh", **serve_mesh(dev, smi))
     torch.cuda.empty_cache()
     hybrid, rep = hybrid_window(dev)
     emit("hybrid_window", **hybrid)

@@ -37,7 +37,13 @@ On a mesh (the sharded train step's ranks: ``save(..., mesh=, strategy=)``)
 every leaf of params and optimizer state is gathered whole, leaf by leaf,
 rank 0 writes the step as above while the other ranks wait at a barrier,
 and ``restore(mesh=, strategy=)`` cuts each rank's shards of the new mesh
-from the whole leaves: the files are the same at any mesh shape.
+from the whole leaves: the files are the same at any mesh shape.  A
+serving rank's params (``save(..., mesh=)`` without a strategy: the serve
+placement, :func:`~repro_torch.parallel.sharding.serve_leaf_spec`) gather
+their expert stacks whole the same way, unless no rank's shares changed
+since its last save: then rank 0 hands the previous save's host tree to
+:meth:`save` again, which links its files; ``restore(mesh=)`` cuts the
+rank's expert slice.
 """
 from __future__ import annotations
 
@@ -60,7 +66,14 @@ from repro_torch.checkpoint.bridge import (
     read_leaf,
     tree_from_numpy,
 )
-from repro_torch.parallel.sharding import gather_leaf, map_specs, opt_state_pspecs, param_pspecs, shard_tree
+from repro_torch.parallel.sharding import (
+    gather_leaf,
+    map_specs,
+    opt_state_pspecs,
+    param_pspecs,
+    serve_shard_pspecs,
+    shard_tree,
+)
 
 
 class TornCheckpointError(Exception):
@@ -151,6 +164,8 @@ class CheckpointManager:
         self.restores: List[Tuple[int, float, int]] = []
         # the last model-params save: (step, weak references, key, manifest records, bytes)
         self._last: Optional[Tuple[int, list, tuple, List[dict], int]] = None
+        # the last serving save on a mesh: the rank's shares' identity and, on rank 0, the host tree written
+        self._served: Optional[Tuple[list, tuple, Any]] = None
 
     # ------------------------------------------------------------------
     def _items(self, tree: Any) -> List[Tuple[str, Any]]:
@@ -201,13 +216,39 @@ class CheckpointManager:
         dist.barrier()
         return final
 
+    def _save_serve(self, step: int, params: Any, opt_state: Any, extra: Optional[Dict], mesh) -> Path:
+        import torch.distributed as dist
+
+        ident = _identity(params)
+        same = (ident is not None and self._served is not None and self._served[1] == ident[1]
+                and all(r() is not None for r in self._served[0]))
+        flag = torch.tensor([int(same)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)  # every rank's shares unchanged, or all gather again
+        lead = dist.get_rank() == 0
+        if flag.item():
+            whole = self._served[2]
+        else:
+            def gather(shard, spec):  # every rank gathers; rank 0 keeps a host copy
+                leaf = gather_leaf(shard, spec, mesh)
+                return leaf.cpu() if lead else None
+
+            whole = map_specs(gather, params, serve_shard_pspecs(params, mesh))
+            self._served = (ident[0], ident[1], whole if lead else None) if ident is not None else None
+        final = self.save(step, whole, opt_state, extra) if lead else self.dir / f"step_{step:08d}"
+        dist.barrier()
+        return final
+
     def save(self, step: int, params: Any, opt_state: Any = None, extra: Optional[Dict] = None, *, mesh=None,
              strategy: Optional[str] = None) -> Path:
         """Write ``step`` atomically (module docstring).  With ``mesh`` and a
         training ``strategy`` ``params`` and ``opt_state`` are this rank's
-        shards: every rank calls this, rank 0 writes the whole leaves."""
+        shards; with ``mesh`` alone ``params`` are a serving rank's (its
+        expert slice, every other leaf whole).  Either way every rank of
+        the mesh calls this and rank 0 writes the whole leaves."""
         if mesh is not None and strategy is not None:
             return self._save_sharded(step, params, opt_state, extra, mesh, strategy)
+        if mesh is not None:
+            return self._save_serve(step, params, opt_state, extra, mesh)
         t0 = time.perf_counter()
         self._gc_tmp()
         tmp = self.dir / f"tmp.step_{step:08d}"

@@ -3,6 +3,7 @@ from repro_torch.configs.base import (  # noqa: F401
     SHAPE_CELLS,
     ModelConfig,
     ShapeCell,
+    cells_for,
     get_config,
     get_smoke_config,
     list_archs,

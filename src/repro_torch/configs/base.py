@@ -214,6 +214,14 @@ SHAPE_CELLS: Dict[str, ShapeCell] = {
 }
 
 
+def cells_for(cfg: ModelConfig) -> List[ShapeCell]:
+    """Shape cells applicable to an arch: long_500k only for sub-quadratic mixers."""
+    cells = [SHAPE_CELLS["train_4k"], SHAPE_CELLS["prefill_32k"], SHAPE_CELLS["decode_32k"]]
+    if cfg.sub_quadratic:
+        cells.append(SHAPE_CELLS["long_500k"])
+    return cells
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------

@@ -89,13 +89,19 @@ Expert parallelism (``--model N``): the replica's MoE layers run on a
 ``(data, model)`` mesh (:mod:`repro_torch.launch.mesh`), the experts split
 over the ``model`` axis: the a2a body at prefill, the shard-sliced plan and
 one all-reduce a layer at decode (both skipped at one rank)
-(:mod:`repro_torch.parallel.moe_parallel`).  ``--model 1`` (the default)
-makes a one-rank group in-process; ``--model N > 1`` runs under ``torchrun
---nproc-per-node N``, every rank serving the same queue and rank 0 printing
-and dumping:
+(:mod:`repro_torch.parallel.moe_parallel`).  ``--data D`` splits the slots
+over the data axis (:class:`SlotSplit`: each data group prefills and
+launches its own slots and keeps their cache rows; the launches' verified
+ids cross ``data``, never logits).  A ``(1, 1)`` mesh (the default) is a
+one-rank group in-process; more ranks run under ``torchrun
+--nproc-per-node D*M``, every rank serving the same queue and rank 0
+printing and dumping.  Fabric checkpoints gather the expert slices whole
+(``CheckpointManager.save(..., mesh=)``), and a crash flagged
+``shrink=1`` rebuilds the replica on half the ranks, ``model`` kept
+(:func:`make_replica_factory`'s ``shrink_to``; the ranks past it exit 0):
 
-    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
-        --smoke --decode-plane --model 2 --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b \\
+        --smoke --decode-plane --data 2 --model 2 --inject crash@step=3:shrink=1 --device cpu
 """
 from __future__ import annotations
 
@@ -128,17 +134,71 @@ from repro_torch.launch.steps import (
     ProgramTable,
     TreeCommit,
     admission,
+    batch_rows,
     build_model,
     build_spec_serve_step,
     masked_argmax_rows,
     masked_top_k,
     prefill_model,
 )
+from repro_torch.parallel.sharding import batch_axes
 from repro_torch.models.transformer import check_spec_width, max_pages_for, num_pages
 from repro_torch.runtime.fabric import FabricConfig, Request, Result, ServeFabric
 from repro_torch.runtime.faults import RequestRejected, TransientLaunchError
 
 DRAFTER_CHOICES = ("model", "ngram", "repeat")
+
+
+class SlotSplit:
+    """Which of a replica's slots this rank serves on the data axes, and the
+    control words that cross them.
+
+    Where the mesh's data axes divide the slots (the rule of
+    :func:`~repro_torch.parallel.sharding.batch_spec`), data group ``i``
+    (its row-major index over those axes) holds slots ``[i B / D, (i + 1)
+    B / D)``: their cache rows, their prefills and their launches; where
+    they do not, every group serves every slot, as the reference
+    replicates such a batch.  Every rank runs the same host loop on the
+    same queue, so host state (streams, lengths, plan rows, page tables,
+    program states, forks) stays the same on every rank: each launch's
+    verified ids, and a model drafter's draft tokens, are gathered over the
+    data group, (B / D, T) int32 each, and an admission's first tokens are
+    broadcast from the group that owns its first slot.  Control words
+    travel as CPU tensors (gloo, on the card too); nothing crosses the data
+    axes when the slots do not split."""
+
+    def __init__(self, mesh, slots: int):
+        axes = batch_axes(slots, mesh) if mesh is not None else ()
+        self.rows = batch_rows(slots, mesh, axes) if axes else slice(0, slots)
+        self.size = self.rows.stop - self.rows.start
+        self.n = slots // self.size
+        self.index = self.rows.start // self.size
+        self.group = mesh.group(axes) if self.n > 1 else None
+
+    def owns(self, b: int) -> bool:
+        return self.rows.start <= b < self.rows.stop
+
+    def owner(self, b: int) -> int:
+        """The index of the data group serving slot ``b``."""
+        return b // self.size if self.group is not None else 0
+
+    def gather(self, local: np.ndarray) -> np.ndarray:
+        """Every group's (B / D, ...) integer rows, in slot order."""
+        if self.group is None:
+            return local
+        x = torch.from_numpy(np.ascontiguousarray(local, np.int32))
+        out = torch.empty((self.n * x.shape[0], *x.shape[1:]), dtype=torch.int32)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return out.numpy().astype(np.asarray(local).dtype)
+
+    def broadcast(self, values: List[int], src: int) -> List[int]:
+        """``values`` of data group ``src``, on every rank (the others pass
+        placeholders of the same length)."""
+        if self.group is None:
+            return values
+        x = torch.as_tensor(values, dtype=torch.int64)
+        dist.broadcast(x, src=dist.get_global_rank(self.group, src), group=self.group)
+        return [int(v) for v in x]
 
 
 class ServeReplica:
@@ -152,7 +212,9 @@ class ServeReplica:
     live on the mesh's device, and ``params`` (and ``drafter_params``) hold
     this rank's expert slice (:func:`parallel.sharding.shard_params`, or the
     bound model's ``init``); every
-    rank of the mesh serves the same queue.  ``drafter="model"`` drafts with
+    rank of the mesh serves the same queue, each data group its own slots
+    (:class:`SlotSplit`: ``split``; its cache holds those slots' rows and,
+    paged, the whole pool).  ``drafter="model"`` drafts with
     a 1-layer model of the same family (``model_drafter``, its weights
     ``drafter_params``, or drawn from seed 7); ``telemetry`` records the
     plan agreement of every launch in ``agreements``.
@@ -195,6 +257,8 @@ class ServeReplica:
         self.mesh = mesh
         self.model = build_model(cfg, mesh, slots, device)
         self._pf_model = prefill_model(self.model)
+        self.split = SlotSplit(mesh, slots)
+        Bl = self.split.size
         self.params = params
         self.B, self.max_len = slots, max_len
         self.T = max(cfg.spec_tokens, 1)
@@ -208,14 +272,14 @@ class ServeReplica:
         self.replica_id = replica_id
         self.launch_timeout = launch_timeout
         self.steer_drafter = bool(steer_drafter)
-        self.cache = self.model.init_cache(slots, max_len)
+        self.cache = self.model.init_cache(Bl, max_len, pool_batch=slots)
         self.paged = bool(cfg.paged)
         self.graphs = GraphPool(self.model.device) if self.model.device.type == "cuda" else None
-        self._decode = build_spec_serve_step(self.model, params, self.cache, batch=slots, tree=tree,
+        self._decode = build_spec_serve_step(self.model, params, self.cache, batch=Bl, tree=tree,
                                              telemetry=self.telemetry, max_len=max_len, graphs=self.graphs)
         self._commit = None
         if self._branchy and not self.paged:
-            self._commit = TreeCommit(self.cache, batch=slots, T=self.T, graphs=self.graphs)
+            self._commit = TreeCommit(self.cache, batch=Bl, T=self.T, graphs=self.graphs)
         self._propose_tree = tree if tree is not None else TreePlan.chain(self.T)
         self._fill = TREE_DRAFTERS.get(drafter, TREE_DRAFTERS["ngram"])
         self.model_drafter = None
@@ -224,7 +288,7 @@ class ServeReplica:
             draft_cfg = dataclasses.replace(cfg, num_layers=1, spec_tokens=1, paged=False)
             draft_model = build_model(draft_cfg, mesh, slots, self.model.device)
             dp = drafter_params if drafter_params is not None else draft_model.init(7)
-            self.model_drafter = ModelDrafter(draft_model, dp, slots, max_len, graphs=self.graphs)
+            self.model_drafter = ModelDrafter(draft_model, dp, Bl, max_len, graphs=self.graphs)
 
         # paged KV plane: the block table is the control word every launch
         # takes; admission is page binding plus a prefix-trie probe
@@ -454,17 +518,30 @@ class ServeReplica:
                     self.fork_kv_rows_copied += self.admit_copy_rows - copied0
         elif k > 1:
             self.fork_kv_rows_copied += (k - 1) * len(prompt)
-        logits = admission(self.model, self.params, self.cache, prompt, slots, rows, self._pf_model,
-                           self.model.frontend_stub(1))
+        split, lo = self.split, self.split.rows.start
+        if self.paged:  # the pool has no batch dim: every group writes the prompt's rows, each its own slots' state
+            local = [b - lo if split.owns(b) else None for b in slots]
+        else:
+            local = [b - lo for b in slots if split.owns(b)]
+        logits = None
+        if self.paged or local:
+            logits = admission(self.model, self.params, self.cache, prompt, local, rows, self._pf_model,
+                               self.model.frontend_stub(1))
+        # the group that owns the first slot ranks the first tokens, and every rank takes them
+        src = split.owner(slots[0])
+        firsts = [0] * (k if prog is not None else 1)
+        if src == split.index:
+            if prog is not None:
+                firsts = [int(v) for v in masked_top_k(logits[None], table.allowed, np.zeros(1, np.int64),
+                                                       np.asarray([prog.automaton.start]), k)[0].cpu()]
+            else:
+                firsts = [int(torch.argmax(logits))]
+        firsts = split.broadcast(firsts, src)
         if prog is not None:
             auto = prog.automaton
-            firsts = [int(v) for v in masked_top_k(logits[None], table.allowed, np.zeros(1, np.int64),
-                                                   np.asarray([auto.start]), k)[0].cpu()]
             self.prog_mask_cnt += k
             self.prog_mask_frac_sum += k * float(table.masked_frac[auto.start])
             self.prog_states_seen.add(int(auto.start))
-        else:
-            firsts = [int(torch.argmax(logits))]
         self.prefill_ms += (time.perf_counter() - t0) * 1e3
         self.prefills += 1
         if k > 1:
@@ -496,8 +573,8 @@ class ServeReplica:
                 self.prog_tokens += 1
             else:
                 self.prog_state[b] = -1
-            if self.model_drafter is not None:
-                self.model_drafter.admit(b, prompt)
+            if self.model_drafter is not None and split.owns(b):
+                self.model_drafter.admit(b - lo, prompt)
         return slots[0]
 
     def _guide(self, b: int):
@@ -513,9 +590,13 @@ class ServeReplica:
         The states are walked on the host, the argmax runs on the card on
         the step's logits, and only the ids come back.  Along the accepted
         path draft tokens ARE the emitted stream, so the emissions equal a
-        sequential masked loop's."""
+        sequential masked loop's.  ``y`` holds this rank's slots
+        (:class:`SlotSplit`): the states and counters are every slot's, the
+        argmax runs on its own slots' nodes."""
         parents = self._propose_tree.parents
+        lo = self.split.rows.start
         groups: Dict[int, tuple] = {}
+        masked = False
         for b in range(self.B):
             table = self.programs[b]
             if table is None or not self.active[b]:
@@ -528,14 +609,18 @@ class ServeReplica:
                 st = int(A[t])
                 if st < 0 or auto.is_accept(st):
                     continue  # unreachable node (or past the stop): don't-care
-                nodes = groups.setdefault(id(table), (table, []))[1]
-                nodes.append((b, t, st))
+                masked = True
                 self.prog_mask_cnt += 1
                 self.prog_mask_frac_sum += float(table.masked_frac[st])
+                if self.split.owns(b):
+                    groups.setdefault(id(table), (table, []))[1].append((b - lo, t, st))
+        if not masked:
+            return y
+        self.verify_launches += 1
         if not groups:
             return y
         t0 = time.perf_counter()
-        logits = self._decode.logits.reshape(self.B * self.T, -1)
+        logits = self._decode.logits.reshape(self.split.size * self.T, -1)
         picked = [masked_argmax_rows(logits, table.allowed, np.asarray([b * self.T + t for b, t, _ in nodes]),
                                      np.asarray([st for _, _, st in nodes]))
                   for table, nodes in groups.values()]
@@ -544,7 +629,6 @@ class ServeReplica:
         for (b, t, _), v in zip((n for _, nodes in groups.values() for n in nodes), ids):
             y[b, t] = v
         self.verify_ms += (time.perf_counter() - t0) * 1e3
-        self.verify_launches += 1
         return y
 
     def step(self) -> List[Result]:
@@ -570,10 +654,14 @@ class ServeReplica:
         # drafter ranks among allowed tokens on the card, the host drafts
         # are clamped after the fill
         guides = [self._guide(b) for b in range(B)]
+        loc, lo = self.split.rows, self.split.rows.start
         if self.model_drafter is not None:
+            # the drafter serves this rank's slots; their drafts cross the data axes
             self.model_drafter.catch_up()
-            toks = self.model_drafter.propose(self.last_tok, self.lengths, self._propose_tree,
-                                              guides if any(g is not None for g in guides) else None)
+            g_loc = guides[loc]
+            toks = self.split.gather(self.model_drafter.propose(
+                self.last_tok[loc], self.lengths[loc], self._propose_tree,
+                g_loc if any(g is not None for g in g_loc) else None))
         else:
             toks = np.zeros((B, T), np.int32)
             for b in range(B):
@@ -600,12 +688,14 @@ class ServeReplica:
                 none = np.full((B, T), -1, np.int32)
                 commit = self._pending_commit if self._pending_commit is not None else (none, none)
         t0 = time.perf_counter()
-        y, agree = self._decode(toks, self.lengths, self.prev_accept, pages=pages, commit=commit)
+        y, agree = self._decode(toks[loc], self.lengths[loc], self.prev_accept[loc],
+                                pages=None if pages is None else pages[loc],
+                                commit=None if commit is None else (commit[0][loc], commit[1][loc]))
         self.decode_ms += (time.perf_counter() - t0) * 1e3
         self.launches += 1
         if self.telemetry:
-            self.agreements.append(agree)
-        y = self._masked_verify(toks, y)
+            self.agreements.append(agree)  # this rank's slots' agreement
+        y = self.split.gather(self._masked_verify(toks, y))
 
         path_pad = np.tile(np.arange(T, dtype=np.int32), (B, 1))
         acc_n = np.zeros((B,), np.int32)
@@ -629,10 +719,10 @@ class ServeReplica:
             self.commit_moves += sum(int(p != i) for i, p in enumerate(path))
             accepted = [int(y[b, p]) for p in path]
             self.prev_accept[b] = path[-1]
-            if self.model_drafter is not None:
+            if self.model_drafter is not None and self.split.owns(b):
                 # rows [lengths, lengths + a) of the true stream: the launch
                 # input followed by all but the last accepted token
-                self.model_drafter.observe(b, [int(self.last_tok[b])] + accepted[:-1])
+                self.model_drafter.observe(b - lo, [int(self.last_tok[b])] + accepted[:-1])
             self.history[b].extend(accepted)
             self.emitted[b].extend(accepted)
             if prog is not None:
@@ -660,7 +750,7 @@ class ServeReplica:
             else:
                 # before lengths advance: accepted nodes move from rows
                 # base + u_i to base + i
-                self._commit(self.lengths, path_pad)
+                self._commit(self.lengths[loc], path_pad[loc])
                 self.commits += 1
 
         done: List[Result] = []
@@ -759,23 +849,53 @@ def degrade_ladder(tree: Optional[TreePlan], spec_width: int) -> List[Any]:
 
 def make_replica_factory(cfg, slots: int, max_len: int, params, ladder, *, drafter: str = "ngram",
                          telemetry: bool = False, fault_hook=None, launch_timeout: Optional[float] = None,
-                         shrink_to: Optional[tuple] = None, device=None, mesh=None, drafter_params=None):
+                         ckpt=None, shrink_to: Optional[tuple] = None, device=None, mesh=None, drafter_params=None):
     """The fabric's replica factory ``make(replica_id, level, params_,
     shrunk)``: a :class:`ServeReplica` at ladder ``level``, with
     ``params_`` (the checkpoint-restored weights of a re-warm rebuild) or
-    ``params``.  The elastic re-shard rebuild after a device loss
-    (``shrink_to``) is not ported yet."""
-    if shrink_to is not None:
-        raise NotImplementedError("the elastic re-shard rebuild (shrink_to, runtime.elastic) comes with the "
-                                  "distribution slice, a later slice of the port (with the data axis)")
+    ``params``.
+
+    A crash flagged as device loss (``shrunk``) with ``shrink_to =
+    (n_healthy, model_axis)`` and a committed step in ``ckpt`` rebuilds
+    through :func:`repro_torch.runtime.elastic.reshard_serve_after_failure`,
+    as the reference's factory does: ``model`` kept, ``data`` shrunk, the
+    params restored as this rank's share of the survivors' mesh, whose
+    fresh default group meets in ``ckpt``'s directory (a file store named
+    by the replica, the mesh and the step, the same on every rank).  Every
+    rank of ``mesh`` runs the factory at the same round; the survivors are
+    ranks ``0 .. n`` of the old group (``n = n_healthy // model_axis *
+    model_axis``), so each keeps its ``model`` coordinate and its expert
+    slice, and the mesh every later rebuild uses is the survivors'.  A rank
+    past them leaves its old group and raises
+    :class:`~repro_torch.runtime.elastic.LeftMesh` out of the fabric's
+    ``run``: it serves no more, and the CLI exits 0 there."""
+    if shrink_to is not None and mesh is None:
+        raise ValueError("the elastic re-shard rebuild (shrink_to) rebuilds a mesh: pass the replica's mesh")
+    world = {"mesh": mesh}
 
     def make(replica_id: int, level: int, params_=None, shrunk: bool = False):
         tr, width = ladder[min(level, len(ladder) - 1)]
         cfg_l = dataclasses.replace(cfg, spec_tokens=width)
-        return ServeReplica(cfg_l, slots, max_len, params_ if params_ is not None else params, tree=tr,
-                            drafter=drafter, telemetry=telemetry, drafter_params=drafter_params,
-                            device=device, mesh=mesh, fault_hook=fault_hook, replica_id=replica_id,
-                            launch_timeout=launch_timeout)
+        p = params_ if params_ is not None else params
+        if shrunk and shrink_to is not None and ckpt is not None and ckpt.latest_step() is not None:
+            from repro_torch.configs import ShapeCell
+            from repro_torch.runtime.elastic import LeftMesh, reshard_serve_after_failure
+
+            n_healthy, model_axis = shrink_to
+            keep = n_healthy // model_axis * model_axis
+            rank = dist.get_rank()
+            if rank >= keep:
+                dist.destroy_process_group()
+                raise LeftMesh(f"rank {rank} is not one of the {keep} ranks of the survivors' mesh")
+            rendezvous = ckpt.dir / f"rendezvous_r{replica_id}_{keep}x{model_axis}_s{ckpt.latest_step()}"
+            state = reshard_serve_after_failure(cfg_l, ShapeCell("d", max_len, slots, "decode"), ckpt,
+                                                n_healthy=n_healthy, model_axis=model_axis,
+                                                device=world["mesh"].device, init_method=f"file://{rendezvous}",
+                                                rank=rank)
+            world["mesh"], p = state.mesh, state.params
+        return ServeReplica(cfg_l, slots, max_len, p, tree=tr, drafter=drafter, telemetry=telemetry,
+                            drafter_params=drafter_params, device=device, mesh=world["mesh"],
+                            fault_hook=fault_hook, replica_id=replica_id, launch_timeout=launch_timeout)
 
     return make
 
@@ -946,14 +1066,23 @@ def run_cross_process(args, cfg, requests, params, specs, ckpt, *, spec_width: i
 def _cli_checkpoint(args, cfg, checkpoint_every: int):
     """(manager, temporary directory) of the CLI's fabric checkpoints: a
     ``CheckpointManager`` keeping 2 steps in ``--checkpoint-dir``, or in a
-    temporary directory the caller cleans up; (None, None) without
-    checkpoints."""
+    temporary directory the caller cleans up (on a mesh of several ranks
+    rank 0 makes it and every rank opens the same one); (None, None)
+    without checkpoints."""
     from repro_torch.checkpoint import CheckpointManager
 
     if not checkpoint_every:
         return None, None
-    tmpdir = None if args.checkpoint_dir else tempfile.TemporaryDirectory(prefix="serve_fabric_ckpt_")
-    return CheckpointManager(args.checkpoint_dir or tmpdir.name, keep=2, cfg=cfg), tmpdir
+    path, tmpdir = args.checkpoint_dir, None
+    if not path:
+        lead = not dist.is_initialized() or dist.get_rank() == 0
+        tmpdir = tempfile.TemporaryDirectory(prefix="serve_fabric_ckpt_") if lead else None
+        path = tmpdir.name if lead else None
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            box = [path]
+            dist.broadcast_object_list(box, src=0)
+            path = box[0]
+    return CheckpointManager(path, keep=2, cfg=cfg), tmpdir
 
 
 def _cross_process_cli(args, cfg, T: int, specs, prog_spec, checkpoint_every: int, device) -> int:
@@ -1042,7 +1171,8 @@ def main(argv=None) -> int:
                          "past it are rejected with a counted error result")
     ap.add_argument("--device", default=None, help="cuda (default: cuda:LOCAL_RANK) or cpu")
     ap.add_argument("--data", type=int, default=1,
-                    help="data-parallel mesh axis (1 in this slice: batch sharding comes later)")
+                    help="data-parallel mesh axis: the slots split over it where it divides them "
+                         "(--data x --model ranks under torchrun)")
     ap.add_argument("--model", type=int, default=1,
                     help="expert-parallel mesh axis: ranks the experts split over (N > 1 under torchrun)")
     args = ap.parse_args(argv)
@@ -1070,10 +1200,8 @@ def main(argv=None) -> int:
         ap.error(f"--workers must be >= 0, got {args.workers}")
     if args.workers and (args.model > 1 or args.data > 1):
         ap.error("--workers serves through one-device worker processes: --model and --data stay 1")
-    if args.data != 1:
-        ap.error("--data > 1 (batch sharding over the data axis) comes in a later slice; serve with --data 1")
-    if args.model < 1:
-        ap.error(f"--model must be >= 1, got {args.model}")
+    if args.data < 1 or args.model < 1:
+        ap.error(f"--data and --model must be >= 1, got {args.data} and {args.model}")
     if args.fabric < 1:
         ap.error(f"--fabric must be >= 1, got {args.fabric}")
     try:
@@ -1098,9 +1226,6 @@ def main(argv=None) -> int:
     if (world or 1) != args.data * args.model:
         ap.error(f"a ({args.data}, {args.model}) mesh runs one rank per process: launch it with "
                  f"torchrun --nproc-per-node {args.data * args.model} (WORLD_SIZE is {world or 'unset'})")
-    if checkpoint_every and args.model > 1:
-        ap.error("fabric checkpoints of a rank's expert slice (--inject or --checkpoint-every with "
-                 "--model > 1) come with a sharded fabric save in the distribution slice, a later slice of the port")
     device = rank_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -1116,7 +1241,7 @@ def main(argv=None) -> int:
         return _serve_cli(args, cfg, tree, T, telemetry, make_host_mesh(args.data, args.model, device),
                           specs, prog_spec, checkpoint_every)
     finally:
-        if own_group:
+        if own_group and dist.is_initialized():  # a rank that left the survivors' mesh has no group left
             dist.destroy_process_group()
 
 
@@ -1124,10 +1249,10 @@ def _serve_cli(args, cfg, tree: Optional[TreePlan], T: int, telemetry: bool, mes
                checkpoint_every: int) -> int:
     """The CLI's serving run on this rank of ``mesh``, through the fabric;
     rank 0 prints and dumps."""
+    from repro_torch.runtime.elastic import LeftMesh
     from repro_torch.runtime.faults import FaultInjector
     from repro_torch.runtime.straggler import StragglerDetector
 
-    lead = dist.get_rank() == 0
     model = build_model(cfg, mesh, args.slots)
     B, S = args.slots, args.prompt_len
     max_len = S + args.shared_prefix + args.gen + T
@@ -1137,26 +1262,36 @@ def _serve_cli(args, cfg, tree: Optional[TreePlan], T: int, telemetry: bool, mes
     injector = FaultInjector(specs) if specs else None
     ckpt, tmpdir = _cli_checkpoint(args, cfg, checkpoint_every)
     ladder = degrade_ladder(tree, T)
+    world = dist.get_world_size()
     make = make_replica_factory(cfg, B, max_len, params, ladder, drafter=args.drafter, telemetry=telemetry,
                                 fault_hook=injector.check if injector else None,
-                                launch_timeout=args.launch_timeout, device=model.device, mesh=mesh)
+                                launch_timeout=args.launch_timeout, device=model.device, mesh=mesh, ckpt=ckpt,
+                                shrink_to=(max(args.model, world // 2), args.model))
     fabric = ServeFabric(
         make, requests,
         FabricConfig(n_replicas=args.fabric, launch_timeout=args.launch_timeout,
                      checkpoint_every=checkpoint_every, max_degrade_level=len(ladder) - 1,
                      synthetic_step_times=bool(specs)),
-        ckpt=ckpt, restore_params=(lambda mgr: mgr.restore(model.device)[0]) if ckpt else None, params=params,
-        detector=StragglerDetector(n_workers=args.fabric, warmup=8) if args.fabric > 1 else None,
+        ckpt=ckpt, restore_params=(lambda mgr: mgr.restore(model.device, mesh=mesh)[0]) if ckpt else None,
+        params=params, detector=StragglerDetector(n_workers=args.fabric, warmup=8) if args.fabric > 1 else None,
     )
     t0 = time.perf_counter()
     try:
         results = fabric.run()
-    finally:
+    except LeftMesh:
+        return 0  # a rank past the survivors' mesh stops serving (make_replica_factory)
+    except BaseException:
         if tmpdir is not None:
             tmpdir.cleanup()
+        raise
+    if ckpt is not None and dist.get_world_size() > 1:
+        dist.barrier()  # every rank is done with the checkpoints before rank 0 removes them
+    if tmpdir is not None:
+        tmpdir.cleanup()
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    lead = dist.get_rank() == 0
     say = print if lead else (lambda *a, **k: None)
     if lead:
         _dump_tokens(args.dump_tokens, results)

@@ -47,7 +47,7 @@ from repro_torch.optim import (clip_by_global_norm, cosine_schedule, make_optimi
 from repro_torch.optim.optimizers import Shard
 from repro_torch.parallel.collectives import gather, hierarchical_grad_sync
 from repro_torch.parallel.moe_parallel import make_sharded_decode_apply, make_sharded_moe_apply
-from repro_torch.parallel.sharding import (STRATEGIES, batch_spec, expert_slice, is_expert_stack, map_specs,
+from repro_torch.parallel.sharding import (STRATEGIES, batch_axes, expert_slice, is_expert_stack, map_specs,
                                            map_with_path, param_pspecs, placement, shard_tree)
 
 
@@ -96,8 +96,7 @@ def train_batch_axes(batch: int, mesh, strategy: str = "tp") -> Tuple[str, ...]:
         axes = tuple(a for a in mesh.axis_names if a in ("pod", "data", "model"))
         if batch % int(np.prod([mesh.shape[a] for a in axes])) == 0:
             return axes
-    first = batch_spec(batch, mesh)[0]
-    return () if first is None else (first,) if isinstance(first, str) else tuple(first)
+    return batch_axes(batch, mesh)
 
 
 def batch_rows(batch: int, mesh, axes: Tuple[str, ...]) -> slice:
@@ -276,11 +275,14 @@ def build_model(cfg: ModelConfig, mesh, batch: int, device=None, *, strategy: st
     """A model whose MoE layers run on ``mesh``: the expert-parallel prefill
     apply, and on the decode plane the shard-sliced decode apply (which
     raises, not falls back, when the experts do not divide the ``model``
-    axis), as the reference's ``build_model`` binds them.  The batch axes
-    are the data axes that divide ``batch``.  No dense layer is sharded, so
-    the reference's residual constraint is the identity here.  ``mesh=None``
-    is the single-host model on ``device``; with a mesh the model lives on
-    the mesh's device and its ``init`` draws this rank's expert slice.
+    axis), as the reference's ``build_model`` binds them.  No dense layer is
+    sharded, so the reference's residual constraint is the identity here.
+    ``mesh=None`` is the single-host model on ``device``; with a mesh the
+    model lives on the mesh's device and its ``init`` draws this rank's
+    expert slice.  A serving model's collectives stay on the ``model``
+    group: a data group runs its own slots' prefills and launches alone
+    (``launch.serve.SlotSplit``), so the aux losses, which serving never
+    reads, are averaged over ``model`` only.
 
     ``train=True`` binds the training side instead (the sharded train step's
     model): under ``tp`` the MoE layers train through the same
@@ -291,16 +293,15 @@ def build_model(cfg: ModelConfig, mesh, batch: int, device=None, *, strategy: st
         return Model(cfg, device)
     if device is not None and torch.device(device) != mesh.device:
         raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
-    baxes = batch_spec(batch, mesh)[0] or ()
-    baxes = (baxes,) if isinstance(baxes, str) else tuple(baxes)
     if train:
-        moe_apply = make_sharded_moe_apply(cfg, mesh, baxes) if cfg.is_moe and strategy == "tp" else None
+        moe_apply = make_sharded_moe_apply(cfg, mesh, batch_axes(batch, mesh)) if cfg.is_moe and strategy == "tp" \
+            else None
         return Model(cfg, mesh.device, train_moe_apply=moe_apply, gather=gather)
     moe_apply = decode_apply = None
     if cfg.is_moe:
-        moe_apply = make_sharded_moe_apply(cfg, mesh, baxes)
+        moe_apply = make_sharded_moe_apply(cfg, mesh, ())
         if cfg.decode_plane:
-            decode_apply = make_sharded_decode_apply(cfg, mesh, baxes)
+            decode_apply = make_sharded_decode_apply(cfg, mesh, ())
     return Model(cfg, mesh.device, moe_apply=moe_apply, decode_moe_apply=decode_apply,
                  experts=expert_slice(cfg, mesh) if cfg.is_moe else None)
 
@@ -336,8 +337,11 @@ def admission(
     buffers, recurrent state) is copied to the others; paged, the one B=1
     cache is written through each slot's vector (full prompt pages the
     trie already shares are never written again).  ``frontend`` (1, F,
-    frontend_dim) goes to the prefill (:meth:`Model.prefill`)."""
-    slots = [int(slot)] if np.ndim(slot) == 0 else [int(b) for b in slot]
+    frontend_dim) goes to the prefill (:meth:`Model.prefill`).  A paged
+    slot of None writes its vector's pool rows alone: a data-parallel rank
+    keeps the whole pool but not that slot (``launch.serve.SlotSplit``)."""
+    slots = [slot] if slot is None or np.ndim(slot) == 0 else list(slot)
+    slots = [None if b is None else int(b) for b in slots]
     prompt = np.asarray(prompt)[None]
     if rows is None:
         logits = model.prefill(params, prompt, cache, slot=slots[0], frontend=frontend)[0]

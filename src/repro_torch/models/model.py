@@ -74,8 +74,8 @@ class Model:
             gen.manual_seed(int(seed))
         return T.init_params(self.cfg, gen, self.device, self.experts, train=train)
 
-    def init_cache(self, batch: int, max_len: int) -> List[Params]:
-        return T.init_cache(self.cfg, batch, max_len, self.device)
+    def init_cache(self, batch: int, max_len: int, pool_batch: Optional[int] = None) -> List[Params]:
+        return T.init_cache(self.cfg, batch, max_len, self.device, pool_batch)
 
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor, frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -343,7 +343,7 @@ class Model:
                 leaf[dst].copy_(leaf[src])
 
     @staticmethod
-    def write_cache_slot_paged(cache: List[Params], one_cache: List[Params], slot: int, rows) -> None:
+    def write_cache_slot_paged(cache: List[Params], one_cache: List[Params], slot: Optional[int], rows) -> None:
         """Paged admission, in place: scatter a CONTIGUOUS B=1 cache's K/V
         rows into the pool rows that ``rows`` names, never a stripe copy.
 
@@ -356,8 +356,8 @@ class Model:
         ``ks``/``vs``) go through the same row scatter, trash row included.
         The DecodePlan leaves, rolling buffers (unpaged under
         ``cfg.paged``) and ``rec``/``ssm`` state are per slot and are
-        written at batch ``slot``.  The row vector crosses to the device
-        once for all layers."""
+        written at batch ``slot`` (not at all when ``slot`` is None).  The
+        row vector crosses to the device once for all layers."""
         pools = [c["pk"] for c in cache if "pk" in c]
         if pools:
             R = pools[0].shape[0] - 1
@@ -367,7 +367,7 @@ class Model:
                 if name in T.POOL_LEAVES:
                     src = o[name[1:]][0]
                     leaf[idx[: src.shape[0]]] = src.to(leaf.dtype)
-                else:
+                elif slot is not None:
                     leaf[slot].copy_(o[name][0])
 
     def paginate_cache(self, cache: List[Params], max_len: int) -> List[Params]:

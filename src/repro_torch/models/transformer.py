@@ -225,7 +225,8 @@ def rolling_rows(cfg: ModelConfig, max_len: int, kind: str) -> int:
     return min(max_len, window + slack)
 
 
-def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, device) -> Params:
+def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, device,
+                     pool_batch: Optional[int] = None) -> Params:
     """``rec`` layers: the RG-LRU state (``h`` (B, W) f32, ``conv``);
     ``ssm`` layers: the SSD state (``h`` (B, H, N, P) f32, ``conv``).
     Attention layers: contiguous KV stripes (B, S, nkv, hd) with
@@ -235,7 +236,9 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     carried DecodePlan: one row per draft position when ``spec_tokens > 1``
     (per slot, paged or not).  Under ``cfg.kv_dtype == "int8"`` the K/V
     rows are int8 and each row has an f32 scale, ``ks``/``vs`` (B, S) or
-    ``pks``/``pvs`` (rows,), all ones at first."""
+    ``pks``/``pvs`` (rows,), all ones at first.  ``pool_batch`` (default
+    ``batch``) sizes the pool: a data-parallel rank keeps its own slots'
+    rows and the whole pool."""
     _check_kind(kind, cfg)
     if kind == "rec":
         return rglru.init_rec_state(batch, cfg, device)
@@ -245,7 +248,7 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     quant = cfg.kv_dtype == "int8"
     dt = torch.int8 if quant else L.act_dtype(cfg)
     if cfg.paged and not window_of(cfg, kind):
-        rows = num_pages(cfg, batch, max_len) * cfg.page_size + 1
+        rows = num_pages(cfg, pool_batch or batch, max_len) * cfg.page_size + 1
         c = {
             "pk": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
             "pv": torch.zeros((rows, cfg.num_kv_heads, hd), dtype=dt, device=device),
@@ -270,8 +273,8 @@ def init_layer_cache(kind: str, cfg: ModelConfig, batch: int, max_len: int, devi
     return c
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> List[Params]:
-    return [init_layer_cache(kind, cfg, batch, max_len, device) for kind in cfg.layer_kinds]
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device, pool_batch: Optional[int] = None) -> List[Params]:
+    return [init_layer_cache(kind, cfg, batch, max_len, device, pool_batch) for kind in cfg.layer_kinds]
 
 
 # ---------------------------------------------------------------------------

@@ -331,6 +331,22 @@ def serve_pspecs(params: Any, mesh) -> Any:
     return map_with_path(lambda path, leaf: serve_leaf_spec(path, tuple(leaf.shape), mesh), params)
 
 
+def serve_shard_pspecs(shards: Any, mesh) -> Any:
+    """:func:`serve_pspecs` of the whole leaves, read from a serving rank's
+    shares (:func:`shard_params`): an expert stack's leading E axis holds
+    E / ep experts of the whole stack's E."""
+    ep = _axis_size(mesh, "model")
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        if is_expert_stack(path, shape):
+            stack = 1 if _path_has(path, "scan") else 0
+            shape = shape[:stack] + (shape[stack] * ep,) + shape[stack + 1:]
+        return serve_leaf_spec(path, shape, mesh)
+
+    return map_with_path(one, shards)
+
+
 # ---------------------------------------------------------------------------
 # batch / activations / cache
 # ---------------------------------------------------------------------------
@@ -339,6 +355,13 @@ def serve_pspecs(params: Any, mesh) -> Any:
 def data_axes(mesh) -> Tuple[str, ...]:
     """Mesh axes carrying the batch: ('pod', 'data') multi-pod, ('data',) else."""
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+def batch_axes(batch: int, mesh) -> Tuple[str, ...]:
+    """The data axes :func:`batch_spec` splits a batch of ``batch`` over (a
+    tuple, empty when none divides it)."""
+    first = batch_spec(batch, mesh)[0]
+    return () if first is None else (first,) if isinstance(first, str) else tuple(first)
 
 
 def batch_spec(batch: int, mesh, extra_dims: int = 1) -> Spec:

@@ -36,7 +36,11 @@ Robustness contract of :class:`ServeFabric` (proven by ``tests/test_torch_fabric
   — params restored from the latest ``CheckpointManager`` snapshot (which
   also records the admission ledger) and lost cache state rebuilt by
   replaying admission prefill.  A crash flagged ``shrink`` passes the flag
-  to the factory (the port's factory has no elastic re-shard path yet).
+  to the factory, which rebuilds on the survivors' mesh
+  (``launch.serve.make_replica_factory``'s ``shrink_to``).  Replicas on a
+  mesh hold their rank's share of the weights, so the snapshot gathers
+  them (``CheckpointManager.save(..., mesh=)``, the mesh of the replica
+  built last).
 * **Graceful degradation.**  Per-replica step times (wall clock plus any
   injected synthetic stall) feed a ``StragglerDetector``; a flagged replica
   first descends the speculation ladder (tree → chain → width 1 — the
@@ -146,6 +150,7 @@ class ServeFabric:
         self.dead = [False] * n
         self.retired = [False] * n
         self.shrunk = [False] * n
+        self.mesh = None  # the mesh of the replica built last (its snapshots gather its shares)
         self.crash_count = [0] * n
         self.request_retries: Dict[int, int] = {}
         self.rewarm_set: set = set()     # rids whose state must be replayed
@@ -183,6 +188,7 @@ class ServeFabric:
             self.stats["restores"] += 1
         rep = self.make_replica(w, self.level[w], params, self.shrunk[w])
         self.shrunk[w] = False
+        self.mesh = getattr(rep, "mesh", None)
         return rep
 
     def _absorb(self, rep: Any) -> None:
@@ -417,6 +423,7 @@ class ServeFabric:
             self.params if self.params is not None else {},
             {},
             extra={"round": self.round, "ledger": ledger},
+            **({"mesh": self.mesh} if self.mesh is not None else {}),
         )
         self.stats["checkpoints"] += 1
 
@@ -436,6 +443,7 @@ class ServeFabric:
         n = self.cfg.n_replicas
         for w in range(n):
             self.replicas[w] = self.make_replica(w, 0, None, False)
+            self.mesh = getattr(self.replicas[w], "mesh", None)
         self._sync_detector()
         while self._work_remains():
             self.round += 1

@@ -130,7 +130,7 @@ def test_cli_model_2_under_torchrun_serves_the_single_rank_streams(plane, tmp_pa
     assert streams == json.loads((tmp_path / "one.json").read_text())
 
 
-@pytest.mark.parametrize("args,msg", [(["--data", "2"], "later slice"), (["--model", "2"], "torchrun")])
+@pytest.mark.parametrize("args,msg", [(["--data", "2"], "torchrun"), (["--model", "2"], "torchrun")])
 def test_cli_refuses_data_axis_and_model_axis_without_a_launcher(args, msg, monkeypatch, capsys):
     from repro_torch.launch import serve
 

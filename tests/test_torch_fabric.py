@@ -454,9 +454,7 @@ def test_port_transient_failures_and_timeout_byte_identical(env):
     _assert_byte_identical(results, env)
 
 
-def test_replica_factory_refuses_the_elastic_rebuild(env):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tserve.make_replica_factory(env["cfg"], 2, env["max_len"], env["params"], [(None, WIDTH)], shrink_to=(1, 1))
+def test_degrade_ladder_descends_tree_chain_width_1():
     tree = tserve.TreePlan.from_branching([2, 1])
     assert [(t is not None, w) for t, w in tserve.degrade_ladder(tree, 4)] == [(True, 4), (False, 3), (False, 1)]
 

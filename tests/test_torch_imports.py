@@ -59,7 +59,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
                 "repro_torch.configs.phi_3_vision_4_2b", "repro_torch.configs.qwen1_5_4b",
                 "repro_torch.configs.qwen3_32b", "repro_torch.configs.stablelm_12b",
                 "repro_torch.configs.starcoder2_3b", "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
-                "repro_torch.data.pipeline", "repro_torch.runtime.trainer", "repro_torch.launch.train"):
+                "repro_torch.data.pipeline", "repro_torch.runtime.trainer", "repro_torch.launch.train",
+                "repro_torch.launch.analysis", "repro_torch.launch.dryrun", "repro_torch.runtime.elastic"):
         assert mod in names.split(), mod
 
 
